@@ -1,0 +1,130 @@
+"""Guards of the PyTorch port: config parity with the JAX package, no JAX
+imports in the port or chip_smoke.py, and entry points that refuse to
+slide to the CPU when CUDA is absent."""
+
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from transception_tpu.core import config as jcfg
+from transception_tpu_torch.core import config as pcfg
+
+ROOT = Path(__file__).resolve().parents[1]
+MODEL_FIELDS = (
+    "num_classes", "img_size", "in_chans", "dims", "stage1_layers",
+    "num_path", "num_layers", "num_heads", "mlp_ratio", "token_mlp",
+    "concat", "have_bridge", "br_ch_att_list", "stage_3or4", "bridge_dim",
+    "bridge_heads", "reduction_ratios", "dtype", "drop_rate",
+    "drop_path_rate")
+
+
+@pytest.mark.parametrize("name", MODEL_FIELDS)
+def test_config_field_matches_jax(name):
+    jf = {f.name: f for f in dataclasses.fields(jcfg.TransceptionConfig)}
+    pf = {f.name: f for f in dataclasses.fields(pcfg.TransceptionConfig)}
+    assert pf[name].default == jf[name].default
+
+
+def test_config_helpers_match_jax():
+    j, p = jcfg.TransceptionConfig(), pcfg.TransceptionConfig()
+    assert p.decoder_in_chans() == j.decoder_in_chans()
+    assert p.bridge_token_splits() == j.bridge_token_splits()
+    assert pcfg.CRPE_WINDOW == jcfg.CRPE_WINDOW
+    for k in range(5):
+        assert (pcfg.br_config_to_ch_att_list(k)
+                == jcfg.br_config_to_ch_att_list(k))
+    extra = {f.name for f in dataclasses.fields(pcfg.TransceptionConfig)}
+    assert extra - set(MODEL_FIELDS) == {"use_kernels"}
+
+
+def _port_files():
+    files = sorted((ROOT / "transception_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(mod):
+    top = mod.split(".")[0]
+    return top in ("jax", "jaxlib", "flax") or top == "transception_tpu"
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    bad = [m for m in _imported(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def _needs_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+def _tiny():
+    return pcfg.TransceptionConfig(img_size=32, stage1_layers=1,
+                                   num_path=(1, 1, 1), num_layers=(1, 1, 1))
+
+
+def test_model_without_device_raises_without_cuda():
+    _needs_no_cuda()
+    from transception_tpu_torch.models.transception import MSTransception
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MSTransception(_tiny())
+
+
+def test_predictor_without_device_raises_without_cuda():
+    _needs_no_cuda()
+    from transception_tpu_torch.eval.inference import make_predictor
+    from transception_tpu_torch.models.transception import MSTransception
+    m = MSTransception(_tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_predictor(m, 32)
+
+
+def test_load_jax_variables_without_device_raises_without_cuda():
+    _needs_no_cuda()
+    from transception_tpu_torch.convert.from_jax import load_jax_variables
+    from transception_tpu_torch.models.transception import MSTransception
+    m = MSTransception(_tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_jax_variables(m, {"params": {}})
+
+
+def test_cpu_predictor_runs_plain_path():
+    from transception_tpu_torch.eval.inference import make_predictor
+    from transception_tpu_torch.models.transception import MSTransception
+    from transception_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    m = MSTransception(_tiny(), device="cpu")
+    vol = np.random.default_rng(0).random((5, 40, 40), dtype=np.float32)
+    out = make_predictor(m, 32, batch=4, device="cpu").predict_volume(vol)
+    assert out.shape == (5, 32, 32) and out.dtype == np.uint8
+    assert out.max() < 9
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_kernel_switch_is_scoped():
+    """use_kernels=False reaches the wrappers through one scoped switch:
+    off inside, restored after, nested scopes respected."""
+    from transception_tpu_torch.ops.kernels import _build, enabled
+    x = torch.zeros(1, device="meta")  # a tensor off the CPU
+    assert not _build.plain(x)
+    with enabled(False):
+        assert _build.plain(x)
+        with enabled(True):
+            assert not _build.plain(x)
+        assert _build.plain(x)
+    assert not _build.plain(x)
+    assert _build.plain(torch.zeros(1))

@@ -1,0 +1,116 @@
+"""Load JAX-package variables into the PyTorch port.
+
+The port's state_dict keys are the reference torch keys, derived from the
+flax parameter paths by the same translation as the JAX package's
+convert/torch2flax.py:68 `flax_path_to_torch_key` (a copy of the part the
+port's modules use: the 'ln'/'bn' wrapper levels drop, list modules
+`name_i` become `name.i` or their renamed torch ModuleList, `inv_res`
+becomes `InvRes`, flax leaf names become torch ones). `load_jax_variables`
+applies the inverse layout transforms and fills the port in place, strictly.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterator, List, Tuple
+
+import numpy as np
+import torch
+
+from transception_tpu_torch.core.device import DeviceLike, resolve_device
+
+_LIST_RENAMES = {
+    "block1": "block1",
+    "mhca_blks": "mhca_blks",
+    "layers": "MHCA_layers",
+    "patch_embeds": "patch_embeds",
+    "conv": "conv_list",  # ConvRelPosEnc conv_{j}
+}
+_PLAIN_RENAMES = {"inv_res": "InvRes"}
+_LIST_RE = re.compile(r"^([a-zA-Z_0-9]*?)_(\d+)$")
+_LEAF_RENAMES = {
+    "kernel": "weight",
+    "scale": "weight",
+    "bias": "bias",
+    "mean": "running_mean",
+    "var": "running_var",
+}
+
+
+def flax_path_to_torch_key(path: str) -> str:
+    """'backbone/block1_0/attn/keys/kernel' -> 'backbone.block1.0.attn.keys.weight'."""
+    elems = path.split("/")
+    leaf, body = elems[-1], elems[:-1]
+    if body and body[-1] in ("ln", "bn"):
+        body = body[:-1]
+    out: List[str] = []
+    for e in body:
+        m = _LIST_RE.match(e)
+        if m and m.group(1) in _LIST_RENAMES:
+            out += [_LIST_RENAMES[m.group(1)], m.group(2)]
+        else:
+            out.append(_PLAIN_RENAMES.get(e, e))
+    return ".".join(out) + "." + _LEAF_RENAMES.get(leaf, leaf)
+
+
+def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
+    for k, v in tree.items():
+        p = f"{prefix}/{k}" if prefix else str(k)
+        if hasattr(v, "items"):
+            yield from _leaves(v, p)
+        else:
+            yield p, np.asarray(v, dtype=np.float32)
+
+
+def _jax_entries(variables) -> Iterator[Tuple[str, str, np.ndarray]]:
+    """(flax path, torch key, array) for every leaf; path-stacked MHCA
+    encoders (vectorize_paths) unstack into mhca_blks.{i}."""
+    for coll in ("params", "batch_stats"):
+        for path, arr in _leaves(variables.get(coll, {})):
+            if "mhca_blks_stacked" in path:
+                for i in range(arr.shape[0]):
+                    sub = path.replace("mhca_blks_stacked", f"mhca_blks_{i}")
+                    yield path, flax_path_to_torch_key(sub), arr[i]
+            else:
+                yield path, flax_path_to_torch_key(path), arr
+
+
+def _to_torch_layout(arr: np.ndarray, want: Tuple[int, ...]) -> np.ndarray:
+    """flax HWIO conv kernel -> OIHW (depthwise (kh, kw, 1, C) -> (C, 1,
+    kh, kw)); Dense (in, out) -> Linear (out, in); vectors unchanged."""
+    if arr.ndim == 4 and len(want) == 4:
+        arr = arr.transpose(3, 2, 0, 1)
+    elif arr.ndim == 2 and len(want) == 2:
+        arr = arr.T
+    return np.array(arr, dtype=np.float32, order="C", copy=True)
+
+
+def load_jax_variables(model: torch.nn.Module, variables: Dict,
+                       device: DeviceLike = "cuda") -> torch.nn.Module:
+    """Move `model` to `device` and fill it in place from a JAX
+    {'params', 'batch_stats'} tree of nested dicts of arrays. Raises if any
+    JAX leaf has no port tensor, any port tensor is left unfilled, or a
+    shape disagrees."""
+    model.to(resolve_device(device))
+    targets = model.state_dict()
+    filled, unused, bad = set(), [], []
+    with torch.no_grad():
+        for path, key, arr in _jax_entries(variables):
+            t = targets.get(key)
+            if t is None:
+                unused.append(f"{path} -> {key}")
+                continue
+            a = _to_torch_layout(arr, tuple(t.shape))
+            if a.shape != tuple(t.shape):
+                bad.append(f"{path} -> {key}: {a.shape} vs {tuple(t.shape)}")
+                continue
+            t.copy_(torch.from_numpy(a))
+            filled.add(key)
+    unfilled = sorted(set(targets) - filled)
+    if unused or unfilled or bad:
+        raise KeyError(
+            "load_jax_variables: "
+            f"{len(unused)} unused JAX leaves {unused[:20]}; "
+            f"{len(unfilled)} unfilled port tensors {unfilled[:20]}; "
+            f"{len(bad)} shape mismatches {bad[:20]}")
+    return model

@@ -1,0 +1,107 @@
+"""Model configuration of the PyTorch port.
+
+Mirrors the model-defining fields of the JAX package's TransceptionConfig
+(same names, same defaults: the published 82.24-DSC MSTransception,
+networks/MSTr.py:2759-2823). The TPU-only knobs (remat, vectorize_paths,
+bridge sequence sharding, the per-op fold switches, lane packing and the
+kernel fallback ladder) are not carried over; one switch, `use_kernels`,
+selects the hand-written CUDA kernels on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+# Convolutional relative position encoding window split, reference
+# networks/MSTr.py:958 (crpe_window={3: 2, 5: 3, 7: 3}).
+CRPE_WINDOW: Tuple[Tuple[int, int], ...] = ((3, 2), (5, 3), (7, 3))
+
+
+def br_config_to_ch_att_list(br_config: int) -> Tuple[bool, bool, bool, bool]:
+    """Bridge layer channel/spatial attention selection
+    (train_MSTransception.py:145-159): True = channel attention."""
+    table = {
+        0: (False, False, False, False),
+        1: (True, True, True, True),
+        2: (True, False, False, False),
+        3: (False, True, False, True),
+    }
+    return table.get(br_config, (True, False, True, False))
+
+
+@dataclasses.dataclass(frozen=True)
+class TransceptionConfig:
+    """MSTransception architecture; defaults are the published model."""
+
+    num_classes: int = 9
+    img_size: int = 224
+    in_chans: int = 3  # gray inputs are repeated to 3 channels
+    dims: Tuple[int, int, int, int] = (64, 128, 320, 512)
+    stage1_layers: int = 2
+    num_path: Tuple[int, ...] = (3, 3, 3)
+    num_layers: Tuple[int, ...] = (3, 8, 3)
+    num_heads: Tuple[int, ...] = (8, 8, 8)
+    mlp_ratio: int = 4
+    token_mlp: str = "mix_skip"
+    concat: str = "coord"
+    have_bridge: str = "original"
+    br_ch_att_list: Tuple[bool, bool, bool, bool] = (True, False, False, False)
+    stage_3or4: int = 3
+    bridge_dim: int = 64
+    bridge_heads: int = 1
+    reduction_ratios: Tuple[int, int, int, int] = (1, 2, 4, 8)
+    # Compute dtype of matmuls/convs; params and norm/softmax statistics
+    # stay fp32.
+    dtype: str = "bfloat16"
+    drop_rate: float = 0.1
+    drop_path_rate: float = 0.0
+    # Run the hand-written CUDA kernels (ops/kernels) on CUDA tensors.
+    # False runs their plain PyTorch versions instead (comparison only).
+    use_kernels: bool = True
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def stage1_res(self) -> int:
+        return self.img_size // 4
+
+    def bridge_token_splits(self) -> Tuple[int, ...]:
+        """Token counts of each scale in the fused bridge sequence, in
+        bridge_dim-channel tokens (3136/1568/980/392 at 224)."""
+        c_mults = tuple(d // self.bridge_dim for d in self.dims)
+        sides = tuple(self.stage1_res // (1 << i) for i in range(4))
+        return tuple(s * s * m for s, m in zip(sides, c_mults))
+
+    def decoder_in_chans(self) -> Tuple[int, int, int, int]:
+        """Per-stage decoder 'dims' (in_out_chan[0], MSTr.py:2814-2823):
+        (512, 288, 144, 32) at the defaults."""
+        d = self.dims
+        return (d[3],
+                (d[3] // 2 + d[2]) // 2,
+                (d[2] // 2 + d[1]) // 2,
+                (d[1] // 2 + d[0]) // 4)
+
+    def validate(self) -> "TransceptionConfig":
+        if self.img_size % 32:
+            raise ValueError("img_size must be divisible by 32")
+        if self.token_mlp != "mix_skip":
+            raise ValueError("the port implements token_mlp='mix_skip' only")
+        if self.concat != "coord":
+            raise ValueError("the port implements concat='coord' only")
+        if self.have_bridge != "original":
+            raise ValueError("the port implements have_bridge='original' only")
+        if self.stage_3or4 != 3:
+            raise ValueError("the port implements the 3-stage backbone only")
+        if not len(self.num_path) == len(self.num_layers) == len(
+                self.num_heads) == 3:
+            raise ValueError("num_path/num_layers/num_heads need 3 entries")
+        for d in self.dims[1:]:
+            if d % self.bridge_dim:
+                raise ValueError("bridge requires dims that are multiples "
+                                 "of bridge_dim")
+        return self

@@ -1,0 +1,82 @@
+"""Decoder cascade (MyDecoderLayer, networks/MSTr.py:230-290), PyTorch port
+of transception_tpu/models/decoder.py:58.
+
+Each stage concatenates the skip map channel-wise, projects, runs two
+EfficientTransformerBlocks, then 2x patch-expands; the last stage uses the
+4x expander and a 1x1 conv head. The argmax head (:154-201) computes the
+class ids in pre-shuffle order and pixel-shuffles the uint8 map.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from transception_tpu_torch.ops import kernels
+from transception_tpu_torch.ops.attention import EfficientTransformerBlock
+from transception_tpu_torch.ops.common import (
+    Conv2d,
+    FinalPatchExpandX4,
+    Linear,
+    PatchExpand,
+)
+
+
+class DecoderLayer(nn.Module):
+    """One decoder stage. in_dim is the reference's in_out_chan[0]: the
+    [tokens from below, skip map] concatenation is 2·in_dim wide (4·in_dim
+    at the last stage). bottom=True builds the bottom stage, which only
+    patch-expands (MSTr.py:284-289)."""
+
+    def __init__(self, in_dim: int, out_dim: int, n_class: int = 9,
+                 is_last: bool = False, bottom: bool = False,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.out_dim = out_dim
+        self.is_last, self.bottom, self.dtype = is_last, bottom, dtype
+        if bottom:
+            self.layer_up = PatchExpand(out_dim, dtype)
+            return
+        cat_dim = in_dim * (4 if is_last else 2)
+        self.concat_linear = Linear(cat_dim, out_dim, dtype=dtype)
+        self.layer_former_1 = EfficientTransformerBlock(out_dim, dtype)
+        self.layer_former_2 = EfficientTransformerBlock(out_dim, dtype)
+        if is_last:
+            self.layer_up = FinalPatchExpandX4(out_dim, dtype)
+            # fp32 head (logits policy of the JAX package).
+            self.last_layer = Conv2d(out_dim, n_class, 1,
+                                     dtype=torch.float32)
+        else:
+            self.layer_up = PatchExpand(out_dim, dtype)
+
+    def forward(self, x1, x2=None, argmax_head: bool = False):
+        """x1: (B, N, C) tokens from below; x2: (B, H, W, C) skip map.
+        The last stage returns (B, 4H, 4W, n_class) fp32 logits, or with
+        argmax_head (B, 4H, 4W) uint8 class ids."""
+        if self.bottom:
+            side = int(round(x1.shape[1] ** 0.5))
+            return self.layer_up(x1, side, side)
+        B, H, W, C = x2.shape
+        t = self.concat_linear(torch.cat([x1, x2.reshape(B, H * W, C)], -1))
+        t = self.layer_former_1(t, H, W)
+        t = self.layer_former_2(t, H, W)
+        if not self.is_last:
+            return self.layer_up(t, H, W)
+        p = 4
+        if not argmax_head:
+            m = self.layer_up(t, H, W).reshape(B, p * H, p * W, -1)
+            return self.last_layer(m)
+        if self.dtype == torch.bfloat16:
+            # Expand + grouped LN + bf16 head + argmax in one kernel.
+            up, hl = self.layer_up, self.last_layer
+            ids = kernels.expand_head.expand_head(
+                t, up.expand.weight, up.norm.weight, up.norm.bias,
+                hl.weight.reshape(hl.weight.shape[0], -1), hl.bias, p=p,
+                c=self.out_dim, eps=up.norm.eps)
+        else:
+            # fp32: the expansion in pre-shuffle order, the fp32 1x1 conv
+            # per c-vector, argmax (decoder.py:192-201).
+            y = self.layer_up(t, H, W, pre_shuffle=True)
+            ids = self.last_layer(y).argmax(-1).to(torch.uint8)
+        cls = ids.reshape(B, H, W, p, p).permute(0, 1, 3, 2, 4)
+        return cls.reshape(B, p * H, p * W)

@@ -1,0 +1,256 @@
+"""Common token-sequence ops (NHWC / (B, N, C) layouts), PyTorch port of
+transception_tpu/ops/common.py.
+
+Behavioral reference: networks/MSTr.py:21-77 (DWConv/MixFFN family),
+:176-227 (patch expanders), :292-304 (overlap patch embed), :734-752 (CPE).
+Parameters are fp32 and named after the reference torch state_dict; every
+matmul/conv rounds its operands and its output to the compute dtype, and
+LayerNorm keeps fp32 statistics (flax's fast-variance form E[x²]−E[x]²).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, evaluated in fp32 and returned in x's dtype."""
+    return F.gelu(x.float()).to(x.dtype)
+
+
+def _xavier_(t: torch.Tensor, fan_in: int, fan_out: int,
+             gen: torch.Generator) -> None:
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        t.copy_(torch.rand(t.shape, generator=gen) * (2 * bound) - bound)
+
+
+class Linear(nn.Module):
+    """flax nn.Dense in the compute dtype: weight (out, in) fp32, operands
+    rounded to `dtype`, fp32 accumulation, output rounded to `dtype`."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = (nn.Parameter(torch.empty(out_features)) if bias
+                     else None)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        out_f, in_f = self.weight.shape
+        _xavier_(self.weight, in_f, out_f, gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
+
+
+class Conv2d(nn.Module):
+    """flax nn.Conv on NHWC maps: weight (O, I/groups, kh, kw) fp32,
+    operands and output in the compute dtype."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, groups: int = 1,
+                 bias: bool = True, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.weight = nn.Parameter(
+            torch.empty(out_ch, in_ch // groups, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        o, i, kh, kw = self.weight.shape
+        _xavier_(self.weight, kh * kw * i, kh * kw * o, gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt),
+                     None, self.stride, self.padding, 1, self.groups)
+        y = y.permute(0, 2, 3, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
+
+
+def DepthwiseConv(ch: int, k: int, stride: int = 1, bias: bool = True,
+                  dtype=torch.bfloat16) -> Conv2d:
+    """k×k depthwise conv with 'same' padding (k odd)."""
+    return Conv2d(ch, ch, k, stride=stride, padding=k // 2, groups=ch,
+                  bias=bias, dtype=dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """fp32 LayerNorm over the last axis (flax form), returned in x.dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = torch.clamp_min((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                          0.0)
+    y = (xf - mean) * (torch.rsqrt(var + eps) * weight.float()) \
+        + bias.float()
+    return y.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """fp32 LayerNorm returning the compute dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, dtype=torch.bfloat16):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps).to(self.dtype)
+
+
+def group_ln(x: torch.Tensor, lts: torch.Tensor, ltb: torch.Tensor,
+             groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """Grouped LayerNorm on the wide (B, N, C) layout: each C-wide row
+    holds `groups` tokens of width C/groups, normalized independently
+    (ops/pallas/mixffn.py:105). lts/ltb are the (C,)-tiled scale/bias."""
+    B, N, C = x.shape
+    xr = x.float().reshape(B, N, groups, C // groups)
+    mean = xr.mean(-1, keepdim=True)
+    var = (xr * xr).mean(-1, keepdim=True) - mean * mean
+    xn = ((xr - mean) * torch.rsqrt(var + eps)).reshape(B, N, C)
+    return (xn * lts.float() + ltb.float()).to(x.dtype)
+
+
+class DWConv(nn.Module):
+    """The 3x3 depthwise conv of MixFFN (MSTr.py:21-31), kept as a module
+    for the reference key `dwconv.dwconv`; mixffn_plain applies it."""
+
+    def __init__(self, dim: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.dwconv = DepthwiseConv(dim, 3, dtype=dtype)
+
+
+class MixFFNSkip(nn.Module):
+    """fc1 -> (DWConv + fc1 skip) -> LN -> GELU -> fc2 (MSTr.py:889-902).
+
+    The math is the plain version of the fused MixFFN kernel
+    (ops/kernels/mixffn.py); the ETB blocks call that kernel directly with
+    these parameters (`params()`), every other user runs this module."""
+
+    def __init__(self, c1: int, c2: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.fc1 = Linear(c1, c2, dtype=dtype)
+        self.dwconv = DWConv(c2, dtype=dtype)
+        self.norm1 = LayerNorm(c2, dtype=dtype)
+        self.fc2 = Linear(c2, c1, dtype=dtype)
+
+    def params(self):
+        return (self.fc1.weight, self.fc1.bias, self.dwconv.dwconv.weight,
+                self.dwconv.dwconv.bias, self.norm1.weight, self.norm1.bias,
+                self.fc2.weight, self.fc2.bias)
+
+    def forward(self, x: torch.Tensor, H: int, W: int, pre_ln=None,
+                residual: bool = False) -> torch.Tensor:
+        """pre_ln = (scale, bias, groups, eps) applies the caller's
+        LayerNorm as a grouped LN first; residual=True adds the raw input."""
+        from transception_tpu_torch.ops.kernels.mixffn import mixffn_plain
+        if H != W:
+            raise ValueError("MixFFNSkip needs a square token map")
+        return mixffn_plain(x.to(self.fc1.dtype), *self.params(), s=H,
+                            pre_ln=pre_ln, residual=residual,
+                            eps=self.norm1.eps)
+
+
+class OverlapPatchEmbed(nn.Module):
+    """Conv(k=7, s=4, p=3) stem + LN, returns tokens (MSTr.py:292-304)."""
+
+    def __init__(self, in_ch: int, dim: int, patch_size: int = 7,
+                 stride: int = 4, padding: int = 3, dtype=torch.bfloat16):
+        super().__init__()
+        self.proj = Conv2d(in_ch, dim, patch_size, stride, padding,
+                           dtype=dtype)
+        self.norm = LayerNorm(dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor):
+        y = self.proj(x)
+        B, H, W, C = y.shape
+        return self.norm(y.reshape(B, H * W, C)), H, W
+
+
+class _ExpandBase(nn.Module):
+    """Dense(expand, no bias) -> LN(c) -> pixel shuffle, shared body of
+    PatchExpand/FinalPatchExpandX4 (ops/common.py:423-467 in the JAX
+    package). LN is applied per c-vector before the shuffle (they commute);
+    expansion and LN are the patch-expand kernel (ops/kernels)."""
+
+    def __init__(self, dim: int, p: int, c: int, dtype):
+        super().__init__()
+        self.p, self.c = p, c
+        self.expand = Linear(dim, p * p * c, bias=False, dtype=dtype)
+        self.norm = LayerNorm(c, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, H: int, W: int,
+                pre_shuffle: bool = False) -> torch.Tensor:
+        from transception_tpu_torch.ops.kernels.patch_expand import (
+            patch_expand,
+        )
+        B, N, C = x.shape
+        p, c = self.p, self.c
+        y = patch_expand(x.to(self.expand.dtype), self.expand.weight,
+                         self.norm.weight, self.norm.bias, p=p, c=c,
+                         eps=self.norm.eps).reshape(B, N, p * p, c)
+        if pre_shuffle:
+            return y
+        y = y.reshape(B, H, W, p, p, c).permute(0, 1, 3, 2, 4, 5)
+        return y.reshape(B, p * p * H * W, c)
+
+
+class PatchExpand(_ExpandBase):
+    """2x pixel-shuffle upsample: Linear(dim->2dim) + rearrange + LN
+    (MSTr.py:176-201), einops 'b h w (p1 p2 c) -> b (h p1) (w p2) c'."""
+
+    def __init__(self, dim: int, dtype=torch.bfloat16):
+        super().__init__(dim, 2, dim // 2, dtype)
+
+
+class FinalPatchExpandX4(_ExpandBase):
+    """4x upsample: Linear(dim->16dim) + rearrange + LN (MSTr.py:203-227)."""
+
+    def __init__(self, dim: int, dtype=torch.bfloat16):
+        super().__init__(dim, 4, dim, dtype)
+
+
+class ConvPosEnc(nn.Module):
+    """CPVT conditional position encoding: 3x3 depthwise conv + residual
+    on the token map (MSTr.py:734-752)."""
+
+    def __init__(self, dim: int, k: int = 3, dtype=torch.bfloat16):
+        super().__init__()
+        self.proj = DepthwiseConv(dim, k, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+        B, N, C = x.shape
+        t = x.reshape(B, H, W, C)
+        return (self.proj(t) + t).reshape(B, N, C)
+
+
+def init_weights(model: nn.Module, gen: Optional[torch.Generator]) -> None:
+    """Flax-equivalent init (xavier-uniform kernels, zero biases, unit
+    norms) drawn from `gen` in module order."""
+    for m in model.modules():
+        if hasattr(m, "reset_parameters") and m is not model:
+            m.reset_parameters(gen)

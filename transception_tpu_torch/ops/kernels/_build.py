@@ -1,0 +1,146 @@
+"""Build and bind the port's CUDA kernels.
+
+Each `csrc/<name>.cu` compiles with nvcc into its own shared library with
+a plain C interface (no PyTorch headers: seconds per file), loaded with
+ctypes. Libraries are keyed by a hash of the sources and flags and built
+at first use into `transception_tpu_torch/build/` (git-ignored); `build()`
+starts one nvcc per missing library, all at once.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+KERNELS = ("etb_attention", "mixffn", "bridge_attention", "expand_head",
+           "mhca_block", "linear_attention", "patch_expand")
+
+_PKG = Path(__file__).resolve().parents[2]
+_SRC = _PKG / "csrc"
+_BUILD = _PKG / "build"
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_libs: Dict[str, ctypes.CDLL] = {}
+# nvcc's -Xptxas -v report (registers, shared memory, spills) per kernel.
+build_logs: Dict[str, str] = {}
+_enabled = True
+
+
+@contextlib.contextmanager
+def enabled(flag: bool):
+    """Kernels on (the default) or off for the calls made inside. Off sends
+    every wrapper to its plain version, on the card too: the switch behind
+    TransceptionConfig.use_kernels, which MSTransception sets per call."""
+    global _enabled
+    prev, _enabled = _enabled, bool(flag)
+    try:
+        yield
+    finally:
+        _enabled = prev
+
+
+def plain(t) -> bool:
+    """The one kernel-or-plain decision of every wrapper: the plain version
+    for a CPU tensor or with the kernels switched off, else the kernel."""
+    return t.device.type == "cpu" or not _enabled
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                       "with the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(_SRC.glob("*.cuh")) + [_SRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    return _BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
+    """Compile every named library that is not built yet, one nvcc each,
+    all started together. Returns seconds per library built; raises with
+    nvcc's output if any build fails."""
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return {}
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        out = _lib_path(n)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *_FLAGS, "-o", str(tmp), str(_SRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    secs, failed = {}, []
+    for n, (p, tmp, out) in procs.items():
+        log, _ = p.communicate()
+        secs[n] = time.perf_counter() - t0
+        build_logs[n] = log
+        if p.returncode != 0:
+            failed.append(f"--- {n} (rc {p.returncode}) ---\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return secs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of kernel library `name`, built if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _libs[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a kernel entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def bf16(t):
+    """A weight as the kernels read it: contiguous bf16."""
+    import torch
+    return t.to(torch.bfloat16).contiguous()
+
+
+def f32(t):
+    """A vector parameter as the kernels read it: contiguous fp32."""
+    import torch
+    return t.to(torch.float32).contiguous()
+
+
+def aligned(t):
+    """t contiguous and 32-byte aligned (WMMA fragment loads need it)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 32 else t
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
