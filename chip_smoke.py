@@ -18,7 +18,20 @@ Phases (any failed check exits non-zero):
      both against an fp32 model (logits and class maps), for three
      weight seeds;
   6. forward time at batch 32, kernels on and off;
-  7. device busy time and idle share of one forward (torch.profiler).
+  7. device busy time and idle share of one forward (torch.profiler);
+  8. the train step's kernels against their plain versions at every shape
+     the published train step gives them (bf16, batch 24): the bridge
+     attention backward (K10), the MixFFN backward (K11) and the grouped
+     MixFFN forward (K2), each with a planted fault the check must reject;
+  9. the published MSTransception train step (TrainConfig(): batch 24,
+     wide head, SGD + cosine schedule) in both train modes (default and
+     ffn_flash_train): Trainer.train on the on-device synthetic stream with
+     the launch counts per step, a checkpoint and a resume; one step
+     against the plain path (use_kernels=False) from the same weights on
+     the same batch (loss, every gradient leaf, BatchNorm stats) with
+     planted faults in K10 and K11; the loss falling over repeated steps
+     on one batch; step time and peak memory, kernels on and off; device
+     time of one step (torch.profiler).
 The last line is {"ok": true, "device": {...}}; the two lines before it
 list each kernel with its launches, error, times and bound, and the
 card's name and power limit.
@@ -40,6 +53,7 @@ import torch
 BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak, FLOP/s
 HBM_BYTES = 3.35e12   # H100 SXM HBM3 bandwidth, bytes/s
 BATCH = 32
+TRAIN_BATCH = 24      # TrainConfig().batch_size
 # Long reports (nvcc's register/shared-memory report, the profiler table).
 OUT_DIR = Path(os.environ.get("SMOKE_OUT_DIR",
                               Path(__file__).resolve().parent / "smoke_out"))
@@ -234,7 +248,8 @@ def kernel_cases(gen):
 PER_FORWARD = {"etb_attention": (4, 2, 2), "mixffn": (4, 2, 2),
                "bridge_attention": (3,), "expand_head": (1,),
                "mhca_block": (9, 24), "linear_attention": (9,),
-               "patch_expand": (1, 1, 1)}
+               "patch_expand": (1, 1, 1), "bridge_attention_bwd": (),
+               "mixffn_bwd": ()}
 
 
 def kernel_phase():
@@ -402,12 +417,12 @@ def model_phase():
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     log("phase 7: device time of one kernel-path forward (torch.profiler)")
-    profile_forward(lambda: fwd(model))
+    profile_device(lambda: fwd(model), "forward")
     return counts
 
 
-def profile_forward(fn):
-    """Device busy time, idle share and the top kernels of one forward."""
+def profile_device(fn, label):
+    """Device busy time, idle share and the top kernels of one call."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -431,15 +446,401 @@ def profile_forward(fn):
     ours = sum(t for n, t in by_name.items() if any(
         k in n for k in ("etb_", "mixffn_ln_skip", "bridge_attention_kernel",
                          "expand_head_kernel", "mhca_", "patch_expand_kernel",
-                         "linear_attention_kernel")))
+                         "linear_attention_kernel", "rows_kernel",
+                         "cols_kernel", "mixffn_bwd_kernel",
+                         "sum_partials")))
     log(f"  {len(kern)} device activities, busy {busy:.3f} ms of "
         f"{wall_ms:.3f} ms wall (idle share {1 - busy / wall_ms:.3f}); "
         f"port kernels {ours:.3f} ms")
     for name, t in by_name.most_common(12):
         log(f"    {t:9.3f} ms  {name[:90]}")
-    (OUT_DIR / "chip_smoke_profile.txt").write_text(
+    (OUT_DIR / f"chip_smoke_profile_{label}.txt").write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total",
                                   row_limit=60))
+
+
+# ---- the train step (phases 8-9) ----
+
+# Distinct (s, C, hidden, groups, eps_ln) of the MixFFN folds of the flash
+# train step and their launches per step: ETB stage 1 + decoder_0 and
+# bridge scale 1 (56², 64), MHCA stage 2 (28², 64, LN eps 1e-6), ETB
+# decoder_1 (28², 128), bridge scale 2 (28², 128, 2 groups), MHCA stage 3
+# (14², 128, eps 1e-6), ETB decoder_2 (14², 320), bridge scale 3 (14²,
+# 320, 5 groups). The 7x7 FFNs (MHCA stage 4, bridge scale 4) stay plain.
+FFN_SHAPES = ((56, 64, 256, 1, 1e-5, 8), (28, 64, 256, 1, 1e-6, 9),
+              (28, 128, 512, 1, 1e-5, 2), (28, 128, 512, 2, 1e-5, 4),
+              (14, 128, 512, 1, 1e-6, 24), (14, 320, 1280, 1, 1e-5, 2),
+              (14, 320, 1280, 5, 1e-5, 4))
+# Launches per train step at batch 24, per train mode (ffn_flash_train).
+PER_STEP = {False: {"bridge_attention": 3, "bridge_attention_bwd": 3},
+            True: {"bridge_attention": 3, "bridge_attention_bwd": 3,
+                   "mixffn": 53, "mixffn_bwd": 53}}
+BWD_TOL = 0.02        # each gradient within 2% of its own max
+TRAIN_STEPS = 8       # repeated-batch steps; the loss must fall from 1 to 8
+LOSS_TOL = 0.01       # kernel vs plain path: loss within 1%
+# Gradient limits of one step against the plain path, between the sound
+# readings (global 0.0013 default / 0.0027 flash) and the planted faults'
+# (0.0637 for K11's tap gradient zeroed, 0.125 for K10's dv zeroed).
+LEAF_TOL = 0.03       # per leaf |g_k - g_p| <= 0.03 |g_p| + 1e-3 |g_p|_all
+GLOBAL_TOL = 0.01     # all leaves |g_k - g_p| <= 0.01 |g_p|_all
+BN_TOL = 0.01         # running stats within 1% of their max (+1e-4)
+
+
+def grads_check(name, got, want, names, tol=BWD_TOL):
+    """Each of `got` against `want` within tol x its own max."""
+    worst, ok = 0.0, True
+    for n, a, b in zip(names, got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"{name} {n}: {tuple(a.shape)} {a.dtype} vs "
+                 f"{tuple(b.shape)} {b.dtype}")
+        a, b = a.float(), b.float()
+        err = (a - b).abs().max().item()
+        ref = b.abs().max().item()
+        good = math.isfinite(err) and err <= tol * ref
+        worst = max(worst, err)
+        ok &= good
+        if not good:
+            log(f"    {name} {n}: max_abs_err {err:.6g} vs max|plain| "
+                f"{ref:.6g} FAIL")
+    return worst, ok
+
+
+def train_kernel_phase():
+    """Phase 8. K10, K11 and the grouped K2 at the train step's shapes.
+    Returns per-kernel rows summed over one train step's launches."""
+    from transception_tpu_torch.ops.kernels import (
+        bridge_attention as ba,
+        mixffn as mf,
+    )
+    gen = torch.Generator().manual_seed(2)
+    B, rows = TRAIN_BATCH, {}
+
+    def row(name, module, source, err, ms, pms, bms, nbytes, flops, mult,
+            lms=None):
+        r = rows.setdefault(name, {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": module.BWD_REPLACES, "max_abs_err": 0.0, "ms": 0.0,
+            "plain_ms": 0.0, "bound_ms": 0.0,
+            "library_ms": None if lms is None else 0.0,
+            "_bytes": 0, "_flops": 0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += mult * ms
+        r["plain_ms"] += mult * pms
+        r["bound_ms"] += mult * bms
+        if lms is not None:
+            r["library_ms"] += mult * lms
+        r["_bytes"] += mult * nbytes
+        r["_flops"] += mult * flops
+
+    # K10 at the bridge's shapes; fault: dk's sign flipped.
+    N, M, d = 6076, 784, 64
+    q, k, v, g = (rand(gen, (B, 1, n, d), dtype=torch.bfloat16)
+                  for n in (N, M, M, N))
+    sc = d ** -0.5
+    names = ("dq", "dk", "dv")
+    got = ba.bridge_attention_bwd(q, k, v, g, sc)
+    want = ba.bridge_attention_bwd_plain(q, k, v, g, sc)
+    torch.cuda.synchronize()
+    err, ok = grads_check("bridge_attention_bwd", got, want, names)
+    log(f"  bridge_attention_bwd q/g ({B},1,{N},{d}) k/v ({B},1,{M},{d}): "
+        f"max_abs_err {err:.6g} (each of dq/dk/dv within {BWD_TOL} x its "
+        f"max) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("bridge_attention_bwd disagrees with its plain version")
+    bad = (want[0], -want[1], want[2])
+    if grads_check("  planted fault (dk negated)", bad, want, names)[1]:
+        fail("bridge_attention_bwd: the check does not see a planted fault")
+    log("    planted fault (dk negated) rejected")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=sc)
+    ms = cuda_ms(lambda: ba.bridge_attention_bwd(q, k, v, g, sc))
+    pms = cuda_ms(lambda: ba.bridge_attention_bwd_plain(q, k, v, g, sc),
+                  iters=3)
+    lms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                              retain_graph=True))
+    nbytes = (3 * N + 4 * M) * d * 2 * B
+    flops = 10 * B * N * M * d
+    bms, by = bound_ms(nbytes, flops)
+    log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms (SDPA backward) "
+        f"{lms:.4f} bound_ms {bms:.4f} ({by}) x3 per step")
+    row("bridge_attention_bwd", ba, "transception_tpu_torch/csrc/"
+        "bridge_attention_bwd.cu", err, ms, pms, bms, nbytes, flops, 3, lms)
+    del q, k, v, g, got, want, bad, leaves, out
+
+    # K11 and the grouped K2 at every fold of the flash train step.
+    names = ("dx", "dlts", "dltb", "dw1", "db1", "ddw", "ddwb", "dls", "dlb",
+             "dw2", "db2")
+    for i, (s, C, hid, groups, eps_ln, mult) in enumerate(FFN_SHAPES):
+        gsz = C // groups
+        x = rand(gen, (B, s * s, C), dtype=torch.bfloat16)
+        gy = rand(gen, (B, s * s, C), dtype=torch.bfloat16)
+        p = (rand(gen, (gsz,), 0.1, 1.0).repeat(groups),
+             rand(gen, (gsz,), 0.1).repeat(groups),
+             rand(gen, (hid, C), C ** -0.5), rand(gen, (hid,), 0.02),
+             rand(gen, (hid, 1, 3, 3), 0.3), rand(gen, (hid,), 0.02),
+             rand(gen, (hid,), 0.1, 1.0), rand(gen, (hid,), 0.1),
+             rand(gen, (C, hid), hid ** -0.5), rand(gen, (C,), 0.02))
+        label = f"({B},{s * s},{C}) hidden {hid} groups {groups} eps_ln " \
+                f"{eps_ln}"
+        kw = dict(s=s, groups=groups, eps_ln=eps_ln)
+        got = mf.mixffn_ln_skip_bwd(x, *p, gy, **kw)
+        want = mf.mixffn_ln_skip_bwd_plain(x, *p, gy, **kw)
+        torch.cuda.synchronize()
+        err, ok = grads_check(f"mixffn_bwd {label}", got, want, names)
+        log(f"  mixffn_bwd {label}: max_abs_err {err:.6g} (dx and each "
+            f"parameter gradient within {BWD_TOL} x its max) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("mixffn_bwd disagrees with its plain version")
+        # Faults: the depthwise-tap gradient dropped, or the halo: dx
+        # without the conv transpose's neighbour rows (plain backward
+        # with the taps zeroed in the dd correlation only).
+        if i % 2 == 0:
+            what = "tap gradient dropped"
+            bad = want[:5] + (torch.zeros_like(want[5]),) + want[6:]
+        else:
+            what = "halo rows dropped from dx"
+            pz = p[:4] + (torch.zeros_like(p[4]),) + p[5:]
+            dh0 = mf.mixffn_ln_skip_bwd_plain(x, *pz, gy, **kw)
+            bad = (dh0[0],) + want[1:]
+        if grads_check(f"  planted fault ({what})", bad, want, names)[1]:
+            fail("mixffn_bwd: the check does not see a planted fault")
+        log(f"    planted fault ({what}) rejected")
+        ms = cuda_ms(lambda: mf.mixffn_ln_skip_bwd(x, *p, gy, **kw))
+        pms = cuda_ms(lambda: mf.mixffn_ln_skip_bwd_plain(x, *p, gy, **kw),
+                      iters=3)
+        n = B * s * s
+        nbytes = 3 * n * C * 2 + (2 * C * hid + 9 * hid) * 2 + (
+            2 * C * hid + 13 * hid + 3 * C) * 4 + (5 * hid + 3 * C) * 4
+        flops = 10 * n * C * hid + 54 * n * hid
+        bms, by = bound_ms(nbytes, flops)
+        log(f"    ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} ({by}) "
+            f"x{mult} per step")
+        row("mixffn_bwd", mf, "transception_tpu_torch/csrc/mixffn_bwd.cu",
+            err, ms, pms, bms, nbytes, flops, mult)
+        # K2 forward at the same fold (grouped LN where groups > 1): the
+        # branch alone; fault: the taps negated.
+        lts, ltb = p[0][:gsz], p[1][:gsz]
+        fargs = (x, lts, ltb) + p[2:]
+        with torch.no_grad():
+            got = mf.mixffn_ln_skip(*fargs, **kw)
+            want = mf.mixffn_ln_skip_plain(*fargs, **kw)
+            torch.cuda.synchronize()
+            _, ok = err_check(f"mixffn (train fold) {label}", got, want,
+                              0.02, base=x)
+            if not ok:
+                fail("mixffn disagrees with its plain version")
+            badf = fargs[:5] + (-fargs[5],) + fargs[6:]
+            _, caught = err_check("  planted fault (taps negated) vs plain",
+                                  mf.mixffn_ln_skip_plain(*badf, **kw), want,
+                                  0.02, base=x)
+            if caught:
+                fail("mixffn: the check does not see a planted fault")
+            kms = cuda_ms(lambda: mf.mixffn_ln_skip(*fargs, **kw))
+        log(f"    forward ms {kms:.4f} x{mult} per step")
+        del x, gy, p, got, want, bad
+    for r in rows.values():
+        r["bound_by"] = bound_ms(r.pop("_bytes"), r.pop("_flops"))[1]
+    return rows
+
+
+def _train_cfg(flash, **kw):
+    from transception_tpu_torch.core.config import TransceptionConfig
+    return TransceptionConfig(ffn_flash_train=flash, **kw)
+
+
+def _one_step(model, sd0, img, lbl):
+    """One train step of `model` from the weights sd0: loss, gradients and
+    buffers after the step (on the host)."""
+    from transception_tpu_torch.core.config import TrainConfig
+    from transception_tpu_torch.train.state import TrainState
+    from transception_tpu_torch.train.trainer import make_train_step
+    model.load_state_dict(sd0)
+    st = TrainState(model, TrainConfig(), 2211 // TRAIN_BATCH)
+    met = make_train_step(st, 9, 0.4, 0.6, wide_head=True)(img, lbl)
+    torch.cuda.synchronize()
+    return (float(met["loss"]),
+            {n: p.grad.float().cpu() for n, p in model.named_parameters()},
+            {n: b.float().cpu() for n, b in model.named_buffers()})
+
+
+def _compare_steps(tag, k, p, ref=None):
+    """Kernel step k against plain step p (and both against an fp32
+    reference): loss, every gradient leaf, the BatchNorm stats. Returns
+    whether all checks hold."""
+    (lk, gk, bk), (lp, gp, bp) = k, p
+    G = math.sqrt(sum(float(g.square().sum()) for g in gp.values()))
+    dall = math.sqrt(sum(float((gk[n] - g).square().sum())
+                         for n, g in gp.items()))
+    worst, worst_n, cut = 0.0, "", []
+    for n, g in gp.items():
+        e = float((gk[n] - g).norm())
+        r = e / (LEAF_TOL * float(g.norm()) + 1e-3 * G)
+        if r > worst:
+            worst, worst_n = r, n
+        if float(g.abs().max()) > 0 and float(gk[n].abs().max()) == 0:
+            cut.append(n)
+    bn = max(float((bk[n] - b).abs().max()) / (BN_TOL * float(
+        b.abs().max()) + 1e-4) for n, b in bp.items())
+    loss_ok = abs(lk - lp) <= LOSS_TOL * abs(lp)
+    ok = (loss_ok and dall <= GLOBAL_TOL * G and worst <= 1.0 and not cut
+          and bn <= 1.0)
+    msg = (f"  {tag}: loss kernel {lk:.6f} plain {lp:.6f}; gradients "
+           f"|g_k - g_p|/|g_p| over all {len(gp)} leaves {dall / G:.5f} "
+           f"(limit {GLOBAL_TOL}); worst leaf at {worst:.3f} of its limit "
+           f"({worst_n}); {len(cut)} leaves zero on the kernel path only; "
+           f"BN stats at {bn:.3f} of their limit")
+    if ref is not None:
+        gr = ref[1]
+        R = math.sqrt(sum(float(g.square().sum()) for g in gr.values()))
+        for name, gx in (("kernel", gk), ("plain", gp)):
+            e = math.sqrt(sum(float((gx[n] - g).square().sum())
+                              for n, g in gr.items()))
+            msg += f"; {name} vs fp32 {e / R:.5f}"
+    log(msg + (" ok" if ok else " FAIL"))
+    return ok
+
+
+def train_phase():
+    """Phase 9. Returns the launch counts of the flash-mode Trainer run."""
+    import shutil
+
+    from transception_tpu_torch.core.config import DataConfig, TrainConfig
+    from transception_tpu_torch.data.device_synthetic import (
+        DeviceSyntheticStream,
+    )
+    from transception_tpu_torch.models.transception import MSTransception
+    from transception_tpu_torch.ops import kernels
+    from transception_tpu_torch.ops.kernels import (
+        bridge_attention as ba,
+        mixffn as mf,
+    )
+    from transception_tpu_torch.train.state import TrainState
+    from transception_tpu_torch.train.trainer import Trainer, make_train_step
+
+    counts_out = None
+    batch = DeviceSyntheticStream(TRAIN_BATCH, 224, 9, device="cuda").batch(0)
+    img, lbl = batch["image"], batch["label"]
+    for flash in (False, True):
+        mode = "ffn_flash_train" if flash else "default"
+        log(f"  -- train mode {mode} --")
+        # Trainer: three steps on the stream, a checkpoint, a resume.
+        t0 = time.perf_counter()
+        out = OUT_DIR / f"train_{'flash' if flash else 'default'}"
+        shutil.rmtree(out, ignore_errors=True)
+        tcfg = TrainConfig(output_dir=str(out))
+        dcfg = DataConfig(dataset="synthetic")
+        tr = Trainer(_train_cfg(flash), tcfg, dcfg, device="cuda")
+        kernels.reset_launches()
+        st, hist = tr.train(max_steps=3)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        log(f"  Trainer.train(max_steps=3): losses {hist['loss']} launches "
+            f"{counts} ({time.perf_counter() - t0:.1f} s)")
+        if st.step != 3 or not np.isfinite(hist["loss"]).all():
+            fail(f"Trainer run: step {st.step}, losses {hist['loss']}")
+        for name, n in counts.items():
+            if n != 3 * PER_STEP[flash].get(name, 0):
+                fail(f"{name}: {n} launches in 3 steps, want 3 x "
+                     f"{PER_STEP[flash].get(name, 0)}")
+        if flash:
+            counts_out = counts
+        ckpt = out / "ckpt" / "step_00000003.pt"
+        if not ckpt.exists():
+            fail(f"no checkpoint {ckpt}")
+        del tr, st
+        tr = Trainer(_train_cfg(flash), tcfg, dcfg, device="cuda")
+        st, more = tr.train(max_steps=4)
+        text = (out / "log.txt").read_text()
+        if st.step != 4 or len(more["loss"]) != 1 or \
+                "resumed from" not in text or "iteration 4 : lr" not in text:
+            fail(f"resume: step {st.step}, losses {more['loss']}")
+        log(f"  resumed from {ckpt.name}: step 4 loss {more['loss'][0]:.6f}; "
+            f"log: {text.strip().splitlines()[-2][:120]}")
+        shutil.rmtree(out / "ckpt")
+        del tr, st
+        torch.cuda.empty_cache()
+
+        # One step against the plain path and an fp32 reference.
+        sd0 = {k: v.clone() for k, v in MSTransception(
+            _train_cfg(flash), "cuda", seed=0).state_dict().items()}
+        ref_m = MSTransception(_train_cfg(flash, dtype="float32",
+                                          use_kernels=False), "cuda")
+        ref = _one_step(ref_m, sd0, img, lbl)
+        del ref_m
+        plain_m = MSTransception(_train_cfg(flash, use_kernels=False),
+                                 "cuda")
+        plain = _one_step(plain_m, sd0, img, lbl)
+        del plain_m
+        model = MSTransception(_train_cfg(flash), "cuda")
+        kernels.reset_launches()
+        kern = _one_step(model, sd0, img, lbl)
+        counts = kernels.launch_counts()
+        if any(n != PER_STEP[flash].get(k, 0) for k, n in counts.items()):
+            fail(f"one step launched {counts}")
+        if not _compare_steps(f"{mode} one step, kernels vs plain", kern,
+                              plain, ref):
+            fail("the kernel path's train step disagrees with the plain path")
+        # Planted faults through hooks that exist only here.
+        faults = [("K10 dv zeroed", ba, lambda r: r[:2] + (
+            torch.zeros_like(r[2]),))]
+        if flash:
+            faults.append(("K11 tap gradient zeroed", mf, lambda r: r[:5] + (
+                torch.zeros_like(r[5]),) + r[6:]))
+        for what, mod, hook in faults:
+            orig = mod._launch_bwd
+            mod._launch_bwd = lambda *a, o=orig, h=hook: h(o(*a))
+            try:
+                bad = _one_step(model, sd0, img, lbl)
+            finally:
+                mod._launch_bwd = orig
+            if _compare_steps(f"  planted fault ({what})", bad, plain):
+                fail(f"the gradient check does not see a planted fault "
+                     f"({what})")
+        del kern, plain, ref, bad
+
+        # The loss on one repeated batch falls over TRAIN_STEPS steps.
+        model.load_state_dict(sd0)
+        st = TrainState(model, TrainConfig(), 2211 // TRAIN_BATCH)
+        fn = make_train_step(st, 9, 0.4, 0.6, wide_head=True)
+        losses = [float(fn(img, lbl)["loss"]) for _ in range(TRAIN_STEPS)]
+        log(f"  {TRAIN_STEPS} steps on one batch: losses "
+            f"{[round(x, 5) for x in losses]}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail("the loss does not fall on a repeated batch")
+
+        # Step time in turns (kernels, plain, plain, kernels) and the peak
+        # memory of each path alone.
+        def timed(m):
+            s2 = TrainState(m, TrainConfig(), 2211 // TRAIN_BATCH)
+            f2 = make_train_step(s2, 9, 0.4, 0.6, wide_head=True)
+            f2(img, lbl)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: f2(img, lbl), iters=5, warmup=1)
+            return ms, torch.cuda.max_memory_allocated(), f2
+
+        k_ms1, k_mem, kfn = timed(model)
+        del model, kfn
+        torch.cuda.empty_cache()
+        plain_m = MSTransception(_train_cfg(flash, use_kernels=False), "cuda")
+        p_ms1, p_mem, pfn = timed(plain_m)
+        p_ms2 = cuda_ms(lambda: pfn(img, lbl), iters=5, warmup=0)
+        del plain_m, pfn
+        torch.cuda.empty_cache()
+        model = MSTransception(_train_cfg(flash), "cuda")
+        k_ms2, _, kfn = timed(model)
+        k_ms = min(k_ms1, k_ms2)
+        log(f"  train step b={TRAIN_BATCH} {mode}: kernels {k_ms1:.3f} / "
+            f"{k_ms2:.3f} ms ({TRAIN_BATCH * 1e3 / k_ms:.1f} img/s), plain "
+            f"{p_ms1:.3f} / {p_ms2:.3f} ms "
+            f"({TRAIN_BATCH * 1e3 / min(p_ms1, p_ms2):.1f} img/s); peak "
+            f"memory kernels {k_mem / 2**30:.2f} GiB, plain "
+            f"{p_mem / 2**30:.2f} GiB")
+        profile_device(lambda: kfn(img, lbl), f"train_{mode}")
+        del model, kfn, sd0
+        torch.cuda.empty_cache()
+    return counts_out
 
 
 def main():
@@ -467,10 +868,27 @@ def main():
         "\n".join(f"== {k}\n{v}" for k, v in _build.build_logs.items()))
 
     log("phase 3: kernels vs plain versions (bf16, batch 32)")
+    t0 = time.perf_counter()
     summary = kernel_phase()
+    log(f"  phase 3: {time.perf_counter() - t0:.1f} s")
 
     log("phase 4-6: published model through predict_volume")
+    t0 = time.perf_counter()
     counts = model_phase()
+    log(f"  phases 4-7: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 8: train-step kernels vs plain versions (bf16, batch "
+        f"{TRAIN_BATCH})")
+    t0 = time.perf_counter()
+    summary.update(train_kernel_phase())
+    log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 9: the published train step, batch {TRAIN_BATCH}")
+    t0 = time.perf_counter()
+    train_counts = train_phase()
+    log(f"  phase 9: {time.perf_counter() - t0:.1f} s")
+    for name in ("bridge_attention_bwd", "mixffn_bwd"):
+        counts[name] = train_counts[name]
 
     rows = []
     for name, s in summary.items():

@@ -9,6 +9,10 @@ Each kernel is held against its plain PyTorch version at small shapes
 that exercise ragged tiles, in bf16: at most 2% of max|plain| and at
 most 0.1% of ids (K4), as chip_smoke.py does at full size. Kernels that
 add their input back are held on the branch alone (output minus input).
+The backward kernels (K10, K11) are held per gradient, each within 2% of
+its own max: they round their tensor-core operands to bf16 (as the
+forwards do) and sum their per-block partials in another order than the
+plain versions.
 """
 
 import pytest
@@ -174,4 +178,119 @@ def test_tiny_model_uses_every_kernel(gen):
                                        "bridge_attention": 3,
                                        "expand_head": 1, "mhca_block": 2,
                                        "linear_attention": 1,
-                                       "patch_expand": 3}
+                                       "patch_expand": 3,
+                                       "bridge_attention_bwd": 0,
+                                       "mixffn_bwd": 0}
+
+
+@pytest.mark.parametrize("N,M", [(124, 16), (300, 128), (6076, 784)])
+def test_bridge_attention_bwd_kernel(gen, N, M):
+    q, k, v, g = (_r(gen, 2, 1, n, 64, dtype=torch.bfloat16)
+                  for n in (N, M, M, N))
+    n0 = ba.bwd_launches
+    got = ba.bridge_attention_bwd(q, k, v, g, 0.125)
+    want = ba.bridge_attention_bwd_plain(q, k, v, g, 0.125)
+    assert ba.bwd_launches == n0 + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.bfloat16
+        _close(a, b)
+
+
+def _ffn_args(gen, B, s, C, hid, groups):
+    x = _r(gen, B, s * s, C, dtype=torch.bfloat16)
+    gsz = C // groups
+    return x, (_r(gen, gsz, scale=0.1, shift=1.0).repeat(groups),
+               _r(gen, gsz, scale=0.1).repeat(groups),
+               _r(gen, hid, C, scale=C ** -0.5), _r(gen, hid, scale=0.02),
+               _r(gen, hid, 1, 3, 3, scale=0.3), _r(gen, hid, scale=0.02),
+               _r(gen, hid, scale=0.1, shift=1.0), _r(gen, hid, scale=0.1),
+               _r(gen, C, hid, scale=hid ** -0.5), _r(gen, C, scale=0.02))
+
+
+@pytest.mark.parametrize("s,C,hid,groups,eps_ln", [
+    (8, 64, 256, 1, 1e-5), (6, 128, 512, 1, 1e-6), (14, 128, 512, 2, 1e-5),
+    (14, 320, 1280, 5, 1e-5), (28, 64, 256, 1, 1e-6)])
+def test_mixffn_bwd_kernel(gen, s, C, hid, groups, eps_ln):
+    x, p = _ffn_args(gen, 3, s, C, hid, groups)
+    g = _r(gen, *x.shape, dtype=torch.bfloat16)
+    n0 = mf.bwd_launches
+    got = mf.mixffn_ln_skip_bwd(x, *p, g, s=s, groups=groups, eps_ln=eps_ln)
+    want = mf.mixffn_ln_skip_bwd_plain(x, *p, g, s=s, groups=groups,
+                                       eps_ln=eps_ln)
+    assert mf.bwd_launches == n0 + 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        _close(a, b)
+
+
+@pytest.mark.parametrize("s,C,hid,groups", [(28, 128, 512, 2),
+                                            (14, 320, 1280, 5)])
+def test_mixffn_kernel_grouped(gen, s, C, hid, groups):
+    x, p = _ffn_args(gen, 2, s, C, hid, groups)
+    args = (x, p[0][:C // groups], p[1][:C // groups]) + p[2:]
+    _close(mf.mixffn_ln_skip(*args, s=s, groups=groups),
+           mf.mixffn_ln_skip_plain(*args, s=s, groups=groups), base=x)
+
+
+def test_autograd_functions_reach_every_input(gen):
+    """The kernels with a backward keep the graph: every input gets the
+    plain version's gradient (the guard against a cut graph)."""
+    q, k, v = (_r(gen, 1, 1, n, 64, dtype=torch.bfloat16).requires_grad_()
+               for n in (200, 32, 32))
+    (ba.bridge_attention(q, k, v, 0.125).float() ** 2).sum().backward()
+    want = torch.autograd.grad(
+        (ba.bridge_attention_plain(q, k, v, 0.125).float() ** 2).sum(),
+        (q, k, v))
+    for t, w in zip((q, k, v), want):
+        _close(t.grad, w)
+    x, p = _ffn_args(gen, 2, 8, 128, 512, 2)
+    leaves = [x.requires_grad_()] + [t[:64].clone().requires_grad_()
+                                     if i < 2 else t.requires_grad_()
+                                     for i, t in enumerate(p)]
+    out = mf.mixffn_ln_skip(*leaves, s=8, groups=2)
+    (out.float() ** 2).sum().backward()
+    want = torch.autograd.grad(
+        (mf.mixffn_ln_skip_plain(*leaves, s=8, groups=2).float() ** 2).sum(),
+        leaves)
+    for t, w in zip(leaves, want):
+        assert t.grad is not None
+        _close(t.grad, w)
+
+
+def test_forward_only_kernels_refuse_a_graph(gen):
+    x = _r(gen, 1, 64, 64, dtype=torch.bfloat16)
+    w = torch.zeros(64, 64, device="cuda", requires_grad=True)
+    v = torch.zeros(64, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ea.etb_attention(x, v, v, w, v, w, v, w, v, w, v)
+    with torch.no_grad():
+        ea.etb_attention(x, v, v, w, v, w, v, w, v, w, v)
+
+
+def test_tiny_model_train_step_kernels(gen):
+    """Train mode runs only the kernels with a backward: the bridge
+    attention, and the MixFFN folds with ffn_flash_train."""
+    from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.models.transception import MSTransception
+    from transception_tpu_torch.ops import kernels
+    for flash in (False, True):
+        cfg = TransceptionConfig(img_size=64, stage1_layers=1,
+                                 num_path=(1, 1, 1), num_layers=(1, 1, 1),
+                                 ffn_flash_train=flash)
+        m = MSTransception(cfg, device="cuda").train()
+        kernels.reset_launches()
+        out = m(_r(gen, 2, 64, 64, 1), wide_head=True)
+        out.float().square().mean().backward()
+        torch.cuda.synchronize()
+        assert out.shape == (2, 256, 16, 9)
+        counts = kernels.launch_counts()
+        assert counts["bridge_attention"] == 3
+        assert counts["bridge_attention_bwd"] == 3
+        # img 64: ETB maps 16, 8, 4 (7); MHCA maps 8, 4 (2); bridge 16,
+        # 8, 4 (12); the 2x2 MHCA map (stage 4) is even too (1).
+        n_ffn = 22 if flash else 0
+        assert counts["mixffn"] == counts["mixffn_bwd"] == n_ffn
+        for name in ("etb_attention", "expand_head", "mhca_block",
+                     "linear_attention", "patch_expand"):
+            assert counts[name] == 0
+        assert all(p.grad is not None for p in m.parameters())

@@ -19,7 +19,9 @@ MODEL_FIELDS = (
     "num_path", "num_layers", "num_heads", "mlp_ratio", "token_mlp",
     "concat", "have_bridge", "br_ch_att_list", "stage_3or4", "bridge_dim",
     "bridge_heads", "reduction_ratios", "dtype", "drop_rate",
-    "drop_path_rate")
+    "drop_path_rate", "ffn_flash_train")
+# DataConfig fields the port mirrors (those its train loop reads).
+DATA_FIELDS = ("dataset", "img_size", "num_classes", "synthetic_len")
 
 
 @pytest.mark.parametrize("name", MODEL_FIELDS)
@@ -39,6 +41,23 @@ def test_config_helpers_match_jax():
                 == jcfg.br_config_to_ch_att_list(k))
     extra = {f.name for f in dataclasses.fields(pcfg.TransceptionConfig)}
     assert extra - set(MODEL_FIELDS) == {"use_kernels"}
+
+
+def test_train_config_matches_jax():
+    jf = {f.name: f.default for f in dataclasses.fields(jcfg.TrainConfig)}
+    pf = {f.name: f.default for f in dataclasses.fields(pcfg.TrainConfig)}
+    assert pf == jf
+    for bs in (16, 24, 30):
+        assert (pcfg.TrainConfig(batch_size=bs).scaled_lr()
+                == jcfg.TrainConfig(batch_size=bs).scaled_lr())
+
+
+@pytest.mark.parametrize("name", DATA_FIELDS)
+def test_data_config_field_matches_jax(name):
+    jf = {f.name: f for f in dataclasses.fields(jcfg.DataConfig)}
+    pf = {f.name: f for f in dataclasses.fields(pcfg.DataConfig)}
+    assert set(pf) == set(DATA_FIELDS)
+    assert pf[name].default == jf[name].default
 
 
 def _port_files():
@@ -116,15 +135,69 @@ def test_cpu_predictor_runs_plain_path():
 
 
 def test_kernel_switch_is_scoped():
-    """use_kernels=False reaches the wrappers through one scoped switch:
-    off inside, restored after, nested scopes respected."""
+    """The kernel set reaches the wrappers through one scoped switch:
+    per kernel inside, restored after, nested scopes respected."""
     from transception_tpu_torch.ops.kernels import _build, enabled
     x = torch.zeros(1, device="meta")  # a tensor off the CPU
-    assert not _build.plain(x)
+    assert not _build.plain("mixffn", x)
     with enabled(False):
-        assert _build.plain(x)
+        assert _build.plain("mixffn", x)
         with enabled(True):
-            assert not _build.plain(x)
-        assert _build.plain(x)
-    assert not _build.plain(x)
-    assert _build.plain(torch.zeros(1))
+            assert not _build.plain("mixffn", x)
+        with enabled({"bridge_attention"}):
+            assert _build.plain("mixffn", x)
+            assert not _build.plain("bridge_attention", x)
+        assert _build.plain("bridge_attention", x)
+    assert not _build.plain("mixffn", x)
+    assert _build.plain("mixffn", torch.zeros(1))
+    with pytest.raises(ValueError, match="unknown"):
+        with enabled({"no_such_kernel"}):
+            pass
+
+
+def test_forward_only_guard_decides_on_graph():
+    """A kernel without a backward must not return a result without a
+    graph: the guard raises where autograd records and an input requires
+    grad (lists of tensors included), and lets everything else pass."""
+    from transception_tpu_torch.ops.kernels import _build
+    w = torch.zeros(2, requires_grad=True)
+    x = torch.zeros(2)
+    assert _build.needs_graph(x, w)
+    assert _build.needs_graph(x, [x, w])
+    assert not _build.needs_graph(x, [x])
+    with pytest.raises(RuntimeError, match="no backward"):
+        _build.forward_only("etb_attention", x, w)
+    with torch.no_grad():
+        assert not _build.needs_graph(x, w)
+        _build.forward_only("etb_attention", x, w)
+    with torch.inference_mode():
+        _build.forward_only("etb_attention", x, w)
+
+
+@pytest.mark.parametrize("use_kernels,flash", [(True, False), (True, True),
+                                               (False, False),
+                                               (False, True)])
+def test_kernel_sets_match_jax_train_step_gating(use_kernels, flash):
+    """The port's train-step kernels mirror JAX train_step_model
+    (tests/test_train_step.py:141-157): the bridge attention keeps its
+    kernel, the MixFFN folds only with ffn_flash_train, every eval-only
+    kernel is off; eval keeps them all."""
+    from transception_tpu.train.trainer import train_step_model
+    from transception_tpu_torch.ops import kernels
+    from transception_tpu.models.transception import MSTransception
+    jc = train_step_model(MSTransception(jcfg.TransceptionConfig(
+        use_pallas=use_kernels, ffn_flash_train=flash))).cfg
+    pc = pcfg.TransceptionConfig(use_kernels=use_kernels,
+                                 ffn_flash_train=flash)
+    got = kernels.kernel_set(pc, training=True)
+    assert ("bridge_attention" in got) == bool(
+        jc.bridge_use_pallas if jc.bridge_use_pallas is not None
+        else jc.use_pallas)
+    assert ("mixffn" in got) == bool(jc.bridge_ffn_use_pallas
+                                     and jc.etb_ffn_fold and jc.mhca_ffn_fold)
+    for eval_only in ("etb_attention", "expand_head", "mhca_block",
+                      "linear_attention", "patch_expand"):
+        assert eval_only not in got
+    assert not jc.mhca_block_fold or not use_kernels
+    want_eval = kernels.SWITCHES if use_kernels else frozenset()
+    assert kernels.kernel_set(pc, training=False) == want_eval

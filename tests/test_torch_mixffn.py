@@ -88,7 +88,7 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
 @pytest.mark.parametrize("shape,s,hid,groups,dtype", [
     ((1, 64, 64), 8, 256, 1, torch.float16),    # bf16 only
     ((1, 60, 64), 8, 256, 1, torch.bfloat16),   # not an s*s map
-    ((1, 64, 64), 8, 256, 2, torch.bfloat16),   # grouped LN not folded
+    ((1, 64, 64), 8, 256, 3, torch.bfloat16),   # groups must divide C
     ((1, 64, 64), 8, 200, 1, torch.bfloat16),   # hidden % 64
     ((1, 4096, 64), 64, 2048, 1, torch.bfloat16),  # row over smem
 ])

@@ -55,6 +55,7 @@ def _compare(jmod, pmod, inputs, seed=0, call=None):
         jax.random.PRNGKey(seed), arrs), seed)
     want = jax.jit(lambda v, a: jmod.apply(v, *full(a)))(v, arrs)
     load_jax_variables(pmod, v, device="cpu")
+    pmod.eval()  # JAX applies eval mode: BatchNorm with running stats
     call = call or (lambda m, *a: m(*a))
     with torch.no_grad():
         got = call(pmod, *[torch.from_numpy(a) if isinstance(a, np.ndarray)

@@ -1,11 +1,13 @@
-"""Model configuration of the PyTorch port.
+"""Model, training and data configuration of the PyTorch port.
 
-Mirrors the model-defining fields of the JAX package's TransceptionConfig
-(same names, same defaults: the published 82.24-DSC MSTransception,
-networks/MSTr.py:2759-2823). The TPU-only knobs (remat, vectorize_paths,
-bridge sequence sharding, the per-op fold switches, lane packing and the
-kernel fallback ladder) are not carried over; one switch, `use_kernels`,
-selects the hand-written CUDA kernels on the card.
+TransceptionConfig mirrors the model-defining fields of the JAX package's
+TransceptionConfig (same names, same defaults: the published 82.24-DSC
+MSTransception, networks/MSTr.py:2759-2823), plus its `ffn_flash_train`.
+The TPU-only knobs (remat, vectorize_paths, bridge sequence sharding, the
+per-op fold switches, lane packing, use_pallas_train and the kernel
+fallback ladder) are not carried over; one switch, `use_kernels`, selects
+the hand-written CUDA kernels on the card. TrainConfig mirrors the JAX
+TrainConfig field for field; DataConfig the fields the train loop reads.
 """
 
 from __future__ import annotations
@@ -58,6 +60,11 @@ class TransceptionConfig:
     dtype: str = "bfloat16"
     drop_rate: float = 0.1
     drop_path_rate: float = 0.0
+    # Keep the fused MixFFN_skip kernels on in the train step (ETB, MHCA
+    # and bridge per-scale FFNs, K2 forward + K11 backward), as the JAX
+    # field of this name; off, the train step runs only the bridge
+    # attention kernels (ops.kernels.kernel_set).
+    ffn_flash_train: bool = False
     # Run the hand-written CUDA kernels (ops/kernels) on CUDA tensors.
     # False runs their plain PyTorch versions instead (comparison only).
     use_kernels: bool = True
@@ -105,3 +112,53 @@ class TransceptionConfig:
                 raise ValueError("bridge requires dims that are multiples "
                                  "of bridge_dim")
         return self
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """The fields of the JAX DataConfig (core/config.py:250-267) that the
+    port's train loop reads. It streams synthetic batches made on the
+    device (the JAX device_data stream); the Synapse and ISIC loaders and
+    their fields are not ported yet."""
+
+    dataset: str = "synapse"  # synapse | isic | synthetic
+    img_size: int = 224
+    num_classes: int = 9
+    # Length of the synthetic stream (lists_Synapse/train.txt).
+    synthetic_len: int = 2211
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training recipe (JAX core/config.py:271-317, the reference's
+    trainer.py:123-157), field for field."""
+
+    base_lr: float = 0.05
+    batch_size: int = 24  # global batch (train_MSTransception.py:35)
+    max_epochs: int = 400
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    use_scheduler: bool = True  # cosine per iteration, else poly 0.9
+    grad_clipping: bool = False  # clip_grad_norm max 5
+    grad_accum_steps: int = 1
+    ce_weight: float = 0.4
+    dice_weight: float = 0.6
+    seed: int = 1234
+    eval_interval: int = 20
+    eval_schedule: str = "interval"
+    output_dir: str = "./output"
+    model_name: str = "transception_tpu"
+    dp_size: int = -1
+    tp_size: int = 1
+    # Checkpoint every N epochs (and at the end); resume from the newest.
+    ckpt_every: int = 20
+    resume: bool = True
+    eval_device_resample: bool = False
+    # Loss in pre-pixel-shuffle token order (MSTransception wide_head).
+    wide_loss: bool = True
+
+    def scaled_lr(self) -> float:
+        """LR linear scaling rule (train_MSTransception.py:123-124)."""
+        if self.batch_size != 24 and self.batch_size % 5 == 0:
+            return self.base_lr * self.batch_size / 24
+        return self.base_lr

@@ -78,6 +78,21 @@ __device__ __forceinline__ void dense_tile(const bf16* A, int lda,
                                                in_f, out, ldo);
 }
 
+// out[i] = Σ_p part[p·n + i] over P per-block partials, in a fixed order
+// (the backward kernels' cross-block reduction: deterministic, no
+// atomics), stored as T (float or bf16).
+template <typename T>
+__global__ void sum_partials(const float* part, int P, size_t n, T* out) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.0f;
+  for (int p = 0; p < P; ++p) s += part[(size_t)p * n + i];
+  if constexpr (std::is_same<T, bf16>::value)
+    out[i] = __float2bfloat16(s);
+  else
+    out[i] = s;
+}
+
 inline cudaError_t set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,

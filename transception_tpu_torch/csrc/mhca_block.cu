@@ -276,10 +276,12 @@ extern "C" int mhca_block(
   if ((e = cudaGetLastError())) return e;
 
   const size_t smem_ffn = mixffn::smem_bytes(s, C, hid);
-  if ((e = set_smem((const void*)mixffn::mixffn_ln_skip_kernel, smem_ffn)))
+  if ((e = set_smem((const void*)mixffn::mixffn_ln_skip_kernel<false>,
+                    smem_ffn)))
     return e;
-  mixffn::mixffn_ln_skip_kernel<<<dim3(s, B), mixffn::THREADS, smem_ffn,
-                                  st>>>(x2, l2s, l2b, w1, b1, dw, dwb, ls, lb,
-                                        w2, b2, out, s, C, hid, eps2, eps);
+  mixffn::mixffn_ln_skip_kernel<false><<<dim3(s, B), mixffn::THREADS,
+                                         smem_ffn, st>>>(
+      x2, l2s, l2b, w1, b1, dw, dwb, ls, lb, w2, b2, out, s, C, hid, 1, eps2,
+      eps);
   return cudaGetLastError();
 }

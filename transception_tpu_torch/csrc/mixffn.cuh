@@ -20,12 +20,45 @@ namespace mixffn {
 constexpr int THREADS = 256;  // 8 warps
 constexpr int HC = 64;        // hidden channels per chunk
 
+// Mean and rsqrt(E[x²] - mean² + eps) of one token over channels
+// [c0, c0 + n), reduced over the warp.
+__device__ __forceinline__ float2 ln_stats(const bf16* src, int c0, int n,
+                                           float eps_ln, int lane) {
+  float sm = 0.0f, sq = 0.0f;
+  for (int c = c0 + lane; c < c0 + n; c += 32) {
+    const float v = __bfloat162float(src[c]);
+    sm += v;
+    sq += v * v;
+  }
+  sm = warp_sum(sm);
+  sq = warp_sum(sq);
+  const float mean = sm / n;
+  return make_float2(mean, rsqrtf(sq / n - mean * mean + eps_ln));
+}
+
+// The caller's LayerNorm of one token over channels [c0, c0 + n).
+__device__ __forceinline__ void ln_range(const bf16* src, bf16* dst,
+                                         const float* lts, const float* ltb,
+                                         int c0, int n, float eps_ln,
+                                         int lane) {
+  const float2 st = ln_stats(src, c0, n, eps_ln, lane);
+  for (int c = c0 + lane; c < c0 + n; c += 32) {
+    const float v = __bfloat162float(src[c]);
+    dst[c] = __float2bfloat16((v - st.x) * st.y * lts[c] + ltb[c]);
+  }
+}
+
+// GROUPED: the caller's LN per group of C/groups channels (the bridge's
+// norm2 on its wide layout, lts/ltb tiled to C). A compile-time switch:
+// a runtime branch alone slowed the groups = 1 kernel by 11% at 14² x 320,
+// so that instantiation keeps the plain loop.
+template <bool GROUPED>
 __global__ void __launch_bounds__(THREADS)
 mixffn_ln_skip_kernel(const bf16* x, const float* lts, const float* ltb,
                       const bf16* w1, const float* b1, const bf16* dw,
                       const float* dwb, const float* ls, const float* lb,
                       const bf16* w2, const float* b2, bf16* out, int s,
-                      int C, int hid, float eps_ln, float eps) {
+                      int C, int hid, int groups, float eps_ln, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int SP = (s + 15) & ~15;  // map row padded to whole 16-row tiles
   const int r = blockIdx.x, b = blockIdx.y;
@@ -49,19 +82,12 @@ mixffn_ln_skip_kernel(const bf16* x, const float* lts, const float* ltb,
       continue;
     }
     const bf16* src = xb + ((size_t)rr * s + j) * C;
-    float sm = 0.0f, sq = 0.0f;
-    for (int c = lane; c < C; c += 32) {
-      const float v = __bfloat162float(src[c]);
-      sm += v;
-      sq += v * v;
-    }
-    sm = warp_sum(sm);
-    sq = warp_sum(sq);
-    const float mean = sm / C;
-    const float inv = rsqrtf(sq / C - mean * mean + eps_ln);
-    for (int c = lane; c < C; c += 32) {
-      const float v = __bfloat162float(src[c]);
-      dst[c] = __float2bfloat16((v - mean) * inv * lts[c] + ltb[c]);
+    if constexpr (GROUPED) {
+      const int gsz = C / groups;
+      for (int c0 = 0; c0 < C; c0 += gsz)
+        ln_range(src, dst, lts, ltb, c0, gsz, eps_ln, lane);
+    } else {
+      ln_range(src, dst, lts, ltb, 0, C, eps_ln, lane);
     }
   }
   __syncthreads();

@@ -144,7 +144,11 @@ class MEfficientChannelAtten(nn.Module):
 
 class BridgeLayer4(nn.Module):
     """One bridge layer (MSTr.py:2356-2409): LN -> attention ->
-    residual -> LN -> per-scale MixFFN_skip at native widths -> residual."""
+    residual -> LN -> per-scale MixFFN_skip at native widths -> residual.
+    In the flash train mode norm2 and the residual fold into the per-scale
+    FFNs, norm2 as a grouped LN on each scale's wide layout (JAX
+    models/bridge.py:353-408): the MixFFN kernel at scales 1-3, its plain
+    version at the 7x7 scale."""
 
     def __init__(self, geo: BridgeGeometry, head: int, ch_att: bool,
                  reduction_ratio: Tuple[int, ...], dtype=torch.bfloat16):
@@ -171,6 +175,14 @@ class BridgeLayer4(nn.Module):
             tx1 = inputs + self.attn(h)
         else:
             tx1 = self.attn(h, residual=inputs)
+        if self.training and kernels.active("mixffn"):
+            outs = []
+            for i, (s, m, part) in enumerate(zip(geo.sides, geo.mults,
+                                                 geo.split(tx1))):
+                f = getattr(self, f"mixffn{i + 1}").folded(
+                    part.reshape(B, s * s, C * m), s, self.norm2, groups=m)
+                outs.append(f.reshape(B, -1, C))
+            return torch.cat(outs, dim=1)
         parts = geo.split(self.norm2(tx1))
         outs = []
         for i, (s, m) in enumerate(zip(geo.sides, geo.mults)):

@@ -4,7 +4,8 @@ of transception_tpu/models/decoder.py:58.
 Each stage concatenates the skip map channel-wise, projects, runs two
 EfficientTransformerBlocks, then 2x patch-expands; the last stage uses the
 4x expander and a 1x1 conv head. The argmax head (:154-201) computes the
-class ids in pre-shuffle order and pixel-shuffles the uint8 map.
+class ids in pre-shuffle order and pixel-shuffles the uint8 map; the wide
+head (training, :124-153) returns the logits in pre-shuffle order.
 """
 
 from __future__ import annotations
@@ -49,10 +50,12 @@ class DecoderLayer(nn.Module):
         else:
             self.layer_up = PatchExpand(out_dim, dtype)
 
-    def forward(self, x1, x2=None, argmax_head: bool = False):
+    def forward(self, x1, x2=None, argmax_head: bool = False,
+                wide_head: bool = False):
         """x1: (B, N, C) tokens from below; x2: (B, H, W, C) skip map.
-        The last stage returns (B, 4H, 4W, n_class) fp32 logits, or with
-        argmax_head (B, 4H, 4W) uint8 class ids."""
+        The last stage returns (B, 4H, 4W, n_class) fp32 logits, with
+        argmax_head (B, 4H, 4W) uint8 class ids, with wide_head
+        (B, H·W, 16, n_class) fp32 logits in pre-shuffle order."""
         if self.bottom:
             side = int(round(x1.shape[1] ** 0.5))
             return self.layer_up(x1, side, side)
@@ -63,6 +66,8 @@ class DecoderLayer(nn.Module):
         if not self.is_last:
             return self.layer_up(t, H, W)
         p = 4
+        if wide_head:
+            return self.wide_head(t)
         if not argmax_head:
             m = self.layer_up(t, H, W).reshape(B, p * H, p * W, -1)
             return self.last_layer(m)
@@ -80,3 +85,18 @@ class DecoderLayer(nn.Module):
             ids = self.last_layer(y).argmax(-1).to(torch.uint8)
         cls = ids.reshape(B, H, W, p, p).permute(0, 1, 3, 2, 4)
         return cls.reshape(B, p * H, p * W)
+
+    def wide_head(self, t):
+        """Logits in pre-pixel-shuffle token order (decoder.py:124-153):
+        the Dense expand born c-minor, LN over c with the fast-variance
+        formula and fp32 stats, the fp32 1x1 head on (N, p²) as a map.
+        (B, N, C) -> (B, N, 16, n_class); the loss permutes the labels
+        instead (train.losses.shuffle_labels_wide)."""
+        up, dt, c = self.layer_up, self.dtype, self.out_dim
+        B, N, _ = t.shape
+        y = up.expand(t).reshape(B, N, up.p * up.p, c).float()
+        mean = y.mean(-1, keepdim=True)
+        var = (y * y).mean(-1, keepdim=True) - mean * mean
+        xn = (y - mean) * (torch.rsqrt(var + up.norm.eps)
+                           * up.norm.weight.float()) + up.norm.bias.float()
+        return self.last_layer(xn.to(dt))

@@ -3,8 +3,11 @@ transception_tpu/models/transception.py:24.
 
 MSViT backbone -> 'original' dual bridge -> 4-stage decoder cascade. NHWC
 in and out: input (B, H, W, 1|3), output (B, H, W, num_classes) fp32
-logits, or (B, H, W) uint8 class ids with argmax=True. Gray inputs are
-repeated to 3 channels (MSTr.py:2828-2829). Eval mode only.
+logits, (B, H, W) uint8 class ids with argmax=True, or in training the
+pre-shuffle logits with wide_head=True. Gray inputs are repeated to 3
+channels (MSTr.py:2828-2829). Built in eval mode; .train() switches
+BatchNorm to batch statistics and the kernels to the train step's set
+(ops.kernels.kernel_set).
 """
 
 from __future__ import annotations
@@ -51,16 +54,20 @@ class MSTransception(nn.Module):
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(dev).eval()
 
-    def forward(self, x: torch.Tensor, argmax: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, argmax: bool = False,
+                wide_head: bool = False) -> torch.Tensor:
         """x: (B, H, W, 1|3). argmax=True returns (B, H, W) uint8 class ids
         computed before the final pixel shuffle (decoder.py:154-201).
-        The kernels run unless the config sets use_kernels=False."""
+        wide_head=True (training) returns (B, (H/4)·(W/4), 16, num_classes)
+        fp32 logits in pre-shuffle token order (transception.py:36-40).
+        The kernels of kernels.kernel_set(cfg, self.training) run."""
         if x.shape[-1] == 1:
             x = x.expand(*x.shape[:-1], 3)
-        with kernels.enabled(self.cfg.use_kernels):
+        with kernels.enabled(kernels.kernel_set(self.cfg, self.training)):
             enc = self.bridge(self.backbone(x.to(self.cfg.compute_dtype)))
             B, h4, w4, c4 = enc[3].shape
             t = self.decoder_3(enc[3].reshape(B, h4 * w4, c4))
             t = self.decoder_2(t, enc[2])
             t = self.decoder_1(t, enc[1])
-            return self.decoder_0(t, enc[0], argmax_head=argmax)
+            return self.decoder_0(t, enc[0], argmax_head=argmax,
+                                  wide_head=wide_head)

@@ -9,7 +9,11 @@
 The EfficientTransformerBlock runs its two sub-blocks through the folded
 kernels of ops/kernels (ETB attention, MixFFN); an MHCA block on an
 even-sided map is one call of the whole-block kernel, on an odd-sided map
-(stage 4) its modules run with the linear-attention kernel.
+(stage 4) its modules run with the linear-attention kernel. In training
+the kernels without a backward are off (ops.kernels.kernel_set): the ETB
+attention runs plain, the MHCA block its modules, and with the MixFFN
+kernel on (ffn_flash_train) the MHCA FFN sub-block folds as the ETB's
+does.
 """
 
 from __future__ import annotations
@@ -87,9 +91,7 @@ class EfficientTransformerBlock(nn.Module):
             a.queries.weight, a.queries.bias, a.keys.weight, a.keys.bias,
             a.values.weight, a.values.bias, a.reprojection.weight,
             a.reprojection.bias, self.norm1.eps)
-        return kernels.mixffn.mixffn_ln_skip(
-            x, self.norm2.weight, self.norm2.bias, *self.mlp.params(), s=H,
-            groups=1, eps_ln=self.norm2.eps, eps=self.mlp.norm1.eps)
+        return self.mlp.folded(x, H, self.norm2)
 
 
 class ConvRelPosEnc(nn.Module):
@@ -138,9 +140,12 @@ class FactorAttConvRelPosEnc(nn.Module):
 
 class MHCABlock(nn.Module):
     """CPE -> LN -> FactorAtt(+CRPE) -> res -> LN -> MixFFN_skip -> res
-    (MSTr.py:905-946, LN eps 1e-6): the whole-block kernel on even-sided
-    maps, else the unfolded path of ops/attention.py:366-392. cpe/crpe
-    are the encoder's shared modules."""
+    (MSTr.py:905-946, LN eps 1e-6): in eval the whole-block kernel on
+    even-sided maps, else (and in training, as the JAX train model's
+    mhca_block_fold=False) the unfolded path of
+    ops/attention.py:366-392, whose norm2 + FFN + residual fold into the
+    MixFFN kernel in the flash train mode (mhca_ffn_fold, :380-386).
+    cpe/crpe are the encoder's shared modules."""
 
     def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: int = 3,
                  dtype=torch.bfloat16):
@@ -152,7 +157,7 @@ class MHCABlock(nn.Module):
 
     def forward(self, x, H: int, W: int, cpe: ConvPosEnc,
                 crpe: ConvRelPosEnc):
-        if H == W and H % 2 == 0:
+        if not self.training and H == W and H % 2 == 0:
             # The whole block as one kernel call where the TPU ran its
             # kernel (even map sides, ops/pallas/mhca_block_kernel.py:56).
             fa = self.factoratt_crpe
@@ -167,6 +172,8 @@ class MHCABlock(nn.Module):
                 eps2=self.norm2.eps, eps=self.mlp.norm1.eps)
         x = cpe(x, H, W)
         x = x + self.factoratt_crpe(self.norm1(x), H, W, crpe)
+        if self.training and kernels.active("mixffn"):
+            return self.mlp.folded(x, H, self.norm2)
         return x + self.mlp(self.norm2(x), H, W)
 
 

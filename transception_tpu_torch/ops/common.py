@@ -148,8 +148,10 @@ class MixFFNSkip(nn.Module):
     """fc1 -> (DWConv + fc1 skip) -> LN -> GELU -> fc2 (MSTr.py:889-902).
 
     The math is the plain version of the fused MixFFN kernel
-    (ops/kernels/mixffn.py); the ETB blocks call that kernel directly with
-    these parameters (`params()`), every other user runs this module."""
+    (ops/kernels/mixffn.py). `folded` runs the caller's LayerNorm, this
+    FFN and the residual as that kernel (the ETB blocks, and in the flash
+    train mode the MHCA blocks and the bridge); calling the module runs
+    the plain FFN alone."""
 
     def __init__(self, c1: int, c2: int, dtype=torch.bfloat16):
         super().__init__()
@@ -163,16 +165,27 @@ class MixFFNSkip(nn.Module):
                 self.dwconv.dwconv.bias, self.norm1.weight, self.norm1.bias,
                 self.fc2.weight, self.fc2.bias)
 
-    def forward(self, x: torch.Tensor, H: int, W: int, pre_ln=None,
-                residual: bool = False) -> torch.Tensor:
-        """pre_ln = (scale, bias, groups, eps) applies the caller's
-        LayerNorm as a grouped LN first; residual=True adds the raw input."""
+    def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
         from transception_tpu_torch.ops.kernels.mixffn import mixffn_plain
         if H != W:
             raise ValueError("MixFFNSkip needs a square token map")
         return mixffn_plain(x.to(self.fc1.dtype), *self.params(), s=H,
-                            pre_ln=pre_ln, residual=residual,
                             eps=self.norm1.eps)
+
+    def folded(self, x: torch.Tensor, s: int, ln: "LayerNorm",
+               groups: int = 1) -> torch.Tensor:
+        """x + self(groupLN(x)) on a (B, s², C) map, `ln` the caller's
+        LayerNorm of C/groups channels, through the MixFFN kernel wrapper
+        (which raises on a map its kernel cannot take). In training an
+        odd-sided map (the 7x7 MHCA stage-4 and bridge scale-4 folds) runs
+        the plain version: it is outside the TPU backward's domain
+        (mixffn_kernel.py _pick_rows_bwd), and the JAX train step runs it
+        in XLA too."""
+        from transception_tpu_torch.ops.kernels import mixffn
+        fn = (mixffn.mixffn_ln_skip_plain if self.training and s % 2
+              else mixffn.mixffn_ln_skip)
+        return fn(x.to(self.fc1.dtype), ln.weight, ln.bias, *self.params(),
+                  s=s, groups=groups, eps_ln=ln.eps, eps=self.norm1.eps)
 
 
 class OverlapPatchEmbed(nn.Module):

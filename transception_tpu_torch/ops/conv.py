@@ -3,7 +3,8 @@ transception_tpu/ops/conv.py.
 
 Behavioral reference: networks/MSTr.py:309-404 (Conv2d_BN / DWConv2d_BN),
 :670-732 (DWCPatchEmbed / Patch_Embed_stage), :996-1050 (ResBlock).
-Eval mode only: BatchNorm applies its running statistics.
+BatchNorm normalises with batch statistics in train mode and applies its
+running statistics in eval mode (nn.Module.train() / .eval()).
 """
 
 from __future__ import annotations
@@ -16,11 +17,19 @@ from transception_tpu_torch.ops.common import Conv2d, DepthwiseConv
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm (eps 1e-5) on NHWC maps. fp32 computes flax's
-    (x − mean)·(rsqrt(var + eps)·scale) + bias; other compute dtypes follow
-    _EvalBNAffine (ops/conv.py:57-80): the rsqrt coefficient is computed in
-    fp32 and rounded once, everything per pixel stays in the compute
-    dtype."""
+    """BatchNorm (eps 1e-5) on NHWC maps, as the JAX package's
+    (ops/conv.py:41-80).
+
+    Train mode is flax nn.BatchNorm(momentum=0.9) in fp32: the batch mean
+    over (B, H, W) and the fast biased variance E[x²] − E[x]² (clamped at
+    0), y = (x − mean)·(rsqrt(var + eps)·scale) + bias cast to the compute
+    dtype, and the running stats updated as 0.9·r + 0.1·batch with the
+    biased variance (F.batch_norm would store the unbiased one).
+
+    Eval mode: fp32 computes the same affine with the running stats; other
+    compute dtypes follow _EvalBNAffine (ops/conv.py:57-80): the rsqrt
+    coefficient is computed in fp32 and rounded once, everything per pixel
+    stays in the compute dtype."""
 
     def __init__(self, ch: int, scale_init: float = 1.0,
                  dtype=torch.bfloat16):
@@ -38,6 +47,17 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x):
+        if self.training:
+            xf = x.float()
+            axes = tuple(range(xf.dim() - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+                self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+            y = (xf - mean) * (torch.rsqrt(var + 1e-5) * self.weight) \
+                + self.bias
+            return y.to(self.dtype)
         mul = torch.rsqrt(self.running_var + 1e-5) * self.weight
         if self.dtype == torch.float32:
             return (x.float() - self.running_mean) * mul + self.bias

@@ -17,10 +17,17 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, FrozenSet, Iterable, Union
 
+# Shared libraries, one per csrc/<name>.cu.
 KERNELS = ("etb_attention", "mixffn", "bridge_attention", "expand_head",
-           "mhca_block", "linear_attention", "patch_expand")
+           "mhca_block", "linear_attention", "patch_expand",
+           "bridge_attention_bwd", "mixffn_bwd")
+# Names of the kernel switch: one per forward kernel. bridge_attention and
+# mixffn carry their backward kernels (K10, K11) with them.
+SWITCHES = frozenset(("etb_attention", "mixffn", "bridge_attention",
+                      "expand_head", "mhca_block", "linear_attention",
+                      "patch_expand"))
 
 _PKG = Path(__file__).resolve().parents[2]
 _SRC = _PKG / "csrc"
@@ -30,26 +37,61 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's -Xptxas -v report (registers, shared memory, spills) per kernel.
 build_logs: Dict[str, str] = {}
-_enabled = True
+_on: FrozenSet[str] = SWITCHES
 
 
 @contextlib.contextmanager
-def enabled(flag: bool):
-    """Kernels on (the default) or off for the calls made inside. Off sends
-    every wrapper to its plain version, on the card too: the switch behind
-    TransceptionConfig.use_kernels, which MSTransception sets per call."""
-    global _enabled
-    prev, _enabled = _enabled, bool(flag)
+def enabled(kernels: Union[bool, Iterable[str]]):
+    """The kernels that are on for the calls made inside: True (all, the
+    default), False (none) or an iterable of switch names. A kernel that
+    is off sends its wrapper to the plain version, on the card too. The
+    model sets it per call (ops.kernels.kernel_set): every kernel in eval,
+    the train step's set in training, none with use_kernels=False."""
+    global _on
+    if kernels is True or kernels is False:
+        new = SWITCHES if kernels else frozenset()
+    else:
+        new = frozenset(kernels)
+        if new - SWITCHES:
+            raise ValueError(f"unknown kernels {sorted(new - SWITCHES)}")
+    prev, _on = _on, new
     try:
         yield
     finally:
-        _enabled = prev
+        _on = prev
 
 
-def plain(t) -> bool:
+def active(name: str) -> bool:
+    """Whether kernel `name` is switched on (whatever the device)."""
+    return name in _on
+
+
+def plain(name: str, t) -> bool:
     """The one kernel-or-plain decision of every wrapper: the plain version
-    for a CPU tensor or with the kernels switched off, else the kernel."""
-    return t.device.type == "cpu" or not _enabled
+    for a CPU tensor or with kernel `name` switched off, else the kernel."""
+    return t.device.type == "cpu" or name not in _on
+
+
+def needs_graph(*tensors) -> bool:
+    """Whether autograd would record a result of these inputs (lists of
+    tensors are looked into)."""
+    import torch
+    if not torch.is_grad_enabled():
+        return False
+    flat = []
+    for t in tensors:
+        flat.extend(t if isinstance(t, (list, tuple)) else (t,))
+    return any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat)
+
+
+def forward_only(name: str, *tensors) -> None:
+    """Guard of a kernel that has no backward: its result would carry no
+    graph, so every gradient upstream would silently be lost. Raises
+    instead when autograd records and an input requires grad."""
+    if needs_graph(*tensors):
+        raise RuntimeError(
+            f"{name} kernel has no backward: call it under torch.no_grad() "
+            f"or switch it off (ops.kernels.enabled) while training")
 
 
 def _nvcc() -> str:

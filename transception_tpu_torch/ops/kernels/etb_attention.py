@@ -84,9 +84,10 @@ def etb_attention(x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp,
                   eps: float = 1e-5):
     """Wrapper: plain version for a CPU tensor or with the kernels off,
     the CUDA kernel otherwise."""
-    if _build.plain(x):
+    if _build.plain(NAME, x):
         return etb_attention_plain(x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp,
                                    eps)
+    _build.forward_only(NAME, x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp)
     _check(x, (wq, wk, wv, wp))
     global launches
     x = _build.aligned(x)

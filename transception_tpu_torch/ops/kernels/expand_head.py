@@ -68,8 +68,9 @@ def expand_head(x, w, ls, lb, hw, hb, *, p: int, c: int,
                 eps: float = 1e-5):
     """Wrapper: plain version for a CPU tensor or with the kernels off,
     the CUDA kernel otherwise."""
-    if _build.plain(x):
+    if _build.plain(NAME, x):
         return expand_head_plain(x, w, ls, lb, hw, hb, p=p, c=c, eps=eps)
+    _build.forward_only(NAME, x, w, ls, lb, hw, hb)
     _check(x, w, hw, p, c)
     global launches
     x = _build.aligned(x)

@@ -58,8 +58,9 @@ def _check(q, k, v):
 def linear_attention(q, k, v, q_softmax: bool = False):
     """Wrapper: plain version for a CPU tensor or with the kernels off,
     the CUDA kernel otherwise."""
-    if _build.plain(v):
+    if _build.plain(NAME, v):
         return linear_attention_plain(q, k, v, q_softmax)
+    _build.forward_only(NAME, q, k, v)
     _check(q, k, v)
     global launches
     q, k, v = (t.contiguous() for t in (q, k, v))

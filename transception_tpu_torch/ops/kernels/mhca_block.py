@@ -120,11 +120,14 @@ def mhca_block(x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs,
                eps: float = 1e-5):
     """Wrapper: plain version for a CPU tensor or with the kernels off,
     the CUDA kernels otherwise (one counted launch per block)."""
-    if _build.plain(x):
+    if _build.plain(NAME, x):
         return mhca_block_plain(
             x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs, wp,
             bp, ln2_s, ln2_b, w1, b1, dw, dwb, ls, lb, w2, b2, s=s,
             heads=heads, eps1=eps1, eps2=eps2, eps=eps)
+    _build.forward_only(NAME, x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv,
+                        crpe_ws, crpe_bs, wp, bp, ln2_s, ln2_b, w1, b1, dw,
+                        dwb, ls, lb, w2, b2)
     hid = w1.shape[0]
     _check(x, s, heads, hid, crpe_ws)
     global launches

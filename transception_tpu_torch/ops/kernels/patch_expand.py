@@ -62,8 +62,9 @@ def _check(x, w, p, c):
 def patch_expand(x, w, ls, lb, *, p: int, c: int, eps: float = 1e-5):
     """Wrapper: plain version for a CPU tensor or with the kernels off,
     the CUDA kernel otherwise."""
-    if _build.plain(x):
+    if _build.plain(NAME, x):
         return patch_expand_plain(x, w, ls, lb, p=p, c=c, eps=eps)
+    _build.forward_only(NAME, x, w, ls, lb)
     _check(x, w, p, c)
     global launches
     x = _build.aligned(x)
