@@ -6,23 +6,24 @@ Phases (any failed check exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
   3. each kernel against its plain PyTorch version at every shape the
-     serving path gives it (bf16), with timings of kernel, plain version
-     and, where one exists, a single PyTorch library call. A kernel that
-     adds its input back is held on its branch alone (output minus
-     input), and a planted fault in the plain version must fail the same
-     check;
+     serving path gives it in any fold configuration (bf16), with timings
+     of kernel, plain version and, where one exists, a single PyTorch
+     library call. A kernel that adds its input back is held on its
+     branch alone (output minus input), and a planted fault in the plain
+     version must fail the same check;
   4. the published MSTransception at full width (224², bf16, random
      weights from a seed) through make_predictor(...).predict_volume on a
      synthetic 48-slice 512² volume, batch 32, with launch counters;
-  5. the kernel path against use_kernels=False on the same weights, and
-     both against an fp32 model (logits and class maps), for three
-     weight seeds;
-  6. forward time at batch 32, kernels on and off;
+  5. the kernel path against use_kernels=False on the same weights and
+     the same fold structure, and both against an fp32 model (logits and
+     class maps), for three weight seeds;
+  6. forward time at batch 32, kernels on and off (same structure);
   7. device busy time and idle share of one forward (torch.profiler);
   8. the train step's kernels against their plain versions at every shape
      the published train step gives them (bf16, batch 24): the bridge
-     attention backward (K10), the MixFFN backward (K11) and the grouped
-     MixFFN forward (K2), each with a planted fault the check must reject;
+     attention (K3) and its backward (K10), the MixFFN backward (K11) and
+     the grouped MixFFN forward (K2), the backwards and K2 each with a
+     planted fault the check must reject;
   9. the published MSTransception train step (TrainConfig(): batch 24,
      wide head, SGD + cosine schedule) in both train modes (default and
      ffn_flash_train): Trainer.train on the on-device synthetic stream with
@@ -31,10 +32,19 @@ Phases (any failed check exits non-zero):
      the same batch (loss, every gradient leaf, BatchNorm stats) with
      planted faults in K10 and K11; the loss falling over repeated steps
      on one batch; step time and peak memory, kernels on and off; device
-     time of one step (torch.profiler).
-The last line is {"ok": true, "device": {...}}; the two lines before it
-list each kernel with its launches, error, times and bound, and the
-card's name and power limit.
+     time of one step (torch.profiler);
+ 10. the fold grid: the published model (b=32) under each fold
+     configuration of FOLD_GRID, with the launches per forward held to
+     models.transception.launches_per_forward, the class maps to
+     "folds-off"'s, the kernel path to use_kernels=False under the same
+     config, and the forward time.
+Every launch of the main-path runs (phases 4, 9 and 10) is tallied by
+shape (ops.kernels.shape_counts); each shape must have been measured in
+phase 3 or 8. The last line is {"ok": true, "device": {...}}; the two
+lines before it list each kernel at each shape (one row per shape) with
+its launches in those runs, its error and its per-launch times and bound,
+then the card's name and power limit. Before them, per run, each kernel's
+launches and summed times.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -57,6 +68,29 @@ TRAIN_BATCH = 24      # TrainConfig().batch_size
 # Long reports (nvcc's register/shared-memory report, the profiler table).
 OUT_DIR = Path(os.environ.get("SMOKE_OUT_DIR",
                               Path(__file__).resolve().parent / "smoke_out"))
+
+
+def _combo(attn, ffn, etb, etb_ffn=True):
+    return dict(bridge_attn_fold=attn, bridge_ffn_use_pallas=ffn,
+                etb_attn_fold=etb, etb_ffn_fold=etb_ffn)
+
+
+# The fold configurations the JAX package's users pick among: the eight of
+# its sweep (scripts/measure_folds.py:56-67; the MHCA switches at their
+# defaults, the ETB FFN fold on unless named), plus the MHCA block unfolded
+# with its FFN fold off and on. (name, TransceptionConfig overrides.)
+FOLD_GRID = (
+    ("all-on", _combo(True, True, True)),
+    ("attn-off", _combo(False, True, True)),
+    ("ffn-off", _combo(True, False, True)),
+    ("etb-off", _combo(True, True, False)),
+    ("ffn-only", _combo(False, True, False)),
+    ("etb-only", _combo(False, False, True)),
+    ("etbffn-off", _combo(False, False, True, etb_ffn=False)),
+    ("folds-off", _combo(False, False, False)),
+    ("mhca-unfolded", dict(mhca_block_fold=False, mhca_ffn_fold=False)),
+    ("mhca-ffn-fold", dict(mhca_block_fold=False, mhca_ffn_fold=True)),
+)
 
 
 def log(*a):
@@ -92,6 +126,51 @@ def cuda_ms(fn, iters=10, warmup=2):
 def bound_ms(nbytes, flops):
     t_b, t_f = nbytes / HBM_BYTES * 1e3, flops / BF16_FLOPS * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def launched_key(name, fn):
+    """Call fn, one kernel wrapper call, and return the shape key its
+    launch tallied (ops.kernels.shape_counts) with fn's result; fails
+    unless it launched kernel `name` exactly once."""
+    from transception_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    out = fn()
+    tallied = kernels.shape_counts()
+    if len(tallied) != 1 or list(tallied.values()) != [1] or \
+            next(iter(tallied))[0] != name:
+        fail(f"{name}: one wrapper call tallied {tallied}")
+    return next(iter(tallied)), out
+
+
+def record(measured, key, label, err, ms, pms, lms, nbytes, flops):
+    """One kernel at one shape (its tally key): error and times per launch
+    against the bound. A shape measured twice keeps its first times and
+    the larger error."""
+    name = key[0]
+    if key in measured:
+        measured[key]["max_abs_err"] = max(measured[key]["max_abs_err"],
+                                           err)
+        return
+    bms, by = bound_ms(nbytes, flops)
+    measured[key] = {
+        "name": name, "shape": label, "route": "cuda",
+        "source": f"transception_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces(name), "max_abs_err": err, "ms": ms,
+        "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms}
+
+
+def pinned(cfg):
+    """cfg with its six fold switches resolved for eval: the structure
+    stays the same when use_kernels is switched off."""
+    import dataclasses
+
+    from transception_tpu_torch.core.config import fold_switches
+    sw = fold_switches(cfg, training=False)
+    return dataclasses.replace(
+        cfg, bridge_attn_fold=sw.bridge_attn,
+        bridge_ffn_use_pallas=sw.bridge_ffn, etb_attn_fold=sw.etb_attn,
+        etb_ffn_fold=sw.etb_ffn, mhca_block_fold=sw.mhca_block,
+        mhca_ffn_fold=sw.mhca_ffn)
 
 
 def rand(gen, shape, scale=1.0, shift=0.0, dtype=torch.float32):
@@ -171,16 +250,65 @@ def kernel_cases(gen):
              base=x, fault=("depthwise taps negated",
                             lambda a=bad, s=s: mf.mixffn_ln_skip_plain(
                                 *a, s=s)))
+    # K2 at the bridge's eval folds (bridge_ffn_use_pallas): scales 1-3
+    # with norm2 as a grouped LN of 64 channels; at the MHCA FFN folds of
+    # stages 2-3 (mhca_block_fold off, mhca_ffn_fold on; LN eps 1e-6).
+    for s, C, groups, eps_ln, where in (
+            (56, 64, 1, 1e-5, "bridge"), (28, 128, 2, 1e-5, "bridge"),
+            (14, 320, 5, 1e-5, "bridge"), (28, 64, 1, 1e-6, "MHCA"),
+            (14, 128, 1, 1e-6, "MHCA")):
+        hid, gsz = 4 * C, C // groups
+        x = rand(gen, (B, s * s, C), dtype=torch.bfloat16)
+        args = (x, rand(gen, (gsz,), 0.1, 1.0), rand(gen, (gsz,), 0.1),
+                rand(gen, (hid, C), C ** -0.5), rand(gen, (hid,), 0.02),
+                rand(gen, (hid, 1, 3, 3), 0.3), rand(gen, (hid,), 0.02),
+                rand(gen, (hid,), 0.1, 1.0), rand(gen, (hid,), 0.1),
+                rand(gen, (C, hid), hid ** -0.5), rand(gen, (C,), 0.02))
+        bad = args[:5] + (-args[5],) + args[6:]
+        kw = dict(s=s, groups=groups, eps_ln=eps_ln)
+        case("mixffn", f"({B},{s * s},{C}) hidden {hid} groups {groups} "
+             f"({where} fold)",
+             lambda a=args, kw=kw: mf.mixffn_ln_skip(*a, **kw),
+             lambda a=args, kw=kw: mf.mixffn_ln_skip_plain(*a, **kw),
+             2 * B * s * s * C * 2 + 2 * C * hid * 2 + 9 * hid * 2,
+             4 * B * s * s * C * hid + 18 * B * s * s * hid, 0.02,
+             base=x, fault=("depthwise taps negated",
+                            lambda a=bad, kw=kw: mf.mixffn_ln_skip_plain(
+                                *a, **kw)))
     N, M, d = 6076, 784, 64
     q = rand(gen, (B, 1, N, d), dtype=torch.bfloat16)
     k = rand(gen, (B, 1, M, d), dtype=torch.bfloat16)
     vv = rand(gen, (B, 1, M, d), dtype=torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    lin = torch.nn.functional.linear
     case("bridge_attention", f"q ({B},1,{N},{d}) kv ({B},1,{M},{d})",
          lambda a=(q, k, vv): ba.bridge_attention(*a, d ** -0.5),
          lambda a=(q, k, vv): ba.bridge_attention_plain(*a, d ** -0.5),
          2 * B * N * d * 2 + 2 * B * M * d * 2, 4 * B * N * M * d, 0.02,
          lfn=lambda a=(q, k, vv): sdpa(*a, scale=d ** -0.5))
+    # K8: the folded bridge attention; wq scaled up so the softmax is
+    # peaked and the branch (output minus res) is of the order of v; the
+    # library call: SDPA on the same q/k/v plus two F.linear and the add.
+    # Fault: the out-projection bias dropped.
+    x, res = (rand(gen, (B, N, d), dtype=torch.bfloat16) for _ in range(2))
+    wq, wp = rand(gen, (d, d), 4 * d ** -0.5), rand(gen, (d, d), d ** -0.5)
+    bq, bp = rand(gen, (d,), 0.1), rand(gen, (d,), 0.5)
+    args = (x, res, wq, bq, k, vv, wp, bp, d ** -0.5)
+    bad = args[:7] + (torch.zeros_like(bp),) + args[8:]
+    wq16, bq16, wp16, bp16 = (t.to(torch.bfloat16) for t in (wq, bq, wp, bp))
+
+    def lib_folded(x=x, res=res, k=k, v=vv):
+        qq = lin(x, wq16, bq16)[:, None]
+        return lin(sdpa(qq, k, v, scale=d ** -0.5)[:, 0], wp16, bp16) + res
+
+    case("bridge_attention_folded",
+         f"x/res ({B},{N},{d}) kv ({B},1,{M},{d})",
+         lambda a=args: ba.bridge_attention_folded(*a),
+         lambda a=args: ba.bridge_attention_folded_plain(*a),
+         3 * B * N * d * 2 + 2 * B * M * d * 2 + 2 * d * d * 2 + 2 * d * 4,
+         4 * B * N * M * d + 4 * B * N * d * d, 0.02, lfn=lib_folded,
+         base=res, fault=("out-projection bias dropped",
+                          lambda a=bad: ba.bridge_attention_folded_plain(*a)))
     N, C, c, p, ncls = 3136, 64, 64, 4, 9
     x = rand(gen, (B, N, C), dtype=torch.bfloat16)
     args = (x, rand(gen, (p * p * c, C), (1.0 / C) ** 0.5),
@@ -223,13 +351,20 @@ def kernel_cases(gen):
              base=x, fault=("key rows of qkv negated",
                             lambda a=bad, s=s: mb.mhca_block_plain(
                                 *a, s=s, heads=8)))
-    # K6: stage-4 factorized attention, q/k/v (B, 8, 49, 40).
-    q, k, v = (rand(gen, (B, 8, 49, 40), f, dtype=torch.bfloat16)
-               for f in (1.0, 3.0, 1.0))
-    case("linear_attention", f"q/k/v ({B},8,49,40)",
-         lambda a=(q, k, v): la.linear_attention(*a),
-         lambda a=(q, k, v): la.linear_attention_plain(*a),
-         4 * B * 8 * 49 * 40 * 2, 4 * B * 8 * 49 * 40 * 40, 0.02)
+    # K6: the factorized attention (scaled) at stage 4, q/k/v
+    # (B, 8, 49, 40), and with mhca_block_fold off at stages 2-3; the ETB
+    # attention (the softmax of Q) with etb_attn_fold off.
+    for h, N, dh, q_sm in ((8, 49, 40, False), (1, 3136, 64, True),
+                           (1, 784, 128, True), (1, 196, 320, True),
+                           (8, 784, 8, False), (8, 196, 16, False)):
+        q, k, v = (rand(gen, (B, h, N, dh), f, dtype=torch.bfloat16)
+                   for f in (1.0, 3.0, 1.0))
+        sc = 1.0 if q_sm else dh ** -0.5
+        case("linear_attention",
+             f"q/k/v ({B},{h},{N},{dh}) q_softmax {q_sm}",
+             lambda a=(q, k, v, q_sm, sc): la.linear_attention(*a),
+             lambda a=(q, k, v, q_sm, sc): la.linear_attention_plain(*a),
+             4 * B * h * N * dh * 2, 4 * B * h * N * dh * dh, 0.02)
     # K7: the p = 2 expanders of decoders 3/2/1.
     for N, C in ((49, 512), (196, 320), (784, 128)):
         c = C // 2
@@ -244,26 +379,25 @@ def kernel_cases(gen):
     return cases
 
 
-# Launches per forward of each kernel at each of its kernel_cases shapes.
-PER_FORWARD = {"etb_attention": (4, 2, 2), "mixffn": (4, 2, 2),
-               "bridge_attention": (3,), "expand_head": (1,),
-               "mhca_block": (9, 24), "linear_attention": (9,),
-               "patch_expand": (1, 1, 1), "bridge_attention_bwd": (),
-               "mixffn_bwd": ()}
+def replaces(name):
+    """The TPU kernel a counter's kernel replaces (file:line)."""
+    from transception_tpu_torch.ops import kernels
+    for n, mod, attr in kernels.COUNTERS:
+        if n == name:
+            return getattr(mod, {"launches": "REPLACES",
+                                 "bwd_launches": "BWD_REPLACES",
+                                 "folded_launches": "FOLDED_REPLACES"}[attr])
+    raise KeyError(name)
 
 
 def kernel_phase():
-    """Phase 3. Returns per-kernel sums over one forward's launches."""
-    from transception_tpu_torch.ops import kernels
-    seen = {}
-    summary = {}
+    """Phase 3. Returns the measurements per kernel and shape key."""
+    measured = {}
     gen = torch.Generator().manual_seed(1)
     for cs in kernel_cases(gen):
         name, label = cs["name"], cs["label"]
-        i = seen.get(name, 0)
-        seen[name] = i + 1
-        mult = PER_FORWARD[name][i]
-        got, want = cs["kfn"](), cs["pfn"]()
+        key, got = launched_key(name, cs["kfn"])
+        want = cs["pfn"]()
         torch.cuda.synchronize()
         if got.shape != want.shape:
             fail(f"{name} {label}: shape {tuple(got.shape)} vs "
@@ -289,40 +423,26 @@ def kernel_phase():
         bms, by = bound_ms(cs["nbytes"], cs["flops"])
         log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms "
             f"{lms if lms is None else round(lms, 4)} bound_ms {bms:.4f} "
-            f"({by}) x{mult} per forward")
-        s = summary.setdefault(name, {
-            "name": name, "route": "cuda",
-            "source": f"transception_tpu_torch/csrc/{name}.cu",
-            "replaces": getattr(kernels, name).REPLACES,
-            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-            "library_ms": None if lms is None else 0.0,
-            "_bytes": 0, "_flops": 0})
-        s["max_abs_err"] = max(s["max_abs_err"], err)
-        s["ms"] += mult * ms
-        s["plain_ms"] += mult * pms
-        s["bound_ms"] += mult * bms
-        if lms is not None:
-            s["library_ms"] += mult * lms
-        s["_bytes"] += mult * cs["nbytes"]
-        s["_flops"] += mult * cs["flops"]
-    for s in summary.values():
-        s["bound_by"] = bound_ms(s.pop("_bytes"), s.pop("_flops"))[1]
-    return summary
-
-
-LAUNCHES_PER_FORWARD = {k: sum(v) for k, v in PER_FORWARD.items()}
+            f"({by}) per launch")
+        record(measured, key, label, err, ms, pms, lms, cs["nbytes"],
+               cs["flops"])
+    return measured
 
 
 def compare_paths(model, x, seed):
     """Logits and class maps of the kernel path against the plain path on
-    the same weights and against an fp32 plain model; fails past the
-    thresholds. Returns the plain bf16 model."""
-    from transception_tpu_torch.core.config import TransceptionConfig
+    the same weights and against an fp32 plain model, both with the kernel
+    model's structure (pinned); fails past the thresholds. Returns the
+    plain bf16 model."""
+    import dataclasses
+
     from transception_tpu_torch.models.transception import MSTransception
-    plain = MSTransception(TransceptionConfig(use_kernels=False), "cuda")
+    cfg = pinned(model.cfg)
+    plain = MSTransception(dataclasses.replace(cfg, use_kernels=False),
+                           "cuda")
     plain.load_state_dict(model.state_dict())
-    ref = MSTransception(TransceptionConfig(dtype="float32",
-                                            use_kernels=False), "cuda")
+    ref = MSTransception(dataclasses.replace(cfg, dtype="float32",
+                                             use_kernels=False), "cuda")
     ref.load_state_dict(model.state_dict())
     with torch.inference_mode():
         lk, lp, lr = model(x), plain(x), ref(x)
@@ -357,7 +477,10 @@ def model_phase():
         make_predictor,
         resize_slices,
     )
-    from transception_tpu_torch.models.transception import MSTransception
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_forward,
+    )
     from transception_tpu_torch.ops import kernels
 
     cfg = TransceptionConfig()
@@ -375,7 +498,7 @@ def model_phase():
     pred = predict.predict_volume(vol)
     torch.cuda.synchronize()
     vol_s = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts, tallies = kernels.launch_counts(), kernels.shape_counts()
     n_fwd = math.ceil(vol.shape[0] / BATCH)
     log(f"  predict_volume: {pred.shape} {pred.dtype} in {vol_s:.3f} s, "
         f"{n_fwd} forwards, launches {counts}")
@@ -383,8 +506,7 @@ def model_phase():
         fail(f"predict_volume output {pred.shape} {pred.dtype}")
     if pred.max() >= cfg.num_classes:
         fail(f"class id {pred.max()} out of range")
-    for name in counts:
-        per = LAUNCHES_PER_FORWARD[name]
+    for name, per in launches_per_forward(cfg).items():
         if counts[name] != per * n_fwd:
             fail(f"{name}: {counts[name]} launches, want {per} x {n_fwd}")
     log(f"  classes present: {np.bincount(pred.ravel(), minlength=9)}")
@@ -418,7 +540,7 @@ def model_phase():
 
     log("phase 7: device time of one kernel-path forward (torch.profiler)")
     profile_device(lambda: fwd(model), "forward")
-    return counts
+    return (tallies, n_fwd), x
 
 
 def profile_device(fn, label):
@@ -462,15 +584,15 @@ def profile_device(fn, label):
 # ---- the train step (phases 8-9) ----
 
 # Distinct (s, C, hidden, groups, eps_ln) of the MixFFN folds of the flash
-# train step and their launches per step: ETB stage 1 + decoder_0 and
-# bridge scale 1 (56², 64), MHCA stage 2 (28², 64, LN eps 1e-6), ETB
-# decoder_1 (28², 128), bridge scale 2 (28², 128, 2 groups), MHCA stage 3
-# (14², 128, eps 1e-6), ETB decoder_2 (14², 320), bridge scale 3 (14²,
-# 320, 5 groups). The 7x7 FFNs (MHCA stage 4, bridge scale 4) stay plain.
-FFN_SHAPES = ((56, 64, 256, 1, 1e-5, 8), (28, 64, 256, 1, 1e-6, 9),
-              (28, 128, 512, 1, 1e-5, 2), (28, 128, 512, 2, 1e-5, 4),
-              (14, 128, 512, 1, 1e-6, 24), (14, 320, 1280, 1, 1e-5, 2),
-              (14, 320, 1280, 5, 1e-5, 4))
+# train step: ETB stage 1 + decoder_0 and bridge scale 1 (56², 64), MHCA
+# stage 2 (28², 64, LN eps 1e-6), ETB decoder_1 (28², 128), bridge scale 2
+# (28², 128, 2 groups), MHCA stage 3 (14², 128, eps 1e-6), ETB decoder_2
+# (14², 320), bridge scale 3 (14², 320, 5 groups). The 7x7 FFNs (MHCA
+# stage 4, bridge scale 4) stay plain.
+FFN_SHAPES = ((56, 64, 256, 1, 1e-5), (28, 64, 256, 1, 1e-6),
+              (28, 128, 512, 1, 1e-5), (28, 128, 512, 2, 1e-5),
+              (14, 128, 512, 1, 1e-6), (14, 320, 1280, 1, 1e-5),
+              (14, 320, 1280, 5, 1e-5))
 # Launches per train step at batch 24, per train mode (ffn_flash_train).
 PER_STEP = {False: {"bridge_attention": 3, "bridge_attention_bwd": 3},
             True: {"bridge_attention": 3, "bridge_attention_bwd": 3,
@@ -505,40 +627,41 @@ def grads_check(name, got, want, names, tol=BWD_TOL):
     return worst, ok
 
 
-def train_kernel_phase():
-    """Phase 8. K10, K11 and the grouped K2 at the train step's shapes.
-    Returns per-kernel rows summed over one train step's launches."""
+def train_kernel_phase(measured):
+    """Phase 8. K3 and its backward K10, K11 and the grouped K2 at the
+    train step's shapes, added to `measured` per kernel and shape key."""
     from transception_tpu_torch.ops.kernels import (
         bridge_attention as ba,
         mixffn as mf,
     )
     gen = torch.Generator().manual_seed(2)
-    B, rows = TRAIN_BATCH, {}
+    B = TRAIN_BATCH
 
-    def row(name, module, source, err, ms, pms, bms, nbytes, flops, mult,
-            lms=None):
-        r = rows.setdefault(name, {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": module.BWD_REPLACES, "max_abs_err": 0.0, "ms": 0.0,
-            "plain_ms": 0.0, "bound_ms": 0.0,
-            "library_ms": None if lms is None else 0.0,
-            "_bytes": 0, "_flops": 0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += mult * ms
-        r["plain_ms"] += mult * pms
-        r["bound_ms"] += mult * bms
-        if lms is not None:
-            r["library_ms"] += mult * lms
-        r["_bytes"] += mult * nbytes
-        r["_flops"] += mult * flops
-
-    # K10 at the bridge's shapes; fault: dk's sign flipped.
+    # K3 and K10 at the bridge's shapes; K10's fault: dk's sign flipped.
     N, M, d = 6076, 784, 64
     q, k, v, g = (rand(gen, (B, 1, n, d), dtype=torch.bfloat16)
                   for n in (N, M, M, N))
     sc = d ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    label = f"q ({B},1,{N},{d}) kv ({B},1,{M},{d})"
+    with torch.no_grad():
+        key, got = launched_key(
+            "bridge_attention", lambda: ba.bridge_attention(q, k, v, sc))
+        err, ok = err_check(f"bridge_attention {label}", got,
+                            ba.bridge_attention_plain(q, k, v, sc), 0.02)
+        if not ok:
+            fail("bridge_attention disagrees with its plain version")
+        ms = cuda_ms(lambda: ba.bridge_attention(q, k, v, sc))
+        pms = cuda_ms(lambda: ba.bridge_attention_plain(q, k, v, sc),
+                      iters=5)
+        lms = cuda_ms(lambda: sdpa(q, k, v, scale=sc))
+    log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms (SDPA) {lms:.4f} "
+        f"per launch")
+    record(measured, key, label, err, ms, pms, lms,
+           2 * B * N * d * 2 + 2 * B * M * d * 2, 4 * B * N * M * d)
     names = ("dq", "dk", "dv")
-    got = ba.bridge_attention_bwd(q, k, v, g, sc)
+    key, got = launched_key("bridge_attention_bwd",
+                            lambda: ba.bridge_attention_bwd(q, k, v, g, sc))
     want = ba.bridge_attention_bwd_plain(q, k, v, g, sc)
     torch.cuda.synchronize()
     err, ok = grads_check("bridge_attention_bwd", got, want, names)
@@ -552,7 +675,7 @@ def train_kernel_phase():
         fail("bridge_attention_bwd: the check does not see a planted fault")
     log("    planted fault (dk negated) rejected")
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=sc)
+    out = sdpa(*leaves, scale=sc)
     ms = cuda_ms(lambda: ba.bridge_attention_bwd(q, k, v, g, sc))
     pms = cuda_ms(lambda: ba.bridge_attention_bwd_plain(q, k, v, g, sc),
                   iters=3)
@@ -562,15 +685,14 @@ def train_kernel_phase():
     flops = 10 * B * N * M * d
     bms, by = bound_ms(nbytes, flops)
     log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms (SDPA backward) "
-        f"{lms:.4f} bound_ms {bms:.4f} ({by}) x3 per step")
-    row("bridge_attention_bwd", ba, "transception_tpu_torch/csrc/"
-        "bridge_attention_bwd.cu", err, ms, pms, bms, nbytes, flops, 3, lms)
+        f"{lms:.4f} bound_ms {bms:.4f} ({by}) per launch")
+    record(measured, key, label, err, ms, pms, lms, nbytes, flops)
     del q, k, v, g, got, want, bad, leaves, out
 
     # K11 and the grouped K2 at every fold of the flash train step.
     names = ("dx", "dlts", "dltb", "dw1", "db1", "ddw", "ddwb", "dls", "dlb",
              "dw2", "db2")
-    for i, (s, C, hid, groups, eps_ln, mult) in enumerate(FFN_SHAPES):
+    for i, (s, C, hid, groups, eps_ln) in enumerate(FFN_SHAPES):
         gsz = C // groups
         x = rand(gen, (B, s * s, C), dtype=torch.bfloat16)
         gy = rand(gen, (B, s * s, C), dtype=torch.bfloat16)
@@ -583,7 +705,8 @@ def train_kernel_phase():
         label = f"({B},{s * s},{C}) hidden {hid} groups {groups} eps_ln " \
                 f"{eps_ln}"
         kw = dict(s=s, groups=groups, eps_ln=eps_ln)
-        got = mf.mixffn_ln_skip_bwd(x, *p, gy, **kw)
+        key, got = launched_key("mixffn_bwd", lambda: mf.mixffn_ln_skip_bwd(
+            x, *p, gy, **kw))
         want = mf.mixffn_ln_skip_bwd_plain(x, *p, gy, **kw)
         torch.cuda.synchronize()
         err, ok = grads_check(f"mixffn_bwd {label}", got, want, names)
@@ -615,19 +738,19 @@ def train_kernel_phase():
         flops = 10 * n * C * hid + 54 * n * hid
         bms, by = bound_ms(nbytes, flops)
         log(f"    ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} ({by}) "
-            f"x{mult} per step")
-        row("mixffn_bwd", mf, "transception_tpu_torch/csrc/mixffn_bwd.cu",
-            err, ms, pms, bms, nbytes, flops, mult)
+            f"per launch")
+        record(measured, key, label, err, ms, pms, None, nbytes, flops)
         # K2 forward at the same fold (grouped LN where groups > 1): the
         # branch alone; fault: the taps negated.
         lts, ltb = p[0][:gsz], p[1][:gsz]
         fargs = (x, lts, ltb) + p[2:]
         with torch.no_grad():
-            got = mf.mixffn_ln_skip(*fargs, **kw)
+            key, got = launched_key("mixffn", lambda: mf.mixffn_ln_skip(
+                *fargs, **kw))
             want = mf.mixffn_ln_skip_plain(*fargs, **kw)
             torch.cuda.synchronize()
-            _, ok = err_check(f"mixffn (train fold) {label}", got, want,
-                              0.02, base=x)
+            err, ok = err_check(f"mixffn (train fold) {label}", got, want,
+                                0.02, base=x)
             if not ok:
                 fail("mixffn disagrees with its plain version")
             badf = fargs[:5] + (-fargs[5],) + fargs[6:]
@@ -637,11 +760,13 @@ def train_kernel_phase():
             if caught:
                 fail("mixffn: the check does not see a planted fault")
             kms = cuda_ms(lambda: mf.mixffn_ln_skip(*fargs, **kw))
-        log(f"    forward ms {kms:.4f} x{mult} per step")
+            kpms = cuda_ms(lambda: mf.mixffn_ln_skip_plain(*fargs, **kw),
+                           iters=5)
+        log(f"    forward ms {kms:.4f} plain_ms {kpms:.4f} per launch")
+        record(measured, key, label, err, kms, kpms, None,
+               2 * n * C * 2 + 2 * C * hid * 2 + 9 * hid * 2,
+               4 * n * C * hid + 18 * n * hid)
         del x, gy, p, got, want, bad
-    for r in rows.values():
-        r["bound_by"] = bound_ms(r.pop("_bytes"), r.pop("_flops"))[1]
-    return rows
 
 
 def _train_cfg(flash, **kw):
@@ -702,7 +827,8 @@ def _compare_steps(tag, k, p, ref=None):
 
 
 def train_phase():
-    """Phase 9. Returns the launch counts of the flash-mode Trainer run."""
+    """Phase 9. Returns the launches per shape key of the flash-mode
+    Trainer run (three steps)."""
     import shutil
 
     from transception_tpu_torch.core.config import DataConfig, TrainConfig
@@ -718,7 +844,7 @@ def train_phase():
     from transception_tpu_torch.train.state import TrainState
     from transception_tpu_torch.train.trainer import Trainer, make_train_step
 
-    counts_out = None
+    tallies_out = None
     batch = DeviceSyntheticStream(TRAIN_BATCH, 224, 9, device="cuda").batch(0)
     img, lbl = batch["image"], batch["label"]
     for flash in (False, True):
@@ -734,7 +860,7 @@ def train_phase():
         kernels.reset_launches()
         st, hist = tr.train(max_steps=3)
         torch.cuda.synchronize()
-        counts = kernels.launch_counts()
+        counts, tallies = kernels.launch_counts(), kernels.shape_counts()
         log(f"  Trainer.train(max_steps=3): losses {hist['loss']} launches "
             f"{counts} ({time.perf_counter() - t0:.1f} s)")
         if st.step != 3 or not np.isfinite(hist["loss"]).all():
@@ -744,7 +870,7 @@ def train_phase():
                 fail(f"{name}: {n} launches in 3 steps, want 3 x "
                      f"{PER_STEP[flash].get(name, 0)}")
         if flash:
-            counts_out = counts
+            tallies_out = tallies
         ckpt = out / "ckpt" / "step_00000003.pt"
         if not ckpt.exists():
             fail(f"no checkpoint {ckpt}")
@@ -840,7 +966,101 @@ def train_phase():
         profile_device(lambda: kfn(img, lbl), f"train_{mode}")
         del model, kfn, sd0
         torch.cuda.empty_cache()
-    return counts_out
+    return tallies_out
+
+
+AGREE_MIN = 0.98  # class maps against "folds-off" (the JAX sweep's check)
+
+
+def fold_grid_phase(x):
+    """Phase 10. The published model (224², bf16, b=32, random weights
+    from seed 0) under every configuration of FOLD_GRID: launches per
+    forward against launches_per_forward, class maps against "folds-off",
+    the kernel path against use_kernels=False on the same weights and
+    config, forward time (CUDA events, best of two). Returns the launches
+    per shape key of each configuration's forward."""
+    import dataclasses
+
+    from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_forward,
+    )
+    from transception_tpu_torch.ops import kernels
+    sd, ids, tallies = None, {}, {}
+
+    def run(m, argmax):
+        with torch.inference_mode():
+            return m(x, argmax=argmax)
+
+    for name, over in FOLD_GRID:
+        cfg = pinned(TransceptionConfig(**over))
+        model = MSTransception(cfg, "cuda", seed=0)
+        if sd is None:
+            sd = model.state_dict()
+        else:
+            model.load_state_dict(sd)
+        run(model, True)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        ids[name] = run(model, True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        tallies[name] = kernels.shape_counts()
+        want = launches_per_forward(cfg)
+        logits = run(model, False)
+        ms = min(cuda_ms(lambda: run(model, True), iters=1, warmup=0)
+                 for _ in range(2))
+        plain = MSTransception(dataclasses.replace(cfg, use_kernels=False),
+                               "cuda")
+        plain.load_state_dict(sd)
+        p_ids, p_logits = run(plain, True), run(plain, False)
+        del plain
+        torch.cuda.synchronize()
+        rel = ((logits - p_logits).abs().max()
+               / p_logits.abs().max()).item()
+        agree_p = (ids[name] == p_ids).float().mean().item()
+        short = {k: n for k, n in counts.items() if n}
+        log(f"  {name}: launches {short}; {ms:.3f} ms/forward "
+            f"({BATCH * 1e3 / ms:.1f} slices/s); vs use_kernels=False: "
+            f"logits {rel:.6g} of max|plain| (threshold 0.05), class maps "
+            f"{agree_p:.6f} (threshold {AGREE_MIN})")
+        if counts != want:
+            fail(f"{name}: launches {counts}, want {want}")
+        if not torch.isfinite(logits).all() or rel > 0.05 or \
+                agree_p < AGREE_MIN:
+            fail(f"{name}: the kernel path disagrees with the plain path")
+        del model, logits, p_logits, p_ids
+        torch.cuda.empty_cache()
+    ref = ids["folds-off"]
+    for name, got in ids.items():
+        a = (got == ref).float().mean().item()
+        log(f"  {name}: class maps vs folds-off {a:.6f} "
+            f"(threshold {AGREE_MIN})")
+        if a < AGREE_MIN:
+            fail(f"{name}: class maps disagree with folds-off")
+    return tallies
+
+
+def run_summary(what, tallies, per, measured):
+    """Per kernel, the launches of one run (`tallies`, divided by `per`
+    forwards or steps) and their summed kernel, plain, bound and library
+    ms from the per-launch measurements of their shapes."""
+    sums = {}
+    for key, n in sorted(tallies.items()):
+        m = measured[key]
+        t = sums.setdefault(m["name"], [0, 0.0, 0.0, 0.0, 0.0])
+        t[0] += n / per
+        for i, k in enumerate(("ms", "plain_ms", "bound_ms"), 1):
+            t[i] += n / per * m[k]
+        if t[4] is not None and m["library_ms"] is not None:
+            t[4] += n / per * m["library_ms"]
+        else:
+            t[4] = None
+    for name, (n, ms, pms, bms, lms) in sums.items():
+        lib = "none" if lms is None else f"{lms:.4f} ms"
+        log(f"  {what}: {name} {n:g} launches, kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {bms:.4f} ms, library call {lib}")
 
 
 def main():
@@ -869,33 +1089,57 @@ def main():
 
     log("phase 3: kernels vs plain versions (bf16, batch 32)")
     t0 = time.perf_counter()
-    summary = kernel_phase()
+    measured = kernel_phase()
     log(f"  phase 3: {time.perf_counter() - t0:.1f} s")
 
     log("phase 4-6: published model through predict_volume")
     t0 = time.perf_counter()
-    counts = model_phase()
+    (fwd_tallies, n_fwd), x = model_phase()
     log(f"  phases 4-7: {time.perf_counter() - t0:.1f} s")
 
     log(f"phase 8: train-step kernels vs plain versions (bf16, batch "
         f"{TRAIN_BATCH})")
     t0 = time.perf_counter()
-    summary.update(train_kernel_phase())
+    train_kernel_phase(measured)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
 
     log(f"phase 9: the published train step, batch {TRAIN_BATCH}")
     t0 = time.perf_counter()
-    train_counts = train_phase()
+    step_tallies = train_phase()
     log(f"  phase 9: {time.perf_counter() - t0:.1f} s")
-    for name in ("bridge_attention_bwd", "mixffn_bwd"):
-        counts[name] = train_counts[name]
 
+    log(f"phase 10: the fold grid, published model, batch {BATCH}")
+    t0 = time.perf_counter()
+    grid_tallies = fold_grid_phase(x)
+    log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+
+    # The main-path runs: phase 4's forwards, phase 9's three flash steps,
+    # phase 10's forward per configuration. Every launch's shape must have
+    # been measured in phase 3 or 8, and every measured shape launched.
+    runs = [("per forward, default config", fwd_tallies, n_fwd),
+            ("per flash train step", step_tallies, 3)] + [
+        (f"per forward, {name}", t, 1) for name, t in grid_tallies.items()]
+    total = Counter()
+    for _, t, _ in runs:
+        total.update(t)
+    unmeasured = set(total) - set(measured)
+    if unmeasured:
+        fail(f"launched at shapes no phase measured: {sorted(unmeasured)}")
+    log("kernel time per run (launches x the per-launch times of phases 3 "
+        "and 8)")
+    for what, t, per in runs:
+        run_summary(what, t, per, measured)
     rows = []
-    for name, s in summary.items():
-        s["launches"] = counts[name]
-        rows.append({k: s[k] for k in (
-            "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    for key, m in measured.items():
+        if not total[key]:
+            fail(f"{m['name']} {m['shape']}: never launched on the main "
+                 f"path")
+        rows.append(dict(m, launches=total[key]))
+    from transception_tpu_torch.ops import kernels
+    idle = {name for name, _, _ in kernels.COUNTERS} - {
+        r["name"] for r in rows}
+    if idle:
+        fail(f"kernels never launched on the main path: {sorted(idle)}")
     log(json.dumps({"kernels": rows}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

@@ -121,13 +121,34 @@ def test_mhca_block_kernel(gen, B, s, C, hid):
     assert mb.launches == n0 + 1
 
 
-@pytest.mark.parametrize("shape,q_softmax", [((2, 8, 49, 40), False),
-                                             ((1, 2, 100, 64), True)])
+@pytest.mark.parametrize("shape,q_softmax", [
+    ((2, 8, 49, 40), False), ((1, 2, 100, 64), True),
+    # the ETB shapes (etb_attn_fold off) and the unfolded MHCA stages 2-3
+    ((2, 1, 3136, 64), True), ((2, 1, 784, 128), True),
+    ((2, 1, 196, 320), True), ((2, 8, 784, 8), False),
+    ((2, 8, 196, 16), False)])
 def test_linear_attention_kernel(gen, shape, q_softmax):
     q, k, v = (_r(gen, *shape, scale=f, dtype=torch.bfloat16)
                for f in (1.0, 3.0, 1.0))
-    _close(la.linear_attention(q, k, v, q_softmax),
-           la.linear_attention_plain(q, k, v, q_softmax))
+    scale = 1.0 if q_softmax else shape[-1] ** -0.5
+    n0 = la.launches
+    _close(la.linear_attention(q, k, v, q_softmax, scale),
+           la.linear_attention_plain(q, k, v, q_softmax, scale))
+    assert la.launches == n0 + 1
+
+
+@pytest.mark.parametrize("N,M", [(124, 16), (6076, 784)])
+def test_bridge_attention_folded_kernel(gen, N, M):
+    """K8 on its branch alone (output minus res), with a ragged tile."""
+    x, res = (_r(gen, 2, N, 64, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (_r(gen, 2, 1, M, 64, dtype=torch.bfloat16) for _ in range(2))
+    w = [_r(gen, 64, 64, scale=0.2), _r(gen, 64, scale=0.1)]
+    args = (x, res, w[0], w[1], k, v, _r(gen, 64, 64, scale=0.2),
+            _r(gen, 64, scale=0.1), 0.125)
+    n0 = ba.folded_launches
+    _close(ba.bridge_attention_folded(*args),
+           ba.bridge_attention_folded_plain(*args), base=res)
+    assert ba.folded_launches == n0 + 1
 
 
 @pytest.mark.parametrize("N,C,p", [(49, 512, 2), (50, 128, 2), (20, 64, 4)])
@@ -158,14 +179,23 @@ def test_kernels_raise_instead_of_falling_back(gen):
         ea.etb_attention(x, v, v, w, v, w, v, w, v, w, v)
     with pytest.raises(ValueError):
         ba.bridge_attention(x[None], x[None], x[None], 0.125)
+    with pytest.raises(ValueError):
+        ba.bridge_attention_folded(x, x, w, v, x[None], x[None], w, v, 0.125)
 
 
-def test_tiny_model_uses_every_kernel(gen):
+@pytest.mark.parametrize("folds", ["default", "all-on", "folds-off",
+                                   "mhca-ffn-fold"])
+def test_tiny_model_uses_every_kernel(gen, folds):
+    from chip_smoke import FOLD_GRID
     from transception_tpu_torch.core.config import TransceptionConfig
-    from transception_tpu_torch.models.transception import MSTransception
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_forward,
+    )
     from transception_tpu_torch.ops import kernels
     cfg = TransceptionConfig(img_size=32, stage1_layers=1,
-                             num_path=(1, 1, 1), num_layers=(1, 1, 1))
+                             num_path=(1, 1, 1), num_layers=(1, 1, 1),
+                             **dict(FOLD_GRID).get(folds, {}))
     m = MSTransception(cfg, device="cuda")
     kernels.reset_launches()
     with torch.inference_mode():
@@ -174,13 +204,14 @@ def test_tiny_model_uses_every_kernel(gen):
     assert ids.shape == (2, 32, 32) and ids.dtype == torch.uint8
     # img 32: MHCA maps 4², 2², 1²; even sides take the whole-block
     # kernel, the 1² stage its modules with the linear-attention kernel.
-    assert kernels.launch_counts() == {"etb_attention": 7, "mixffn": 7,
-                                       "bridge_attention": 3,
-                                       "expand_head": 1, "mhca_block": 2,
-                                       "linear_attention": 1,
-                                       "patch_expand": 3,
-                                       "bridge_attention_bwd": 0,
-                                       "mixffn_bwd": 0}
+    counts = kernels.launch_counts()
+    assert counts == launches_per_forward(cfg)
+    if folds == "default":
+        assert counts == {"etb_attention": 7, "mixffn": 7,
+                          "bridge_attention": 3, "expand_head": 1,
+                          "mhca_block": 2, "linear_attention": 1,
+                          "patch_expand": 3, "bridge_attention_bwd": 0,
+                          "mixffn_bwd": 0, "bridge_attention_folded": 0}
 
 
 @pytest.mark.parametrize("N,M", [(124, 16), (300, 128), (6076, 784)])
@@ -209,7 +240,8 @@ def _ffn_args(gen, B, s, C, hid, groups):
 
 @pytest.mark.parametrize("s,C,hid,groups,eps_ln", [
     (8, 64, 256, 1, 1e-5), (6, 128, 512, 1, 1e-6), (14, 128, 512, 2, 1e-5),
-    (14, 320, 1280, 5, 1e-5), (28, 64, 256, 1, 1e-6)])
+    (14, 320, 1280, 5, 1e-5), (28, 64, 256, 1, 1e-6),
+    (2, 512, 2048, 8, 1e-5)])  # the bridge's scale 4 at 64²
 def test_mixffn_bwd_kernel(gen, s, C, hid, groups, eps_ln):
     x, p = _ffn_args(gen, 3, s, C, hid, groups)
     g = _r(gen, *x.shape, dtype=torch.bfloat16)
@@ -224,7 +256,8 @@ def test_mixffn_bwd_kernel(gen, s, C, hid, groups, eps_ln):
 
 
 @pytest.mark.parametrize("s,C,hid,groups", [(28, 128, 512, 2),
-                                            (14, 320, 1280, 5)])
+                                            (14, 320, 1280, 5),
+                                            (2, 512, 2048, 8)])
 def test_mixffn_kernel_grouped(gen, s, C, hid, groups):
     x, p = _ffn_args(gen, 2, s, C, hid, groups)
     args = (x, p[0][:C // groups], p[1][:C // groups]) + p[2:]
@@ -265,6 +298,9 @@ def test_forward_only_kernels_refuse_a_graph(gen):
         ea.etb_attention(x, v, v, w, v, w, v, w, v, w, v)
     with torch.no_grad():
         ea.etb_attention(x, v, v, w, v, w, v, w, v, w, v)
+    kv = x[None]
+    with pytest.raises(RuntimeError, match="no backward"):
+        ba.bridge_attention_folded(x, x, w, v, kv, kv, w, v, 0.125)
 
 
 def test_tiny_model_train_step_kernels(gen):
@@ -287,10 +323,12 @@ def test_tiny_model_train_step_kernels(gen):
         assert counts["bridge_attention"] == 3
         assert counts["bridge_attention_bwd"] == 3
         # img 64: ETB maps 16, 8, 4 (7); MHCA maps 8, 4 (2); bridge 16,
-        # 8, 4 (12); the 2x2 MHCA map (stage 4) is even too (1).
-        n_ffn = 22 if flash else 0
+        # 8, 4, 2 (16); the 2x2 MHCA map (stage 4) is even too (1). The
+        # 2x2 maps of 320 and 512 channels take K2 and K11 as the others.
+        n_ffn = 26 if flash else 0
         assert counts["mixffn"] == counts["mixffn_bwd"] == n_ffn
         for name in ("etb_attention", "expand_head", "mhca_block",
-                     "linear_attention", "patch_expand"):
+                     "linear_attention", "patch_expand",
+                     "bridge_attention_folded"):
             assert counts[name] == 0
         assert all(p.grad is not None for p in m.parameters())

@@ -19,7 +19,9 @@ MODEL_FIELDS = (
     "num_path", "num_layers", "num_heads", "mlp_ratio", "token_mlp",
     "concat", "have_bridge", "br_ch_att_list", "stage_3or4", "bridge_dim",
     "bridge_heads", "reduction_ratios", "dtype", "drop_rate",
-    "drop_path_rate", "ffn_flash_train")
+    "drop_path_rate", "ffn_flash_train", "bridge_attn_fold",
+    "bridge_ffn_use_pallas", "etb_attn_fold", "etb_ffn_fold", "mhca_ffn_fold",
+    "mhca_block_fold")
 # DataConfig fields the port mirrors (those its train loop reads).
 DATA_FIELDS = ("dataset", "img_size", "num_classes", "synthetic_len")
 
@@ -155,6 +157,25 @@ def test_kernel_switch_is_scoped():
             pass
 
 
+def test_shape_tallies_split_the_counters():
+    """Each launch is tallied by shape beside its counter; reset_launches
+    clears both, and the CPU path tallies nothing."""
+    from transception_tpu_torch.ops import kernels
+    from transception_tpu_torch.ops.kernels import _build
+    from transception_tpu_torch.ops.kernels import linear_attention as la
+    kernels.reset_launches()
+    _build.tally("mixffn", (2, 64, 16), 64, 1)
+    _build.tally("mixffn", (2, 64, 16), 64, 1)
+    _build.tally("mixffn", (2, 64, 16), 64, 2)
+    assert kernels.shape_counts() == {("mixffn", (2, 64, 16), 64, 1): 2,
+                                      ("mixffn", (2, 64, 16), 64, 2): 1}
+    kernels.reset_launches()
+    assert kernels.shape_counts() == {}
+    q = torch.zeros(1, 2, 16, 8, dtype=torch.bfloat16)
+    la.linear_attention(q, q, q)
+    assert kernels.shape_counts() == {}
+
+
 def test_forward_only_guard_decides_on_graph():
     """A kernel without a backward must not return a result without a
     graph: the guard raises where autograd records and an input requires
@@ -196,8 +217,23 @@ def test_kernel_sets_match_jax_train_step_gating(use_kernels, flash):
     assert ("mixffn" in got) == bool(jc.bridge_ffn_use_pallas
                                      and jc.etb_ffn_fold and jc.mhca_ffn_fold)
     for eval_only in ("etb_attention", "expand_head", "mhca_block",
-                      "linear_attention", "patch_expand"):
+                      "linear_attention", "patch_expand",
+                      "bridge_attention_folded"):
         assert eval_only not in got
     assert not jc.mhca_block_fold or not use_kernels
     want_eval = kernels.SWITCHES if use_kernels else frozenset()
     assert kernels.kernel_set(pc, training=False) == want_eval
+    # The train step's fold switches are JAX's train model's (with the
+    # kernels on; the port keeps that structure for its plain path too).
+    sw = pcfg.fold_switches(pc, training=True)
+    if use_kernels:
+        def on(v):  # JAX's None follows its (off) use_pallas
+            return bool(jc.use_pallas if v is None else v)
+        assert sw == pcfg.FoldSwitches(
+            bridge_attn=on(jc.bridge_attn_fold),
+            bridge_ffn=on(jc.bridge_ffn_use_pallas),
+            etb_attn=on(jc.etb_attn_fold), etb_ffn=on(jc.etb_ffn_fold),
+            mhca_block=on(jc.mhca_block_fold), mhca_ffn=on(jc.mhca_ffn_fold))
+    assert sw == pcfg.fold_switches(
+        pcfg.TransceptionConfig(use_kernels=True, ffn_flash_train=flash),
+        training=True)

@@ -77,9 +77,56 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
     ((1, 8, 49, 40),) * 3 + (torch.float32,),                  # bf16 only
     ((1, 8, 49, 40), (1, 8, 48, 40), (1, 8, 49, 40), torch.bfloat16),
     ((1, 49, 40),) * 3 + (torch.bfloat16,),                    # not 4-D
-    ((1, 1, 6076, 64),) * 3 + (torch.bfloat16,),               # smem
+    ((1, 1, 64, 1024),) * 3 + (torch.bfloat16,),               # smem
 ])
 def test_kernel_checks_raise(qs, ks, vs, dtype):
     q, k, v = (torch.zeros(s, dtype=dtype) for s in (qs, ks, vs))
     with pytest.raises(ValueError):
         la._check(q, k, v)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 49, 40), (2, 8, 196, 16),
+                                   (2, 8, 784, 8)])
+def test_factorized_attention_rounds_once_bf16(shape):
+    """The MHCA factorized attention in bf16 against JAX
+    factorized_attention(use_pallas=False), the path the JAX package takes
+    at every MHCA head dim: the scale multiplies the fp32 product and the
+    result is rounded once. Rounding the product, scaling and rounding
+    again puts ~27% of the outputs one bf16 ulp off at d = 40. Both sides
+    round softmax(K) and the context at the same points; only the fp32
+    summation order differs, so at most 1% of the outputs may differ, by at
+    most one bf16 ulp of the output scale."""
+    q, k, v = _qkv(shape, seed=3)
+    jq = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    scale = shape[-1] ** -0.5
+    want = np.asarray(j_factorized(*jq, scale).astype(jnp.float32))
+    qt = [torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+          for a in jq]
+    got = factorized_attention(*qt, scale).float().numpy()
+    assert (got != want).mean() <= 0.01
+    assert np.abs(got - want).max() <= 2.0 ** -7 * np.abs(want).max()
+
+
+def test_plain_matches_pallas_interpret_long_n_bf16():
+    """The ETB shape of stage 1 at batch 1, (1, 1, 3136, 64), with the
+    softmax of Q: where etb_attn_fold=False sends the kernel. Tolerance as
+    the short shapes' (2 bf16 ulps of the output scale)."""
+    qj = [jnp.asarray(a, jnp.bfloat16) for a in _qkv((1, 1, 3136, 64), 4)]
+    want = np.asarray(pallas_linear_attention(*qj, q_softmax=True,
+                                              interpret=True), np.float32)
+    qt = [torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+          for a in qj]
+    got = la.linear_attention(*qt, True).float().numpy()
+    assert np.abs(got - want).max() <= 2 * 2.0 ** -8 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("N,dk,dv,bh,want", [
+    (49, 40, 40, 256, 2), (3136, 64, 64, 32, 9), (784, 128, 128, 32, 3),
+    (196, 320, 320, 32, 1), (784, 8, 8, 256, 2), (5, 64, 64, 1, 1)])
+def test_segments_fill_the_card(N, dk, dv, bh, want):
+    """N is cut into enough non-empty segments of at least 32 rows for
+    ~2 blocks per SM (context tiles x segments x batch·heads)."""
+    S = la.segments(N, dk, dv, bh)
+    assert S == want
+    rps = -(-N // S)
+    assert (S - 1) * rps < N

@@ -187,9 +187,13 @@ def test_takes_the_train_shapes(monkeypatch, s, C, hid, ok):
 
 @pytest.mark.parametrize("s,C,hid", [(56, 64, 256), (7, 512, 2048)])
 def test_eval_folds_always_take_the_wrapper(monkeypatch, s, C, hid):
-    """Out of training every fold goes through the kernel wrapper, which
-    raises on a card tensor its kernel cannot take: no plain fallback."""
-    assert _folded_route(monkeypatch, s, C, hid, False) == ["mixffn_ln_skip"]
+    """Out of training the folds route as in training, by shape before
+    the call: the kernel wrapper (which raises on a card tensor its kernel
+    cannot take: no fallback after a failure) on an even-sided map, the
+    plain version on the 7x7 bridge scale 4, where the JAX package runs
+    XLA in eval too."""
+    want = "mixffn_ln_skip" if s % 2 == 0 else "mixffn_ln_skip_plain"
+    assert _folded_route(monkeypatch, s, C, hid, False) == [want]
 
 
 def test_k11_wrapper_refuses_rows_over_shared_memory():

@@ -133,11 +133,25 @@ def _port_run(setup, wide, flash):
     return out
 
 
+@pytest.fixture(scope="module")
+def port_run(setup):
+    """_port_run by (wide, flash), each run once per module: the
+    flash-equals-default check reuses the wide runs of the JAX
+    comparison."""
+    runs = {}
+
+    def get(wide, flash):
+        if (wide, flash) not in runs:
+            runs[wide, flash] = _port_run(setup, wide, flash)
+        return runs[wide, flash]
+    return get
+
+
 @pytest.mark.parametrize("flash", [False, True], ids=["default", "flash"])
-def test_train_step_matches_jax(setup, jax_run, flash):
+def test_train_step_matches_jax(setup, jax_run, port_run, flash):
     wide, jout = jax_run
     jc, _, v, _, _ = setup
-    pout = _port_run(setup, wide, flash)
+    pout = port_run(wide, flash)
     # Step 1: losses, every gradient leaf, the updated state.
     for k, want in jout[0]["metrics"].items():
         assert pout[0]["metrics"][k] == pytest.approx(want, rel=1e-5), k
@@ -164,8 +178,8 @@ def test_train_step_matches_jax(setup, jax_run, flash):
         torch.testing.assert_close(t, js[n], rtol=1e-4, atol=1e-5, msg=n)
 
 
-def test_flash_mode_equals_default_on_cpu(setup):
-    a, b = (_port_run(setup, True, flash) for flash in (False, True))
+def test_flash_mode_equals_default_on_cpu(port_run):
+    a, b = (port_run(True, flash) for flash in (False, True))
     for k in a[0]["metrics"]:
         assert b[0]["metrics"][k] == pytest.approx(a[0]["metrics"][k],
                                                    rel=1e-6)

@@ -2,18 +2,23 @@
 
 TransceptionConfig mirrors the model-defining fields of the JAX package's
 TransceptionConfig (same names, same defaults: the published 82.24-DSC
-MSTransception, networks/MSTr.py:2759-2823), plus its `ffn_flash_train`.
-The TPU-only knobs (remat, vectorize_paths, bridge sequence sharding, the
-per-op fold switches, lane packing, use_pallas_train and the kernel
-fallback ladder) are not carried over; one switch, `use_kernels`, selects
-the hand-written CUDA kernels on the card. TrainConfig mirrors the JAX
-TrainConfig field for field; DataConfig the fields the train loop reads.
+MSTransception, networks/MSTr.py:2759-2823), its `ffn_flash_train` and its
+six per-op fold switches (bridge_attn_fold, bridge_ffn_use_pallas,
+etb_attn_fold, etb_ffn_fold, mhca_ffn_fold, mhca_block_fold), each picking
+for one family of blocks between one folded kernel and the chain of
+separate modules; `fold_switches` resolves them for eval or training. The
+TPU-only knobs (remat, vectorize_paths, bridge sequence sharding,
+bridge_use_pallas, lane packing, use_pallas_train and the kernel fallback
+ladder) are not carried over; `use_kernels` selects the hand-written CUDA
+kernels on the card (and what a fold switch of None follows, as JAX's
+follow use_pallas). TrainConfig mirrors the JAX TrainConfig field for
+field; DataConfig the fields the train loop reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -65,6 +70,26 @@ class TransceptionConfig:
     # field of this name; off, the train step runs only the bridge
     # attention kernels (ops.kernels.kernel_set).
     ffn_flash_train: bool = False
+    # Per-op fold switches (JAX core/config.py:129-179, same defaults; None
+    # follows use_kernels). Each picks the structure a family of blocks
+    # runs in eval, whatever the device (fold_switches):
+    #   bridge_attn_fold: the bridge spatial attention with its q/out
+    #     projections and the residual as one kernel (K8), else q Dense ->
+    #     K3 -> proj -> + residual;
+    #   bridge_ffn_use_pallas: the bridge's norm2 (as a grouped LN) and
+    #     residual folded into its per-scale FFNs (K2 at scales 1-3);
+    #   etb_attn_fold / etb_ffn_fold: each EfficientTransformerBlock's
+    #     attention sub-block as K1, else norm1 -> EfficientAttention (K6
+    #     with the softmax of Q) -> + x; its FFN sub-block as K2, else
+    #     norm2 -> MixFFN_skip -> + x;
+    #   mhca_block_fold: each MHCA block on an even-sided map as K5;
+    #   mhca_ffn_fold: else its FFN sub-block as K2 (even-sided maps).
+    bridge_attn_fold: Optional[bool] = False
+    bridge_ffn_use_pallas: Optional[bool] = False
+    etb_attn_fold: Optional[bool] = None
+    etb_ffn_fold: Optional[bool] = None
+    mhca_ffn_fold: Optional[bool] = False
+    mhca_block_fold: Optional[bool] = True
     # Run the hand-written CUDA kernels (ops/kernels) on CUDA tensors.
     # False runs their plain PyTorch versions instead (comparison only).
     use_kernels: bool = True
@@ -112,6 +137,56 @@ class TransceptionConfig:
                 raise ValueError("bridge requires dims that are multiples "
                                  "of bridge_dim")
         return self
+
+
+class FoldSwitches(NamedTuple):
+    """The resolved fold switches: which structure each family of blocks
+    runs (True: the folded kernel's structure)."""
+
+    bridge_attn: bool
+    bridge_ffn: bool
+    etb_attn: bool
+    etb_ffn: bool
+    mhca_block: bool
+    mhca_ffn: bool
+
+
+def fold_switches(cfg: TransceptionConfig, training: bool) -> FoldSwitches:
+    """The fold switches a model with config `cfg` runs. In eval a switch
+    of None follows use_kernels (JAX: use_pallas). In training they resolve
+    as JAX train_step_model does (train/trainer.py:107-117): the bridge
+    attention and the MHCA block unfolded, the ETB attention unfolded (the
+    plain chain: K6 has no backward), the three FFN folds on only with
+    ffn_flash_train. The train resolution does not depend on use_kernels,
+    so the plain path (use_kernels=False) runs the kernel path's structure.
+    A function of the config alone, never of the device."""
+    if training:
+        f = cfg.ffn_flash_train
+        return FoldSwitches(bridge_attn=False, bridge_ffn=f, etb_attn=False,
+                            etb_ffn=f, mhca_block=False, mhca_ffn=f)
+
+    def pick(v):
+        return cfg.use_kernels if v is None else bool(v)
+
+    return FoldSwitches(
+        bridge_attn=pick(cfg.bridge_attn_fold),
+        bridge_ffn=pick(cfg.bridge_ffn_use_pallas),
+        etb_attn=pick(cfg.etb_attn_fold), etb_ffn=pick(cfg.etb_ffn_fold),
+        mhca_block=pick(cfg.mhca_block_fold),
+        mhca_ffn=pick(cfg.mhca_ffn_fold))
+
+
+Folds = Tuple[FoldSwitches, FoldSwitches]
+
+
+def fold_table(cfg: TransceptionConfig) -> Folds:
+    """fold_switches of `cfg` indexed by `training` (False, True): what a
+    model passes down to its blocks, which pick by their .training."""
+    return fold_switches(cfg, False), fold_switches(cfg, True)
+
+
+# The default config's: a block's default when built on its own.
+DEFAULT_FOLDS: Folds = fold_table(TransceptionConfig())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -66,8 +66,8 @@ mixffn_ln_skip_kernel(const bf16* x, const float* lts, const float* ltb,
   size_t off = (size_t)3 * SP * C * 2;
   float* hst = reinterpret_cast<float*>(smem + off);  // 3*SP x HC | SP x C
   off += (size_t)max(3 * SP * HC, SP * C) * 4;
-  float* Y = reinterpret_cast<float*>(smem + off);  // SP x hid
-  off += (size_t)SP * hid * 4;
+  float* Y = reinterpret_cast<float*>(smem + off);  // s x hid
+  off += (size_t)s * hid * 4;
   bf16* A = reinterpret_cast<bf16*>(smem + off);  // SP x hid
   const bf16* xb = x + (size_t)b * s * s * C;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -156,7 +156,8 @@ mixffn_ln_skip_kernel(const bf16* x, const float* lts, const float* ltb,
 inline size_t smem_bytes(int s, int C, int hid) {
   const int SP = (s + 15) & ~15;
   const int stage = 3 * SP * HC > SP * C ? 3 * SP * HC : SP * C;
-  return (size_t)3 * SP * C * 2 + (size_t)stage * 4 + (size_t)SP * hid * 6;
+  return (size_t)3 * SP * C * 2 + (size_t)stage * 4 + (size_t)s * hid * 4 +
+         (size_t)SP * hid * 2;
 }
 
 }  // namespace mixffn

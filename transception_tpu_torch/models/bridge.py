@@ -15,6 +15,7 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
+from transception_tpu_torch.core.config import DEFAULT_FOLDS, Folds
 from transception_tpu_torch.ops import kernels
 from transception_tpu_torch.ops.attention import efficient_linear_attention
 from transception_tpu_torch.ops.common import (
@@ -91,12 +92,15 @@ class ScaleReduce(nn.Module):
 class MEfficientSelfAtten(nn.Module):
     """Bridge spatial attention (MSTr.py:2254-2292): softmax attention of
     the full stream against the Scale_reduce'd KV, through the bridge
-    attention kernel."""
+    attention kernel; with bridge_attn_fold and a residual given, the q
+    projection, the attention, the out projection and the residual as one
+    call of the folded kernel (JAX models/bridge.py:193-207)."""
 
     def __init__(self, dim: int, head: int, geo: BridgeGeometry,
-                 reduction_ratio: Tuple[int, ...], dtype=torch.bfloat16):
+                 reduction_ratio: Tuple[int, ...], dtype=torch.bfloat16,
+                 folds: Folds = DEFAULT_FOLDS):
         super().__init__()
-        self.head = head
+        self.head, self.folds = head, folds
         self.q = Linear(dim, dim, dtype=dtype)
         self.kv = Linear(dim, 2 * dim, dtype=dtype)
         self.proj = Linear(dim, dim, dtype=dtype)
@@ -109,6 +113,10 @@ class MEfficientSelfAtten(nn.Module):
         xr = self.scale_reduce(x)
         M = xr.shape[1]
         kv = self.kv(xr).reshape(B, M, 2, h, d).permute(2, 0, 3, 1, 4)
+        if residual is not None and self.folds[self.training].bridge_attn:
+            return kernels.bridge_attention.bridge_attention_folded(
+                x, residual, self.q.weight, self.q.bias, kv[0], kv[1],
+                self.proj.weight, self.proj.bias, d ** -0.5)
         q = self.q(x).reshape(B, N, h, d).transpose(1, 2)
         out = kernels.bridge_attention.bridge_attention(q, kv[0], kv[1],
                                                         d ** -0.5)
@@ -145,22 +153,23 @@ class MEfficientChannelAtten(nn.Module):
 class BridgeLayer4(nn.Module):
     """One bridge layer (MSTr.py:2356-2409): LN -> attention ->
     residual -> LN -> per-scale MixFFN_skip at native widths -> residual.
-    In the flash train mode norm2 and the residual fold into the per-scale
-    FFNs, norm2 as a grouped LN on each scale's wide layout (JAX
-    models/bridge.py:353-408): the MixFFN kernel at scales 1-3, its plain
-    version at the 7x7 scale."""
+    With bridge_ffn_use_pallas (in eval, or in the flash train mode) norm2
+    and the residual fold into the per-scale FFNs, norm2 as a grouped LN on
+    each scale's wide layout (JAX models/bridge.py:353-408): the MixFFN
+    kernel at scales 1-3, its plain version at the 7x7 scale."""
 
     def __init__(self, geo: BridgeGeometry, head: int, ch_att: bool,
-                 reduction_ratio: Tuple[int, ...], dtype=torch.bfloat16):
+                 reduction_ratio: Tuple[int, ...], dtype=torch.bfloat16,
+                 folds: Folds = DEFAULT_FOLDS):
         super().__init__()
-        self.geo, self.ch_att = geo, ch_att
+        self.geo, self.ch_att, self.folds = geo, ch_att, folds
         C = geo.c
         self.norm1 = LayerNorm(C, dtype=dtype)
         if ch_att:
             self.attn = MEfficientChannelAtten(C, head, dtype)
         else:
             self.attn = MEfficientSelfAtten(C, head, geo, reduction_ratio,
-                                            dtype)
+                                            dtype, folds)
         self.norm2 = LayerNorm(C, dtype=dtype)
         for i, m in enumerate(geo.mults):
             self.add_module(f"mixffn{i + 1}",
@@ -175,7 +184,7 @@ class BridgeLayer4(nn.Module):
             tx1 = inputs + self.attn(h)
         else:
             tx1 = self.attn(h, residual=inputs)
-        if self.training and kernels.active("mixffn"):
+        if self.folds[self.training].bridge_ffn:
             outs = []
             for i, (s, m, part) in enumerate(zip(geo.sides, geo.mults,
                                                  geo.split(tx1))):
@@ -199,12 +208,13 @@ class BridgeBlock4(nn.Module):
 
     def __init__(self, geo: BridgeGeometry, head: int,
                  br_ch_att_list: Tuple[bool, ...],
-                 reduction_ratio: Tuple[int, ...], dtype=torch.bfloat16):
+                 reduction_ratio: Tuple[int, ...], dtype=torch.bfloat16,
+                 folds: Folds = DEFAULT_FOLDS):
         super().__init__()
         self.geo = geo
         for i, ch_att in enumerate(br_ch_att_list):
             self.add_module(f"bridge_layer{i + 1}", BridgeLayer4(
-                geo, head, ch_att, reduction_ratio, dtype))
+                geo, head, ch_att, reduction_ratio, dtype, folds))
         self.n_layers = len(br_ch_att_list)
 
     def forward(self, maps: Sequence[torch.Tensor]) -> List[torch.Tensor]:

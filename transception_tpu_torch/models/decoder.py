@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from transception_tpu_torch.core.config import DEFAULT_FOLDS, Folds
 from transception_tpu_torch.ops import kernels
 from transception_tpu_torch.ops.attention import EfficientTransformerBlock
 from transception_tpu_torch.ops.common import (
@@ -27,11 +28,11 @@ class DecoderLayer(nn.Module):
     """One decoder stage. in_dim is the reference's in_out_chan[0]: the
     [tokens from below, skip map] concatenation is 2·in_dim wide (4·in_dim
     at the last stage). bottom=True builds the bottom stage, which only
-    patch-expands (MSTr.py:284-289)."""
+    patch-expands (MSTr.py:284-289). `folds` reach the two blocks."""
 
     def __init__(self, in_dim: int, out_dim: int, n_class: int = 9,
                  is_last: bool = False, bottom: bool = False,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, folds: Folds = DEFAULT_FOLDS):
         super().__init__()
         self.out_dim = out_dim
         self.is_last, self.bottom, self.dtype = is_last, bottom, dtype
@@ -40,8 +41,8 @@ class DecoderLayer(nn.Module):
             return
         cat_dim = in_dim * (4 if is_last else 2)
         self.concat_linear = Linear(cat_dim, out_dim, dtype=dtype)
-        self.layer_former_1 = EfficientTransformerBlock(out_dim, dtype)
-        self.layer_former_2 = EfficientTransformerBlock(out_dim, dtype)
+        self.layer_former_1 = EfficientTransformerBlock(out_dim, dtype, folds)
+        self.layer_former_2 = EfficientTransformerBlock(out_dim, dtype, folds)
         if is_last:
             self.layer_up = FinalPatchExpandX4(out_dim, dtype)
             # fp32 head (logits policy of the JAX package).

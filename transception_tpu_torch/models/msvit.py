@@ -14,7 +14,13 @@ from typing import List
 import torch
 from torch import nn
 
-from transception_tpu_torch.core.config import CRPE_WINDOW, TransceptionConfig
+from transception_tpu_torch.core.config import (
+    CRPE_WINDOW,
+    DEFAULT_FOLDS,
+    Folds,
+    TransceptionConfig,
+    fold_table,
+)
 from transception_tpu_torch.ops.attention import (
     EfficientTransformerBlock,
     MHCAEncoder,
@@ -30,12 +36,12 @@ class MHCAStage(nn.Module):
 
     def __init__(self, embed_dim: int, out_embed_dim: int, num_layers: int,
                  num_heads: int, mlp_ratio: int, num_path: int,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, folds: Folds = DEFAULT_FOLDS):
         super().__init__()
         self.InvRes = ResBlock(embed_dim, dtype)
         self.mhca_blks = nn.ModuleList(
             MHCAEncoder(embed_dim, num_layers, num_heads, mlp_ratio,
-                        CRPE_WINDOW, dtype)
+                        CRPE_WINDOW, dtype, folds)
             for _ in range(num_path))
         self.aggregate = CoordAtt(embed_dim * (num_path + 1), out_embed_dim,
                                   16, dtype)
@@ -49,16 +55,18 @@ class MHCAStage(nn.Module):
 class MSViT(nn.Module):
     """Stage 1: overlap patch embed (7/4/3) + `stage1_layers` efficient
     transformer blocks + LN. Stages 2-4: RIPM patch-embed stage + MHCA
-    stage. Returns the 4 NHWC scale maps."""
+    stage. Returns the 4 NHWC scale maps. The blocks run the structure of
+    cfg's fold switches (JAX msvit.py:182-293)."""
 
     def __init__(self, cfg: TransceptionConfig):
         super().__init__()
         dt = cfg.compute_dtype
+        folds = fold_table(cfg)
         d = cfg.dims
         self.patch_embed1 = OverlapPatchEmbed(cfg.in_chans, d[0], 7, 4, 3,
                                               dtype=dt)
         self.block1 = nn.ModuleList(
-            EfficientTransformerBlock(d[0], dt)
+            EfficientTransformerBlock(d[0], dt, folds)
             for _ in range(cfg.stage1_layers))
         self.norm1 = LayerNorm(d[0], dtype=dt)
         for s in range(3):
@@ -66,7 +74,7 @@ class MSViT(nn.Module):
                 d[s], cfg.num_path[s], is_pool=True, dtype=dt))
             self.add_module(f"mhca_stage{s + 2}", MHCAStage(
                 d[s], d[s + 1], cfg.num_layers[s], cfg.num_heads[s],
-                cfg.mlp_ratio, cfg.num_path[s], dt))
+                cfg.mlp_ratio, cfg.num_path[s], dt, folds))
 
     def forward(self, x) -> List[torch.Tensor]:
         t, H, W = self.patch_embed1(x)

@@ -6,8 +6,10 @@ in and out: input (B, H, W, 1|3), output (B, H, W, num_classes) fp32
 logits, (B, H, W) uint8 class ids with argmax=True, or in training the
 pre-shuffle logits with wide_head=True. Gray inputs are repeated to 3
 channels (MSTr.py:2828-2829). Built in eval mode; .train() switches
-BatchNorm to batch statistics and the kernels to the train step's set
-(ops.kernels.kernel_set).
+BatchNorm to batch statistics, the blocks to the train step's fold
+switches (core.config.fold_switches) and the kernels to the train step's
+set (ops.kernels.kernel_set). Every fold configuration has the same
+parameters: one state_dict (and one load_jax_variables) serves them all.
 """
 
 from __future__ import annotations
@@ -15,7 +17,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from transception_tpu_torch.core.config import TransceptionConfig
+from transception_tpu_torch.core.config import (
+    TransceptionConfig,
+    fold_switches,
+    fold_table,
+)
 from transception_tpu_torch.core.device import DeviceLike, resolve_device
 from transception_tpu_torch.models.bridge import BridgeBlock4, BridgeGeometry
 from transception_tpu_torch.models.decoder import DecoderLayer
@@ -41,16 +47,17 @@ class MSTransception(nn.Module):
                              "model on the card with use_kernels=False")
         self.cfg = cfg
         dt = cfg.compute_dtype
+        folds = fold_table(cfg)
         self.backbone = MSViT(cfg)
         geo = BridgeGeometry(cfg.img_size, cfg.dims, cfg.bridge_dim)
         self.bridge = BridgeBlock4(geo, cfg.bridge_heads, cfg.br_ch_att_list,
-                                   cfg.reduction_ratios, dt)
+                                   cfg.reduction_ratios, dt, folds)
         d = cfg.dims
         ins = cfg.decoder_in_chans()
         for i in range(4):
             self.add_module(f"decoder_{3 - i}", DecoderLayer(
                 ins[i], d[3 - i], cfg.num_classes, is_last=(i == 3),
-                bottom=(i == 0), dtype=dt))
+                bottom=(i == 0), dtype=dt, folds=folds))
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(dev).eval()
 
@@ -71,3 +78,50 @@ class MSTransception(nn.Module):
             t = self.decoder_1(t, enc[1])
             return self.decoder_0(t, enc[0], argmax_head=argmax,
                                   wide_head=wide_head)
+
+
+def launches_per_forward(cfg: TransceptionConfig,
+                         argmax: bool = True) -> dict:
+    """Kernel launches of one eval forward of an MSTransception with config
+    `cfg` on the card, per counter of ops.kernels.launch_counts: a pure
+    function of the config (the structure its fold switches give each
+    block at each map side). chip_smoke.py holds the card's counters to it.
+    Without use_kernels every count is 0."""
+    counts = {name: 0 for name, _, _ in kernels.COUNTERS}
+    if not cfg.use_kernels:
+        return counts
+    sw = fold_switches(cfg, training=False)
+    s1 = cfg.stage1_res
+    takes = kernels.mixffn.takes
+
+    def add(name, n=1):
+        counts[name] += n
+
+    # Stage 1 and decoders 2/1/0: two ETBs each at s1, s1/4, s1/2, s1.
+    for s in [s1] * cfg.stage1_layers + [s1 // 4, s1 // 2, s1] * 2:
+        add("etb_attention" if sw.etb_attn else "linear_attention")
+        if sw.etb_ffn and takes(s):
+            add("mixffn")
+    # MHCA stages 2-4 at s1/2, s1/4, s1/8.
+    for i, (paths, layers) in enumerate(zip(cfg.num_path, cfg.num_layers)):
+        s, n = s1 >> (i + 1), paths * layers
+        if sw.mhca_block and s % 2 == 0:
+            add("mhca_block", n)
+            continue
+        add("linear_attention", n)
+        if sw.mhca_ffn and takes(s):
+            add("mixffn", n)
+    # Bridge: spatial attention layers; the per-scale FFN folds.
+    for ch_att in cfg.br_ch_att_list:
+        if not ch_att:
+            add("bridge_attention_folded" if sw.bridge_attn
+                else "bridge_attention")
+        if sw.bridge_ffn:
+            add("mixffn", sum(takes(s1 >> i) for i in range(4)))
+    # Decoders 3/2/1 expand x2; decoder 0 x4 (+ head + argmax in bf16).
+    add("patch_expand", 3)
+    if argmax and cfg.compute_dtype == torch.bfloat16:
+        add("expand_head")
+    else:
+        add("patch_expand")
+    return counts

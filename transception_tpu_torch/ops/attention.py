@@ -6,14 +6,19 @@
                                                 networks/MSTr.py:755-886
   * MHCA block/encoder wiring.                  networks/MSTr.py:905-993
 
-The EfficientTransformerBlock runs its two sub-blocks through the folded
-kernels of ops/kernels (ETB attention, MixFFN); an MHCA block on an
-even-sided map is one call of the whole-block kernel, on an odd-sided map
-(stage 4) its modules run with the linear-attention kernel. In training
-the kernels without a backward are off (ops.kernels.kernel_set): the ETB
-attention runs plain, the MHCA block its modules, and with the MixFFN
-kernel on (ffn_flash_train) the MHCA FFN sub-block folds as the ETB's
-does.
+Each block picks its structure from the fold switches of its config
+(core.config.fold_switches, passed down as `folds` and indexed by the
+module's .training), as the JAX modules do from theirs:
+  * EfficientTransformerBlock: the attention sub-block as the folded ETB
+    kernel (K1) or norm1 -> EfficientAttention (the linear-attention kernel
+    K6 with the softmax of Q) -> + x; the FFN sub-block as the MixFFN
+    kernel with norm2 and the residual folded in (K2) or norm2 ->
+    MixFFN_skip -> + x (ops/attention.py:146-215);
+  * MHCABlock: the whole block as one kernel (K5) on an even-sided map, or
+    its modules with the factorized attention through K6, whose FFN
+    sub-block folds into K2 with mhca_ffn_fold (:300-392).
+In training the switches resolve as the JAX train step's: every attention
+unfolded, the FFN folds only with ffn_flash_train.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from transception_tpu_torch.core.config import DEFAULT_FOLDS, Folds
 from transception_tpu_torch.ops import kernels
 from transception_tpu_torch.ops.common import (
     ConvPosEnc,
@@ -34,7 +40,9 @@ from transception_tpu_torch.ops.common import (
 def efficient_linear_attention(q, k, v):
     """Shen-et-al. linear attention on (B, h, N, d): k softmaxed over N,
     q over d, out = q_s · (k_sᵀ · v); fp32 softmaxes, products accumulate
-    in fp32 and round to v's dtype (ops/attention.py:33)."""
+    in fp32 and round to v's dtype (ops/attention.py:33). The plain XLA
+    path, where the JAX gate refuses the kernel (the bridge's channel
+    attention: 6076 tokens exceed the TPU kernel's VMEM)."""
     dt = v.dtype
     ks = torch.softmax(k.float(), dim=2).to(dt)
     qs = torch.softmax(q.float(), dim=3).to(dt)
@@ -44,10 +52,10 @@ def efficient_linear_attention(q, k, v):
 
 def factorized_attention(q, k, v, scale: float):
     """CoaT factorized attention on (B, h, N, d): scale·Q·(softmax-Kᵀ·V)
-    through the linear-attention kernel, the scale applied to its rounded
-    output as after the Pallas kernel (ops/attention.py:58)."""
-    out = kernels.linear_attention.linear_attention(q, k, v)
-    return (out.float() * scale).to(v.dtype)
+    through the linear-attention kernel, the scale applied to the fp32
+    product before its one rounding (ops/attention.py:68-73, the XLA path
+    the JAX package takes at every MHCA head dim)."""
+    return kernels.linear_attention.linear_attention(q, k, v, scale=scale)
 
 
 def merge_heads(x):
@@ -57,8 +65,10 @@ def merge_heads(x):
 
 
 class EfficientAttention(nn.Module):
-    """Parameters of the head_count-1 linear attention (MSTr.py:80-143):
-    1x1-conv QKV as Dense layers. The folded ETB kernel consumes them."""
+    """Head_count-1 linear attention (MSTr.py:80-143): 1x1-conv QKV as
+    Dense layers, softmax_d(Q)·(softmax_N(K)ᵀ·V) through the
+    linear-attention kernel, reprojection (ops/attention.py:100-125). The
+    folded ETB kernel consumes the same parameters."""
 
     def __init__(self, dim: int, dtype=torch.bfloat16):
         super().__init__()
@@ -67,16 +77,25 @@ class EfficientAttention(nn.Module):
         self.values = Linear(dim, dim, dtype=dtype)
         self.reprojection = Linear(dim, dim, dtype=dtype)
 
+    def forward(self, x):
+        q, k, v = (m(x).unsqueeze(1) for m in (self.queries, self.keys,
+                                                 self.values))
+        out = kernels.linear_attention.linear_attention(q, k, v,
+                                                        q_softmax=True)
+        return self.reprojection(merge_heads(out))
+
 
 class EfficientTransformerBlock(nn.Module):
     """LN -> EfficientAttention -> res -> LN -> MixFFN_skip -> res
-    (MSTr.py:146-173), each sub-block as one folded kernel call: the ETB
-    attention kernel (norm1 + QKV + attention + reprojection + residual)
-    and the MixFFN kernel with norm2 and the residual folded in."""
+    (MSTr.py:146-173). With etb_attn_fold the attention sub-block is one
+    call of the folded ETB kernel (norm1 + QKV + attention + reprojection +
+    residual), with etb_ffn_fold the FFN sub-block one call of the MixFFN
+    kernel with norm2 and the residual folded in; else their modules."""
 
-    def __init__(self, dim: int, dtype=torch.bfloat16):
+    def __init__(self, dim: int, dtype=torch.bfloat16,
+                 folds: Folds = DEFAULT_FOLDS):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.folds = dtype, folds
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.attn = EfficientAttention(dim, dtype=dtype)
         self.norm2 = LayerNorm(dim, dtype=dtype)
@@ -85,13 +104,20 @@ class EfficientTransformerBlock(nn.Module):
     def forward(self, x, H: int, W: int):
         if H != W:
             raise ValueError("EfficientTransformerBlock needs a square map")
-        a = self.attn
-        x = kernels.etb_attention.etb_attention(
-            x.to(self.dtype), self.norm1.weight, self.norm1.bias,
-            a.queries.weight, a.queries.bias, a.keys.weight, a.keys.bias,
-            a.values.weight, a.values.bias, a.reprojection.weight,
-            a.reprojection.bias, self.norm1.eps)
-        return self.mlp.folded(x, H, self.norm2)
+        sw = self.folds[self.training]
+        x = x.to(self.dtype)
+        if sw.etb_attn:
+            a = self.attn
+            x = kernels.etb_attention.etb_attention(
+                x, self.norm1.weight, self.norm1.bias,
+                a.queries.weight, a.queries.bias, a.keys.weight, a.keys.bias,
+                a.values.weight, a.values.bias, a.reprojection.weight,
+                a.reprojection.bias, self.norm1.eps)
+        else:
+            x = x + self.attn(self.norm1(x))
+        if sw.etb_ffn:
+            return self.mlp.folded(x, H, self.norm2)
+        return x + self.mlp(self.norm2(x), H, W)
 
 
 class ConvRelPosEnc(nn.Module):
@@ -140,16 +166,16 @@ class FactorAttConvRelPosEnc(nn.Module):
 
 class MHCABlock(nn.Module):
     """CPE -> LN -> FactorAtt(+CRPE) -> res -> LN -> MixFFN_skip -> res
-    (MSTr.py:905-946, LN eps 1e-6): in eval the whole-block kernel on
-    even-sided maps, else (and in training, as the JAX train model's
-    mhca_block_fold=False) the unfolded path of
+    (MSTr.py:905-946, LN eps 1e-6): with mhca_block_fold the whole-block
+    kernel on even-sided maps, else the unfolded path of
     ops/attention.py:366-392, whose norm2 + FFN + residual fold into the
-    MixFFN kernel in the flash train mode (mhca_ffn_fold, :380-386).
-    cpe/crpe are the encoder's shared modules."""
+    MixFFN kernel with mhca_ffn_fold (:375-386). cpe/crpe are the
+    encoder's shared modules."""
 
     def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: int = 3,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, folds: Folds = DEFAULT_FOLDS):
         super().__init__()
+        self.folds = folds
         self.norm1 = LayerNorm(dim, eps=1e-6, dtype=dtype)
         self.factoratt_crpe = FactorAttConvRelPosEnc(dim, num_heads, dtype)
         self.norm2 = LayerNorm(dim, eps=1e-6, dtype=dtype)
@@ -157,7 +183,8 @@ class MHCABlock(nn.Module):
 
     def forward(self, x, H: int, W: int, cpe: ConvPosEnc,
                 crpe: ConvRelPosEnc):
-        if not self.training and H == W and H % 2 == 0:
+        sw = self.folds[self.training]
+        if sw.mhca_block and H == W and H % 2 == 0:
             # The whole block as one kernel call where the TPU ran its
             # kernel (even map sides, ops/pallas/mhca_block_kernel.py:56).
             fa = self.factoratt_crpe
@@ -172,7 +199,7 @@ class MHCABlock(nn.Module):
                 eps2=self.norm2.eps, eps=self.mlp.norm1.eps)
         x = cpe(x, H, W)
         x = x + self.factoratt_crpe(self.norm1(x), H, W, crpe)
-        if self.training and kernels.active("mixffn"):
+        if sw.mhca_ffn:
             return self.mlp.folded(x, H, self.norm2)
         return x + self.mlp(self.norm2(x), H, W)
 
@@ -183,13 +210,13 @@ class MHCAEncoder(nn.Module):
 
     def __init__(self, dim: int, num_layers: int = 1, num_heads: int = 8,
                  mlp_ratio: int = 3, crpe_window=((3, 2), (5, 3), (7, 3)),
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, folds: Folds = DEFAULT_FOLDS):
         super().__init__()
         self.cpe = ConvPosEnc(dim, 3, dtype=dtype)
         self.crpe = ConvRelPosEnc(dim // num_heads, num_heads, crpe_window,
                                   dtype=dtype)
         self.MHCA_layers = nn.ModuleList(
-            MHCABlock(dim, num_heads, mlp_ratio, dtype)
+            MHCABlock(dim, num_heads, mlp_ratio, dtype, folds)
             for _ in range(num_layers))
 
     def forward(self, x):

@@ -149,9 +149,8 @@ class MixFFNSkip(nn.Module):
 
     The math is the plain version of the fused MixFFN kernel
     (ops/kernels/mixffn.py). `folded` runs the caller's LayerNorm, this
-    FFN and the residual as that kernel (the ETB blocks, and in the flash
-    train mode the MHCA blocks and the bridge); calling the module runs
-    the plain FFN alone."""
+    FFN and the residual as that kernel (the ETB, MHCA and bridge FFN
+    folds); calling the module runs the plain FFN alone."""
 
     def __init__(self, c1: int, c2: int, dtype=torch.bfloat16):
         super().__init__()
@@ -176,14 +175,13 @@ class MixFFNSkip(nn.Module):
                groups: int = 1) -> torch.Tensor:
         """x + self(groupLN(x)) on a (B, s², C) map, `ln` the caller's
         LayerNorm of C/groups channels, through the MixFFN kernel wrapper
-        (which raises on a map its kernel cannot take). In training an
-        odd-sided map (the 7x7 MHCA stage-4 and bridge scale-4 folds) runs
-        the plain version: it is outside the TPU backward's domain
-        (mixffn_kernel.py _pick_rows_bwd), and the JAX train step runs it
-        in XLA too."""
+        on an even-sided map (mixffn.takes, where the JAX package runs its
+        kernel), else through the plain version: the 7x7 MHCA stage-4 and
+        bridge scale-4 folds at 224, in eval and in training. A routing by
+        shape, made before the call."""
         from transception_tpu_torch.ops.kernels import mixffn
-        fn = (mixffn.mixffn_ln_skip_plain if self.training and s % 2
-              else mixffn.mixffn_ln_skip)
+        fn = (mixffn.mixffn_ln_skip if mixffn.takes(s)
+              else mixffn.mixffn_ln_skip_plain)
         return fn(x.to(self.fc1.dtype), ln.weight, ln.bias, *self.params(),
                   s=s, groups=groups, eps_ln=ln.eps, eps=self.norm1.eps)
 

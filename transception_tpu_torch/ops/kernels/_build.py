@@ -16,18 +16,19 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Dict, FrozenSet, Iterable, Union
 
 # Shared libraries, one per csrc/<name>.cu.
 KERNELS = ("etb_attention", "mixffn", "bridge_attention", "expand_head",
            "mhca_block", "linear_attention", "patch_expand",
-           "bridge_attention_bwd", "mixffn_bwd")
+           "bridge_attention_bwd", "mixffn_bwd", "bridge_attention_folded")
 # Names of the kernel switch: one per forward kernel. bridge_attention and
 # mixffn carry their backward kernels (K10, K11) with them.
 SWITCHES = frozenset(("etb_attention", "mixffn", "bridge_attention",
                       "expand_head", "mhca_block", "linear_attention",
-                      "patch_expand"))
+                      "patch_expand", "bridge_attention_folded"))
 
 _PKG = Path(__file__).resolve().parents[2]
 _SRC = _PKG / "csrc"
@@ -38,6 +39,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's -Xptxas -v report (registers, shared memory, spills) per kernel.
 build_logs: Dict[str, str] = {}
 _on: FrozenSet[str] = SWITCHES
+# Launches per (kernel name, shape key), tallied by each wrapper where it
+# bumps its kernel's counter (ops.kernels.shape_counts).
+shape_launches: Counter = Counter()
 
 
 @contextlib.contextmanager
@@ -61,15 +65,16 @@ def enabled(kernels: Union[bool, Iterable[str]]):
         _on = prev
 
 
-def active(name: str) -> bool:
-    """Whether kernel `name` is switched on (whatever the device)."""
-    return name in _on
-
-
 def plain(name: str, t) -> bool:
     """The one kernel-or-plain decision of every wrapper: the plain version
     for a CPU tensor or with kernel `name` switched off, else the kernel."""
     return t.device.type == "cpu" or name not in _on
+
+
+def tally(name: str, *key) -> None:
+    """One launch of kernel `name` at `key`: its input's shape and whatever
+    else picks another instantiation of the kernel."""
+    shape_launches[(name,) + key] += 1
 
 
 def needs_graph(*tensors) -> bool:

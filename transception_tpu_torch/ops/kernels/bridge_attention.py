@@ -1,4 +1,5 @@
-"""Bridge softmax cross-attention: softmax(Q·Kᵀ·scale)·V, and its backward.
+"""Bridge softmax cross-attention: softmax(Q·Kᵀ·scale)·V, its backward, and
+its folded form res + proj(MHA(x·Wq + bq)).
 
 K3 replaces transception_tpu/ops/pallas/bridge_attention_kernel.py:256
 `bridge_softmax_attention` (pallas_call at :279): q (B, 1, 6076, 64)
@@ -40,6 +41,32 @@ statistics; the segments' fp32 partials are added in a fixed order, so
 there are no atomics and the result is the same in every run. The
 (N, M) matrices stay on chip; E, T, Q·s/S and G/S are rounded to bf16 as
 tensor-core operands, with fp32 accumulation.
+
+K8 replaces bridge_attention_kernel.py:307 `bridge_attention_folded`
+(pallas_call at :332): res + proj(MHA(x·Wq + bq)) with x the post-norm1
+stream and res the raw layer input, (B, 6076, 64), against K3's k/v, in
+bridge layers 2-4 when bridge_attn_fold is on (an eval kernel: the train
+step never folds, and JAX's only backward for it is the mirror's VJP).
+Rounding points of its _folded_kernel (:78-133): q = bf16(x·Wq + bq) with
+fp32 accumulation; K3's softmax (row max over all M, bf16(e) into P·V,
+one divide); the out projection accumulated in fp32, + bp, rounded; the
+residual added in fp32, rounded. In fp32 these are the mirror's
+(bridge_attention.py:79-100 _reference_folded).
+
+K8 bound on the H100: operations (about 4·B·N·M·d for the attention plus
+4·B·N·C² for the projections, 4.2e10 flops at B = 32, 0.043 ms at the bf16
+peak, against ~81 MB of bf16 traffic, 0.024 ms).
+
+K8 design (csrc/bridge_attention_folded.cu): K3's block of 64 stream rows
+with a prologue and an epilogue. The prologue loads the x tile and forms
+q = x·Wqᵀ on the tensor cores (one (64 x 64)·(64 x 64) product), adds bq
+in fp32 and rounds; K3's two passes over K/V follow; the rounded attention
+output goes back into the x tile's shared memory, and the epilogue forms
+its out projection on the tensor cores, adds bp, rounds, adds the
+residual in fp32 and rounds. Rows past N (the ragged last tile of 6076)
+are zero-filled on load and never stored; the TPU's padding of the
+stream is not carried over. One head of d = 64, as the published bridge
+(bridge_heads 1).
 """
 
 from __future__ import annotations
@@ -47,6 +74,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from transception_tpu_torch.ops.kernels import _build
 
@@ -56,8 +84,11 @@ HEAD_DIM = 64
 BWD_NAME = "bridge_attention_bwd"
 BWD_REPLACES = "transception_tpu/ops/pallas/bridge_attention_kernel.py:190"
 BWD_SEGMENTS = 4  # N segments of the K10 columns kernel (blocks x 4)
+FOLDED_NAME = "bridge_attention_folded"
+FOLDED_REPLACES = "transception_tpu/ops/pallas/bridge_attention_kernel.py:307"
 launches = 0
 bwd_launches = 0
+folded_launches = 0
 
 
 def bridge_attention_plain(q, k, v, scale: float):
@@ -120,6 +151,7 @@ def _launch(q, k, v, scale):
             _build.stream_of(q))
     _build.check(rc, NAME)
     launches += 1
+    _build.tally(NAME, tuple(q.shape))
     return out
 
 
@@ -154,6 +186,7 @@ def _launch_bwd(q, k, v, g, scale):
             P(dvp), B * h, N, M, scale, BWD_SEGMENTS, _build.stream_of(q))
     _build.check(rc, BWD_NAME)
     bwd_launches += 1
+    _build.tally(BWD_NAME, tuple(q.shape))
     return dq, dk, dv
 
 
@@ -186,3 +219,62 @@ def bridge_attention(q, k, v, scale: float):
     if _build.plain(NAME, q):
         return bridge_attention_plain(q, k, v, scale)
     return BridgeAttention.apply(q, k, v, scale)
+
+
+def bridge_attention_folded_plain(x, res, wq, bq, k, v, wp, bp,
+                                  scale: float):
+    """Plain K8 with the Pallas kernel's rounding points: res +
+    proj(MHA(x·Wqᵀ + bq)). x, res (B, N, C); k, v (B, h, M, C/h); wq, wp
+    torch Linear weights (C, C), bq, bp (C,)."""
+    dt = x.dtype
+    ct = torch.promote_types(dt, torch.float32)  # fp32 (fp64 for fp64)
+    B, N, C = x.shape
+    h = k.shape[1]
+    q = F.linear(x.to(ct), wq.to(dt).to(ct), bq.to(ct)).to(dt)
+    att = bridge_attention_plain(q.reshape(B, N, h, C // h).transpose(1, 2),
+                                 k.to(dt), v.to(dt), scale)
+    att = att.transpose(1, 2).reshape(B, N, C)
+    proj = F.linear(att.to(ct), wp.to(dt).to(ct), bp.to(ct)).to(dt)
+    return (proj.to(ct) + res.to(ct)).to(dt)
+
+
+def _check_folded(x, res, k, v):
+    if x.dtype != torch.bfloat16 or x.dim() != 3 or res.shape != x.shape \
+            or res.dtype != x.dtype:
+        raise ValueError(f"{FOLDED_NAME} kernel takes x and res (B, N, "
+                         f"{HEAD_DIM}) bf16, got {tuple(x.shape)} {x.dtype},"
+                         f" {tuple(res.shape)} {res.dtype}")
+    B, N, C = x.shape
+    if C != HEAD_DIM or k.shape[:2] != (B, 1):
+        raise ValueError(f"{FOLDED_NAME} kernel takes one head of "
+                         f"{HEAD_DIM} channels, got x {tuple(x.shape)}, "
+                         f"k {tuple(k.shape)}")
+    _check(x[:, None], k, v)
+
+
+def bridge_attention_folded(x, res, wq, bq, k, v, wp, bp, scale: float):
+    """K8 wrapper: the plain version for a CPU tensor or with the kernel
+    off, else the CUDA kernel (an eval kernel: it raises where autograd
+    records)."""
+    if _build.plain(FOLDED_NAME, x):
+        return bridge_attention_folded_plain(x, res, wq, bq, k, v, wp, bp,
+                                             scale)
+    _build.forward_only(FOLDED_NAME, x, res, wq, bq, k, v, wp, bp)
+    _check_folded(x, res, k, v)
+    global folded_launches
+    x, res, k, v = (_build.aligned(t) for t in (x, res, k, v))
+    B, N, C = x.shape
+    M = k.shape[2]
+    out = torch.empty_like(x)
+    bf, f32 = _build.bf16, _build.f32
+    args = (x, res, bf(wq), f32(bq), k, v, bf(wp), f32(bp), out)
+    fn = _build.load(FOLDED_NAME).bridge_attention_folded
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_void_p]
+    rc = fn(*[_build.ptr(t) for t in args], B, N, M, scale,
+            _build.stream_of(x))
+    _build.check(rc, FOLDED_NAME)
+    folded_launches += 1
+    _build.tally(FOLDED_NAME, tuple(x.shape))
+    return out

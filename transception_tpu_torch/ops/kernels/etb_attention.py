@@ -111,4 +111,5 @@ def etb_attention(x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp,
             P(ctx16), P(out), B, N, C, eps, _build.stream_of(x))
     _build.check(rc, NAME)
     launches += 1
+    _build.tally(NAME, tuple(x.shape))
     return out

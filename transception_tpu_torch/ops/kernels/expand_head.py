@@ -87,4 +87,5 @@ def expand_head(x, w, ls, lb, hw, hb, *, p: int, c: int,
             _build.stream_of(x))
     _build.check(rc, NAME)
     launches += 1
+    _build.tally(NAME, tuple(x.shape))
     return ids

@@ -153,4 +153,5 @@ def mhca_block(x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs,
             _build.stream_of(x))
     _build.check(rc, NAME)
     launches += 1
+    _build.tally(NAME, tuple(x.shape))
     return out

@@ -187,9 +187,21 @@ def mixffn_ln_skip_bwd_plain(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2,
 
 
 def smem_bytes(s: int, C: int, hid: int) -> int:
-    """Shared memory of one K2 block (mirrors mixffn_smem_bytes in the .cu)."""
+    """Shared memory of one K2 block (mirrors mixffn::smem_bytes in
+    mixffn.cuh): the normalised window and the fc1/fc2 staging padded to
+    16-row tiles, the fp32 hidden state of the s map tokens, the bf16 GELU
+    output padded to 16 rows."""
     sp = -(-s // 16) * 16
-    return 3 * sp * C * 2 + max(3 * sp * 64, sp * C) * 4 + sp * hid * 6
+    return (3 * sp * C * 2 + max(3 * sp * 64, sp * C) * 4 + s * hid * 4
+            + sp * hid * 2)
+
+
+def takes(s: int) -> bool:
+    """Whether a fold on an s x s map runs K2: even sides only, where the
+    JAX package runs its kernel (mixffn_kernel.py _pick_rows rejects odd
+    sides). A routing by shape, made before the call; a map the kernel
+    cannot take raises in the wrapper."""
+    return s % 2 == 0
 
 
 def bwd_smem_bytes(s: int, C: int) -> int:
@@ -254,6 +266,7 @@ def _launch(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, s, groups, eps_ln,
             eps, _build.stream_of(x))
     _build.check(rc, NAME)
     launches += 1
+    _build.tally(NAME, tuple(x.shape), hid, groups)
     return out
 
 
@@ -291,6 +304,7 @@ def _launch_bwd(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, g, s, groups,
             eps_ln, eps, _build.stream_of(x))
     _build.check(rc, BWD_NAME)
     bwd_launches += 1
+    _build.tally(BWD_NAME, tuple(x.shape), hid, groups)
     sizes = (hid * C, C * hid, hid, 9 * hid, hid, hid, hid, C, C, C)
     dw1, dw2, db1, ddw, ddwb, dls, dlb, db2, dlts, dltb = torch.split(
         out[:sum(sizes)], sizes)

@@ -79,4 +79,5 @@ def patch_expand(x, w, ls, lb, *, p: int, c: int, eps: float = 1e-5):
             _build.stream_of(x))
     _build.check(rc, NAME)
     launches += 1
+    _build.tally(NAME, tuple(x.shape), p)
     return out
