@@ -6,11 +6,12 @@ Phases (any failed check exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
   3. each kernel against its plain PyTorch version at every shape the
-     serving path gives it in any fold configuration (bf16), with timings
-     of kernel, plain version and, where one exists, a single PyTorch
-     library call. A kernel that adds its input back is held on its
-     branch alone (output minus input), and a planted fault in the plain
-     version must fail the same check;
+     serving path gives it in any fold configuration (bf16, batch 32) and
+     at the shapes the "pallas" train step gives K1, K5-K7 and K9 (batch
+     24), with timings of kernel, plain version and, where one exists, a
+     single PyTorch library call. A kernel that adds its input back is
+     held on its branch alone (output minus input), and a planted fault in
+     the plain version must fail the same check;
   4. the published MSTransception at full width (224², bf16, random
      weights from a seed) through make_predictor(...).predict_volume on a
      synthetic 48-slice 512² volume, batch 32, with launch counters;
@@ -23,16 +24,21 @@ Phases (any failed check exits non-zero):
      the published train step gives them (bf16, batch 24): the bridge
      attention (K3) and its backward (K10), the MixFFN backward (K11) and
      the grouped MixFFN forward (K2), the backwards and K2 each with a
-     planted fault the check must reject;
+     planted fault the check must reject; and for each kernel whose
+     backward is autograd of its plain version (K1, K5-K9), one backward
+     through its autograd Function against autograd of the plain version;
   9. the published MSTransception train step (TrainConfig(): batch 24,
-     wide head, SGD + cosine schedule) in both train modes (default and
-     ffn_flash_train): Trainer.train on the on-device synthetic stream with
-     the launch counts per step, a checkpoint and a resume; one step
-     against the plain path (use_kernels=False) from the same weights on
-     the same batch (loss, every gradient leaf, BatchNorm stats) with
-     planted faults in K10 and K11; the loss falling over repeated steps
-     on one batch; step time and peak memory, kernels on and off; device
-     time of one step (torch.profiler);
+     wide head, SGD + cosine schedule) in three train modes (default,
+     ffn_flash_train, and "pallas": use_pallas_train with mhca_ffn_fold
+     and drop_path_rate 0.1): Trainer.train on the on-device synthetic
+     stream with the launch counts per step held to
+     models.transception.launches_per_step, a checkpoint and a resume;
+     one step against the plain path (use_kernels=False) from the same
+     weights on the same batch with the same drop-path masks (loss, every
+     gradient leaf, BatchNorm stats) with planted faults in K10, K11 and
+     K9; the loss falling over repeated steps on one batch; step time and
+     peak memory, kernels on and off; device time of one step
+     (torch.profiler);
  10. the fold grid: the published model (b=32) under each fold
      configuration of FOLD_GRID, with the launches per forward held to
      models.transception.launches_per_forward, the class maps to
@@ -152,9 +158,10 @@ def record(measured, key, label, err, ms, pms, lms, nbytes, flops):
                                            err)
         return
     bms, by = bound_ms(nbytes, flops)
+    src = {"mixffn_skip": "mixffn"}.get(name, name)  # K9 shares K2's library
     measured[key] = {
         "name": name, "shape": label, "route": "cuda",
-        "source": f"transception_tpu_torch/csrc/{name}.cu",
+        "source": f"transception_tpu_torch/csrc/{src}.cu",
         "replaces": replaces(name), "max_abs_err": err, "ms": ms,
         "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms}
 
@@ -194,44 +201,14 @@ def err_check(name, got, want, rel_tol, base=None):
     return err, ok
 
 
-def kernel_cases(gen):
-    """One dict per (kernel, main-path shape): kernel fn, plain fn, library
-    fn or None, bytes, flops, tolerance, and for the residual kernels the
-    input added back (`base`) and a planted fault the check must reject."""
+def _serving_only_cases(gen, B, case):
+    """The serving path's K2, K3, K8 and K4 shapes (the train step's K2
+    and K3 are held in phase 8)."""
     from transception_tpu_torch.ops.kernels import (
         bridge_attention as ba,
-        etb_attention as ea,
         expand_head as eh,
-        linear_attention as la,
-        mhca_block as mb,
         mixffn as mf,
-        patch_expand as pe,
     )
-    B = BATCH
-    cases = []
-
-    def case(name, label, kfn, pfn, nbytes, flops, tol, lfn=None, base=None,
-             fault=None):
-        cases.append(dict(name=name, label=label, kfn=kfn, pfn=pfn, lfn=lfn,
-                          nbytes=nbytes, flops=flops, tol=tol, base=base,
-                          fault=fault))
-
-    # K1: peaked softmaxes (keys and queries scaled up) so the attention
-    # branch is of the order of x; fault: keys negated (ctx changes only).
-    for N, C in ((3136, 64), (784, 128), (196, 320)):
-        x = rand(gen, (B, N, C), 0.25, dtype=torch.bfloat16)
-        sc = C ** -0.5
-        wq, wk, wv, wp = (rand(gen, (C, C), f * sc) for f in (2, 4, 2, 2))
-        v = [rand(gen, (C,), 0.1, 1.0), rand(gen, (C,), 0.1)] + [
-            rand(gen, (C,), 0.02) for _ in range(4)]
-        args = (x, v[0], v[1], wq, v[2], wk, v[3], wv, v[4], wp, v[5])
-        bad = args[:5] + (-wk,) + args[6:]
-        case("etb_attention", f"({B},{N},{C})",
-             lambda a=args: ea.etb_attention(*a),
-             lambda a=args: ea.etb_attention_plain(*a),
-             2 * B * N * C * 2 + 4 * C * C * 2, 12 * B * N * C * C, 0.02,
-             base=x, fault=("keys negated",
-                            lambda a=bad: ea.etb_attention_plain(*a)))
     # K2: fault: the depthwise taps negated.
     for s, C in ((56, 64), (28, 128), (14, 320)):
         hid = 4 * C
@@ -319,9 +296,52 @@ def kernel_cases(gen):
          lambda a=args: eh.expand_head_plain(*a, p=p, c=c),
          B * N * C * 2 + B * N * p * p + p * p * c * C * 2,
          2 * B * N * C * p * p * c + 2 * B * N * p * p * c * ncls, 1e-3)
+
+def kernel_cases(gen, B=BATCH, train=False):
+    """One dict per (kernel, main-path shape) at batch B: kernel fn, plain
+    fn, library fn or None, bytes, flops, tolerance, and for the residual
+    kernels the input added back (`base`) and a planted fault the check
+    must reject (K9 has one too). train=False: every shape the serving
+    path gives a kernel in any fold configuration; train=True: the forward
+    kernels of the "pallas" train step that phase 8 does not hold (K1, K5
+    on the rate-0 blocks, K6 on the unfolded MHCA blocks, K7, K9)."""
+    from transception_tpu_torch.ops.kernels import (
+        etb_attention as ea,
+        linear_attention as la,
+        mhca_block as mb,
+        mixffn as mf,
+        patch_expand as pe,
+    )
+    cases = []
+
+    def case(name, label, kfn, pfn, nbytes, flops, tol, lfn=None, base=None,
+             fault=None):
+        cases.append(dict(name=name, label=label, kfn=kfn, pfn=pfn, lfn=lfn,
+                          nbytes=nbytes, flops=flops, tol=tol, base=base,
+                          fault=fault))
+
+    # K1: peaked softmaxes (keys and queries scaled up) so the attention
+    # branch is of the order of x; fault: keys negated (ctx changes only).
+    for N, C in ((3136, 64), (784, 128), (196, 320)):
+        x = rand(gen, (B, N, C), 0.25, dtype=torch.bfloat16)
+        sc = C ** -0.5
+        wq, wk, wv, wp = (rand(gen, (C, C), f * sc) for f in (2, 4, 2, 2))
+        v = [rand(gen, (C,), 0.1, 1.0), rand(gen, (C,), 0.1)] + [
+            rand(gen, (C,), 0.02) for _ in range(4)]
+        args = (x, v[0], v[1], wq, v[2], wk, v[3], wv, v[4], wp, v[5])
+        bad = args[:5] + (-wk,) + args[6:]
+        case("etb_attention", f"({B},{N},{C})",
+             lambda a=args: ea.etb_attention(*a),
+             lambda a=args: ea.etb_attention_plain(*a),
+             2 * B * N * C * 2 + 4 * C * C * 2, 12 * B * N * C * C, 0.02,
+             base=x, fault=("keys negated",
+                            lambda a=bad: ea.etb_attention_plain(*a)))
+    if not train:
+        _serving_only_cases(gen, B, case)
     # K5: the qkv weight scaled up so softmax(K) is peaked and Q · ctx is
     # of the order of the CRPE term; fault: the key rows of qkv negated.
-    for s, C in ((28, 64), (14, 128)):
+    # In the train step with drop path only stage 2's rate-0 blocks.
+    for s, C in ((28, 64),) if train else ((28, 64), (14, 128)):
         hid, heads, N = 4 * C, 8, s * s
         chs = [h * C // heads for _, h in ((3, 2), (5, 3), (7, 3))]
         x = rand(gen, (B, N, C), 0.5, dtype=torch.bfloat16)
@@ -352,11 +372,12 @@ def kernel_cases(gen):
                             lambda a=bad, s=s: mb.mhca_block_plain(
                                 *a, s=s, heads=8)))
     # K6: the factorized attention (scaled) at stage 4, q/k/v
-    # (B, 8, 49, 40), and with mhca_block_fold off at stages 2-3; the ETB
-    # attention (the softmax of Q) with etb_attn_fold off.
-    for h, N, dh, q_sm in ((8, 49, 40, False), (1, 3136, 64, True),
-                           (1, 784, 128, True), (1, 196, 320, True),
-                           (8, 784, 8, False), (8, 196, 16, False)):
+    # (B, 8, 49, 40), and with mhca_block_fold off (or drop path in the
+    # train step) at stages 2-3; the ETB attention (the softmax of Q) with
+    # etb_attn_fold off.
+    mhca = ((8, 49, 40, False), (8, 784, 8, False), (8, 196, 16, False))
+    etb = ((1, 3136, 64, True), (1, 784, 128, True), (1, 196, 320, True))
+    for h, N, dh, q_sm in mhca if train else mhca + etb:
         q, k, v = (rand(gen, (B, h, N, dh), f, dtype=torch.bfloat16)
                    for f in (1.0, 3.0, 1.0))
         sc = 1.0 if q_sm else dh ** -0.5
@@ -376,6 +397,23 @@ def kernel_cases(gen):
              lambda a=args, c=c: pe.patch_expand_plain(*a, p=2, c=c),
              B * N * C * 2 + B * N * 4 * c * 2 + 4 * c * C * 2,
              2 * B * N * C * 4 * c, 0.02)
+    # K9: the MHCA FFNs of the blocks with drop path (train step only);
+    # fault: the fc2 bias dropped (b2 drawn large enough to show).
+    for s, C in ((28, 64), (14, 128)) if train else ():
+        hid, N = 4 * C, s * s
+        args = (rand(gen, (B, N, C), dtype=torch.bfloat16),
+                rand(gen, (hid, C), C ** -0.5), rand(gen, (hid,), 0.02),
+                rand(gen, (hid, 1, 3, 3), 0.3), rand(gen, (hid,), 0.02),
+                rand(gen, (hid,), 0.1, 1.0), rand(gen, (hid,), 0.1),
+                rand(gen, (C, hid), hid ** -0.5), rand(gen, (C,), 0.5))
+        bad = args[:8] + (torch.zeros_like(args[8]),)
+        case("mixffn_skip", f"({B},{N},{C}) hidden {hid}",
+             lambda a=args, s=s: mf.mixffn_skip(*a, s=s),
+             lambda a=args, s=s: mf.mixffn_skip_plain(*a, s=s),
+             2 * B * N * C * 2 + 2 * C * hid * 2 + 9 * hid * 2,
+             4 * B * N * C * hid + 18 * B * N * hid, 0.02,
+             fault=("fc2 bias dropped",
+                    lambda a=bad, s=s: mf.mixffn_skip_plain(*a, s=s)))
     return cases
 
 
@@ -386,7 +424,8 @@ def replaces(name):
         if n == name:
             return getattr(mod, {"launches": "REPLACES",
                                  "bwd_launches": "BWD_REPLACES",
-                                 "folded_launches": "FOLDED_REPLACES"}[attr])
+                                 "folded_launches": "FOLDED_REPLACES",
+                                 "skip_launches": "SKIP_REPLACES"}[attr])
     raise KeyError(name)
 
 
@@ -394,7 +433,8 @@ def kernel_phase():
     """Phase 3. Returns the measurements per kernel and shape key."""
     measured = {}
     gen = torch.Generator().manual_seed(1)
-    for cs in kernel_cases(gen):
+    cases = kernel_cases(gen) + kernel_cases(gen, TRAIN_BATCH, train=True)
+    for cs in cases:
         name, label = cs["name"], cs["label"]
         key, got = launched_key(name, cs["kfn"])
         want = cs["pfn"]()
@@ -593,10 +633,18 @@ FFN_SHAPES = ((56, 64, 256, 1, 1e-5), (28, 64, 256, 1, 1e-6),
               (28, 128, 512, 1, 1e-5), (28, 128, 512, 2, 1e-5),
               (14, 128, 512, 1, 1e-6), (14, 320, 1280, 1, 1e-5),
               (14, 320, 1280, 5, 1e-5))
-# Launches per train step at batch 24, per train mode (ffn_flash_train).
-PER_STEP = {False: {"bridge_attention": 3, "bridge_attention_bwd": 3},
-            True: {"bridge_attention": 3, "bridge_attention_bwd": 3,
-                   "mixffn": 53, "mixffn_bwd": 53}}
+# The train modes of phase 9: name -> (TransceptionConfig overrides,
+# Trainer steps). "pallas" keeps the eval kernels in training
+# (use_pallas_train) with the MHCA FFN fold and drop path at 0.1 (a stated
+# choice: the reference trains at 0.0), which sends the FFNs of the MHCA
+# blocks whose rate is above 0 through K9. Launches per step:
+# models.transception.launches_per_step(cfg).
+TRAIN_MODES = {
+    "default": ({}, 3),
+    "flash": (dict(ffn_flash_train=True), 3),
+    "pallas": (dict(use_pallas_train=True, mhca_ffn_fold=True,
+                    drop_path_rate=0.1), 2)}
+DROP_SEED = 7         # the drop-path generator of the one-step comparisons
 BWD_TOL = 0.02        # each gradient within 2% of its own max
 TRAIN_STEPS = 8       # repeated-batch steps; the loss must fall from 1 to 8
 LOSS_TOL = 0.01       # kernel vs plain path: loss within 1%
@@ -767,22 +815,122 @@ def train_kernel_phase(measured):
                2 * n * C * 2 + 2 * C * hid * 2 + 9 * hid * 2,
                4 * n * C * hid + 18 * n * hid)
         del x, gy, p, got, want, bad
+    plain_backward_checks(gen)
 
 
-def _train_cfg(flash, **kw):
+def plain_backward_checks(gen):
+    """The plain backwards of K1 and K5-K9 (the "pallas" train step): one
+    backward through each kernel's autograd Function (the kernel's
+    forward, then autograd of the plain version recomputed from the saved
+    inputs) against autograd of the plain version, at one train-step shape
+    each: every input's gradient within BWD_TOL of its own max, and the
+    forward launched the kernel once. A wrong save or argument order in a
+    wrapper fails here."""
+    from transception_tpu_torch.ops.kernels import (
+        bridge_attention as ba,
+        etb_attention as ea,
+        linear_attention as la,
+        mhca_block as mb,
+        mixffn as mf,
+        patch_expand as pe,
+    )
+    B, bf = TRAIN_BATCH, torch.bfloat16
+
+    def ffn(C, hid):
+        return [rand(gen, (hid, C), C ** -0.5), rand(gen, (hid,), 0.02),
+                rand(gen, (hid, 1, 3, 3), 0.3), rand(gen, (hid,), 0.02),
+                rand(gen, (hid,), 0.1, 1.0), rand(gen, (hid,), 0.1),
+                rand(gen, (C, hid), hid ** -0.5), rand(gen, (C,), 0.1)]
+
+    C = 128  # K1 at decoder 1
+    etb = [rand(gen, (B, 784, C), 0.25, dtype=bf),
+           rand(gen, (C,), 0.1, 1.0), rand(gen, (C,), 0.1)]
+    for f in (2, 4, 2, 2):
+        etb += [rand(gen, (C, C), f * C ** -0.5), rand(gen, (C,), 0.02)]
+    C, s = 64, 28  # K5 at stage 2, block 0
+    chs = [h * C // 8 for h in (2, 3, 3)]
+    mhca = ([rand(gen, (B, s * s, C), 0.5, dtype=bf),
+             rand(gen, (C, 1, 3, 3), 0.3), rand(gen, (C,), 0.02),
+             rand(gen, (C,), 0.1, 1.0), rand(gen, (C,), 0.1),
+             rand(gen, (3 * C, C), 3 * C ** -0.5), rand(gen, (3 * C,), 0.02)]
+            + [rand(gen, (n, 1, k, k), 1.0 / k)
+               for n, k in zip(chs, (3, 5, 7))]
+            + [rand(gen, (n,), 0.02) for n in chs]
+            + [rand(gen, (C, C), C ** -0.5), rand(gen, (C,), 0.02),
+               rand(gen, (C,), 0.1, 1.0), rand(gen, (C,), 0.1)]
+            + ffn(C, 4 * C))
+
+    def mhca_call(fn):
+        return lambda *a: fn(*a[:7], list(a[7:10]), list(a[10:13]),
+                             *a[13:], s=s, heads=8)
+
+    N, M, d = 6076, 784, 64  # K8 at the bridge
+    fold = [rand(gen, (B, N, d), dtype=bf), rand(gen, (B, N, d), dtype=bf),
+            rand(gen, (d, d), 4 * d ** -0.5), rand(gen, (d,), 0.1),
+            rand(gen, (B, 1, M, d), dtype=bf),
+            rand(gen, (B, 1, M, d), dtype=bf),
+            rand(gen, (d, d), d ** -0.5), rand(gen, (d,), 0.5)]
+    cases = (
+        ("etb_attention", f"({B},784,128)", ea.etb_attention,
+         ea.etb_attention_plain, etb),
+        ("mhca_block", f"({B},{s * s},{C}) heads 8", mhca_call(mb.mhca_block),
+         mhca_call(mb.mhca_block_plain), mhca),
+        ("linear_attention", f"q/k/v ({B},8,196,16)",
+         lambda *a: la.linear_attention(*a, False, 0.25),
+         lambda *a: la.linear_attention_plain(*a, False, 0.25),
+         [rand(gen, (B, 8, 196, 16), f, dtype=bf) for f in (1.0, 3.0, 1.0)]),
+        ("patch_expand", f"({B},196,320) -> ({B},196,640)",
+         lambda *a: pe.patch_expand(*a, p=2, c=160),
+         lambda *a: pe.patch_expand_plain(*a, p=2, c=160),
+         [rand(gen, (B, 196, 320), dtype=bf),
+          rand(gen, (640, 320), 320 ** -0.5), rand(gen, (160,), 0.1, 1.0),
+          rand(gen, (160,), 0.1)]),
+        ("bridge_attention_folded", f"x/res ({B},{N},{d}) kv ({B},1,{M},{d})",
+         lambda *a: ba.bridge_attention_folded(*a, d ** -0.5),
+         lambda *a: ba.bridge_attention_folded_plain(*a, d ** -0.5), fold),
+        ("mixffn_skip", f"({B},784,64) hidden 256",
+         lambda *a: mf.mixffn_skip(*a, s=28),
+         lambda *a: mf.mixffn_skip_plain(*a, s=28),
+         [rand(gen, (B, 784, 64), dtype=bf)] + ffn(64, 256)))
+    for name, label, kfn, pfn, args in cases:
+        leaves = [t.requires_grad_() for t in args]
+        _, out = launched_key(name, lambda: kfn(*leaves))
+        g = rand(gen, tuple(out.shape), dtype=out.dtype)
+        got = torch.autograd.grad(out, leaves, g)
+        want = torch.autograd.grad(pfn(*leaves), leaves, g)
+        torch.cuda.synchronize()
+        names = [f"d{i}" for i in range(len(leaves))]
+        err, ok = grads_check(f"{name} plain backward", got, want, names)
+        log(f"  {name} plain backward {label}: max_abs_err {err:.6g} over "
+            f"{len(leaves)} input gradients (each within {BWD_TOL} x its "
+            f"max) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{name}: the Function's backward disagrees with autograd "
+                 f"of its plain version")
+        del leaves, out, got, want
+
+
+def _train_cfg(mode, **kw):
     from transception_tpu_torch.core.config import TransceptionConfig
-    return TransceptionConfig(ffn_flash_train=flash, **kw)
+    return TransceptionConfig(**dict(TRAIN_MODES[mode][0], **kw))
 
 
-def _one_step(model, sd0, img, lbl):
-    """One train step of `model` from the weights sd0: loss, gradients and
-    buffers after the step (on the host)."""
+def _gen(seed):
+    return None if seed is None else torch.Generator(
+        device="cuda").manual_seed(seed)
+
+
+def _one_step(model, sd0, img, lbl, seed=None):
+    """One train step of `model` from the weights sd0, its drop-path masks
+    drawn from a generator seeded `seed`: loss, gradients and buffers
+    after the step (on the host)."""
     from transception_tpu_torch.core.config import TrainConfig
     from transception_tpu_torch.train.state import TrainState
     from transception_tpu_torch.train.trainer import make_train_step
     model.load_state_dict(sd0)
     st = TrainState(model, TrainConfig(), 2211 // TRAIN_BATCH)
-    met = make_train_step(st, 9, 0.4, 0.6, wide_head=True)(img, lbl)
+    met = make_train_step(st, 9, 0.4, 0.6, wide_head=True,
+                          gen=_gen(seed))(img, lbl)
     torch.cuda.synchronize()
     return (float(met["loss"]),
             {n: p.grad.float().cpu() for n, p in model.named_parameters()},
@@ -827,15 +975,18 @@ def _compare_steps(tag, k, p, ref=None):
 
 
 def train_phase():
-    """Phase 9. Returns the launches per shape key of the flash-mode
-    Trainer run (three steps)."""
+    """Phase 9. Returns the launches per shape key of the flash- and
+    pallas-mode Trainer runs, with their step counts."""
     import shutil
 
     from transception_tpu_torch.core.config import DataConfig, TrainConfig
     from transception_tpu_torch.data.device_synthetic import (
         DeviceSyntheticStream,
     )
-    from transception_tpu_torch.models.transception import MSTransception
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_step,
+    )
     from transception_tpu_torch.ops import kernels
     from transception_tpu_torch.ops.kernels import (
         bridge_attention as ba,
@@ -844,82 +995,93 @@ def train_phase():
     from transception_tpu_torch.train.state import TrainState
     from transception_tpu_torch.train.trainer import Trainer, make_train_step
 
-    tallies_out = None
+    tallies_out = {}
     batch = DeviceSyntheticStream(TRAIN_BATCH, 224, 9, device="cuda").batch(0)
     img, lbl = batch["image"], batch["label"]
-    for flash in (False, True):
-        mode = "ffn_flash_train" if flash else "default"
+    for mode, (_, steps) in TRAIN_MODES.items():
         log(f"  -- train mode {mode} --")
-        # Trainer: three steps on the stream, a checkpoint, a resume.
+        per_step = launches_per_step(_train_cfg(mode))
+        seed = DROP_SEED if mode == "pallas" else None
+        # Trainer: a few steps on the stream, a checkpoint, a resume.
         t0 = time.perf_counter()
-        out = OUT_DIR / f"train_{'flash' if flash else 'default'}"
+        out = OUT_DIR / f"train_{mode}"
         shutil.rmtree(out, ignore_errors=True)
         tcfg = TrainConfig(output_dir=str(out))
         dcfg = DataConfig(dataset="synthetic")
-        tr = Trainer(_train_cfg(flash), tcfg, dcfg, device="cuda")
+        tr = Trainer(_train_cfg(mode), tcfg, dcfg, device="cuda")
         kernels.reset_launches()
-        st, hist = tr.train(max_steps=3)
+        st, hist = tr.train(max_steps=steps)
         torch.cuda.synchronize()
         counts, tallies = kernels.launch_counts(), kernels.shape_counts()
-        log(f"  Trainer.train(max_steps=3): losses {hist['loss']} launches "
-            f"{counts} ({time.perf_counter() - t0:.1f} s)")
-        if st.step != 3 or not np.isfinite(hist["loss"]).all():
+        log(f"  Trainer.train(max_steps={steps}): losses {hist['loss']} "
+            f"launches {counts} ({time.perf_counter() - t0:.1f} s)")
+        if st.step != steps or not np.isfinite(hist["loss"]).all():
             fail(f"Trainer run: step {st.step}, losses {hist['loss']}")
         for name, n in counts.items():
-            if n != 3 * PER_STEP[flash].get(name, 0):
-                fail(f"{name}: {n} launches in 3 steps, want 3 x "
-                     f"{PER_STEP[flash].get(name, 0)}")
-        if flash:
-            tallies_out = tallies
-        ckpt = out / "ckpt" / "step_00000003.pt"
+            if n != steps * per_step[name]:
+                fail(f"{name}: {n} launches in {steps} steps, want {steps} "
+                     f"x {per_step[name]} (launches_per_step)")
+        if mode != "default":
+            tallies_out[mode] = (tallies, steps)
+        ckpt = out / "ckpt" / f"step_{steps:08d}.pt"
         if not ckpt.exists():
             fail(f"no checkpoint {ckpt}")
         del tr, st
-        tr = Trainer(_train_cfg(flash), tcfg, dcfg, device="cuda")
-        st, more = tr.train(max_steps=4)
+        tr = Trainer(_train_cfg(mode), tcfg, dcfg, device="cuda")
+        st, more = tr.train(max_steps=steps + 1)
         text = (out / "log.txt").read_text()
-        if st.step != 4 or len(more["loss"]) != 1 or \
-                "resumed from" not in text or "iteration 4 : lr" not in text:
+        if st.step != steps + 1 or len(more["loss"]) != 1 or \
+                "resumed from" not in text or \
+                f"iteration {steps + 1} : lr" not in text:
             fail(f"resume: step {st.step}, losses {more['loss']}")
-        log(f"  resumed from {ckpt.name}: step 4 loss {more['loss'][0]:.6f}; "
-            f"log: {text.strip().splitlines()[-2][:120]}")
+        log(f"  resumed from {ckpt.name}: step {steps + 1} loss "
+            f"{more['loss'][0]:.6f}; log: "
+            f"{text.strip().splitlines()[-2][:120]}")
         shutil.rmtree(out / "ckpt")
         del tr, st
         torch.cuda.empty_cache()
 
-        # One step against the plain path and an fp32 reference.
+        # One step against the plain path and an fp32 reference, the same
+        # drop-path masks in all three (one generator seed).
         sd0 = {k: v.clone() for k, v in MSTransception(
-            _train_cfg(flash), "cuda", seed=0).state_dict().items()}
-        ref_m = MSTransception(_train_cfg(flash, dtype="float32",
+            _train_cfg(mode), "cuda", seed=0).state_dict().items()}
+        ref_m = MSTransception(_train_cfg(mode, dtype="float32",
                                           use_kernels=False), "cuda")
-        ref = _one_step(ref_m, sd0, img, lbl)
+        ref = _one_step(ref_m, sd0, img, lbl, seed)
         del ref_m
-        plain_m = MSTransception(_train_cfg(flash, use_kernels=False),
-                                 "cuda")
-        plain = _one_step(plain_m, sd0, img, lbl)
+        plain_m = MSTransception(_train_cfg(mode, use_kernels=False), "cuda")
+        plain = _one_step(plain_m, sd0, img, lbl, seed)
         del plain_m
-        model = MSTransception(_train_cfg(flash), "cuda")
+        model = MSTransception(_train_cfg(mode), "cuda")
         kernels.reset_launches()
-        kern = _one_step(model, sd0, img, lbl)
+        kern = _one_step(model, sd0, img, lbl, seed)
         counts = kernels.launch_counts()
-        if any(n != PER_STEP[flash].get(k, 0) for k, n in counts.items()):
-            fail(f"one step launched {counts}")
+        if counts != per_step:
+            fail(f"one step launched {counts}, want {per_step}")
         if not _compare_steps(f"{mode} one step, kernels vs plain", kern,
                               plain, ref):
             fail("the kernel path's train step disagrees with the plain path")
-        # Planted faults through hooks that exist only here.
-        faults = [("K10 dv zeroed", ba, lambda r: r[:2] + (
-            torch.zeros_like(r[2]),))]
-        if flash:
-            faults.append(("K11 tap gradient zeroed", mf, lambda r: r[:5] + (
-                torch.zeros_like(r[5]),) + r[6:]))
-        for what, mod, hook in faults:
-            orig = mod._launch_bwd
-            mod._launch_bwd = lambda *a, o=orig, h=hook: h(o(*a))
+        # Planted faults through hooks that exist only here: (what, module,
+        # launcher, the launcher with the fault given the launcher).
+        def on_out(hook):
+            return lambda o: lambda *a: hook(o(*a))
+
+        faults = [("K10 dv zeroed", ba, "_launch_bwd", on_out(
+            lambda r: r[:2] + (torch.zeros_like(r[2]),)))]
+        if mode == "flash":
+            faults.append(("K11 tap gradient zeroed", mf, "_launch_bwd",
+                           on_out(lambda r: r[:5] + (
+                               torch.zeros_like(r[5]),) + r[6:])))
+        if mode == "pallas":
+            faults.append(("K9 taps negated", mf, "_launch_skip",
+                           lambda o: lambda *a: o(*a[:3], -a[3], *a[4:])))
+        for what, mod, attr, wrap in faults:
+            orig = getattr(mod, attr)
+            setattr(mod, attr, wrap(orig))
             try:
-                bad = _one_step(model, sd0, img, lbl)
+                bad = _one_step(model, sd0, img, lbl, seed)
             finally:
-                mod._launch_bwd = orig
+                setattr(mod, attr, orig)
             if _compare_steps(f"  planted fault ({what})", bad, plain):
                 fail(f"the gradient check does not see a planted fault "
                      f"({what})")
@@ -928,7 +1090,8 @@ def train_phase():
         # The loss on one repeated batch falls over TRAIN_STEPS steps.
         model.load_state_dict(sd0)
         st = TrainState(model, TrainConfig(), 2211 // TRAIN_BATCH)
-        fn = make_train_step(st, 9, 0.4, 0.6, wide_head=True)
+        fn = make_train_step(st, 9, 0.4, 0.6, wide_head=True,
+                             gen=_gen(seed))
         losses = [float(fn(img, lbl)["loss"]) for _ in range(TRAIN_STEPS)]
         log(f"  {TRAIN_STEPS} steps on one batch: losses "
             f"{[round(x, 5) for x in losses]}")
@@ -939,7 +1102,8 @@ def train_phase():
         # memory of each path alone.
         def timed(m):
             s2 = TrainState(m, TrainConfig(), 2211 // TRAIN_BATCH)
-            f2 = make_train_step(s2, 9, 0.4, 0.6, wide_head=True)
+            f2 = make_train_step(s2, 9, 0.4, 0.6, wide_head=True,
+                                 gen=_gen(seed))
             f2(img, lbl)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -949,12 +1113,12 @@ def train_phase():
         k_ms1, k_mem, kfn = timed(model)
         del model, kfn
         torch.cuda.empty_cache()
-        plain_m = MSTransception(_train_cfg(flash, use_kernels=False), "cuda")
+        plain_m = MSTransception(_train_cfg(mode, use_kernels=False), "cuda")
         p_ms1, p_mem, pfn = timed(plain_m)
         p_ms2 = cuda_ms(lambda: pfn(img, lbl), iters=5, warmup=0)
         del plain_m, pfn
         torch.cuda.empty_cache()
-        model = MSTransception(_train_cfg(flash), "cuda")
+        model = MSTransception(_train_cfg(mode), "cuda")
         k_ms2, _, kfn = timed(model)
         k_ms = min(k_ms1, k_ms2)
         log(f"  train step b={TRAIN_BATCH} {mode}: kernels {k_ms1:.3f} / "
@@ -1113,11 +1277,13 @@ def main():
     grid_tallies = fold_grid_phase(x)
     log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
 
-    # The main-path runs: phase 4's forwards, phase 9's three flash steps,
-    # phase 10's forward per configuration. Every launch's shape must have
-    # been measured in phase 3 or 8, and every measured shape launched.
-    runs = [("per forward, default config", fwd_tallies, n_fwd),
-            ("per flash train step", step_tallies, 3)] + [
+    # The main-path runs: phase 4's forwards, phase 9's flash and pallas
+    # Trainer steps, phase 10's forward per configuration. Every launch's
+    # shape must have been measured in phase 3 or 8, and every measured
+    # shape launched.
+    runs = [("per forward, default config", fwd_tallies, n_fwd)] + [
+        (f"per {mode} train step", t, n)
+        for mode, (t, n) in step_tallies.items()] + [
         (f"per forward, {name}", t, 1) for name, t in grid_tallies.items()]
     total = Counter()
     for _, t, _ in runs:

@@ -12,7 +12,9 @@ add their input back are held on the branch alone (output minus input).
 The backward kernels (K10, K11) are held per gradient, each within 2% of
 its own max: they round their tensor-core operands to bf16 (as the
 forwards do) and sum their per-block partials in another order than the
-plain versions.
+plain versions. So are the plain backwards of K1 and K5-K9 (autograd of
+the plain version through the kernels' autograd Function) against
+autograd of the plain version itself.
 """
 
 import pytest
@@ -75,6 +77,20 @@ def test_mixffn_kernel(gen, s, C):
             _r(gen, C, hid, scale=hid ** -0.5), _r(gen, C, scale=0.02))
     _close(mf.mixffn_ln_skip(*args, s=s), mf.mixffn_ln_skip_plain(*args, s=s),
            base=x)
+
+
+@pytest.mark.parametrize("B,s,C", [(2, 8, 64), (3, 14, 128), (2, 28, 64)])
+def test_mixffn_skip_kernel(gen, B, s, C):
+    """K9: the FFN alone, no caller's LN and no residual."""
+    hid = 4 * C
+    x = _r(gen, B, s * s, C, dtype=torch.bfloat16)
+    args = (x, _r(gen, hid, C, scale=C ** -0.5), _r(gen, hid, scale=0.02),
+            _r(gen, hid, 1, 3, 3, scale=0.3), _r(gen, hid, scale=0.02),
+            _r(gen, hid, scale=0.1, shift=1.0), _r(gen, hid, scale=0.1),
+            _r(gen, C, hid, scale=hid ** -0.5), _r(gen, C, scale=0.02))
+    n0 = mf.skip_launches
+    _close(mf.mixffn_skip(*args, s=s), mf.mixffn_skip_plain(*args, s=s))
+    assert mf.skip_launches == n0 + 1
 
 
 @pytest.mark.parametrize("N,M", [(124, 16), (6076, 784)])
@@ -211,7 +227,8 @@ def test_tiny_model_uses_every_kernel(gen, folds):
                           "bridge_attention": 3, "expand_head": 1,
                           "mhca_block": 2, "linear_attention": 1,
                           "patch_expand": 3, "bridge_attention_bwd": 0,
-                          "mixffn_bwd": 0, "bridge_attention_folded": 0}
+                          "mixffn_bwd": 0, "bridge_attention_folded": 0,
+                          "mixffn_skip": 0}
 
 
 @pytest.mark.parametrize("N,M", [(124, 16), (300, 128), (6076, 784)])
@@ -291,16 +308,88 @@ def test_autograd_functions_reach_every_input(gen):
 
 
 def test_forward_only_kernels_refuse_a_graph(gen):
+    """K4, the eval argmax head, has no backward and refuses a graph; the
+    kernels with a plain backward (here K1 and K8) keep it."""
     x = _r(gen, 1, 64, 64, dtype=torch.bfloat16)
     w = torch.zeros(64, 64, device="cuda", requires_grad=True)
     v = torch.zeros(64, device="cuda")
+    hw = torch.zeros(9, 64, device="cuda", requires_grad=True)
+    w16 = torch.zeros(1024, 64, device="cuda", requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
-        ea.etb_attention(x, v, v, w, v, w, v, w, v, w, v)
+        eh.expand_head(x, w16, v, v, hw, v[:9], p=4, c=64)
     with torch.no_grad():
-        ea.etb_attention(x, v, v, w, v, w, v, w, v, w, v)
+        eh.expand_head(x, w16, v, v, hw, v[:9], p=4, c=64)
+    assert ea.etb_attention(x, v, v, w, v, w, v, w, v, w, v).requires_grad
     kv = x[None]
-    with pytest.raises(RuntimeError, match="no backward"):
-        ba.bridge_attention_folded(x, x, w, v, kv, kv, w, v, 0.125)
+    assert ba.bridge_attention_folded(x, x, w, v, kv, kv, w, v,
+                                      0.125).requires_grad
+
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_()
+
+
+def test_plain_backwards_match_autograd_of_plain(gen):
+    """K1, K5-K9 through their autograd Function on the card: the forward
+    is the kernel's, every input's gradient autograd of the plain version
+    (each within 2% of its own max)."""
+    C, hid, s = 64, 256, 8
+    chs = [h * C // 8 for h in (2, 3, 3)]
+    ffn = [_r(gen, hid, C, scale=C ** -0.5), _r(gen, hid, scale=0.02),
+           _r(gen, hid, 1, 3, 3, scale=0.3), _r(gen, hid, scale=0.02),
+           _r(gen, hid, scale=0.1, shift=1.0), _r(gen, hid, scale=0.1),
+           _r(gen, C, hid, scale=hid ** -0.5), _r(gen, C, scale=0.02)]
+    mhca = [_r(gen, 2, s * s, C, scale=0.5, dtype=torch.bfloat16),
+            _r(gen, C, 1, 3, 3, scale=0.3), _r(gen, C, scale=0.02),
+            _r(gen, C, scale=0.1, shift=1.0), _r(gen, C, scale=0.1),
+            _r(gen, 3 * C, C, scale=3 * C ** -0.5), _r(gen, 3 * C, scale=0.02)]
+    crpe = ([_r(gen, n, 1, k, k, scale=1.0 / k)
+             for n, k in zip(chs, (3, 5, 7))],
+            [_r(gen, n, scale=0.02) for n in chs])
+    tail = [_r(gen, C, C, scale=C ** -0.5), _r(gen, C, scale=0.02),
+            _r(gen, C, scale=0.1, shift=1.0), _r(gen, C, scale=0.1)] + ffn
+
+    def mhca_call(fn):
+        return lambda *a: fn(*a[:7], list(a[7:10]), list(a[10:13]),
+                             *a[13:], s=s, heads=8)
+
+    etb = [_r(gen, 2, 100, C, scale=0.25, dtype=torch.bfloat16),
+           _r(gen, C, scale=0.1, shift=1.0), _r(gen, C, scale=0.1)]
+    for f in (2, 4, 2, 2):
+        etb += [_r(gen, C, C, scale=f * C ** -0.5), _r(gen, C, scale=0.02)]
+    qkv = [_r(gen, 2, 8, 49, 40, scale=f, dtype=torch.bfloat16)
+           for f in (1.0, 3.0, 1.0)]
+    fold = [_r(gen, 2, 124, 64, dtype=torch.bfloat16),
+            _r(gen, 2, 124, 64, dtype=torch.bfloat16),
+            _r(gen, 64, 64, scale=0.2), _r(gen, 64, scale=0.1),
+            _r(gen, 2, 1, 16, 64, dtype=torch.bfloat16),
+            _r(gen, 2, 1, 16, 64, dtype=torch.bfloat16),
+            _r(gen, 64, 64, scale=0.2), _r(gen, 64, scale=0.1)]
+    pex = [_r(gen, 2, 50, 128, dtype=torch.bfloat16),
+           _r(gen, 256, 128, scale=128 ** -0.5),
+           _r(gen, 64, scale=0.1, shift=1.0), _r(gen, 64, scale=0.1)]
+    cases = [
+        (ea.etb_attention, ea.etb_attention_plain, etb),
+        (mhca_call(mb.mhca_block), mhca_call(mb.mhca_block_plain),
+         mhca + crpe[0] + crpe[1] + tail),
+        (lambda *a: la.linear_attention(*a, False, 40 ** -0.5),
+         lambda *a: la.linear_attention_plain(*a, False, 40 ** -0.5), qkv),
+        (lambda *a: pe.patch_expand(*a, p=2, c=64),
+         lambda *a: pe.patch_expand_plain(*a, p=2, c=64), pex),
+        (lambda *a: ba.bridge_attention_folded(*a, 0.125),
+         lambda *a: ba.bridge_attention_folded_plain(*a, 0.125), fold),
+        (lambda *a: mf.mixffn_skip(*a, s=s),
+         lambda *a: mf.mixffn_skip_plain(*a, s=s),
+         [_r(gen, 2, s * s, C, dtype=torch.bfloat16)] + ffn)]
+    for kfn, pfn, args in cases:
+        leaves = [_leaf(t) for t in args]
+        out = kfn(*leaves)
+        g = _r(gen, *out.shape, dtype=out.dtype)
+        got = torch.autograd.grad(out, leaves, g)
+        want = torch.autograd.grad(pfn(*leaves), leaves, g)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            _close(a, b)
 
 
 def test_tiny_model_train_step_kernels(gen):
@@ -332,3 +421,48 @@ def test_tiny_model_train_step_kernels(gen):
                      "bridge_attention_folded"):
             assert counts[name] == 0
         assert all(p.grad is not None for p in m.parameters())
+
+
+def test_tiny_model_pallas_train_step_kernels(gen):
+    """use_pallas_train with drop path: every kernel the config routes to,
+    K9 on the MHCA blocks whose rate is above 0, as launches_per_step."""
+    from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_step,
+    )
+    from transception_tpu_torch.ops import kernels
+    cfg = TransceptionConfig(img_size=64, stage1_layers=1,
+                             num_path=(1, 1, 1), num_layers=(2, 2, 1),
+                             use_pallas_train=True, mhca_ffn_fold=True,
+                             drop_path_rate=0.1)
+    m = MSTransception(cfg, device="cuda").train()
+    kernels.reset_launches()
+    out = m(_r(gen, 2, 64, 64, 1), wide_head=True,
+            gen=torch.Generator(device="cuda").manual_seed(0))
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts == launches_per_step(cfg)
+    # img 64: MHCA maps 8², 4², 2²; stage-2 layer 0 (rate 0) takes K5.
+    assert counts["mixffn_skip"] == 4 and counts["mhca_block"] == 1
+    assert all(p.grad is not None for p in m.parameters())
+
+
+def test_mixffn_skip_raises_without_its_library(gen, monkeypatch):
+    """K9 on a CUDA tensor with its switch on launches or raises: a
+    library that cannot be loaded is an error, not the plain version."""
+    from transception_tpu_torch.ops.kernels import _build
+
+    def missing(name):
+        raise RuntimeError(f"kernel build failed: no library {name}")
+
+    monkeypatch.setattr(_build, "load", missing)
+    args = [_r(gen, 1, 64, 32, dtype=torch.bfloat16),
+            _r(gen, 128, 32, scale=32 ** -0.5), _r(gen, 128),
+            _r(gen, 128, 1, 3, 3), _r(gen, 128), _r(gen, 128), _r(gen, 128),
+            _r(gen, 32, 128, scale=128 ** -0.5), _r(gen, 32)]
+    n0 = mf.skip_launches
+    with pytest.raises(RuntimeError, match="no library mixffn"):
+        mf.mixffn_skip(*args, s=8)
+    assert mf.skip_launches == n0

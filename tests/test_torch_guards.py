@@ -19,7 +19,8 @@ MODEL_FIELDS = (
     "num_path", "num_layers", "num_heads", "mlp_ratio", "token_mlp",
     "concat", "have_bridge", "br_ch_att_list", "stage_3or4", "bridge_dim",
     "bridge_heads", "reduction_ratios", "dtype", "drop_rate",
-    "drop_path_rate", "ffn_flash_train", "bridge_attn_fold",
+    "drop_path_rate", "use_pallas_train", "ffn_flash_train",
+    "bridge_attn_fold",
     "bridge_ffn_use_pallas", "etb_attn_fold", "etb_ffn_fold", "mhca_ffn_fold",
     "mhca_block_fold")
 # DataConfig fields the port mirrors (those its train loop reads).
@@ -187,12 +188,12 @@ def test_forward_only_guard_decides_on_graph():
     assert _build.needs_graph(x, [x, w])
     assert not _build.needs_graph(x, [x])
     with pytest.raises(RuntimeError, match="no backward"):
-        _build.forward_only("etb_attention", x, w)
+        _build.forward_only("expand_head", x, w)
     with torch.no_grad():
         assert not _build.needs_graph(x, w)
-        _build.forward_only("etb_attention", x, w)
+        _build.forward_only("expand_head", x, w)
     with torch.inference_mode():
-        _build.forward_only("etb_attention", x, w)
+        _build.forward_only("expand_head", x, w)
 
 
 @pytest.mark.parametrize("use_kernels,flash", [(True, False), (True, True),
@@ -237,3 +238,32 @@ def test_kernel_sets_match_jax_train_step_gating(use_kernels, flash):
     assert sw == pcfg.fold_switches(
         pcfg.TransceptionConfig(use_kernels=True, ffn_flash_train=flash),
         training=True)
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_pallas_train_keeps_the_eval_kernels_and_folds(use_kernels):
+    """With use_pallas_train the JAX train_step_model returns the model as
+    it is (train/trainer.py:107): the port's train step keeps every kernel
+    and the eval fold switches, a switch of None following
+    use_pallas_train (with use_kernels=False too, so that the plain path
+    runs the kernel path's structure)."""
+    from transception_tpu.models.transception import MSTransception
+    from transception_tpu.train.trainer import train_step_model
+    from transception_tpu_torch.ops import kernels
+    jm = MSTransception(jcfg.TransceptionConfig(
+        use_pallas=True, use_pallas_train=True, mhca_ffn_fold=True))
+    assert train_step_model(jm) is jm
+    jc = jm.cfg
+    pc = pcfg.TransceptionConfig(use_kernels=use_kernels,
+                                 use_pallas_train=True, mhca_ffn_fold=True)
+    assert kernels.kernel_set(pc, training=True) == (
+        kernels.SWITCHES if use_kernels else frozenset())
+
+    def on(v):
+        return bool(jc.use_pallas if v is None else v)
+
+    assert pcfg.fold_switches(pc, training=True) == pcfg.FoldSwitches(
+        bridge_attn=on(jc.bridge_attn_fold),
+        bridge_ffn=on(jc.bridge_ffn_use_pallas),
+        etb_attn=on(jc.etb_attn_fold), etb_ffn=on(jc.etb_ffn_fold),
+        mhca_block=on(jc.mhca_block_fold), mhca_ffn=on(jc.mhca_ffn_fold))

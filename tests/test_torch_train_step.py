@@ -3,10 +3,19 @@ three train steps of the tiny model (tests/conftest.py tiny_config, fp32,
 at 64² so that train-mode BatchNorm has more than a handful of values per
 channel in the deepest stage) from the same weights (load_jax_variables)
 and the same numpy batches, against JAX make_train_step, with the wide
-head (as the Trainer runs it) and without, in the default train mode and
-with ffn_flash_train. On the CPU both packages run their plain paths, so
-the flash mode must give the default mode's result. Plus the port's
-Trainer: checkpoint and resume.
+head (as the Trainer runs it) and without, in three train modes: the
+default, ffn_flash_train, and "pallas" (use_pallas_train with
+mhca_ffn_fold, drop_path_rate 0: the eval kernels' structure in training,
+K1, K2 and K5 folds included). On the CPU both packages run their plain
+paths, so the flash mode must give the default mode's result; and every
+JAX kernel facade gates on _target_platform() == "tpu"
+(ops/pallas/mixffn.py:27, linear_attention.py:66,77, mhca_block.py:35,
+patch_expand.py:29), so the JAX use_pallas_train step is the same XLA
+program as its default step, and one JAX reference serves all three
+modes. Plus the port alone: drop path at rate 0.1 (the same generator
+seed gives the same step, another seed another; the kernel wrappers'
+routing decisions against launches_per_step), and the Trainer's
+checkpoint and resume.
 
 Tolerances (fp32, the same math in another summation order):
   * loss, ce, dice: 1e-5 relative at step 1, 1e-4 over three steps (two
@@ -44,12 +53,20 @@ from transception_tpu_torch.core.config import (
     TrainConfig,
     TransceptionConfig,
 )
-from transception_tpu_torch.models.transception import MSTransception
+from transception_tpu_torch.models.transception import (
+    MSTransception,
+    launches_per_step,
+)
+from transception_tpu_torch.ops import kernels
 from transception_tpu_torch.train.state import TrainState
 from transception_tpu_torch.train.trainer import Trainer, make_train_step
 
 IMG, B, STEPS, SPE = 64, 2, 3, 4
 TC = dict(batch_size=B, max_epochs=2)
+# The port's train modes (config overrides).
+MODES = {"default": {}, "flash": dict(ffn_flash_train=True),
+         "pallas": dict(use_pallas_train=True, mhca_ffn_fold=True,
+                        drop_path_rate=0.0)}
 
 
 def _port_config(jc, **kw):
@@ -117,9 +134,9 @@ def _port_tensors(jc, variables):
     return m.state_dict()
 
 
-def _port_run(setup, wide, flash):
+def _port_run(setup, wide, mode):
     jc, jm, v, xs, ys = setup
-    m = MSTransception(_port_config(jc, ffn_flash_train=flash), device="cpu")
+    m = MSTransception(_port_config(jc, **MODES[mode]), device="cpu")
     load_jax_variables(m, v, device="cpu")
     st = TrainState(m, TrainConfig(**TC), SPE)
     fn = make_train_step(st, 9, 0.4, 0.6, wide_head=wide)
@@ -135,23 +152,23 @@ def _port_run(setup, wide, flash):
 
 @pytest.fixture(scope="module")
 def port_run(setup):
-    """_port_run by (wide, flash), each run once per module: the
+    """_port_run by (wide, mode), each run once per module: the
     flash-equals-default check reuses the wide runs of the JAX
     comparison."""
     runs = {}
 
-    def get(wide, flash):
-        if (wide, flash) not in runs:
-            runs[wide, flash] = _port_run(setup, wide, flash)
-        return runs[wide, flash]
+    def get(wide, mode):
+        if (wide, mode) not in runs:
+            runs[wide, mode] = _port_run(setup, wide, mode)
+        return runs[wide, mode]
     return get
 
 
-@pytest.mark.parametrize("flash", [False, True], ids=["default", "flash"])
-def test_train_step_matches_jax(setup, jax_run, port_run, flash):
+@pytest.mark.parametrize("mode", list(MODES))
+def test_train_step_matches_jax(setup, jax_run, port_run, mode):
     wide, jout = jax_run
     jc, _, v, _, _ = setup
-    pout = port_run(wide, flash)
+    pout = port_run(wide, mode)
     # Step 1: losses, every gradient leaf, the updated state.
     for k, want in jout[0]["metrics"].items():
         assert pout[0]["metrics"][k] == pytest.approx(want, rel=1e-5), k
@@ -179,7 +196,7 @@ def test_train_step_matches_jax(setup, jax_run, port_run, flash):
 
 
 def test_flash_mode_equals_default_on_cpu(port_run):
-    a, b = (port_run(True, flash) for flash in (False, True))
+    a, b = (port_run(True, mode) for mode in ("default", "flash"))
     for k in a[0]["metrics"]:
         assert b[0]["metrics"][k] == pytest.approx(a[0]["metrics"][k],
                                                    rel=1e-6)
@@ -203,9 +220,51 @@ def test_wide_head_is_the_shuffled_standard_head(setup):
                                rtol=1e-5, atol=1e-5)
 
 
+def _drop_path_step(seed):
+    """One step of a tiny "pallas"-mode model at drop_path_rate 0.1 (MHCA
+    maps 4², 2², 1²: layer 0 of stage 2 at rate 0 takes the block fold,
+    the others drop path with K9 on the even maps) with the drop-path
+    generator seeded `seed`: the loss, the gradients and the kernel
+    wrappers' routing decisions."""
+    cfg = TransceptionConfig(img_size=32, dtype="float32", stage1_layers=1,
+                             num_path=(1, 1, 1), num_layers=(2, 1, 1),
+                             use_pallas_train=True, mhca_ffn_fold=True,
+                             drop_path_rate=0.1)
+    m = MSTransception(cfg, device="cpu", seed=3)
+    rng = np.random.default_rng(7)
+    n = 8  # 48 draws a step at keep 0.93-0.97: some samples drop
+    x = torch.from_numpy(rng.random((n, 32, 32, 1)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 9, (n, 32, 32))).long()
+    st = TrainState(m, TrainConfig(batch_size=n, max_epochs=2), SPE)
+    kernels.reset_launches()
+    fn = make_train_step(st, 9, 0.4, 0.6, wide_head=True,
+                         gen=torch.Generator().manual_seed(seed))
+    loss = float(fn(x, y)["loss"])
+    return (cfg, loss, {n: p.grad for n, p in m.named_parameters()},
+            kernels.routed_counts())
+
+
+def test_drop_path_step_follows_its_generator():
+    cfg, a, ga, routed = _drop_path_step(0)
+    _, b, gb, _ = _drop_path_step(0)
+    _, c, _, _ = _drop_path_step(1)
+    assert np.isfinite(a) and a == b and a != c
+    assert all(torch.equal(ga[n], gb[n]) for n in ga)
+    # Every forward kernel decision of the step, as a card would launch
+    # it: launches_per_step's forward counts (K10 and K11 follow K3, K2).
+    want = launches_per_step(cfg)
+    assert want["mixffn_skip"] == 2 and want["mhca_block"] == 1
+    assert routed == {k: n for k, n in want.items()
+                      if n and k not in ("bridge_attention_bwd",
+                                         "mixffn_bwd")}
+    assert want["bridge_attention_bwd"] == want["bridge_attention"]
+    assert want["mixffn_bwd"] == want["mixffn"]
+
+
 def _tiny_trainer(tmp_path, **kw):
     cfg = TransceptionConfig(img_size=32, dtype="float32", stage1_layers=1,
-                             num_path=(1, 1, 1), num_layers=(1, 1, 1))
+                             num_path=(1, 1, 1), num_layers=(1, 1, 1),
+                             drop_path_rate=0.5)
     tcfg = TrainConfig(batch_size=2, max_epochs=3, output_dir=str(tmp_path),
                        ckpt_every=10, **kw)
     return Trainer(cfg, tcfg, DataConfig(dataset="synthetic",
@@ -214,21 +273,27 @@ def _tiny_trainer(tmp_path, **kw):
 
 
 def test_trainer_checkpoints_and_resumes(tmp_path):
+    """Drop path at 0.5 (MHCA rates 0, 0.25, 0.5): the checkpoint keeps
+    the drop-path generator's state, so the resumed step draws the masks
+    of the uninterrupted run."""
     st, hist = _tiny_trainer(tmp_path / "a").train(max_steps=2)
     assert st.step == 2 and len(hist["loss"]) == 2
     assert np.isfinite(hist["loss"]).all()
     ckpt = tmp_path / "a" / "ckpt" / "step_00000002.pt"
     assert ckpt.exists()
     sd = torch.load(ckpt, weights_only=True)
-    assert set(sd) == {"model", "optimizer", "schedule", "step"}
+    assert set(sd) == {"model", "optimizer", "schedule", "step", "gen"}
     assert sd["step"] == 2 and sd["schedule"]["updates"] == 2
+    fresh = torch.Generator().manual_seed(TrainConfig().seed).get_state()
+    assert not torch.equal(sd["gen"], fresh)  # the state moved on
     st, more = _tiny_trainer(tmp_path / "a").train(max_steps=3)
     assert st.step == 3 and len(more["loss"]) == 1
     log = (tmp_path / "a" / "log.txt").read_text()
     assert "resumed from" in log and "iteration 3 : lr" in log
     assert os.path.exists(tmp_path / "a" / "ckpt" / "step_00000003.pt")
     # The resumed run continues the uninterrupted one (the stream replays
-    # from the epoch boundary at step 2).
+    # from the epoch boundary at step 2, the masks from the checkpointed
+    # generator).
     _, straight = _tiny_trainer(tmp_path / "b").train(max_steps=3)
     assert more["loss"][0] == pytest.approx(straight["loss"][2], rel=1e-5)
 

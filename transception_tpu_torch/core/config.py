@@ -2,15 +2,15 @@
 
 TransceptionConfig mirrors the model-defining fields of the JAX package's
 TransceptionConfig (same names, same defaults: the published 82.24-DSC
-MSTransception, networks/MSTr.py:2759-2823), its `ffn_flash_train` and its
-six per-op fold switches (bridge_attn_fold, bridge_ffn_use_pallas,
-etb_attn_fold, etb_ffn_fold, mhca_ffn_fold, mhca_block_fold), each picking
-for one family of blocks between one folded kernel and the chain of
-separate modules; `fold_switches` resolves them for eval or training. The
-TPU-only knobs (remat, vectorize_paths, bridge sequence sharding,
-bridge_use_pallas, lane packing, use_pallas_train and the kernel fallback
-ladder) are not carried over; `use_kernels` selects the hand-written CUDA
-kernels on the card (and what a fold switch of None follows, as JAX's
+MSTransception, networks/MSTr.py:2759-2823), its `ffn_flash_train`, its
+`use_pallas_train` and its six per-op fold switches (bridge_attn_fold,
+bridge_ffn_use_pallas, etb_attn_fold, etb_ffn_fold, mhca_ffn_fold,
+mhca_block_fold), each picking for one family of blocks between one
+folded kernel and the chain of separate modules; `fold_switches` resolves
+them for eval or training. The TPU-only knobs (remat, vectorize_paths,
+bridge sequence sharding, bridge_use_pallas, lane packing and the kernel
+fallback ladder) are not carried over; `use_kernels` selects the
+hand-written CUDA kernels on the card (and what a fold switch of None follows, as JAX's
 follow use_pallas). TrainConfig mirrors the JAX TrainConfig field for
 field; DataConfig the fields the train loop reads.
 """
@@ -64,7 +64,17 @@ class TransceptionConfig:
     # stay fp32.
     dtype: str = "bfloat16"
     drop_rate: float = 0.1
+    # Stochastic depth of the MHCA blocks, decayed linearly over the
+    # stages' layers (models.msvit.dpr_schedule); 0 in the reference.
     drop_path_rate: float = 0.0
+    # Kernels in the TRAINING step (JAX core/config.py:107-113): False
+    # runs the train step's kernel set (the bridge attention, plus the
+    # MixFFN folds with ffn_flash_train); True keeps every kernel and fold
+    # switch as in eval (JAX train_step_model returns the model as it
+    # is), the forward kernels without a backward kernel differentiated
+    # through their plain versions. A block with a drop-path rate above 0
+    # runs unfolded in training, so that stochastic depth stays exact.
+    use_pallas_train: bool = False
     # Keep the fused MixFFN_skip kernels on in the train step (ETB, MHCA
     # and bridge per-scale FFNs, K2 forward + K11 backward), as the JAX
     # field of this name; off, the train step runs only the bridge
@@ -154,19 +164,23 @@ class FoldSwitches(NamedTuple):
 def fold_switches(cfg: TransceptionConfig, training: bool) -> FoldSwitches:
     """The fold switches a model with config `cfg` runs. In eval a switch
     of None follows use_kernels (JAX: use_pallas). In training they resolve
-    as JAX train_step_model does (train/trainer.py:107-117): the bridge
-    attention and the MHCA block unfolded, the ETB attention unfolded (the
-    plain chain: K6 has no backward), the three FFN folds on only with
+    as JAX train_step_model does (train/trainer.py:90-119): with
+    use_pallas_train as in eval, a switch of None following
+    use_pallas_train; else the bridge attention and the MHCA block
+    unfolded, the ETB attention unfolded, the three FFN folds on only with
     ffn_flash_train. The train resolution does not depend on use_kernels,
     so the plain path (use_kernels=False) runs the kernel path's structure.
-    A function of the config alone, never of the device."""
-    if training:
+    (The MHCA blocks with a drop-path rate above 0 unfold in training
+    whatever their switches say, ops.attention.MHCABlock.) A function of
+    the config alone, never of the device."""
+    if training and not cfg.use_pallas_train:
         f = cfg.ffn_flash_train
         return FoldSwitches(bridge_attn=False, bridge_ffn=f, etb_attn=False,
                             etb_ffn=f, mhca_block=False, mhca_ffn=f)
+    follow = cfg.use_pallas_train if training else cfg.use_kernels
 
     def pick(v):
-        return cfg.use_kernels if v is None else bool(v)
+        return follow if v is None else bool(v)
 
     return FoldSwitches(
         bridge_attn=pick(cfg.bridge_attn_fold),

@@ -1,8 +1,10 @@
-// The fused MixFFN_skip kernel body, shared by the MixFFN kernel
+// The fused MixFFN_skip kernel body, shared by the MixFFN kernels
 // (mixffn.cu) and the MHCA block kernel (mhca_block.cu), which runs it as
 // its last stage. Replaces the body of
-// transception_tpu/ops/pallas/mixffn_kernel.py:342 fused_mixffn_ln_skip.
-//   out = x + fc2(GELU(LN_h(dwconv3x3(h) + h))),  h = fc1(LN(x)).
+// transception_tpu/ops/pallas/mixffn_kernel.py:342 fused_mixffn_ln_skip
+//   out = x + fc2(GELU(LN_h(dwconv3x3(h) + h))),  h = fc1(LN(x)),
+// and, as the BARE instantiation, of :285 fused_mixffn_skip
+//   out = fc2(GELU(LN_h(dwconv3x3(h) + h))),  h = fc1(x).
 //
 // One block per (map row r, batch b). The block normalises the three map
 // rows r-1, r, r+1 once, then walks the hidden width in 64-channel chunks:
@@ -49,10 +51,12 @@ __device__ __forceinline__ void ln_range(const bf16* src, bf16* dst,
 }
 
 // GROUPED: the caller's LN per group of C/groups channels (the bridge's
-// norm2 on its wide layout, lts/ltb tiled to C). A compile-time switch:
-// a runtime branch alone slowed the groups = 1 kernel by 11% at 14² x 320,
-// so that instantiation keeps the plain loop.
-template <bool GROUPED>
+// norm2 on its wide layout, lts/ltb tiled to C). BARE: the FFN alone
+// (K9): the window rows are copied as they are (lts, ltb unread) and no
+// residual is added. Compile-time switches: a runtime branch alone slowed
+// the groups = 1 kernel by 11% at 14² x 320, so that instantiation keeps
+// the plain loop.
+template <bool GROUPED, bool BARE = false>
 __global__ void __launch_bounds__(THREADS)
 mixffn_ln_skip_kernel(const bf16* x, const float* lts, const float* ltb,
                       const bf16* w1, const float* b1, const bf16* dw,
@@ -73,7 +77,8 @@ mixffn_ln_skip_kernel(const bf16* x, const float* lts, const float* ltb,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
 
-  // Caller's LayerNorm of the window rows r-1, r, r+1 (zero off the map).
+  // Caller's LayerNorm of the window rows r-1, r, r+1 (zero off the map);
+  // BARE: the rows themselves.
   for (int idx = warp; idx < 3 * SP; idx += nw) {
     const int wr = idx / SP, j = idx % SP, rr = r - 1 + wr;
     bf16* dst = xn + (size_t)idx * C;
@@ -82,7 +87,9 @@ mixffn_ln_skip_kernel(const bf16* x, const float* lts, const float* ltb,
       continue;
     }
     const bf16* src = xb + ((size_t)rr * s + j) * C;
-    if constexpr (GROUPED) {
+    if constexpr (BARE) {
+      for (int c = lane; c < C; c += 32) dst[c] = src[c];
+    } else if constexpr (GROUPED) {
       const int gsz = C / groups;
       for (int c0 = 0; c0 < C; c0 += gsz)
         ln_range(src, dst, lts, ltb, c0, gsz, eps_ln, lane);
@@ -149,7 +156,10 @@ mixffn_ln_skip_kernel(const bf16* x, const float* lts, const float* ltb,
     const int j = i / C, c = i % C;
     const size_t n = (size_t)r * s + j;
     const float o = rbf(hst[(size_t)j * C + c] + b2[c]);
-    ob[n * C + c] = __float2bfloat16(o + __bfloat162float(xb[n * C + c]));
+    if constexpr (BARE)
+      ob[n * C + c] = __float2bfloat16(o);
+    else
+      ob[n * C + c] = __float2bfloat16(o + __bfloat162float(xb[n * C + c]));
   }
 }
 

@@ -8,11 +8,15 @@ pre-shuffle logits with wide_head=True. Gray inputs are repeated to 3
 channels (MSTr.py:2828-2829). Built in eval mode; .train() switches
 BatchNorm to batch statistics, the blocks to the train step's fold
 switches (core.config.fold_switches) and the kernels to the train step's
-set (ops.kernels.kernel_set). Every fold configuration has the same
-parameters: one state_dict (and one load_jax_variables) serves them all.
+set (ops.kernels.kernel_set), and turns on drop path (drawn from the
+caller's generator). Every fold configuration has the same parameters:
+one state_dict (and one load_jax_variables) serves them all.
 """
 
 from __future__ import annotations
+
+from collections import Counter
+from typing import Optional
 
 import torch
 from torch import nn
@@ -25,7 +29,7 @@ from transception_tpu_torch.core.config import (
 from transception_tpu_torch.core.device import DeviceLike, resolve_device
 from transception_tpu_torch.models.bridge import BridgeBlock4, BridgeGeometry
 from transception_tpu_torch.models.decoder import DecoderLayer
-from transception_tpu_torch.models.msvit import MSViT
+from transception_tpu_torch.models.msvit import MSViT, dpr_schedule
 from transception_tpu_torch.ops import kernels
 from transception_tpu_torch.ops.common import init_weights
 
@@ -62,22 +66,83 @@ class MSTransception(nn.Module):
         self.to(dev).eval()
 
     def forward(self, x: torch.Tensor, argmax: bool = False,
-                wide_head: bool = False) -> torch.Tensor:
+                wide_head: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, H, W, 1|3). argmax=True returns (B, H, W) uint8 class ids
         computed before the final pixel shuffle (decoder.py:154-201).
         wide_head=True (training) returns (B, (H/4)·(W/4), 16, num_classes)
         fp32 logits in pre-shuffle token order (transception.py:36-40).
-        The kernels of kernels.kernel_set(cfg, self.training) run."""
+        The kernels of kernels.kernel_set(cfg, self.training) run. In
+        training with drop_path_rate > 0, `gen` (a torch.Generator on the
+        model's device, the JAX step's dropout key) draws the masks."""
         if x.shape[-1] == 1:
             x = x.expand(*x.shape[:-1], 3)
         with kernels.enabled(kernels.kernel_set(self.cfg, self.training)):
-            enc = self.bridge(self.backbone(x.to(self.cfg.compute_dtype)))
+            enc = self.bridge(self.backbone(x.to(self.cfg.compute_dtype),
+                                            gen))
             B, h4, w4, c4 = enc[3].shape
             t = self.decoder_3(enc[3].reshape(B, h4 * w4, c4))
             t = self.decoder_2(t, enc[2])
             t = self.decoder_1(t, enc[1])
             return self.decoder_0(t, enc[0], argmax_head=argmax,
                                   wide_head=wide_head)
+
+
+def _forward_calls(cfg: TransceptionConfig, training: bool,
+                   head: str) -> Counter:
+    """Kernel-wrapper calls of one forward by kernel switch: the structure
+    the fold switches give each block at each map side, and in training
+    the MHCA blocks' drop-path rates (a rate above 0 unfolds the block).
+    head: "argmax", "logits" or "wide" (the wide head's expand is a plain
+    Linear, DecoderLayer.wide_head)."""
+    sw = fold_switches(cfg, training)
+    s1 = cfg.stage1_res
+    takes = kernels.mixffn.takes
+    calls = Counter()
+    # Stage 1 and decoders 2/1/0: two ETBs each at s1, s1/4, s1/2, s1.
+    for s in [s1] * cfg.stage1_layers + [s1 // 4, s1 // 2, s1] * 2:
+        calls["etb_attention" if sw.etb_attn else "linear_attention"] += 1
+        if sw.etb_ffn and takes(s):
+            calls["mixffn"] += 1
+    # MHCA stages 2-4 at s1/2, s1/4, s1/8, every path at the stage's rates.
+    rates = dpr_schedule(cfg.drop_path_rate if training else 0.0,
+                         cfg.num_layers)
+    for i, (paths, stage) in enumerate(zip(cfg.num_path, rates)):
+        s = s1 >> (i + 1)
+        for rate in stage:
+            exact = rate == 0.0
+            if sw.mhca_block and exact and s % 2 == 0:
+                calls["mhca_block"] += paths
+                continue
+            calls["linear_attention"] += paths
+            if sw.mhca_ffn and takes(s):
+                calls["mixffn" if exact else "mixffn_skip"] += paths
+    # Bridge: spatial attention layers; the per-scale FFN folds.
+    for ch_att in cfg.br_ch_att_list:
+        if not ch_att:
+            calls["bridge_attention_folded" if sw.bridge_attn
+                  else "bridge_attention"] += 1
+        if sw.bridge_ffn:
+            calls["mixffn"] += sum(takes(s1 >> i) for i in range(4))
+    # Decoders 3/2/1 expand x2; decoder 0 x4 (+ head + argmax in bf16).
+    calls["patch_expand"] += 3
+    if head == "argmax" and cfg.compute_dtype == torch.bfloat16:
+        calls["expand_head"] += 1
+    elif head != "wide":
+        calls["patch_expand"] += 1
+    return calls
+
+
+def _launches(cfg: TransceptionConfig, training: bool, head: str) -> dict:
+    counts = {name: 0 for name, _, _ in kernels.COUNTERS}
+    on = kernels.kernel_set(cfg, training)
+    for name, n in _forward_calls(cfg, training, head).items():
+        if name in on:
+            counts[name] += n
+    if training:  # one backward kernel per K3 and K2 forward
+        counts[kernels.bridge_attention.BWD_NAME] = counts["bridge_attention"]
+        counts[kernels.mixffn.BWD_NAME] = counts["mixffn"]
+    return counts
 
 
 def launches_per_forward(cfg: TransceptionConfig,
@@ -87,41 +152,16 @@ def launches_per_forward(cfg: TransceptionConfig,
     function of the config (the structure its fold switches give each
     block at each map side). chip_smoke.py holds the card's counters to it.
     Without use_kernels every count is 0."""
-    counts = {name: 0 for name, _, _ in kernels.COUNTERS}
-    if not cfg.use_kernels:
-        return counts
-    sw = fold_switches(cfg, training=False)
-    s1 = cfg.stage1_res
-    takes = kernels.mixffn.takes
+    return _launches(cfg, False, "argmax" if argmax else "logits")
 
-    def add(name, n=1):
-        counts[name] += n
 
-    # Stage 1 and decoders 2/1/0: two ETBs each at s1, s1/4, s1/2, s1.
-    for s in [s1] * cfg.stage1_layers + [s1 // 4, s1 // 2, s1] * 2:
-        add("etb_attention" if sw.etb_attn else "linear_attention")
-        if sw.etb_ffn and takes(s):
-            add("mixffn")
-    # MHCA stages 2-4 at s1/2, s1/4, s1/8.
-    for i, (paths, layers) in enumerate(zip(cfg.num_path, cfg.num_layers)):
-        s, n = s1 >> (i + 1), paths * layers
-        if sw.mhca_block and s % 2 == 0:
-            add("mhca_block", n)
-            continue
-        add("linear_attention", n)
-        if sw.mhca_ffn and takes(s):
-            add("mixffn", n)
-    # Bridge: spatial attention layers; the per-scale FFN folds.
-    for ch_att in cfg.br_ch_att_list:
-        if not ch_att:
-            add("bridge_attention_folded" if sw.bridge_attn
-                else "bridge_attention")
-        if sw.bridge_ffn:
-            add("mixffn", sum(takes(s1 >> i) for i in range(4)))
-    # Decoders 3/2/1 expand x2; decoder 0 x4 (+ head + argmax in bf16).
-    add("patch_expand", 3)
-    if argmax and cfg.compute_dtype == torch.bfloat16:
-        add("expand_head")
-    else:
-        add("patch_expand")
-    return counts
+def launches_per_step(cfg: TransceptionConfig, wide_head: bool = True
+                      ) -> dict:
+    """Kernel launches of one train step (forward and backward) of an
+    MSTransception with config `cfg` on the card, per counter of
+    ops.kernels.launch_counts: a pure function of the config, as
+    launches_per_forward, with the train step's fold switches, kernel set
+    and drop-path rates; K10 and K11 once per K3 and K2 forward (the other
+    kernels' backwards are autograd of their plain versions).
+    chip_smoke.py holds the card's counters to it."""
+    return _launches(cfg, True, "wide" if wide_head else "logits")

@@ -16,12 +16,18 @@ module's .training), as the JAX modules do from theirs:
     MixFFN_skip -> + x (ops/attention.py:146-215);
   * MHCABlock: the whole block as one kernel (K5) on an even-sided map, or
     its modules with the factorized attention through K6, whose FFN
-    sub-block folds into K2 with mhca_ffn_fold (:300-392).
-In training the switches resolve as the JAX train step's: every attention
-unfolded, the FFN folds only with ffn_flash_train.
+    sub-block folds into K2 with mhca_ffn_fold (with drop path active it
+    runs through the unfolded MixFFN kernel, K9, instead) (:300-392).
+In training the switches resolve as the JAX train step's: with
+use_pallas_train as in eval, else every attention unfolded and the FFN
+folds only with ffn_flash_train. An MHCA block whose drop-path rate is
+above 0 runs unfolded in training, its two residual branches through
+drop_path.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -35,6 +41,25 @@ from transception_tpu_torch.ops.common import (
     Linear,
     MixFFNSkip,
 )
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stochastic depth on a residual branch (ops/attention.py:76-85): in
+    training, each sample kept with probability 1 - rate (a Bernoulli
+    mask drawn from `gen`, a torch.Generator on x's device) and rescaled,
+    x · mask / keep with keep in x's dtype, as jnp divides by the Python
+    float; the identity in eval or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    if gen is None:
+        raise ValueError("drop_path in training needs a torch.Generator "
+                         "(the train step's gen)")
+    keep = 1.0 - rate
+    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=gen,
+                   device=x.device)
+    mask = (u < keep).to(x.dtype)
+    return x * mask / torch.tensor(keep, dtype=x.dtype, device=x.device)
 
 
 def efficient_linear_attention(q, k, v):
@@ -169,22 +194,27 @@ class MHCABlock(nn.Module):
     (MSTr.py:905-946, LN eps 1e-6): with mhca_block_fold the whole-block
     kernel on even-sided maps, else the unfolded path of
     ops/attention.py:366-392, whose norm2 + FFN + residual fold into the
-    MixFFN kernel with mhca_ffn_fold (:375-386). cpe/crpe are the
-    encoder's shared modules."""
+    MixFFN kernel with mhca_ffn_fold (:375-386). Both folds only where
+    drop path is the identity (eval, or rate 0), as in JAX; otherwise the
+    two branches pass drop_path, the FFN through the unfolded MixFFN
+    kernel with mhca_ffn_fold (:387-391). cpe/crpe are the encoder's
+    shared modules."""
 
     def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: int = 3,
-                 dtype=torch.bfloat16, folds: Folds = DEFAULT_FOLDS):
+                 dtype=torch.bfloat16, folds: Folds = DEFAULT_FOLDS,
+                 drop_path_rate: float = 0.0):
         super().__init__()
-        self.folds = folds
+        self.folds, self.drop_path_rate = folds, drop_path_rate
         self.norm1 = LayerNorm(dim, eps=1e-6, dtype=dtype)
         self.factoratt_crpe = FactorAttConvRelPosEnc(dim, num_heads, dtype)
         self.norm2 = LayerNorm(dim, eps=1e-6, dtype=dtype)
         self.mlp = MixFFNSkip(dim, dim * mlp_ratio, dtype=dtype)
 
     def forward(self, x, H: int, W: int, cpe: ConvPosEnc,
-                crpe: ConvRelPosEnc):
+                crpe: ConvRelPosEnc, gen: Optional[torch.Generator] = None):
         sw = self.folds[self.training]
-        if sw.mhca_block and H == W and H % 2 == 0:
+        exact = not self.training or self.drop_path_rate == 0.0
+        if sw.mhca_block and exact and H == W and H % 2 == 0:
             # The whole block as one kernel call where the TPU ran its
             # kernel (even map sides, ops/pallas/mhca_block_kernel.py:56).
             fa = self.factoratt_crpe
@@ -197,31 +227,38 @@ class MHCABlock(nn.Module):
                 self.norm2.weight, self.norm2.bias, *self.mlp.params(),
                 s=H, heads=fa.num_heads, eps1=self.norm1.eps,
                 eps2=self.norm2.eps, eps=self.mlp.norm1.eps)
+        def dp(t):
+            return drop_path(t, self.drop_path_rate, self.training, gen)
+
         x = cpe(x, H, W)
-        x = x + self.factoratt_crpe(self.norm1(x), H, W, crpe)
-        if sw.mhca_ffn:
+        x = x + dp(self.factoratt_crpe(self.norm1(x), H, W, crpe))
+        if sw.mhca_ffn and exact:
             return self.mlp.folded(x, H, self.norm2)
-        return x + self.mlp(self.norm2(x), H, W)
+        return x + dp(self.mlp(self.norm2(x), H, W, kernel=sw.mhca_ffn))
 
 
 class MHCAEncoder(nn.Module):
-    """Stack of MHCABlocks sharing one CPE and one CRPE (MSTr.py:949-993).
-    Input and output are (B, H, W, C) maps."""
+    """Stack of MHCABlocks sharing one CPE and one CRPE (MSTr.py:949-993),
+    layer i at drop-path rate drop_path_rates[i] (all 0 if empty). Input
+    and output are (B, H, W, C) maps; `gen` feeds the drop-path masks in
+    training."""
 
     def __init__(self, dim: int, num_layers: int = 1, num_heads: int = 8,
                  mlp_ratio: int = 3, crpe_window=((3, 2), (5, 3), (7, 3)),
-                 dtype=torch.bfloat16, folds: Folds = DEFAULT_FOLDS):
+                 dtype=torch.bfloat16, folds: Folds = DEFAULT_FOLDS,
+                 drop_path_rates=()):
         super().__init__()
         self.cpe = ConvPosEnc(dim, 3, dtype=dtype)
         self.crpe = ConvRelPosEnc(dim // num_heads, num_heads, crpe_window,
                                   dtype=dtype)
+        rates = tuple(drop_path_rates) or (0.0,) * num_layers
         self.MHCA_layers = nn.ModuleList(
-            MHCABlock(dim, num_heads, mlp_ratio, dtype, folds)
-            for _ in range(num_layers))
+            MHCABlock(dim, num_heads, mlp_ratio, dtype, folds, rates[i])
+            for i in range(num_layers))
 
-    def forward(self, x):
+    def forward(self, x, gen: Optional[torch.Generator] = None):
         B, H, W, C = x.shape
         t = x.reshape(B, H * W, C)
         for layer in self.MHCA_layers:
-            t = layer(t, H, W, self.cpe, self.crpe)
+            t = layer(t, H, W, self.cpe, self.crpe, gen)
         return t.reshape(B, H, W, C)

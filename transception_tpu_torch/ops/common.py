@@ -147,10 +147,12 @@ class DWConv(nn.Module):
 class MixFFNSkip(nn.Module):
     """fc1 -> (DWConv + fc1 skip) -> LN -> GELU -> fc2 (MSTr.py:889-902).
 
-    The math is the plain version of the fused MixFFN kernel
+    The math is the plain version of the fused MixFFN kernels
     (ops/kernels/mixffn.py). `folded` runs the caller's LayerNorm, this
-    FFN and the residual as that kernel (the ETB, MHCA and bridge FFN
-    folds); calling the module runs the plain FFN alone."""
+    FFN and the residual as K2 (the ETB, MHCA and bridge FFN folds);
+    calling the module runs the FFN alone, as K9 when asked (the unfolded
+    MHCA FFN with mhca_ffn_fold, JAX ops/common.py:294-319), else
+    plain."""
 
     def __init__(self, c1: int, c2: int, dtype=torch.bfloat16):
         super().__init__()
@@ -164,12 +166,18 @@ class MixFFNSkip(nn.Module):
                 self.dwconv.dwconv.bias, self.norm1.weight, self.norm1.bias,
                 self.fc2.weight, self.fc2.bias)
 
-    def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
-        from transception_tpu_torch.ops.kernels.mixffn import mixffn_plain
+    def forward(self, x: torch.Tensor, H: int, W: int,
+                kernel: bool = False) -> torch.Tensor:
+        """The FFN on a (B, H·W, C) map: with `kernel`, through the K9
+        wrapper on an even-sided map (mixffn.takes: the K2 rule), else the
+        plain version. A routing by shape, made before the call."""
+        from transception_tpu_torch.ops.kernels import mixffn
         if H != W:
             raise ValueError("MixFFNSkip needs a square token map")
-        return mixffn_plain(x.to(self.fc1.dtype), *self.params(), s=H,
-                            eps=self.norm1.eps)
+        fn = (mixffn.mixffn_skip if kernel and mixffn.takes(H)
+              else mixffn.mixffn_skip_plain)
+        return fn(x.to(self.fc1.dtype), *self.params(), s=H,
+                  eps=self.norm1.eps)
 
     def folded(self, x: torch.Tensor, s: int, ln: "LayerNorm",
                groups: int = 1) -> torch.Tensor:

@@ -8,8 +8,11 @@ launches the kernel (or raises) for CUDA tensors, and an integer
 shape (`shape_counts`). bridge_attention and mixffn also hold their
 backward kernels (K10, K11) with a `bwd_launches` counter, and join
 forward and backward in a torch.autograd.Function; bridge_attention also
-holds the folded bridge attention (K8, `folded_launches`). The other
-kernels, K8 included, have no backward and refuse to run where autograd
+holds the folded bridge attention (K8, `folded_launches`), mixffn the
+unfolded MixFFN_skip (K9, `skip_launches`). The forward kernels without a
+backward kernel (K1, K5-K9) are differentiated through their plain
+versions (_build.with_plain_backward, as the JAX custom VJPs through their
+jnp mirrors); K4, the eval argmax head, refuses to run where autograd
 records (_build.forward_only).
 """
 
@@ -34,19 +37,22 @@ COUNTERS = tuple((m.NAME, m, "launches") for m in (
     linear_attention, patch_expand)) + (
     (bridge_attention.BWD_NAME, bridge_attention, "bwd_launches"),
     (mixffn.BWD_NAME, mixffn, "bwd_launches"),
-    (bridge_attention.FOLDED_NAME, bridge_attention, "folded_launches"))
+    (bridge_attention.FOLDED_NAME, bridge_attention, "folded_launches"),
+    (mixffn.SKIP_NAME, mixffn, "skip_launches"))
 
 
 def kernel_set(cfg, training: bool) -> frozenset:
     """The kernels a model with config `cfg` runs: every kernel in eval
     (which of them a block calls follows its fold switches,
-    core.config.fold_switches); in training only those with a backward
-    kernel, as the JAX package's train_step_model (train/trainer.py:90-119)
-    gates them: the bridge attention (K3 + K10), plus the MixFFN folds (K2
-    + K11) with ffn_flash_train; none with use_kernels=False."""
+    core.config.fold_switches); in training, as the JAX package's
+    train_step_model (train/trainer.py:90-119) gates them, every kernel
+    with use_pallas_train (those without a backward kernel differentiated
+    through their plain versions), else only those with a backward kernel:
+    the bridge attention (K3 + K10), plus the MixFFN folds (K2 + K11) with
+    ffn_flash_train; none with use_kernels=False."""
     if not cfg.use_kernels:
         return frozenset()
-    if not training:
+    if not training or cfg.use_pallas_train:
         return SWITCHES
     return frozenset({"bridge_attention"}
                      | ({"mixffn"} if cfg.ffn_flash_train else set()))
@@ -56,6 +62,7 @@ def reset_launches() -> None:
     for _, m, attr in COUNTERS:
         setattr(m, attr, 0)
     _build.shape_launches.clear()
+    _build.routed.clear()
 
 
 def launch_counts() -> dict:
@@ -67,3 +74,10 @@ def shape_counts() -> dict:
     tallied them (_build.tally): the counters of launch_counts split by
     the shapes they ran at."""
     return dict(_build.shape_launches)
+
+
+def routed_counts() -> dict:
+    """Wrapper calls since reset_launches that chose their kernel, per
+    switch name (_build.plain), on any device: on the CPU the count of
+    forward launches a card would make."""
+    return dict(_build.routed)

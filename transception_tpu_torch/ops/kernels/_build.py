@@ -20,15 +20,19 @@ from collections import Counter
 from pathlib import Path
 from typing import Dict, FrozenSet, Iterable, Union
 
+import torch
+
 # Shared libraries, one per csrc/<name>.cu.
 KERNELS = ("etb_attention", "mixffn", "bridge_attention", "expand_head",
            "mhca_block", "linear_attention", "patch_expand",
            "bridge_attention_bwd", "mixffn_bwd", "bridge_attention_folded")
 # Names of the kernel switch: one per forward kernel. bridge_attention and
-# mixffn carry their backward kernels (K10, K11) with them.
+# mixffn carry their backward kernels (K10, K11) with them; mixffn_skip
+# (K9) is built into the mixffn library.
 SWITCHES = frozenset(("etb_attention", "mixffn", "bridge_attention",
                       "expand_head", "mhca_block", "linear_attention",
-                      "patch_expand", "bridge_attention_folded"))
+                      "patch_expand", "bridge_attention_folded",
+                      "mixffn_skip"))
 
 _PKG = Path(__file__).resolve().parents[2]
 _SRC = _PKG / "csrc"
@@ -42,6 +46,10 @@ _on: FrozenSet[str] = SWITCHES
 # Launches per (kernel name, shape key), tallied by each wrapper where it
 # bumps its kernel's counter (ops.kernels.shape_counts).
 shape_launches: Counter = Counter()
+# Wrapper calls per kernel name that chose the kernel (its switch on),
+# whatever the device: on the CPU the plain version runs in its place, so
+# this counts what a card would launch (ops.kernels.routed_counts).
+routed: Counter = Counter()
 
 
 @contextlib.contextmanager
@@ -67,8 +75,12 @@ def enabled(kernels: Union[bool, Iterable[str]]):
 
 def plain(name: str, t) -> bool:
     """The one kernel-or-plain decision of every wrapper: the plain version
-    for a CPU tensor or with kernel `name` switched off, else the kernel."""
-    return t.device.type == "cpu" or name not in _on
+    for a CPU tensor or with kernel `name` switched off, else the kernel.
+    A call with the switch on is counted in `routed`."""
+    if name not in _on:
+        return True
+    routed[name] += 1
+    return t.device.type == "cpu"
 
 
 def tally(name: str, *key) -> None:
@@ -80,7 +92,6 @@ def tally(name: str, *key) -> None:
 def needs_graph(*tensors) -> bool:
     """Whether autograd would record a result of these inputs (lists of
     tensors are looked into)."""
-    import torch
     if not torch.is_grad_enabled():
         return False
     flat = []
@@ -90,13 +101,47 @@ def needs_graph(*tensors) -> bool:
 
 
 def forward_only(name: str, *tensors) -> None:
-    """Guard of a kernel that has no backward: its result would carry no
-    graph, so every gradient upstream would silently be lost. Raises
-    instead when autograd records and an input requires grad."""
+    """Guard of a kernel that has no backward (K4, the eval argmax head):
+    its result would carry no graph, so every gradient upstream would
+    silently be lost. Raises instead when autograd records and an input
+    requires grad."""
     if needs_graph(*tensors):
         raise RuntimeError(
             f"{name} kernel has no backward: call it under torch.no_grad() "
             f"or switch it off (ops.kernels.enabled) while training")
+
+
+class _PlainBackward(torch.autograd.Function):
+    """Forward: `kernel(*tensors)`, the inputs saved. Backward: autograd of
+    `plain(*tensors)` recomputed from detached copies of the saved inputs
+    (the JAX custom VJPs whose backward is jax.vjp of the jnp mirror)."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain_fn, *tensors):
+        ctx.plain = plain_fn
+        ctx.save_for_backward(*tensors)
+        return kernel(*tensors)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+            wrt = [x for x, n in zip(xs, need) if n]
+            grads = iter(torch.autograd.grad(ctx.plain(*xs), wrt, g))
+        return (None, None) + tuple(next(grads) if n else None
+                                    for n in need)
+
+
+def with_plain_backward(kernel, plain_fn, *tensors):
+    """kernel(*tensors) on the card, differentiable where autograd records:
+    its backward is autograd of plain_fn(*tensors), the kernel's plain
+    version, recomputed from the saved inputs. Both take the same flat
+    tensors (the wrapper binds everything else)."""
+    if not needs_graph(*tensors):
+        return kernel(*tensors)
+    return _PlainBackward.apply(kernel, plain_fn, *tensors)
 
 
 def _nvcc() -> str:
@@ -168,13 +213,11 @@ def check(rc: int, what: str) -> None:
 
 def bf16(t):
     """A weight as the kernels read it: contiguous bf16."""
-    import torch
     return t.to(torch.bfloat16).contiguous()
 
 
 def f32(t):
     """A vector parameter as the kernels read it: contiguous fp32."""
-    import torch
     return t.to(torch.float32).contiguous()
 
 
@@ -189,5 +232,4 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream_of(t) -> ctypes.c_void_p:
-    import torch
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

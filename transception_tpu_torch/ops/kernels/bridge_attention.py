@@ -45,8 +45,9 @@ tensor-core operands, with fp32 accumulation.
 K8 replaces bridge_attention_kernel.py:307 `bridge_attention_folded`
 (pallas_call at :332): res + proj(MHA(x·Wq + bq)) with x the post-norm1
 stream and res the raw layer input, (B, 6076, 64), against K3's k/v, in
-bridge layers 2-4 when bridge_attn_fold is on (an eval kernel: the train
-step never folds, and JAX's only backward for it is the mirror's VJP).
+bridge layers 2-4 when bridge_attn_fold is on: in eval, and in the
+train step with use_pallas_train, where its backward is autograd of the
+plain version (JAX's is the mirror's VJP, bridge_attention.py:115).
 Rounding points of its _folded_kernel (:78-133): q = bf16(x·Wq + bq) with
 fp32 accumulation; K3's softmax (row max over all M, bf16(e) into P·V,
 one divide); the out projection accumulated in fp32, + bp, rounded; the
@@ -254,12 +255,18 @@ def _check_folded(x, res, k, v):
 
 def bridge_attention_folded(x, res, wq, bq, k, v, wp, bp, scale: float):
     """K8 wrapper: the plain version for a CPU tensor or with the kernel
-    off, else the CUDA kernel (an eval kernel: it raises where autograd
-    records)."""
+    off, else the CUDA kernel, whose backward is autograd of the plain
+    version."""
     if _build.plain(FOLDED_NAME, x):
         return bridge_attention_folded_plain(x, res, wq, bq, k, v, wp, bp,
                                              scale)
-    _build.forward_only(FOLDED_NAME, x, res, wq, bq, k, v, wp, bp)
+    return _build.with_plain_backward(
+        lambda *a: _launch_folded(*a, scale),
+        lambda *a: bridge_attention_folded_plain(*a, scale),
+        x, res, wq, bq, k, v, wp, bp)
+
+
+def _launch_folded(x, res, wq, bq, k, v, wp, bp, scale):
     _check_folded(x, res, k, v)
     global folded_launches
     x, res, k, v = (_build.aligned(t) for t in (x, res, k, v))

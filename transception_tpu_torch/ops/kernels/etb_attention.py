@@ -83,11 +83,17 @@ def _check(x, weights):
 def etb_attention(x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp,
                   eps: float = 1e-5):
     """Wrapper: plain version for a CPU tensor or with the kernels off,
-    the CUDA kernel otherwise."""
+    the CUDA kernel otherwise, whose backward is autograd of the plain
+    version."""
     if _build.plain(NAME, x):
         return etb_attention_plain(x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp,
                                    eps)
-    _build.forward_only(NAME, x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp)
+    return _build.with_plain_backward(
+        lambda *a: _launch(*a, eps), lambda *a: etb_attention_plain(*a, eps),
+        x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp)
+
+
+def _launch(x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp, eps):
     _check(x, (wq, wk, wv, wp))
     global launches
     x = _build.aligned(x)

@@ -92,10 +92,16 @@ def _check(q, k, v):
 
 def linear_attention(q, k, v, q_softmax: bool = False, scale: float = 1.0):
     """Wrapper: plain version for a CPU tensor or with the kernels off,
-    the CUDA kernel otherwise."""
+    the CUDA kernel otherwise, whose backward is autograd of the plain
+    version."""
     if _build.plain(NAME, v):
         return linear_attention_plain(q, k, v, q_softmax, scale)
-    _build.forward_only(NAME, q, k, v)
+    return _build.with_plain_backward(
+        lambda *a: _launch(*a, q_softmax, scale),
+        lambda *a: linear_attention_plain(*a, q_softmax, scale), q, k, v)
+
+
+def _launch(q, k, v, q_softmax, scale):
     _check(q, k, v)
     global launches
     q, k, v = (t.contiguous() for t in (q, k, v))

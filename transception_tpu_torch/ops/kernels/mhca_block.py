@@ -119,15 +119,32 @@ def mhca_block(x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs,
                s: int, heads: int, eps1: float = 1e-6, eps2: float = 1e-6,
                eps: float = 1e-5):
     """Wrapper: plain version for a CPU tensor or with the kernels off,
-    the CUDA kernels otherwise (one counted launch per block)."""
+    the CUDA kernels otherwise (one counted launch per block), whose
+    backward is autograd of the plain version."""
+    kw = dict(s=s, heads=heads, eps1=eps1, eps2=eps2, eps=eps)
     if _build.plain(NAME, x):
         return mhca_block_plain(
             x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs, wp,
-            bp, ln2_s, ln2_b, w1, b1, dw, dwb, ls, lb, w2, b2, s=s,
-            heads=heads, eps1=eps1, eps2=eps2, eps=eps)
-    _build.forward_only(NAME, x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv,
-                        crpe_ws, crpe_bs, wp, bp, ln2_s, ln2_b, w1, b1, dw,
-                        dwb, ls, lb, w2, b2)
+            bp, ln2_s, ln2_b, w1, b1, dw, dwb, ls, lb, w2, b2, **kw)
+    nw = len(crpe_ws)
+
+    def unflat(fn):
+        # The flat tensors back into the wrapper's arguments (the CRPE
+        # weights and biases are lists).
+        def call(*a):
+            return fn(*a[:7], list(a[7:7 + nw]), list(a[7 + nw:7 + 2 * nw]),
+                      *a[7 + 2 * nw:], **kw)
+        return call
+
+    return _build.with_plain_backward(
+        unflat(_launch), unflat(mhca_block_plain),
+        x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, *crpe_ws, *crpe_bs, wp,
+        bp, ln2_s, ln2_b, w1, b1, dw, dwb, ls, lb, w2, b2)
+
+
+def _launch(x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs, wp,
+            bp, ln2_s, ln2_b, w1, b1, dw, dwb, ls, lb, w2, b2, *, s, heads,
+            eps1, eps2, eps):
     hid = w1.shape[0]
     _check(x, s, heads, hid, crpe_ws)
     global launches

@@ -1,5 +1,5 @@
 """Fused MixFFN_skip with the caller's LayerNorm and the residual folded in,
-and its backward.
+and its backward; the unfolded MixFFN_skip alone.
 
 K2 replaces transception_tpu/ops/pallas/mixffn_kernel.py:342
 `fused_mixffn_ln_skip` (pallas_call at :361): x + fc2(GELU(LN(dw3x3(h) +
@@ -43,6 +43,27 @@ the same result in every run); the batch rows per block are chosen so the
 partials stay under BWD_PARTIAL_BYTES. The products run on the tensor
 cores with bf16 operands (h, a and the LN output are bf16 in the forward
 too; dh is rounded to bf16 as an operand), accumulation is fp32.
+
+K9 replaces transception_tpu/ops/pallas/mixffn_kernel.py:285
+`fused_mixffn_skip` (pallas_call at :297): fc2(GELU(LN(dw3x3(h) + h))),
+h = fc1(x), with neither the caller's LN nor the residual. The train step
+with use_pallas_train runs it in the MHCA blocks whose drop-path rate is
+above 0 (their FFN fold would hide the drop path): (24, 28², 64) hidden
+256 and (24, 14², 128) hidden 512. (The TPU gate takes only 28² there,
+mixffn_kernel.py:35-71 with whole_map=False; the port follows `takes`, as
+K2 does.) Its backward is autograd of the plain version recomputed from
+the saved inputs (_build.with_plain_backward), as JAX mixffn.py:80-84.
+
+K9 bound on the H100: near the ridge at both shapes. At (24, 28², 64)
+bytes (x in and out once, 4.8 MB: 1.4 us, against 4·N·C·hidden = 1.2
+GFLOP: 1.2 us); at (24, 14², 128) operations (the same 1.2 GFLOP against
+2.7 MB).
+
+K9 design: K2's kernel body as a second template instantiation
+(csrc/mixffn.cuh BARE): the window rows are staged as they are instead of
+normalised, and the fc2 output is written without the residual. A runtime
+branch in K2's body had cost 1.27 -> 1.94 ms a launch on an H100 (the
+grouped LN's first form).
 """
 
 from __future__ import annotations
@@ -59,10 +80,13 @@ NAME = "mixffn"
 REPLACES = "transception_tpu/ops/pallas/mixffn_kernel.py:342"
 BWD_NAME = "mixffn_bwd"
 BWD_REPLACES = "transception_tpu/ops/pallas/mixffn_kernel.py:659"
+SKIP_NAME = "mixffn_skip"
+SKIP_REPLACES = "transception_tpu/ops/pallas/mixffn_kernel.py:285"
 SMEM_LIMIT = 232448  # bytes a block may opt into on sm_90
 BWD_PARTIAL_BYTES = 256 << 20  # K11's per-block weight-gradient partials
 launches = 0
 bwd_launches = 0
+skip_launches = 0
 
 
 def mixffn_plain(x, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
@@ -94,6 +118,14 @@ def mixffn_plain(x, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
     if residual:
         out = (out.float() + x.float()).to(dt)
     return out
+
+
+def mixffn_skip_plain(x, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
+                      eps: float = 1e-5):
+    """Plain K9: fc2(GELU(LN(dw3x3(h) + h))), h = fc1(x), with the Pallas
+    kernel's rounding points (the depthwise weight rounded to the compute
+    dtype, mixffn_kernel.py:334)."""
+    return mixffn_plain(x, w1, b1, dw, dwb, ls, lb, w2, b2, s=s, eps=eps)
 
 
 def mixffn_ln_skip_plain(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, *,
@@ -268,6 +300,42 @@ def _launch(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, s, groups, eps_ln,
     launches += 1
     _build.tally(NAME, tuple(x.shape), hid, groups)
     return out
+
+
+def _launch_skip(x, w1, b1, dw, dwb, ls, lb, w2, b2, s, eps):
+    """K9 on the card."""
+    hid = w1.shape[0]
+    _check(x, s, hid, 1)
+    global skip_launches
+    x = _build.aligned(x)
+    B, N, C = x.shape
+    out = torch.empty_like(x)
+    bf, f32 = _build.bf16, _build.f32
+    args = (x, bf(w1), f32(b1), bf(dw.reshape(hid, 9)), f32(dwb), f32(ls),
+            f32(lb), bf(w2), f32(b2), out)
+    fn = _build.load(NAME).mixffn_skip
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]
+    rc = fn(*[_build.ptr(t) for t in args], B, s, C, hid, eps,
+            _build.stream_of(x))
+    _build.check(rc, SKIP_NAME)
+    skip_launches += 1
+    _build.tally(SKIP_NAME, tuple(x.shape), hid)
+    return out
+
+
+def mixffn_skip(x, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
+                eps: float = 1e-5):
+    """K9 wrapper: the plain version for a CPU tensor or with the kernel
+    off, else K9, whose backward is autograd of the plain version."""
+    if _build.plain(SKIP_NAME, x):
+        return mixffn_skip_plain(x, w1, b1, dw, dwb, ls, lb, w2, b2, s=s,
+                                 eps=eps)
+    return _build.with_plain_backward(
+        lambda *a: _launch_skip(*a, s, eps),
+        lambda *a: mixffn_skip_plain(*a, s=s, eps=eps),
+        x, w1, b1, dw, dwb, ls, lb, w2, b2)
 
 
 def _launch_bwd(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, g, s, groups,

@@ -61,10 +61,16 @@ def _check(x, w, p, c):
 
 def patch_expand(x, w, ls, lb, *, p: int, c: int, eps: float = 1e-5):
     """Wrapper: plain version for a CPU tensor or with the kernels off,
-    the CUDA kernel otherwise."""
+    the CUDA kernel otherwise, whose backward is autograd of the plain
+    version."""
     if _build.plain(NAME, x):
         return patch_expand_plain(x, w, ls, lb, p=p, c=c, eps=eps)
-    _build.forward_only(NAME, x, w, ls, lb)
+    return _build.with_plain_backward(
+        lambda *a: _launch(*a, p, c, eps),
+        lambda *a: patch_expand_plain(*a, p=p, c=c, eps=eps), x, w, ls, lb)
+
+
+def _launch(x, w, ls, lb, p, c, eps):
     _check(x, w, p, c)
     global launches
     x = _build.aligned(x)

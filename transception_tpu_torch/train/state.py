@@ -16,7 +16,7 @@ updates).
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -46,11 +46,13 @@ def make_lr_schedule(cfg: TrainConfig,
 class TrainState:
     """Model, optimizer and counters of a training run. `step` counts
     train steps (micro-steps under accumulation, as the JAX TrainState's
-    step); `updates` counts optimizer updates (the schedule's count)."""
+    step); `updates` counts optimizer updates (the schedule's count).
+    `gen`, the drop-path generator, is checkpointed with them."""
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig,
-                 steps_per_epoch: int):
-        self.model, self.cfg = model, cfg
+                 steps_per_epoch: int,
+                 gen: Optional[torch.Generator] = None):
+        self.model, self.cfg, self.gen = model, cfg, gen
         self.schedule = make_lr_schedule(cfg, steps_per_epoch)
         self.optimizer = torch.optim.SGD(
             model.parameters(), lr=self.schedule(0), momentum=cfg.momentum,
@@ -89,14 +91,19 @@ class TrainState:
         self.updates += 1
 
     def state_dict(self) -> dict:
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "schedule": {"updates": self.updates,
-                             "lr": self.schedule(self.updates)},
-                "step": self.step}
+        sd = {"model": self.model.state_dict(),
+              "optimizer": self.optimizer.state_dict(),
+              "schedule": {"updates": self.updates,
+                           "lr": self.schedule(self.updates)},
+              "step": self.step}
+        if self.gen is not None:
+            sd["gen"] = self.gen.get_state()
+        return sd
 
     def load_state_dict(self, sd: dict) -> None:
         self.model.load_state_dict(sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
         self.updates = int(sd["schedule"]["updates"])
         self.step = int(sd["step"])
+        if self.gen is not None and "gen" in sd:
+            self.gen.set_state(sd["gen"].cpu())

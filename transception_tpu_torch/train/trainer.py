@@ -6,10 +6,12 @@ wide head when TrainConfig.wide_loss), 0.4·CE + 0.6·Dice, backward, and
 the SGD update with its per-iteration schedule (train.state). The kernels
 that run are those of the JAX package's train_step_model (trainer.py:
 90-119), which the model picks in train mode (ops.kernels.kernel_set).
-The step takes no random generator: on the published
-config the JAX step's dropout key reaches nothing (MixFFN_skip has no
-dropout, drop_path_rate is 0, and the MLP FFN whose dropout it would feed
-is not ported).
+The step's random generator is the JAX step's dropout key: it draws the
+MHCA blocks' drop-path masks (drop_path_rate > 0; the MLP FFN whose
+dropout the key would also feed is not ported). The Trainer makes it on
+the model's device from TrainConfig.seed, each step advances it, and the
+checkpoint keeps its state, so that a resumed run draws the masks an
+uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -39,18 +41,20 @@ logger = logging.getLogger("transception_tpu_torch")
 
 
 def make_train_step(state: TrainState, num_classes: int, ce_w: float,
-                    dice_w: float, wide_head: bool = False):
+                    dice_w: float, wide_head: bool = False,
+                    gen: Optional[torch.Generator] = None):
     """step(images, labels) -> {loss, loss_ce, loss_dice} (detached
     tensors): forward in train mode, loss, backward, update. wide_head:
     logits in pre-pixel-shuffle order against the permuted labels
-    (the same loss up to fp32 summation order)."""
+    (the same loss up to fp32 summation order). gen: the drop-path
+    generator, on the model's device (needed with drop_path_rate > 0)."""
     model = state.model
 
     def train_step(images: torch.Tensor,
                    labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         model.train()
         state.zero_grad()
-        out = model(images, wide_head=wide_head)
+        out = model(images, wide_head=wide_head, gen=gen)
         if wide_head:
             labels = shuffle_labels_wide(labels)
         total, ce, dc = segmentation_loss(out, labels, num_classes, ce_w,
@@ -68,7 +72,8 @@ class Trainer:
 
     Ported: the train step, the iteration log line (every 50 iterations,
     as the JAX loop, and after the last), checkpoints of model,
-    optimizer, schedule and step (torch.save, output_dir/ckpt/
+    optimizer, schedule, step and the drop-path generator's state
+    (torch.save, output_dir/ckpt/
     step_XXXXXXXX.pt, every ckpt_every epochs and at the end) and
     auto-resume from the newest. Not ported yet: the in-training volume
     eval (run_inference and the metrics), the host Synapse/ISIC loaders
@@ -138,13 +143,16 @@ class Trainer:
         steps_per_epoch = len(loader)
         logger.info("%d iterations per epoch, %d max iterations",
                     steps_per_epoch, steps_per_epoch * cfg.max_epochs)
-        state = TrainState(self.model, cfg, steps_per_epoch)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(cfg.seed)
+        state = TrainState(self.model, cfg, steps_per_epoch, gen)
         latest = self.latest_checkpoint() if cfg.resume else None
         if latest:
             self.restore_checkpoint(state, latest)
             logger.info("resumed from %s (step %d)", latest, state.step)
         step_fn = make_train_step(state, dc.num_classes, cfg.ce_weight,
-                                  cfg.dice_weight, self._use_wide_head())
+                                  cfg.dice_weight, self._use_wide_head(),
+                                  gen)
         hist: List[Dict[str, torch.Tensor]] = []
         it = state.step
         total_steps = max_steps or steps_per_epoch * cfg.max_epochs
