@@ -5,6 +5,8 @@
 Phases (any failed check exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
+     the ptxas report (registers, spills) of the bridge attention kernels
+     K3 and K10, which must not spill;
   3. each kernel against its plain PyTorch version at every shape the
      serving path gives it in any fold configuration (bf16, batch 32) and
      at the shapes the "pallas" train step gives K1, K5-K7 and K9 (batch
@@ -24,7 +26,8 @@ Phases (any failed check exits non-zero):
      the published train step gives them (bf16, batch 24): the bridge
      attention (K3) and its backward (K10), the MixFFN backward (K11) and
      the grouped MixFFN forward (K2), the backwards and K2 each with a
-     planted fault the check must reject; and for each kernel whose
+     planted fault the check must reject (K3 and K10 with their share of
+     the bound and their factor against SDPA); and for each kernel whose
      backward is autograd of its plain version (K1, K5-K9), one backward
      through its autograd Function against autograd of the plain version;
   9. the published MSTransception train step (TrainConfig(): batch 24,
@@ -132,6 +135,34 @@ def cuda_ms(fn, iters=10, warmup=2):
 def bound_ms(nbytes, flops):
     t_b, t_f = nbytes / HBM_BYTES * 1e3, flops / BF16_FLOPS * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def against(ms, bms, lms):
+    """A kernel's share of its bound and its factor against the library
+    call computing the same function (per launch)."""
+    lib = "no library call" if lms is None else \
+        f"{ms / lms:.2f}x the library call"
+    return f"share of bound {bms / ms:.4f}, {lib}"
+
+
+def ptxas_report(log_text):
+    """(kernel, registers, spill store bytes, spill load bytes, static
+    shared bytes) per entry function of one nvcc -Xptxas -v report."""
+    import re
+    rows = []
+    for part in log_text.split("Compiling entry function")[1:]:
+        name = re.search(r"'([^']+)'", part).group(1)
+        short = re.search(r"([a-z_]+_kernel|sum_partials)", name)
+        name = short.group(1) if short else name
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+        smem = re.search(r"(\d+) bytes smem", part)
+        rows.append((name, int(regs.group(1)) if regs else -1,
+                     int(spill.group(1)) if spill else -1,
+                     int(spill.group(2)) if spill else -1,
+                     int(smem.group(1)) if smem else 0))
+    return rows
 
 
 def launched_key(name, fn):
@@ -463,7 +494,7 @@ def kernel_phase():
         bms, by = bound_ms(cs["nbytes"], cs["flops"])
         log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms "
             f"{lms if lms is None else round(lms, 4)} bound_ms {bms:.4f} "
-            f"({by}) per launch")
+            f"({by}) per launch; {against(ms, bms, lms)}")
         record(measured, key, label, err, ms, pms, lms, cs["nbytes"],
                cs["flops"])
     return measured
@@ -703,10 +734,11 @@ def train_kernel_phase(measured):
         pms = cuda_ms(lambda: ba.bridge_attention_plain(q, k, v, sc),
                       iters=5)
         lms = cuda_ms(lambda: sdpa(q, k, v, scale=sc))
+    nbytes, flops = 2 * B * N * d * 2 + 2 * B * M * d * 2, 4 * B * N * M * d
+    bms, by = bound_ms(nbytes, flops)
     log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms (SDPA) {lms:.4f} "
-        f"per launch")
-    record(measured, key, label, err, ms, pms, lms,
-           2 * B * N * d * 2 + 2 * B * M * d * 2, 4 * B * N * M * d)
+        f"bound_ms {bms:.4f} ({by}) per launch; {against(ms, bms, lms)}")
+    record(measured, key, label, err, ms, pms, lms, nbytes, flops)
     names = ("dq", "dk", "dv")
     key, got = launched_key("bridge_attention_bwd",
                             lambda: ba.bridge_attention_bwd(q, k, v, g, sc))
@@ -733,7 +765,8 @@ def train_kernel_phase(measured):
     flops = 10 * B * N * M * d
     bms, by = bound_ms(nbytes, flops)
     log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms (SDPA backward) "
-        f"{lms:.4f} bound_ms {bms:.4f} ({by}) per launch")
+        f"{lms:.4f} bound_ms {bms:.4f} ({by}) per launch; "
+        f"{against(ms, bms, lms)}")
     record(measured, key, label, err, ms, pms, lms, nbytes, flops)
     del q, k, v, g, got, want, bad, leaves, out
 
@@ -1248,8 +1281,19 @@ def main():
     log(f"  built {sorted(secs)} in {time.perf_counter() - t0:.1f} s "
         f"(per library {({k: round(v, 1) for k, v in secs.items()})})")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
+    reports = {k: _build.build_log(k) for k in _build.KERNELS}
     (OUT_DIR / "chip_smoke_ptxas.log").write_text(
-        "\n".join(f"== {k}\n{v}" for k, v in _build.build_logs.items()))
+        "\n".join(f"== {k}\n{v}" for k, v in reports.items()))
+    # The bridge attention kernels (K3, K10) are built for registers
+    # alone: their ptxas report, and no spills.
+    for lib in ("bridge_attention", "bridge_attention_bwd"):
+        if reports[lib] is None:
+            fail(f"{lib}: no ptxas report")
+        for fn, regs, st, ld, smem in ptxas_report(reports[lib]):
+            log(f"  ptxas {lib}: {fn} {regs} registers, spill "
+                f"stores {st} B, spill loads {ld} B, static smem {smem} B")
+            if st or ld:
+                fail(f"{lib}: {fn} spills registers")
 
     log("phase 3: kernels vs plain versions (bf16, batch 32)")
     t0 = time.perf_counter()

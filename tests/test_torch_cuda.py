@@ -93,13 +93,27 @@ def test_mixffn_skip_kernel(gen, B, s, C):
     assert mf.skip_launches == n0 + 1
 
 
-@pytest.mark.parametrize("N,M", [(124, 16), (6076, 784)])
-def test_bridge_attention_kernel(gen, N, M):
-    q = _r(gen, 2, 1, N, 64, dtype=torch.bfloat16)
-    k = _r(gen, 2, 1, M, 64, dtype=torch.bfloat16)
-    v = _r(gen, 2, 1, M, 64, dtype=torch.bfloat16)
+# (B, h, N, M): N ragged against the 64- and 128-row query tiles (124,
+# 300, 6076); M of one 16-key step (16), under one 112-key chunk (48, 96),
+# over one (128), the published 7 chunks (784) and with a partial last
+# chunk (240 = 2 x 112 + 16, 800 = 7 x 112 + 16); B·h > 1 throughout.
+BRIDGE_SHAPES = [(2, 1, 124, 16), (2, 1, 6076, 784), (2, 1, 300, 128),
+                 (2, 1, 124, 48), (1, 1, 6076, 128), (3, 2, 124, 240),
+                 (2, 1, 300, 800), (1, 2, 6076, 48), (2, 2, 600, 96)]
+
+
+def _bridge_inputs(gen, B, h, N, M):
+    return tuple(_r(gen, B, h, n, 64, dtype=torch.bfloat16)
+                 for n in (N, M, M, N))
+
+
+@pytest.mark.parametrize("B,h,N,M", BRIDGE_SHAPES)
+def test_bridge_attention_kernel(gen, B, h, N, M):
+    q, k, v, _ = _bridge_inputs(gen, B, h, N, M)
+    n0 = ba.launches
     _close(ba.bridge_attention(q, k, v, 0.125),
            ba.bridge_attention_plain(q, k, v, 0.125))
+    assert ba.launches == n0 + 1
 
 
 def test_expand_head_kernel(gen):
@@ -231,10 +245,9 @@ def test_tiny_model_uses_every_kernel(gen, folds):
                           "mixffn_skip": 0}
 
 
-@pytest.mark.parametrize("N,M", [(124, 16), (300, 128), (6076, 784)])
-def test_bridge_attention_bwd_kernel(gen, N, M):
-    q, k, v, g = (_r(gen, 2, 1, n, 64, dtype=torch.bfloat16)
-                  for n in (N, M, M, N))
+@pytest.mark.parametrize("B,h,N,M", BRIDGE_SHAPES)
+def test_bridge_attention_bwd_kernel(gen, B, h, N, M):
+    q, k, v, g = _bridge_inputs(gen, B, h, N, M)
     n0 = ba.bwd_launches
     got = ba.bridge_attention_bwd(q, k, v, g, 0.125)
     want = ba.bridge_attention_bwd_plain(q, k, v, g, 0.125)
@@ -242,6 +255,20 @@ def test_bridge_attention_bwd_kernel(gen, N, M):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype == torch.bfloat16
         _close(a, b)
+
+
+@pytest.mark.parametrize("B,h,N,M", [(2, 1, 60, 784), (3, 2, 124, 240),
+                                     (24, 1, 6076, 784)])
+def test_bridge_attention_kernels_repeat_bit_identical(gen, B, h, N, M):
+    """No atomics in K3 or K10 (K10 with one row segment at the first
+    shape, with several at the others, bwd_plan): two launches on the same
+    inputs give the same bits."""
+    q, k, v, g = _bridge_inputs(gen, B, h, N, M)
+    assert torch.equal(ba.bridge_attention(q, k, v, 0.125),
+                       ba.bridge_attention(q, k, v, 0.125))
+    one = ba.bridge_attention_bwd(q, k, v, g, 0.125)
+    two = ba.bridge_attention_bwd(q, k, v, g, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 def _ffn_args(gen, B, s, C, hid, groups):

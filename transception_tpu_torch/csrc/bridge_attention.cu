@@ -3,115 +3,47 @@
 // bridge_softmax_attention (rounding of its _kernel, :59-75). Design
 // notes: ops/kernels/bridge_attention.py.
 //
-// One block of 4 warps per (64 query rows, batch·head); each warp owns 16
-// rows and walks K/V in 16-key chunks straight from device memory (K/V of
-// one batch row, 2 x 100 KB, stay in L2 across its blocks). Pass 1 finds
-// the row max over all M keys; pass 2 recomputes the logits, forms
-// e = exp(l − m), adds the unrounded e into the fp32 row sum and the
-// bf16-rounded e into P·V on the tensor cores; the (16, 64) output is
-// divided by the row sum at the end. Query rows past N are zero-filled
-// on load and never stored.
-#include "common.cuh"
+// Bound on the H100: operations. At the published shape (q (32, 1, 6076,
+// 64) against k/v (32, 1, 784, 64)) 4·B·N·M·d = 3.9e10 flop is 0.039 ms at
+// the bf16 peak against 56 MB of traffic, 0.017 ms: 690 flop a byte, above
+// the card's ridge. The TPU's exact max costs a third product on top
+// (pass 1 recomputes Q·Kᵀ), and 152 M exponentials run on the MUFU.
+//
+// One block of 8 warps per (128 query rows, batch·head). Each warp keeps
+// its 16 rows of Q as mma A fragments in registers for the whole kernel
+// and runs bridge_softmax.cuh's softmax_av: K and V reach the block once,
+// through a 2-deep cp.async ring of 112-key chunks shared by all its
+// warps, so L2 serves each K/V byte once per block, not once per warp, and
+// the copy of the next chunk overlaps the products of this one; the logits
+// and the probabilities stay in registers. The fp32 output is divided by the row sum, rounded, and
+// written through shared memory as 16-byte rows. 57 KB of shared memory
+// and at most 85 registers a thread let 3 blocks (24 warps) share an SM;
+// a 3-deep ring (86 KB, 2 blocks) measured slower. Query rows past N load
+// as zero and are never stored. No atomics: every run gives the same bits.
+#include "bridge_softmax.cuh"
 
 namespace {
 
-constexpr int D = 64;
-constexpr int WARPS = 4;
+constexpr int WARPS = 8;
 constexpr int ROWS = 16 * WARPS;
 
-__global__ void __launch_bounds__(32 * WARPS)
+__global__ void __launch_bounds__(32 * WARPS, 3)
 bridge_attention_kernel(const bf16* q, const bf16* k, const bf16* v,
                         bf16* out, int N, int M, float scale) {
-  __shared__ __align__(128) bf16 qs[ROWS * D];
-  __shared__ __align__(128) float lg[WARPS][16 * 16];
-  __shared__ __align__(128) bf16 pb[WARPS][16 * 16];
-  __shared__ __align__(128) float ost[WARPS][16 * D];
-  const int bh = blockIdx.y, n0 = blockIdx.x * ROWS;
-  const bf16* qg = q + (size_t)bh * N * D;
-  const bf16* kg = k + (size_t)bh * M * D;
-  const bf16* vg = v + (size_t)bh * M * D;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t ring = bsa::smem_addr(smem);
+  const int bh = blockIdx.y, w = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * ROWS + w * 16;
+  const bf16* qg = q + (size_t)bh * N * bsa::D;
 
-  // Q tile -> shared memory, 16 bytes per thread per step, zero past N.
-  for (int i = threadIdx.x; i < ROWS * D / 8; i += blockDim.x) {
-    const int row = i / (D / 8), cv = i % (D / 8);
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (n0 + row < N)
-      val = reinterpret_cast<const uint4*>(qg + (size_t)(n0 + row) * D)[cv];
-    reinterpret_cast<uint4*>(qs)[i] = val;
-  }
-  __syncthreads();
-
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;  // this lane's 8 logits
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], qs + w * 16 * D + kk * 16, D);
-  float* lw = lg[w];
-  bf16* pw = pb[w];
-
-  auto logits = [&](int key0) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-      wmma::load_matrix_sync(kb, kg + (size_t)key0 * D + kk * 16, D);
-      wmma::mma_sync(acc, qa[kk], kb, acc);
-    }
-    wmma::store_matrix_sync(lw, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-  };
-
-  // Pass 1: row max of the scaled logits over all keys.
-  float mx = -INFINITY;
-  for (int key0 = 0; key0 < M; key0 += 16) {
-    logits(key0);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) mx = fmaxf(mx, lw[r * 16 + c0 + c] * scale);
-    __syncwarp();
-  }
-  mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 1));
-
-  // Pass 2: e = exp(l − m); fp32 row sum of e; P·V with P = bf16(e).
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(o[j], 0.0f);
-  float sum = 0.0f;
-  for (int key0 = 0; key0 < M; key0 += 16) {
-    logits(key0);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float e = expf(lw[r * 16 + c0 + c] * scale - mx);
-      sum += e;
-      pw[r * 16 + c0 + c] = __float2bfloat16(e);
-    }
-    __syncwarp();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-    wmma::load_matrix_sync(pa, pw, 16);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-      wmma::load_matrix_sync(vb, vg + (size_t)key0 * D + j * 16, D);
-      wmma::mma_sync(o[j], pa, vb, o[j]);
-    }
-    __syncwarp();
-  }
-  sum += __shfl_xor_sync(FULL_MASK, sum, 1);
-
-  float* ow = ost[w];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(ow + j * 16, o[j], D, wmma::mem_row_major);
-  __syncwarp();
-  const int n = n0 + w * 16 + r;
-  if (n < N) {
-    bf16* og = out + ((size_t)bh * N + n) * D;
-    const int cb = (lane & 1) * (D / 2);
-#pragma unroll 8
-    for (int c = 0; c < D / 2; ++c)
-      og[cb + c] = __float2bfloat16(ow[r * D + cb + c] / sum);
-  }
+  uint32_t qa[4][4];
+  bsa::load_a(qg, r0, N, qa);
+  float o[8][4], rs[2];
+  bsa::softmax_av(qa, k + (size_t)bh * M * bsa::D,
+                  v + (size_t)bh * M * bsa::D, M, scale * bsa::LOG2E, ring,
+                  o, rs);
+  bsa::store_rows<true>(o, rs, ring + w * 16 * bsa::ROW_BYTES,
+                        out + (size_t)bh * N * bsa::D, r0, N);
 }
 
 }  // namespace
@@ -119,8 +51,11 @@ bridge_attention_kernel(const bf16* q, const bf16* k, const bf16* v,
 extern "C" int bridge_attention(const bf16* q, const bf16* k, const bf16* v,
                                 bf16* out, int BH, int N, int M, float scale,
                                 void* stream) {
+  cudaError_t e = set_smem((const void*)bridge_attention_kernel,
+                           bsa::RING_BYTES);
+  if (e) return e;
   const dim3 grid((N + ROWS - 1) / ROWS, BH);
-  bridge_attention_kernel<<<grid, 32 * WARPS, 0,
+  bridge_attention_kernel<<<grid, 32 * WARPS, bsa::RING_BYTES,
                             static_cast<cudaStream_t>(stream)>>>(
       q, k, v, out, N, M, scale);
   return cudaGetLastError();

@@ -40,8 +40,6 @@ _BUILD = _PKG / "build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _libs: Dict[str, ctypes.CDLL] = {}
-# nvcc's -Xptxas -v report (registers, shared memory, spills) per kernel.
-build_logs: Dict[str, str] = {}
 _on: FrozenSet[str] = SWITCHES
 # Launches per (kernel name, shape key), tallied by each wrapper where it
 # bumps its kernel's counter (ops.kernels.shape_counts).
@@ -185,14 +183,22 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     for n, (p, tmp, out) in procs.items():
         log, _ = p.communicate()
         secs[n] = time.perf_counter() - t0
-        build_logs[n] = log
         if p.returncode != 0:
             failed.append(f"--- {n} (rc {p.returncode}) ---\n{log}")
             continue
         os.replace(tmp, out)
+        out.with_suffix(".log").write_text(log)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return secs
+
+
+def build_log(name: str) -> Union[str, None]:
+    """nvcc's -Xptxas -v report (registers, shared memory, spills) of
+    library `name`, kept beside it when it was built; None if it is not
+    built."""
+    kept = _lib_path(name).with_suffix(".log")
+    return kept.read_text() if kept.exists() else None
 
 
 def load(name: str) -> ctypes.CDLL:

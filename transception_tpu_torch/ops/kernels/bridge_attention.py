@@ -9,38 +9,58 @@ layers 2-4. K10 replaces its backward, bridge_attention_kernel.py:190
 torch.autograd.Function, the one path of the bridge attention in both
 train modes and in eval.
 
-Bound on the H100: bytes at the published shapes (the q/out stream,
-2·B·N·d·2 bytes, dominates K/V; ~39 GFLOP over ~57 MB is under the bf16
-ridge), with ~154 M exponentials per call. Without a kernel the
-(B, 6076, 784) fp32 probability matrix goes through device memory.
+K3 bound on the H100: operations. At b=32, 4·B·N·M·d = 3.9e10 flop (Q·Kᵀ
+and P·V) over 56 MB (q and out, 2·B·N·d·2 bytes, with k and v) is 690
+flop a byte, above the card's bf16 ridge of ~295: 0.0394 ms at the bf16
+peak against 0.0168 ms of bytes (chip_smoke.record reckons it so). Add
+~152 M exponentials. Without a kernel the (B, 6076, 784) fp32
+probability matrix goes through device memory.
 
-Design (csrc/bridge_attention.cu): flash-shaped, but two passes over K
-per 64-row query tile instead of an online softmax, so the rounding is the
-TPU's: the row max over all M keys first, then e = exp(l − m) with the
-unrounded e summed in fp32 and the bf16-rounded e multiplied into V on the
-tensor cores, and one divide of the (rows, d) output by the sum
-(bridge_attention_kernel.py:59-75). M = 784 is short, so recomputing
-Q·Kᵀ costs less than keeping the (64, 784) logits. The ragged last tile
-of N = 6076 is zero-filled on load and masked on store; the TPU's padding
-of the stream to 6144 is not carried over.
+K3 design (csrc/bridge_attention.cu on csrc/bridge_softmax.cuh): the
+TPU's rounding points (bridge_attention_kernel.py:59-75) forbid an online
+softmax, so K is walked twice: pass 1 forms only Q·Kᵀ and the row max
+over all M keys; pass 2 forms e = exp(l − m), adds the unrounded e into
+the fp32 row sum and bf16(e) into P·V, and the (rows, d) output is
+divided by the sum once and rounded once. That is 1.5x the products of a
+one-pass flash kernel. A block of 8 warps takes 128 query rows; each warp
+keeps its 16 rows of q as mma.m16n8k16 A fragments in registers. K and V
+reach shared memory once per block, in 112-key chunks (784 = 7 x 112)
+through a 2-deep cp.async ring with XOR-swizzled rows, and every warp
+reads them with ldmatrix (.trans for V). A warp's logits stay in
+registers: the accumulators of two 8-key tiles, rounded and packed, are
+the A fragment of P·V over those 16 keys. exp(l − m) is computed as
+2^(l·log2e − m·log2e) on the MUFU (ex2.approx); the max is taken on the
+raw logits, so the launchers refuse a scale that is not positive. The
+ragged last query tile loads as zero and is never stored; a last key
+chunk shorter than 112 (a multiple of 16) is computed over its whole
+16-key steps. No atomics.
 
-K10 bound on the H100: operations. Per launch about 10·N·M·d·B flops
+K10 bound on the H100: operations. Per launch about 10·B·N·M·d flop
 (recomputed logits, dP = G·Vᵀ, T·K, Tᵀ·Q, Eᵀ·G: 7.3e10 at B = 24, 0.074 ms
 at the bf16 peak) against ~70 MB of bf16 traffic (0.021 ms). Without a
 kernel two (B, 6076, 784) fp32 matrices go through device memory.
 
 K10 design (csrc/bridge_attention_bwd.cu). Blocks run in parallel on
 Hopper, so the TPU's sequential dK/dV accumulation over N tiles
-(bridge_attention_kernel.py:178-186) becomes two kernels. A rows kernel
-per 64 query rows recomputes the row statistics in two passes over K/V
-(max; rowsum E and rowsum E∘dP, as the TPU does) and then dQ = (T·K)·s/S
-in a third, writing dQ and the (m, S, c) statistics (12 bytes a row). A
-columns kernel per (112 keys, N segment) keeps its keys' dK/dV in
-registers and walks the segment's query rows, recomputing E and T from the
-statistics; the segments' fp32 partials are added in a fixed order, so
-there are no atomics and the result is the same in every run. The
-(N, M) matrices stay on chip; E, T, Q·s/S and G/S are rounded to bf16 as
-tensor-core operands, with fp32 accumulation.
+(bridge_attention_kernel.py:178-186) becomes two kernels on K3's
+building blocks. The rows kernel (8 warps, 128 query rows, Q and G in A
+fragments, K and V through the same cp.async ring) takes the row
+statistics in one pass, with an online rescale of S and rowsum(E∘dP) when
+the running max rises (fp32 sums, no bf16 rounding in them), then
+dQ = (T·K)·s/S in a second pass with T = E∘(dP − c) packed into A
+fragments in registers; it writes dQ and (m·log2e, c, 1/S, s/S) per row.
+The columns kernel holds a tile of keys (K and V in A fragments, dK and
+dV accumulators in registers, 16 keys a warp) and walks its segment's
+query rows in 64-row chunks of Q, G and the statistics through a
+cp.async ring. It forms the transposed tiles Lᵀ = K·Qᵀ and dPᵀ = V·Gᵀ,
+so that Eᵀ and Tᵀ land in A-fragment layout with the per-row factors
+folded in before rounding (bf16(E/S), bf16(T·s/S)), and adds Eᵀ·G and
+Tᵀ·Q with Q and G unscaled from shared memory. `bwd_plan` cuts the query
+rows into segments so the grid fills the card; the segments' fp32
+partials are added in a fixed order, so there are no atomics and the
+result is the same in every run. The (N, M) matrices
+stay on chip; E/S and T·s/S are the bf16-rounded tensor-core operands of
+dV and dK, with fp32 accumulation; the JAX backward is fp32 throughout.
 
 K8 replaces bridge_attention_kernel.py:307 `bridge_attention_folded`
 (pallas_call at :332): res + proj(MHA(x·Wq + bq)) with x the post-norm1
@@ -58,8 +78,9 @@ K8 bound on the H100: operations (about 4·B·N·M·d for the attention plus
 4·B·N·C² for the projections, 4.2e10 flops at B = 32, 0.043 ms at the bf16
 peak, against ~81 MB of bf16 traffic, 0.024 ms).
 
-K8 design (csrc/bridge_attention_folded.cu): K3's block of 64 stream rows
-with a prologue and an epilogue. The prologue loads the x tile and forms
+K8 design (csrc/bridge_attention_folded.cu): the first K3 design's block
+of 64 stream rows (wmma loads of K/V from device memory per warp) with a
+prologue and an epilogue. The prologue loads the x tile and forms
 q = x·Wqᵀ on the tensor cores (one (64 x 64)·(64 x 64) product), adds bq
 in fp32 and rounds; K3's two passes over K/V follow; the rounded attention
 output goes back into the x tile's shared memory, and the epilogue forms
@@ -84,7 +105,11 @@ REPLACES = "transception_tpu/ops/pallas/bridge_attention_kernel.py:256"
 HEAD_DIM = 64
 BWD_NAME = "bridge_attention_bwd"
 BWD_REPLACES = "transception_tpu/ops/pallas/bridge_attention_kernel.py:190"
-BWD_SEGMENTS = 4  # N segments of the K10 columns kernel (blocks x 4)
+# The K10 columns kernel's tiling, KT and RC of csrc/bridge_attention_bwd.cu
+# (tests/test_torch_bridge_plan.py holds the two equal).
+BWD_KEY_TILE = 64  # keys a columns block holds (4 warps of 16 keys)
+BWD_ROW_CHUNK = 64  # query rows a columns block stages at a time
+BWD_BLOCKS_PER_SM = 8  # K10 columns blocks the launch plan aims for per SM
 FOLDED_NAME = "bridge_attention_folded"
 FOLDED_REPLACES = "transception_tpu/ops/pallas/bridge_attention_kernel.py:307"
 launches = 0
@@ -138,7 +163,13 @@ def bridge_attention_bwd_plain(q, k, v, g, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _check_scale(scale):
+    if not scale > 0:  # the kernels take the row max on the raw logits
+        raise ValueError(f"{NAME} kernels need scale > 0, got {scale}")
+
+
 def _launch(q, k, v, scale):
+    _check_scale(scale)
     global launches
     B, h, N, d = q.shape
     M = k.shape[2]
@@ -156,6 +187,21 @@ def _launch(q, k, v, scale):
     return out
 
 
+def bwd_plan(bh: int, n: int, m: int, sms: int):
+    """Launch plan of K10's columns kernel for bh batch·heads, n query rows
+    and m keys on a card of `sms` SMs: (nseg, seg_rows). The kernel's
+    grid has a block per BWD_KEY_TILE keys, per row segment and per
+    batch·head; the query rows are cut into nseg segments of seg_rows
+    rows, whole BWD_ROW_CHUNK-row chunks and none empty, so that the grid
+    has BWD_BLOCKS_PER_SM blocks per SM or as many segments as there are
+    chunks. The segments' fp32 partials are added in a fixed order."""
+    tiles = -(-m // BWD_KEY_TILE)
+    chunks = -(-n // BWD_ROW_CHUNK)
+    want = -(-BWD_BLOCKS_PER_SM * sms // (tiles * bh))
+    per = -(-chunks // max(1, min(chunks, want)))
+    return -(-chunks // per), per * BWD_ROW_CHUNK
+
+
 def bridge_attention_bwd(q, k, v, g, scale: float):
     """K10 wrapper: (dq, dk, dv) of softmax(q·kᵀ·scale)·v for cotangent
     g; the plain version for a CPU tensor or with the kernel off."""
@@ -169,22 +215,26 @@ def _launch_bwd(q, k, v, g, scale):
     if g.shape != q.shape or g.dtype != q.dtype:
         raise ValueError(f"{BWD_NAME} kernel needs g like q, got "
                          f"{tuple(g.shape)} {g.dtype}")
+    _check_scale(scale)
     global bwd_launches
     q, k, v, g = (_build.aligned(t) for t in (q, k, v, g))
     B, h, N, d = q.shape
     M = k.shape[2]
+    nseg, seg_rows = bwd_plan(
+        B * h, N, M,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     f32 = dict(device=q.device, dtype=torch.float32)
     stats = torch.empty(B * h, N, 4, **f32)
-    dkp = torch.empty(BWD_SEGMENTS, B * h, M, d, **f32)
+    dkp = torch.empty(nseg, B * h, M, d, **f32)  # the segments' partials
     dvp = torch.empty_like(dkp)
     fn = _build.load(BWD_NAME).bridge_attention_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     P = _build.ptr
     rc = fn(P(q), P(k), P(v), P(g), P(dq), P(dk), P(dv), P(stats), P(dkp),
-            P(dvp), B * h, N, M, scale, BWD_SEGMENTS, _build.stream_of(q))
+            P(dvp), B * h, N, M, scale, nseg, seg_rows, _build.stream_of(q))
     _build.check(rc, BWD_NAME)
     bwd_launches += 1
     _build.tally(BWD_NAME, tuple(q.shape))
