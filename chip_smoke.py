@@ -5,8 +5,9 @@
 Phases (any failed check exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
-     the ptxas report (registers, spills) of the bridge attention kernels
-     K3 and K10, which must not spill;
+     the ptxas report (registers, spills) of the kernels redesigned for
+     registers and the card's tensor cores, K3, K10, K8 and every stage of
+     K11, which must not spill;
   3. each kernel against its plain PyTorch version at every shape the
      serving path gives it in any fold configuration (bf16, batch 32) and
      at the shapes the "pallas" train step gives K1, K5-K7 and K9 (batch
@@ -636,17 +637,20 @@ def profile_device(fn, label):
     for e in kern:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    ours = sum(t for n, t in by_name.items() if any(
+    port = {n: t for n, t in by_name.items() if any(
         k in n for k in ("etb_", "mixffn_ln_skip", "bridge_attention_kernel",
+                         "bridge_attention_folded_kernel",
                          "expand_head_kernel", "mhca_", "patch_expand_kernel",
                          "linear_attention_kernel", "rows_kernel",
-                         "cols_kernel", "mixffn_bwd_kernel",
-                         "sum_partials")))
+                         "cols_kernel", "mixffn_bwd_", "sum_partials"))}
     log(f"  {len(kern)} device activities, busy {busy:.3f} ms of "
         f"{wall_ms:.3f} ms wall (idle share {1 - busy / wall_ms:.3f}); "
-        f"port kernels {ours:.3f} ms")
+        f"port kernels {sum(port.values()):.3f} ms")
     for name, t in by_name.most_common(12):
         log(f"    {t:9.3f} ms  {name[:90]}")
+    # Every port kernel by name (K11's stages one by one).
+    for name, t in sorted(port.items(), key=lambda kv: -kv[1]):
+        log(f"    port {t:9.3f} ms  {name[:110]}")
     (OUT_DIR / f"chip_smoke_profile_{label}.txt").write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total",
                                   row_limit=60))
@@ -1284,9 +1288,11 @@ def main():
     reports = {k: _build.build_log(k) for k in _build.KERNELS}
     (OUT_DIR / "chip_smoke_ptxas.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in reports.items()))
-    # The bridge attention kernels (K3, K10) are built for registers
-    # alone: their ptxas report, and no spills.
-    for lib in ("bridge_attention", "bridge_attention_bwd"):
+    # The bridge attention kernels (K3, K10, K8) and the MixFFN backward's
+    # stages (K11) are built for registers alone: their ptxas report, and
+    # no spills.
+    for lib in ("bridge_attention", "bridge_attention_bwd",
+                "bridge_attention_folded", "mixffn_bwd"):
         if reports[lib] is None:
             fail(f"{lib}: no ptxas report")
         for fn, regs, st, ld, smem in ptxas_report(reports[lib]):

@@ -96,6 +96,18 @@ def test_kernel_checks_raise(case):
         ba._check_folded(x, x, k, k)
 
 
+@pytest.mark.parametrize("scale", [0.0, -0.125])
+def test_folded_launcher_refuses_a_non_positive_scale(scale):
+    """K8 takes the row max on the raw logits (bridge_softmax.cuh
+    softmax_av), which is the max of the scaled ones only for scale > 0:
+    its launcher raises before it checks shapes or touches the card."""
+    x = torch.zeros(1, 100, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 1, 32, 64, dtype=torch.bfloat16)
+    w, b = torch.zeros(64, 64), torch.zeros(64)
+    with pytest.raises(ValueError, match="scale > 0"):
+        ba._launch_folded(x, x, w, b, k, k, w, b, scale)
+
+
 def test_bridge_layer_folded_route_matches_unfolded_fp32():
     """MEfficientSelfAtten with bridge_attn_fold (the folded kernel's
     plain version) gives the unfolded chain's result: q Dense -> K3 ->

@@ -167,14 +167,23 @@ def test_linear_attention_kernel(gen, shape, q_softmax):
     assert la.launches == n0 + 1
 
 
-@pytest.mark.parametrize("N,M", [(124, 16), (6076, 784)])
-def test_bridge_attention_folded_kernel(gen, N, M):
-    """K8 on its branch alone (output minus res), with a ragged tile."""
+def _folded_inputs(gen, N, M):
     x, res = (_r(gen, 2, N, 64, dtype=torch.bfloat16) for _ in range(2))
     k, v = (_r(gen, 2, 1, M, 64, dtype=torch.bfloat16) for _ in range(2))
     w = [_r(gen, 64, 64, scale=0.2), _r(gen, 64, scale=0.1)]
-    args = (x, res, w[0], w[1], k, v, _r(gen, 64, 64, scale=0.2),
+    return (x, res, w[0], w[1], k, v, _r(gen, 64, 64, scale=0.2),
             _r(gen, 64, scale=0.1), 0.125)
+
+
+# (N, M): N ragged against the 128-row tiles (124, 300, 6076); M of one
+# 16-key step, under one 112-key chunk (48), the published 7 chunks and a
+# short last chunk (800 = 7 x 112 + 16).
+@pytest.mark.parametrize("N,M", [(124, 16), (6076, 784), (300, 800),
+                                 (300, 48)])
+def test_bridge_attention_folded_kernel(gen, N, M):
+    """K8 on its branch alone (output minus res), with a ragged tile."""
+    args = _folded_inputs(gen, N, M)
+    res = args[1]
     n0 = ba.folded_launches
     _close(ba.bridge_attention_folded(*args),
            ba.bridge_attention_folded_plain(*args), base=res)
@@ -271,6 +280,15 @@ def test_bridge_attention_kernels_repeat_bit_identical(gen, B, h, N, M):
     assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
+@pytest.mark.parametrize("N,M", [(300, 800), (6076, 784)])
+def test_bridge_attention_folded_repeat_bit_identical(gen, N, M):
+    """No atomics in K8: two launches on the same inputs give the same
+    bits."""
+    args = _folded_inputs(gen, N, M)
+    assert torch.equal(ba.bridge_attention_folded(*args),
+                       ba.bridge_attention_folded(*args))
+
+
 def _ffn_args(gen, B, s, C, hid, groups):
     x = _r(gen, B, s * s, C, dtype=torch.bfloat16)
     gsz = C // groups
@@ -297,6 +315,18 @@ def test_mixffn_bwd_kernel(gen, s, C, hid, groups, eps_ln):
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == b.dtype
         _close(a, b)
+
+
+@pytest.mark.parametrize("B,s,C,hid,groups", [(3, 6, 128, 512, 1),
+                                              (24, 14, 320, 1280, 5)])
+def test_mixffn_bwd_repeat_bit_identical(gen, B, s, C, hid, groups):
+    """No atomics in K11 (fixed token ranges and split partials summed in a
+    fixed order, bwd_plan): two launches give the same bits."""
+    x, p = _ffn_args(gen, B, s, C, hid, groups)
+    g = _r(gen, *x.shape, dtype=torch.bfloat16)
+    one = mf.mixffn_ln_skip_bwd(x, *p, g, s=s, groups=groups)
+    two = mf.mixffn_ln_skip_bwd(x, *p, g, s=s, groups=groups)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 @pytest.mark.parametrize("s,C,hid,groups", [(28, 128, 512, 2),

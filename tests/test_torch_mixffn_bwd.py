@@ -198,13 +198,17 @@ def test_eval_folds_always_take_the_wrapper(monkeypatch, s, C, hid):
 
 def test_k11_wrapper_refuses_rows_over_shared_memory():
     """K11's shared-memory limit is checked by its own launch, never by a
-    forward's routing: here K2's block fits, K11's does not."""
-    s, C, hid = 56, 128, 256
+    forward's routing. K11's stages hold no map rows, so a (56², 128) map
+    is taken; what it refuses is a hidden width whose rows-kernel token
+    tile (y and dz of 8 tokens over the whole width) exceeds shared memory,
+    here hidden 4096, where K2's block fits."""
+    assert mf.bwd_smem_bytes(128, 256) <= mf.SMEM_LIMIT
+    s, C, hid = 2, 64, 4096
     assert mf.smem_bytes(s, C, hid) <= mf.SMEM_LIMIT
-    assert mf.bwd_smem_bytes(s, C) > mf.SMEM_LIMIT
+    assert mf.bwd_smem_bytes(C, hid) > mf.SMEM_LIMIT
     x = torch.zeros(1, s * s, C, dtype=torch.bfloat16)
     p = [torch.zeros(n) for n in (C, C)] + [torch.zeros(hid, C)] + [
         torch.zeros(hid), torch.zeros(hid, 1, 3, 3)] + [
         torch.zeros(hid)] * 3 + [torch.zeros(C, hid), torch.zeros(C)]
-    with pytest.raises(ValueError, match="mixffn_bwd kernel: map rows"):
+    with pytest.raises(ValueError, match="mixffn_bwd kernel: a token tile"):
         mf._launch_bwd(x, *p, x, s, 1, 1e-5, 1e-5)

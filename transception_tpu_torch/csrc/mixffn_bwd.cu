@@ -5,466 +5,648 @@
 // fused_mixffn_ln_skip_bwd (its _bwd_kernel_ln, :479-653). Design notes:
 // ops/kernels/mixffn.py.
 //
-// One block per (R = 2 map rows, group of batch rows). For each batch row
-// the block normalises the window rows r0-2 .. r0+R+1 (x's group LN, the
-// two-row halo: dx at row r needs dd at r±1, which needs h at r±2) and
-// loads g for rows r0-1 .. r0+R. It then walks the hidden width in
-// 32-channel chunks, one channel per lane, three times:
-//   A. h = fc1 on the window (tensor cores), y = d + h on rows r0-1..r0+R,
-//      per-token sums of y and y² -> the hidden LN's mean and rsqrt;
-//   B. da = g·w2 (tensor cores), dz = da·GELU'(z), per-token sums of
-//      dyh = dz·ls and dyh·yh -> the LN backward's two means;
-//   C. dy (= dd) on rows r0-1..r0+R, then for the centre rows
-//      dh = dy + (conv transpose of dd: a correlation with the same taps)
-//      and the chunk's gradients: dxn += dh·w1, dw1 += dhᵀ·xn,
-//      dw2 += gᵀ·a on the tensor cores, db1, the nine taps, their bias,
-//      the LN scale and bias in fp32 registers.
-// Last, the group-LN backward of the centre rows gives dx (+ g, the
-// residual). The hidden state lives in shared memory only. Weight
-// gradients go to one fp32 partial per block (read-modify-written across
-// the block's batch rows) and sum_partials adds the partials in a fixed
-// order: no atomics, the result does not depend on scheduling.
+// Bound on the H100: operations at the train shapes (five products of
+// 2·T·C·hid flop each over the T = B·s² tokens: 1.2e10 flop at (24, 56²,
+// 64, hidden 256), 0.012 ms at the bf16 peak, against about 29 MB of
+// inputs and outputs, 0.009 ms). With the hidden intermediates in device
+// memory this design moves about 32 bytes per token and hidden channel,
+// which is what bounds it in practice.
+//
+// Few tokens per map row and a wide hidden layer leave a block per map
+// row short of the card's 132 SMs, and a block cannot carry the weight
+// gradients across the batch. So the backward runs as stages over the
+// whole batch, each of which fills the card:
+//   1. ln    xn = bf16(groupLN(x)), a warp per token;
+//   2. gemm  h = bf16(xn·w1ᵀ + b1) and da = g·w2 (fp32);
+//   3. conv  d = bf16(conv3x3(h) + dwb), a warp per map column walking
+//            down the map with a 3 x 3 window of h in registers, a lane
+//            per channel;
+//      rows  per tile of TT tokens, over the whole hidden width, a thread
+//            per channel: y = d + h, the hidden LN's statistics, z, GELU′,
+//            dz = da·GELU′, the LN backward's two means, dy (fp32, written
+//            over da) and a = bf16(GELU(z)) (over d); the block's partials
+//            of ddwb, dls and dlb;
+//   4. dwt   dh = dy + the correlation of dy with the taps, rounded to
+//            bf16 (a tensor-core operand), and the block's partials of the
+//            nine tap gradients and db1: conv's column walk, with windows
+//            of dy and h;
+//   5. gemm  dxn = dh·w1 (fp32); dw1 = dhᵀ·xn and dw2 = gᵀ·a, K split
+//            over token ranges into a fixed number of fp32 partials;
+//   6. lnb   the group-LN backward per token: dx = LN′(dxn·lts) + g, and
+//            the block's partials of dlts, dltb and db2;
+//   7. sum   adds each set of partials in a fixed order, one launch.
+// The products are one kernel: BM x BN output tiles (128 or 64 each, 8
+// warps), 64-deep operand tiles staged with cp.async through a 3-deep
+// ring of XOR-swizzled 64-column panels (bridge_softmax.cuh's layout),
+// fragments by ldmatrix (.trans for operands whose M or N is contiguous),
+// mma.sync.m16n8k16 with fp32 accumulation. The wrapper's plan
+// (ops/kernels/mixffn.py bwd_plan) picks the tiles, the splits and the
+// token ranges per block and allocates the intermediates. No atomics: two
+// launches give the same bits.
+#include "bridge_softmax.cuh"
 #include "mixffn.cuh"
 
 namespace {
 
+using bsa::cp_async16;
+using bsa::swz;
+
 constexpr int THREADS = 256;
 constexpr int NW = THREADS / 32;
-constexpr int HC = 32;  // hidden channels per chunk: one per lane
-constexpr int R = 2;    // map rows per block
+constexpr int BIG = 128;    // output tile sides of the products
+constexpr int SMALL = 64;
+constexpr int BK = 64;      // product depth per staged operand tile
+constexpr int GSTAGES = 3;  // cp.async ring depth of the products
+constexpr int TT = 8;       // tokens per tile of the rows kernel
+constexpr int CH = 32;      // channels of a column-walk block (a lane each)
 constexpr float RSQRT2 = 0.70710678118654752f;
 constexpr float INV_SQRT_2PI = 0.3989422804014327f;
 
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
-__host__ __device__ inline size_t up128(size_t b) {
-  return (b + 127) & ~(size_t)127;
-}
-
-// Shared-memory plan of one block; the same on host and device (mirrored
-// by ops/kernels/mixffn.py bwd_smem_bytes).
-struct Geo {
-  int Th, Ty, Tc;     // window tokens: h rows R+4, y rows R+2, centre R
-  int Thp, Typ, Tcp;  // padded to whole 16-token tiles
-  size_t o_xn, o_g, o_h, o_da, o_dxn, o_dh, o_a, o_st, o_stage, o_red;
-  size_t bytes;
+template <int BM, int BN>
+struct Tile {
+  static constexpr int WARPS_M = (BM == BIG && BN == SMALL) ? 4 : 2;
+  static constexpr int WARPS_N = NW / WARPS_M;
+  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int SMEM = GSTAGES * STAGE;
 };
 
-__host__ __device__ inline Geo make_geo(int s, int C) {
-  Geo G;
-  G.Th = (R + 4) * s;
-  G.Ty = (R + 2) * s;
-  G.Tc = R * s;
-  G.Tcp = pad16(G.Tc);
-  // The centre rows' operands (xn from token 2s, g from token s) must
-  // stay inside the buffers for a whole number of 16-token tiles.
-  G.Thp = pad16(imax(G.Th, 2 * s + G.Tcp));
-  G.Typ = pad16(imax(G.Ty, s + G.Tcp));
-  size_t o = 0;
-  G.o_xn = o;    o += up128((size_t)G.Thp * C * 2);
-  G.o_g = o;     o += up128((size_t)G.Typ * C * 2);
-  G.o_h = o;     o += up128((size_t)G.Thp * HC * 2);
-  G.o_da = o;    o += up128((size_t)G.Typ * HC * 4);
-  G.o_dxn = o;   o += up128((size_t)G.Tcp * C * 4);
-  G.o_dh = o;    o += up128((size_t)G.Tcp * HC * 2);
-  G.o_a = o;     o += up128((size_t)G.Tcp * HC * 2);
-  G.o_st = o;    o += up128((size_t)G.Typ * 4 * 4);
-  G.o_stage = o; o += up128((size_t)NW * 256 * 4);
-  G.o_red = o;   o += up128((size_t)imax(13 * NW * 32, 3 * NW * C) * 4);
-  G.bytes = o;
-  return G;
-}
-
-// Floats of one block's partial: dw1, dw2, db1, ddw (9 taps), ddwb, dls,
-// dlb (hidden-wide), db2, dlts, dltb (C-wide), padded to 64.
-__host__ __device__ inline size_t partial_floats(int C, int hid) {
-  return ((size_t)2 * hid * C + 13 * (size_t)hid + 3 * (size_t)C + 63) &
-         ~(size_t)63;
-}
-
-// A[M x K] · B[K x N] on the tensor cores, 16x16 output tiles spread over
-// the warps; each tile goes through the warp's staging buffer and
-// epi(row, col, value).
-template <typename LA, typename LB, typename Epi>
-__device__ void gemm_epi(const bf16* A, int lda, const bf16* B, int ldb,
-                         int M, int N, int K, float* stage, Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* sw = stage + warp * 256;
-  const int mt = M >> 4, nt = N >> 4;
-  for (int t = warp; t < mt * nt; t += NW) {
-    const int i = (t % mt) << 4, j = (t / mt) << 4;
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-      wmma::load_matrix_sync(a, frag_ptr<LA>(A, lda, i, k), lda);
-      wmma::load_matrix_sync(b, frag_ptr<LB>(B, ldb, k, j), ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(sw, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) epi(i + (e >> 4), j + (e & 15), sw[e]);
-    __syncwarp();
+// Rows [0, R) x columns [0, W) (W a multiple of 64) of the row-major bf16
+// matrix at p (leading dimension ld) into swizzled 64-column panels of R
+// rows at s, asynchronously; rows >= rv or columns >= cv zero-filled.
+template <int R, int W>
+__device__ __forceinline__ void stage(uint32_t s, const bf16* p, int ld,
+                                      int rv, int cv) {
+  for (int i = threadIdx.x; i < R * (W / 8); i += THREADS) {
+    const int r = i / (W / 8), c = i % (W / 8);
+    const bool ok = r < rv && c * 8 < cv;
+    cp_async16(s + (c >> 3) * (R * 128) + swz(r, c & 7),
+               ok ? p + (size_t)r * ld + c * 8 : p, ok);
   }
 }
 
-// out (M x N fp32, ldo, shared or device memory) = [out +] A · B. With
-// first, out's old contents are ignored.
-template <typename LA, typename LB>
-__device__ void gemm_acc_tile(const bf16* A, int lda, const bf16* B, int ldb,
-                              int i, int j, int K, float* out, int ldo,
-                              bool first) {
-  Acc acc;
-  if (first)
-    wmma::fill_fragment(acc, 0.0f);
-  else
-    wmma::load_matrix_sync(acc, out + (size_t)i * ldo + j, ldo,
-                           wmma::mem_row_major);
-  for (int k = 0; k < K; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-    wmma::load_matrix_sync(a, frag_ptr<LA>(A, lda, i, k), lda);
-    wmma::load_matrix_sync(b, frag_ptr<LB>(B, ldb, k, j), ldb);
-    wmma::mma_sync(acc, a, b, acc);
-  }
-  wmma::store_matrix_sync(out + (size_t)i * ldo + j, acc, ldo,
-                          wmma::mem_row_major);
-}
-
-__device__ __forceinline__ void accum(float* p, float v, bool first) {
-  *p = first ? v : *p + v;
-}
-
+// out (+ blockIdx.z · split) = A · B over k in [z·kper, (z+1)·kper), with
+// A (M x K) stored [M][K] (AMK) or [K][M], B (K x N) stored [N][K] (BNK)
+// or [K][N]. BF16OUT: out = bf16(acc + bias[n]); else fp32 acc.
+template <bool AMK, bool BNK, int BM, int BN, bool BF16OUT>
 __global__ void __launch_bounds__(THREADS)
-mixffn_bwd_kernel(const bf16* x, const bf16* g, const float* lts,
-                  const float* ltb, const bf16* w1, const float* b1,
-                  const bf16* dw, const float* dwb, const float* ls,
-                  const float* lb, const bf16* w2, bf16* dx, float* part,
-                  int B, int bpb, int s, int C, int hid, int groups,
-                  float eps_ln, float eps) {
+mixffn_bwd_gemm_kernel(const bf16* A, int lda, const bf16* B, int ldb,
+                       void* out, int ldo, const float* bias, int M, int N,
+                       int K, int kper, size_t split) {
+  using T = Tile<BM, BN>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Geo G = make_geo(s, C);
-  bf16* xn = reinterpret_cast<bf16*>(smem + G.o_xn);      // Thp x C
-  bf16* gb = reinterpret_cast<bf16*>(smem + G.o_g);       // Typ x C
-  bf16* hb = reinterpret_cast<bf16*>(smem + G.o_h);       // Thp x HC
-  float* dab = reinterpret_cast<float*>(smem + G.o_da);   // Typ x HC
-  float* dxn = reinterpret_cast<float*>(smem + G.o_dxn);  // Tcp x C
-  bf16* dhb = reinterpret_cast<bf16*>(smem + G.o_dh);     // Tcp x HC
-  bf16* ab = reinterpret_cast<bf16*>(smem + G.o_a);       // Tcp x HC
-  float* st = reinterpret_cast<float*>(smem + G.o_st);    // Typ x 4
-  float* stage = reinterpret_cast<float*>(smem + G.o_stage);
-  float* red = reinterpret_cast<float*>(smem + G.o_red);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * R, N = s * s, gsz = C / groups;
-  const int b_begin = blockIdx.y * bpb, b_end = min(B, b_begin + bpb);
-  float* p_dw1 = part + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
-                            partial_floats(C, hid);
-  float* p_dw2 = p_dw1 + (size_t)hid * C;
-  float* p_db1 = p_dw2 + (size_t)C * hid;
-  float* p_ddw = p_db1 + hid;
-  float* p_ddwb = p_ddw + 9 * hid;
-  float* p_dls = p_ddwb + hid;
-  float* p_dlb = p_dls + hid;
-  float* p_db2 = p_dlb + hid;
-  float* p_dlts = p_db2 + C;
-  float* p_dltb = p_dlts + C;
+  const uint32_t base = bsa::smem_addr(smem);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int kb = blockIdx.z * kper, ke = min(K, kb + kper);
+  const int nk = (ke - kb + BK - 1) / BK;
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int wm = (w % T::WARPS_M) * T::WM, wn = (w / T::WARPS_M) * T::WN;
 
-  // Token t of the h window is map row r0-2 + t/s; of the y window (and
-  // g) map row r0-1 + t/s; centre token tc is map row r0 + tc/s.
-  auto h_ok = [&](int t) {
-    const int rr = r0 - 2 + t / s;
-    return t < G.Th && rr >= 0 && rr < s;
-  };
-  auto y_ok = [&](int t) {
-    const int rr = r0 - 1 + t / s;
-    return t < G.Ty && rr >= 0 && rr < s;
-  };
-  auto c_ok = [&](int tc) { return tc < G.Tc && r0 + tc / s < s; };
-
-  for (size_t i = threadIdx.x; i < G.bytes / 4; i += THREADS)
-    reinterpret_cast<float*>(smem)[i] = 0.0f;
-  __syncthreads();
-
-  for (int b = b_begin; b < b_end; ++b) {
-    const bool first = b == b_begin;
-    const bf16* xb = x + (size_t)b * N * C;
-    const bf16* gg = g + (size_t)b * N * C;
-
-    // x's group LN on the h window (zero off the map).
-    for (int t = warp; t < G.Thp; t += NW) {
-      bf16* dst = xn + (size_t)t * C;
-      if (!h_ok(t)) {
-        for (int c = lane; c < C; c += 32) dst[c] = __float2bfloat16(0.0f);
-        continue;
-      }
-      const bf16* src = xb + ((size_t)(r0 - 2 + t / s) * s + t % s) * C;
-      for (int c0 = 0; c0 < C; c0 += gsz)
-        mixffn::ln_range(src, dst, lts, ltb, c0, gsz, eps_ln, lane);
+  auto load = [&](int it) {
+    if (it < nk) {
+      const int k0 = kb + it * BK;
+      const uint32_t sa = base + (it % GSTAGES) * T::STAGE;
+      const uint32_t sb = sa + T::A_BYTES;
+      if (AMK)
+        stage<BM, BK>(sa, A + (size_t)m0 * lda + k0, lda, M - m0, ke - k0);
+      else
+        stage<BK, BM>(sa, A + (size_t)k0 * lda + m0, lda, ke - k0, M - m0);
+      if (BNK)
+        stage<BN, BK>(sb, B + (size_t)n0 * ldb + k0, ldb, N - n0, ke - k0);
+      else
+        stage<BK, BN>(sb, B + (size_t)k0 * ldb + n0, ldb, ke - k0, N - n0);
     }
-    // g on the y window (zero off the map).
-    for (int t = warp; t < G.Typ; t += NW) {
-      bf16* dst = gb + (size_t)t * C;
-      const bool ok = y_ok(t);
-      const bf16* src = gg + ((size_t)(r0 - 1 + t / s) * s + t % s) * C;
-      for (int c = lane; c < C; c += 32)
-        dst[c] = ok ? src[c] : __float2bfloat16(0.0f);
-    }
-    for (int i = threadIdx.x; i < G.Typ * 4; i += THREADS) st[i] = 0.0f;
-    for (int i = threadIdx.x; i < G.Tcp * C; i += THREADS) dxn[i] = 0.0f;
-    __syncthreads();
+    bsa::cp_async_commit();  // empty groups keep the count uniform
+  };
 
-    for (int pass = 0; pass < 3; ++pass) {
-      for (int k0 = 0; k0 < hid; k0 += HC) {
-        const int ch = k0 + lane;
-        float wk[9];
+  float acc[T::MT][T::NT][4];
 #pragma unroll
-        for (int q = 0; q < 9; ++q)
-          wk[q] = __bfloat162float(dw[(size_t)ch * 9 + q]);
-        const float bd = dwb[ch], lsc = ls[ch], lbc = lb[ch];
-
-        // h = bf16(xn · w1ᵀ + b1) on the window, zero off the map.
-        gemm_epi<wmma::row_major, wmma::col_major>(
-            xn, C, w1 + (size_t)k0 * C, C, G.Thp, HC, C, stage,
-            [&](int t, int kk, float v) {
-              hb[t * HC + kk] = __float2bfloat16(h_ok(t) ? v + b1[k0 + kk]
-                                                         : 0.0f);
-            });
-        if (pass > 0)  // da = g · w2[:, chunk]
-          gemm_tiles<wmma::row_major, wmma::row_major>(
-              gb, C, w2 + k0, hid, G.Typ, HC, C, dab, HC);
-        __syncthreads();
-
-        // y = bf16(conv3x3(h) + dwb) + h at y-window token t, channel ch
-        // (the forward's tap order).
-        auto yval = [&](int t) {
-          const int wy = t / s, j = t % s;
-          float acc = 0.0f;
+  for (int i = 0; i < T::MT; ++i)
 #pragma unroll
-          for (int dj = 0; dj < 3; ++dj) {
-            const int col = j + dj - 1;
-            if (col < 0 || col >= s) continue;
+    for (int j = 0; j < T::NT; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
 #pragma unroll
-            for (int di = 0; di < 3; ++di)
-              acc += __bfloat162float(hb[((wy + di) * s + col) * HC + lane]) *
-                     wk[di * 3 + dj];
-          }
-          return rbf(acc + bd) +
-                 __bfloat162float(hb[((wy + 1) * s + j) * HC + lane]);
-        };
-
-        if (pass == 0) {
-          for (int t = warp; t < G.Ty; t += NW) {
-            if (!y_ok(t)) continue;
-            const float y = yval(t);
-            const float s1 = warp_sum(y), s2 = warp_sum(y * y);
-            if (lane == 0) {
-              st[t * 4] += s1;
-              st[t * 4 + 1] += s2;
-            }
-          }
-        } else if (pass == 1) {
-          for (int t = warp; t < G.Ty; t += NW) {
-            if (!y_ok(t)) continue;
-            const float yh = (yval(t) - st[t * 4]) * st[t * 4 + 1];
-            const float z = rbf(yh * lsc + lbc);
-            const float gp = 0.5f * (1.0f + erff(z * RSQRT2)) +
-                             z * expf(-0.5f * z * z) * INV_SQRT_2PI;
-            const float dyh = dab[t * HC + lane] * gp * lsc;
-            const float s1 = warp_sum(dyh), s2 = warp_sum(dyh * yh);
-            if (lane == 0) {
-              st[t * 4 + 2] += s1;
-              st[t * 4 + 3] += s2;
-            }
-          }
+  for (int t = 0; t < GSTAGES - 1; ++t) load(t);
+  for (int it = 0; it < nk; ++it) {
+    bsa::cp_async_wait<GSTAGES - 2>();
+    __syncthreads();  // tile it landed; tile it-1's slot is free
+    load(it + GSTAGES - 1);
+    const uint32_t sa = base + (it % GSTAGES) * T::STAGE;
+    const uint32_t sb = sa + T::A_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t af[T::MT][4], bf[T::NT][2];
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i) {
+        const int mi = wm + i * 16;
+        if (AMK) {
+          bsa::ldsm_x4(sa + swz(mi + (l & 15), (kk >> 3) + (l >> 4)), af[i]);
         } else {
-          float a_dls = 0.0f, a_dlb = 0.0f, a_ddwb = 0.0f, a_db1 = 0.0f;
-          float a_ddw[9];
-#pragma unroll
-          for (int q = 0; q < 9; ++q) a_ddw[q] = 0.0f;
-          // dy (= dd) on the y window; a = GELU(z) on the centre rows.
-          for (int t = warp; t < G.Typ; t += NW) {
-            const int tc = t - s;
-            const bool centre = tc >= 0 && tc < G.Tc;
-            float dy = 0.0f, a = 0.0f;
-            if (y_ok(t)) {
-              const float yh = (yval(t) - st[t * 4]) * st[t * 4 + 1];
-              const float z = rbf(yh * lsc + lbc);
-              const float gp = 0.5f * (1.0f + erff(z * RSQRT2)) +
-                               z * expf(-0.5f * z * z) * INV_SQRT_2PI;
-              const float dz = dab[t * HC + lane] * gp;
-              dy = st[t * 4 + 1] *
-                   (dz * lsc - st[t * 4 + 2] - yh * st[t * 4 + 3]);
-              if (centre) {
-                a_dls += dz * yh;
-                a_dlb += dz;
-                a_ddwb += dy;
-                a = 0.5f * z * erfcf(-z * RSQRT2);
-              }
-            }
-            dab[t * HC + lane] = dy;
-            if (centre) ab[tc * HC + lane] = __float2bfloat16(a);
-          }
-          __syncthreads();
-          // dh = dy + correlation of dd with the taps; the tap gradients.
-          for (int tc = warp; tc < G.Tc; tc += NW) {
-            if (!c_ok(tc)) {
-              dhb[tc * HC + lane] = __float2bfloat16(0.0f);
-              continue;
-            }
-            const int wy = tc / s + 1, j = tc % s;
-            const float dyc = dab[(wy * s + j) * HC + lane];
-            float dh = dyc;
-#pragma unroll
-            for (int di = 0; di < 3; ++di) {
-#pragma unroll
-              for (int dj = 0; dj < 3; ++dj) {
-                const int cb = j - dj + 1, ch2 = j + dj - 1;
-                if (cb >= 0 && cb < s)
-                  dh += dab[((wy - di + 1) * s + cb) * HC + lane] *
-                        wk[di * 3 + dj];
-                if (ch2 >= 0 && ch2 < s)
-                  a_ddw[di * 3 + dj] +=
-                      dyc * __bfloat162float(
-                                hb[((wy + di) * s + ch2) * HC + lane]);
-              }
-            }
-            dhb[tc * HC + lane] = __float2bfloat16(dh);
-            a_db1 += dh;
-          }
-          red[(0 * NW + warp) * 32 + lane] = a_dls;
-          red[(1 * NW + warp) * 32 + lane] = a_dlb;
-          red[(2 * NW + warp) * 32 + lane] = a_ddwb;
-          red[(3 * NW + warp) * 32 + lane] = a_db1;
-#pragma unroll
-          for (int q = 0; q < 9; ++q)
-            red[((4 + q) * NW + warp) * 32 + lane] = a_ddw[q];
-          __syncthreads();
-          for (int i = threadIdx.x; i < 13 * 32; i += THREADS) {
-            const int q = i / 32, c = k0 + i % 32;
-            float v = 0.0f;
-            for (int w = 0; w < NW; ++w) v += red[(q * NW + w) * 32 + i % 32];
-            float* dst = q == 0 ? p_dls + c
-                       : q == 1 ? p_dlb + c
-                       : q == 2 ? p_ddwb + c
-                       : q == 3 ? p_db1 + c
-                                : p_ddw + (size_t)c * 9 + (q - 4);
-            accum(dst, v, first);
-          }
-          // dxn += dh·w1[chunk]; dw1[chunk] += dhᵀ·xn; dw2[:, chunk] += gᵀ·a
-          // (centre rows).
-          const int t1 = (G.Tcp / 16) * (C / 16), t2 = (HC / 16) * (C / 16);
-          for (int t = warp; t < t1 + 2 * t2; t += NW) {
-            if (t < t1) {
-              gemm_acc_tile<wmma::row_major, wmma::row_major>(
-                  dhb, HC, w1 + (size_t)k0 * C, C, (t % (G.Tcp / 16)) * 16,
-                  (t / (G.Tcp / 16)) * 16, HC, dxn, C, false);
-            } else if (t < t1 + t2) {
-              const int u = t - t1;
-              gemm_acc_tile<wmma::col_major, wmma::row_major>(
-                  dhb, HC, xn + (size_t)2 * s * C, C, (u % 2) * 16,
-                  (u / 2) * 16, G.Tcp, p_dw1 + (size_t)k0 * C, C, first);
-            } else {
-              const int u = t - t1 - t2;
-              gemm_acc_tile<wmma::col_major, wmma::row_major>(
-                  gb + (size_t)s * C, C, ab, HC, (u % (C / 16)) * 16,
-                  (u / (C / 16)) * 16, G.Tcp, p_dw2 + k0, hid, first);
-            }
-          }
+          const int cc = (mi >> 3) + ((l >> 3) & 1);
+          const int r = kk + (l & 7) + ((l >> 4) << 3);
+          bsa::ldsm_x4_t(sa + (cc >> 3) * (BK * 128) + swz(r, cc & 7), af[i]);
         }
-        __syncthreads();
       }
-      // Per-token statistics after the whole hidden width.
-      if (pass < 2) {
-        for (int t = threadIdx.x; t < G.Ty; t += THREADS) {
-          float* p = st + t * 4 + 2 * pass;
-          if (pass == 0) {
-            const float mean = p[0] / hid;
-            p[1] = rsqrtf(p[1] / hid - mean * mean + eps);
-            p[0] = mean;
-          } else {
-            p[0] /= hid;
-            p[1] /= hid;
-          }
+#pragma unroll
+      for (int j = 0; j < T::NT; j += 2) {
+        const int ni = wn + j * 8;
+        uint32_t f[4];
+        if (BNK) {
+          bsa::ldsm_x4(sb + swz(ni + (l & 7) + ((l >> 4) << 3),
+                                (kk >> 3) + ((l >> 3) & 1)), f);
+        } else {
+          const int cc = (ni >> 3) + (l >> 4);
+          bsa::ldsm_x4_t(sb + (cc >> 3) * (BK * 128) + swz(kk + (l & 15),
+                                                          cc & 7), f);
         }
-        __syncthreads();
+        bf[j][0] = f[0];
+        bf[j][1] = f[1];
+        bf[j + 1][0] = f[2];
+        bf[j + 1][1] = f[3];
       }
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j) bsa::mma(acc[i][j], af[i], bf[j][0], bf[j][1]);
     }
+  }
+  bsa::cp_async_wait<0>();
 
-    // Group-LN backward of the centre rows, plus the residual's g.
-    for (int q = 0; q < 3; ++q)
-      for (int c = lane; c < C; c += 32) red[(q * NW + warp) * C + c] = 0.0f;
-    for (int tc = warp; tc < G.Tc; tc += NW) {
-      if (!c_ok(tc)) continue;
-      const size_t n = (size_t)(r0 + tc / s) * s + tc % s;
-      const bf16* src = xb + n * C;
-      const bf16* gc = gb + (size_t)(s + tc) * C;
-      const float* dxr = dxn + (size_t)tc * C;
-      for (int c0 = 0; c0 < C; c0 += gsz) {
-        const float2 ms = mixffn::ln_stats(src, c0, gsz, eps_ln, lane);
-        const float mean = ms.x, inv = ms.y;
-        float n1 = 0.0f, n2 = 0.0f;
-        for (int c = c0 + lane; c < c0 + gsz; c += 32) {
-          const float yhx = (__bfloat162float(src[c]) - mean) * inv;
-          const float d = dxr[c] * lts[c];
-          n1 += d;
-          n2 += d * yhx;
-        }
-        n1 = warp_sum(n1) / gsz;
-        n2 = warp_sum(n2) / gsz;
-        for (int c = c0 + lane; c < c0 + gsz; c += 32) {
-          const float yhx = (__bfloat162float(src[c]) - mean) * inv;
-          const float gv = __bfloat162float(gc[c]);
-          const float d = dxr[c] * lts[c];
-          dx[(size_t)b * N * C + n * C + c] =
-              __float2bfloat16(inv * (d - n1 - yhx * n2) + gv);
-          red[(0 * NW + warp) * C + c] += dxr[c] * yhx;
-          red[(1 * NW + warp) * C + c] += dxr[c];
-          red[(2 * NW + warp) * C + c] += gv;
+  const int g = l >> 2, t = l & 3;
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + i * 16 + g + 8 * h;
+        const int n = n0 + wn + j * 8 + 2 * t;
+        if (m >= M || n >= N) continue;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (BF16OUT) {
+          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) +
+                                       (size_t)m * ldo + n) =
+              bsa::pack(v0 + bias[n], v1 + bias[n + 1]);
+        } else {
+          *reinterpret_cast<float2*>(static_cast<float*>(out) +
+                                     blockIdx.z * split + (size_t)m * ldo +
+                                     n) = make_float2(v0, v1);
         }
       }
+}
+
+template <bool AMK, bool BNK, int BM, int BN, bool BF16OUT>
+cudaError_t gemm_launch(const bf16* A, int lda, const bf16* B, int ldb,
+                        void* out, int ldo, const float* bias, int M, int N,
+                        int K, int kper, size_t split, cudaStream_t st) {
+  using T = Tile<BM, BN>;
+  const void* fn =
+      (const void*)mixffn_bwd_gemm_kernel<AMK, BNK, BM, BN, BF16OUT>;
+  cudaError_t e = set_smem(fn, T::SMEM);
+  if (e) return e;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, (K + kper - 1) / kper);
+  mixffn_bwd_gemm_kernel<AMK, BNK, BM, BN, BF16OUT>
+      <<<grid, THREADS, T::SMEM, st>>>(A, lda, B, ldb, out, ldo, bias, M, N,
+                                       K, kper, split);
+  return cudaGetLastError();
+}
+
+// One product with the plan's (bm, bn) output tile.
+template <bool AMK, bool BNK, bool BF16OUT>
+cudaError_t gemm(int bm, int bn, const bf16* A, int lda, const bf16* B,
+                 int ldb, void* out, int ldo, const float* bias, int M,
+                 int N, int K, int kper, size_t split, cudaStream_t st) {
+  if (kper <= 0 || kper % BK) return cudaErrorInvalidValue;
+  if (bm == BIG && bn == BIG)
+    return gemm_launch<AMK, BNK, BIG, BIG, BF16OUT>(
+        A, lda, B, ldb, out, ldo, bias, M, N, K, kper, split, st);
+  if (bm == BIG && bn == SMALL)
+    return gemm_launch<AMK, BNK, BIG, SMALL, BF16OUT>(
+        A, lda, B, ldb, out, ldo, bias, M, N, K, kper, split, st);
+  if (bm == SMALL && bn == BIG)
+    return gemm_launch<AMK, BNK, SMALL, BIG, BF16OUT>(
+        A, lda, B, ldb, out, ldo, bias, M, N, K, kper, split, st);
+  if (bm == SMALL && bn == SMALL)
+    return gemm_launch<AMK, BNK, SMALL, SMALL, BF16OUT>(
+        A, lda, B, ldb, out, ldo, bias, M, N, K, kper, split, st);
+  return cudaErrorInvalidValue;
+}
+
+// Stage 1: xn = bf16(groupLN(x)), a warp per token.
+__global__ void __launch_bounds__(THREADS)
+mixffn_bwd_ln_kernel(const bf16* x, const float* lts, const float* ltb,
+                     bf16* xn, int T, int C, int gsz, float eps_ln) {
+  const int n = blockIdx.x * NW + (threadIdx.x >> 5);
+  if (n >= T) return;
+  for (int c0 = 0; c0 < C; c0 += gsz)
+    mixffn::ln_range(x + (size_t)n * C, xn + (size_t)n * C, lts, ltb, c0,
+                     gsz, eps_ln, threadIdx.x & 31);
+}
+
+// tok[t·4 + o + q] = the block's sum of v_q[t] (q = 0, 1), for t < TT, in
+// a fixed order: the values go through shared memory (red: 2 x TT x
+// THREADS) and warp t adds token t's, 8 a lane, then across the lanes.
+static_assert(TT == NW, "block_sum2 gives each token a warp");
+__device__ __forceinline__ void block_sum2(const float (&v0)[TT],
+                                           const float (&v1)[TT], float* red,
+                                           float* tok, int o) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int t = 0; t < TT; ++t) {
+    red[t * THREADS + threadIdx.x] = v0[t];
+    red[(TT + t) * THREADS + threadIdx.x] = v1[t];
+  }
+  __syncthreads();
+  float a = 0.0f, b = 0.0f;
+#pragma unroll
+  for (int k = lane; k < THREADS; k += 32) {
+    a += red[w * THREADS + k];
+    b += red[(TT + w) * THREADS + k];
+  }
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if (lane == 0) {
+    tok[w * 4 + o] = a;
+    tok[w * 4 + o + 1] = b;
+  }
+  __syncthreads();
+}
+
+__host__ __device__ inline size_t rows_smem(int H) {
+  return (size_t)(2 * TT * H + 3 * H + 2 * TT * THREADS + TT * 4) * 4;
+}
+
+// A warp's 3 x 3 window of one channel around map row i, column j: rows
+// i-1, i, i+1 by columns j-1, j, j+1, zero off the map. The column walks
+// below move it down one row a step, loading the new row's three values.
+template <typename E>
+struct Window {
+  const E* p;  // channel c of batch row b: element (i, j) at p[(i·s + j)·H]
+  int s, j;
+  size_t H;
+  float v[3][3];
+  __device__ float at(int i, int jj) const {
+    if (i < 0 || i >= s || jj < 0 || jj >= s) return 0.0f;
+    return to_f(p[(size_t)(i * s + jj) * H]);
+  }
+  static __device__ float to_f(float x) { return x; }
+  static __device__ float to_f(bf16 x) { return __bfloat162float(x); }
+  __device__ void start() {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      v[0][q] = 0.0f;
+      v[1][q] = at(0, j - 1 + q);
+      v[2][q] = at(1, j - 1 + q);
     }
-    __syncthreads();
-    for (int c = threadIdx.x; c < C; c += THREADS) {
-      float v[3] = {0.0f, 0.0f, 0.0f};
-      for (int q = 0; q < 3; ++q)
-        for (int w = 0; w < NW; ++w) v[q] += red[(q * NW + w) * C + c];
-      accum(p_dlts + c, v[0], first);
-      accum(p_dltb + c, v[1], first);
-      accum(p_db2 + c, v[2], first);
+  }
+  __device__ void step(int i) {  // from centre row i to i + 1
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      v[0][q] = v[1][q];
+      v[1][q] = v[2][q];
+      v[2][q] = at(i + 2, j - 1 + q);
     }
-    __syncthreads();
+  }
+};
+
+// Stage 3a: d = bf16(conv3x3(h) + dwb) (the forward's tap order), written
+// into a's buffer. One block per (NW map columns, batch row, CH channels):
+// warp w walks column blockIdx.x·NW + w down the map, lane l takes channel
+// blockIdx.z·CH + l, coalesced across the lanes.
+__global__ void __launch_bounds__(THREADS)
+mixffn_bwd_conv_kernel(const bf16* h, const bf16* dw, const float* dwb,
+                       bf16* d, int s, int H) {
+  const int j = blockIdx.x * NW + (threadIdx.x >> 5);
+  const int c = blockIdx.z * CH + (threadIdx.x & 31);
+  if (j >= s || c >= H) return;
+  const size_t base = (size_t)blockIdx.y * s * s * H + c;
+  float wk[9];
+#pragma unroll
+  for (int q = 0; q < 9; ++q) wk[q] = __bfloat162float(dw[(size_t)c * 9 + q]);
+  const float bd = dwb[c];
+  Window<bf16> wh{h + base, s, j, (size_t)H};
+  wh.start();
+  for (int i = 0; i < s; ++i) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+      for (int di = 0; di < 3; ++di) acc += wh.v[di][dj] * wk[di * 3 + dj];
+    d[base + (size_t)(i * s + j) * H] = __float2bfloat16(acc + bd);
+    wh.step(i);
   }
 }
+
+// Stage 3b, per tile of TT tokens (the block's tiles [blockIdx.x·tpb, +tpb))
+// over the whole hidden width, a thread per channel: y = d + h, the hidden
+// LN's statistics, z, GELU′, dz = da·GELU′, the LN backward's two means,
+// dy over da, a = bf16(GELU(z)) over d. y and dz of the tile stay in shared
+// memory (each thread touches only its own channels there); the per-token
+// sums go through block_sum2.
+__global__ void __launch_bounds__(THREADS)
+mixffn_bwd_rows_kernel(const bf16* h, float* da, bf16* a, const float* ls,
+                       const float* lb, float* part, int T, int H, int tpb,
+                       float eps) {
+  extern __shared__ __align__(16) float sm[];
+  float* ys = sm;              // TT x H
+  float* dzs = ys + TT * H;    // TT x H
+  float* col = dzs + TT * H;   // ddwb, dls, dlb: 3 x H
+  float* red = col + 3 * H;    // 2 x TT x THREADS
+  float* tok = red + 2 * TT * THREADS;  // TT x (Σ y, Σ y², Σ dyh, Σ dyh·yh)
+  const int ntile = (T + TT - 1) / TT;
+  for (int c = threadIdx.x; c < 3 * H; c += THREADS) col[c] = 0.0f;
+  const int tile1 = min(ntile, (blockIdx.x + 1) * tpb);
+  for (int tile = blockIdx.x * tpb; tile < tile1; ++tile) {
+    const int n0 = tile * TT;
+    float p1[TT], p2[TT];
+#pragma unroll
+    for (int t = 0; t < TT; ++t) p1[t] = p2[t] = 0.0f;
+    for (int c = threadIdx.x; c < H; c += THREADS) {
+#pragma unroll
+      for (int t = 0; t < TT; ++t) {
+        const size_t e = (size_t)(n0 + t) * H + c;
+        const float y = n0 + t < T ? __bfloat162float(a[e]) +
+                                         __bfloat162float(h[e])
+                                   : 0.0f;
+        ys[t * H + c] = y;
+        p1[t] += y;
+        p2[t] += y * y;
+      }
+    }
+    block_sum2(p1, p2, red, tok, 0);
+    float mean[TT], inv[TT];
+#pragma unroll
+    for (int t = 0; t < TT; ++t) {
+      mean[t] = tok[t * 4] / H;
+      inv[t] = rsqrtf(tok[t * 4 + 1] / H - mean[t] * mean[t] + eps);
+      p1[t] = p2[t] = 0.0f;
+    }
+    // z, GELU′, dz; a = bf16(z·Φ(z)); the sums of dyh = dz·ls and dyh·yh.
+    for (int c = threadIdx.x; c < H; c += THREADS) {
+      const float lsc = ls[c], lbc = lb[c];
+      float dls = 0.0f, dlb = 0.0f;
+#pragma unroll
+      for (int t = 0; t < TT; ++t) {
+        if (n0 + t >= T) continue;
+        const size_t e = (size_t)(n0 + t) * H + c;
+        const float yh = (ys[t * H + c] - mean[t]) * inv[t];
+        const float z = rbf(yh * lsc + lbc);
+        const float half1e = 0.5f * (1.0f + erff(z * RSQRT2));
+        const float gp = half1e + z * expf(-0.5f * z * z) * INV_SQRT_2PI;
+        const float dz = da[e] * gp;
+        dzs[t * H + c] = dz;
+        p1[t] += dz * lsc;
+        p2[t] += dz * lsc * yh;
+        dls += dz * yh;
+        dlb += dz;
+        a[e] = __float2bfloat16(z * half1e);
+      }
+      col[H + c] += dls;
+      col[2 * H + c] += dlb;
+    }
+    block_sum2(p1, p2, red, tok, 2);
+    float m1[TT], m2[TT];
+#pragma unroll
+    for (int t = 0; t < TT; ++t) {
+      m1[t] = tok[t * 4 + 2] / H;
+      m2[t] = tok[t * 4 + 3] / H;
+    }
+    // dy (= dd), over da.
+    for (int c = threadIdx.x; c < H; c += THREADS) {
+      const float lsc = ls[c];
+      float dd = 0.0f;
+#pragma unroll
+      for (int t = 0; t < TT; ++t) {
+        if (n0 + t >= T) continue;
+        const float yh = (ys[t * H + c] - mean[t]) * inv[t];
+        const float dy = inv[t] * (dzs[t * H + c] * lsc - m1[t] - yh * m2[t]);
+        da[(size_t)(n0 + t) * H + c] = dy;
+        dd += dy;
+      }
+      col[c] += dd;
+    }
+  }
+  float* p = part + (size_t)blockIdx.x * 3 * H;
+  for (int c = threadIdx.x; c < 3 * H; c += THREADS) p[c] = col[c];
+}
+
+// Stage 4: dh = dy + the conv transpose of dy (a correlation with the
+// taps), rounded to bf16; the tap gradients Σ dy(i, j)·h(i+di−1, j+dj−1)
+// and db1 (from the fp32 dh). The column walk of stage 3a, with windows of
+// dy and h; the block's warps are added in a fixed order into partial
+// blockIdx.y·gridDim.x + blockIdx.x, laid out [db1 (H), ddw (H x 9)], of
+// which the block writes its CH channels.
+__global__ void __launch_bounds__(THREADS)
+mixffn_bwd_dwt_kernel(const float* dy, const bf16* h, const bf16* dw,
+                      bf16* dh, float* part, int s, int H) {
+  __shared__ float red[10][NW][CH];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * NW + w, c = blockIdx.z * CH + lane;
+  float acc[10];  // the nine tap gradients, db1
+#pragma unroll
+  for (int q = 0; q < 10; ++q) acc[q] = 0.0f;
+  if (j < s && c < H) {
+    const size_t base = (size_t)blockIdx.y * s * s * H + c;
+    float wk[9];
+#pragma unroll
+    for (int q = 0; q < 9; ++q)
+      wk[q] = __bfloat162float(dw[(size_t)c * 9 + q]);
+    Window<float> wd{dy + base, s, j, (size_t)H};
+    Window<bf16> wh{h + base, s, j, (size_t)H};
+    wd.start();
+    wh.start();
+    for (int i = 0; i < s; ++i) {
+      const float dyc = wd.v[1][1];
+      float d = dyc;
+#pragma unroll
+      for (int di = 0; di < 3; ++di)
+#pragma unroll
+        for (int dj = 0; dj < 3; ++dj) {
+          d += wd.v[2 - di][2 - dj] * wk[di * 3 + dj];  // dy(i-di+1, j-dj+1)
+          acc[di * 3 + dj] += dyc * wh.v[di][dj];        // h(i+di-1, j+dj-1)
+        }
+      dh[base + (size_t)(i * s + j) * H] = __float2bfloat16(d);
+      acc[9] += d;
+      wd.step(i);
+      wh.step(i);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 10; ++q) red[q][w][lane] = acc[q];
+  __syncthreads();
+  float* pb = part + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 10 * H;
+  for (int i = threadIdx.x; i < 10 * CH; i += THREADS) {
+    const int q = i / CH, l = i % CH, cc = blockIdx.z * CH + l;
+    if (cc >= H) continue;
+    float v = 0.0f;
+    for (int k = 0; k < NW; ++k) v += red[q][k][l];
+    if (q == 9)
+      pb[cc] = v;
+    else
+      pb[H + (size_t)cc * 9 + q] = v;
+  }
+}
+
+// Stage 6: the group-LN backward, a warp per token of the block's range:
+// dx = inv·(d − mean(d) − yhx·mean(d·yhx)) + g with d = dxn·lts; the
+// block's partials of db2 (Σ g), dlts (Σ dxn·yhx) and dltb (Σ dxn), kept
+// per warp in shared memory (each entry written by one lane only).
+__global__ void __launch_bounds__(THREADS)
+mixffn_bwd_lnb_kernel(const bf16* x, const bf16* g, const float* dxn,
+                      const float* lts, bf16* dx, float* part, int T, int C,
+                      int gsz, int tpb, float eps_ln) {
+  extern __shared__ __align__(16) float red[];  // 3 x NW x C
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < 3 * NW * C; i += THREADS) red[i] = 0.0f;
+  __syncthreads();
+  const int nb = blockIdx.x * tpb * TT, ne = min(T, nb + tpb * TT);
+  for (int n = nb + w; n < ne; n += NW) {
+    const bf16* src = x + (size_t)n * C;
+    const bf16* gc = g + (size_t)n * C;
+    const float* dxr = dxn + (size_t)n * C;
+    for (int c0 = 0; c0 < C; c0 += gsz) {
+      const float2 ms = mixffn::ln_stats(src, c0, gsz, eps_ln, lane);
+      const float mean = ms.x, inv = ms.y;
+      float n1 = 0.0f, n2 = 0.0f;
+      for (int c = c0 + lane; c < c0 + gsz; c += 32) {
+        const float yhx = (__bfloat162float(src[c]) - mean) * inv;
+        const float d = dxr[c] * lts[c];
+        n1 += d;
+        n2 += d * yhx;
+      }
+      n1 = warp_sum(n1) / gsz;
+      n2 = warp_sum(n2) / gsz;
+      for (int c = c0 + lane; c < c0 + gsz; c += 32) {
+        const float yhx = (__bfloat162float(src[c]) - mean) * inv;
+        const float gv = __bfloat162float(gc[c]);
+        const float d = dxr[c] * lts[c];
+        dx[(size_t)n * C + c] = __float2bfloat16(inv * (d - n1 - yhx * n2) + gv);
+        red[(0 * NW + w) * C + c] += gv;
+        red[(1 * NW + w) * C + c] += dxr[c] * yhx;
+        red[(2 * NW + w) * C + c] += dxr[c];
+      }
+    }
+  }
+  __syncthreads();
+  float* p = part + (size_t)blockIdx.x * 3 * C;
+  for (int i = threadIdx.x; i < 3 * C; i += THREADS) {
+    const int q = i / C, c = i % C;
+    float v = 0.0f;
+    for (int k = 0; k < NW; ++k) v += red[(q * NW + k) * C + c];
+    p[i] = v;
+  }
+}
+
+// Stage 7: grads = [dw1, dw2 | db1, ddw | ddwb, dls, dlb | db2, dlts,
+// dltb], each part the sum of its set of partials in a fixed order. The
+// weight set (many outputs, a few partials) takes a thread per output,
+// the others (few outputs, hundreds of partials) a warp per output: lane
+// l adds partials l, l + 32, ... in turn, then the warp's fixed shuffle
+// tree. Blocks [0, wblocks) take the first, the rest the others.
+struct Sums {
+  const float* p[4];
+  int n[4];
+  size_t end[4];  // grads[end[k-1], end[k]) sums set k
+};
+
+__global__ void mixffn_bwd_sum_kernel(Sums s, float* grads, int wblocks) {
+  if ((int)blockIdx.x < wblocks) {
+    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= s.end[0]) return;
+    float v = 0.0f;
+#pragma unroll 8
+    for (int q = 0; q < s.n[0]; ++q) v += s.p[0][(size_t)q * s.end[0] + i];
+    grads[i] = v;
+    return;
+  }
+  const size_t i = s.end[0] +
+                   ((size_t)(blockIdx.x - wblocks) * blockDim.x + threadIdx.x) / 32;
+  if (i >= s.end[3]) return;  // whole warps
+  int k = 1;
+  while (i >= s.end[k]) ++k;
+  const size_t lo = s.end[k - 1], len = s.end[k] - lo;
+  const float* p = s.p[k] + (i - lo);
+  float v = 0.0f;
+  for (int q = threadIdx.x & 31; q < s.n[k]; q += 32) v += p[(size_t)q * len];
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) grads[i] = v;
+}
+
+// Indices into the wrapper's plan (ops/kernels/mixffn.py bwd_plan).
+enum Plan {
+  H_BM, H_BN, DA_BM, DA_BN, DXN_BM, DXN_BN, DW1_BM, DW1_BN, DW2_BM, DW2_BN,
+  SPLITS, KPER, BLOCKS, TILES_PER_BLOCK, PLAN_LEN
+};
 
 }  // namespace
 
 // x, g, dx: (B, s², C) bf16; w1 (hid, C), dw (hid, 9), w2 (C, hid) bf16;
 // lts/ltb (C,) the tiled group-LN scale/bias, the rest fp32 vectors.
-// part: (blocks, partial_floats) fp32 scratch; grads: (partial_floats,)
-// fp32, the sum over blocks in the partial layout.
-extern "C" int mixffn_ln_skip_bwd(const bf16* x, const bf16* g,
-                                  const float* lts, const float* ltb,
-                                  const bf16* w1, const float* b1,
-                                  const bf16* dw, const float* dwb,
-                                  const float* ls, const float* lb,
-                                  const bf16* w2, bf16* dx, float* part,
-                                  float* grads, int B, int s, int C, int hid,
-                                  int groups, int bpb, float eps_ln,
-                                  float eps, void* stream) {
+// grads: fp32 dw1 (hid, C), dw2 (C, hid), db1, ddw (hid, 9), ddwb, dls,
+// dlb, db2, dlts, dltb. Workspace (T = B·s² tokens): xn (T, C) bf16, h
+// (T, hid) bf16, da (T, hid) fp32 (dy after stage 3), a and dh (T, hid)
+// bf16 (a holds the conv output d until stage 3b), dxn (T, C) fp32;
+// partials pw (splits, 2·hid·C), pr (blocks, 3·hid), pd (B·ceil(s/NW),
+// 10·hid), pl (blocks, 3·C), fp32. plan: PLAN_LEN ints.
+extern "C" int mixffn_ln_skip_bwd(
+    const bf16* x, const bf16* g, const float* lts, const float* ltb,
+    const bf16* w1, const float* b1, const bf16* dw, const float* dwb,
+    const float* ls, const float* lb, const bf16* w2, bf16* dx,
+    float* grads, bf16* xn, bf16* h, float* da, bf16* a, bf16* dh,
+    float* dxn, float* pw, float* pr, float* pd, float* pl, const int* plan,
+    int B, int s, int C, int hid, int groups, float eps_ln, float eps,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = make_geo(s, C).bytes;
-  cudaError_t e = set_smem((const void*)mixffn_bwd_kernel, smem);
-  if (e) return e;
-  const dim3 grid((s + R - 1) / R, (B + bpb - 1) / bpb);
-  mixffn_bwd_kernel<<<grid, THREADS, smem, st>>>(
-      x, g, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, dx, part, B, bpb, s, C,
-      hid, groups, eps_ln, eps);
-  if ((e = cudaGetLastError())) return e;
-  const size_t n = partial_floats(C, hid);
-  sum_partials<float><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      part, grid.x * grid.y, n, grads);
-  return cudaGetLastError();
+  const int T = B * s * s, H = hid, gsz = C / groups;
+  const int P = plan[BLOCKS], tpb = plan[TILES_PER_BLOCK];
+  const int S = plan[SPLITS], kper = plan[KPER];
+  const size_t HC = (size_t)H * C;
+  cudaError_t e;
+#define STEP(call) \
+  if ((e = (call))) return e
+  mixffn_bwd_ln_kernel<<<(T + NW - 1) / NW, THREADS, 0, st>>>(
+      x, lts, ltb, xn, T, C, gsz, eps_ln);
+  STEP(cudaGetLastError());
+  STEP((gemm<true, true, true>(plan[H_BM], plan[H_BN], xn, C, w1, C, h, H,
+                               b1, T, H, C, (C + BK - 1) / BK * BK, 0, st)));
+  STEP((gemm<true, false, false>(plan[DA_BM], plan[DA_BN], g, C, w2, H, da,
+                                 H, nullptr, T, H, C, (C + BK - 1) / BK * BK,
+                                 0, st)));
+  const dim3 walk((s + NW - 1) / NW, B, (H + CH - 1) / CH);
+  mixffn_bwd_conv_kernel<<<walk, THREADS, 0, st>>>(h, dw, dwb, a, s, H);
+  STEP(cudaGetLastError());
+  const size_t rs = rows_smem(H);
+  STEP(set_smem((const void*)mixffn_bwd_rows_kernel, rs));
+  mixffn_bwd_rows_kernel<<<P, THREADS, rs, st>>>(h, da, a, ls, lb, pr, T, H,
+                                                 tpb, eps);
+  STEP(cudaGetLastError());
+  mixffn_bwd_dwt_kernel<<<walk, THREADS, 0, st>>>(da, h, dw, dh, pd, s, H);
+  STEP(cudaGetLastError());
+  STEP((gemm<true, false, false>(plan[DXN_BM], plan[DXN_BN], dh, H, w1, C,
+                                 dxn, C, nullptr, T, C, H,
+                                 (H + BK - 1) / BK * BK, 0, st)));
+  STEP((gemm<false, false, false>(plan[DW1_BM], plan[DW1_BN], dh, H, xn, C,
+                                  pw, C, nullptr, H, C, T, kper, 2 * HC,
+                                  st)));
+  STEP((gemm<false, false, false>(plan[DW2_BM], plan[DW2_BN], g, C, a, H,
+                                  pw + HC, H, nullptr, C, H, T, kper, 2 * HC,
+                                  st)));
+  const size_t ls_ = (size_t)3 * NW * C * 4;
+  STEP(set_smem((const void*)mixffn_bwd_lnb_kernel, ls_));
+  mixffn_bwd_lnb_kernel<<<P, THREADS, ls_, st>>>(x, g, dxn, lts, dx, pl, T,
+                                                 C, gsz, tpb, eps_ln);
+  STEP(cudaGetLastError());
+  const Sums sums{{pw, pd, pr, pl},
+                  {S, (int)(walk.x * walk.y), P, P},
+                  {2 * HC, 2 * HC + 10 * (size_t)H, 2 * HC + 13 * (size_t)H,
+                   2 * HC + 13 * (size_t)H + 3 * (size_t)C}};
+  const int wblocks = (int)((sums.end[0] + 255) / 256);
+  const int rblocks = (int)((sums.end[3] - sums.end[0] + 7) / 8);
+  mixffn_bwd_sum_kernel<<<wblocks + rblocks, 256, 0, st>>>(sums, grads,
+                                                           wblocks);
+  STEP(cudaGetLastError());
+#undef STEP
+  return cudaSuccess;
 }

@@ -78,17 +78,23 @@ K8 bound on the H100: operations (about 4·B·N·M·d for the attention plus
 4·B·N·C² for the projections, 4.2e10 flops at B = 32, 0.043 ms at the bf16
 peak, against ~81 MB of bf16 traffic, 0.024 ms).
 
-K8 design (csrc/bridge_attention_folded.cu): the first K3 design's block
-of 64 stream rows (wmma loads of K/V from device memory per warp) with a
-prologue and an epilogue. The prologue loads the x tile and forms
-q = x·Wqᵀ on the tensor cores (one (64 x 64)·(64 x 64) product), adds bq
-in fp32 and rounds; K3's two passes over K/V follow; the rounded attention
-output goes back into the x tile's shared memory, and the epilogue forms
-its out projection on the tensor cores, adds bp, rounds, adds the
-residual in fp32 and rounds. Rows past N (the ragged last tile of 6076)
-are zero-filled on load and never stored; the TPU's padding of the
-stream is not carried over. One head of d = 64, as the published bridge
-(bridge_heads 1).
+K8 design (csrc/bridge_attention_folded.cu): K3's core with the
+projections folded around it. The attention dominates the flops, so K8
+runs on bridge_softmax.cuh's softmax_av, in K3's block of 8 warps over
+128 stream rows. Wq and Wp go into swizzled shared memory once per
+block; each warp loads its 16 x rows as mma A fragments and forms q =
+x·Wqᵀ with mma.sync; + bq in fp32, rounded and packed, the accumulators
+are the A fragments of q·Kᵀ, so q never leaves the registers. softmax_av
+follows (the cp.async K/V ring of 112-key chunks, logits in registers).
+The fp32 output divided by the row sum and rounded is again an A
+fragment, for attn·Wpᵀ; + bp, rounded, it is staged through the warp's
+rows of the ring and the residual is added in fp32 with 16-byte
+coalesced reads, rounded, and stored for the rows below N. The rounding
+points are the ones above; the row max is taken on the raw logits, so
+`_launch_folded` refuses a scale that is not positive. Rows past N (the
+ragged last tile of 6076) load as zero and are never stored; the TPU's
+padding of the stream is not carried over. One head of d = 64, as the
+published bridge (bridge_heads 1).
 """
 
 from __future__ import annotations
@@ -317,6 +323,7 @@ def bridge_attention_folded(x, res, wq, bq, k, v, wp, bp, scale: float):
 
 
 def _launch_folded(x, res, wq, bq, k, v, wp, bp, scale):
+    _check_scale(scale)
     _check_folded(x, res, k, v)
     global folded_launches
     x, res, k, v = (_build.aligned(t) for t in (x, res, k, v))

@@ -26,23 +26,36 @@ cores, the bias, one rounding and the residual. The depthwise weight is
 rounded to bf16 as the Pallas kernel does. The caller's LN is taken per
 group of C/groups channels.
 
-K11 bound on the H100: operations at the train shapes (at (24, 56², 64,
-256): ≈ 12·N·C·hidden = 1.5e10 flops, 0.015 ms, against ≈ 29 MB of bf16
-traffic, 0.009 ms).
+K11 bound on the H100: operations at the train shapes (five products of
+2·T·C·hidden flops over T = B·N tokens: at (24, 56², 64, 256) 1.2e10
+flops, 0.012 ms, against ≈ 29 MB of bf16 inputs and outputs, 0.009 ms).
 
-K11 design (csrc/mixffn_bwd.cu): one block per (2 map rows, group of batch
-rows) recomputes the forward over a two-row halo (dx at row r needs dd at
-r±1, which needs h at r±2) from x alone, and walks the hidden width in
-32-channel chunks three times: the hidden LN's statistics, the statistics
-of its backward, then dd, dh (the conv transpose as a correlation of dd
-with the same taps) and the chunk's weight gradients. The hidden state
-stays in shared memory. Blocks run in parallel, so the TPU's accumulation
-of the weight gradients across its sequential grid becomes one fp32
-partial per block, added in a fixed order by a second kernel (no atomics,
-the same result in every run); the batch rows per block are chosen so the
-partials stay under BWD_PARTIAL_BYTES. The products run on the tensor
-cores with bf16 operands (h, a and the LN output are bf16 in the forward
-too; dh is rounded to bf16 as an operand), accumulation is fp32.
+K11 design (csrc/mixffn_bwd.cu): few tokens per map row and a wide
+hidden layer leave a block per map row short of the card's SMs, and
+blocks cannot carry the weight gradients across the batch as the TPU's
+grid does. So the backward is a chain of stages over the whole batch,
+each of which fills the card, with the hidden intermediates in device
+memory for the length of one launch (`bwd_plan` sizes them): xn =
+groupLN(x); h = bf16(xn·w1ᵀ + b1) and da = g·w2 as tiled products; the
+depthwise conv d = bf16(conv3x3(h) + dwb) as a column walk (a warp per
+map column moving a 3 x 3 window of h down the map, a lane per channel,
+so each step loads one new row of three); a rows kernel per tile of 8
+tokens over the whole hidden width (y = d + h, the hidden LN's
+statistics, z, GELU′, the LN backward's two means, dy over da, a =
+bf16(GELU(z)), per-block partials of dls, dlb and ddwb); the depthwise
+transpose as the same column walk over dy and h (dh = dy + the
+correlation of dy with the taps, rounded to bf16 as a tensor-core
+operand, per-block partials of the nine tap gradients and db1); dxn =
+dh·w1, and dw1 = dhᵀ·xn and dw2 = gᵀ·a with the token dimension split
+into a fixed number of fp32 partials; the group-LN backward per token
+(dx + g, per-block partials of dlts, dltb, db2); and a fixed-order sum
+of each set of partials (no atomics, the same bits in every launch). The
+products are one kernel: 128- or 64-wide output tiles of 8 warps,
+64-deep operand tiles staged with cp.async in a 3-deep ring of swizzled
+panels, ldmatrix fragments and mma.sync with fp32 accumulation. Rounding
+points: h, the conv output, z and a in bf16, dh rounded as an operand of
+dxn and dw1, everything else fp32; a = bf16(z·Φ(z)) in the plain
+backward's form.
 
 K9 replaces transception_tpu/ops/pallas/mixffn_kernel.py:285
 `fused_mixffn_skip` (pallas_call at :297): fc2(GELU(LN(dw3x3(h) + h))),
@@ -83,7 +96,17 @@ BWD_REPLACES = "transception_tpu/ops/pallas/mixffn_kernel.py:659"
 SKIP_NAME = "mixffn_skip"
 SKIP_REPLACES = "transception_tpu/ops/pallas/mixffn_kernel.py:285"
 SMEM_LIMIT = 232448  # bytes a block may opt into on sm_90
-BWD_PARTIAL_BYTES = 256 << 20  # K11's per-block weight-gradient partials
+# K11's tiling, BIG/SMALL (output tile sides), BK (product depth), TT
+# (tokens per rows-kernel tile), CH and THREADS of csrc/mixffn_bwd.cu
+# (tests/test_torch_mixffn_bwd_plan.py holds the copies equal).
+BWD_TILES = (128, 64)
+BWD_DEPTH = 64
+BWD_TOKEN_TILE = 8
+BWD_CHANNELS = 32  # CH: channels of a column-walk block, a lane each
+BWD_THREADS = 256
+BWD_BLOCKS_PER_SM = 4  # rows and LN-backward blocks per SM
+BWD_SPLIT_BLOCKS_PER_SM = 2  # blocks per SM of the smaller split product
+BWD_SPLIT_BYTES = 64 << 20  # cap on the split products' fp32 partials
 launches = 0
 bwd_launches = 0
 skip_launches = 0
@@ -236,27 +259,77 @@ def takes(s: int) -> bool:
     return s % 2 == 0
 
 
-def bwd_smem_bytes(s: int, C: int) -> int:
-    """Shared memory of one K11 block (mirrors make_geo in mixffn_bwd.cu:
-    2 centre rows, 32-channel chunks, 8 warps)."""
-    def pad16(n):
-        return -(-n // 16) * 16
-
-    def up(b):
-        return -(-b // 128) * 128
-
-    R, HC, NW = 2, 32, 8
-    th, ty, tcp = (R + 4) * s, (R + 2) * s, pad16(R * s)
-    thp, typ = pad16(max(th, 2 * s + tcp)), pad16(max(ty, s + tcp))
-    return (up(thp * C * 2) + up(typ * C * 2) + up(thp * HC * 2)
-            + up(typ * HC * 4) + up(tcp * C * 4) + 2 * up(tcp * HC * 2)
-            + up(typ * 16) + up(NW * 256 * 4)
-            + up(max(13 * NW * 32, 3 * NW * C) * 4))
+def bwd_smem_bytes(C: int, hid: int) -> int:
+    """Largest shared memory of a K11 block (mirrors csrc/mixffn_bwd.cu):
+    the rows kernel's y and dz of a token tile over the hidden width, its
+    three column partials and reductions (rows_smem); the LN backward's
+    per-warp column partials; a 128 x 128 product's 3-deep operand ring."""
+    nw, tt = BWD_THREADS // 32, BWD_TOKEN_TILE
+    rows = (2 * tt * hid + 3 * hid + 2 * tt * BWD_THREADS + tt * 4) * 4
+    lnb = 3 * nw * C * 4
+    gemm = 3 * 2 * BWD_TILES[0] * BWD_DEPTH * 2
+    return max(rows, lnb, gemm)
 
 
-def partial_floats(C: int, hid: int) -> int:
-    """Floats of one K11 block's gradient partial (mixffn_bwd.cu)."""
-    return (2 * hid * C + 13 * hid + 3 * C + 63) // 64 * 64
+def _blocks(M, N, bm, bn):
+    return -(-M // bm) * -(-N // bn)
+
+
+def bwd_plan(B: int, s: int, C: int, hid: int, sms: int) -> dict:
+    """K11's launch plan for x (B, s², C), hidden `hid`, on a card of `sms`
+    SMs. Products (M, N, K): h (T, hid, C), da (T, hid, C), dxn (T, C,
+    hid), then dw1 (hid, C, T) and dw2 (C, hid, T) with K split into
+    `splits` token ranges of `kper` (whole BWD_DEPTH tiles). An output tile
+    side is BIG where it divides the side, else SMALL; the token products
+    drop to SMALL rows, then SMALL columns, until they have a block per SM.
+    The splits give BWD_SPLIT_BLOCKS_PER_SM blocks per SM to the smaller of
+    dw1 and dw2, within BWD_SPLIT_BYTES of partials. The token kernels
+    (rows, LN backward) aim at BWD_BLOCKS_PER_SM blocks per SM: each of
+    `blocks` blocks takes `tiles_per_block` tiles of BWD_TOKEN_TILE
+    tokens, a contiguous range.
+    The column walks (conv, depthwise transpose) take a block per (8 map
+    columns, batch row, BWD_CHANNELS channels); the transpose writes one
+    partial per (batch row, column group): `walk_partials`.
+    `plan` is the int list the CUDA entry takes; `workspace` the bytes of
+    each intermediate and partial it is handed."""
+    big, small = BWD_TILES
+    T = B * s * s
+
+    def side(n):
+        return big if n % big == 0 else small
+
+    def token_tile(N):
+        bn = side(N)
+        for bm, bnn in ((big, bn), (small, bn), (small, small)):
+            if _blocks(T, N, bm, bnn) >= sms:
+                break
+        return bm, bnn
+
+    gemms = {"h": (T, hid, C) + token_tile(hid),
+             "da": (T, hid, C) + token_tile(hid),
+             "dxn": (T, C, hid) + token_tile(C),
+             "dw1": (hid, C, T, side(hid), side(C)),
+             "dw2": (C, hid, T, side(C), side(hid))}
+    ktiles = -(-T // BWD_DEPTH)
+    fewest = min(_blocks(*gemms[k][:2], *gemms[k][3:]) for k in ("dw1",
+                                                                 "dw2"))
+    most = max(1, BWD_SPLIT_BYTES // (2 * hid * C * 4))
+    want = min(ktiles, most, -(-BWD_SPLIT_BLOCKS_PER_SM * sms // fewest))
+    kper = -(-ktiles // want) * BWD_DEPTH
+    splits = -(-T // kper)
+    walk = B * -(-s // (BWD_THREADS // 32))
+    tiles = -(-T // BWD_TOKEN_TILE)
+    tpb = -(-tiles // (BWD_BLOCKS_PER_SM * sms))
+    blocks = -(-tiles // tpb)
+    plan = [v for k in ("h", "da", "dxn", "dw1", "dw2")
+            for v in gemms[k][3:]] + [splits, kper, blocks, tpb]
+    workspace = {"xn": T * C * 2, "h": T * hid * 2, "da": T * hid * 4,
+                 "a": T * hid * 2, "dh": T * hid * 2, "dxn": T * C * 4,
+                 "pw": splits * 2 * hid * C * 4, "pr": blocks * 3 * hid * 4,
+                 "pd": walk * 10 * hid * 4, "pl": blocks * 3 * C * 4}
+    return dict(gemms=gemms, splits=splits, kper=kper, blocks=blocks,
+                tiles_per_block=tpb, walk_partials=walk, plan=plan,
+                workspace=workspace)
 
 
 def _check(x, s, hid, groups):
@@ -340,42 +413,50 @@ def mixffn_skip(x, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
 
 def _launch_bwd(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, g, s, groups,
                 eps_ln, eps):
-    """K11 on the card; lts/ltb are (C,)-tiled."""
+    """K11 on the card; lts/ltb are (C,)-tiled. One counted launch runs
+    every stage of the plan (bwd_plan)."""
     hid = w1.shape[0]
     _check(x, s, hid, groups)
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"{BWD_NAME} kernel needs g like x, got "
                          f"{tuple(g.shape)} {g.dtype}")
     B, N, C = x.shape
-    if bwd_smem_bytes(s, C) > SMEM_LIMIT:
-        raise ValueError(f"{BWD_NAME} kernel: map rows (s={s}, C={C}) "
-                         f"exceed shared memory")
+    if bwd_smem_bytes(C, hid) > SMEM_LIMIT:
+        raise ValueError(f"{BWD_NAME} kernel: a token tile (C={C}, "
+                         f"hidden={hid}) exceeds shared memory")
     global bwd_launches
     x, g = _build.aligned(x), _build.aligned(g)
-    pf = partial_floats(C, hid)
-    rows = -(-s // 2)
-    per_group = rows * pf * 4
-    bpb = -(-B // max(1, min(B, BWD_PARTIAL_BYTES // per_group)))
-    blocks = rows * -(-B // bpb)
+    pl = bwd_plan(B, s, C, hid, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
     dx = torch.empty_like(x)
-    part = torch.empty(blocks, pf, device=x.device, dtype=torch.float32)
-    out = torch.empty(pf, device=x.device, dtype=torch.float32)
-    bf, f32 = _build.bf16, _build.f32
-    args = (x, g, f32(lts), f32(ltb), bf(w1), f32(b1),
-            bf(dw.reshape(hid, 9)), f32(dwb), f32(ls), f32(lb), bf(w2), dx,
-            part, out)
+    grads = torch.empty(2 * hid * C + 13 * hid + 3 * C, device=x.device,
+                        dtype=torch.float32)
+    # One allocation for the intermediates and partials, each 256-byte
+    # aligned, in the entry's argument order (xn, h, da, a, dh, dxn, pw, pr,
+    # pd, pl).
+    offs, total = [], 0
+    for nbytes in pl["workspace"].values():
+        offs.append(total)
+        total += -(-nbytes // 256) * 256
+    ws = torch.empty(total, device=x.device, dtype=torch.uint8)
+    work = [ctypes.c_void_p(ws.data_ptr() + o) for o in offs]
+    bf, f = (lambda t: _build.aligned(_build.bf16(t))), _build.f32
+    args = [_build.ptr(t) for t in (
+        x, g, f(lts), f(ltb), bf(w1), f(b1), bf(dw.reshape(hid, 9)), f(dwb),
+        f(ls), f(lb), bf(w2), dx, grads)] + work
+    plan = (ctypes.c_int * len(pl["plan"]))(*pl["plan"])
     fn = _build.load(BWD_NAME).mixffn_ln_skip_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * (len(args) + 1) + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    rc = fn(*[_build.ptr(t) for t in args], B, s, C, hid, groups, bpb,
-            eps_ln, eps, _build.stream_of(x))
+    rc = fn(*args, plan, B, s, C, hid, groups, eps_ln, eps,
+            _build.stream_of(x))
     _build.check(rc, BWD_NAME)
     bwd_launches += 1
     _build.tally(BWD_NAME, tuple(x.shape), hid, groups)
     sizes = (hid * C, C * hid, hid, 9 * hid, hid, hid, hid, C, C, C)
     dw1, dw2, db1, ddw, ddwb, dls, dlb, db2, dlts, dltb = torch.split(
-        out[:sum(sizes)], sizes)
+        grads, sizes)
     grads = (dlts, dltb, dw1.view(hid, C), db1, ddw.view(hid, 1, 3, 3), ddwb,
              dls, dlb, dw2.view(C, hid), db2)
     params = (lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2)
