@@ -7,7 +7,7 @@ Phases (any failed check exits non-zero):
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
      the ptxas report (registers, spills) of the kernels redesigned for
      registers and the card's tensor cores, K3, K10, K8 and every stage of
-     K11, which must not spill;
+     K2, K9, K5 and K11, which must not spill;
   3. each kernel against its plain PyTorch version at every shape the
      serving path gives it in any fold configuration (bf16, batch 32) and
      at the shapes the "pallas" train step gives K1, K5-K7 and K9 (batch
@@ -22,7 +22,9 @@ Phases (any failed check exits non-zero):
      the same fold structure, and both against an fp32 model (logits and
      class maps), for three weight seeds;
   6. forward time at batch 32, kernels on and off (same structure);
-  7. device busy time and idle share of one forward (torch.profiler);
+  7. device busy time and idle share of one forward (torch.profiler), the
+     device time of each stage of K2 and K5 by kernel name, and the
+     cudaLaunchKernel calls per forward;
   8. the train step's kernels against their plain versions at every shape
      the published train step gives them (bf16, batch 24): the bridge
      attention (K3) and its backward (K10), the MixFFN backward (K11) and
@@ -154,7 +156,9 @@ def ptxas_report(log_text):
     for part in log_text.split("Compiling entry function")[1:]:
         name = re.search(r"'([^']+)'", part).group(1)
         short = re.search(r"([a-z_]+_kernel|sum_partials)", name)
-        name = short.group(1) if short else name
+        if short:  # the short name, with a template's mangled arguments
+            tmpl = re.match(r"I(\w+?)EEv", name[short.end():])
+            name = short.group(1) + (f"<{tmpl.group(1)}>" if tmpl else "")
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", part)
@@ -615,6 +619,28 @@ def model_phase():
     return (tallies, n_fwd), x
 
 
+def stage_of(name):
+    """'K2 fc1', 'K5 attn', ... for a kernel of the staged forwards (K2, K5,
+    K9: the owner is the first template argument of the shared stages) or
+    'K11 ...' for the backward's; None for any other kernel."""
+    import re
+    m = re.search(r"mixffn_gemm_kernel<(\d+), \w+, \w+, (\w+), \d+, \d+, "
+                  r"(\d)>", name)
+    if m:
+        kid, aln, epi = m.group(1), m.group(2) == "true", int(m.group(3))
+        what = {(True, 1): "fc1", (False, 2): "fc2", (True, 3): "qkv",
+                (False, 4): "proj"}.get((aln, epi), "products")
+        return f"K{kid} {'fc1+fc2' if kid == '9' else what}"
+    m = re.search(r"mixffn_convrows_kernel<(\d+)>", name)
+    if m:
+        return f"K{m.group(1)} rows"
+    m = re.search(r"mhca_([a-z]+)_kernel", name)
+    if m:
+        return f"K5 {m.group(1)}"
+    m = re.search(r"mixffn_bwd_([a-z]+)_kernel", name)
+    return f"K11 {m.group(1)}" if m else None
+
+
 def profile_device(fn, label):
     """Device busy time, idle share and the top kernels of one call."""
     from collections import Counter
@@ -633,24 +659,38 @@ def profile_device(fn, label):
     if not kern:
         log("  the profiler saw no device activity: not measured")
         return
-    by_name = Counter()
+    by_name, calls = Counter(), Counter()
     for e in kern:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
+        calls[e.name] += 1
     busy = sum(by_name.values())
     port = {n: t for n, t in by_name.items() if any(
-        k in n for k in ("etb_", "mixffn_ln_skip", "bridge_attention_kernel",
+        k in n for k in ("etb_", "mixffn_", "bridge_attention_kernel",
                          "bridge_attention_folded_kernel",
                          "expand_head_kernel", "mhca_", "patch_expand_kernel",
                          "linear_attention_kernel", "rows_kernel",
-                         "cols_kernel", "mixffn_bwd_", "sum_partials"))}
+                         "cols_kernel", "sum_partials"))}
+    launches = sum(1 for e in prof.events()
+                   if e.name.startswith("cudaLaunchKernel"))
     log(f"  {len(kern)} device activities, busy {busy:.3f} ms of "
         f"{wall_ms:.3f} ms wall (idle share {1 - busy / wall_ms:.3f}); "
-        f"port kernels {sum(port.values()):.3f} ms")
+        f"port kernels {sum(port.values()):.3f} ms; {launches} "
+        f"cudaLaunchKernel calls")
     for name, t in by_name.most_common(12):
         log(f"    {t:9.3f} ms  {name[:90]}")
-    # Every port kernel by name (K11's stages one by one).
+    # Every port kernel by name (K11's stages one by one), then the stages
+    # of the staged kernels summed by owner and stage.
     for name, t in sorted(port.items(), key=lambda kv: -kv[1]):
         log(f"    port {t:9.3f} ms  {name[:110]}")
+    stages, stage_calls = Counter(), Counter()
+    for name, t in port.items():
+        what = stage_of(name)
+        if what:
+            stages[what] += t
+            stage_calls[what] += calls[name]
+    for what, t in sorted(stages.items()):
+        log(f"    stage {what}: {t:.3f} ms per {label}, "
+            f"{stage_calls[what]} launches")
     (OUT_DIR / f"chip_smoke_profile_{label}.txt").write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total",
                                   row_limit=60))
@@ -1288,11 +1328,12 @@ def main():
     reports = {k: _build.build_log(k) for k in _build.KERNELS}
     (OUT_DIR / "chip_smoke_ptxas.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in reports.items()))
-    # The bridge attention kernels (K3, K10, K8) and the MixFFN backward's
-    # stages (K11) are built for registers alone: their ptxas report, and
-    # no spills.
+    # The bridge attention kernels (K3, K10, K8), the MixFFN forward's and
+    # backward's stages (K2, K9, K11) and the MHCA block's (K5) are built
+    # for registers alone: their ptxas report, and no spills.
     for lib in ("bridge_attention", "bridge_attention_bwd",
-                "bridge_attention_folded", "mixffn_bwd"):
+                "bridge_attention_folded", "mixffn", "mixffn_bwd",
+                "mhca_block"):
         if reports[lib] is None:
             fail(f"{lib}: no ptxas report")
         for fn, regs, st, ld, smem in ptxas_report(reports[lib]):

@@ -66,7 +66,8 @@ def test_etb_attention_kernel(gen, B, N, C):
     assert ea.launches == n0 + 1
 
 
-@pytest.mark.parametrize("s,C", [(8, 64), (7, 128), (14, 320)])
+@pytest.mark.parametrize("s,C", [(8, 64), (7, 128), (14, 320), (14, 128),
+                                 (28, 64)])
 def test_mixffn_kernel(gen, s, C):
     hid = 4 * C
     x = _r(gen, 2, s * s, C, dtype=torch.bfloat16)
@@ -128,9 +129,7 @@ def test_expand_head_kernel(gen):
     assert (got != want).float().mean().item() <= 1e-3
 
 
-@pytest.mark.parametrize("B,s,C,hid", [(2, 8, 64, 256), (3, 7, 128, 512),
-                                        (1, 14, 128, 512)])
-def test_mhca_block_kernel(gen, B, s, C, hid):
+def _mhca_args(gen, B, s, C, hid):
     chs = [h * C // 8 for h in (2, 3, 3)]
     x = _r(gen, B, s * s, C, scale=0.5, dtype=torch.bfloat16)
     args = (x, _r(gen, C, 1, 3, 3, scale=0.3), _r(gen, C, scale=0.02),
@@ -145,6 +144,13 @@ def test_mhca_block_kernel(gen, B, s, C, hid):
             _r(gen, hid, 1, 3, 3, scale=0.3), _r(gen, hid, scale=0.02),
             _r(gen, hid, scale=0.1, shift=1.0), _r(gen, hid, scale=0.1),
             _r(gen, C, hid, scale=hid ** -0.5), _r(gen, C, scale=0.02))
+    return x, args
+
+
+@pytest.mark.parametrize("B,s,C,hid", [(2, 8, 64, 256), (3, 7, 128, 512),
+                                        (1, 14, 128, 512), (2, 28, 64, 256)])
+def test_mhca_block_kernel(gen, B, s, C, hid):
+    x, args = _mhca_args(gen, B, s, C, hid)
     n0 = mb.launches
     _close(mb.mhca_block(*args, s=s, heads=8),
            mb.mhca_block_plain(*args, s=s, heads=8), base=x)
@@ -337,6 +343,27 @@ def test_mixffn_kernel_grouped(gen, s, C, hid, groups):
     args = (x, p[0][:C // groups], p[1][:C // groups]) + p[2:]
     _close(mf.mixffn_ln_skip(*args, s=s, groups=groups),
            mf.mixffn_ln_skip_plain(*args, s=s, groups=groups), base=x)
+
+
+@pytest.mark.parametrize("B,s,C,hid,groups", [(2, 56, 64, 256, 1),
+                                              (3, 14, 320, 1280, 5)])
+def test_mixffn_repeat_bit_identical(gen, B, s, C, hid, groups):
+    """No atomics in K2's stages (or K9's, the same chain): two launches on
+    the same inputs give the same bits."""
+    x, p = _ffn_args(gen, B, s, C, hid, groups)
+    args = (x, p[0][:C // groups], p[1][:C // groups]) + p[2:]
+    assert torch.equal(mf.mixffn_ln_skip(*args, s=s, groups=groups),
+                       mf.mixffn_ln_skip(*args, s=s, groups=groups))
+    bare = (x,) + p[2:]
+    assert torch.equal(mf.mixffn_skip(*bare, s=s), mf.mixffn_skip(*bare, s=s))
+
+
+@pytest.mark.parametrize("B,s,C,hid", [(2, 28, 64, 256), (3, 14, 128, 512)])
+def test_mhca_block_repeat_bit_identical(gen, B, s, C, hid):
+    """No atomics in K5's stages: two launches give the same bits."""
+    _, args = _mhca_args(gen, B, s, C, hid)
+    assert torch.equal(mb.mhca_block(*args, s=s, heads=8),
+                       mb.mhca_block(*args, s=s, heads=8))
 
 
 def test_autograd_functions_reach_every_input(gen):

@@ -201,10 +201,12 @@ def test_k11_wrapper_refuses_rows_over_shared_memory():
     forward's routing. K11's stages hold no map rows, so a (56², 128) map
     is taken; what it refuses is a hidden width whose rows-kernel token
     tile (y and dz of 8 tokens over the whole width) exceeds shared memory,
-    here hidden 4096, where K2's block fits."""
+    here hidden 4096, where every block of K2's forward stages fits."""
     assert mf.bwd_smem_bytes(128, 256) <= mf.SMEM_LIMIT
     s, C, hid = 2, 64, 4096
-    assert mf.smem_bytes(s, C, hid) <= mf.SMEM_LIMIT
+    assert mf.fwd_smem_bytes(s, C, hid) <= mf.SMEM_LIMIT
+    assert max(mf.fwd_plan(1, s, C, hid, 132)["smem"].values()) <= \
+        mf.SMEM_LIMIT
     assert mf.bwd_smem_bytes(C, hid) > mf.SMEM_LIMIT
     x = torch.zeros(1, s * s, C, dtype=torch.bfloat16)
     p = [torch.zeros(n) for n in (C, C)] + [torch.zeros(hid, C)] + [

@@ -13,8 +13,11 @@ import pytest
 
 from transception_tpu_torch.ops.kernels import mixffn as mf
 
-SOURCE = (pathlib.Path(mf.__file__).resolve().parents[2] / "csrc"
-          / "mixffn_bwd.cu")
+CSRC = pathlib.Path(mf.__file__).resolve().parents[2] / "csrc"
+SOURCE = CSRC / "mixffn_bwd.cu"
+# The products and their tiling live in the header K11 shares with the
+# forward (K2, K9, K5).
+STAGES = CSRC / "mixffn_stages.cuh"
 SMS = 132  # an H100 SXM
 # Every (s, C, hidden) of the flash train step's MixFFN folds (chip_smoke
 # FFN_SHAPES) at its batch of 24.
@@ -34,7 +37,8 @@ WORKSPACE_CAP = 256 << 20
     ("TT", "BWD_TOKEN_TILE"), ("CH", "BWD_CHANNELS"),
     ("THREADS", "BWD_THREADS")])
 def test_tiling_matches_cuda_source(name, const):
-    found = re.findall(rf"constexpr int {name} = (\d+);", SOURCE.read_text())
+    text = SOURCE.read_text() + STAGES.read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", text)
     assert found == [str(eval(f"mf.{const}"))]
 
 

@@ -93,8 +93,29 @@ __global__ void sum_partials(const float* part, int P, size_t n, T* out) {
     out[i] = s;
 }
 
+// Opt kernel fn into `bytes` of dynamic shared memory. Each (kernel,
+// device) asks the CUDA runtime once for the most it has needed (launches
+// come from one host thread), so a launch costs no attribute call after
+// the first.
 inline cudaError_t set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  constexpr int SLOTS = 128;
+  static const void* fns[SLOTS];
+  static int devs[SLOTS];
+  static size_t granted[SLOTS];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e) return e;
+  int i = 0;
+  while (i < used && (fns[i] != fn || devs[i] != dev)) ++i;
+  if (i < used && granted[i] >= bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e || i == SLOTS) return e;
+  fns[i] = fn;
+  devs[i] = dev;
+  granted[i] = bytes;
+  if (i == used) ++used;
+  return cudaSuccess;
 }

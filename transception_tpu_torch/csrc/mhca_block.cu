@@ -4,25 +4,45 @@
 //   att = bf16(scale · Q · bf16(softmax_N(K)_hᵀ V_h))        (per head)
 //   a   = bf16(att + bf16(Q ⊙ bf16(CRPE_3/5/7(V) + b)))
 //   x2  = bf16(x1 + bf16(bf16(a · Wp) + bf16(bp)))
-//   out = x2 + MixFFN_skip(LN2(x2))                          (mixffn.cuh)
+//   out = x2 + MixFFN_skip(LN2(x2))                          (ffn::forward)
 // Replaces transception_tpu/ops/pallas/mhca_block_kernel.py:200
 // fused_mhca_block. Design notes: ops/kernels/mhca_block.py.
 //
-// Four kernels on one stream, with three bf16 intermediates in device
-// memory (x1, the fused q|k|v rows, x2) and the per-head contexts:
-//   mhca_qkv  one block per (32 tokens, batch): CPE, LN1, the qkv product
-//             on the tensor cores;
-//   mhca_ctx  one block per (head, batch): softmax of K over all tokens and
-//             the head's d x d context, both from shared memory;
-//   mhca_out  one block per (32 tokens, batch): Q · context, CRPE, the proj
-//             product on the tensor cores, the residual;
-//   the MixFFN kernel, one block per (map row, batch).
-#include "mixffn.cuh"
+// Bound on the H100: operations, narrowly (at (32, 28², 64) 2.8 GFLOP of
+// products, windows and Q · context, 2.8 us at the bf16 peak, against 6.7
+// MB of x, out and weights, 2.0 us). What it takes in practice is the
+// traffic of its intermediates and the CUDA-core work of the windows, the
+// LayerNorms and the GELU. The TPU kernel keeps a whole
+// map and its hidden state in VMEM; here softmax(K) and the contexts
+// reduce over every token of a map and the FFN's hidden state does not
+// fit a block, so the block runs as eight stages over the whole batch, on
+// one stream, each of which fills the card, with its intermediates (x1,
+// q|k|v, the contexts, the attention output, x2, the FFN's h and a) in
+// device memory for the length of one call:
+//   1. cpe   x1, a block per (map row, batch), a thread per pair of
+//            channels and 8 columns with its 3 x 10 window of x loaded at
+//            once and the rounded taps in registers;
+//   2. qkv   the tiled product (mixffn_stages.cuh) with LN1 folded into
+//            its A panel and the Dense epilogue;
+//   3. ctx   per (head, batch): softmax of K over all tokens and the d x d
+//            context, from shared memory;
+//   4. attn  per (band of map rows, batch): Q and V of the band (V with a
+//            3-row, 3-column zero-padded halo) and the contexts staged in
+//            shared memory once; a thread per channel pair over the band's
+//            tokens, its CRPE window's taps rounded once into registers
+//            (centred in a 7 x 7 grid of zeros, so no warp splits over
+//            window sizes), Q · context from the staged rows;
+//   5. proj  the tiled product with the residual epilogue: x2;
+//   6-8.     the MixFFN forward chain on x2 with LN2 (ffn::forward).
+// Eight launches per call; the plan of tiles and band rows is the
+// wrapper's (ops/kernels/mhca_block.py plan).
+#include "mixffn_stages.cuh"
 
 namespace {
 
-constexpr int TM = 32;  // tokens per block of mhca_qkv / mhca_out
-constexpr int THREADS = 256;
+using ffn::THREADS;
+constexpr int KID = 5;
+constexpr int HALO = 3;  // the widest CRPE window's reach (7 x 7)
 
 struct Crpe {  // the CRPE windows: channels [c0, c1) window k1, etc.
   const float* w[3];
@@ -31,74 +51,60 @@ struct Crpe {  // the CRPE windows: channels [c0, c1) window k1, etc.
   int end[3];
 };
 
+// Stage 1: x1 = bf16(bf16(dw3x3(x) + b) + x), a block per (map row r,
+// batch). A work item is a pair of channels over ffn::SEG columns of the
+// row: the thread loads the 3 x (SEG + 2) window of x around them (zero
+// off the map) at once, the taps rounded to bf16 in registers.
 __global__ void __launch_bounds__(THREADS)
-mhca_qkv_kernel(const bf16* x, const float* cpe_w, const float* cpe_b,
-                const float* l1s, const float* l1b, const bf16* wqkv,
-                const float* bqkv, bf16* x1, bf16* qkv, int s, int C,
-                float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xf = reinterpret_cast<float*>(smem);  // TM x C: x1, then products
-  bf16* cur = reinterpret_cast<bf16*>(smem + (size_t)TM * C * 4);  // TM x C
-  const int N = s * s, t0 = blockIdx.x * TM, b = blockIdx.y;
-  const bf16* xb = x + (size_t)b * N * C;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-
-  for (int i = threadIdx.x; i < TM * C; i += blockDim.x) {
-    const int r = i / C, c = i % C, t = t0 + r;
-    if (t >= N) {
-      xf[i] = 0.0f;
-      continue;
-    }
-    const int row = t / s, col = t % s;
-    float acc = 0.0f;
+mhca_cpe_kernel(const bf16* x, const float* w, const float* bias, bf16* x1,
+                int s, int C) {
+  constexpr int SEG = ffn::SEG;
+  const int r = blockIdx.x, P = C / 2, nseg = (s + SEG - 1) / SEG;
+  const size_t brow = (size_t)blockIdx.y * s;
+  for (int item = threadIdx.x; item < P * nseg; item += THREADS) {
+    const int c = 2 * (item % P), j0 = item / P * SEG;
+    const int nj = min(SEG, s - j0);
+    float2 wk[9];
+#pragma unroll
+    for (int q = 0; q < 9; ++q)
+      wk[q] = make_float2(rbf(w[c * 9 + q]), rbf(w[(c + 1) * 9 + q]));
+    const float2 bc = make_float2(bias[c], bias[c + 1]);
+    __nv_bfloat162 win[3][SEG + 2];
+#pragma unroll
     for (int di = 0; di < 3; ++di) {
-      const int rr = row + di - 1;
-      if (rr < 0 || rr >= s) continue;
-      for (int dj = 0; dj < 3; ++dj) {
-        const int cc = col + dj - 1;
-        if (cc < 0 || cc >= s) continue;
-        acc += __bfloat162float(xb[((size_t)rr * s + cc) * C + c]) *
-               rbf(cpe_w[c * 9 + di * 3 + dj]);
+      const int rr = r + di - 1;
+#pragma unroll
+      for (int q = 0; q < SEG + 2; ++q) {
+        const int j = j0 - 1 + q;
+        win[di][q] = rr >= 0 && rr < s && j >= 0 && j < s
+                         ? *reinterpret_cast<const __nv_bfloat162*>(
+                               x + ((brow + rr) * s + j) * C + c)
+                         : __floats2bfloat162_rn(0.0f, 0.0f);
       }
     }
-    const float v =
-        rbf(rbf(acc + cpe_b[c]) + __bfloat162float(xb[(size_t)t * C + c]));
-    xf[i] = v;
-    x1[((size_t)b * N + t) * C + c] = __float2bfloat16(v);
-  }
-  __syncthreads();
-
-  for (int r = warp; r < TM; r += nw) {
-    const float* xr = xf + (size_t)r * C;
-    bf16* dst = cur + (size_t)r * C;
-    float sm = 0.0f, sq = 0.0f;
-    for (int c = lane; c < C; c += 32) {
-      sm += xr[c];
-      sq += xr[c] * xr[c];
+#pragma unroll
+    for (int jj = 0; jj < SEG; ++jj) {
+      if (jj >= nj) break;  // the row ends inside the segment
+      float2 acc = make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int di = 0; di < 3; ++di)
+#pragma unroll
+        for (int dj = 0; dj < 3; ++dj) {
+          const float2 v = __bfloat1622float2(win[di][jj + dj]);
+          acc.x += v.x * wk[di * 3 + dj].x;
+          acc.y += v.y * wk[di * 3 + dj].y;
+        }
+      const float2 xc = __bfloat1622float2(win[1][jj + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(
+          x1 + ((brow + r) * s + j0 + jj) * C + c) =
+          __floats2bfloat162_rn(rbf(acc.x + bc.x) + xc.x,
+                                rbf(acc.y + bc.y) + xc.y);
     }
-    sm = warp_sum(sm);
-    sq = warp_sum(sq);
-    const float mean = sm / C;
-    const float inv = rsqrtf(sq / C - mean * mean + eps);
-    for (int c = lane; c < C; c += 32)
-      dst[c] = __float2bfloat16((xr[c] - mean) * inv * l1s[c] + l1b[c]);
-  }
-  __syncthreads();
-
-  for (int part = 0; part < 3; ++part) {
-    dense_tile(cur, C, wqkv + (size_t)part * C * C, C, TM, C, xf, C);
-    __syncthreads();
-    for (int i = threadIdx.x; i < TM * C; i += blockDim.x) {
-      const int r = i / C, c = i % C, t = t0 + r;
-      if (t < N)
-        qkv[((size_t)b * N + t) * 3 * C + part * C + c] = __float2bfloat16(
-            rbf(xf[i]) + rbf(bqkv[part * C + c]));
-    }
-    __syncthreads();
   }
 }
 
+// Stage 3: per (head, batch), the column softmax of K over the N tokens
+// and the head's d x d context, both from shared memory.
 __global__ void __launch_bounds__(THREADS)
 mhca_ctx_kernel(const bf16* qkv, float* ctx, int N, int C, int d) {
   extern __shared__ __align__(16) float sm[];
@@ -108,10 +114,22 @@ mhca_ctx_kernel(const bf16* qkv, float* ctx, int N, int C, int d) {
   const int h = blockIdx.x, b = blockIdx.y;
   const bf16* base = qkv + (size_t)b * N * 3 * C + h * d;
 
-  for (int i = threadIdx.x; i < N * d; i += blockDim.x) {
-    const int n = i / d, j = i % d;
-    ks[i] = __bfloat162float(base[(size_t)n * 3 * C + C + j]);
-    vs[i] = __bfloat162float(base[(size_t)n * 3 * C + 2 * C + j]);
+  // K and V of the head, 8 values (16 bytes) a load (d % 8 == 0).
+  for (int i = threadIdx.x; i < N * d / 8; i += blockDim.x) {
+    const int n = i / (d / 8), j = i % (d / 8) * 8;
+    const uint4 ku = *reinterpret_cast<const uint4*>(
+        base + (size_t)n * 3 * C + C + j);
+    const uint4 vu = *reinterpret_cast<const uint4*>(
+        base + (size_t)n * 3 * C + 2 * C + j);
+    const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&ku);
+    const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&vu);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      *reinterpret_cast<float2*>(ks + (size_t)n * d + j + 2 * e) =
+          __bfloat1622float2(k2[e]);
+      *reinterpret_cast<float2*>(vs + (size_t)n * d + j + 2 * e) =
+          __bfloat1622float2(v2[e]);
+    }
   }
   __syncthreads();
 
@@ -173,71 +191,126 @@ mhca_ctx_kernel(const bf16* qkv, float* ctx, int N, int C, int d) {
   }
 }
 
+__host__ __device__ inline size_t attn_smem(int s, int C, int d, int R) {
+  return (size_t)d * C * 4 + (size_t)R * s * C * 2 +
+         (size_t)(R + 2 * HALO) * (s + 2 * HALO) * C * 2;
+}
+
+// Stage 4, per (band of R map rows from blockIdx.x·R, batch): the contexts
+// transposed to ct[a·C + c] = ctx[c / d][a][c % d] (conflict-free across a
+// warp's channels), Q of the band's rows and V of its rows with a HALO of
+// rows and columns (zero off the map) in shared memory. Then thread t
+// takes the channel pair (c, c + 1), c = 2·(t % (C/2)) (C/2 divides
+// THREADS), over every THREADS/(C/2)-th token of the band, with the taps of
+// its CRPE window, rounded to bf16, in registers, centred in a 7 x 7 grid
+// of zeros: every lane runs the same window (the three window sizes never
+// split a warp's path), and the zero taps add exact zeros. att = bf16(scale
+// · Σ_a q[h·d + a] · ct[a·C + c]); cv = bf16(window(V) + b), summed a row
+// of the window at a time; a = bf16(att + bf16(q[c] · cv)).
 __global__ void __launch_bounds__(THREADS)
-mhca_out_kernel(const bf16* qkv, const float* ctx, const bf16* x1, Crpe crpe,
-                const bf16* wp, const float* bp, bf16* x2, int s, int C,
-                int d, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* pf = reinterpret_cast<float*>(smem);  // TM x C products
-  bf16* as = reinterpret_cast<bf16*>(smem + (size_t)TM * C * 4);  // TM x C
-  float* cs = reinterpret_cast<float*>(smem + (size_t)TM * C * 6);  // C x d
-  const int N = s * s, t0 = blockIdx.x * TM, b = blockIdx.y;
+mhca_attn_kernel(const bf16* qkv, const float* ctx, Crpe crpe, bf16* att,
+                 int s, int C, int d, int R, float scale) {
+  constexpr int KW = 2 * HALO + 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ct = reinterpret_cast<float*>(smem);                 // d x C
+  bf16* qs = reinterpret_cast<bf16*>(ct + (size_t)d * C);     // R x s x C
+  bf16* vb = qs + (size_t)R * s * C;  // (R + 2·HALO) x (s + 2·HALO) x C
+  const int W = s + 2 * HALO, N = s * s;
+  const int r0 = blockIdx.x * R, b = blockIdx.y;
+  const int rows = min(R, s - r0);
+  const float* cb = ctx + (size_t)b * C * d;
   const bf16* qb = qkv + (size_t)b * N * 3 * C;
 
-  for (int i = threadIdx.x; i < C * d; i += blockDim.x)
-    cs[i] = ctx[(size_t)b * C * d + i];
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < TM * C; i += blockDim.x) {
-    const int r = i / C, c = i % C, t = t0 + r;
-    if (t >= N) {
-      as[i] = __float2bfloat16(0.0f);
-      continue;
-    }
-    const int h = c / d, cj = c % d;
-    const bf16* qr = qb + (size_t)t * 3 * C;
-    const float* ch = cs + (size_t)h * d * d;
-    float acc = 0.0f;
-    for (int a = 0; a < d; ++a)
-      acc += __bfloat162float(qr[h * d + a]) * ch[a * d + cj];
-    const float att = rbf(scale * acc);
-
-    const int seg = c < crpe.end[0] ? 0 : (c < crpe.end[1] ? 1 : 2);
-    const int k = crpe.k[seg], p = k / 2;
-    const int c0 = seg ? crpe.end[seg - 1] : 0;
-    const float* w = crpe.w[seg] + (size_t)(c - c0) * k * k;
-    const int row = t / s, col = t % s;
-    float conv = 0.0f;
-    for (int di = 0; di < k; ++di) {
-      const int rr = row + di - p;
-      if (rr < 0 || rr >= s) continue;
-      for (int dj = 0; dj < k; ++dj) {
-        const int cc = col + dj - p;
-        if (cc < 0 || cc >= s) continue;
-        const size_t nb = (size_t)rr * s + cc;
-        conv += __bfloat162float(qb[nb * 3 * C + 2 * C + c]) *
-                rbf(w[di * k + dj]);
-      }
-    }
-    const float cv = rbf(conv + crpe.b[seg][c - c0]);
-    const float crp = rbf(__bfloat162float(qr[c]) * cv);
-    as[i] = __float2bfloat16(att + crp);
+  for (int i = threadIdx.x; i < d * C; i += THREADS) {
+    const int a = i / C, c = i % C;
+    ct[i] = cb[((c / d) * d + a) * d + c % d];
   }
+  // Q and V of the band by cp.async, all in flight at once (zero-filled
+  // off the map), while the taps load.
+  const uint32_t sq = bsa::smem_addr(qs), sv = bsa::smem_addr(vb);
+  const int c8 = C / 8;  // 16-byte pieces of a token's q or V
+  for (int i = threadIdx.x; i < rows * s * c8; i += THREADS) {
+    const int piece = i % c8, tl = i / c8;
+    bsa::cp_async16(sq + (tl * C + piece * 8) * 2,
+                    qb + (size_t)(r0 * s + tl) * 3 * C + piece * 8, true);
+  }
+  for (int i = threadIdx.x; i < (R + 2 * HALO) * W * c8; i += THREADS) {
+    const int piece = i % c8, pos = i / c8;
+    const int rr = r0 - HALO + pos / W, cc = pos % W - HALO;
+    const bool in = rr >= 0 && rr < s && cc >= 0 && cc < s;
+    bsa::cp_async16(sv + (pos * C + piece * 8) * 2,
+                    in ? qb + (size_t)(rr * s + cc) * 3 * C + 2 * C + piece * 8
+                       : qb,
+                    in);
+  }
+  bsa::cp_async_commit();
+
+  // The pair's taps (segment boundaries are whole heads, so even).
+  const int P = C / 2, c = 2 * (threadIdx.x % P);
+  const int seg = c < crpe.end[0] ? 0 : (c < crpe.end[1] ? 1 : 2);
+  const int k = crpe.k[seg], c0 = seg ? crpe.end[seg - 1] : 0;
+  const int off = HALO - k / 2;  // the window's corner in the 7 x 7 grid
+  const float* w0 = crpe.w[seg] + (size_t)(c - c0) * k * k;
+  __nv_bfloat162 wk[KW * KW];
+#pragma unroll
+  for (int q = 0; q < KW * KW; ++q) {
+    const int di = q / KW - off, dj = q % KW - off;
+    const bool in = di >= 0 && di < k && dj >= 0 && dj < k;
+    wk[q] = __floats2bfloat162_rn(in ? w0[di * k + dj] : 0.0f,
+                                  in ? w0[k * k + di * k + dj] : 0.0f);
+  }
+  const float2 bias = make_float2(crpe.b[seg][c - c0], crpe.b[seg][c - c0 + 1]);
+  const int h0 = c / d * d;
+  bsa::cp_async_wait<0>();
   __syncthreads();
 
-  dense_tile(as, C, wp, C, TM, C, pf, C);
-  __syncthreads();
-  for (int i = threadIdx.x; i < TM * C; i += blockDim.x) {
-    const int r = i / C, c = i % C, t = t0 + r;
-    if (t >= N) continue;
-    const size_t o = ((size_t)b * N + t) * C + c;
-    const float proj = rbf(rbf(pf[i]) + rbf(bp[c]));
-    x2[o] = __float2bfloat16(__bfloat162float(x1[o]) + proj);
+  bf16* ab = att + ((size_t)b * N + (size_t)r0 * s) * C;
+  for (int tl = threadIdx.x / P; tl < rows * s; tl += THREADS / P) {
+    const int row = tl / s, col = tl % s;
+    const bf16* qr = qs + (size_t)tl * C;
+    float2 acc = make_float2(0.0f, 0.0f);
+    for (int a = 0; a < d; ++a) {
+      const float qa = __bfloat162float(qr[h0 + a]);
+      const float2 cx = *reinterpret_cast<const float2*>(ct + a * C + c);
+      acc.x += qa * cx.x;
+      acc.y += qa * cx.y;
+    }
+    const __nv_bfloat162* vp = reinterpret_cast<const __nv_bfloat162*>(
+        vb + ((size_t)row * W + col) * C + c);
+    float2 conv = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int di = 0; di < KW; ++di) {
+      float2 part = make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int dj = 0; dj < KW; ++dj) {
+        const float2 v = __bfloat1622float2(vp[((size_t)di * W + dj) * P]);
+        const float2 wv = __bfloat1622float2(wk[di * KW + dj]);
+        part.x += v.x * wv.x;
+        part.y += v.y * wv.y;
+      }
+      conv.x += part.x;
+      conv.y += part.y;
+    }
+    const float2 qc = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(qr + c));
+    *reinterpret_cast<__nv_bfloat162*>(ab + ((size_t)row * s + col) * C + c) =
+        __floats2bfloat162_rn(
+            rbf(scale * acc.x) + rbf(qc.x * rbf(conv.x + bias.x)),
+            rbf(scale * acc.y) + rbf(qc.y * rbf(conv.y + bias.y)));
   }
 }
 
+// Indices into the wrapper's plan (ops/kernels/mhca_block.py plan); the
+// FFN's forward plan (ffn::FwdPlan) follows.
+enum Plan { QKV_BM, QKV_BN, PROJ_BM, PROJ_BN, BAND_ROWS, FFN_PLAN };
+
 }  // namespace
 
+// x, out: (B, s², C) bf16; wqkv (3C, C), wp (C, C), w1 (hid, C), dw (hid,
+// 9), w2 (C, hid) bf16; the CPE taps (C, 9), the CRPE windows and every
+// vector fp32. Workspace: x1, att, x2 (B·s², C), qkv (B·s², 3C), h, a
+// (B·s², hid) bf16; ctx (B, heads, d, d) fp32. plan: FFN_PLAN +
+// ffn::FWD_PLAN_LEN ints.
 extern "C" int mhca_block(
     const bf16* x, const float* cpe_w, const float* cpe_b, const float* l1s,
     const float* l1b, const bf16* wqkv, const float* bqkv,
@@ -246,42 +319,44 @@ extern "C" int mhca_block(
     const bf16* wp, const float* bp, const float* l2s, const float* l2b,
     const bf16* w1, const float* b1, const bf16* dw, const float* dwb,
     const float* ls, const float* lb, const bf16* w2, const float* b2,
-    bf16* x1, bf16* qkv, float* ctx, bf16* x2, bf16* out, int B, int s,
-    int C, int heads, int hid, int k0, int k1, int k2, int n0, int n1,
-    float eps1, float eps2, float eps, float scale, void* stream) {
+    bf16* x1, bf16* qkv, float* ctx, bf16* att, bf16* x2, bf16* h, bf16* a,
+    bf16* out, const int* plan, int B, int s, int C, int heads, int hid,
+    int k0, int k1, int k2, int n0, int n1, float eps1, float eps2,
+    float eps, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int N = s * s, d = C / heads, tiles = (N + TM - 1) / TM;
+  const int N = s * s, T = B * N, d = C / heads, R = plan[BAND_ROWS];
   cudaError_t e;
+#define STEP(call) \
+  if ((e = (call))) return e
 
-  const size_t smem_qkv = (size_t)TM * C * 6;
-  if ((e = set_smem((const void*)mhca_qkv_kernel, smem_qkv))) return e;
-  mhca_qkv_kernel<<<dim3(tiles, B), THREADS, smem_qkv, st>>>(
-      x, cpe_w, cpe_b, l1s, l1b, wqkv, bqkv, x1, qkv, s, C, eps1);
-  if ((e = cudaGetLastError())) return e;
+  mhca_cpe_kernel<<<dim3(s, B), THREADS, 0, st>>>(x, cpe_w, cpe_b, x1, s, C);
+  STEP(cudaGetLastError());
+  STEP((ffn::gemm<KID, true, true, true, ffn::EPI_DENSE>(
+      plan[QKV_BM], plan[QKV_BN], x1, C, wqkv, C, qkv, 3 * C, bqkv, nullptr,
+      ffn::Norm{l1s, l1b, C, eps1}, T, 3 * C, C, ffn::depth(C), 0, st)));
 
   const size_t smem_ctx = ((size_t)2 * N * d + THREADS) * 4;
-  if ((e = set_smem((const void*)mhca_ctx_kernel, smem_ctx))) return e;
+  STEP(set_smem((const void*)mhca_ctx_kernel, smem_ctx));
   mhca_ctx_kernel<<<dim3(heads, B), THREADS, smem_ctx, st>>>(qkv, ctx, N, C,
                                                              d);
-  if ((e = cudaGetLastError())) return e;
+  STEP(cudaGetLastError());
 
-  Crpe crpe{{crpe_w0, crpe_w1, crpe_w2},
-            {crpe_b0, crpe_b1, crpe_b2},
-            {k0, k1, k2},
-            {n0, n0 + n1, C}};
-  const size_t smem_out = (size_t)TM * C * 6 + (size_t)C * d * 4;
-  if ((e = set_smem((const void*)mhca_out_kernel, smem_out))) return e;
-  mhca_out_kernel<<<dim3(tiles, B), THREADS, smem_out, st>>>(
-      qkv, ctx, x1, crpe, wp, bp, x2, s, C, d, scale);
-  if ((e = cudaGetLastError())) return e;
+  const Crpe crpe{{crpe_w0, crpe_w1, crpe_w2},
+                  {crpe_b0, crpe_b1, crpe_b2},
+                  {k0, k1, k2},
+                  {n0, n0 + n1, C}};
+  const size_t smem_attn = attn_smem(s, C, d, R);
+  STEP(set_smem((const void*)mhca_attn_kernel, smem_attn));
+  mhca_attn_kernel<<<dim3((s + R - 1) / R, B), THREADS, smem_attn, st>>>(
+      qkv, ctx, crpe, att, s, C, d, R, scale);
+  STEP(cudaGetLastError());
 
-  const size_t smem_ffn = mixffn::smem_bytes(s, C, hid);
-  if ((e = set_smem((const void*)mixffn::mixffn_ln_skip_kernel<false>,
-                    smem_ffn)))
-    return e;
-  mixffn::mixffn_ln_skip_kernel<false><<<dim3(s, B), mixffn::THREADS,
-                                         smem_ffn, st>>>(
-      x2, l2s, l2b, w1, b1, dw, dwb, ls, lb, w2, b2, out, s, C, hid, 1, eps2,
-      eps);
-  return cudaGetLastError();
+  STEP((ffn::gemm<KID, true, true, false, ffn::EPI_DENSE_RESID>(
+      plan[PROJ_BM], plan[PROJ_BN], att, C, wp, C, x2, C, bp, x1, ffn::Norm{},
+      T, C, C, ffn::depth(C), 0, st)));
+
+  return ffn::forward<KID, false>(x2, ffn::Norm{l2s, l2b, C, eps2}, w1, b1,
+                                  dw, dwb, ls, lb, w2, b2, x2, h, a, out,
+                                  plan + FFN_PLAN, B, s, C, hid, eps, st);
+#undef STEP
 }

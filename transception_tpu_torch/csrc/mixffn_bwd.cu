@@ -35,203 +35,64 @@
 //   6. lnb   the group-LN backward per token: dx = LN′(dxn·lts) + g, and
 //            the block's partials of dlts, dltb and db2;
 //   7. sum   adds each set of partials in a fixed order, one launch.
-// The products are one kernel: BM x BN output tiles (128 or 64 each, 8
-// warps), 64-deep operand tiles staged with cp.async through a 3-deep
-// ring of XOR-swizzled 64-column panels (bridge_softmax.cuh's layout),
-// fragments by ldmatrix (.trans for operands whose M or N is contiguous),
-// mma.sync.m16n8k16 with fp32 accumulation. The wrapper's plan
+// The products are the forward's tiled product (mixffn_stages.cuh
+// mixffn_gemm_kernel: 128- or 64-wide output tiles, a cp.async ring of
+// swizzled panels, ldmatrix and mma.sync), with the fp32 and bias
+// epilogues. The wrapper's plan
 // (ops/kernels/mixffn.py bwd_plan) picks the tiles, the splits and the
 // token ranges per block and allocates the intermediates. No atomics: two
 // launches give the same bits.
-#include "bridge_softmax.cuh"
-#include "mixffn.cuh"
+#include "mixffn_stages.cuh"
 
 namespace {
 
-using bsa::cp_async16;
-using bsa::swz;
+using ffn::BK;
+using ffn::EPI_BIAS;
+using ffn::EPI_F32;
+using ffn::NW;
+using ffn::RSQRT2;
+using ffn::THREADS;
 
-constexpr int THREADS = 256;
-constexpr int NW = THREADS / 32;
-constexpr int BIG = 128;    // output tile sides of the products
-constexpr int SMALL = 64;
-constexpr int BK = 64;      // product depth per staged operand tile
-constexpr int GSTAGES = 3;  // cp.async ring depth of the products
 constexpr int TT = 8;       // tokens per tile of the rows kernel
 constexpr int CH = 32;      // channels of a column-walk block (a lane each)
-constexpr float RSQRT2 = 0.70710678118654752f;
 constexpr float INV_SQRT_2PI = 0.3989422804014327f;
 
-template <int BM, int BN>
-struct Tile {
-  static constexpr int WARPS_M = (BM == BIG && BN == SMALL) ? 4 : 2;
-  static constexpr int WARPS_N = NW / WARPS_M;
-  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  static constexpr int MT = WM / 16, NT = WN / 8;
-  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2;
-  static constexpr int STAGE = A_BYTES + B_BYTES;
-  static constexpr int SMEM = GSTAGES * STAGE;
-};
+// Mean and rsqrt(E[x²] - mean² + eps) of one token over channels
+// [c0, c0 + n), reduced over the warp.
+__device__ __forceinline__ float2 ln_stats(const bf16* src, int c0, int n,
+                                           float eps_ln, int lane) {
+  float sm = 0.0f, sq = 0.0f;
+  for (int c = c0 + lane; c < c0 + n; c += 32) {
+    const float v = __bfloat162float(src[c]);
+    sm += v;
+    sq += v * v;
+  }
+  sm = warp_sum(sm);
+  sq = warp_sum(sq);
+  const float mean = sm / n;
+  return make_float2(mean, rsqrtf(sq / n - mean * mean + eps_ln));
+}
 
-// Rows [0, R) x columns [0, W) (W a multiple of 64) of the row-major bf16
-// matrix at p (leading dimension ld) into swizzled 64-column panels of R
-// rows at s, asynchronously; rows >= rv or columns >= cv zero-filled.
-template <int R, int W>
-__device__ __forceinline__ void stage(uint32_t s, const bf16* p, int ld,
-                                      int rv, int cv) {
-  for (int i = threadIdx.x; i < R * (W / 8); i += THREADS) {
-    const int r = i / (W / 8), c = i % (W / 8);
-    const bool ok = r < rv && c * 8 < cv;
-    cp_async16(s + (c >> 3) * (R * 128) + swz(r, c & 7),
-               ok ? p + (size_t)r * ld + c * 8 : p, ok);
+// The caller's LayerNorm of one token over channels [c0, c0 + n).
+__device__ __forceinline__ void ln_range(const bf16* src, bf16* dst,
+                                         const float* lts, const float* ltb,
+                                         int c0, int n, float eps_ln,
+                                         int lane) {
+  const float2 st = ln_stats(src, c0, n, eps_ln, lane);
+  for (int c = c0 + lane; c < c0 + n; c += 32) {
+    const float v = __bfloat162float(src[c]);
+    dst[c] = __float2bfloat16((v - st.x) * st.y * lts[c] + ltb[c]);
   }
 }
 
-// out (+ blockIdx.z · split) = A · B over k in [z·kper, (z+1)·kper), with
-// A (M x K) stored [M][K] (AMK) or [K][M], B (K x N) stored [N][K] (BNK)
-// or [K][N]. BF16OUT: out = bf16(acc + bias[n]); else fp32 acc.
-template <bool AMK, bool BNK, int BM, int BN, bool BF16OUT>
-__global__ void __launch_bounds__(THREADS)
-mixffn_bwd_gemm_kernel(const bf16* A, int lda, const bf16* B, int ldb,
-                       void* out, int ldo, const float* bias, int M, int N,
-                       int K, int kper, size_t split) {
-  using T = Tile<BM, BN>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t base = bsa::smem_addr(smem);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kb = blockIdx.z * kper, ke = min(K, kb + kper);
-  const int nk = (ke - kb + BK - 1) / BK;
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const int wm = (w % T::WARPS_M) * T::WM, wn = (w / T::WARPS_M) * T::WN;
-
-  auto load = [&](int it) {
-    if (it < nk) {
-      const int k0 = kb + it * BK;
-      const uint32_t sa = base + (it % GSTAGES) * T::STAGE;
-      const uint32_t sb = sa + T::A_BYTES;
-      if (AMK)
-        stage<BM, BK>(sa, A + (size_t)m0 * lda + k0, lda, M - m0, ke - k0);
-      else
-        stage<BK, BM>(sa, A + (size_t)k0 * lda + m0, lda, ke - k0, M - m0);
-      if (BNK)
-        stage<BN, BK>(sb, B + (size_t)n0 * ldb + k0, ldb, N - n0, ke - k0);
-      else
-        stage<BK, BN>(sb, B + (size_t)k0 * ldb + n0, ldb, ke - k0, N - n0);
-    }
-    bsa::cp_async_commit();  // empty groups keep the count uniform
-  };
-
-  float acc[T::MT][T::NT][4];
-#pragma unroll
-  for (int i = 0; i < T::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < T::NT; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
-#pragma unroll
-  for (int t = 0; t < GSTAGES - 1; ++t) load(t);
-  for (int it = 0; it < nk; ++it) {
-    bsa::cp_async_wait<GSTAGES - 2>();
-    __syncthreads();  // tile it landed; tile it-1's slot is free
-    load(it + GSTAGES - 1);
-    const uint32_t sa = base + (it % GSTAGES) * T::STAGE;
-    const uint32_t sb = sa + T::A_BYTES;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[T::MT][4], bf[T::NT][2];
-#pragma unroll
-      for (int i = 0; i < T::MT; ++i) {
-        const int mi = wm + i * 16;
-        if (AMK) {
-          bsa::ldsm_x4(sa + swz(mi + (l & 15), (kk >> 3) + (l >> 4)), af[i]);
-        } else {
-          const int cc = (mi >> 3) + ((l >> 3) & 1);
-          const int r = kk + (l & 7) + ((l >> 4) << 3);
-          bsa::ldsm_x4_t(sa + (cc >> 3) * (BK * 128) + swz(r, cc & 7), af[i]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < T::NT; j += 2) {
-        const int ni = wn + j * 8;
-        uint32_t f[4];
-        if (BNK) {
-          bsa::ldsm_x4(sb + swz(ni + (l & 7) + ((l >> 4) << 3),
-                                (kk >> 3) + ((l >> 3) & 1)), f);
-        } else {
-          const int cc = (ni >> 3) + (l >> 4);
-          bsa::ldsm_x4_t(sb + (cc >> 3) * (BK * 128) + swz(kk + (l & 15),
-                                                          cc & 7), f);
-        }
-        bf[j][0] = f[0];
-        bf[j][1] = f[1];
-        bf[j + 1][0] = f[2];
-        bf[j + 1][1] = f[3];
-      }
-#pragma unroll
-      for (int i = 0; i < T::MT; ++i)
-#pragma unroll
-        for (int j = 0; j < T::NT; ++j) bsa::mma(acc[i][j], af[i], bf[j][0], bf[j][1]);
-    }
-  }
-  bsa::cp_async_wait<0>();
-
-  const int g = l >> 2, t = l & 3;
-#pragma unroll
-  for (int i = 0; i < T::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < T::NT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + i * 16 + g + 8 * h;
-        const int n = n0 + wn + j * 8 + 2 * t;
-        if (m >= M || n >= N) continue;
-        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        if (BF16OUT) {
-          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) +
-                                       (size_t)m * ldo + n) =
-              bsa::pack(v0 + bias[n], v1 + bias[n + 1]);
-        } else {
-          *reinterpret_cast<float2*>(static_cast<float*>(out) +
-                                     blockIdx.z * split + (size_t)m * ldo +
-                                     n) = make_float2(v0, v1);
-        }
-      }
-}
-
-template <bool AMK, bool BNK, int BM, int BN, bool BF16OUT>
-cudaError_t gemm_launch(const bf16* A, int lda, const bf16* B, int ldb,
-                        void* out, int ldo, const float* bias, int M, int N,
-                        int K, int kper, size_t split, cudaStream_t st) {
-  using T = Tile<BM, BN>;
-  const void* fn =
-      (const void*)mixffn_bwd_gemm_kernel<AMK, BNK, BM, BN, BF16OUT>;
-  cudaError_t e = set_smem(fn, T::SMEM);
-  if (e) return e;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, (K + kper - 1) / kper);
-  mixffn_bwd_gemm_kernel<AMK, BNK, BM, BN, BF16OUT>
-      <<<grid, THREADS, T::SMEM, st>>>(A, lda, B, ldb, out, ldo, bias, M, N,
-                                       K, kper, split);
-  return cudaGetLastError();
-}
-
-// One product with the plan's (bm, bn) output tile.
-template <bool AMK, bool BNK, bool BF16OUT>
+// One product of the backward (owner tag 11 in the profile).
+template <bool AMK, bool BNK, int EPI>
 cudaError_t gemm(int bm, int bn, const bf16* A, int lda, const bf16* B,
                  int ldb, void* out, int ldo, const float* bias, int M,
                  int N, int K, int kper, size_t split, cudaStream_t st) {
-  if (kper <= 0 || kper % BK) return cudaErrorInvalidValue;
-  if (bm == BIG && bn == BIG)
-    return gemm_launch<AMK, BNK, BIG, BIG, BF16OUT>(
-        A, lda, B, ldb, out, ldo, bias, M, N, K, kper, split, st);
-  if (bm == BIG && bn == SMALL)
-    return gemm_launch<AMK, BNK, BIG, SMALL, BF16OUT>(
-        A, lda, B, ldb, out, ldo, bias, M, N, K, kper, split, st);
-  if (bm == SMALL && bn == BIG)
-    return gemm_launch<AMK, BNK, SMALL, BIG, BF16OUT>(
-        A, lda, B, ldb, out, ldo, bias, M, N, K, kper, split, st);
-  if (bm == SMALL && bn == SMALL)
-    return gemm_launch<AMK, BNK, SMALL, SMALL, BF16OUT>(
-        A, lda, B, ldb, out, ldo, bias, M, N, K, kper, split, st);
-  return cudaErrorInvalidValue;
+  return ffn::gemm<11, AMK, BNK, false, EPI>(bm, bn, A, lda, B, ldb, out, ldo,
+                                             bias, nullptr, ffn::Norm{}, M, N,
+                                             K, kper, split, st);
 }
 
 // Stage 1: xn = bf16(groupLN(x)), a warp per token.
@@ -241,7 +102,7 @@ mixffn_bwd_ln_kernel(const bf16* x, const float* lts, const float* ltb,
   const int n = blockIdx.x * NW + (threadIdx.x >> 5);
   if (n >= T) return;
   for (int c0 = 0; c0 < C; c0 += gsz)
-    mixffn::ln_range(x + (size_t)n * C, xn + (size_t)n * C, lts, ltb, c0,
+    ln_range(x + (size_t)n * C, xn + (size_t)n * C, lts, ltb, c0,
                      gsz, eps_ln, threadIdx.x & 31);
 }
 
@@ -507,7 +368,7 @@ mixffn_bwd_lnb_kernel(const bf16* x, const bf16* g, const float* dxn,
     const bf16* gc = g + (size_t)n * C;
     const float* dxr = dxn + (size_t)n * C;
     for (int c0 = 0; c0 < C; c0 += gsz) {
-      const float2 ms = mixffn::ln_stats(src, c0, gsz, eps_ln, lane);
+      const float2 ms = ln_stats(src, c0, gsz, eps_ln, lane);
       const float mean = ms.x, inv = ms.y;
       float n1 = 0.0f, n2 = 0.0f;
       for (int c = c0 + lane; c < c0 + gsz; c += 32) {
@@ -609,9 +470,9 @@ extern "C" int mixffn_ln_skip_bwd(
   mixffn_bwd_ln_kernel<<<(T + NW - 1) / NW, THREADS, 0, st>>>(
       x, lts, ltb, xn, T, C, gsz, eps_ln);
   STEP(cudaGetLastError());
-  STEP((gemm<true, true, true>(plan[H_BM], plan[H_BN], xn, C, w1, C, h, H,
+  STEP((gemm<true, true, EPI_BIAS>(plan[H_BM], plan[H_BN], xn, C, w1, C, h, H,
                                b1, T, H, C, (C + BK - 1) / BK * BK, 0, st)));
-  STEP((gemm<true, false, false>(plan[DA_BM], plan[DA_BN], g, C, w2, H, da,
+  STEP((gemm<true, false, EPI_F32>(plan[DA_BM], plan[DA_BN], g, C, w2, H, da,
                                  H, nullptr, T, H, C, (C + BK - 1) / BK * BK,
                                  0, st)));
   const dim3 walk((s + NW - 1) / NW, B, (H + CH - 1) / CH);
@@ -624,13 +485,13 @@ extern "C" int mixffn_ln_skip_bwd(
   STEP(cudaGetLastError());
   mixffn_bwd_dwt_kernel<<<walk, THREADS, 0, st>>>(da, h, dw, dh, pd, s, H);
   STEP(cudaGetLastError());
-  STEP((gemm<true, false, false>(plan[DXN_BM], plan[DXN_BN], dh, H, w1, C,
+  STEP((gemm<true, false, EPI_F32>(plan[DXN_BM], plan[DXN_BN], dh, H, w1, C,
                                  dxn, C, nullptr, T, C, H,
                                  (H + BK - 1) / BK * BK, 0, st)));
-  STEP((gemm<false, false, false>(plan[DW1_BM], plan[DW1_BN], dh, H, xn, C,
+  STEP((gemm<false, false, EPI_F32>(plan[DW1_BM], plan[DW1_BN], dh, H, xn, C,
                                   pw, C, nullptr, H, C, T, kper, 2 * HC,
                                   st)));
-  STEP((gemm<false, false, false>(plan[DW2_BM], plan[DW2_BN], g, C, a, H,
+  STEP((gemm<false, false, EPI_F32>(plan[DW2_BM], plan[DW2_BN], g, C, a, H,
                                   pw + HC, H, nullptr, C, H, T, kper, 2 * HC,
                                   st)));
   const size_t ls_ = (size_t)3 * NW * C * 4;

@@ -40,6 +40,7 @@ _BUILD = _PKG / "build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[tuple, ctypes._CFuncPtr] = {}
 _on: FrozenSet[str] = SWITCHES
 # Launches per (kernel name, shape key), tallied by each wrapper where it
 # bumps its kernel's counter (ops.kernels.shape_counts).
@@ -211,6 +212,20 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry `symbol` of kernel library `name` (built and loaded if
+    needed) with its ctypes signature, an int return and `argtypes`, bound
+    once."""
+    lib = load(name)
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(lib, symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _entries[(name, symbol)] = fn
+    return fn
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a kernel entry point."""
     if rc != 0:
@@ -231,6 +246,25 @@ def aligned(t):
     """t contiguous and 32-byte aligned (WMMA fragment loads need it)."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 32 else t
+
+
+def workspace(sizes, device):
+    """One allocation for a launch's intermediates, each at a 256-byte
+    aligned offset: the tensor, to be held until the launch is enqueued
+    (the allocator then reuses it in stream order), and a pointer to each
+    piece, in the order of `sizes` (bytes)."""
+    offs, total = [], 0
+    for nbytes in sizes:
+        offs.append(total)
+        total += -(-nbytes // 256) * 256
+    ws = torch.empty(total, device=device, dtype=torch.uint8)
+    return ws, [ctypes.c_void_p(ws.data_ptr() + o) for o in offs]
+
+
+def sms(t) -> int:
+    """The SM count of the card that holds tensor t (a launch plan's
+    fill target)."""
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -8,28 +8,46 @@ per forward) and (B, 14², 128) 8 heads hidden 512 (24 blocks). Like the
 TPU kernel it runs where the map side is even; stage 4 (7²) runs the
 block's modules, with the linear-attention kernel for its attention.
 
-Bound on the H100: bytes (x in and out once, ~13 MB per stage-2 block at
-B = 32, against ~8 GFLOP, of which the four products are tensor-core work).
+Bound on the H100: operations, narrowly. At (32, 28², 64) 2.8 GFLOP (the
+four products, the CRPE windows, Q · context; 2.8 us at the bf16 peak)
+against 6.7 MB of x, out and the weights (2.0 us); at (32, 14², 128) 2.6
+GFLOP against 3.6 MB.
 
-Design (csrc/mhca_block.cu): the TPU kernel holds one whole (s², C) map
-and its 4x hidden state in VMEM; on Hopper that does not fit one block's
-shared memory (a stage-2 map's fp32 hidden state alone is 800 KB), and
-softmax(K) and the per-head contexts reduce over all tokens. So the block
-runs as four kernels on one stream, one counted launch: (1) per 32
-tokens, CPE, LN1 and the q|k|v product on the tensor cores, written as
-bf16 rows; (2) per (head, batch), the column softmax of K over the tokens
-and the d x d context, from shared memory (the TPU's block-diagonal mask
-of the full C x C Gram becomes a per-head product); (3) per 32 tokens,
-Q · context, the 3/5/7 CRPE windows over V read straight from the q|k|v
-rows, the proj product on the tensor cores and the residual; (4) the
-MixFFN kernel (csrc/mixffn.cuh) with LN2 (eps 1e-6) and the residual.
-Rounding follows the Pallas kernel: weights rounded to bf16, fp32
-accumulation, bf16 wherever a flax Dense or Conv emits its output.
+Design (csrc/mhca_block.cu on csrc/mixffn_stages.cuh): the TPU kernel
+holds one whole (s², C) map and its 4x hidden state in VMEM; on Hopper that
+does not fit one block's shared memory (a stage-2 map's fp32 hidden state
+alone is 800 KB), and softmax(K) and the per-head contexts reduce over all
+tokens. Kernels per 32 tokens leave the taps and q to be re-read from
+device memory per output element and the weights per block. So the
+block runs as eight stages over the whole batch on one stream, each of
+which fills the card, with its intermediates in device memory for the
+length of one call (one counted launch): (1) the CPE x1, a block per (map
+row, batch), a thread per channel pair and 8 columns with its 3 x 10
+window of x loaded at once and the rounded taps in registers; (2) q|k|v on
+the tiled tensor-core product that K2 and K11 run, with LN1 folded into
+its A panel and the Dense epilogue bf16(bf16(acc) + bf16(b)); (3) per
+(head, batch), the column softmax of K over the tokens and the d x d
+context, from shared memory (the TPU's block-diagonal mask of the full C x
+C Gram becomes a per-head product); (4) per (band of map rows, batch), Q
+and V of the band (V with a 3-row, 3-column zero-padded halo) and the
+contexts staged in shared memory once, by cp.async; a thread per channel
+pair over the band's tokens with its CRPE window's taps rounded to bf16
+once into registers, centred in a 7 x 7 grid of zeros so that no warp
+splits over the three window sizes (the zero taps add exact zeros); Q ·
+context from the staged rows; (5) the proj product with the residual
+epilogue x2 = bf16(x1 + bf16(bf16(acc) + bf16(bp))); (6-8) K2's forward
+chain on x2 with LN2 (eps 1e-6) folded into fc1 and the residual
+(csrc/mixffn_stages.cuh). `plan` picks the product
+tiles and the band rows (at least a block per SM in every stage at the
+model's shapes). Rounding follows the Pallas kernel: weights rounded to
+bf16, fp32 accumulation, bf16 wherever a flax Dense or Conv emits its
+output.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +58,9 @@ from transception_tpu_torch.ops.kernels import _build, mixffn
 NAME = "mhca_block"
 REPLACES = "transception_tpu/ops/pallas/mhca_block_kernel.py:200"
 SMEM_LIMIT = 232448  # bytes a block may opt into on sm_90
-THREADS = 256        # threads per block of the context kernel
+THREADS = 256        # threads per block of the context and attention stages
+HALO = 3             # the widest CRPE window's reach (csrc/mhca_block.cu)
+BAND_ROWS = (4, 2)   # map rows per attention block, the most that fills
 launches = 0
 
 
@@ -93,6 +113,46 @@ def mhca_block_plain(x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws,
                                        lb, w2, b2, s=s, eps_ln=eps2, eps=eps)
 
 
+def attn_smem(s: int, C: int, d: int, rows: int) -> int:
+    """Shared memory of one block of the attention stage (mirrors
+    attn_smem in csrc/mhca_block.cu): the transposed contexts, Q of the
+    band's rows and the zero-padded band of V."""
+    return (d * C * 4 + rows * s * C * 2
+            + (rows + 2 * HALO) * (s + 2 * HALO) * C * 2)
+
+
+def plan(B: int, s: int, C: int, heads: int, hid: int, sms: int) -> dict:
+    """K5's launch plan for x (B, s², C) on a card of `sms` SMs: the qkv
+    (T, 3C, C) and proj (T, C, C) product tiles (mixffn.token_tile), the
+    map rows per attention block (the most of BAND_ROWS that gives a block
+    per SM, else 1: a band's V halo is staged once for its rows) and the FFN's forward plan (mixffn.fwd_plan). `plan` is
+    the int list the CUDA entry takes; `blocks` the blocks of each stage;
+    `workspace` the bytes of each intermediate in the entry's order."""
+    T, d = B * s * s, C // heads
+    gemms = {"qkv": (T, 3 * C, C) + mixffn.token_tile(T, 3 * C, sms),
+             "proj": (T, C, C) + mixffn.token_tile(T, C, sms)}
+    rows = next((r for r in BAND_ROWS if B * -(-s // r) >= sms), 1)
+    ffn = mixffn.fwd_plan(B, s, C, hid, sms)
+    blocks = {k: mixffn._blocks(*g[:2], *g[3:]) for k, g in gemms.items()}
+    blocks.update(cpe=B * s, ctx=B * heads, attn=B * -(-s // rows),
+                  **{f"ffn_{k}": n for k, n in ffn["blocks"].items()})
+    workspace = {"x1": T * C * 2, "qkv": T * 3 * C * 2,
+                 "ctx": B * C * d * 4, "att": T * C * 2, "x2": T * C * 2,
+                 **ffn["workspace"]}
+    return dict(gemms=gemms, band_rows=rows, ffn=ffn, blocks=blocks,
+                plan=[*gemms["qkv"][3:], *gemms["proj"][3:], rows]
+                + ffn["plan"], workspace=workspace)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(B, s, C, heads, hid, sms):
+    """plan's workspace sizes and its int list as the entry takes it (a
+    ctypes array, read only), kept per shape and card."""
+    pl = plan(B, s, C, heads, hid, sms)
+    return (tuple(pl["workspace"].values()),
+            (ctypes.c_int * len(pl["plan"]))(*pl["plan"]))
+
+
 def _check(x, s, heads, hid, crpe_ws):
     if x.dtype != torch.bfloat16 or x.dim() != 3:
         raise ValueError(f"{NAME} kernel takes a (B, N, C) bf16 tensor, "
@@ -102,13 +162,15 @@ def _check(x, s, heads, hid, crpe_ws):
         raise ValueError(f"{NAME} kernel needs a square s*s map and C % "
                          f"heads == 0, got N={N}, s={s}, C={C}")
     d = C // heads
-    if C % 16 or d > THREADS or len(crpe_ws) != 3 or \
-            sum(w.shape[0] for w in crpe_ws) != C:
-        raise ValueError(f"{NAME} kernel needs C % 16 == 0, a head dim of "
-                         f"at most {THREADS} and three CRPE windows over "
-                         f"all C channels")
+    if C % 32 or THREADS % C or 32 % d or d % 8 or len(crpe_ws) != 3 or \
+            sum(w.shape[0] for w in crpe_ws) != C or \
+            any(w.shape[-1] > 2 * HALO + 1 for w in crpe_ws):
+        raise ValueError(f"{NAME} kernel needs C of 32 to {THREADS} "
+                         f"dividing {THREADS}, a head dim of 8, 16 or 32 and "
+                         f"three CRPE windows of "
+                         f"at most {2 * HALO + 1}² over all C channels")
     if (2 * N * d + THREADS) * 4 > SMEM_LIMIT or \
-            32 * C * 6 + C * d * 4 > SMEM_LIMIT:
+            attn_smem(s, C, d, BAND_ROWS[0]) > SMEM_LIMIT:
         raise ValueError(f"{NAME} kernel: (N={N}, C={C}, heads={heads}) "
                          f"exceeds shared memory")
     mixffn._check(x, s, hid, 1)
@@ -149,22 +211,22 @@ def _launch(x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs, wp,
     _check(x, s, heads, hid, crpe_ws)
     global launches
     x = _build.aligned(x)
+    fn = _build.entry(NAME, "mhca_block", [ctypes.c_void_p] * 34 + [
+        ctypes.c_int] * 10 + [ctypes.c_float] * 4 + [ctypes.c_void_p])
     B, N, C = x.shape
     d = C // heads
-    bf, f32 = _build.bf16, _build.f32
-    x1, x2, out = (torch.empty_like(x) for _ in range(3))
-    qkv = torch.empty((B, N, 3 * C), dtype=x.dtype, device=x.device)
-    ctx = torch.empty((B, heads, d, d), dtype=torch.float32, device=x.device)
-    ptrs = (x, f32(cpe_w), f32(cpe_b), f32(ln1_s), f32(ln1_b), bf(wqkv),
-            f32(bqkv), *(f32(w) for w in crpe_ws), *(f32(b) for b in crpe_bs),
-            bf(wp), f32(bp), f32(ln2_s), f32(ln2_b), bf(w1), f32(b1),
-            bf(dw.reshape(hid, 9)), f32(dwb), f32(ls), f32(lb), bf(w2),
-            f32(b2), x1, qkv, ctx, x2, out)
-    fn = _build.load(NAME).mhca_block
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 10 + [
-        ctypes.c_float] * 4 + [ctypes.c_void_p]
-    rc = fn(*[_build.ptr(t) for t in ptrs], B, s, C, heads, hid,
+    bf, f32 = mixffn._weight, _build.f32
+    sizes, ints = _launch_plan(B, s, C, heads, hid, _build.sms(x))
+    out = torch.empty_like(x)
+    ws, work = _build.workspace(sizes, x.device)
+    held = (
+        x, f32(cpe_w), f32(cpe_b), f32(ln1_s), f32(ln1_b), bf(wqkv),
+        f32(bqkv), *(f32(w) for w in crpe_ws), *(f32(b) for b in crpe_bs),
+        bf(wp), f32(bp), f32(ln2_s), f32(ln2_b), bf(w1), f32(b1),
+        bf(dw.reshape(hid, 9)), f32(dwb), f32(ls), f32(lb), bf(w2),
+        f32(b2))
+    ptrs = [_build.ptr(t) for t in held] + work + [_build.ptr(out)]
+    rc = fn(*ptrs, ints, B, s, C, heads, hid,
             *(w.shape[-1] for w in crpe_ws), crpe_ws[0].shape[0],
             crpe_ws[1].shape[0], eps1, eps2, eps, d ** -0.5,
             _build.stream_of(x))

@@ -12,19 +12,37 @@ no such limit.) K11 replaces its backward, mixffn_kernel.py:659
 `fused_mixffn_ln_skip_bwd` (pallas_call at :682). The two form one
 torch.autograd.Function.
 
-K2 bound on the H100: bytes. HBM sees x once in and once out (~26 MB at
-(32, 3136, 64)); the 4x hidden state never leaves the chip.
+K2 bound on the H100: near the ridge. At (32, 3136, 64) hidden 256 bytes
+(x read and the output written once, 25.7 MB: 7.7 us at 3.35 TB/s,
+against 4·T·C·hidden + 18·T·hidden = 7.0 GFLOP: 7.1 us at the bf16 peak),
+at the 28² and 14² shapes operations. What it takes in practice is the
+hidden state: the 3x3 conv and the LN over the hidden width need the
+hidden state of a map row and its neighbours, which a Hopper block cannot
+hold for a whole map as the TPU's VMEM does.
 
-K2 design (csrc/mixffn.cu): one block per (map row, batch) keeps the row's
-hidden state in shared memory. fc1 is recomputed over a one-row halo
-(three normalised map rows) in 64-channel chunks instead of exchanged
-between blocks, which makes the rows independent; h is rounded to bf16
-before the depthwise taps as on the TPU (so the halo is exact), the conv
-output is rounded, y = d + h is summed in fp32, LN over hidden and an
-exact-erf GELU (erfc form, as jax.nn.gelu) follow, then fc2 on the tensor
-cores, the bias, one rounding and the residual. The depthwise weight is
-rounded to bf16 as the Pallas kernel does. The caller's LN is taken per
-group of C/groups channels.
+K2 design (csrc/mixffn.cu on csrc/mixffn_stages.cuh): a block per (map
+row, batch) would hold the row's hidden state in ~160 KB of shared memory
+(one block an SM), run fc1 over 3 normalised rows and fc2 over 16 padded
+rows and read both weight matrices from L2 in every block; at the
+stage-3 shapes such a kernel lost to its own plain version. So K2 runs
+as three stages over the whole batch, each of which fills the card, with h and a (T x hidden bf16 each, 98 MiB at (32,
+3136, 64, 256)) in device memory for the length of one call: (1) fc1 as
+the tiled tensor-core product that K11 runs (128- or 64-wide output
+tiles, cp.async ring of swizzled panels, ldmatrix, mma.sync), with the
+caller's (grouped) LN computed per block into the product's A panel, so
+xn never reaches device memory, and the bias in the epilogue: h =
+bf16(LN(x)·w1ᵀ + b1) (x's rows staged for the whole depth by cp.async,
+normalised in place, eight lanes a row); (2) per (map row, batch), a thread
+per pair of hidden channels and 8 columns loads its 3 x 10 window of h at
+once, with the taps in registers: d = bf16(conv3x3(h) + dwb) and y = d + h
+go to shared memory, then a warp per token takes the hidden LN, z =
+bf16(LN(y)) and a = bf16(GELU(z)) in the erfc form of jax.nn.gelu; (3) fc2
+as the same product with the epilogue bf16(bf16(a·w2ᵀ + b2) + x), read and
+written through a shared-memory tile in 16-byte pieces. Three launches a
+call; `fwd_plan` picks the
+tiles (at least a block per SM in every stage at the model's shapes) and
+sizes the workspace. Rounding points are the Pallas kernel's, the
+depthwise weight rounded to bf16 as it does.
 
 K11 bound on the H100: operations at the train shapes (five products of
 2·T·C·hidden flops over T = B·N tokens: at (24, 56², 64, 256) 1.2e10
@@ -50,9 +68,10 @@ dh·w1, and dw1 = dhᵀ·xn and dw2 = gᵀ·a with the token dimension split
 into a fixed number of fp32 partials; the group-LN backward per token
 (dx + g, per-block partials of dlts, dltb, db2); and a fixed-order sum
 of each set of partials (no atomics, the same bits in every launch). The
-products are one kernel: 128- or 64-wide output tiles of 8 warps,
-64-deep operand tiles staged with cp.async in a 3-deep ring of swizzled
-panels, ldmatrix fragments and mma.sync with fp32 accumulation. Rounding
+products are K2's tiled product (csrc/mixffn_stages.cuh): 128- or 64-wide
+output tiles of 8 warps, 64-deep operand tiles staged with cp.async in a
+3-deep ring of swizzled panels, ldmatrix fragments and mma.sync with fp32
+accumulation. Rounding
 points: h, the conv output, z and a in bf16, dh rounded as an operand of
 dxn and dw1, everything else fp32; a = bf16(z·Φ(z)) in the plain
 backward's form.
@@ -72,16 +91,16 @@ bytes (x in and out once, 4.8 MB: 1.4 us, against 4·N·C·hidden = 1.2
 GFLOP: 1.2 us); at (24, 14², 128) operations (the same 1.2 GFLOP against
 2.7 MB).
 
-K9 design: K2's kernel body as a second template instantiation
-(csrc/mixffn.cuh BARE): the window rows are staged as they are instead of
-normalised, and the fc2 output is written without the residual. A runtime
-branch in K2's body had cost 1.27 -> 1.94 ms a launch on an H100 (the
-grouped LN's first form).
+K9 design: K2's stages, the BARE instantiation of the same forward chain
+(csrc/mixffn_stages.cuh ffn::forward): fc1 stages x as it is instead of
+normalising it, and fc2's epilogue adds no residual. Three launches a
+call, with K2's plan (`fwd_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -96,8 +115,9 @@ BWD_REPLACES = "transception_tpu/ops/pallas/mixffn_kernel.py:659"
 SKIP_NAME = "mixffn_skip"
 SKIP_REPLACES = "transception_tpu/ops/pallas/mixffn_kernel.py:285"
 SMEM_LIMIT = 232448  # bytes a block may opt into on sm_90
-# K11's tiling, BIG/SMALL (output tile sides), BK (product depth), TT
-# (tokens per rows-kernel tile), CH and THREADS of csrc/mixffn_bwd.cu
+# The tiling of the shared product and of K11, BIG/SMALL (output tile
+# sides), BK (product depth), THREADS of csrc/mixffn_stages.cuh and TT
+# (tokens per rows-kernel tile), CH of csrc/mixffn_bwd.cu
 # (tests/test_torch_mixffn_bwd_plan.py holds the copies equal).
 BWD_TILES = (128, 64)
 BWD_DEPTH = 64
@@ -107,9 +127,17 @@ BWD_THREADS = 256
 BWD_BLOCKS_PER_SM = 4  # rows and LN-backward blocks per SM
 BWD_SPLIT_BLOCKS_PER_SM = 2  # blocks per SM of the smaller split product
 BWD_SPLIT_BYTES = 64 << 20  # cap on the split products' fp32 partials
+GEMM_STAGES = 3  # GSTAGES: the products' cp.async ring depth
+FWD_SEGMENT = 8  # SEG: map columns of a forward rows-stage work item
 launches = 0
 bwd_launches = 0
 skip_launches = 0
+
+
+def _weight(t):
+    """A weight as the products stage it: contiguous bf16, 16-byte
+    aligned (cp.async)."""
+    return _build.aligned(_build.bf16(t))
 
 
 def mixffn_plain(x, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
@@ -241,14 +269,33 @@ def mixffn_ln_skip_bwd_plain(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2,
     return tuple(gr.to(p.dtype) for gr, p in zip(grads, params))
 
 
-def smem_bytes(s: int, C: int, hid: int) -> int:
-    """Shared memory of one K2 block (mirrors mixffn::smem_bytes in
-    mixffn.cuh): the normalised window and the fc1/fc2 staging padded to
-    16-row tiles, the fp32 hidden state of the s map tokens, the bf16 GELU
-    output padded to 16 rows."""
-    sp = -(-s // 16) * 16
-    return (3 * sp * C * 2 + max(3 * sp * 64, sp * C) * 4 + s * hid * 4
-            + sp * hid * 2)
+def gemm_smem(aln: bool, bm: int, bn: int, K: int) -> int:
+    """Shared memory of one block of the tiled product (mirrors
+    ffn::gemm_smem in csrc/mixffn_stages.cuh): a 3-deep ring of A and B
+    tiles 64 deep, or with the caller's LN folded in (aln) A's whole
+    normalised panel (K rounded up to 64) and a ring of B tiles; the bf16
+    epilogue's output tile (padded rows) reuses it."""
+    ring_b = GEMM_STAGES * bn * BWD_DEPTH * 2
+    if aln:
+        ops = bm * -(-K // BWD_DEPTH) * BWD_DEPTH * 2 + ring_b
+    else:
+        ops = GEMM_STAGES * bm * BWD_DEPTH * 2 + ring_b
+    return max(ops, bm * (bn + 8) * 2)
+
+
+def rows_smem(s: int, hid: int) -> int:
+    """Shared memory of one block of the forward's conv/rows stage (mirrors
+    ffn::rows_smem): y of a map row, fp32."""
+    return s * hid * 4
+
+
+def fwd_smem_bytes(s: int, C: int, hid: int) -> int:
+    """The most shared memory any block of K2's, K9's or K5's FFN stages
+    takes, at the largest tiles: fc1 with the folded LN, the product ring,
+    the conv/rows stage."""
+    big = BWD_TILES[0]
+    return max(gemm_smem(True, big, big, C), gemm_smem(False, big, big, 0),
+               rows_smem(s, hid))
 
 
 def takes(s: int) -> bool:
@@ -275,6 +322,48 @@ def _blocks(M, N, bm, bn):
     return -(-M // bm) * -(-N // bn)
 
 
+def _side(n):
+    """An output tile side: BIG where it divides n, else SMALL."""
+    big, small = BWD_TILES
+    return big if n % big == 0 else small
+
+
+def token_tile(T, N, sms):
+    """The (BM, BN) tile of a product over T token rows and N columns:
+    BIG rows first, then SMALL rows, then SMALL columns, until the product
+    has a block per SM."""
+    big, small = BWD_TILES
+    bn = _side(N)
+    for bm, bnn in ((big, bn), (small, bn), (small, small)):
+        if _blocks(T, N, bm, bnn) >= sms:
+            break
+    return bm, bnn
+
+
+def fwd_plan(B: int, s: int, C: int, hid: int, sms: int) -> dict:
+    """The forward plan of K2, K9 and K5's FFN for x (B, s², C), hidden
+    `hid`, on a card of `sms` SMs. Products (M, N, K, BM, BN): fc1 (T, hid,
+    C) and fc2 (T, C, hid) over the T = B·s² tokens, tiles by `token_tile`;
+    the conv/rows stage takes a block per (map row, batch). `plan` is the
+    int list the CUDA entries take (ffn::FwdPlan); `blocks` the blocks of
+    each stage; `workspace` the bytes of h and a (bf16, T x hid each);
+    `smem` the shared memory of a block of each stage (fc1 with the LN
+    folded in, K2 and K5, or without, K9)."""
+    T = B * s * s
+    gemms = {"fc1": (T, hid, C) + token_tile(T, hid, sms),
+             "fc2": (T, C, hid) + token_tile(T, C, sms)}
+    plan = [v for k in ("fc1", "fc2") for v in gemms[k][3:]]
+    blocks = {k: _blocks(*g[:2], *g[3:]) for k, g in gemms.items()}
+    blocks["rows"] = B * s
+    f1, f2 = gemms["fc1"], gemms["fc2"]
+    smem = {"fc1_ln": gemm_smem(True, f1[3], f1[4], C),
+            "fc1": gemm_smem(False, f1[3], f1[4], C),
+            "rows": rows_smem(s, hid),
+            "fc2": gemm_smem(False, f2[3], f2[4], hid)}
+    return dict(gemms=gemms, plan=plan, blocks=blocks,
+                workspace={"h": T * hid * 2, "a": T * hid * 2}, smem=smem)
+
+
 def bwd_plan(B: int, s: int, C: int, hid: int, sms: int) -> dict:
     """K11's launch plan for x (B, s², C), hidden `hid`, on a card of `sms`
     SMs. Products (M, N, K): h (T, hid, C), da (T, hid, C), dxn (T, C,
@@ -292,24 +381,12 @@ def bwd_plan(B: int, s: int, C: int, hid: int, sms: int) -> dict:
     partial per (batch row, column group): `walk_partials`.
     `plan` is the int list the CUDA entry takes; `workspace` the bytes of
     each intermediate and partial it is handed."""
-    big, small = BWD_TILES
     T = B * s * s
-
-    def side(n):
-        return big if n % big == 0 else small
-
-    def token_tile(N):
-        bn = side(N)
-        for bm, bnn in ((big, bn), (small, bn), (small, small)):
-            if _blocks(T, N, bm, bnn) >= sms:
-                break
-        return bm, bnn
-
-    gemms = {"h": (T, hid, C) + token_tile(hid),
-             "da": (T, hid, C) + token_tile(hid),
-             "dxn": (T, C, hid) + token_tile(C),
-             "dw1": (hid, C, T, side(hid), side(C)),
-             "dw2": (C, hid, T, side(C), side(hid))}
+    gemms = {"h": (T, hid, C) + token_tile(T, hid, sms),
+             "da": (T, hid, C) + token_tile(T, hid, sms),
+             "dxn": (T, C, hid) + token_tile(T, C, sms),
+             "dw1": (hid, C, T, _side(hid), _side(C)),
+             "dw2": (C, hid, T, _side(C), _side(hid))}
     ktiles = -(-T // BWD_DEPTH)
     fewest = min(_blocks(*gemms[k][:2], *gemms[k][3:]) for k in ("dw1",
                                                                  "dw2"))
@@ -332,43 +409,65 @@ def bwd_plan(B: int, s: int, C: int, hid: int, sms: int) -> dict:
                 workspace=workspace)
 
 
-def _check(x, s, hid, groups):
+def _check(x, s, hid, groups, ln=True):
+    """Raise on what the kernels do not take; ln: the caller's LN is folded
+    into fc1 (K2, K5), which takes groups of a multiple of 64 channels."""
     if x.dtype != torch.bfloat16 or x.dim() != 3:
         raise ValueError(f"{NAME} kernel takes a (B, N, C) bf16 tensor, "
                          f"got {tuple(x.shape)} {x.dtype}")
     B, N, C = x.shape
     if N != s * s:
         raise ValueError(f"{NAME} kernel needs a square s*s map, N={N}")
-    if groups < 1 or C % groups:
+    if groups < 1 or C % groups or ln and C // groups % 64:
         raise ValueError(f"{NAME} kernel: {groups} LN groups do not divide "
-                         f"C={C}")
+                         f"C={C} into multiples of 64 channels")
     if C % 16 or hid % 64:
         raise ValueError(f"{NAME} kernel needs C % 16 == 0 and "
                          f"hidden % 64 == 0, got C={C}, hidden={hid}")
-    if smem_bytes(s, C, hid) > SMEM_LIMIT:
-        raise ValueError(f"{NAME} kernel: map row (s={s}, C={C}, "
-                         f"hidden={hid}) exceeds shared memory")
+    if fwd_smem_bytes(s, C, hid) > SMEM_LIMIT:
+        raise ValueError(f"{NAME} kernel: a map row's hidden state or the "
+                         f"normalised panel (s={s}, C={C}, hidden={hid}) "
+                         f"exceeds shared memory")
+
+
+def _fwd_args(x, s, hid):
+    """The output, the workspace allocation (held until the launch is
+    enqueued) and the entry's trailing arguments (out, h, a, plan) of one
+    forward call of K2 or K9 (fwd_plan)."""
+    B, _, C = x.shape
+    sizes, plan = _fwd_launch_plan(B, s, C, hid, _build.sms(x))
+    out = torch.empty_like(x)
+    ws, work = _build.workspace(sizes, x.device)
+    return out, ws, [_build.ptr(out)] + work + [plan]
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_launch_plan(B, s, C, hid, sms):
+    """fwd_plan's workspace sizes and its int list as the entries take it
+    (a ctypes array, read only), kept per shape and card."""
+    pl = fwd_plan(B, s, C, hid, sms)
+    return (tuple(pl["workspace"].values()),
+            (ctypes.c_int * len(pl["plan"]))(*pl["plan"]))
 
 
 def _launch(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, s, groups, eps_ln,
             eps):
-    """K2 on the card; lts/ltb are (C,)-tiled."""
+    """K2 on the card; lts/ltb are (C,)-tiled. One counted launch runs the
+    three stages of the plan (fwd_plan)."""
     hid = w1.shape[0]
     _check(x, s, hid, groups)
     global launches
     x = _build.aligned(x)
+    fn = _build.entry(NAME, "mixffn_ln_skip", [ctypes.c_void_p] * 15 + [
+        ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     B, N, C = x.shape
-    out = torch.empty_like(x)
-    bf, f32 = _build.bf16, _build.f32
-    args = (x, f32(lts), f32(ltb), bf(w1), f32(b1),
-            bf(dw.reshape(hid, 9)), f32(dwb), f32(ls), f32(lb), bf(w2),
-            f32(b2), out)
-    fn = _build.load(NAME).mixffn_ln_skip
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    rc = fn(*[_build.ptr(t) for t in args], B, s, C, hid, groups, eps_ln,
-            eps, _build.stream_of(x))
+    bf, f32 = _weight, _build.f32
+    out, ws, tail = _fwd_args(x, s, hid)
+    held = (
+        x, f32(lts), f32(ltb), bf(w1), f32(b1), bf(dw.reshape(hid, 9)),
+        f32(dwb), f32(ls), f32(lb), bf(w2), f32(b2))
+    args = [_build.ptr(t) for t in held] + tail
+    rc = fn(*args, B, s, C, hid, groups, eps_ln, eps, _build.stream_of(x))
     _build.check(rc, NAME)
     launches += 1
     _build.tally(NAME, tuple(x.shape), hid, groups)
@@ -376,22 +475,21 @@ def _launch(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, s, groups, eps_ln,
 
 
 def _launch_skip(x, w1, b1, dw, dwb, ls, lb, w2, b2, s, eps):
-    """K9 on the card."""
+    """K9 on the card: K2's stages without the LN and the residual."""
     hid = w1.shape[0]
-    _check(x, s, hid, 1)
+    _check(x, s, hid, 1, ln=False)
     global skip_launches
     x = _build.aligned(x)
+    fn = _build.entry(NAME, "mixffn_skip", [ctypes.c_void_p] * 13 + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
     B, N, C = x.shape
-    out = torch.empty_like(x)
-    bf, f32 = _build.bf16, _build.f32
-    args = (x, bf(w1), f32(b1), bf(dw.reshape(hid, 9)), f32(dwb), f32(ls),
-            f32(lb), bf(w2), f32(b2), out)
-    fn = _build.load(NAME).mixffn_skip
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p]
-    rc = fn(*[_build.ptr(t) for t in args], B, s, C, hid, eps,
-            _build.stream_of(x))
+    bf, f32 = _weight, _build.f32
+    out, ws, tail = _fwd_args(x, s, hid)
+    held = (
+        x, bf(w1), f32(b1), bf(dw.reshape(hid, 9)), f32(dwb), f32(ls),
+        f32(lb), bf(w2), f32(b2))
+    args = [_build.ptr(t) for t in held] + tail
+    rc = fn(*args, B, s, C, hid, eps, _build.stream_of(x))
     _build.check(rc, SKIP_NAME)
     skip_launches += 1
     _build.tally(SKIP_NAME, tuple(x.shape), hid)
@@ -416,7 +514,7 @@ def _launch_bwd(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, g, s, groups,
     """K11 on the card; lts/ltb are (C,)-tiled. One counted launch runs
     every stage of the plan (bwd_plan)."""
     hid = w1.shape[0]
-    _check(x, s, hid, groups)
+    _check(x, s, hid, groups, ln=False)
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"{BWD_NAME} kernel needs g like x, got "
                          f"{tuple(g.shape)} {g.dtype}")
@@ -426,29 +524,22 @@ def _launch_bwd(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, g, s, groups,
                          f"hidden={hid}) exceeds shared memory")
     global bwd_launches
     x, g = _build.aligned(x), _build.aligned(g)
-    pl = bwd_plan(B, s, C, hid, torch.cuda.get_device_properties(
-        x.device).multi_processor_count)
+    pl = bwd_plan(B, s, C, hid, _build.sms(x))
     dx = torch.empty_like(x)
     grads = torch.empty(2 * hid * C + 13 * hid + 3 * C, device=x.device,
                         dtype=torch.float32)
-    # One allocation for the intermediates and partials, each 256-byte
-    # aligned, in the entry's argument order (xn, h, da, a, dh, dxn, pw, pr,
-    # pd, pl).
-    offs, total = [], 0
-    for nbytes in pl["workspace"].values():
-        offs.append(total)
-        total += -(-nbytes // 256) * 256
-    ws = torch.empty(total, device=x.device, dtype=torch.uint8)
-    work = [ctypes.c_void_p(ws.data_ptr() + o) for o in offs]
-    bf, f = (lambda t: _build.aligned(_build.bf16(t))), _build.f32
-    args = [_build.ptr(t) for t in (
+    # The intermediates and partials in the entry's argument order (xn, h,
+    # da, a, dh, dxn, pw, pr, pd, pl).
+    ws, work = _build.workspace(pl["workspace"].values(), x.device)
+    bf, f = _weight, _build.f32
+    held = (
         x, g, f(lts), f(ltb), bf(w1), f(b1), bf(dw.reshape(hid, 9)), f(dwb),
-        f(ls), f(lb), bf(w2), dx, grads)] + work
+        f(ls), f(lb), bf(w2), dx, grads)
+    args = [_build.ptr(t) for t in held] + work
     plan = (ctypes.c_int * len(pl["plan"]))(*pl["plan"])
-    fn = _build.load(BWD_NAME).mixffn_ln_skip_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * (len(args) + 1) + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    fn = _build.entry(BWD_NAME, "mixffn_ln_skip_bwd", [ctypes.c_void_p] * 24
+                      + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                      + [ctypes.c_void_p])
     rc = fn(*args, plan, B, s, C, hid, groups, eps_ln, eps,
             _build.stream_of(x))
     _build.check(rc, BWD_NAME)
