@@ -7,7 +7,7 @@ Phases (any failed check exits non-zero):
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
      the ptxas report (registers, spills) of the kernels redesigned for
      registers and the card's tensor cores, K3, K10, K8 and every stage of
-     K2, K9, K5 and K11, which must not spill;
+     K1, K2, K5, K6, K9 and K11, which must not spill;
   3. each kernel against its plain PyTorch version at every shape the
      serving path gives it in any fold configuration (bf16, batch 32) and
      at the shapes the "pallas" train step gives K1, K5-K7 and K9 (batch
@@ -23,8 +23,8 @@ Phases (any failed check exits non-zero):
      class maps), for three weight seeds;
   6. forward time at batch 32, kernels on and off (same structure);
   7. device busy time and idle share of one forward (torch.profiler), the
-     device time of each stage of K2 and K5 by kernel name, and the
-     cudaLaunchKernel calls per forward;
+     device time of each stage of K1, K2, K5 and K6 by kernel name, and
+     the cudaLaunchKernel calls per forward;
   8. the train step's kernels against their plain versions at every shape
      the published train step gives them (bf16, batch 24): the bridge
      attention (K3) and its backward (K10), the MixFFN backward (K11) and
@@ -620,17 +620,25 @@ def model_phase():
 
 
 def stage_of(name):
-    """'K2 fc1', 'K5 attn', ... for a kernel of the staged forwards (K2, K5,
-    K9: the owner is the first template argument of the shared stages) or
-    'K11 ...' for the backward's; None for any other kernel."""
+    """'K2 fc1', 'K5 attn', 'K1 ctx', ... for a kernel of the staged
+    forwards (K1, K2, K5, K6, K9: the owner is the first template argument
+    of the shared stages) or 'K11 ...' for the backward's; None for any
+    other kernel."""
     import re
     m = re.search(r"mixffn_gemm_kernel<(\d+), \w+, \w+, (\w+), \d+, \d+, "
                   r"(\d)>", name)
     if m:
         kid, aln, epi = m.group(1), m.group(2) == "true", int(m.group(3))
-        what = {(True, 1): "fc1", (False, 2): "fc2", (True, 3): "qkv",
-                (False, 4): "proj"}.get((aln, epi), "products")
+        names = ({(True, 1): "qkv", (False, 2): "proj"} if kid == "1" else
+                 {(True, 1): "fc1", (False, 2): "fc2", (True, 3): "qkv",
+                  (False, 4): "proj"})
+        what = names.get((aln, epi), "products")
         return f"K{kid} {'fc1+fc2' if kid == '9' else what}"
+    # The linear-attention core's stages (K1 and K6, named by their KID)
+    # and K6's head body.
+    m = re.search(r"lin_([a-z]+)_kernel(?:<(\d+)>)?", name)
+    if m:
+        return f"K{m.group(2) or 6} {m.group(1)}"
     m = re.search(r"mixffn_convrows_kernel<(\d+)>", name)
     if m:
         return f"K{m.group(1)} rows"
@@ -665,7 +673,7 @@ def profile_device(fn, label):
         calls[e.name] += 1
     busy = sum(by_name.values())
     port = {n: t for n, t in by_name.items() if any(
-        k in n for k in ("etb_", "mixffn_", "bridge_attention_kernel",
+        k in n for k in ("lin_", "mixffn_", "bridge_attention_kernel",
                          "bridge_attention_folded_kernel",
                          "expand_head_kernel", "mhca_", "patch_expand_kernel",
                          "linear_attention_kernel", "rows_kernel",
@@ -1329,11 +1337,12 @@ def main():
     (OUT_DIR / "chip_smoke_ptxas.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in reports.items()))
     # The bridge attention kernels (K3, K10, K8), the MixFFN forward's and
-    # backward's stages (K2, K9, K11) and the MHCA block's (K5) are built
-    # for registers alone: their ptxas report, and no spills.
+    # backward's stages (K2, K9, K11), the MHCA block's (K5) and the
+    # linear-attention stages of K1 and K6 are built for registers alone:
+    # their ptxas report, and no spills.
     for lib in ("bridge_attention", "bridge_attention_bwd",
                 "bridge_attention_folded", "mixffn", "mixffn_bwd",
-                "mhca_block"):
+                "mhca_block", "etb_attention", "linear_attention"):
         if reports[lib] is None:
             fail(f"{lib}: no ptxas report")
         for fn, regs, st, ld, smem in ptxas_report(reports[lib]):

@@ -25,9 +25,9 @@ from pathlib import Path
 import torch
 
 # Substrings of the port's kernel names (every csrc/ kernel has one).
-PORT = ("etb_", "mixffn_", "bridge_attention", "expand_head", "mhca_",
-        "patch_expand", "linear_attention", "rows_kernel", "cols_kernel",
-        "sum_partials")
+PORT = ("etb_", "lin_", "mixffn_", "bridge_attention", "expand_head",
+        "mhca_", "patch_expand", "linear_attention", "rows_kernel",
+        "cols_kernel", "sum_partials")
 
 
 def profile(model, x) -> dict:

@@ -54,16 +54,34 @@ def _close(got, want, rel=0.02, base=None):
     assert err <= rel * want.abs().max().item()
 
 
-@pytest.mark.parametrize("B,N,C", [(2, 200, 64), (1, 196, 320)])
-def test_etb_attention_kernel(gen, B, N, C):
+def _etb_args(gen, B, N, C):
     x = _r(gen, B, N, C, scale=0.25, dtype=torch.bfloat16)
     args = [_r(gen, C, scale=0.1, shift=1.0), _r(gen, C, scale=0.1)]
     for f in (2, 4, 2, 2):  # peaked softmaxes: the branch is of order x
         args += [_r(gen, C, C, scale=f * C ** -0.5), _r(gen, C, scale=0.02)]
+    return x, args
+
+
+# Ragged row tiles (200, 196 rows) and the model's three shapes: several
+# segments of N (3136, 784; and the small batches), one at (24, 196, 320).
+@pytest.mark.parametrize("B,N,C", [(2, 200, 64), (1, 196, 320),
+                                   (2, 3136, 64), (2, 784, 128),
+                                   (24, 196, 320)])
+def test_etb_attention_kernel(gen, B, N, C):
+    x, args = _etb_args(gen, B, N, C)
     n0 = ea.launches
     _close(ea.etb_attention(x, *args), ea.etb_attention_plain(x, *args),
            base=x)
     assert ea.launches == n0 + 1
+
+
+@pytest.mark.parametrize("B,N,C", [(2, 3136, 64), (24, 196, 320)])
+def test_etb_attention_repeat_bit_identical(gen, B, N, C):
+    """No atomics in K1's stages (49 segments at the first shape, one at
+    the second): two launches on the same inputs give the same bits."""
+    x, args = _etb_args(gen, B, N, C)
+    assert torch.equal(ea.etb_attention(x, *args),
+                       ea.etb_attention(x, *args))
 
 
 @pytest.mark.parametrize("s,C", [(8, 64), (7, 128), (14, 320), (14, 128),
@@ -157,20 +175,42 @@ def test_mhca_block_kernel(gen, B, s, C, hid):
     assert mb.launches == n0 + 1
 
 
+def _la_args(gen, shape, q_softmax):
+    q, k, v = (_r(gen, *shape, scale=f, dtype=torch.bfloat16)
+               for f in (1.0, 3.0, 1.0))
+    return q, k, v, q_softmax, 1.0 if q_softmax else shape[-1] ** -0.5
+
+
 @pytest.mark.parametrize("shape,q_softmax", [
     ((2, 8, 49, 40), False), ((1, 2, 100, 64), True),
     # the ETB shapes (etb_attn_fold off) and the unfolded MHCA stages 2-3
     ((2, 1, 3136, 64), True), ((2, 1, 784, 128), True),
     ((2, 1, 196, 320), True), ((2, 8, 784, 8), False),
-    ((2, 8, 196, 16), False)])
+    ((2, 8, 196, 16), False),
+    # the MHCA shapes at the train batch (the head body)
+    ((24, 8, 49, 40), False), ((24, 8, 784, 8), False),
+    ((24, 8, 196, 16), False)])
 def test_linear_attention_kernel(gen, shape, q_softmax):
-    q, k, v = (_r(gen, *shape, scale=f, dtype=torch.bfloat16)
-               for f in (1.0, 3.0, 1.0))
-    scale = 1.0 if q_softmax else shape[-1] ** -0.5
+    args = _la_args(gen, shape, q_softmax)
     n0 = la.launches
-    _close(la.linear_attention(q, k, v, q_softmax, scale),
-           la.linear_attention_plain(q, k, v, q_softmax, scale))
+    _close(la.linear_attention(*args), la.linear_attention_plain(*args))
     assert la.launches == n0 + 1
+
+
+@pytest.mark.parametrize("shape,q_softmax", [
+    ((2, 8, 784, 8), False),   # the head body
+    ((24, 8, 49, 40), False),  # the head body at the train batch
+    ((2, 1, 3136, 64), True),  # the segmented body, several segments
+    ((32, 1, 196, 320), True)])  # the segmented body, one segment
+def test_linear_attention_repeat_bit_identical(gen, shape, q_softmax):
+    """No atomics in either K6 body: two launches on the same inputs give
+    the same bits."""
+    args = _la_args(gen, shape, q_softmax)
+    assert la.plan(shape[0] * shape[1], *shape[2:], shape[3], 132)[
+        "body"] == ("head" if shape[3] <= 64 and shape[2] < 1000
+                    else "segmented")
+    assert torch.equal(la.linear_attention(*args),
+                       la.linear_attention(*args))
 
 
 def _folded_inputs(gen, N, M):

@@ -83,8 +83,8 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
 
 @pytest.mark.parametrize("shape,dtype", [
     ((1, 64, 64), torch.float32),     # the kernel takes bf16 only
-    ((1, 64, 72), torch.bfloat16),    # C not a multiple of 16
-    ((1, 64, 512), torch.bfloat16),   # C above the shared-memory limit
+    ((1, 64, 72), torch.bfloat16),    # C not a multiple of 64
+    ((1, 64, 576), torch.bfloat16),   # C above the kernel's limit (512)
     ((64, 64), torch.bfloat16),       # not (B, N, C)
 ])
 def test_kernel_checks_raise(shape, dtype):

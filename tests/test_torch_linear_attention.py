@@ -121,12 +121,18 @@ def test_plain_matches_pallas_interpret_long_n_bf16():
 
 
 @pytest.mark.parametrize("N,dk,dv,bh,want", [
-    (49, 40, 40, 256, 2), (3136, 64, 64, 32, 9), (784, 128, 128, 32, 3),
-    (196, 320, 320, 32, 1), (784, 8, 8, 256, 2), (5, 64, 64, 1, 1)])
+    (49, 40, 40, 256, 1), (3136, 64, 64, 32, 9), (784, 128, 128, 32, 3),
+    (196, 320, 320, 32, 1), (784, 8, 8, 256, 1), (5, 64, 64, 1, 1)])
 def test_segments_fill_the_card(N, dk, dv, bh, want):
-    """N is cut into enough non-empty segments of at least 32 rows for
-    ~2 blocks per SM (context tiles x segments x batch·heads)."""
-    S = la.segments(N, dk, dv, bh)
+    """K6's plan on 132 SMs: the heads that fit a block (the MHCA shapes,
+    and a 5-row head) take the head body, the whole head one segment;
+    the others cut N into enough non-empty segments of whole 64-row
+    chunks for 2 context-stage blocks per SM (context tiles x segments x
+    batch·heads)."""
+    p = la.plan(bh, N, dk, dv, 132)
+    S, rps = p["segments"], p["segment_rows"]
     assert S == want
-    rps = -(-N // S)
-    assert (S - 1) * rps < N
+    assert p["body"] == ("segmented" if dk > 64 or N > 1000 else "head")
+    assert S * rps >= N and (S - 1) * rps < N
+    if p["body"] == "segmented":
+        assert rps % 64 == 0 and p["blocks"]["ctx"] >= 2 * 132

@@ -2,7 +2,8 @@
 // MixFFN backward (K11) share, as kernels over the whole batch:
 //   - mixffn_gemm_kernel, the tiled product on the tensor cores, with the
 //     caller's (grouped) LayerNorm optionally folded into its A operand
-//     and a compile-time epilogue;
+//     and a compile-time epilogue (also the ETB attention's (K1) qkv and
+//     proj; its BK-deep step, mma_step, also the linear-attention core's);
 //   - mixffn_convrows_kernel, the forward's depthwise 3x3 conv, y = d + h,
 //     the hidden LayerNorm and the GELU, a block per map row;
 //   - ffn::forward, the MixFFN_skip forward chain on them, which replaces
@@ -42,7 +43,7 @@
 // leaves through a padded shared-memory tile in 16-byte stores, the
 // residual read the same way. The plan of tiles
 // is the wrapper's (ops/kernels/mixffn.py fwd_plan). KID, the number of the
-// kernel that launches a stage (2, 5, 9, 11), is a template argument only
+// kernel that launches a stage (1, 2, 5, 9, 11), is a template argument only
 // so that a profile can tell the owners' stages apart by name.
 //
 // Rounding points are the Pallas kernel's: the caller's LN output, h, the
@@ -115,6 +116,56 @@ __device__ __forceinline__ void stage(uint32_t s, const bf16* p, int ld,
     const bool ok = r < rv && c * 8 < cv;
     cp_async16(s + (c >> 3) * (R * 128) + swz(r, c & 7),
                ok ? p + (size_t)r * ld + c * 8 : p, ok);
+  }
+}
+
+// One BK-deep step of a warp's WM x WN share of a BM x BN product, acc +=
+// A·B on the tensor cores: A's tile at sa (AMK: BM rows of BK, else BK
+// rows of BM), B's at sb (BNK: BN rows of BK, else BK rows of BN), each in
+// stage's swizzled 64-column panels; fragments by ldmatrix (.trans where
+// M or N is the contiguous side).
+template <int BM, int BN, bool AMK, bool BNK>
+__device__ __forceinline__ void mma_step(
+    uint32_t sa, uint32_t sb, int wm, int wn,
+    float (&acc)[Tile<BM, BN>::MT][Tile<BM, BN>::NT][4]) {
+  using T = Tile<BM, BN>;
+  const int l = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) {
+    uint32_t af[T::MT][4], bf[T::NT][2];
+#pragma unroll
+    for (int i = 0; i < T::MT; ++i) {
+      const int mi = wm + i * 16;
+      if (AMK) {
+        bsa::ldsm_x4(sa + swz(mi + (l & 15), (kk >> 3) + (l >> 4)), af[i]);
+      } else {
+        const int cc = (mi >> 3) + ((l >> 3) & 1);
+        const int r = kk + (l & 7) + ((l >> 4) << 3);
+        bsa::ldsm_x4_t(sa + (cc >> 3) * (BK * 128) + swz(r, cc & 7), af[i]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < T::NT; j += 2) {
+      const int ni = wn + j * 8;
+      uint32_t f[4];
+      if (BNK) {
+        bsa::ldsm_x4(sb + swz(ni + (l & 7) + ((l >> 4) << 3),
+                              (kk >> 3) + ((l >> 3) & 1)), f);
+      } else {
+        const int cc = (ni >> 3) + (l >> 4);
+        bsa::ldsm_x4_t(sb + (cc >> 3) * (BK * 128) + swz(kk + (l & 15),
+                                                        cc & 7), f);
+      }
+      bf[j][0] = f[0];
+      bf[j][1] = f[1];
+      bf[j + 1][0] = f[2];
+      bf[j + 1][1] = f[3];
+    }
+#pragma unroll
+    for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j)
+        bsa::mma(acc[i][j], af[i], bf[j][0], bf[j][1]);
   }
 }
 
@@ -234,42 +285,7 @@ mixffn_gemm_kernel(const bf16* A, int lda, const bf16* B, int ldb, void* out,
     load(it + GSTAGES - 1);
     const uint32_t sb = ring + (it % GSTAGES) * slot + (ALN ? 0 : T::A_BYTES);
     const uint32_t sa = ALN ? base + it * T::A_BYTES : sb - T::A_BYTES;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[T::MT][4], bf[T::NT][2];
-#pragma unroll
-      for (int i = 0; i < T::MT; ++i) {
-        const int mi = wm + i * 16;
-        if (AMK) {
-          bsa::ldsm_x4(sa + swz(mi + (l & 15), (kk >> 3) + (l >> 4)), af[i]);
-        } else {
-          const int cc = (mi >> 3) + ((l >> 3) & 1);
-          const int r = kk + (l & 7) + ((l >> 4) << 3);
-          bsa::ldsm_x4_t(sa + (cc >> 3) * (BK * 128) + swz(r, cc & 7), af[i]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < T::NT; j += 2) {
-        const int ni = wn + j * 8;
-        uint32_t f[4];
-        if (BNK) {
-          bsa::ldsm_x4(sb + swz(ni + (l & 7) + ((l >> 4) << 3),
-                                (kk >> 3) + ((l >> 3) & 1)), f);
-        } else {
-          const int cc = (ni >> 3) + (l >> 4);
-          bsa::ldsm_x4_t(sb + (cc >> 3) * (BK * 128) + swz(kk + (l & 15),
-                                                          cc & 7), f);
-        }
-        bf[j][0] = f[0];
-        bf[j][1] = f[1];
-        bf[j + 1][0] = f[2];
-        bf[j + 1][1] = f[3];
-      }
-#pragma unroll
-      for (int i = 0; i < T::MT; ++i)
-#pragma unroll
-        for (int j = 0; j < T::NT; ++j) bsa::mma(acc[i][j], af[i], bf[j][0], bf[j][1]);
-    }
+    mma_step<BM, BN, AMK, BNK>(sa, sb, wm, wn, acc);
   }
   bsa::cp_async_wait<0>();
 
