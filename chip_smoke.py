@@ -6,15 +6,19 @@ Phases (any failed check exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
      the ptxas report (registers, spills) of the kernels redesigned for
-     registers and the card's tensor cores, K3, K10, K8 and every stage of
-     K1, K2, K5, K6, K9 and K11, which must not spill;
+     registers and the card's tensor cores, K3, K10, K8, K4, K7 and every
+     stage of K1, K2, K5, K6, K9 and K11, which must not spill;
   3. each kernel against its plain PyTorch version at every shape the
      serving path gives it in any fold configuration (bf16, batch 32) and
      at the shapes the "pallas" train step gives K1, K5-K7 and K9 (batch
      24), with timings of kernel, plain version and, where one exists, a
      single PyTorch library call. A kernel that adds its input back is
      held on its branch alone (output minus input), and a planted fault in
-     the plain version must fail the same check;
+     the plain version must fail the same check. K4 and K7 are held in
+     both layouts (the shuffled one the model asks for, and pre-shuffle
+     order), K7 also at the logits path's x4 shape, K4 also at batch 1,
+     both at maps that leave a partial token tile (checks off the main
+     path are logged, not rows of the kernels line);
   4. the published MSTransception at full width (224², bf16, random
      weights from a seed) through make_predictor(...).predict_volume on a
      synthetic 48-slice 512² volume, batch 32, with launch counters;
@@ -23,8 +27,8 @@ Phases (any failed check exits non-zero):
      class maps), for three weight seeds;
   6. forward time at batch 32, kernels on and off (same structure);
   7. device busy time and idle share of one forward (torch.profiler), the
-     device time of each stage of K1, K2, K5 and K6 by kernel name, and
-     the cudaLaunchKernel calls per forward;
+     device time of each stage of K1, K2, K5 and K6 and of K4 and K7 by
+     kernel name, and the cudaLaunchKernel calls per forward;
   8. the train step's kernels against their plain versions at every shape
      the published train step gives them (bf16, batch 24): the bridge
      attention (K3) and its backward (K10), the MixFFN backward (K11) and
@@ -47,9 +51,9 @@ Phases (any failed check exits non-zero):
      (torch.profiler);
  10. the fold grid: the published model (b=32) under each fold
      configuration of FOLD_GRID, with the launches per forward held to
-     models.transception.launches_per_forward, the class maps to
-     "folds-off"'s, the kernel path to use_kernels=False under the same
-     config, and the forward time.
+     models.transception.launches_per_forward (argmax and logits
+     forwards), the class maps to "folds-off"'s, the kernel path to
+     use_kernels=False under the same config, and the forward time.
 Every launch of the main-path runs (phases 4, 9 and 10) is tallied by
 shape (ops.kernels.shape_counts); each shape must have been measured in
 phase 3 or 8. The last line is {"ok": true, "device": {...}}; the two
@@ -237,12 +241,86 @@ def err_check(name, got, want, rel_tol, base=None):
     return err, ok
 
 
+def compare(name, label, got, want, tol, base=None):
+    """A kernel's result against its plain version: class ids (K4) by the
+    fraction that differ, everything else by err_check."""
+    if name != "expand_head":
+        return err_check(f"{name} {label}", got, want, tol, base)
+    err = (got != want).float().mean().item()
+    ok = err <= tol
+    log(f"  {name} {label}: id mismatch fraction {err:.6g} (tolerance "
+        f"{tol}) {'ok' if ok else 'FAIL'}")
+    return err, ok
+
+
+def _expand_head_cases(gen, B, case):
+    """K4 in both layouts: at the serving batch (the shuffled map is the
+    main path's), at batch 1 (make_predictor(batch=1)) and at a map that
+    leaves a partial token tile. Fault: class 0's head bias raised by 1,
+    so that it wins more often."""
+    from transception_tpu_torch.ops.kernels import expand_head as eh
+    C, c, p, ncls = 64, 64, 4, 9
+    w = rand(gen, (p * p * c, C), (1.0 / C) ** 0.5)
+    ls, lb = rand(gen, (c,), 0.1, 1.0), rand(gen, (c,), 0.1)
+    hw, hb = rand(gen, (ncls, c), (1.0 / c) ** 0.5), rand(gen, (ncls,), 0.02)
+    hb_bad = hb.clone()
+    hb_bad[0] += 1.0
+    for b, (H, W), on_path in ((B, (56, 56), True), (1, (56, 56), False),
+                               (2, (25, 40), False)):
+        N = H * W
+        x = rand(gen, (b, N, C), dtype=torch.bfloat16)
+        args, bad = (x, w, ls, lb, hw, hb), (x, w, ls, lb, hw, hb_bad)
+        for shuffle in ((H, W), None):
+            out = (f"({b},{p * H},{p * W})" if shuffle else
+                   f"({b},{N},{p * p}) pre-shuffle")
+            kw = dict(p=p, c=c, shuffle=shuffle)
+            case("expand_head", f"({b},{N},{C}) -> ids {out}",
+                 lambda a=args, kw=kw: eh.expand_head(*a, **kw),
+                 lambda a=args, kw=kw: eh.expand_head_plain(*a, **kw),
+                 b * N * C * 2 + b * N * p * p + p * p * c * C * 2,
+                 2 * b * N * C * p * p * c + 2 * b * N * p * p * c * ncls,
+                 1e-3, fault=("class 0's head bias raised by 1",
+                              lambda a=bad, kw=kw: eh.expand_head_plain(
+                                  *a, **kw)),
+                 main=on_path and shuffle is not None)
+
+
+def _patch_expand_cases(gen, B, case, train):
+    """K7 in both layouts: the p = 2 expanders of decoders 3/2/1 and, when
+    serving, the x4 expander of decoder 0 on the logits path ((B, 3136,
+    64) -> 1024) and two maps that leave a partial token tile; the
+    shuffled layout at B is the main path's. Fault: the LN bias dropped."""
+    from transception_tpu_torch.ops.kernels import patch_expand as pe
+    maps = [(B, 7, 7, 512, 2, True), (B, 14, 14, 320, 2, True),
+            (B, 28, 28, 128, 2, True)]
+    if not train:
+        maps += [(B, 56, 56, 64, 4, True), (3, 5, 10, 128, 2, False),
+                 (2, 25, 40, 64, 4, False)]
+    for b, H, W, C, p, on_path in maps:
+        N, c = H * W, C // 2 if p == 2 else C
+        x = rand(gen, (b, N, C), dtype=torch.bfloat16)
+        args = (x, rand(gen, (p * p * c, C), C ** -0.5),
+                rand(gen, (c,), 0.1, 1.0), rand(gen, (c,), 0.2))
+        bad = args[:3] + (torch.zeros_like(args[3]),)
+        for shuffle in ((H, W), None):
+            out = (f"({b},{p * p * N},{c})" if shuffle else
+                   f"({b},{N},{p * p * c}) pre-shuffle")
+            kw = dict(p=p, c=c, shuffle=shuffle)
+            case("patch_expand", f"({b},{N},{C}) -> {out}",
+                 lambda a=args, kw=kw: pe.patch_expand(*a, **kw),
+                 lambda a=args, kw=kw: pe.patch_expand_plain(*a, **kw),
+                 b * N * C * 2 + b * N * p * p * c * 2 + p * p * c * C * 2,
+                 2 * b * N * C * p * p * c, 0.02,
+                 fault=("LN bias dropped",
+                        lambda a=bad, kw=kw: pe.patch_expand_plain(*a, **kw)),
+                 main=on_path and shuffle is not None)
+
+
 def _serving_only_cases(gen, B, case):
     """The serving path's K2, K3, K8 and K4 shapes (the train step's K2
     and K3 are held in phase 8)."""
     from transception_tpu_torch.ops.kernels import (
         bridge_attention as ba,
-        expand_head as eh,
         mixffn as mf,
     )
     # K2: fault: the depthwise taps negated.
@@ -322,16 +400,7 @@ def _serving_only_cases(gen, B, case):
          4 * B * N * M * d + 4 * B * N * d * d, 0.02, lfn=lib_folded,
          base=res, fault=("out-projection bias dropped",
                           lambda a=bad: ba.bridge_attention_folded_plain(*a)))
-    N, C, c, p, ncls = 3136, 64, 64, 4, 9
-    x = rand(gen, (B, N, C), dtype=torch.bfloat16)
-    args = (x, rand(gen, (p * p * c, C), (1.0 / C) ** 0.5),
-            rand(gen, (c,), 0.1, 1.0), rand(gen, (c,), 0.1),
-            rand(gen, (ncls, c), (1.0 / c) ** 0.5), rand(gen, (ncls,), 0.02))
-    case("expand_head", f"({B},{N},{C}) -> ids ({B},{N},{p * p})",
-         lambda a=args: eh.expand_head(*a, p=p, c=c),
-         lambda a=args: eh.expand_head_plain(*a, p=p, c=c),
-         B * N * C * 2 + B * N * p * p + p * p * c * C * 2,
-         2 * B * N * C * p * p * c + 2 * B * N * p * p * c * ncls, 1e-3)
+    _expand_head_cases(gen, B, case)
 
 def kernel_cases(gen, B=BATCH, train=False):
     """One dict per (kernel, main-path shape) at batch B: kernel fn, plain
@@ -340,21 +409,22 @@ def kernel_cases(gen, B=BATCH, train=False):
     must reject (K9 has one too). train=False: every shape the serving
     path gives a kernel in any fold configuration; train=True: the forward
     kernels of the "pallas" train step that phase 8 does not hold (K1, K5
-    on the rate-0 blocks, K6 on the unfolded MHCA blocks, K7, K9)."""
+    on the rate-0 blocks, K6 on the unfolded MHCA blocks, K7, K9).
+    main=False marks a check off the main path (another layout, batch or
+    tail): held, not recorded."""
     from transception_tpu_torch.ops.kernels import (
         etb_attention as ea,
         linear_attention as la,
         mhca_block as mb,
         mixffn as mf,
-        patch_expand as pe,
     )
     cases = []
 
     def case(name, label, kfn, pfn, nbytes, flops, tol, lfn=None, base=None,
-             fault=None):
+             fault=None, main=True):
         cases.append(dict(name=name, label=label, kfn=kfn, pfn=pfn, lfn=lfn,
                           nbytes=nbytes, flops=flops, tol=tol, base=base,
-                          fault=fault))
+                          fault=fault, main=main))
 
     # K1: peaked softmaxes (keys and queries scaled up) so the attention
     # branch is of the order of x; fault: keys negated (ctx changes only).
@@ -422,17 +492,7 @@ def kernel_cases(gen, B=BATCH, train=False):
              lambda a=(q, k, v, q_sm, sc): la.linear_attention(*a),
              lambda a=(q, k, v, q_sm, sc): la.linear_attention_plain(*a),
              4 * B * h * N * dh * 2, 4 * B * h * N * dh * dh, 0.02)
-    # K7: the p = 2 expanders of decoders 3/2/1.
-    for N, C in ((49, 512), (196, 320), (784, 128)):
-        c = C // 2
-        x = rand(gen, (B, N, C), dtype=torch.bfloat16)
-        args = (x, rand(gen, (4 * c, C), C ** -0.5),
-                rand(gen, (c,), 0.1, 1.0), rand(gen, (c,), 0.1))
-        case("patch_expand", f"({B},{N},{C}) -> ({B},{N},{4 * c})",
-             lambda a=args, c=c: pe.patch_expand(*a, p=2, c=c),
-             lambda a=args, c=c: pe.patch_expand_plain(*a, p=2, c=c),
-             B * N * C * 2 + B * N * 4 * c * 2 + 4 * c * C * 2,
-             2 * B * N * C * 4 * c, 0.02)
+    _patch_expand_cases(gen, B, case, train)
     # K9: the MHCA FFNs of the blocks with drop path (train step only);
     # fault: the fc2 bias dropped (b2 drawn large enough to show).
     for s, C in ((28, 64), (14, 128)) if train else ():
@@ -475,26 +535,24 @@ def kernel_phase():
         key, got = launched_key(name, cs["kfn"])
         want = cs["pfn"]()
         torch.cuda.synchronize()
-        if got.shape != want.shape:
-            fail(f"{name} {label}: shape {tuple(got.shape)} vs "
-                 f"{tuple(want.shape)}")
-        if name == "expand_head":
-            err = (got != want).float().mean().item()
-            ok = err <= cs["tol"]
-            log(f"  {name} {label}: id mismatch fraction {err:.6g} "
-                f"(tolerance {cs['tol']}) {'ok' if ok else 'FAIL'}")
-        else:
-            err, ok = err_check(f"{name} {label}", got, want, cs["tol"],
-                                cs["base"])
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"{name} {label}: {tuple(got.shape)} {got.dtype} vs "
+                 f"{tuple(want.shape)} {want.dtype}")
+        err, ok = compare(name, label, got, want, cs["tol"], cs["base"])
         if not ok:
             fail(f"{name} disagrees with its plain version")
         if cs["fault"] is not None:
             what, ffn = cs["fault"]
-            _, caught = err_check(f"  planted fault ({what}) vs plain",
-                                  ffn(), want, cs["tol"], cs["base"])
+            _, caught = compare(name, f"  planted fault ({what}) vs plain",
+                                ffn(), want, cs["tol"], cs["base"])
             if caught:
                 fail(f"{name}: the check does not see a planted fault")
-        ms, pms = cuda_ms(cs["kfn"]), cuda_ms(cs["pfn"], iters=5)
+        ms = cuda_ms(cs["kfn"])
+        if not cs["main"]:
+            log(f"    ms {ms:.4f} per launch (off the main path: not a row "
+                f"of the kernels line)")
+            continue
+        pms = cuda_ms(cs["pfn"], iters=5)
         lms = cuda_ms(cs["lfn"]) if cs["lfn"] else None
         bms, by = bound_ms(cs["nbytes"], cs["flops"])
         log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms "
@@ -622,9 +680,14 @@ def model_phase():
 def stage_of(name):
     """'K2 fc1', 'K5 attn', 'K1 ctx', ... for a kernel of the staged
     forwards (K1, K2, K5, K6, K9: the owner is the first template argument
-    of the shared stages) or 'K11 ...' for the backward's; None for any
+    of the shared stages), 'K11 ...' for the backward's, 'K4 expand+head'
+    and 'K7 expand' for the two kernels on the expand body; None for any
     other kernel."""
     import re
+    m = re.search(r"(expand_head|patch_expand)_kernel", name)
+    if m:  # the expand body with its head or store epilogue
+        return "K4 expand+head" if m.group(1) == "expand_head" else \
+            "K7 expand"
     m = re.search(r"mixffn_gemm_kernel<(\d+), \w+, \w+, (\w+), \d+, \d+, "
                   r"(\d)>", name)
     if m:
@@ -964,9 +1027,9 @@ def plain_backward_checks(gen):
          lambda *a: la.linear_attention(*a, False, 0.25),
          lambda *a: la.linear_attention_plain(*a, False, 0.25),
          [rand(gen, (B, 8, 196, 16), f, dtype=bf) for f in (1.0, 3.0, 1.0)]),
-        ("patch_expand", f"({B},196,320) -> ({B},196,640)",
-         lambda *a: pe.patch_expand(*a, p=2, c=160),
-         lambda *a: pe.patch_expand_plain(*a, p=2, c=160),
+        ("patch_expand", f"({B},196,320) -> ({B},784,160)",
+         lambda *a: pe.patch_expand(*a, p=2, c=160, shuffle=(14, 14)),
+         lambda *a: pe.patch_expand_plain(*a, p=2, c=160, shuffle=(14, 14)),
          [rand(gen, (B, 196, 320), dtype=bf),
           rand(gen, (640, 320), 320 ** -0.5), rand(gen, (160,), 0.1, 1.0),
           rand(gen, (160,), 0.1)]),
@@ -1227,7 +1290,7 @@ def fold_grid_phase(x):
     forward against launches_per_forward, class maps against "folds-off",
     the kernel path against use_kernels=False on the same weights and
     config, forward time (CUDA events, best of two). Returns the launches
-    per shape key of each configuration's forward."""
+    per shape key of each configuration's argmax and logits forwards."""
     import dataclasses
 
     from transception_tpu_torch.core.config import TransceptionConfig
@@ -1257,7 +1320,13 @@ def fold_grid_phase(x):
         counts = kernels.launch_counts()
         tallies[name] = kernels.shape_counts()
         want = launches_per_forward(cfg)
+        # The logits forward: K7 at the x4 expander in place of K4.
+        kernels.reset_launches()
         logits = run(model, False)
+        torch.cuda.synchronize()
+        l_counts = kernels.launch_counts()
+        tallies[f"{name} logits"] = kernels.shape_counts()
+        l_want = launches_per_forward(cfg, argmax=False)
         ms = min(cuda_ms(lambda: run(model, True), iters=1, warmup=0)
                  for _ in range(2))
         plain = MSTransception(dataclasses.replace(cfg, use_kernels=False),
@@ -1276,6 +1345,8 @@ def fold_grid_phase(x):
             f"{agree_p:.6f} (threshold {AGREE_MIN})")
         if counts != want:
             fail(f"{name}: launches {counts}, want {want}")
+        if l_counts != l_want:
+            fail(f"{name} logits: launches {l_counts}, want {l_want}")
         if not torch.isfinite(logits).all() or rel > 0.05 or \
                 agree_p < AGREE_MIN:
             fail(f"{name}: the kernel path disagrees with the plain path")
@@ -1337,12 +1408,13 @@ def main():
     (OUT_DIR / "chip_smoke_ptxas.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in reports.items()))
     # The bridge attention kernels (K3, K10, K8), the MixFFN forward's and
-    # backward's stages (K2, K9, K11), the MHCA block's (K5) and the
-    # linear-attention stages of K1 and K6 are built for registers alone:
-    # their ptxas report, and no spills.
+    # backward's stages (K2, K9, K11), the MHCA block's (K5), the
+    # linear-attention stages of K1 and K6 and the expand body's K4 and K7
+    # are built for registers alone: their ptxas report, and no spills.
     for lib in ("bridge_attention", "bridge_attention_bwd",
                 "bridge_attention_folded", "mixffn", "mixffn_bwd",
-                "mhca_block", "etb_attention", "linear_attention"):
+                "mhca_block", "etb_attention", "linear_attention",
+                "expand_head", "patch_expand"):
         if reports[lib] is None:
             fail(f"{lib}: no ptxas report")
         for fn, regs, st, ld, smem in ptxas_report(reports[lib]):

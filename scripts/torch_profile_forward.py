@@ -8,7 +8,9 @@ its kernels there, builds the published `TransceptionConfig()` model at
 full width (random weights, seed 0), and profiles forwards of a seeded
 batch of 32 slices (argmax head, kernels on) with torch.profiler: device
 busy time, wall time, idle share, device activities, cudaLaunchKernel
-calls, and the port's kernels summed by name. Prints one JSON line per
+calls, the port's kernels summed by name, and the device time and
+launches per forward of the kernels named in NAMED (K4, K7, by the
+substring of their CUDA kernel's name). Prints one JSON line per
 profiled forward (--repeats, default 3) and exits non-zero without a card.
 Imports nothing of JAX.
 """
@@ -28,6 +30,9 @@ import torch
 PORT = ("etb_", "lin_", "mixffn_", "bridge_attention", "expand_head",
         "mhca_", "patch_expand", "linear_attention", "rows_kernel",
         "cols_kernel", "sum_partials")
+# Kernels whose device time per forward is reported on its own.
+NAMED = {"K4 expand_head": "expand_head_kernel",
+         "K7 patch_expand": "patch_expand_kernel"}
 
 
 def profile(model, x) -> dict:
@@ -43,10 +48,11 @@ def profile(model, x) -> dict:
             model(x, argmax=True)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-    by_name = Counter()
+    by_name, calls = Counter(), Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
+            calls[e.name] += 1
     busy = sum(by_name.values())
     port = {n: t for n, t in by_name.items() if any(k in n for k in PORT)}
     return dict(
@@ -56,6 +62,10 @@ def profile(model, x) -> dict:
         launch_calls=sum(1 for e in prof.events()
                          if e.name.startswith("cudaLaunchKernel")),
         port_ms=sum(port.values()),
+        named={k: dict(ms=round(sum(t for n, t in by_name.items()
+                                    if sub in n), 4),
+                       launches=sum(c for n, c in calls.items() if sub in n))
+               for k, sub in NAMED.items()},
         port_top={n[:80]: round(t, 4) for n, t in
                   sorted(port.items(), key=lambda kv: -kv[1])[:8]})
 

@@ -135,15 +135,29 @@ def test_bridge_attention_kernel(gen, B, h, N, M):
     assert ba.launches == n0 + 1
 
 
-def test_expand_head_kernel(gen):
-    x = _r(gen, 2, 200, 64, dtype=torch.bfloat16)
-    args = (x, _r(gen, 1024, 64, scale=0.125), _r(gen, 64, scale=0.1,
-                                                   shift=1.0),
-            _r(gen, 64, scale=0.1), _r(gen, 9, 64, scale=0.125),
-            _r(gen, 9, scale=0.02))
-    got = eh.expand_head(*args, p=4, c=64)
-    want = eh.expand_head_plain(*args, p=4, c=64)
-    assert got.dtype == torch.uint8 and got.shape == (2, 200, 16)
+# (B, H, W): partial token tiles (2 x 200, 2 x 1000 tokens against tiles of
+# 128), one slice (batch 1: the groups split in quads), the serving map.
+@pytest.mark.parametrize("B,H,W", [(2, 10, 20), (2, 25, 40), (1, 56, 56),
+                                   (32, 56, 56)])
+@pytest.mark.parametrize("shuffled", [True, False])
+@pytest.mark.parametrize("ptype", [torch.float32, torch.bfloat16])
+def test_expand_head_kernel(gen, B, H, W, shuffled, ptype):
+    """K4 in both layouts, with the LN and head vectors in either dtype
+    (read as they come, no cast)."""
+    x = _r(gen, B, H * W, 64, dtype=torch.bfloat16)
+    args = (x, _r(gen, 1024, 64, scale=0.125),
+            _r(gen, 64, scale=0.1, shift=1.0, dtype=ptype),
+            _r(gen, 64, scale=0.1, dtype=ptype),
+            _r(gen, 9, 64, scale=0.125, dtype=ptype),
+            _r(gen, 9, scale=0.02, dtype=ptype))
+    shuffle = (H, W) if shuffled else None
+    n0 = eh.launches
+    got = eh.expand_head(*args, p=4, c=64, shuffle=shuffle)
+    want = eh.expand_head_plain(*args, p=4, c=64, shuffle=shuffle)
+    torch.cuda.synchronize()
+    assert eh.launches == n0 + 1
+    shape = (B, 4 * H, 4 * W) if shuffled else (B, H * W, 16)
+    assert got.dtype == torch.uint8 and got.shape == shape
     assert (got != want).float().mean().item() <= 1e-3
 
 
@@ -236,14 +250,29 @@ def test_bridge_attention_folded_kernel(gen, N, M):
     assert ba.folded_launches == n0 + 1
 
 
-@pytest.mark.parametrize("N,C,p", [(49, 512, 2), (50, 128, 2), (20, 64, 4)])
-def test_patch_expand_kernel(gen, N, C, p):
+# (B, H, W, C, p): the three p = 2 widths (c = 256, 160, 64; ragged token
+# tiles), the x4 expander on the logits path (a partial tile of 128 and the
+# serving map) and one p = 2 map at batch 24 (a partial tile of 32).
+@pytest.mark.parametrize("B,H,W,C,p", [
+    (2, 7, 7, 512, 2), (2, 14, 14, 320, 2), (2, 5, 10, 128, 2),
+    (2, 4, 5, 64, 4), (2, 25, 40, 64, 4), (32, 56, 56, 64, 4),
+    (24, 7, 7, 512, 2)])
+@pytest.mark.parametrize("shuffled", [True, False])
+@pytest.mark.parametrize("ptype", [torch.float32, torch.bfloat16])
+def test_patch_expand_kernel(gen, B, H, W, C, p, shuffled, ptype):
+    """K7 in both layouts, with the LN vectors in either dtype."""
     c = C // 2 if p == 2 else C
-    args = (_r(gen, 2, N, C, dtype=torch.bfloat16),
+    args = (_r(gen, B, H * W, C, dtype=torch.bfloat16),
             _r(gen, p * p * c, C, scale=C ** -0.5),
-            _r(gen, c, scale=0.1, shift=1.0), _r(gen, c, scale=0.1))
-    _close(pe.patch_expand(*args, p=p, c=c),
-           pe.patch_expand_plain(*args, p=p, c=c))
+            _r(gen, c, scale=0.1, shift=1.0, dtype=ptype),
+            _r(gen, c, scale=0.1, dtype=ptype))
+    shuffle = (H, W) if shuffled else None
+    n0 = pe.launches
+    got = pe.patch_expand(*args, p=p, c=c, shuffle=shuffle)
+    want = pe.patch_expand_plain(*args, p=p, c=c, shuffle=shuffle)
+    assert pe.launches == n0 + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _close(got, want)
 
 
 def test_kernels_off_run_plain_on_the_card(gen):
@@ -498,8 +527,9 @@ def test_plain_backwards_match_autograd_of_plain(gen):
          mhca + crpe[0] + crpe[1] + tail),
         (lambda *a: la.linear_attention(*a, False, 40 ** -0.5),
          lambda *a: la.linear_attention_plain(*a, False, 40 ** -0.5), qkv),
-        (lambda *a: pe.patch_expand(*a, p=2, c=64),
-         lambda *a: pe.patch_expand_plain(*a, p=2, c=64), pex),
+        (lambda *a: pe.patch_expand(*a, p=2, c=64, shuffle=(5, 10)),
+         lambda *a: pe.patch_expand_plain(*a, p=2, c=64, shuffle=(5, 10)),
+         pex),
         (lambda *a: ba.bridge_attention_folded(*a, 0.125),
          lambda *a: ba.bridge_attention_folded_plain(*a, 0.125), fold),
         (lambda *a: mf.mixffn_skip(*a, s=s),

@@ -99,9 +99,10 @@ def _route_to_plain_launchers(monkeypatch):
         *a[:9], s=a[9], eps=a[10]))
     monkeypatch.setattr(ea, "_launch", ea.etb_attention_plain)
     monkeypatch.setattr(la, "_launch", la.linear_attention_plain)
-    monkeypatch.setattr(pe, "_launch", lambda x, w, ls, lb, p, c, eps:
+    monkeypatch.setattr(pe, "_launch",
+                        lambda x, w, ls, lb, p, c, eps, shuffle=None:
                         pe.patch_expand_plain(x, w, ls, lb, p=p, c=c,
-                                              eps=eps))
+                                              eps=eps, shuffle=shuffle))
     monkeypatch.setattr(ba, "_launch_folded", ba.bridge_attention_folded_plain)
     monkeypatch.setattr(mb, "_launch", mb.mhca_block_plain)
 

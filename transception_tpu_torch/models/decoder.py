@@ -4,8 +4,9 @@ of transception_tpu/models/decoder.py:58.
 Each stage concatenates the skip map channel-wise, projects, runs two
 EfficientTransformerBlocks, then 2x patch-expands; the last stage uses the
 4x expander and a 1x1 conv head. The argmax head (:154-201) computes the
-class ids in pre-shuffle order and pixel-shuffles the uint8 map; the wide
-head (training, :124-153) returns the logits in pre-shuffle order.
+class ids in pre-shuffle order and pixel-shuffles the uint8 map (in bf16
+one kernel writes the shuffled map); the wide head (training, :124-153)
+returns the logits in pre-shuffle order.
 """
 
 from __future__ import annotations
@@ -73,19 +74,18 @@ class DecoderLayer(nn.Module):
             m = self.layer_up(t, H, W).reshape(B, p * H, p * W, -1)
             return self.last_layer(m)
         if self.dtype == torch.bfloat16:
-            # Expand + grouped LN + bf16 head + argmax in one kernel.
+            # Expand + grouped LN + bf16 head + argmax in one kernel,
+            # which writes the shuffled class map.
             up, hl = self.layer_up, self.last_layer
-            ids = kernels.expand_head.expand_head(
+            return kernels.expand_head.expand_head(
                 t, up.expand.weight, up.norm.weight, up.norm.bias,
                 hl.weight.reshape(hl.weight.shape[0], -1), hl.bias, p=p,
-                c=self.out_dim, eps=up.norm.eps)
-        else:
-            # fp32: the expansion in pre-shuffle order, the fp32 1x1 conv
-            # per c-vector, argmax (decoder.py:192-201).
-            y = self.layer_up(t, H, W, pre_shuffle=True)
-            ids = self.last_layer(y).argmax(-1).to(torch.uint8)
-        cls = ids.reshape(B, H, W, p, p).permute(0, 1, 3, 2, 4)
-        return cls.reshape(B, p * H, p * W)
+                c=self.out_dim, eps=up.norm.eps, shuffle=(H, W))
+        # fp32: the expansion in pre-shuffle order, the fp32 1x1 conv per
+        # c-vector, argmax (decoder.py:192-201), then the shuffle.
+        y = self.layer_up(t, H, W, pre_shuffle=True)
+        ids = self.last_layer(y).argmax(-1).to(torch.uint8)
+        return kernels.expand_head.shuffle_ids(ids, H, W, p)
 
     def wide_head(self, t):
         """Logits in pre-pixel-shuffle token order (decoder.py:124-153):

@@ -214,7 +214,8 @@ class _ExpandBase(nn.Module):
     """Dense(expand, no bias) -> LN(c) -> pixel shuffle, shared body of
     PatchExpand/FinalPatchExpandX4 (ops/common.py:423-467 in the JAX
     package). LN is applied per c-vector before the shuffle (they commute);
-    expansion and LN are the patch-expand kernel (ops/kernels)."""
+    expansion, LN and the shuffle are the patch-expand kernel
+    (ops/kernels), which writes each c-vector to its shuffled place."""
 
     def __init__(self, dim: int, p: int, c: int, dtype):
         super().__init__()
@@ -231,11 +232,9 @@ class _ExpandBase(nn.Module):
         p, c = self.p, self.c
         y = patch_expand(x.to(self.expand.dtype), self.expand.weight,
                          self.norm.weight, self.norm.bias, p=p, c=c,
-                         eps=self.norm.eps).reshape(B, N, p * p, c)
-        if pre_shuffle:
-            return y
-        y = y.reshape(B, H, W, p, p, c).permute(0, 1, 3, 2, 4, 5)
-        return y.reshape(B, p * p * H * W, c)
+                         eps=self.norm.eps,
+                         shuffle=None if pre_shuffle else (H, W))
+        return y.reshape(B, N, p * p, c) if pre_shuffle else y
 
 
 class PatchExpand(_ExpandBase):

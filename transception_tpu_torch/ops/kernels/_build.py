@@ -243,7 +243,8 @@ def f32(t):
 
 
 def aligned(t):
-    """t contiguous and 32-byte aligned (WMMA fragment loads need it)."""
+    """t contiguous and 32-byte aligned (the kernels' 16-byte cp.async and
+    vector loads need 16)."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 32 else t
 
