@@ -53,8 +53,18 @@ Phases (any failed check exits non-zero):
      configuration of FOLD_GRID, with the launches per forward held to
      models.transception.launches_per_forward (argmax and logits
      forwards), the class maps to "folds-off"'s, the kernel path to
-     use_kernels=False under the same config, and the forward time.
-Every launch of the main-path runs (phases 4, 9 and 10) is tallied by
+     use_kernels=False under the same config, and the forward time;
+ 11. volume eval: the published model through run_inference on two
+     synthetic 512² volumes (its log lines, launches per chunk, the wall
+     time per volume split into load, resample, forward, back-resize and
+     the wait for the metrics, and the metric thread's time), the two
+     on-card resample paths against the host path with TF32 off and on,
+     the full-resolution class maps of the kernels against the plain
+     path, and cli.test.main in-process: bf16 --is_savenii from a .pth of
+     the same weights, which must give run_inference's means and volumes
+     that load back; the fp32 default with the kernels on, which must
+     raise before any work, naming --dtype bfloat16 and --no_pallas.
+Every launch of the main-path runs (phases 4, 9, 10 and 11) is tallied by
 shape (ops.kernels.shape_counts); each shape must have been measured in
 phase 3 or 8. The last line is {"ok": true, "device": {...}}; the two
 lines before it list each kernel at each shape (one row per shape) with
@@ -1362,6 +1372,198 @@ def fold_grid_phase(x):
     return tallies
 
 
+VOLUME_AGREE = 0.99   # on-card resample against the host spline path
+RESAMPLE_TOL = 1e-6   # |on-card spline - host spline|, with TF32 on
+
+
+def volume_phase():
+    """Phase 11. The published model (224², bf16, seed-0 weights) through
+    the volume evaluation of eval/inference.py on SyntheticVolumeDataset
+    (2 volumes of 512²): run_inference on the host spline path (its log
+    lines, launches per chunk, the wall time per volume split), the two
+    on-card resample paths against the host path's class maps with TF32
+    off and switched on globally, the full-resolution class maps of the
+    kernels against the plain path (predict_volume and the back-resize,
+    no metrics), and cli.test.main in-process once (bf16 --is_savenii from
+    a .pth of the same weights: the same means, volumes that load back and
+    equal the host path's class maps; the fp32 default with the kernels
+    on raises before any work). Returns the launches per shape key of its
+    kernel forwards and their number."""
+    import dataclasses
+    import tempfile
+
+    from transception_tpu_torch.cli import test as cli
+    from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.data.synapse import SyntheticVolumeDataset
+    from transception_tpu_torch.eval import inference as inf
+    from transception_tpu_torch.eval.nifti import load_nifti
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_forward,
+    )
+    from transception_tpu_torch.ops import kernels
+
+    cfg = TransceptionConfig()
+    per = launches_per_forward(cfg)
+    model = MSTransception(cfg, "cuda", seed=0)
+    ds = SyntheticVolumeDataset(length=2, hw=512)
+    vols = [ds.get(i) for i in range(len(ds))]
+    chunks = [math.ceil(v["image"].shape[0] / BATCH) for v in vols]
+    total, n_fwd = Counter(), 0
+
+    def counted(what, n_chunks, fn):
+        """fn() with the launch counters reset before and read after;
+        fails unless each kernel launched launches_per_forward x
+        n_chunks times."""
+        nonlocal n_fwd
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for name, n in per.items():
+            if counts[name] != n * n_chunks:
+                fail(f"{what}: {name} {counts[name]} launches, want {n} x "
+                     f"{n_chunks} chunks")
+        log(f"  {what}: launches {({k: n for k, n in counts.items() if n})}"
+            f" = launches_per_forward x {n_chunks} chunks")
+        total.update(kernels.shape_counts())
+        n_fwd += n_chunks
+        return out
+
+    # 1. run_inference on the host spline path.
+    stats = []
+    t0 = time.perf_counter()
+    means = counted("run_inference", sum(chunks), lambda: inf.run_inference(
+        model, ds, cfg.num_classes, cfg.img_size, BATCH,
+        log=lambda s: log(f"    {s}"), stats=stats))
+    log(f"  run_inference: {time.perf_counter() - t0:.3f} s for "
+        f"{len(vols)} volumes of {[v['image'].shape for v in vols]}")
+    for i, st in enumerate(stats):
+        log(f"  volume {i} wall seconds: " + ", ".join(
+            f"{k} {st[k]:.3f}" for k in ("load", "resample", "forward",
+                                         "back_resize", "save",
+                                         "metrics_wait")) +
+            f"; metric thread {st['metrics']:.3f} ({cfg.num_classes - 1} "
+            f"classes, DSC and HD95)")
+
+    # 2. The on-card resample paths against the host path's class maps,
+    # with the script's TF32 switches off and then with TF32 on globally:
+    # the predictor's products must not take it.
+    host = inf.make_predictor(model, cfg.img_size, BATCH)
+    want = counted("host predict_volume", sum(chunks), lambda: [
+        inf._resize_pred_back(host.predict_volume(v["image"]),
+                              *v["image"].shape[1:]) for v in vols])
+    dres = inf.make_predictor(model, cfg.img_size, BATCH,
+                              device_resample=True)
+    dev = inf.make_device_predictor(model, cfg.img_size, BATCH)
+
+    def on_card(tf32):
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            sl = vols[0]["image"][:BATCH]
+            a_h, a_w = inf._operators(*sl.shape[1:], cfg.img_size,
+                                      torch.device("cuda"))
+            got = inf._resample(torch.from_numpy(sl).cuda(), a_h, a_w)
+            err = (got.cpu() - torch.from_numpy(
+                inf.resize_slices(sl, cfg.img_size))).abs().max().item()
+            log(f"  TF32 {'on' if tf32 else 'off'}: on-card spline vs host "
+                f"spline max_abs_err {err:.3g} (tolerance {RESAMPLE_TOL})")
+            if err > RESAMPLE_TOL:
+                fail("the on-card resample disagrees with the host spline")
+            t0 = time.perf_counter()
+            got_r = counted(f"make_predictor(device_resample=True), TF32 "
+                            f"{tf32}", sum(chunks), lambda: [
+                                inf._resize_pred_back(
+                                    dres.predict_volume(v["image"]),
+                                    *v["image"].shape[1:]) for v in vols])
+            t1 = time.perf_counter()
+            got_d = counted(f"make_device_predictor, TF32 {tf32}",
+                            sum(chunks),
+                            lambda: [dev(v["image"]) for v in vols])
+            t2 = time.perf_counter()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        for what, got, secs in (("device_resample", got_r, t1 - t0),
+                                ("device predictor", got_d, t2 - t1)):
+            agree = np.mean([(g == w).mean() for g, w in zip(got, want)])
+            log(f"  TF32 {'on' if tf32 else 'off'}: {what} class maps vs "
+                f"host path {agree:.6f} (threshold {VOLUME_AGREE}), "
+                f"{secs:.3f} s for both volumes")
+            if agree < VOLUME_AGREE:
+                fail(f"{what} disagrees with the host spline path")
+        if not all((a == b).all() for a, b in zip(got_d, got_r)):
+            fail("the device predictor's gather is not the host "
+                 "back-resize of the same forward")
+        return got_r
+
+    got_r = on_card(False)
+    got_r32 = on_card(True)
+    moved = 1 - np.mean([(a == b).mean() for a, b in zip(got_r32, got_r)])
+    log(f"  TF32 on moves {moved:.6f} of the device_resample class maps; "
+        f"the spline did not move, the forward did")
+
+    # 3. Kernels against the plain path on the same weights: the
+    # full-resolution class maps of test_single_volume's path
+    # (predict_volume, then the back-resize), without its metrics.
+    plain = MSTransception(dataclasses.replace(cfg, use_kernels=False),
+                           "cuda")
+    plain.load_state_dict(model.state_dict())
+    v = vols[0]
+    k_pred = counted("kernel predict_volume", chunks[0],
+                     lambda: inf._resize_pred_back(
+                         host.predict_volume(v["image"]),
+                         *v["image"].shape[1:]))
+    p_pred = inf._resize_pred_back(
+        inf.make_predictor(plain, cfg.img_size, BATCH).predict_volume(
+            v["image"]), *v["image"].shape[1:])
+    agree = (k_pred == p_pred).mean()
+    log(f"  kernel vs plain full-resolution class maps {agree:.6f} "
+        f"(threshold {AGREE_MIN})")
+    if agree < AGREE_MIN:
+        fail("volume eval: the kernel path disagrees with the plain path")
+    del plain
+
+    # 4. The CLI in-process, from a .pth of the same weights: one bf16
+    # run with --is_savenii, and the fp32 default with the kernels on,
+    # which must raise before it reads or builds anything.
+    with tempfile.TemporaryDirectory(
+            dir=Path(__file__).resolve().parent) as tmp:
+        pth = f"{tmp}/seed0.pth"
+        torch.save(model.state_dict(), pth)
+        args = ["--dataset", "synthetic", "--weight_pth", pth]
+        t0 = time.perf_counter()
+        got = counted("cli.test bf16 --is_savenii", sum(chunks),
+                      lambda: cli.main(args + [
+                          "--dtype", "bfloat16", "--output_dir",
+                          f"{tmp}/bf16", "--is_savenii"]))
+        log(f"  cli.test bf16: {got} in {time.perf_counter() - t0:.3f} s, "
+            f"run_inference {means}")
+        if got != means:
+            fail("cli.test.main disagrees with run_inference")
+        for v, want_h in zip(vols, want):
+            for kind in ("img", "pred", "gt"):
+                arr, sp = load_nifti(f"{tmp}/bf16/predictions/"
+                                     f"{v['case_name']}_{kind}.nii.gz")
+                if arr.shape != v["image"].shape or sp != (1.0, 1.0, 1.0):
+                    fail(f"{kind}.nii.gz: {arr.shape} {sp}")
+                if kind == "pred" and not (arr == want_h).all():
+                    fail("the saved class maps are not the host path's")
+        log("  cli.test --is_savenii: 3 volumes per case load back, the "
+            "class maps equal the host path's")
+        try:
+            cli.main(args + ["--output_dir", f"{tmp}/fp32"])
+        except ValueError as e:
+            said = "--no_pallas" in str(e) and "--dtype bfloat16" in str(e)
+            log(f"  cli.test fp32 default with the kernels on raises: {e}")
+        else:
+            said = False
+        if not said or os.path.exists(f"{tmp}/fp32"):
+            fail("the fp32 CLI run with the kernels on did not refuse "
+                 "before any work, naming --dtype bfloat16 and --no_pallas")
+    return total, n_fwd
+
+
 def run_summary(what, tallies, per, measured):
     """Per kernel, the launches of one run (`tallies`, divided by `per`
     forwards or steps) and their summed kernel, plain, bound and library
@@ -1449,14 +1651,21 @@ def main():
     grid_tallies = fold_grid_phase(x)
     log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
 
+    log("phase 11: volume eval, published model, SyntheticVolumeDataset")
+    t0 = time.perf_counter()
+    vol_tallies, n_vol = volume_phase()
+    log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+
     # The main-path runs: phase 4's forwards, phase 9's flash and pallas
-    # Trainer steps, phase 10's forward per configuration. Every launch's
+    # Trainer steps, phase 10's forward per configuration, phase 11's
+    # volume-eval forwards. Every launch's
     # shape must have been measured in phase 3 or 8, and every measured
     # shape launched.
     runs = [("per forward, default config", fwd_tallies, n_fwd)] + [
         (f"per {mode} train step", t, n)
         for mode, (t, n) in step_tallies.items()] + [
-        (f"per forward, {name}", t, 1) for name, t in grid_tallies.items()]
+        (f"per forward, {name}", t, 1) for name, t in grid_tallies.items()
+    ] + [("per forward, volume eval", vol_tallies, n_vol)]
     total = Counter()
     for _, t, _ in runs:
         total.update(t)

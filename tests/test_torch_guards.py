@@ -23,8 +23,10 @@ MODEL_FIELDS = (
     "bridge_attn_fold",
     "bridge_ffn_use_pallas", "etb_attn_fold", "etb_ffn_fold", "mhca_ffn_fold",
     "mhca_block_fold")
-# DataConfig fields the port mirrors (those its train loop reads).
-DATA_FIELDS = ("dataset", "img_size", "num_classes", "synthetic_len")
+# DataConfig fields the port mirrors (those its train loop and its test
+# volumes read).
+DATA_FIELDS = ("dataset", "test_path", "list_dir", "img_size", "num_classes",
+               "synthetic_len")
 
 
 @pytest.mark.parametrize("name", MODEL_FIELDS)

@@ -1,0 +1,198 @@
+"""Shared CLI argument handling of the port (train_MSTransception.py:18-95
+knob set): the flags and defaults of transception_tpu/cli/common.py:15-106,
+and build_configs onto the port's configs.
+
+A flag whose field the port's configs lack is accepted at its default and
+refused (ValueError) at any other value, naming what is missing: it is
+never silently ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from transception_tpu_torch.core.config import (
+    DataConfig,
+    TrainConfig,
+    TransceptionConfig,
+    br_config_to_ch_att_list,
+)
+
+# Flags the port's configs have no field for: argparse dest -> (default,
+# what is missing). head_count to dil_conv are JAX TransceptionConfig fields
+# of the models the port does not have (ROADMAP.md §1 item 5); remat,
+# vectorize_paths and debug_nans are JAX-only knobs; device_data is the
+# JAX host/device switch of the synthetic train stream (the port's is
+# always made on the device); root_path, num_workers and no_augment feed
+# the train loaders and max_steps and profile the train CLI, which are not
+# ported yet (ROADMAP.md §1 item 3).
+UNSUPPORTED = {
+    "head_count": (8, "TransceptionConfig.head_count"),
+    "use_sa_config": (1, "TransceptionConfig.use_sa_config"),
+    "sa_ker": (7, "TransceptionConfig.sa_ker"),
+    "inter": ("res", "TransceptionConfig.inter"),
+    "num_sp": (1, "TransceptionConfig.num_sp"),
+    "dil_conv": (1, "TransceptionConfig.dil_conv"),
+    "remat": (False, "TransceptionConfig.remat (rematerialised stages)"),
+    "no_vectorize_paths": (False, "TransceptionConfig.vectorize_paths (the "
+                                  "port has one parameter layout, the "
+                                  "reference's)"),
+    "debug_nans": (False, "jax_debug_nans (a JAX switch)"),
+    "device_data": (False, "DataConfig.device_data (the port's synthetic "
+                           "train stream is always made on the device)"),
+    "root_path": ("./data/Synapse/train_npz",
+                  "DataConfig.root_path (the train slice loaders)"),
+    "num_workers": (4, "DataConfig.num_workers (the train slice loaders)"),
+    "no_augment": (False, "DataConfig.augment (train-time augmentation)"),
+    "max_steps": (None, "the train CLI's --max_steps"),
+    "profile": (False, "the train CLI's --profile"),
+}
+
+
+def add_model_args(p: argparse.ArgumentParser):
+    p.add_argument("--model", type=str, default="mstransception",
+                   help="registry name (models/registry.py; the port has "
+                        "mstransception)")
+    p.add_argument("--num_classes", type=int, default=9)
+    p.add_argument("--img_size", type=int, default=224)
+    p.add_argument("--head_count", type=int, default=8)
+    p.add_argument("--MSViT_config", type=int, default=2)
+    p.add_argument("--concat", type=str, default="coord",
+                   help="IFF: normal|3d|se|skn|cbam|coord|cam|cam_fact "
+                        "(the port has coord)")
+    p.add_argument("--have_bridge", type=str, default="original",
+                   help="original|sp|para|none (the port has original)")
+    p.add_argument("--use_sa_config", type=int, default=1)
+    p.add_argument("--sa_ker", type=int, default=7)
+    p.add_argument("--Stage_3or4", type=int, default=3)
+    p.add_argument("--inter", type=str, default="res")
+    p.add_argument("--num_sp", type=int, default=1)
+    p.add_argument("--br_config", type=int, default=2)
+    p.add_argument("--dil_conv", type=int, default=1)
+    p.add_argument("--token_mlp", type=str, default="mix_skip")
+    p.add_argument("--num_layers", type=str, default="3,8,3",
+                   help="comma-separated MHCA layers per stage")
+    p.add_argument("--num_path", type=str, default="3,3,3",
+                   help="comma-separated RIPM paths per stage")
+    p.add_argument("--stage1_layers", type=int, default=2)
+    p.add_argument("--dtype", type=str, default="bfloat16")
+    p.add_argument("--remat", action="store_true",
+                   help="not in the port (refused)")
+    p.add_argument("--no_pallas", action="store_true",
+                   help="run the plain PyTorch versions in place of the "
+                        "CUDA kernels (use_kernels=False)")
+    p.add_argument("--drop_path_rate", type=float, default=0.0)
+    p.add_argument("--no_vectorize_paths", action="store_true",
+                   help="not in the port (refused)")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="not in the port (refused)")
+
+
+def add_data_args(p: argparse.ArgumentParser):
+    p.add_argument("--dataset", type=str, default="Synapse",
+                   help="Synapse | ISIC | synthetic (the port has no ISIC)")
+    p.add_argument("--root_path", type=str,
+                   default="./data/Synapse/train_npz",
+                   help="not in the port (refused): the train loaders")
+    # --volume_path is the reference test.py's name for the same thing
+    # (test.py:26), accepted as an alias.
+    p.add_argument("--test_path", "--volume_path", type=str,
+                   default="./data/Synapse/test_vol_h5")
+    p.add_argument("--list_dir", type=str, default="./lists/lists_Synapse")
+    p.add_argument("--num_workers", type=int, default=4,
+                   help="not in the port (refused): the train loaders")
+    p.add_argument("--z_spacing", type=int, default=1)
+    p.add_argument("--device_data", action="store_true",
+                   help="not in the port (refused): its synthetic train "
+                        "stream is always made on the device")
+    p.add_argument("--no_augment", action="store_true",
+                   help="not in the port (refused): the train loaders")
+
+
+def add_train_args(p: argparse.ArgumentParser):
+    p.add_argument("--output_dir", type=str, default="./output")
+    p.add_argument("--max_epochs", type=int, default=400)
+    p.add_argument("--batch_size", type=int, default=24)
+    p.add_argument("--base_lr", type=float, default=0.05)
+    p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--eval_interval", type=int, default=20)
+    p.add_argument("--eval_schedule", type=str, default="interval",
+                   help="'interval' (every N epochs) or 'reference' "
+                        "(the recipe-exact two-phase cadence, "
+                        "trainer.py:179-226)")
+    p.add_argument("--model_name", type=str, default="transception_tpu")
+    p.add_argument("--grad_clipping", action="store_true")
+    p.add_argument("--no_scheduler", action="store_true",
+                   help="use poly decay instead of cosine")
+    p.add_argument("--accumulation_steps", type=int, default=1)
+    p.add_argument("--dp_size", type=int, default=-1)
+    p.add_argument("--tp_size", type=int, default=1)
+    p.add_argument("--no_resume", action="store_true")
+    p.add_argument("--max_steps", type=int, default=None,
+                   help="not in the port (refused): the train CLI")
+    p.add_argument("--eval_device_resample", action="store_true",
+                   help="in-training evals resample slices on the card")
+    p.add_argument("--profile", action="store_true",
+                   help="not in the port (refused): the train CLI")
+
+
+def _refuse_unsupported(args) -> None:
+    bad = [f"--{dest} ({what})" for dest, (default, what)
+           in UNSUPPORTED.items()
+           if getattr(args, dest, default) != default]
+    if bad:
+        raise ValueError("not in the PyTorch port, so only the default is "
+                         "accepted: " + "; ".join(bad))
+
+
+def build_configs(args):
+    """(TransceptionConfig, DataConfig, TrainConfig) of parsed flags, as
+    transception_tpu/cli/common.py:116 builds the JAX ones; --no_pallas is
+    use_kernels=False."""
+    _refuse_unsupported(args)
+    num_classes = 2 if args.dataset.lower() == "isic" else args.num_classes
+    num_layers = tuple(int(v) for v in
+                       getattr(args, "num_layers", "3,8,3").split(","))
+    num_path = tuple(int(v) for v in
+                     getattr(args, "num_path", "3,3,3").split(","))
+    model_cfg = TransceptionConfig(
+        num_classes=num_classes,
+        img_size=args.img_size,
+        num_layers=num_layers,
+        num_path=num_path,
+        num_heads=(8,) * len(num_layers),
+        stage1_layers=getattr(args, "stage1_layers", 2),
+        concat=args.concat,
+        have_bridge=args.have_bridge,
+        br_ch_att_list=br_config_to_ch_att_list(args.br_config),
+        stage_3or4=args.Stage_3or4,
+        token_mlp=args.token_mlp,
+        dtype=args.dtype,
+        use_kernels=not getattr(args, "no_pallas", False),
+        drop_path_rate=getattr(args, "drop_path_rate", 0.0),
+    ).validate()
+    data_cfg = DataConfig(
+        dataset=args.dataset.lower(),
+        test_path=args.test_path,
+        list_dir=args.list_dir,
+        img_size=args.img_size,
+        num_classes=num_classes,
+    )
+    train_cfg = TrainConfig(
+        base_lr=getattr(args, "base_lr", 0.05),
+        batch_size=getattr(args, "batch_size", 24),
+        max_epochs=getattr(args, "max_epochs", 400),
+        use_scheduler=not getattr(args, "no_scheduler", False),
+        grad_clipping=getattr(args, "grad_clipping", False),
+        grad_accum_steps=getattr(args, "accumulation_steps", 1),
+        seed=getattr(args, "seed", 1234),
+        eval_interval=getattr(args, "eval_interval", 20),
+        eval_schedule=getattr(args, "eval_schedule", "interval"),
+        output_dir=getattr(args, "output_dir", "./output"),
+        model_name=getattr(args, "model_name", "transception_tpu"),
+        dp_size=getattr(args, "dp_size", -1),
+        tp_size=getattr(args, "tp_size", 1),
+        resume=not getattr(args, "no_resume", False),
+        eval_device_resample=getattr(args, "eval_device_resample", False),
+    )
+    return model_cfg, data_cfg, train_cfg

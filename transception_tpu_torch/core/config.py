@@ -206,11 +206,15 @@ DEFAULT_FOLDS: Folds = fold_table(TransceptionConfig())
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     """The fields of the JAX DataConfig (core/config.py:250-267) that the
-    port's train loop reads. It streams synthetic batches made on the
-    device (the JAX device_data stream); the Synapse and ISIC loaders and
-    their fields are not ported yet."""
+    port reads. Its train loop streams synthetic batches made on the
+    device (the JAX device_data stream); the test volumes read test_path
+    and list_dir (data.synapse.make_test_dataset). The train loaders and
+    their fields (root_path, num_workers, augment) are not ported yet
+    (ROADMAP.md §1 item 3)."""
 
     dataset: str = "synapse"  # synapse | isic | synthetic
+    test_path: str = "./data/Synapse/test_vol_h5"
+    list_dir: str = "./lists/lists_Synapse"
     img_size: int = 224
     num_classes: int = 9
     # Length of the synthetic stream (lists_Synapse/train.txt).
