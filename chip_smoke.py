@@ -18,7 +18,11 @@ Phases (any failed check exits non-zero):
      both layouts (the shuffled one the model asks for, and pre-shuffle
      order), K7 also at the logits path's x4 shape, K4 also at batch 1,
      both at maps that leave a partial token tile (checks off the main
-     path are logged, not rows of the kernels line);
+     path are logged, not rows of the kernels line); and the fp32 forms
+     (K1, K2, K5, K6, K3, K7 in both layouts) at every shape the fp32 eval
+     forward gives them, against their fp32 plain versions with TF32 off
+     within FP32_TOL, each with a planted fault, bounds at the fp32 FFMA
+     peak, K3 beside SDPA at fp32;
   4. the published MSTransception at full width (224², bf16, random
      weights from a seed) through make_predictor(...).predict_volume on a
      synthetic 48-slice 512² volume, batch 32, with launch counters;
@@ -29,6 +33,9 @@ Phases (any failed check exits non-zero):
   7. device busy time and idle share of one forward (torch.profiler), the
      device time of each stage of K1, K2, K5 and K6 and of K4 and K7 by
      kernel name, and the cudaLaunchKernel calls per forward;
+     then 5-7 at fp32: the published model at dtype float32 on its fp32
+     kernels against its plain path (logits, class maps, launches exactly
+     launches_per_forward), forward time and device busy time;
   8. the train step's kernels against their plain versions at every shape
      the published train step gives them (bf16, batch 24): the bridge
      attention (K3) and its backward (K10), the MixFFN backward (K11) and
@@ -62,9 +69,12 @@ Phases (any failed check exits non-zero):
      the full-resolution class maps of the kernels against the plain
      path, and cli.test.main in-process: bf16 --is_savenii from a .pth of
      the same weights, which must give run_inference's means and volumes
-     that load back; the fp32 default with the kernels on, which must
-     raise before any work, naming --dtype bfloat16 and --no_pallas.
-Every launch of the main-path runs (phases 4, 9, 10 and 11) is tallied by
+     that load back; one pass of the fp32 default (the fp32 kernels,
+     launches per chunk held to launches_per_forward, finite means); fp16
+     with the kernels on, which must raise before any work, naming --dtype
+     float32, --dtype bfloat16 and --no_pallas.
+Every launch of the main-path runs (phases 4, 5-7 at fp32, 9, 10 and 11) is
+tallied by
 shape (ops.kernels.shape_counts); each shape must have been measured in
 phase 3 or 8. The last line is {"ok": true, "device": {...}}; the two
 lines before it list each kernel at each shape (one row per shape) with
@@ -88,6 +98,15 @@ import numpy as np
 import torch
 
 BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak, FLOP/s
+FP32_FLOPS = 67e12    # H100 SXM fp32 peak outside the tensor cores (FFMA)
+# The fp32 kernels against their fp32 plain versions (TF32 off), stated
+# before the first card run: max|kernel - plain| <= FP32_TOL x max|plain|
+# (branch alone for the residual kernels); the fp32 forward's logits within
+# FP32_LOGITS_TOL x max|logit| of the plain path's, its class maps at
+# least FP32_AGREE equal.
+FP32_TOL = 1e-4
+FP32_LOGITS_TOL = 1e-3
+FP32_AGREE = 0.999
 HBM_BYTES = 3.35e12   # H100 SXM HBM3 bandwidth, bytes/s
 BATCH = 32
 TRAIN_BATCH = 24      # TrainConfig().batch_size
@@ -149,8 +168,11 @@ def cuda_ms(fn, iters=10, warmup=2):
     return a.elapsed_time(b) / iters
 
 
-def bound_ms(nbytes, flops):
-    t_b, t_f = nbytes / HBM_BYTES * 1e3, flops / BF16_FLOPS * 1e3
+def bound_ms(nbytes, flops, peak=BF16_FLOPS):
+    """The least time of a kernel's work: its bytes at the HBM rate or its
+    operations at `peak` (the bf16 tensor-core rate, or FP32_FLOPS for the
+    fp32 forms), whichever is longer."""
+    t_b, t_f = nbytes / HBM_BYTES * 1e3, flops / peak * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
@@ -198,16 +220,17 @@ def launched_key(name, fn):
     return next(iter(tallied)), out
 
 
-def record(measured, key, label, err, ms, pms, lms, nbytes, flops):
+def record(measured, key, label, err, ms, pms, lms, nbytes, flops,
+           peak=BF16_FLOPS):
     """One kernel at one shape (its tally key): error and times per launch
-    against the bound. A shape measured twice keeps its first times and
-    the larger error."""
+    against the bound (operations at `peak`). A shape measured twice keeps
+    its first times and the larger error."""
     name = key[0]
     if key in measured:
         measured[key]["max_abs_err"] = max(measured[key]["max_abs_err"],
                                            err)
         return
-    bms, by = bound_ms(nbytes, flops)
+    bms, by = bound_ms(nbytes, flops, peak)
     src = {"mixffn_skip": "mixffn"}.get(name, name)  # K9 shares K2's library
     measured[key] = {
         "name": name, "shape": label, "route": "cuda",
@@ -263,6 +286,66 @@ def compare(name, label, got, want, tol, base=None):
     return err, ok
 
 
+def _k1_args(gen, B, N, C, dt):
+    """K1's input and parameters, peaked softmaxes (keys and queries scaled
+    up) so the attention branch is of the order of x, and the planted
+    fault: the keys negated (the context changes only)."""
+    x = rand(gen, (B, N, C), 0.25, dtype=dt)
+    sc = C ** -0.5
+    wq, wk, wv, wp = (rand(gen, (C, C), f * sc) for f in (2, 4, 2, 2))
+    v = [rand(gen, (C,), 0.1, 1.0), rand(gen, (C,), 0.1)] + [
+        rand(gen, (C,), 0.02) for _ in range(4)]
+    args = (x, v[0], v[1], wq, v[2], wk, v[3], wv, v[4], wp, v[5])
+    return x, args, args[:5] + (-wk,) + args[6:]
+
+
+def _k2_args(gen, B, s, C, gsz, dt):
+    """K2's input and parameters (the caller's LN over groups of gsz
+    channels) and the planted fault: the depthwise taps negated."""
+    hid = 4 * C
+    x = rand(gen, (B, s * s, C), dtype=dt)
+    args = (x, rand(gen, (gsz,), 0.1, 1.0), rand(gen, (gsz,), 0.1),
+            rand(gen, (hid, C), C ** -0.5), rand(gen, (hid,), 0.02),
+            rand(gen, (hid, 1, 3, 3), 0.3), rand(gen, (hid,), 0.02),
+            rand(gen, (hid,), 0.1, 1.0), rand(gen, (hid,), 0.1),
+            rand(gen, (C, hid), hid ** -0.5), rand(gen, (C,), 0.02))
+    return x, args, args[:5] + (-args[5],) + args[6:]
+
+
+def _k5_args(gen, B, s, C, dt):
+    """K5's input and parameters, the qkv weight scaled up so softmax(K) is
+    peaked and Q · ctx is of the order of the CRPE term, and the planted
+    fault: the key rows of qkv negated."""
+    hid, heads, N = 4 * C, 8, s * s
+    chs = [h * C // heads for _, h in ((3, 2), (5, 3), (7, 3))]
+    x = rand(gen, (B, N, C), 0.5, dtype=dt)
+    wqkv = rand(gen, (3 * C, C), 3 * C ** -0.5)
+    rest = (rand(gen, (3 * C,), 0.02),
+            [rand(gen, (n, 1, k, k), 1.0 / k) for n, k in
+             zip(chs, (3, 5, 7))],
+            [rand(gen, (n,), 0.02) for n in chs],
+            rand(gen, (C, C), C ** -0.5), rand(gen, (C,), 0.02),
+            rand(gen, (C,), 0.1, 1.0), rand(gen, (C,), 0.1),
+            rand(gen, (hid, C), C ** -0.5), rand(gen, (hid,), 0.02),
+            rand(gen, (hid, 1, 3, 3), 0.3), rand(gen, (hid,), 0.02),
+            rand(gen, (hid,), 0.1, 1.0), rand(gen, (hid,), 0.1),
+            rand(gen, (C, hid), hid ** -0.5), rand(gen, (C,), 0.02))
+    head = (x, rand(gen, (C, 1, 3, 3), 0.3), rand(gen, (C,), 0.02),
+            rand(gen, (C,), 0.1, 1.0), rand(gen, (C,), 0.1))
+    wbad = wqkv.clone()
+    wbad[C:2 * C] *= -1
+    return x, head + (wqkv,) + rest, head + (wbad,) + rest
+
+
+def _k7_args(gen, B, N, C, c, p, dt):
+    """K7's input and parameters and the planted fault: the LN bias
+    dropped."""
+    x = rand(gen, (B, N, C), dtype=dt)
+    args = (x, rand(gen, (p * p * c, C), C ** -0.5),
+            rand(gen, (c,), 0.1, 1.0), rand(gen, (c,), 0.2))
+    return args, args[:3] + (torch.zeros_like(args[3]),)
+
+
 def _expand_head_cases(gen, B, case):
     """K4 in both layouts: at the serving batch (the shuffled map is the
     main path's), at batch 1 (make_predictor(batch=1)) and at a map that
@@ -308,10 +391,7 @@ def _patch_expand_cases(gen, B, case, train):
                  (2, 25, 40, 64, 4, False)]
     for b, H, W, C, p, on_path in maps:
         N, c = H * W, C // 2 if p == 2 else C
-        x = rand(gen, (b, N, C), dtype=torch.bfloat16)
-        args = (x, rand(gen, (p * p * c, C), C ** -0.5),
-                rand(gen, (c,), 0.1, 1.0), rand(gen, (c,), 0.2))
-        bad = args[:3] + (torch.zeros_like(args[3]),)
+        args, bad = _k7_args(gen, b, N, C, c, p, torch.bfloat16)
         for shuffle in ((H, W), None):
             out = (f"({b},{p * p * N},{c})" if shuffle else
                    f"({b},{N},{p * p * c}) pre-shuffle")
@@ -333,16 +413,10 @@ def _serving_only_cases(gen, B, case):
         bridge_attention as ba,
         mixffn as mf,
     )
-    # K2: fault: the depthwise taps negated.
+    # K2 at the ETB FFN folds.
     for s, C in ((56, 64), (28, 128), (14, 320)):
         hid = 4 * C
-        x = rand(gen, (B, s * s, C), dtype=torch.bfloat16)
-        args = (x, rand(gen, (C,), 0.1, 1.0), rand(gen, (C,), 0.1),
-                rand(gen, (hid, C), C ** -0.5), rand(gen, (hid,), 0.02),
-                rand(gen, (hid, 1, 3, 3), 0.3), rand(gen, (hid,), 0.02),
-                rand(gen, (hid,), 0.1, 1.0), rand(gen, (hid,), 0.1),
-                rand(gen, (C, hid), hid ** -0.5), rand(gen, (C,), 0.02))
-        bad = args[:5] + (-args[5],) + args[6:]
+        x, args, bad = _k2_args(gen, B, s, C, C, torch.bfloat16)
         case("mixffn", f"({B},{s * s},{C}) hidden {hid}",
              lambda a=args, s=s: mf.mixffn_ln_skip(*a, s=s),
              lambda a=args, s=s: mf.mixffn_ln_skip_plain(*a, s=s),
@@ -358,14 +432,8 @@ def _serving_only_cases(gen, B, case):
             (56, 64, 1, 1e-5, "bridge"), (28, 128, 2, 1e-5, "bridge"),
             (14, 320, 5, 1e-5, "bridge"), (28, 64, 1, 1e-6, "MHCA"),
             (14, 128, 1, 1e-6, "MHCA")):
-        hid, gsz = 4 * C, C // groups
-        x = rand(gen, (B, s * s, C), dtype=torch.bfloat16)
-        args = (x, rand(gen, (gsz,), 0.1, 1.0), rand(gen, (gsz,), 0.1),
-                rand(gen, (hid, C), C ** -0.5), rand(gen, (hid,), 0.02),
-                rand(gen, (hid, 1, 3, 3), 0.3), rand(gen, (hid,), 0.02),
-                rand(gen, (hid,), 0.1, 1.0), rand(gen, (hid,), 0.1),
-                rand(gen, (C, hid), hid ** -0.5), rand(gen, (C,), 0.02))
-        bad = args[:5] + (-args[5],) + args[6:]
+        hid = 4 * C
+        x, args, bad = _k2_args(gen, B, s, C, C // groups, torch.bfloat16)
         kw = dict(s=s, groups=groups, eps_ln=eps_ln)
         case("mixffn", f"({B},{s * s},{C}) hidden {hid} groups {groups} "
              f"({where} fold)",
@@ -436,16 +504,9 @@ def kernel_cases(gen, B=BATCH, train=False):
                           nbytes=nbytes, flops=flops, tol=tol, base=base,
                           fault=fault, main=main))
 
-    # K1: peaked softmaxes (keys and queries scaled up) so the attention
-    # branch is of the order of x; fault: keys negated (ctx changes only).
+    # K1 (_k1_args).
     for N, C in ((3136, 64), (784, 128), (196, 320)):
-        x = rand(gen, (B, N, C), 0.25, dtype=torch.bfloat16)
-        sc = C ** -0.5
-        wq, wk, wv, wp = (rand(gen, (C, C), f * sc) for f in (2, 4, 2, 2))
-        v = [rand(gen, (C,), 0.1, 1.0), rand(gen, (C,), 0.1)] + [
-            rand(gen, (C,), 0.02) for _ in range(4)]
-        args = (x, v[0], v[1], wq, v[2], wk, v[3], wv, v[4], wp, v[5])
-        bad = args[:5] + (-wk,) + args[6:]
+        x, args, bad = _k1_args(gen, B, N, C, torch.bfloat16)
         case("etb_attention", f"({B},{N},{C})",
              lambda a=args: ea.etb_attention(*a),
              lambda a=args: ea.etb_attention_plain(*a),
@@ -454,30 +515,11 @@ def kernel_cases(gen, B=BATCH, train=False):
                             lambda a=bad: ea.etb_attention_plain(*a)))
     if not train:
         _serving_only_cases(gen, B, case)
-    # K5: the qkv weight scaled up so softmax(K) is peaked and Q · ctx is
-    # of the order of the CRPE term; fault: the key rows of qkv negated.
-    # In the train step with drop path only stage 2's rate-0 blocks.
+    # K5 (_k5_args); in the train step with drop path only stage 2's
+    # rate-0 blocks.
     for s, C in ((28, 64),) if train else ((28, 64), (14, 128)):
         hid, heads, N = 4 * C, 8, s * s
-        chs = [h * C // heads for _, h in ((3, 2), (5, 3), (7, 3))]
-        x = rand(gen, (B, N, C), 0.5, dtype=torch.bfloat16)
-        wqkv = rand(gen, (3 * C, C), 3 * C ** -0.5)
-        rest = (rand(gen, (3 * C,), 0.02),
-                [rand(gen, (n, 1, k, k), 1.0 / k) for n, k in
-                 zip(chs, (3, 5, 7))],
-                [rand(gen, (n,), 0.02) for n in chs],
-                rand(gen, (C, C), C ** -0.5), rand(gen, (C,), 0.02),
-                rand(gen, (C,), 0.1, 1.0), rand(gen, (C,), 0.1),
-                rand(gen, (hid, C), C ** -0.5), rand(gen, (hid,), 0.02),
-                rand(gen, (hid, 1, 3, 3), 0.3), rand(gen, (hid,), 0.02),
-                rand(gen, (hid,), 0.1, 1.0), rand(gen, (hid,), 0.1),
-                rand(gen, (C, hid), hid ** -0.5), rand(gen, (C,), 0.02))
-        head = (x, rand(gen, (C, 1, 3, 3), 0.3), rand(gen, (C,), 0.02),
-                rand(gen, (C,), 0.1, 1.0), rand(gen, (C,), 0.1))
-        args = head + (wqkv,) + rest
-        wbad = wqkv.clone()
-        wbad[C:2 * C] *= -1
-        bad = head + (wbad,) + rest
+        x, args, bad = _k5_args(gen, B, s, C, torch.bfloat16)
         case("mhca_block", f"({B},{N},{C}) heads {heads} hidden {hid}",
              lambda a=args, s=s: mb.mhca_block(*a, s=s, heads=8),
              lambda a=args, s=s: mb.mhca_block_plain(*a, s=s, heads=8),
@@ -523,6 +565,114 @@ def kernel_cases(gen, B=BATCH, train=False):
     return cases
 
 
+def fp32_kernel_cases(gen, B=BATCH):
+    """The fp32 forms at every shape the fp32 eval forward of the default
+    config launches them (TransceptionConfig(dtype="float32"), batch B),
+    against their fp32 plain versions with TF32 off, within FP32_TOL: K1
+    at the three ETB maps, K2 at the ETB FFN folds, K5 at stages 2-3, K6 at
+    stage 4, K3 on the bridge stream, K7 at the three p = 2 expands
+    (shuffled) and the x4 expand before the fp32 head (pre-shuffle), each
+    K7 also in its other layout (held, not a row). Inputs and planted
+    faults are the bf16 cases' (_k1_args, ...), K6 and K3 with a fault of
+    their own; bytes at 4 a value, operations at FP32_FLOPS."""
+    from transception_tpu_torch.ops.kernels import (
+        bridge_attention as ba,
+        etb_attention as ea,
+        linear_attention as la,
+        mhca_block as mb,
+        mixffn as mf,
+        patch_expand as pe,
+    )
+    cases = []
+    f32 = torch.float32
+
+    def case(name, label, kfn, pfn, nbytes, flops, lfn=None, base=None,
+             fault=None, main=True):
+        cases.append(dict(name=name, label=f"{label} fp32", kfn=kfn, pfn=pfn,
+                          lfn=lfn, nbytes=nbytes, flops=flops, tol=FP32_TOL,
+                          base=base, fault=fault, main=main,
+                          peak=FP32_FLOPS))
+
+    for N, C in ((3136, 64), (784, 128), (196, 320)):
+        x, args, bad = _k1_args(gen, B, N, C, f32)
+        case("etb_attention", f"({B},{N},{C})",
+             lambda a=args: ea.etb_attention(*a),
+             lambda a=args: ea.etb_attention_plain(*a),
+             2 * B * N * C * 4 + 4 * C * C * 4, 12 * B * N * C * C,
+             base=x, fault=("keys negated",
+                            lambda a=bad: ea.etb_attention_plain(*a)))
+    for s, C in ((56, 64), (28, 128), (14, 320)):  # the ETB FFN folds
+        hid = 4 * C
+        x, args, bad = _k2_args(gen, B, s, C, C, f32)
+        case("mixffn", f"({B},{s * s},{C}) hidden {hid}",
+             lambda a=args, s=s: mf.mixffn_ln_skip(*a, s=s),
+             lambda a=args, s=s: mf.mixffn_ln_skip_plain(*a, s=s),
+             2 * B * s * s * C * 4 + 2 * C * hid * 4 + 9 * hid * 4,
+             4 * B * s * s * C * hid + 18 * B * s * s * hid,
+             base=x, fault=("depthwise taps negated",
+                            lambda a=bad, s=s: mf.mixffn_ln_skip_plain(
+                                *a, s=s)))
+    for s, C in ((28, 64), (14, 128)):  # stages 2-3
+        hid, heads, N = 4 * C, 8, s * s
+        x, args, bad = _k5_args(gen, B, s, C, f32)
+        case("mhca_block", f"({B},{N},{C}) heads {heads} hidden {hid}",
+             lambda a=args, s=s: mb.mhca_block(*a, s=s, heads=8),
+             lambda a=args, s=s: mb.mhca_block_plain(*a, s=s, heads=8),
+             2 * B * N * C * 4 + (4 * C * C + 2 * C * hid + 9 * hid) * 4,
+             B * N * (8 * C * C + 4 * C * C // heads + 78 * C
+                      + 4 * C * hid + 18 * hid),
+             base=x, fault=("key rows of qkv negated",
+                            lambda a=bad, s=s: mb.mhca_block_plain(
+                                *a, s=s, heads=8)))
+    # K6 at stage 4 (the factorized attention, scaled; fault: the keys
+    # negated, which moves only the context).
+    h, N, dh = 8, 49, 40
+    q, k, v = (rand(gen, (B, h, N, dh), f) for f in (1.0, 3.0, 1.0))
+    sc = dh ** -0.5
+    case("linear_attention", f"q/k/v ({B},{h},{N},{dh}) q_softmax False",
+         lambda a=(q, k, v, False, sc): la.linear_attention(*a),
+         lambda a=(q, k, v, False, sc): la.linear_attention_plain(*a),
+         4 * B * h * N * dh * 4, 4 * B * h * N * dh * dh,
+         fault=("keys negated", lambda a=(q, -k, v, False, sc):
+                la.linear_attention_plain(*a)))
+    # K3 on the bridge stream; the library call SDPA at fp32 with TF32 off
+    # (fault: the keys' first channel zeroed).
+    N, M, d = 6076, 784, 64
+    q = rand(gen, (B, 1, N, d))
+    k = rand(gen, (B, 1, M, d))
+    vv = rand(gen, (B, 1, M, d))
+    kbad = k.clone()
+    kbad[..., 0] = 0
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    case("bridge_attention", f"q ({B},1,{N},{d}) kv ({B},1,{M},{d})",
+         lambda a=(q, k, vv): ba.bridge_attention(*a, d ** -0.5),
+         lambda a=(q, k, vv): ba.bridge_attention_plain(*a, d ** -0.5),
+         2 * B * N * d * 4 + 2 * B * M * d * 4, 4 * B * N * M * d,
+         lfn=lambda a=(q, k, vv): sdpa(*a, scale=d ** -0.5),
+         fault=("first key channel zeroed", lambda a=(q, kbad, vv):
+                ba.bridge_attention_plain(*a, d ** -0.5)))
+    # K7: the main path's layout is a row.
+    for H, W, C, p, main_shuffled in ((7, 7, 512, 2, True),
+                                      (14, 14, 320, 2, True),
+                                      (28, 28, 128, 2, True),
+                                      (56, 56, 64, 4, False)):
+        N, c = H * W, C // 2 if p == 2 else C
+        args, bad = _k7_args(gen, B, N, C, c, p, f32)
+        for shuffle in ((H, W), None):
+            out = (f"({B},{p * p * N},{c})" if shuffle else
+                   f"({B},{N},{p * p * c}) pre-shuffle")
+            kw = dict(p=p, c=c, shuffle=shuffle)
+            case("patch_expand", f"({B},{N},{C}) -> {out}",
+                 lambda a=args, kw=kw: pe.patch_expand(*a, **kw),
+                 lambda a=args, kw=kw: pe.patch_expand_plain(*a, **kw),
+                 B * N * C * 4 + B * N * p * p * c * 4 + p * p * c * C * 4,
+                 2 * B * N * C * p * p * c,
+                 fault=("LN bias dropped",
+                        lambda a=bad, kw=kw: pe.patch_expand_plain(*a, **kw)),
+                 main=(shuffle is not None) == main_shuffled)
+    return cases
+
+
 def replaces(name):
     """The TPU kernel a counter's kernel replaces (file:line)."""
     from transception_tpu_torch.ops import kernels
@@ -539,7 +689,8 @@ def kernel_phase():
     """Phase 3. Returns the measurements per kernel and shape key."""
     measured = {}
     gen = torch.Generator().manual_seed(1)
-    cases = kernel_cases(gen) + kernel_cases(gen, TRAIN_BATCH, train=True)
+    cases = kernel_cases(gen) + kernel_cases(gen, TRAIN_BATCH, train=True) \
+        + fp32_kernel_cases(gen)
     for cs in cases:
         name, label = cs["name"], cs["label"]
         key, got = launched_key(name, cs["kfn"])
@@ -564,12 +715,13 @@ def kernel_phase():
             continue
         pms = cuda_ms(cs["pfn"], iters=5)
         lms = cuda_ms(cs["lfn"]) if cs["lfn"] else None
-        bms, by = bound_ms(cs["nbytes"], cs["flops"])
+        peak = cs.get("peak", BF16_FLOPS)
+        bms, by = bound_ms(cs["nbytes"], cs["flops"], peak)
         log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms "
             f"{lms if lms is None else round(lms, 4)} bound_ms {bms:.4f} "
             f"({by}) per launch; {against(ms, bms, lms)}")
         record(measured, key, label, err, ms, pms, lms, cs["nbytes"],
-               cs["flops"])
+               cs["flops"], peak)
     return measured
 
 
@@ -687,6 +839,75 @@ def model_phase():
     return (tallies, n_fwd), x
 
 
+def fp32_model_phase(x):
+    """Phases 5-7 at fp32, the published protocol's dtype: the published
+    model at TransceptionConfig(dtype="float32") (seed-0 weights) on its
+    fp32 kernels against its plain path (use_kernels=False, the same
+    weights and fold structure) on the b=32 slices x, TF32 off: logits
+    within FP32_LOGITS_TOL x max|logit|, class maps at least FP32_AGREE
+    equal, the argmax forward's launches exactly launches_per_forward(cfg),
+    then its time (CUDA events and host wall clock) against the plain
+    path's and its device busy time and idle share (torch.profiler).
+    Returns the launches per shape key of one argmax forward."""
+    import dataclasses
+
+    from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_forward,
+    )
+    from transception_tpu_torch.ops import kernels
+
+    cfg = TransceptionConfig(dtype="float32")
+    per = launches_per_forward(cfg)
+    model = MSTransception(cfg, "cuda", seed=0)
+    plain = MSTransception(dataclasses.replace(pinned(cfg), use_kernels=False),
+                           "cuda")
+    plain.load_state_dict(model.state_dict())
+
+    def fwd(m, argmax=True):
+        with torch.inference_mode():
+            return m(x, argmax=argmax)
+
+    fwd(model)  # warm-up (cuDNN plans, kernel plans)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    ik = fwd(model)
+    torch.cuda.synchronize()
+    counts, tallies = kernels.launch_counts(), kernels.shape_counts()
+    log(f"  fp32 forward launches {({k: n for k, n in counts.items() if n})}"
+        f"; launches_per_forward {({k: n for k, n in per.items() if n})}")
+    if counts != per:
+        fail("the fp32 forward's launches are not launches_per_forward(cfg)")
+    ip = fwd(plain)
+    lk, lp = fwd(model, False), fwd(plain, False)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        fail("non-finite fp32 logits")
+    rel = ((lk - lp).abs().max() / lp.abs().max()).item()
+    agree = (ik == ip).float().mean().item()
+    log(f"  fp32 logits {tuple(lk.shape)} max|kernel-plain|/max|plain| "
+        f"{rel:.6g} (tolerance {FP32_LOGITS_TOL}); class maps agreement "
+        f"{agree:.6f} (threshold {FP32_AGREE})")
+    if rel > FP32_LOGITS_TOL or agree < FP32_AGREE:
+        fail("the fp32 kernel path disagrees with the fp32 plain path")
+    t_on = cuda_ms(lambda: fwd(model), iters=10)
+    t_off = cuda_ms(lambda: fwd(plain), iters=5)
+    t_on2 = cuda_ms(lambda: fwd(model), iters=10)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fwd(model)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"  fp32 forward b={BATCH} argmax: kernels {t_on:.3f} / {t_on2:.3f} "
+        f"ms/batch (events), wall {min(walls):.3f}-{max(walls):.3f} ms "
+        f"(host clock, 5 runs); plain {t_off:.3f} ms/batch")
+    log("phase 7 (fp32): device time of one fp32 kernel-path forward")
+    profile_device(lambda: fwd(model), "forward_fp32")
+    return tallies
+
+
 def stage_of(name):
     """'K2 fc1', 'K5 attn', 'K1 ctx', ... for a kernel of the staged
     forwards (K1, K2, K5, K6, K9: the owner is the first template argument
@@ -699,7 +920,7 @@ def stage_of(name):
         return "K4 expand+head" if m.group(1) == "expand_head" else \
             "K7 expand"
     m = re.search(r"mixffn_gemm_kernel<(\d+), \w+, \w+, (\w+), \d+, \d+, "
-                  r"(\d)>", name)
+                  r"(\d)[,>]", name)
     if m:
         kid, aln, epi = m.group(1), m.group(2) == "true", int(m.group(3))
         names = ({(True, 1): "qkv", (False, 2): "proj"} if kid == "1" else
@@ -709,10 +930,10 @@ def stage_of(name):
         return f"K{kid} {'fc1+fc2' if kid == '9' else what}"
     # The linear-attention core's stages (K1 and K6, named by their KID)
     # and K6's head body.
-    m = re.search(r"lin_([a-z]+)_kernel(?:<(\d+)>)?", name)
+    m = re.search(r"lin_([a-z]+)_kernel(?:<(\d+)[,>])?", name)
     if m:
         return f"K{m.group(2) or 6} {m.group(1)}"
-    m = re.search(r"mixffn_convrows_kernel<(\d+)>", name)
+    m = re.search(r"mixffn_convrows_kernel<(\d+)[,>]", name)
     if m:
         return f"K{m.group(1)} rows"
     m = re.search(r"mhca_([a-z]+)_kernel", name)
@@ -747,6 +968,7 @@ def profile_device(fn, label):
     busy = sum(by_name.values())
     port = {n: t for n, t in by_name.items() if any(
         k in n for k in ("lin_", "mixffn_", "bridge_attention_kernel",
+                         "bridge_attention_f32_kernel",
                          "bridge_attention_folded_kernel",
                          "expand_head_kernel", "mhca_", "patch_expand_kernel",
                          "linear_attention_kernel", "rows_kernel",
@@ -1384,11 +1606,12 @@ def volume_phase():
     on-card resample paths against the host path's class maps with TF32
     off and switched on globally, the full-resolution class maps of the
     kernels against the plain path (predict_volume and the back-resize,
-    no metrics), and cli.test.main in-process once (bf16 --is_savenii from
-    a .pth of the same weights: the same means, volumes that load back and
-    equal the host path's class maps; the fp32 default with the kernels
-    on raises before any work). Returns the launches per shape key of its
-    kernel forwards and their number."""
+    no metrics), and cli.test.main in-process (bf16 --is_savenii from a
+    .pth of the same weights: the same means, volumes that load back and
+    equal the host path's class maps; one pass of the fp32 default on the
+    fp32 kernels; fp16 with the kernels on raises before any work).
+    Returns the launches per shape key of its kernel forwards and their
+    number."""
     import dataclasses
     import tempfile
 
@@ -1411,10 +1634,10 @@ def volume_phase():
     chunks = [math.ceil(v["image"].shape[0] / BATCH) for v in vols]
     total, n_fwd = Counter(), 0
 
-    def counted(what, n_chunks, fn):
+    def counted(what, n_chunks, fn, per=per):
         """fn() with the launch counters reset before and read after;
-        fails unless each kernel launched launches_per_forward x
-        n_chunks times."""
+        fails unless each kernel launched per x n_chunks times (per:
+        launches_per_forward of the run's config)."""
         nonlocal n_fwd
         kernels.reset_launches()
         out = fn()
@@ -1525,8 +1748,9 @@ def volume_phase():
     del plain
 
     # 4. The CLI in-process, from a .pth of the same weights: one bf16
-    # run with --is_savenii, and the fp32 default with the kernels on,
-    # which must raise before it reads or builds anything.
+    # run with --is_savenii, one run of the fp32 default (the published
+    # protocol) on the fp32 kernels, and fp16 with the kernels on, which
+    # must raise before it reads or builds anything.
     with tempfile.TemporaryDirectory(
             dir=Path(__file__).resolve().parent) as tmp:
         pth = f"{tmp}/seed0.pth"
@@ -1551,16 +1775,32 @@ def volume_phase():
                     fail("the saved class maps are not the host path's")
         log("  cli.test --is_savenii: 3 volumes per case load back, the "
             "class maps equal the host path's")
+        per32 = launches_per_forward(TransceptionConfig(dtype="float32"))
+        t0 = time.perf_counter()
+        got32 = counted("cli.test fp32 default", sum(chunks),
+                        lambda: cli.main(args + ["--output_dir",
+                                                 f"{tmp}/fp32"]), per32)
+        log(f"  cli.test fp32 default (fp32 kernels, TF32 off): {got32} in "
+            f"{time.perf_counter() - t0:.3f} s")
+        if not all(math.isfinite(v) for v in got32):
+            fail("the fp32 CLI run's means are not finite")
+        if torch.backends.cudnn.allow_tf32 or \
+                torch.backends.cuda.matmul.allow_tf32:
+            fail("the fp32 CLI run left TF32 on")
         try:
-            cli.main(args + ["--output_dir", f"{tmp}/fp32"])
+            cli.main(args + ["--dtype", "float16", "--output_dir",
+                             f"{tmp}/fp16"])
         except ValueError as e:
-            said = "--no_pallas" in str(e) and "--dtype bfloat16" in str(e)
-            log(f"  cli.test fp32 default with the kernels on raises: {e}")
+            said = all(w in str(e) for w in ("--dtype float32",
+                                             "--dtype bfloat16",
+                                             "--no_pallas"))
+            log(f"  cli.test fp16 with the kernels on raises: {e}")
         else:
             said = False
-        if not said or os.path.exists(f"{tmp}/fp32"):
-            fail("the fp32 CLI run with the kernels on did not refuse "
-                 "before any work, naming --dtype bfloat16 and --no_pallas")
+        if not said or os.path.exists(f"{tmp}/fp16"):
+            fail("the fp16 CLI run with the kernels on did not refuse "
+                 "before any work, naming --dtype float32, --dtype bfloat16 "
+                 "and --no_pallas")
     return total, n_fwd
 
 
@@ -1625,7 +1865,7 @@ def main():
             if st or ld:
                 fail(f"{lib}: {fn} spills registers")
 
-    log("phase 3: kernels vs plain versions (bf16, batch 32)")
+    log("phase 3: kernels vs plain versions (bf16 and fp32, batch 32)")
     t0 = time.perf_counter()
     measured = kernel_phase()
     log(f"  phase 3: {time.perf_counter() - t0:.1f} s")
@@ -1634,6 +1874,11 @@ def main():
     t0 = time.perf_counter()
     (fwd_tallies, n_fwd), x = model_phase()
     log(f"  phases 4-7: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 5-7 (fp32): the published model at fp32, batch {BATCH}")
+    t0 = time.perf_counter()
+    fp32_tallies = fp32_model_phase(x)
+    log(f"  phases 5-7 (fp32): {time.perf_counter() - t0:.1f} s")
 
     log(f"phase 8: train-step kernels vs plain versions (bf16, batch "
         f"{TRAIN_BATCH})")
@@ -1661,7 +1906,8 @@ def main():
     # volume-eval forwards. Every launch's
     # shape must have been measured in phase 3 or 8, and every measured
     # shape launched.
-    runs = [("per forward, default config", fwd_tallies, n_fwd)] + [
+    runs = [("per forward, default config", fwd_tallies, n_fwd),
+            ("per forward, fp32 default config", fp32_tallies, 1)] + [
         (f"per {mode} train step", t, n)
         for mode, (t, n) in step_tallies.items()] + [
         (f"per forward, {name}", t, 1) for name, t in grid_tallies.items()

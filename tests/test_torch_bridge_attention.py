@@ -70,7 +70,7 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
 
 
 @pytest.mark.parametrize("q_shape,kv_shape,dtype", [
-    ((1, 1, 64, 64), (1, 1, 32, 64), torch.float32),   # bf16 only
+    ((1, 1, 64, 64), (1, 1, 32, 64), torch.float16),   # bf16/fp32 only
     ((1, 1, 64, 32), (1, 1, 32, 32), torch.bfloat16),  # head dim 64 only
     ((1, 1, 64, 64), (1, 1, 40, 64), torch.bfloat16),  # M % 16
     ((1, 1, 64, 64), (2, 1, 32, 64), torch.bfloat16),  # batch mismatch

@@ -67,7 +67,7 @@ def test_split_and_widths_match_cuda_source():
     stages = (CSRC / "expand_stages.cuh").read_text()
     assert "return c <= 64 ? 1 : (c <= 160 ? 2 : 4);" in stages
     assert [pe.warps_n(c) for c in (64, 160, 256)] == [1, 2, 4]
-    cases = re.findall(r"case (\d+):\s+return launch<LT, POST, (\d+)>",
+    cases = re.findall(r"case (\d+):\s+return launch<E, LT, POST, (\d+)>",
                        (CSRC / "patch_expand.cu").read_text())
     assert [int(a) for a, b in cases if a == b] == list(pe.WIDTHS)
 

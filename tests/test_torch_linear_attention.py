@@ -74,7 +74,7 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
 
 
 @pytest.mark.parametrize("qs,ks,vs,dtype", [
-    ((1, 8, 49, 40),) * 3 + (torch.float32,),                  # bf16 only
+    ((1, 8, 49, 40),) * 3 + (torch.float16,),              # bf16/fp32 only
     ((1, 8, 49, 40), (1, 8, 48, 40), (1, 8, 49, 40), torch.bfloat16),
     ((1, 49, 40),) * 3 + (torch.bfloat16,),                    # not 4-D
     ((1, 1, 64, 1024),) * 3 + (torch.bfloat16,),               # smem

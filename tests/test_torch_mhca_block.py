@@ -117,7 +117,7 @@ def _crpe(C, heads=8):
 
 
 @pytest.mark.parametrize("shape,s,heads,hid,crpe,dtype", [
-    ((1, 64, 64), 8, 8, 256, _crpe(64), torch.float32),   # bf16 only
+    ((1, 64, 64), 8, 8, 256, _crpe(64), torch.float16),   # bf16/fp32
     ((1, 60, 64), 8, 8, 256, _crpe(64), torch.bfloat16),  # not an s*s map
     ((1, 64, 64), 8, 6, 256, _crpe(64), torch.bfloat16),  # C % heads
     ((1, 64, 64), 8, 8, 256, _crpe(64)[:2], torch.bfloat16),  # 3 windows

@@ -70,7 +70,7 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
 
 
 @pytest.mark.parametrize("shape,wshape,c,dtype", [
-    ((1, 16, 128), (256, 128), 64, torch.float32),   # bf16 only
+    ((1, 16, 128), (256, 128), 64, torch.float16),   # bf16/fp32
     ((1, 16, 120), (240, 120), 60, torch.bfloat16),  # C, c % 16
     ((1, 16, 128), (128, 128), 64, torch.bfloat16),  # w not (p²c, C)
     ((16, 128), (256, 128), 64, torch.bfloat16),     # not (B, N, C)

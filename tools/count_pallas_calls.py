@@ -1,0 +1,92 @@
+"""Count the Pallas kernels that the JAX package's programs reach, by
+tracing them (jax.make_jaxpr, nothing compiled) on the CPU with
+jax.default_backend patched to "tpu", so that the kernel gates decide as on
+a TPU. Prints one JSON object: pallas_call counts by kernel name for the
+eval forward (argmax, b=32) and the train step (b=24, wide head) of the
+published TransceptionConfig at fp32 (the published eval protocol's
+dtype), per train mode.
+
+    JAX_PLATFORMS=cpu python tools/count_pallas_calls.py
+"""
+
+import dataclasses
+import json
+import sys
+from collections import Counter
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+
+jax.default_backend = lambda: "tpu"  # the kernels' gates ask this
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the repo
+
+from transception_tpu.core.config import (  # noqa: E402
+    TrainConfig,
+    TransceptionConfig,
+)
+from transception_tpu.models.transception import MSTransception  # noqa: E402
+from transception_tpu.train.state import create_train_state  # noqa: E402
+from transception_tpu.train.trainer import (  # noqa: E402
+    make_train_step,
+    train_step_model,
+)
+
+MODES = {"default": {}, "ffn_flash_train": dict(ffn_flash_train=True),
+         "use_pallas_train": dict(use_pallas_train=True)}
+
+
+def pallas_calls(jaxpr, out=None):
+    """pallas_call equations by kernel body (file:line and function),
+    through every sub-jaxpr."""
+    out = Counter() if out is None else out
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "pallas_call":
+            # The kernel body: "<function> at <path>:<line>" -> file:line.
+            src = eqn.params["jaxpr"].debug_info.func_src_info
+            fn, _, where = src.partition(" at ")
+            out[f"{Path(where).name} {fn}"] += 1
+        for v in eqn.params.values():
+            for sub in v if isinstance(v, (list, tuple)) else (v,):
+                inner = getattr(sub, "jaxpr", sub)
+                if hasattr(inner, "eqns"):
+                    pallas_calls(inner, out)
+    return out
+
+
+def forward_counts(cfg, batch=32):
+    model = MSTransception(cfg)
+    x = jax.ShapeDtypeStruct((batch, 224, 224, 1), jnp.float32)
+    variables = jax.eval_shape(
+        lambda k: model.init(k, jnp.zeros(x.shape, x.dtype), train=False),
+        jax.random.PRNGKey(0))
+    jaxpr = jax.make_jaxpr(
+        lambda v, im: model.apply(v, im, argmax=True))(variables, x)
+    return pallas_calls(jaxpr.jaxpr)
+
+
+def train_counts(cfg, batch=24):
+    model = train_step_model(MSTransception(cfg))
+    x = jnp.zeros((batch, 224, 224, 1), jnp.float32)
+    y = jax.ShapeDtypeStruct((batch, 224, 224), jnp.int32)
+    state = jax.eval_shape(lambda k: create_train_state(
+        model, TrainConfig(batch_size=batch), 92, x, k),
+        jax.random.PRNGKey(0))
+    step = make_train_step(model, 9, 0.4, 0.6, wide_head=True)
+    key = jax.ShapeDtypeStruct((2,), jnp.uint32)
+    jaxpr = jax.make_jaxpr(step)(
+        state, jax.ShapeDtypeStruct(x.shape, x.dtype), y, key)
+    return pallas_calls(jaxpr.jaxpr)
+
+
+def main():
+    cfg = TransceptionConfig(dtype="float32")
+    res = {"dtype": cfg.dtype, "forward_b32": dict(forward_counts(cfg))}
+    for mode, over in MODES.items():
+        res[f"train_b24_{mode}"] = dict(
+            train_counts(dataclasses.replace(cfg, **over)))
+    print(json.dumps(res))
+
+
+if __name__ == "__main__":
+    main()

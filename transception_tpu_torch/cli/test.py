@@ -1,16 +1,16 @@
 """Evaluation CLI of the port, the counterpart of transception_tpu/cli/test.py.
 
     python -m transception_tpu_torch.cli.test --dataset Synapse \
-        --dtype bfloat16 --weight_pth path/to/weights.pth
+        --weight_pth path/to/weights.pth
 
 Runs slice-batched volume inference over the test list on the card and
 reports per-class and mean DSC/HD95 (the reference's test.py:104-123
 protocol), logging to {output_dir}/test_log/eval.txt and to stdout.
 --is_savenii writes img/pred/gt .nii.gz volumes with (1, 1, z_spacing)
 spacing like utils.py:100-109. The default dtype is float32, the
-published protocol; the CUDA kernels take bf16, so on the card an fp32
-eval needs --no_pallas (the plain PyTorch path) and --dtype bfloat16 runs
-the kernels. Weights: a reference .pth/.pt state_dict or a port
+published protocol, and runs the fp32 forms of the CUDA kernels on the
+card with TF32 off; --dtype bfloat16 runs their bf16 forms, --no_pallas
+the plain PyTorch path. Weights: a reference .pth/.pt state_dict or a port
 checkpoint (load_weights).
 """
 
@@ -29,7 +29,7 @@ from transception_tpu_torch.cli.common import (
     add_model_args,
     build_configs,
 )
-from transception_tpu_torch.core.device import DeviceLike
+from transception_tpu_torch.core.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -76,7 +76,7 @@ def load_weights(weight_pth: str, model: torch.nn.Module) -> torch.nn.Module:
         raise NotImplementedError(
             f"{weight_pth} is a directory (an orbax checkpoint of the JAX "
             f"package?): reading orbax needs orbax/tensorstore and is not "
-            f"ported yet (ROADMAP.md §1 item 2); convert it with the JAX "
+            f"ported yet (ROADMAP.md §1 item 7); convert it with the JAX "
             f"package or pass a .pth")
     sd = torch.load(weight_pth, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and {"model", "optimizer", "step"} <= set(sd):
@@ -130,7 +130,7 @@ def _parser() -> argparse.ArgumentParser:
                         "on the card (float64 products against exact "
                         "scipy-derived operators) instead of on the host")
     # Published-protocol evaluation runs fp32 by default (bf16 flips ~0.8%
-    # of argmax pixels); the CUDA kernels take --dtype bfloat16.
+    # of argmax pixels); the CUDA kernels take float32 and bfloat16.
     p.set_defaults(dtype="float32")
     return p
 
@@ -148,13 +148,15 @@ def main(argv=None, device: DeviceLike = "cuda"):
     from transception_tpu_torch.models.registry import create_model
 
     model_cfg, data_cfg, _ = build_configs(args)
-    if torch.device(device).type == "cuda" and model_cfg.use_kernels and \
-            model_cfg.dtype != "bfloat16":
+    on_card = torch.device(device).type == "cuda"
+    if on_card and model_cfg.use_kernels and \
+            model_cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(
             f"--dtype {model_cfg.dtype} on the card: the CUDA kernels take "
-            f"bf16 (fp32 kernels: ROADMAP.md §1 item 6); pass --dtype "
-            f"bfloat16 to run them, or --no_pallas for the plain PyTorch "
-            f"path at {model_cfg.dtype}")
+            f"fp32 and bf16; pass --dtype float32 (the protocol's default) "
+            f"or --dtype bfloat16 to run them, or --no_pallas for the plain "
+            f"PyTorch path at {model_cfg.dtype}")
+    resolve_device(device)  # no card: raise before any work
     test_ds = make_test_dataset(data_cfg)
 
     log_dir = os.path.join(args.output_dir, "test_log")
@@ -168,8 +170,17 @@ def main(argv=None, device: DeviceLike = "cuda"):
         logger.addHandler(h)
     logger.setLevel(logging.INFO)
     logger.propagate = False
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     try:
         logger.info(str(args))
+        if on_card and model_cfg.dtype == "float32":
+            # The protocol's fp32 on the card is fp32 throughout: cuDNN's
+            # default would run the plain layers' convolutions in TF32.
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            logger.info("fp32 on the card: TF32 off for matmuls and cuDNN "
+                        "convolutions")
         model = create_model(args.model, model_cfg, device=device, seed=0)
         load_weights(args.weight_pth, model)
 
@@ -188,6 +199,8 @@ def main(argv=None, device: DeviceLike = "cuda"):
             logger.info("saved volumes to %s", save_dir)
         return mean_dice, mean_hd95
     finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
         for h in handlers:
             logger.removeHandler(h)
             h.close()

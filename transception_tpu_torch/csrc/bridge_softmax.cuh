@@ -260,6 +260,266 @@ __device__ __forceinline__ void softmax_av(const uint32_t (&qa)[4][4],
   __syncthreads();  // the ring is free for the caller
 }
 
+// ---- The fp32 product step ----
+// Hopper has no fp32 tensor-core product (TF32 keeps ~3 decimal digits),
+// so the fp32 forms of the kernels multiply on the CUDA cores with FFMA.
+// Their staged tiles keep the bf16 layout's 128-byte swizzled panel rows,
+// which hold 32 fp32 columns: a product step is 32 deep at fp32.
+
+// Byte address of fp32 element (r, c) of a tile staged in swizzled
+// 128-byte panel rows of 32 columns, the panels ps bytes apart.
+__device__ __forceinline__ uint32_t at32(uint32_t s, int ps, int r, int c) {
+  return s + (c >> 5) * ps + swz(r, (c >> 2) & 7) + (c & 3) * 4;
+}
+
+// acc += A·B over one 32-deep fp32 step for a warp's MT x NT m16n8 tiles
+// from row wm and column wn, acc in mma's accumulator layout (row g + 8h,
+// columns 2t + e of each n8 tile in acc[i][j][2h + e]; g = lane / 4, t =
+// lane % 4), so the epilogues of the bf16 path take it unchanged. A at sa:
+// AMK, rows m of 32 (one panel row each), else 32 rows of M columns in
+// panels aps bytes apart; B at sb: BNK, rows n of 32, else 32 rows of N
+// columns in panels bps bytes apart. Four k at a time: one 16-byte load
+// per row of A (AMK) and column of B (BNK); each sum runs in k order.
+template <int MT, int NT, bool AMK, bool BNK>
+__device__ __forceinline__ void ffma_step(uint32_t sa, uint32_t sb, int wm,
+                                          int wn, int aps, int bps,
+                                          float (&acc)[MT][NT][4]) {
+  const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
+#pragma unroll
+  for (int k0 = 0; k0 < 32; k0 += 4) {
+    float a[MT][2][4], b[NT][2][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = wm + i * 16 + g + 8 * h;
+        if (AMK) {
+          const float4 v = lds128(sa + swz(m, k0 >> 2));
+          a[i][h][0] = v.x;
+          a[i][h][1] = v.y;
+          a[i][h][2] = v.z;
+          a[i][h][3] = v.w;
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            a[i][h][kk] = lds32(at32(sa, aps, k0 + kk, m));
+        }
+      }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = wn + j * 8 + 2 * t;
+      if (BNK) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float4 v = lds128(sb + swz(n + e, k0 >> 2));
+          b[j][e][0] = v.x;
+          b[j][e][1] = v.y;
+          b[j][e][2] = v.z;
+          b[j][e][3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float2 v = lds64(at32(sb, bps, k0 + kk, n));
+          b[j][0][kk] = v.x;
+          b[j][1][kk] = v.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              acc[i][j][2 * h + e] =
+                  fmaf(a[i][h][kk], b[j][e][kk], acc[i][j][2 * h + e]);
+  }
+}
+
+// ---- K3's fp32 form ----
+// Rows of 64 fp32 (256 bytes), 16-byte chunk c (0..15) of row r at chunk
+// c ^ (r % 8) (the XOR keeps each half of the row in place): the 8 rows a
+// quad-strided load touches fall in 8 different bank groups. K and V go
+// through the same 2-deep ring as at bf16, in chunks of 64 keys (16 KB a
+// tile); each warp keeps its 16 query rows in its own 4 KB of shared
+// memory, which later stages its output rows.
+constexpr int ROW32 = D * 4;
+constexpr int KC32 = 64;                     // keys per staged chunk
+constexpr int TILE32 = KC32 * ROW32;
+constexpr int RING32 = STAGES * 2 * TILE32;  // K + V per stage
+constexpr int Q32 = 16 * ROW32;              // a warp's query rows
+
+__device__ __forceinline__ uint32_t swz32(int r, int c) {
+  return r * ROW32 + ((c ^ (r & 7)) << 4);
+}
+
+// Rows [0, rows) of a (rows, 64) fp32 matrix at g into the swizzled tile
+// at s, by all threads of the block; rows >= valid zero-filled.
+__device__ __forceinline__ void load_tile32(uint32_t s, const float* g,
+                                            int rows, int valid) {
+  for (int i = threadIdx.x; i < rows * 16; i += blockDim.x) {
+    const int r = i >> 4, c = i & 15;
+    const bool ok = r < valid;
+    cp_async16(s + swz32(r, c), g + (size_t)(ok ? r : 0) * D + c * 4, ok);
+  }
+}
+
+// softmax_av at fp32 on the CUDA cores, for the warp's 16 query rows
+// staged at qs: o (16 x 64) = Σ e·V and rs[h] the row sums of e for rows
+// g + 8h, e = exp(l − m) with m the row max over all M keys, nothing
+// rounded. Lane (g, t) forms the logits of rows g and g + 8 against keys
+// 8j + 2t + e of each 16-key step (the layout of the bf16 path), then the
+// quad's shuffles hand each lane the probabilities of all 16 keys for
+// P·V into its columns 8j + 2t, 8j + 2t + 1. The ring schedule is
+// softmax_av's (pass 1 the max, pass 2 the sums and P·V); a last chunk
+// shorter than KC32 (a multiple of 16) runs its whole 16-key steps only.
+__device__ __forceinline__ void softmax_av_f32(uint32_t qs, const float* kg,
+                                               const float* vg, int M,
+                                               float sl2, uint32_t ring,
+                                               float (&o)[8][4],
+                                               float (&rs)[2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nch = (M + KC32 - 1) / KC32, steps = 2 * nch;
+  auto fetch = [&](int st) {
+    if (st < steps) {
+      const int key0 = (st < nch ? st : st - nch) * KC32;
+      const int rows = min(KC32, M - key0);
+      const uint32_t slot = ring + (st % STAGES) * 2 * TILE32;
+      load_tile32(slot, kg + (size_t)key0 * D, rows, rows);
+      if (st >= nch)
+        load_tile32(slot + TILE32, vg + (size_t)key0 * D, rows, rows);
+    }
+    cp_async_commit();  // empty groups keep the count uniform
+  };
+  // Logits of rows g, g + 8 against keys k0 + 8j + 2t + e of the tile ks.
+  auto logits = [&](uint32_t ks, int k0, float (&s)[2][4]) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll 1  // 6 live float4 a step: 2 blocks an SM need <= 128 regs
+    for (int c = 0; c < 16; ++c) {
+      const float4 q0 = lds128(qs + swz32(g, c));
+      const float4 q1 = lds128(qs + swz32(g + 8, c));
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float4 kv = lds128(ks + swz32(k0 + 8 * j + 2 * t + e, c));
+          float& a = s[j][e];
+          float& b = s[j][2 + e];
+          a = fmaf(q0.x, kv.x, a);
+          a = fmaf(q0.y, kv.y, a);
+          a = fmaf(q0.z, kv.z, a);
+          a = fmaf(q0.w, kv.w, a);
+          b = fmaf(q1.x, kv.x, b);
+          b = fmaf(q1.y, kv.y, b);
+          b = fmaf(q1.z, kv.z, b);
+          b = fmaf(q1.w, kv.w, b);
+        }
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) fetch(st);
+
+  float mx[2] = {-INFINITY, -INFINITY}, m2[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  rs[0] = rs[1] = 0.0f;
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step st (and the query rows) landed
+    fetch(st + STAGES - 1);
+    const int key0 = (st < nch ? st : st - nch) * KC32;
+    const int nks = min(KC32, M - key0) / 16;
+    const uint32_t ks = ring + (st % STAGES) * 2 * TILE32;
+    for (int k16 = 0; k16 < nks; ++k16) {
+      float s[2][4];
+      logits(ks, k16 * 16, s);
+      if (st < nch) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+        }
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          s[j][2 * h] = ex2(fmaf(s[j][2 * h], sl2, -m2[h]));
+          s[j][2 * h + 1] = ex2(fmaf(s[j][2 * h + 1], sl2, -m2[h]));
+          rs[h] += s[j][2 * h] + s[j][2 * h + 1];
+        }
+      // Keys 8j + 2m + e of the step are lane (g, m)'s s[j][e] (row g)
+      // and s[j][2 + e] (row g + 8).
+      const uint32_t vs = ks + TILE32;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll 1
+        for (int m = 0; m < 4; ++m) {
+          const int src = (lane & ~3) | m;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p0 = __shfl_sync(FULL_MASK, s[j][e], src);
+            const float p1 = __shfl_sync(FULL_MASK, s[j][2 + e], src);
+            const int key = k16 * 16 + 8 * j + 2 * m + e;
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              const float2 v =
+                  lds64(vs + swz32(key, 2 * c + (t >> 1)) + 8 * (t & 1));
+              o[c][0] = fmaf(p0, v.x, o[c][0]);
+              o[c][1] = fmaf(p0, v.y, o[c][1]);
+              o[c][2] = fmaf(p1, v.x, o[c][2]);
+              o[c][3] = fmaf(p1, v.y, o[c][3]);
+            }
+          }
+        }
+      }
+    }
+    if (st == nch - 1) {
+      m2[0] = quad_max(mx[0]) * sl2;
+      m2[1] = quad_max(mx[1]) * sl2;
+    }
+  }
+  rs[0] = quad_sum(rs[0]);
+  rs[1] = quad_sum(rs[1]);
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the caller
+}
+
+// A warp's 16 x 64 fp32 block o divided by f[h] for rows g + 8h, to rows
+// r0.. of a (n, 64) fp32 matrix, rows >= n skipped: through the warp's 4
+// KB of swizzled shared memory at st, then 16-byte coalesced writes.
+__device__ __forceinline__ void store_rows32(const float (&o)[8][4],
+                                             const float (&f)[2], uint32_t st,
+                                             float* p, int r0, int n) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  __syncwarp();  // every lane is done with the rows staged at st
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      asm volatile("st.shared.v2.f32 [%0], {%1,%2};\n" ::"r"(
+                       st + swz32(g + 8 * h, 2 * j + (t >> 1)) + 8 * (t & 1)),
+                   "f"(o[j][2 * h] / f[h]), "f"(o[j][2 * h + 1] / f[h]));
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * 16; i += 32) {
+    const int r = i >> 4, c = i & 15;
+    uint4 v;
+    asm volatile("ld.shared.v4.b32 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "r"(st + swz32(r, c)));
+    if (r0 + r < n)
+      reinterpret_cast<uint4*>(p + (size_t)(r0 + r) * D)[c] = v;
+  }
+}
+
 // Store a warp's 16 x 64 fp32 block o, times f[h] for rows g + 8h and
 // rounded to bf16, to rows r0.. of a (n, 64) bf16 matrix, rows >= n
 // skipped: through the warp's 2 KB of swizzled shared memory at st, then

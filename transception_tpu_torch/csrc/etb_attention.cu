@@ -17,39 +17,52 @@
 //   5. proj  out = bf16(bf16(att·Wpᵀ + bp) + x), the same product with the
 //            residual epilogue.
 // The plan of tiles and segments is the wrapper's (ops/kernels/
-// etb_attention.py plan).
+// etb_attention.py plan). etb_attention_f32, the fp32 eval forward's, is
+// the same five stages at E = float (mixffn_stages.cuh's fp32 products).
 #include "linear_attention.cuh"
 
 namespace {
 constexpr int KID = 1;
-}  // namespace
 
 // Indices into the wrapper's plan.
 enum Plan { QKV_BM, QKV_BN, PROJ_BM, PROJ_BN, SEGMENTS, SEGMENT_ROWS,
             PLAN_LEN };
 
-extern "C" int etb_attention(const bf16* x, const float* ls, const float* lb,
-                             const bf16* wqkv, const float* bqkv,
-                             const bf16* wp, const float* bp, bf16* qkv,
-                             float2* part, float* pctx, bf16* ctx, bf16* att,
-                             bf16* out, const int* plan, int B, int N, int C,
-                             float eps, void* stream) {
+template <typename E>
+int etb(const E* x, const float* ls, const float* lb, const E* wqkv,
+        const float* bqkv, const E* wp, const float* bp, E* qkv,
+        float2* part, float* pctx, E* ctx, E* att, E* out, const int* plan,
+        int B, int N, int C, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (C % 64) return cudaErrorInvalidValue;  // the folded LN's groups
   const int T = B * N;
   cudaError_t e = ffn::gemm<KID, true, true, true, ffn::EPI_BIAS>(
       plan[QKV_BM], plan[QKV_BN], x, C, wqkv, C, qkv, 3 * C, bqkv, nullptr,
-      ffn::Norm{ls, lb, C, eps}, T, 3 * C, C, ffn::depth(C), 0, st);
+      ffn::Norm{ls, lb, C, eps}, T, 3 * C, C, ffn::depth<E>(C), 0, st);
   if (e) return e;
   const size_t bs = (size_t)N * 3 * C;
-  e = lin::attention<KID>(lin::View{qkv, 3 * C, bs},
-                          lin::View{qkv + C, 3 * C, bs},
-                          lin::View{qkv + 2 * C, 3 * C, bs},
-                          lin::View{att, C, (size_t)N * C}, part, pctx, ctx,
-                          B, N, C, C, plan[SEGMENTS], plan[SEGMENT_ROWS], 1,
-                          1.0f, st);
+  e = lin::attention<KID, E>(lin::View<E>{qkv, 3 * C, bs},
+                             lin::View<E>{qkv + C, 3 * C, bs},
+                             lin::View<E>{qkv + 2 * C, 3 * C, bs},
+                             lin::View<E>{att, C, (size_t)N * C}, part, pctx,
+                             ctx, B, N, C, C, plan[SEGMENTS],
+                             plan[SEGMENT_ROWS], 1, 1.0f, st);
   if (e) return e;
   return ffn::gemm<KID, true, true, false, ffn::EPI_RESID>(
       plan[PROJ_BM], plan[PROJ_BN], att, C, wp, C, out, C, bp, x,
-      ffn::Norm{}, T, C, C, ffn::depth(C), 0, st);
+      ffn::Norm{}, T, C, C, ffn::depth<E>(C), 0, st);
 }
+}  // namespace
+
+#define ETB(NAME, E)                                                       \
+  extern "C" int NAME(const E* x, const float* ls, const float* lb,        \
+                      const E* wqkv, const float* bqkv, const E* wp,       \
+                      const float* bp, E* qkv, float2* part, float* pctx,  \
+                      E* ctx, E* att, E* out, const int* plan, int B, int N, \
+                      int C, float eps, void* stream) {                    \
+    return etb<E>(x, ls, lb, wqkv, bqkv, wp, bp, qkv, part, pctx, ctx, att, \
+                  out, plan, B, N, C, eps, stream);                        \
+  }
+ETB(etb_attention, bf16)
+ETB(etb_attention_f32, float)
+#undef ETB

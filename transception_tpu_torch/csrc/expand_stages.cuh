@@ -36,6 +36,11 @@
 //     through a (BM, WARPS_N) shared array where warps share a group.
 // The plan of a launch (grid, group split, shared bytes) is the wrapper's
 // (ops/kernels/patch_expand.py plan, mirrored by smem_bytes here).
+// The body is a template on the element type E of x, W and the output:
+// bf16, or fp32 for K7's fp32 form. At fp32 a weight tile is 32 deep (one
+// 128-byte panel row of fp32, the same bytes as a bf16 tile), the product
+// is bsa::ffma_step on the CUDA cores with the same accumulator layout, and
+// the rounding of y is the identity.
 #pragma once
 
 #include "bridge_softmax.cuh"
@@ -67,24 +72,26 @@ struct Split {
   static constexpr int BM = block_rows(C);
   static constexpr int WN = C / WARPS_N;  // columns of a warp
   static constexpr int NT = WN / 8;       // its n8 tiles
-  static constexpr int W_TILE = C * BK * 2;
+  static constexpr int W_TILE = C * 128;  // one weight tile: 128-byte rows
   static_assert(WN * WARPS_N == C && WN % 16 == 0,
                 "a warp takes whole pairs of n8 tiles of one group");
 };
 
-// Shared memory of a block: the x panel (BM x Cin), the weight ring, the
-// LN partials where warps share a group, and with `tile` the padded bf16
-// output tile of the store epilogue, in that order.
-__host__ __device__ inline size_t red_offset(int c, int Cin) {
-  return (size_t)block_rows(c) * Cin * 2 + (size_t)STAGES * c * BK * 2;
+// Shared memory of a block over elements of es bytes: the x panel (BM x
+// Cin), the weight ring, the LN partials where warps share a group, and
+// with `tile` the padded output tile of the store epilogue, in that order.
+__host__ __device__ inline size_t red_offset(int c, int Cin, int es = 2) {
+  return (size_t)block_rows(c) * Cin * es + (size_t)STAGES * c * 128;
 }
-__host__ __device__ inline size_t tile_offset(int c, int Cin) {
+__host__ __device__ inline size_t tile_offset(int c, int Cin, int es = 2) {
   const int wn = warps_n(c);
-  return red_offset(c, Cin) + (wn > 1 ? (size_t)block_rows(c) * wn * 8 : 0);
+  return red_offset(c, Cin, es) +
+         (wn > 1 ? (size_t)block_rows(c) * wn * 8 : 0);
 }
-__host__ __device__ inline size_t smem_bytes(int c, int Cin, bool tile) {
-  return tile_offset(c, Cin) + (tile ? (size_t)block_rows(c) * (c + 8) * 2
-                                     : 0);
+__host__ __device__ inline size_t smem_bytes(int c, int Cin, bool tile,
+                                             int es = 2) {
+  return tile_offset(c, Cin, es) +
+         (tile ? (size_t)block_rows(c) * (c + 8) * es : 0);
 }
 
 // A parameter vector read in the dtype its caller keeps it in (bf16 ->
@@ -112,11 +119,11 @@ __device__ __forceinline__ float2 rbf2(float a, float b) {
   return __bfloat1622float2(__floats2bfloat162_rn(a, b));
 }
 
-// Rows g and g + 8 of a warp's (16, WN) accumulators rounded to bf16 (the
+// Rows g and g + 8 of a warp's (16, WN) accumulators rounded to E (the
 // Pallas kernel's y), with each row's fp32 sum and sum of squares over the
 // warp's columns reduced in the quad: s = {sum g, sumsq g, sum g+8,
 // sumsq g+8}.
-template <int NT>
+template <int NT, typename E = bf16>
 __device__ __forceinline__ void round_and_sum(float (&acc)[NT][4],
                                               float (&s)[4]) {
   s[0] = s[1] = s[2] = s[3] = 0.0f;
@@ -124,7 +131,9 @@ __device__ __forceinline__ void round_and_sum(float (&acc)[NT][4],
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float2 v = rbf2(acc[j][2 * h], acc[j][2 * h + 1]);
+      const float2 v = IS_F32<E> ? make_float2(acc[j][2 * h],
+                                               acc[j][2 * h + 1])
+                                 : rbf2(acc[j][2 * h], acc[j][2 * h + 1]);
       acc[j][2 * h] = v.x;
       acc[j][2 * h + 1] = v.y;
       s[2 * h] += v.x + v.y;
@@ -151,43 +160,53 @@ __device__ __forceinline__ uint32_t norm_pack(float y0, float y1, float2 r,
                    fmaf(fmaf(y1, r.x, r.y), s.y, b.y));
 }
 
+// The same two values stored to p as E.
+template <typename E>
+__device__ __forceinline__ void norm_store(E* p, float y0, float y1, float2 r,
+                                           float2 s, float2 b) {
+  st2<E>(p, fmaf(fmaf(y0, r.x, r.y), s.x, b.x),
+         fmaf(fmaf(y1, r.x, r.y), s.y, b.y));
+}
+
 // The body: rows [m0, m0 + BM) of x (M x Cin, row-major) against the
 // weight rows of groups [g0, g0 + gpb) (w: (groups·C, Cin), a torch Linear
 // weight). For each group in turn the warp's share of the (BM, C) product
 // is accumulated over Cin, then epi(gl, acc) runs (gl: the group's index
-// within the block). Rows >= M are zero.
-template <int C, typename Epi>
-__device__ __forceinline__ void run(const bf16* x, const bf16* w, int M,
-                                    int Cin, int m0, int g0, int gpb,
+// within the block). Rows >= M are zero. E follows x.
+template <int C, typename E, typename Epi>
+__device__ __forceinline__ void run(const E* x, const E* w, int M, int Cin,
+                                    int m0, int g0, int gpb,
                                     unsigned char* smem, Epi& epi) {
   using S = Split<C>;
+  constexpr int KS = KD<E>;   // depth of a weight tile
+  constexpr int EC = EPC<E>;
   // 16-byte chunks a thread stages per weight tile: rows r0 + 32k, chunk
   // wc of each.
   constexpr int WCH = C * 8 / THREADS;
   static_assert(C * 8 % THREADS == 0, "whole chunks a thread");
   const uint32_t base = bsa::smem_addr(smem);
-  const uint32_t ring = base + S::BM * Cin * 2;
-  const int nk = Cin / BK, total = gpb * nk, cch = Cin / 8;
+  const uint32_t ring = base + S::BM * Cin * sizeof(E);
+  const int nk = Cin / KS, total = gpb * nk, cch = Cin / EC;
   const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
   const int wm = (warp % S::WARPS_M) * 16, wn = (warp / S::WARPS_M) * S::WN;
   const int r0 = threadIdx.x >> 3, wc = threadIdx.x & 7;
 
-  // The x panel: nk panels of BM rows x 64 columns, one cp.async group.
+  // The x panel: nk panels of BM rows x KS columns, one cp.async group.
   for (int i = threadIdx.x; i < S::BM * cch; i += THREADS) {
     const int r = i / cch, ch = i % cch;
     const bool ok = m0 + r < M;
     cp_async16(base + (ch >> 3) * (S::BM * 128) + swz(r, ch & 7),
-               ok ? x + (size_t)(m0 + r) * Cin + ch * 8 : x, ok);
+               ok ? x + (size_t)(m0 + r) * Cin + ch * EC : x, ok);
   }
   bsa::cp_async_commit();
   // The weight tiles in order, (group, depth) = (lg, lk) next, C rows x
-  // 64 columns each, into ring slot ls; counters, not divisions.
-  const bf16* wsrc = w + (size_t)g0 * C * Cin + (size_t)r0 * Cin + wc * 8;
+  // KS columns each, into ring slot ls; counters, not divisions.
+  const E* wsrc = w + (size_t)g0 * C * Cin + (size_t)r0 * Cin + wc * EC;
   const uint32_t wdst = ring + swz(r0, wc);
   int lg = 0, lk = 0, ls = 0;
   auto load = [&]() {
     if (lg < gpb) {
-      const bf16* src = wsrc + (size_t)lg * C * Cin + lk * BK;
+      const E* src = wsrc + (size_t)lg * C * Cin + lk * KS;
       const uint32_t dst = wdst + ls * S::W_TILE;
 #pragma unroll
       for (int k = 0; k < WCH; ++k)  // rows r0 + 32k: the same swizzle
@@ -215,17 +234,23 @@ __device__ __forceinline__ void run(const bf16* x, const bf16* w, int M,
     }
     const uint32_t sa = base + kt * (S::BM * 128);
     const uint32_t sb = ring + cs * S::W_TILE;
+    if constexpr (IS_F32<E>) {
+      bsa::ffma_step<1, S::NT, true, true>(
+          sa, sb, wm, wn, 0, 0,
+          *reinterpret_cast<float(*)[1][S::NT][4]>(&acc));
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4];
-      bsa::ldsm_x4(sa + swz(wm + (l & 15), (kk >> 3) + (l >> 4)), af);
+      for (int kk = 0; kk < BK; kk += 16) {
+        uint32_t af[4];
+        bsa::ldsm_x4(sa + swz(wm + (l & 15), (kk >> 3) + (l >> 4)), af);
 #pragma unroll
-      for (int j = 0; j < S::NT; j += 2) {
-        uint32_t f[4];
-        bsa::ldsm_x4(sb + swz(wn + j * 8 + (l & 7) + ((l >> 4) << 3),
-                              (kk >> 3) + ((l >> 3) & 1)), f);
-        bsa::mma(acc[j], af, f[0], f[1]);
-        bsa::mma(acc[j + 1], af, f[2], f[3]);
+        for (int j = 0; j < S::NT; j += 2) {
+          uint32_t f[4];
+          bsa::ldsm_x4(sb + swz(wn + j * 8 + (l & 7) + ((l >> 4) << 3),
+                                (kk >> 3) + ((l >> 3) & 1)), f);
+          bsa::mma(acc[j], af, f[0], f[1]);
+          bsa::mma(acc[j + 1], af, f[2], f[3]);
+        }
       }
     }
     cs = cs + 1 == STAGES ? 0 : cs + 1;

@@ -20,6 +20,8 @@
 //   segmented  anything larger (the ETB shapes (B, 1, N, C), q_softmax on):
 //              the linear-attention core of linear_attention.cuh on the
 //              (B·h, N, d) tensors, three or four launches.
+// Both are templates on the element type: linear_attention_f32 is the fp32
+// form (no rounding points; the fp32 eval forward's stage-4 attention).
 #include "linear_attention.cuh"
 
 namespace {
@@ -28,47 +30,49 @@ using ffn::THREADS;
 constexpr int KID = 6;
 constexpr int HEAD_MAX = 64;  // the widest head of the head body
 
-// Bytes of shared memory of one head-body block (mirrored by head_smem in
-// ops/kernels/linear_attention.py): q, k and v of the head, the column
-// statistics, a reduction row, the context strips' partials, the bf16
-// context.
-__host__ __device__ inline size_t head_smem(int N, int dk, int dv) {
+// Bytes of shared memory of one head-body block over elements of es bytes
+// (mirrored by head_smem in ops/kernels/linear_attention.py): q, k and v of
+// the head, the column statistics, a reduction row, the context strips'
+// partials, the E context.
+__host__ __device__ inline size_t head_smem(int N, int dk, int dv,
+                                            int es = 2) {
   const int strips = dk * (dv / 8);
-  return ((size_t)2 * N * dk + (size_t)N * dv) * 2 +
+  return ((size_t)2 * N * dk + (size_t)N * dv) * es +
          (2 * HEAD_MAX + THREADS) * 4 +
          (size_t)8 * (strips > THREADS ? strips : THREADS) * 4 +
-         (size_t)dk * dv * 2;
+         (size_t)dk * dv * es;
 }
 
-__device__ __forceinline__ void copy_rows(uint32_t s, const bf16* g, int n) {
-  for (int i = threadIdx.x; i < n / 8; i += THREADS)
-    bsa::cp_async16(s + i * 16, g + (size_t)i * 8, true);
+// n elements (a multiple of 8) from g to the shared address s, by cp.async.
+template <typename E>
+__device__ __forceinline__ void copy_rows(uint32_t s, const E* g, int n) {
+  for (int i = threadIdx.x; i < n / EPC<E>; i += THREADS)
+    bsa::cp_async16(s + i * 16, g + (size_t)i * EPC<E>, true);
 }
 
-__device__ __forceinline__ void fma8(float (&acc)[8], float a, uint4 u) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+template <typename E>
+__device__ __forceinline__ void fma8(float (&acc)[8], float a, const E* p) {
+  float b[8];
+  ld8<E>(p, b);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 b = __bfloat1622float2(p2[e]);
-    acc[2 * e] = fmaf(a, b.x, acc[2 * e]);
-    acc[2 * e + 1] = fmaf(a, b.y, acc[2 * e + 1]);
-  }
+  for (int e = 0; e < 8; ++e) acc[e] = fmaf(a, b[e], acc[e]);
 }
 
+template <typename E>
 __global__ void __launch_bounds__(THREADS)
-lin_head_kernel(const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                int N, int dk, int dv, int q_softmax, float scale) {
+lin_head_kernel(const E* q, const E* k, const E* v, E* out, int N, int dk,
+                int dv, int q_softmax, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + (size_t)N * dk;
-  bf16* vs = ks + (size_t)N * dk;
+  E* qs = reinterpret_cast<E*>(smem);
+  E* ks = qs + (size_t)N * dk;
+  E* vs = ks + (size_t)N * dk;
   float* colm = reinterpret_cast<float*>(vs + (size_t)N * dv);
   float* cols = colm + HEAD_MAX;
   float* red = cols + HEAD_MAX;
   float* part = red + THREADS;
   const int nv = dv / 8, strips = dk * nv;
   const int P = max(1, THREADS / strips);  // row parts of a context strip
-  bf16* cb = reinterpret_cast<bf16*>(part + 8 * max(THREADS, strips));
+  E* cb = reinterpret_cast<E*>(part + 8 * max(THREADS, strips));
   const int tid = threadIdx.x;
   const int G = THREADS / dk, c = tid % dk, g = tid / dk;  // stats groups
   const int bh = blockIdx.x;
@@ -83,7 +87,7 @@ lin_head_kernel(const bf16* q, const bf16* k, const bf16* v, bf16* out,
   float m = -INFINITY;
   if (g < G)
     for (int n = g; n < N; n += G)
-      m = fmaxf(m, __bfloat162float(ks[(size_t)n * dk + c]));
+      m = fmaxf(m, tof(ks[(size_t)n * dk + c]));
   red[tid] = m;
   __syncthreads();
   if (tid < dk) {
@@ -95,7 +99,7 @@ lin_head_kernel(const bf16* q, const bf16* k, const bf16* v, bf16* out,
   float s = 0.0f;
   if (g < G)
     for (int n = g; n < N; n += G)
-      s += expf(__bfloat162float(ks[(size_t)n * dk + c]) - colm[c]);
+      s += expf(tof(ks[(size_t)n * dk + c]) - colm[c]);
   red[tid] = s;
   __syncthreads();
   if (tid < dk) {
@@ -104,31 +108,24 @@ lin_head_kernel(const bf16* q, const bf16* k, const bf16* v, bf16* out,
     cols[tid] = ss;
   }
   __syncthreads();
-  // Ks = bf16(exp(K − m) / S) in place, 8 values (one row's) a step.
+  // Ks = E(exp(K − m) / S) in place, 8 values (one row's) a step.
   for (int i = tid * 8; i < N * dk; i += THREADS * 8) {
-    uint4* pu = reinterpret_cast<uint4*>(ks + i);
-    uint4 u = *pu;
-    uint32_t* pw = reinterpret_cast<uint32_t*>(&u);
+    float x[8];
+    ld8<E>(ks + i, x);
     const int a = i % dk;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 x = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(pw + e));
-      const int j = a + 2 * e;
-      pw[e] = bsa::pack(expf(x.x - colm[j]) / cols[j],
-                        expf(x.y - colm[j + 1]) / cols[j + 1]);
-    }
-    *pu = u;
+    for (int e = 0; e < 8; ++e) x[e] = expf(x[e] - colm[a + e]) / cols[a + e];
+    st8<E>(ks + i, x);
   }
-  // Q' = bf16(softmax of each row over its dk channels) in place.
+  // Q' = E(softmax of each row over its dk channels) in place.
   if (q_softmax)
     for (int n = tid; n < N; n += THREADS) {
-      bf16* row = qs + (size_t)n * dk;
+      E* row = qs + (size_t)n * dk;
       float mq = -INFINITY, sq = 0.0f;
-      for (int j = 0; j < dk; ++j) mq = fmaxf(mq, __bfloat162float(row[j]));
-      for (int j = 0; j < dk; ++j) sq += expf(__bfloat162float(row[j]) - mq);
+      for (int j = 0; j < dk; ++j) mq = fmaxf(mq, tof(row[j]));
+      for (int j = 0; j < dk; ++j) sq += expf(tof(row[j]) - mq);
       for (int j = 0; j < dk; ++j)
-        row[j] = __float2bfloat16(expf(__bfloat162float(row[j]) - mq) / sq);
+        row[j] = fromf<E>(expf(tof(row[j]) - mq) / sq);
     }
   __syncthreads();
   // The context Ksᵀ·V in strips of 8 values (key channel a, value
@@ -138,8 +135,7 @@ lin_head_kernel(const bf16* q, const bf16* k, const bf16* v, bf16* out,
     const int a = sidx / nv, c8 = sidx % nv;
     float acc[8] = {};
     for (int n = p; n < N; n += P)
-      fma8(acc, __bfloat162float(ks[(size_t)n * dk + a]),
-           *reinterpret_cast<const uint4*>(vs + (size_t)n * dv + c8 * 8));
+      fma8<E>(acc, tof(ks[(size_t)n * dk + a]), vs + (size_t)n * dv + c8 * 8);
 #pragma unroll
     for (int e = 0; e < 8; ++e) part[(size_t)t * 8 + e] = acc[e];
   }
@@ -149,61 +145,66 @@ lin_head_kernel(const bf16* q, const bf16* k, const bf16* v, bf16* out,
     float sum = 0.0f;
     for (int p = 0; p < P; ++p)
       sum += part[((size_t)p * strips + sidx) * 8 + e];
-    cb[o] = __float2bfloat16(sum);
+    cb[o] = fromf<E>(sum);
   }
   __syncthreads();
-  // out = bf16(scale · Q'·ctx) in strips of 8 output columns, Q' read 8
+  // out = E(scale · Q'·ctx) in strips of 8 output columns, Q' read 8
   // channels at a time.
-  bf16* ob = out + (size_t)bh * N * dv;
+  E* ob = out + (size_t)bh * N * dv;
   for (int t = tid; t < N * nv; t += THREADS) {
     const int n = t / nv, c8 = t % nv;
     float acc[8] = {};
     for (int a0 = 0; a0 < dk; a0 += 8) {
-      const uint4 qu =
-          *reinterpret_cast<const uint4*>(qs + (size_t)n * dk + a0);
-      const bf16* qq = reinterpret_cast<const bf16*>(&qu);
+      float qq[8];
+      ld8<E>(qs + (size_t)n * dk + a0, qq);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        fma8(acc, __bfloat162float(qq[j]),
-             *reinterpret_cast<const uint4*>(cb + (size_t)(a0 + j) * dv +
-                                             c8 * 8));
+        fma8<E>(acc, qq[j], cb + (size_t)(a0 + j) * dv + c8 * 8);
     }
-    uint4 r;
-    uint32_t* pr = reinterpret_cast<uint32_t*>(&r);
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      pr[e] = bsa::pack(acc[2 * e] * scale, acc[2 * e + 1] * scale);
-    *reinterpret_cast<uint4*>(ob + (size_t)n * dv + c8 * 8) = r;
+    for (int e = 0; e < 8; ++e) acc[e] *= scale;
+    st8<E>(ob + (size_t)n * dv + c8 * 8, acc);
   }
 }
-
-}  // namespace
 
 // Indices into the wrapper's plan (ops/kernels/linear_attention.py plan).
 enum Plan { BODY, SEGMENTS, SEGMENT_ROWS, PLAN_LEN };
 enum Body { BODY_HEAD, BODY_SEGMENTED };
 
-extern "C" int linear_attention(const bf16* q, const bf16* k, const bf16* v,
-                                bf16* out, float2* part, float* pctx,
-                                bf16* ctx, const int* plan, int BH, int N,
-                                int dk, int dv, int q_softmax, float scale,
-                                void* stream) {
+template <typename E>
+int attend(const E* q, const E* k, const E* v, E* out, float2* part,
+           float* pctx, E* ctx, const int* plan, int BH, int N, int dk,
+           int dv, int q_softmax, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dk % 8 || dv % 8) return cudaErrorInvalidValue;  // 16-byte rows
   if (plan[BODY] == BODY_HEAD) {
     if (dk > HEAD_MAX || dv > HEAD_MAX) return cudaErrorInvalidValue;
-    const size_t smem = head_smem(N, dk, dv);
-    cudaError_t e = set_smem((const void*)lin_head_kernel, smem);
+    const size_t smem = head_smem(N, dk, dv, (int)sizeof(E));
+    cudaError_t e = set_smem((const void*)lin_head_kernel<E>, smem);
     if (e) return e;
-    lin_head_kernel<<<BH, THREADS, smem, st>>>(q, k, v, out, N, dk, dv,
-                                               q_softmax, scale);
+    lin_head_kernel<E><<<BH, THREADS, smem, st>>>(q, k, v, out, N, dk, dv,
+                                                  q_softmax, scale);
     return cudaGetLastError();
   }
-  auto view = [&](const bf16* p, int d) {
-    return lin::View{const_cast<bf16*>(p), d, (size_t)N * d};
+  auto view = [&](const E* p, int d) {
+    return lin::View<E>{const_cast<E*>(p), d, (size_t)N * d};
   };
-  return lin::attention<KID>(view(q, dk), view(k, dk), view(v, dv),
-                             view(out, dv), part, pctx, ctx, BH, N, dk, dv,
-                             plan[SEGMENTS], plan[SEGMENT_ROWS], q_softmax,
-                             scale, st);
+  return lin::attention<KID, E>(view(q, dk), view(k, dk), view(v, dv),
+                                view(out, dv), part, pctx, ctx, BH, N, dk,
+                                dv, plan[SEGMENTS], plan[SEGMENT_ROWS],
+                                q_softmax, scale, st);
 }
+
+}  // namespace
+
+#define LINEAR_ATTENTION(NAME, E)                                         \
+  extern "C" int NAME(const E* q, const E* k, const E* v, E* out,         \
+                      float2* part, float* pctx, E* ctx, const int* plan, \
+                      int BH, int N, int dk, int dv, int q_softmax,       \
+                      float scale, void* stream) {                        \
+    return attend<E>(q, k, v, out, part, pctx, ctx, plan, BH, N, dk, dv,  \
+                     q_softmax, scale, stream);                           \
+  }
+LINEAR_ATTENTION(linear_attention, bf16)
+LINEAR_ATTENTION(linear_attention_f32, float)
+#undef LINEAR_ATTENTION

@@ -49,6 +49,16 @@
 // Rounding points are the Pallas kernel's: the caller's LN output, h, the
 // conv output, z and a in bf16; y, the statistics and every sum in fp32;
 // the fc2 output rounded before the residual is added and rounded again.
+//
+// Every stage is a template on the element type E of its activations and
+// weights: bf16, or fp32 for the fp32 forward (the Pallas kernels are
+// dtype-generic, and the published protocol evaluates at fp32). At fp32
+// the rounding points are identities, the staged panels keep their
+// 128-byte rows (32 fp32 columns: a product step is 32 deep, KD<E>), and
+// the product step is bsa::ffma_step on the CUDA cores in place of
+// ldmatrix + mma.sync, with the same accumulator layout, so the LN fold,
+// the epilogues and the rows stage are the bf16 code with E in place of
+// bf16.
 #pragma once
 
 #include "bridge_softmax.cuh"
@@ -62,10 +72,19 @@ constexpr int THREADS = 256;
 constexpr int NW = THREADS / 32;
 constexpr int BIG = 128;    // output tile sides of the products
 constexpr int SMALL = 64;
-constexpr int BK = 64;      // product depth per staged operand tile
+constexpr int BK = 64;      // bf16 product depth per staged operand tile
 constexpr int GSTAGES = 3;  // cp.async ring depth of the products
 constexpr int SEG = 8;      // map columns of a rows-stage work item
 constexpr float RSQRT2 = 0.70710678118654752f;
+
+// A parameter whose type follows the others' (not deduced from it, so that
+// nullptr passes for an unused residual).
+template <typename T>
+struct Id {
+  using type = T;
+};
+template <typename T>
+using Same = typename Id<T>::type;
 
 // Product epilogues, a template argument each (a runtime branch in a K2
 // body had cost 1.27 -> 1.94 ms a launch on an H100).
@@ -90,82 +109,93 @@ struct Tile {
   static constexpr int WARPS_N = NW / WARPS_M;
   static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
   static constexpr int MT = WM / 16, NT = WN / 8;
-  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2;
+  // One staged step of A and B: 128-byte panel rows (KD<E> deep).
+  static constexpr int A_BYTES = BM * 128, B_BYTES = BN * 128;
   static constexpr int STAGE = A_BYTES + B_BYTES;
 };
 
-// Shared memory of one product block: the ring of A and B tiles, or with
-// the LN folded (ALN) A's whole normalised panel (K rounded up to BK) and
-// a ring of B tiles; the bf16 epilogue's output tile reuses it.
-__host__ __device__ inline size_t gemm_smem(bool aln, int bm, int bn, int K) {
-  const size_t ring_b = (size_t)GSTAGES * bn * BK * 2;
-  const size_t ops = aln ? (size_t)bm * ((K + BK - 1) / BK * BK) * 2 + ring_b
-                         : (size_t)GSTAGES * bm * BK * 2 + ring_b;
-  const size_t tile = (size_t)bm * (bn + 8) * 2;  // the bf16 epilogue's
+// Shared memory of one product block over elements of es bytes: the ring
+// of A and B tiles, or with the LN folded (ALN) A's whole normalised panel
+// (K rounded up to the step depth) and a ring of B tiles; the epilogue's
+// output tile reuses it.
+__host__ __device__ inline size_t gemm_smem(bool aln, int bm, int bn, int K,
+                                            int es = 2) {
+  const int kd = 128 / es;
+  const size_t ring_b = (size_t)GSTAGES * bn * 128;
+  const size_t ops = aln ? (size_t)bm * ((K + kd - 1) / kd * kd) * es + ring_b
+                         : (size_t)GSTAGES * bm * 128 + ring_b;
+  const size_t tile = (size_t)bm * (bn + 8) * es;  // the E epilogue's
   return ops > tile ? ops : tile;
 }
 
-// Rows [0, R) x columns [0, W) (W a multiple of 64) of the row-major bf16
-// matrix at p (leading dimension ld) into swizzled 64-column panels of R
-// rows at s, asynchronously; rows >= rv or columns >= cv zero-filled.
-template <int R, int W>
-__device__ __forceinline__ void stage(uint32_t s, const bf16* p, int ld,
-                                      int rv, int cv) {
-  for (int i = threadIdx.x; i < R * (W / 8); i += THREADS) {
-    const int r = i / (W / 8), c = i % (W / 8);
-    const bool ok = r < rv && c * 8 < cv;
+// Rows [0, R) x columns [0, W) (W a multiple of KD<E>) of the row-major
+// matrix at p (leading dimension ld) into swizzled panels of R rows of 128
+// bytes at s, asynchronously; rows >= rv or columns >= cv zero-filled.
+template <int R, int W, typename E>
+__device__ __forceinline__ void stage(uint32_t s, const E* p, int ld, int rv,
+                                      int cv) {
+  constexpr int CW = W / EPC<E>;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < R * CW; i += THREADS) {
+    const int r = i / CW, c = i % CW;
+    const bool ok = r < rv && c * EPC<E> < cv;
     cp_async16(s + (c >> 3) * (R * 128) + swz(r, c & 7),
-               ok ? p + (size_t)r * ld + c * 8 : p, ok);
+               ok ? p + (size_t)r * ld + c * EPC<E> : p, ok);
   }
 }
 
-// One BK-deep step of a warp's WM x WN share of a BM x BN product, acc +=
-// A·B on the tensor cores: A's tile at sa (AMK: BM rows of BK, else BK
-// rows of BM), B's at sb (BNK: BN rows of BK, else BK rows of BN), each in
-// stage's swizzled 64-column panels; fragments by ldmatrix (.trans where
-// M or N is the contiguous side).
-template <int BM, int BN, bool AMK, bool BNK>
+// One KD<E>-deep step of a warp's WM x WN share of a BM x BN product, acc
+// += A·B: A's tile at sa (AMK: BM rows of KD<E>, else KD<E> rows of BM in
+// panels aps bytes apart), B's at sb (BNK: BN rows of KD<E>, else KD<E>
+// rows of BN in panels bps bytes apart), each in stage's swizzled panels.
+// bf16: the tensor cores, fragments by ldmatrix (.trans where M or N is
+// the contiguous side); fp32: bsa::ffma_step, the same accumulator layout.
+template <int BM, int BN, bool AMK, bool BNK, typename E = bf16>
 __device__ __forceinline__ void mma_step(
     uint32_t sa, uint32_t sb, int wm, int wn,
-    float (&acc)[Tile<BM, BN>::MT][Tile<BM, BN>::NT][4]) {
+    float (&acc)[Tile<BM, BN>::MT][Tile<BM, BN>::NT][4],
+    int aps = KD<E> * 128, int bps = KD<E> * 128) {
   using T = Tile<BM, BN>;
-  const int l = threadIdx.x & 31;
+  if constexpr (IS_F32<E>) {
+    bsa::ffma_step<T::MT, T::NT, AMK, BNK>(sa, sb, wm, wn, aps, bps, acc);
+  } else {
+    const int l = threadIdx.x & 31;
 #pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t af[T::MT][4], bf[T::NT][2];
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t af[T::MT][4], bf[T::NT][2];
 #pragma unroll
-    for (int i = 0; i < T::MT; ++i) {
-      const int mi = wm + i * 16;
-      if (AMK) {
-        bsa::ldsm_x4(sa + swz(mi + (l & 15), (kk >> 3) + (l >> 4)), af[i]);
-      } else {
-        const int cc = (mi >> 3) + ((l >> 3) & 1);
-        const int r = kk + (l & 7) + ((l >> 4) << 3);
-        bsa::ldsm_x4_t(sa + (cc >> 3) * (BK * 128) + swz(r, cc & 7), af[i]);
+      for (int i = 0; i < T::MT; ++i) {
+        const int mi = wm + i * 16;
+        if (AMK) {
+          bsa::ldsm_x4(sa + swz(mi + (l & 15), (kk >> 3) + (l >> 4)), af[i]);
+        } else {
+          const int cc = (mi >> 3) + ((l >> 3) & 1);
+          const int r = kk + (l & 7) + ((l >> 4) << 3);
+          bsa::ldsm_x4_t(sa + (cc >> 3) * aps + swz(r, cc & 7), af[i]);
+        }
       }
-    }
 #pragma unroll
-    for (int j = 0; j < T::NT; j += 2) {
-      const int ni = wn + j * 8;
-      uint32_t f[4];
-      if (BNK) {
-        bsa::ldsm_x4(sb + swz(ni + (l & 7) + ((l >> 4) << 3),
-                              (kk >> 3) + ((l >> 3) & 1)), f);
-      } else {
-        const int cc = (ni >> 3) + (l >> 4);
-        bsa::ldsm_x4_t(sb + (cc >> 3) * (BK * 128) + swz(kk + (l & 15),
-                                                        cc & 7), f);
+      for (int j = 0; j < T::NT; j += 2) {
+        const int ni = wn + j * 8;
+        uint32_t f[4];
+        if (BNK) {
+          bsa::ldsm_x4(sb + swz(ni + (l & 7) + ((l >> 4) << 3),
+                                (kk >> 3) + ((l >> 3) & 1)), f);
+        } else {
+          const int cc = (ni >> 3) + (l >> 4);
+          bsa::ldsm_x4_t(sb + (cc >> 3) * bps + swz(kk + (l & 15), cc & 7),
+                         f);
+        }
+        bf[j][0] = f[0];
+        bf[j][1] = f[1];
+        bf[j + 1][0] = f[2];
+        bf[j + 1][1] = f[3];
       }
-      bf[j][0] = f[0];
-      bf[j][1] = f[1];
-      bf[j + 1][0] = f[2];
-      bf[j + 1][1] = f[3];
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j)
+          bsa::mma(acc[i][j], af[i], bf[j][0], bf[j][1]);
     }
-#pragma unroll
-    for (int i = 0; i < T::MT; ++i)
-#pragma unroll
-      for (int j = 0; j < T::NT; ++j)
-        bsa::mma(acc[i][j], af[i], bf[j][0], bf[j][1]);
   }
 }
 
@@ -174,39 +204,42 @@ __device__ __forceinline__ void mma_step(
 // or [K][N], and the epilogue EPI (res: the residual, M x N with leading
 // dimension ldo). ALN: A is x [M][K], normalised by nrm into the block's
 // panel before the loop (AMK, one split).
-template <int KID, bool AMK, bool BNK, bool ALN, int BM, int BN, int EPI>
+template <int KID, bool AMK, bool BNK, bool ALN, int BM, int BN, int EPI,
+          typename E>
 __global__ void __launch_bounds__(THREADS)
-mixffn_gemm_kernel(const bf16* A, int lda, const bf16* B, int ldb, void* out,
-                   int ldo, const float* bias, const bf16* res, Norm nrm,
-                   int M, int N, int K, int kper, size_t split) {
+mixffn_gemm_kernel(const E* A, int lda, const E* B, int ldb, void* out,
+                   int ldo, const float* bias, const E* res, Norm nrm, int M,
+                   int N, int K, int kper, size_t split) {
   static_assert(!ALN || AMK, "the folded LN normalises rows of A");
   using T = Tile<BM, BN>;
+  constexpr int KS = KD<E>;   // depth of a staged step
+  constexpr int EC = EPC<E>;  // elements of a 16-byte chunk
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = bsa::smem_addr(smem);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int kb = blockIdx.z * kper, ke = min(K, kb + kper);
-  const int nk = (ke - kb + BK - 1) / BK;
+  const int nk = (ke - kb + KS - 1) / KS;
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
   const int wm = (w % T::WARPS_M) * T::WM, wn = (w / T::WARPS_M) * T::WN;
-  // ALN: A's panel (nk tiles of BM x BK) first, then the ring of B tiles.
+  // ALN: A's panel (nk tiles of BM x KS) first, then the ring of B tiles.
   const uint32_t ring = ALN ? base + nk * T::A_BYTES : base;
   const int slot = ALN ? T::B_BYTES : T::STAGE;
 
   auto load = [&](int it) {
     if (it < nk) {
-      const int k0 = kb + it * BK;
+      const int k0 = kb + it * KS;
       const uint32_t sb = ring + (it % GSTAGES) * slot + (ALN ? 0 : T::A_BYTES);
       if (!ALN) {
         const uint32_t sa = sb - T::A_BYTES;
         if (AMK)
-          stage<BM, BK>(sa, A + (size_t)m0 * lda + k0, lda, M - m0, ke - k0);
+          stage<BM, KS>(sa, A + (size_t)m0 * lda + k0, lda, M - m0, ke - k0);
         else
-          stage<BK, BM>(sa, A + (size_t)k0 * lda + m0, lda, ke - k0, M - m0);
+          stage<KS, BM>(sa, A + (size_t)k0 * lda + m0, lda, ke - k0, M - m0);
       }
       if (BNK)
-        stage<BN, BK>(sb, B + (size_t)n0 * ldb + k0, ldb, N - n0, ke - k0);
+        stage<BN, KS>(sb, B + (size_t)n0 * ldb + k0, ldb, N - n0, ke - k0);
       else
-        stage<BK, BN>(sb, B + (size_t)k0 * ldb + n0, ldb, ke - k0, N - n0);
+        stage<KS, BN>(sb, B + (size_t)k0 * ldb + n0, ldb, ke - k0, N - n0);
     }
     bsa::cp_async_commit();  // empty groups keep the count uniform
   };
@@ -219,37 +252,36 @@ mixffn_gemm_kernel(const bf16* A, int lda, const bf16* B, int ldb, void* out,
       acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
   if constexpr (ALN) {  // x's rows of every k tile: one group, first
     for (int it = 0; it < nk; ++it)
-      stage<BM, BK>(base + it * T::A_BYTES, A + (size_t)m0 * lda + it * BK,
-                    lda, M - m0, K - it * BK);
+      stage<BM, KS>(base + it * T::A_BYTES, A + (size_t)m0 * lda + it * KS,
+                    lda, M - m0, K - it * KS);
     bsa::cp_async_commit();
   }
 #pragma unroll
   for (int t = 0; t < GSTAGES - 1; ++t) load(t);
   if constexpr (ALN) {
     // The caller's LN of the block's rows in place in the panel while the
-    // first B tiles land: element (r, c) at panel c / 64, chunk (c % 64) /
-    // 8. Rows >= M and columns >= K stay zero.
+    // first B tiles land: element (r, c) at panel c / KS, chunk (c % KS) /
+    // EC. Rows >= M and columns >= K stay zero.
     bsa::cp_async_wait<GSTAGES - 1>();
     __syncthreads();
     // Eight lanes a row, four rows a warp at a time; lane q of a row takes
     // the 16-byte chunks q, q + 8, ... of each group (gsz % 64 == 0), whose
     // statistics are reduced over the eight lanes.
-    const int q = l & 7, rows = min(BM, M - m0), per = nrm.gsz / 64;
+    const int q = l & 7, rows = min(BM, M - m0), per = nrm.gsz / (8 * EC);
     for (int r = w * 4 + (l >> 3); r - (l >> 3) < rows; r += NW * 4) {
       const bool live = r < rows;
       for (int c0 = 0; c0 < K; c0 += nrm.gsz) {
         float sm = 0.0f, sq = 0.0f;
         for (int i = 0; i < per && live; ++i) {
-          const int c = c0 + (i * 8 + q) * 8;
-          const uint4 u = *reinterpret_cast<const uint4*>(
-              smem + (c >> 6) * T::A_BYTES + swz(r, (c >> 3) & 7));
-          const __nv_bfloat162* p2 =
-              reinterpret_cast<const __nv_bfloat162*>(&u);
+          const int c = c0 + (i * 8 + q) * EC;
+          float v[EC];
+          unpack<E>(*reinterpret_cast<const uint4*>(
+                        smem + (c / KS) * T::A_BYTES + swz(r, (c % KS) / EC)),
+                    v);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 v = __bfloat1622float2(p2[e]);
-            sm += v.x + v.y;
-            sq += v.x * v.x + v.y * v.y;
+          for (int e = 0; e < EC / 2; ++e) {
+            sm += v[2 * e] + v[2 * e + 1];
+            sq += v[2 * e] * v[2 * e] + v[2 * e + 1] * v[2 * e + 1];
           }
         }
 #pragma unroll
@@ -260,21 +292,15 @@ mixffn_gemm_kernel(const bf16* A, int lda, const bf16* B, int ldb, void* out,
         const float mean = sm / nrm.gsz;
         const float inv = rsqrtf(sq / nrm.gsz - mean * mean + nrm.eps);
         for (int i = 0; i < per && live; ++i) {
-          const int c = c0 + (i * 8 + q) * 8;
+          const int c = c0 + (i * 8 + q) * EC;
           uint4* pu = reinterpret_cast<uint4*>(
-              smem + (c >> 6) * T::A_BYTES + swz(r, (c >> 3) & 7));
-          uint4 u = *pu;
-          uint32_t* pw = reinterpret_cast<uint32_t*>(&u);
+              smem + (c / KS) * T::A_BYTES + swz(r, (c % KS) / EC));
+          float v[EC];
+          unpack<E>(*pu, v);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 v = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(pw + e));
-            const int ce = c + 2 * e;
-            pw[e] = bsa::pack((v.x - mean) * inv * nrm.s[ce] + nrm.b[ce],
-                              (v.y - mean) * inv * nrm.s[ce + 1] +
-                                  nrm.b[ce + 1]);
-          }
-          *pu = u;
+          for (int e = 0; e < EC; ++e)
+            v[e] = (v[e] - mean) * inv * nrm.s[c + e] + nrm.b[c + e];
+          *pu = pack16<E>(v);
         }
       }
     }
@@ -285,7 +311,7 @@ mixffn_gemm_kernel(const bf16* A, int lda, const bf16* B, int ldb, void* out,
     load(it + GSTAGES - 1);
     const uint32_t sb = ring + (it % GSTAGES) * slot + (ALN ? 0 : T::A_BYTES);
     const uint32_t sa = ALN ? base + it * T::A_BYTES : sb - T::A_BYTES;
-    mma_step<BM, BN, AMK, BNK>(sa, sb, wm, wn, acc);
+    mma_step<BM, BN, AMK, BNK, E>(sa, sb, wm, wn, acc);
   }
   bsa::cp_async_wait<0>();
 
@@ -306,12 +332,12 @@ mixffn_gemm_kernel(const bf16* A, int lda, const bf16* B, int ldb, void* out,
               make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
         }
   } else {
-    // The bf16 epilogues: the branch (the product with its bias, rounded
+    // The E epilogues: the branch (the product with its bias, rounded
     // where the Pallas kernel rounds it) into a padded tile over the freed
-    // operand tiles, then 16-byte stores of 8 columns a thread, the
+    // operand tiles, then 16-byte stores of EC columns a thread, the
     // residual read likewise, added in fp32 and rounded once more.
     constexpr int TLD = BN + 8;
-    bf16* tile = reinterpret_cast<bf16*>(smem);
+    E* tile = reinterpret_cast<E*>(smem);
     __syncthreads();  // every warp is done with the operand tiles
 #pragma unroll
     for (int i = 0; i < T::MT; ++i)
@@ -327,68 +353,66 @@ mixffn_gemm_kernel(const bf16* A, int lda, const bf16* B, int ldb, void* out,
             o0 = v0 + bias[n];
             o1 = v1 + bias[n + 1];
           } else if constexpr (EPI == EPI_RESID) {
-            o0 = rbf(v0 + bias[n]);
-            o1 = rbf(v1 + bias[n + 1]);
+            o0 = rnd<E>(v0 + bias[n]);
+            o1 = rnd<E>(v1 + bias[n + 1]);
           } else {  // EPI_DENSE, EPI_DENSE_RESID
-            o0 = rbf(v0) + rbf(bias[n]);
-            o1 = rbf(v1) + rbf(bias[n + 1]);
+            o0 = rnd<E>(v0) + rnd<E>(bias[n]);
+            o1 = rnd<E>(v1) + rnd<E>(bias[n + 1]);
           }
-          *reinterpret_cast<uint32_t*>(tile + rm * TLD + cn) =
-              bsa::pack(o0, o1);
+          st2<E>(tile + rm * TLD + cn, o0, o1);
         }
     __syncthreads();
-    for (int e = threadIdx.x; e < BM * BN / 8; e += THREADS) {
-      const int rm = e / (BN / 8), cc = e % (BN / 8) * 8;
+    constexpr int CPR = BN / EC;  // 16-byte chunks of a tile row
+    for (int e = threadIdx.x; e < BM * CPR; e += THREADS) {
+      const int rm = e / CPR, cc = e % CPR * EC;
       const int m = m0 + rm, n = n0 + cc;
       if (m >= M || n >= N) continue;
       uint4 v = *reinterpret_cast<const uint4*>(tile + rm * TLD + cc);
       const size_t o = (size_t)m * ldo + n;
       if constexpr (EPI == EPI_RESID || EPI == EPI_DENSE_RESID) {
-        const uint4 r = *reinterpret_cast<const uint4*>(res + o);
-        uint32_t* pv = reinterpret_cast<uint32_t*>(&v);
-        const uint32_t* pr = reinterpret_cast<const uint32_t*>(&r);
+        float a[EC], b[EC];
+        unpack<E>(v, a);
+        unpack<E>(*reinterpret_cast<const uint4*>(res + o), b);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float2 a = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(pv + q));
-          const float2 b = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(pr + q));
-          pv[q] = bsa::pack(a.x + b.x, a.y + b.y);
-        }
+        for (int q = 0; q < EC; ++q) a[q] += b[q];
+        v = pack16<E>(a);
       }
-      *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + o) = v;
+      *reinterpret_cast<uint4*>(static_cast<E*>(out) + o) = v;
     }
   }
 }
 
-template <int KID, bool AMK, bool BNK, bool ALN, int BM, int BN, int EPI>
-cudaError_t gemm_launch(const bf16* A, int lda, const bf16* B, int ldb,
-                        void* out, int ldo, const float* bias,
-                        const bf16* res, Norm nrm, int M, int N, int K,
-                        int kper, size_t split, cudaStream_t st) {
+template <int KID, bool AMK, bool BNK, bool ALN, int BM, int BN, int EPI,
+          typename E>
+cudaError_t gemm_launch(const E* A, int lda, const E* B, int ldb, void* out,
+                        int ldo, const float* bias, const E* res, Norm nrm,
+                        int M, int N, int K, int kper, size_t split,
+                        cudaStream_t st) {
   const void* fn =
-      (const void*)mixffn_gemm_kernel<KID, AMK, BNK, ALN, BM, BN, EPI>;
-  const size_t smem = gemm_smem(ALN, BM, BN, ALN ? K : kper);
+      (const void*)mixffn_gemm_kernel<KID, AMK, BNK, ALN, BM, BN, EPI, E>;
+  const size_t smem =
+      gemm_smem(ALN, BM, BN, ALN ? K : kper, (int)sizeof(E));
   cudaError_t e = set_smem(fn, smem);
   if (e) return e;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, (K + kper - 1) / kper);
-  mixffn_gemm_kernel<KID, AMK, BNK, ALN, BM, BN, EPI>
+  mixffn_gemm_kernel<KID, AMK, BNK, ALN, BM, BN, EPI, E>
       <<<grid, THREADS, smem, st>>>(A, lda, B, ldb, out, ldo, bias, res, nrm,
                                     M, N, K, kper, split);
   return cudaGetLastError();
 }
 
 // One product with the plan's (bm, bn) output tile; kper: the depth of a
-// split (whole BK tiles; K rounded up for none).
-template <int KID, bool AMK, bool BNK, bool ALN, int EPI>
-cudaError_t gemm(int bm, int bn, const bf16* A, int lda, const bf16* B,
+// split (whole KD<E> steps; K rounded up for none). E follows A.
+template <int KID, bool AMK, bool BNK, bool ALN, int EPI, typename E>
+cudaError_t gemm(int bm, int bn, const E* A, int lda, const Same<E>* B,
                  int ldb, void* out, int ldo, const float* bias,
-                 const bf16* res, Norm nrm, int M, int N, int K, int kper,
+                 const Same<E>* res, Norm nrm, int M, int N, int K, int kper,
                  size_t split, cudaStream_t st) {
-  if (kper <= 0 || kper % BK || (ALN && kper < K)) return cudaErrorInvalidValue;
+  if (kper <= 0 || kper % KD<E> || (ALN && kper < K))
+    return cudaErrorInvalidValue;
 #define TILE(BM_, BN_)                                                     \
   if (bm == BM_ && bn == BN_)                                              \
-    return gemm_launch<KID, AMK, BNK, ALN, BM_, BN_, EPI>(                 \
+    return gemm_launch<KID, AMK, BNK, ALN, BM_, BN_, EPI, E>(              \
         A, lda, B, ldb, out, ldo, bias, res, nrm, M, N, K, kper, split, st);
   TILE(BIG, BIG)
   TILE(BIG, SMALL)
@@ -398,20 +422,24 @@ cudaError_t gemm(int bm, int bn, const bf16* A, int lda, const bf16* B,
   return cudaErrorInvalidValue;
 }
 
-inline int depth(int K) { return (K + BK - 1) / BK * BK; }
+// K rounded up to whole product steps of E.
+template <typename E = bf16>
+inline int depth(int K) {
+  return (K + KD<E> - 1) / KD<E> * KD<E>;
+}
 
 // Stage 2 of the forward, per (map row r = blockIdx.x, batch blockIdx.y).
 // A work item is a pair of hidden channels (c, c + 1) over SEG columns of
 // the row: the thread loads the 3 x (SEG + 2) window of h around them
-// (rows r-1, r, r+1, zero off the map) at once, as bf16 pairs, then
-// d = bf16(conv3x3(h) + dwb) with the taps in registers and y = d + h
+// (rows r-1, r, r+1, zero off the map) at once, as pairs, then
+// d = E(conv3x3(h) + dwb) with the taps in registers and y = d + h
 // into shared memory (s x H fp32). Then a warp per token: the hidden LN's
-// statistics over y, z = bf16(LN(y)), a = bf16(GELU(z)).
-template <int KID>
+// statistics over y, z = E(LN(y)), a = E(GELU(z)).
+template <int KID, typename E>
 __global__ void __launch_bounds__(THREADS)
-mixffn_convrows_kernel(const bf16* h, const bf16* dw, const float* dwb,
-                       const float* ls, const float* lb, bf16* a, int s,
-                       int H, float eps) {
+mixffn_convrows_kernel(const E* h, const E* dw, const float* dwb,
+                       const float* ls, const float* lb, E* a, int s, int H,
+                       float eps) {
   extern __shared__ __align__(16) float ys[];  // s x H
   const int r = blockIdx.x, P = H / 2, nseg = (s + SEG - 1) / SEG;
   const size_t brow = (size_t)blockIdx.y * s;  // map row 0 of batch row b
@@ -422,10 +450,10 @@ mixffn_convrows_kernel(const bf16* h, const bf16* dw, const float* dwb,
     float2 wk[9];
 #pragma unroll
     for (int q = 0; q < 9; ++q)
-      wk[q] = make_float2(__bfloat162float(dw[(size_t)c * 9 + q]),
-                          __bfloat162float(dw[(size_t)(c + 1) * 9 + q]));
+      wk[q] = make_float2(tof(dw[(size_t)c * 9 + q]),
+                          tof(dw[(size_t)(c + 1) * 9 + q]));
     const float2 bd = make_float2(dwb[c], dwb[c + 1]);
-    __nv_bfloat162 win[3][SEG + 2];
+    Pair<E> win[3][SEG + 2];
 #pragma unroll
     for (int di = 0; di < 3; ++di) {
       const int rr = r + di - 1;
@@ -433,9 +461,9 @@ mixffn_convrows_kernel(const bf16* h, const bf16* dw, const float* dwb,
       for (int q = 0; q < SEG + 2; ++q) {
         const int j = j0 - 1 + q;
         win[di][q] = rr >= 0 && rr < s && j >= 0 && j < s
-                         ? *reinterpret_cast<const __nv_bfloat162*>(
+                         ? *reinterpret_cast<const Pair<E>*>(
                                h + ((brow + rr) * s + j) * H + c)
-                         : __floats2bfloat162_rn(0.0f, 0.0f);
+                         : mk2<E>(0.0f, 0.0f);
       }
     }
 #pragma unroll
@@ -446,13 +474,14 @@ mixffn_convrows_kernel(const bf16* h, const bf16* dw, const float* dwb,
       for (int dj = 0; dj < 3; ++dj)
 #pragma unroll
         for (int di = 0; di < 3; ++di) {
-          const float2 v = __bfloat1622float2(win[di][jj + dj]);
+          const float2 v = f2(win[di][jj + dj]);
           acc.x += v.x * wk[di * 3 + dj].x;
           acc.y += v.y * wk[di * 3 + dj].y;
         }
-      const float2 hc = __bfloat1622float2(win[1][jj + 1]);
+      const float2 hc = f2(win[1][jj + 1]);
       *reinterpret_cast<float2*>(ys + (size_t)(j0 + jj) * H + c) =
-          make_float2(rbf(acc.x + bd.x) + hc.x, rbf(acc.y + bd.y) + hc.y);
+          make_float2(rnd<E>(acc.x + bd.x) + hc.x,
+                      rnd<E>(acc.y + bd.y) + hc.y);
     }
   }
   __syncthreads();
@@ -469,13 +498,14 @@ mixffn_convrows_kernel(const bf16* h, const bf16* dw, const float* dwb,
     sq = warp_sum(sq);
     const float mean = sm / H;
     const float inv = rsqrtf(sq / H - mean * mean + eps);
-    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(a + (t0 + j) * H);
+    Pair<E>* out = reinterpret_cast<Pair<E>*>(a + (t0 + j) * H);
     for (int p = lane; p < P; p += 32) {
       const float2 v = y[p];
-      const float z0 = rbf((v.x - mean) * inv * ls[2 * p] + lb[2 * p]);
-      const float z1 = rbf((v.y - mean) * inv * ls[2 * p + 1] + lb[2 * p + 1]);
-      out[p] = __floats2bfloat162_rn(0.5f * z0 * erfcf(-z0 * RSQRT2),
-                                     0.5f * z1 * erfcf(-z1 * RSQRT2));
+      const float z0 = rnd<E>((v.x - mean) * inv * ls[2 * p] + lb[2 * p]);
+      const float z1 =
+          rnd<E>((v.y - mean) * inv * ls[2 * p + 1] + lb[2 * p + 1]);
+      out[p] = mk2<E>(0.5f * z0 * erfcf(-z0 * RSQRT2),
+                      0.5f * z1 * erfcf(-z1 * RSQRT2));
     }
   }
 }
@@ -489,29 +519,29 @@ enum FwdPlan { FC1_BM, FC1_BN, FC2_BM, FC2_BN, FWD_PLAN_LEN };
 
 // The MixFFN_skip forward on x (T = B·s² tokens of C channels), hidden H:
 // fc1 (with the caller's LN nrm unless BARE), the conv/rows stage, fc2
-// (+ the residual res unless BARE) into out. h and a: (T, H) bf16
-// workspace. Three launches.
-template <int KID, bool BARE>
-cudaError_t forward(const bf16* x, Norm nrm, const bf16* w1, const float* b1,
-                    const bf16* dw, const float* dwb, const float* ls,
-                    const float* lb, const bf16* w2, const float* b2,
-                    const bf16* res, bf16* h, bf16* a, bf16* out,
-                    const int* plan, int B, int s, int C, int H, float eps,
-                    cudaStream_t st) {
+// (+ the residual res unless BARE) into out. h and a: (T, H) E workspace.
+// Three launches.
+template <int KID, bool BARE, typename E>
+cudaError_t forward(const E* x, Norm nrm, const E* w1, const float* b1,
+                    const E* dw, const float* dwb, const float* ls,
+                    const float* lb, const E* w2, const float* b2,
+                    const E* res, E* h, E* a, E* out, const int* plan, int B,
+                    int s, int C, int H, float eps, cudaStream_t st) {
   const int T = B * s * s;
   cudaError_t e;
   e = gemm<KID, true, true, !BARE, EPI_BIAS>(plan[FC1_BM], plan[FC1_BN], x,
                                              C, w1, C, h, H, b1, nullptr, nrm,
-                                             T, H, C, depth(C), 0, st);
+                                             T, H, C, depth<E>(C), 0, st);
   if (e) return e;
   const size_t rs = rows_smem(s, H);
-  if ((e = set_smem((const void*)mixffn_convrows_kernel<KID>, rs))) return e;
-  mixffn_convrows_kernel<KID><<<dim3(s, B), THREADS, rs, st>>>(
+  if ((e = set_smem((const void*)mixffn_convrows_kernel<KID, E>, rs)))
+    return e;
+  mixffn_convrows_kernel<KID, E><<<dim3(s, B), THREADS, rs, st>>>(
       h, dw, dwb, ls, lb, a, s, H, eps);
   if ((e = cudaGetLastError())) return e;
   return gemm<KID, true, true, false, BARE ? EPI_BIAS : EPI_RESID>(
       plan[FC2_BM], plan[FC2_BN], a, H, w2, H, out, C, b2, res, Norm{}, T, C,
-      H, depth(H), 0, st);
+      H, depth<E>(H), 0, st);
 }
 
 }  // namespace ffn

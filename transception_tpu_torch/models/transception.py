@@ -46,9 +46,10 @@ class MSTransception(nn.Module):
         cfg = cfg.validate()
         dev = resolve_device(device)
         if dev.type == "cuda" and cfg.use_kernels and \
-                cfg.compute_dtype != torch.bfloat16:
-            raise ValueError("the CUDA kernels take bf16; build an fp32 "
-                             "model on the card with use_kernels=False")
+                cfg.compute_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"the CUDA kernels take bf16 or fp32, not "
+                             f"{cfg.dtype}; build such a model on the card "
+                             f"with use_kernels=False")
         self.cfg = cfg
         dt = cfg.compute_dtype
         folds = fold_table(cfg)

@@ -232,9 +232,37 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
-def bf16(t):
-    """A weight as the kernels read it: contiguous bf16."""
-    return t.to(torch.bfloat16).contiguous()
+# The element types of the forward kernels' activations and weights: bf16,
+# and fp32 for the fp32 forms (the published eval protocol's dtype).
+DTYPES = (torch.bfloat16, torch.float32)
+
+
+def element_dtype(name: str, *tensors, dtypes=DTYPES) -> torch.dtype:
+    """The one element type of a kernel call's tensors; raises ValueError
+    unless they all have it and it is one of `dtypes` (a kernel takes no
+    fp16 and no mix)."""
+    dts = {t.dtype for t in tensors}
+    if len(dts) != 1 or next(iter(dts)) not in dtypes:
+        names = "/".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"{name} kernel takes {names} tensors of one dtype, "
+                         f"got {sorted(str(d) for d in dts)}")
+    return next(iter(dts))
+
+
+def symbol(base: str, dtype) -> str:
+    """The C entry of a kernel's form at `dtype`: `base`, or `base`_f32."""
+    return base + ("_f32" if dtype == torch.float32 else "")
+
+
+def tag(t) -> str:
+    """The element-type part of a launch's tally key."""
+    return "fp32" if t.dtype == torch.float32 else "bf16"
+
+
+def weight(t, dtype):
+    """A weight as the kernels read it at element type `dtype`: contiguous
+    and 16-byte aligned (cp.async)."""
+    return aligned(t.to(dtype).contiguous())
 
 
 def f32(t):

@@ -35,6 +35,19 @@ ragged last query tile loads as zero and is never stored; a last key
 chunk shorter than 112 (a multiple of 16) is computed over its whole
 16-key steps. No atomics.
 
+K3 at fp32 (csrc/bridge_attention.cu bridge_attention_f32, the published
+eval protocol's dtype, 3 launches a forward): the same block of 8 warps
+over 128 query rows and the same two passes on the CUDA cores
+(bridge_softmax.cuh softmax_av_f32). Each warp keeps its 16 query rows in
+4 KB of shared memory (128 fp32 a lane would not fit in registers), K and
+V come through the 2-deep ring in 64-key chunks of fp32 (96 KB a block, 2
+blocks an SM where the registers allow), lane (g, t) forms the logits of
+rows g, g + 8 against keys 8j + 2t + e as at bf16 and the quad's shuffles
+hand it the probabilities of all 16 keys of a step for P·V; nothing is
+rounded; exp is ex2.approx (about 2 ulp). Bound: operations, the
+function's 4·B·N·M·d flops at 67 TFLOP/s of FFMA (0.58 ms at b=32; the
+kernel does 6·B·N·M·d: pass 1 forms Q·Kᵀ again).
+
 K10 bound on the H100: operations. Per launch about 10·B·N·M·d flop
 (recomputed logits, dP = G·Vᵀ, T·K, Tᵀ·Q, Eᵀ·G: 7.3e10 at B = 24, 0.074 ms
 at the bf16 peak) against ~70 MB of bf16 traffic (0.021 ms). Without a
@@ -100,6 +113,7 @@ published bridge (bridge_heads 1).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -116,6 +130,11 @@ BWD_REPLACES = "transception_tpu/ops/pallas/bridge_attention_kernel.py:190"
 BWD_KEY_TILE = 64  # keys a columns block holds (4 warps of 16 keys)
 BWD_ROW_CHUNK = 64  # query rows a columns block stages at a time
 BWD_BLOCKS_PER_SM = 8  # K10 columns blocks the launch plan aims for per SM
+# K3's fp32 form (csrc/bridge_softmax.cuh KC32, STAGES; 8 warps of 16 query
+# rows in csrc/bridge_attention.cu): keys per staged fp32 K/V chunk.
+F32_KEY_CHUNK = 64
+F32_STAGES = 2
+F32_WARPS = 8
 FOLDED_NAME = "bridge_attention_folded"
 FOLDED_REPLACES = "transception_tpu/ops/pallas/bridge_attention_kernel.py:307"
 launches = 0
@@ -136,11 +155,14 @@ def bridge_attention_plain(q, k, v, scale: float):
     return (out / e.sum(-1, keepdim=True)).to(dt)
 
 
-def _check(q, k, v):
+def _check(q, k, v, dtypes=_build.DTYPES):
+    """Raise on what K3 (bf16 or fp32) or, with dtypes=(bf16,), K10 and K8
+    do not take."""
+    _build.element_dtype(NAME, q, k, v, dtypes=dtypes)
     for t in (q, k, v):
-        if t.dtype != torch.bfloat16 or t.dim() != 4:
-            raise ValueError(f"{NAME} kernel takes (B, h, n, d) bf16 "
-                             f"tensors, got {tuple(t.shape)} {t.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{NAME} kernel takes (B, h, n, d) tensors, "
+                             f"got {tuple(t.shape)} {t.dtype}")
     if q.shape[-1] != HEAD_DIM or k.shape != v.shape or \
             k.shape[:2] != q.shape[:2] or k.shape[-1] != HEAD_DIM:
         raise ValueError(f"{NAME} kernel needs head dim {HEAD_DIM} and "
@@ -169,6 +191,14 @@ def bridge_attention_bwd_plain(q, k, v, g, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def f32_smem() -> int:
+    """Shared memory of one block of K3's fp32 form: the 2-deep ring of
+    fp32 K and V chunks and each warp's 16 query rows (96 KB: room for 2
+    blocks an SM)."""
+    return (F32_STAGES * 2 * F32_KEY_CHUNK * HEAD_DIM * 4
+            + F32_WARPS * 16 * HEAD_DIM * 4)
+
+
 def _check_scale(scale):
     if not scale > 0:  # the kernels take the row max on the raw logits
         raise ValueError(f"{NAME} kernels need scale > 0, got {scale}")
@@ -180,16 +210,15 @@ def _launch(q, k, v, scale):
     B, h, N, d = q.shape
     M = k.shape[2]
     out = torch.empty_like(q)
-    fn = _build.load(NAME).bridge_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn = _build.entry(NAME, _build.symbol(NAME, q.dtype),
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                      + [ctypes.c_float, ctypes.c_void_p])
     P = _build.ptr
     rc = fn(P(q), P(k), P(v), P(out), B * h, N, M, scale,
             _build.stream_of(q))
     _build.check(rc, NAME)
     launches += 1
-    _build.tally(NAME, tuple(q.shape))
+    _build.tally(NAME, tuple(q.shape), _build.tag(q))
     return out
 
 
@@ -217,7 +246,7 @@ def bridge_attention_bwd(q, k, v, g, scale: float):
 
 
 def _launch_bwd(q, k, v, g, scale):
-    _check(q, k, v)
+    _check(q, k, v, dtypes=(torch.bfloat16,))
     if g.shape != q.shape or g.dtype != q.dtype:
         raise ValueError(f"{BWD_NAME} kernel needs g like q, got "
                          f"{tuple(g.shape)} {g.dtype}")
@@ -306,7 +335,7 @@ def _check_folded(x, res, k, v):
         raise ValueError(f"{FOLDED_NAME} kernel takes one head of "
                          f"{HEAD_DIM} channels, got x {tuple(x.shape)}, "
                          f"k {tuple(k.shape)}")
-    _check(x[:, None], k, v)
+    _check(x[:, None], k, v, dtypes=(torch.bfloat16,))
 
 
 def bridge_attention_folded(x, res, wq, bq, k, v, wp, bp, scale: float):
@@ -330,7 +359,8 @@ def _launch_folded(x, res, wq, bq, k, v, wp, bp, scale):
     B, N, C = x.shape
     M = k.shape[2]
     out = torch.empty_like(x)
-    bf, f32 = _build.bf16, _build.f32
+    bf = functools.partial(_build.weight, dtype=torch.bfloat16)
+    f32 = _build.f32
     args = (x, res, bf(wq), f32(bq), k, v, bf(wp), f32(bp), out)
     fn = _build.load(FOLDED_NAME).bridge_attention_folded
     fn.restype = ctypes.c_int

@@ -39,6 +39,13 @@ and the segments and sizes the workspace (51.4 MB of q|k|v and att at
 rounding point is the Pallas kernel's; only the segments' exp sums are
 combined in another order than on the TPU (a ~1e-7 relative change
 before the bf16 rounding of Ks).
+
+The fp32 form (csrc/etb_attention.cu etb_attention_f32, the published eval
+protocol's dtype): the same five stages with fp32 activations, weights and
+workspace and no rounding points, the products on the CUDA cores
+(mixffn_stages.cuh's fp32 step); bound: operations at 67 TFLOP/s of FFMA.
+At fp32 the folded LN's panel is C x 128 fp32 rows, so C goes up to 320
+(`_check`).
 """
 
 from __future__ import annotations
@@ -85,48 +92,53 @@ def etb_attention_plain(x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp,
     return (proj.float() + xf).to(dt)
 
 
-def plan(B: int, N: int, C: int, sms: int) -> dict:
+def plan(B: int, N: int, C: int, sms: int, es: int = 2) -> dict:
     """K1's launch plan for x (B, N, C) on a card of `sms` SMs: the qkv
     (T, 3C, C) and proj (T, C, C) product tiles (mixffn.token_tile, T =
     B·N), the core's segments (linear_attention.core_plan, one head of C
     channels a batch row), the blocks of each stage, the workspace bytes
     in the entry's order (q|k|v, the statistics, the fp32 partials, the
-    context, att) and each stage's shared memory. `plan` is the int list
-    the CUDA entry takes."""
+    context, att; elements of es bytes) and each stage's shared memory.
+    `plan` is the int list the CUDA entry takes."""
     T = B * N
     gemms = {"qkv": (T, 3 * C, C) + mixffn.token_tile(T, 3 * C, sms),
              "proj": (T, C, C) + mixffn.token_tile(T, C, sms)}
-    core = la.core_plan(B, N, C, C, sms)
+    core = la.core_plan(B, N, C, C, sms, es)
     blocks = {k: mixffn._blocks(*g[:2], *g[3:]) for k, g in gemms.items()}
     blocks.update(core["blocks"])
-    smem = {"qkv": mixffn.gemm_smem(True, *gemms["qkv"][3:], C),
+    smem = {"qkv": mixffn.gemm_smem(True, *gemms["qkv"][3:], C, es),
             **core["smem"],
-            "proj": mixffn.gemm_smem(False, *gemms["proj"][3:], C)}
+            "proj": mixffn.gemm_smem(False, *gemms["proj"][3:], C, es)}
     return dict(gemms=gemms, core=core, blocks=blocks,
-                workspace={"qkv": T * 3 * C * 2, **core["workspace"],
-                           "att": T * C * 2},
+                workspace={"qkv": T * 3 * C * es, **core["workspace"],
+                           "att": T * C * es},
                 smem=smem,
                 plan=[*gemms["qkv"][3:], *gemms["proj"][3:],
                       core["segments"], core["segment_rows"]])
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_plan(B, N, C, sms):
+def _launch_plan(B, N, C, sms, es=2):
     """plan's workspace sizes and its int list as the entry takes it (a
-    ctypes array, read only), kept per shape and card."""
-    pl = plan(B, N, C, sms)
+    ctypes array, read only), kept per shape, card and element size."""
+    pl = plan(B, N, C, sms, es)
     return (tuple(pl["workspace"].values()),
             (ctypes.c_int * len(pl["plan"]))(*pl["plan"]))
 
 
 def _check(x, weights):
-    if x.dtype != torch.bfloat16 or x.dim() != 3:
-        raise ValueError(f"{NAME} kernel takes a (B, N, C) bf16 tensor, "
+    _build.element_dtype(NAME, x)
+    if x.dim() != 3:
+        raise ValueError(f"{NAME} kernel takes a (B, N, C) tensor, "
                          f"got {tuple(x.shape)} {x.dtype}")
-    C = x.shape[-1]
-    if C % 64 or C > MAX_C:
+    C, es = x.shape[-1], x.element_size()
+    big = mixffn.BWD_TILES[0]
+    if C % 64 or C > MAX_C or \
+            mixffn.gemm_smem(True, big, big, C, es) > mixffn.SMEM_LIMIT or \
+            la.out_smem(C, es) > la.SMEM_LIMIT:
         raise ValueError(f"{NAME} kernel needs C % 64 == 0 (the folded "
-                         f"LN's groups) and C <= {MAX_C}, got C={C}")
+                         f"LN's groups) and C <= {MAX_C} (320 at fp32), got "
+                         f"C={C}")
     for w in weights:
         if tuple(w.shape) != (C, C):
             raise ValueError(f"{NAME} kernel needs (C, C) weights")
@@ -151,18 +163,19 @@ def _launch(x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp, eps):
     global launches
     x = _build.aligned(x)
     B, N, C = x.shape
-    sizes, ints = _launch_plan(B, N, C, _build.sms(x))
-    wqkv = _build.bf16(torch.cat((wq, wk, wv)))
+    sizes, ints = _launch_plan(B, N, C, _build.sms(x), x.element_size())
+    wqkv = _build.weight(torch.cat((wq, wk, wv)), x.dtype)
     bqkv = _build.f32(torch.cat((bq, bk, bv)))
     held = (x, _build.f32(ls), _build.f32(lb), wqkv, bqkv,
-            mixffn._weight(wp), _build.f32(bp))
+            _build.weight(wp, x.dtype), _build.f32(bp))
     out = torch.empty_like(x)
     ws, work = _build.workspace(sizes, x.device)
-    fn = _build.entry(NAME, "etb_attention", [ctypes.c_void_p] * 14 + [
-        ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    fn = _build.entry(NAME, _build.symbol("etb_attention", x.dtype),
+                      [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+                      + [ctypes.c_float, ctypes.c_void_p])
     rc = fn(*[_build.ptr(t) for t in held], *work, _build.ptr(out), ints,
             B, N, C, eps, _build.stream_of(x))
     _build.check(rc, NAME)
     launches += 1
-    _build.tally(NAME, tuple(x.shape))
+    _build.tally(NAME, tuple(x.shape), _build.tag(x))
     return out

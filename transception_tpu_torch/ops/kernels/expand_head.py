@@ -113,7 +113,7 @@ def expand_head(x, w, ls, lb, hw, hb, *, p: int, c: int,
     shape = (B, N, p * p) if shuffle is None else (B, p * shuffle[0],
                                                    p * shuffle[1])
     ids = torch.empty(shape, dtype=torch.uint8, device=x.device)
-    args = (x, _build.aligned(_build.bf16(w)), ls.contiguous(),
+    args = (x, _build.weight(w, torch.bfloat16), ls.contiguous(),
             lb.contiguous(), hw.contiguous(), hb.contiguous(), ids)
     fn = _build.entry(NAME, "expand_head", [ctypes.c_void_p] * 7 + [
         ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])

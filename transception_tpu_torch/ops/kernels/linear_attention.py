@@ -39,6 +39,13 @@ Design (csrc/linear_attention.cu), two bodies that `plan` picks by shape:
     order and rounded to bf16, then per (64 columns, 64 rows) Q' (the
     channel softmax of Q, rounded, or Q) times the context, scaled in fp32
     and rounded once. No atomics: the same bits in every launch.
+
+The fp32 form (csrc/linear_attention.cu linear_attention_f32; the fp32
+eval forward runs its head body at stage 4, (B, 8, 49, 40)): both bodies at
+fp32 with no rounding points; the core's products on the CUDA cores
+(mixffn_stages.cuh's fp32 step, 32-row ctx chunks of the same bytes). The
+plans take the element size (`plan(..., es=4)`): the head body's q, k, v
+and context double, the out stage's Q rows and context tile double.
 """
 
 from __future__ import annotations
@@ -85,13 +92,14 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def head_smem(N: int, dk: int, dv: int) -> int:
-    """Shared memory of one head-body block (mirrors head_smem in the .cu):
-    q, k and v of the head, the column statistics, a reduction row, the
-    context strips' fp32 partials, the bf16 context."""
+def head_smem(N: int, dk: int, dv: int, es: int = 2) -> int:
+    """Shared memory of one head-body block over elements of es bytes
+    (mirrors head_smem in the .cu): q, k and v of the head, the column
+    statistics, a reduction row, the context strips' fp32 partials, the
+    context."""
     strips = dk * (dv // 8)
-    return ((2 * N * dk + N * dv) * 2 + (2 * HEAD_MAX + THREADS) * 4
-            + 8 * max(strips, THREADS) * 4 + dk * dv * 2)
+    return ((2 * N * dk + N * dv) * es + (2 * HEAD_MAX + THREADS) * 4
+            + 8 * max(strips, THREADS) * 4 + dk * dv * es)
 
 
 def stats_smem() -> int:
@@ -102,26 +110,29 @@ def stats_smem() -> int:
 
 def ctx_smem() -> int:
     """Shared memory of one core ctx-stage block (lin::ctx_smem): the ring
-    of K and V chunks, the column statistics."""
+    of K and V chunks (64 bf16 or 32 fp32 rows of 64 channels: the same
+    bytes), the column statistics."""
     return CTX_STAGES * 2 * CHUNK_ROWS * CTX_TILE * 2 + 2 * CTX_TILE * 4
 
 
-def out_smem(dk: int) -> int:
-    """Shared memory of one core out-stage block (lin::out_smem): Q's rows
-    over dk rounded up to 64 channels and the context's column tile."""
+def out_smem(dk: int, es: int = 2) -> int:
+    """Shared memory of one core out-stage block over elements of es bytes
+    (lin::out_smem): Q's rows over dk rounded up to 64 channels and the
+    context's column tile."""
     dkp = _cdiv(dk, CTX_TILE) * CTX_TILE
-    return (OUT_ROWS + CTX_TILE) * dkp * 2
+    return (OUT_ROWS + CTX_TILE) * dkp * es
 
 
-def core_plan(bh: int, N: int, dk: int, dv: int, sms: int) -> dict:
+def core_plan(bh: int, N: int, dk: int, dv: int, sms: int, es: int = 2
+              ) -> dict:
     """The linear-attention core's plan (K6's segmented body, K1's stages
     2-4) for bh heads of N rows on a card of `sms` SMs: S segments of
     `segment_rows` rows (whole 64-row chunks, none empty; as many
     segments as give the context stage two blocks per SM, before the
     rounding to chunks), the blocks of each
     stage, the workspace bytes in the entry's order (the statistics, the
-    fp32 partials when S > 1, the bf16 context) and each stage's shared
-    memory."""
+    fp32 partials when S > 1, the context in elements of es bytes) and each
+    stage's shared memory."""
     tk, tv = _cdiv(dk, CTX_TILE), _cdiv(dv, CTX_TILE)
     S = max(1, min(_cdiv(2 * sms, tk * tv * bh), _cdiv(N, CHUNK_ROWS)))
     rows = _cdiv(_cdiv(N, S), CHUNK_ROWS) * CHUNK_ROWS
@@ -132,53 +143,57 @@ def core_plan(bh: int, N: int, dk: int, dv: int, sms: int) -> dict:
     blocks["out"] = tv * _cdiv(N, OUT_ROWS) * bh
     workspace = {"part": S * bh * dk * 8,
                  "pctx": S * bh * dk * dv * 4 if S > 1 else 0,
-                 "ctx": bh * dk * dv * 2}
+                 "ctx": bh * dk * dv * es}
     return dict(segments=S, segment_rows=rows, blocks=blocks,
                 workspace=workspace,
                 smem={"stats": stats_smem(), "ctx": ctx_smem(),
-                      "out": out_smem(dk)})
+                      "out": out_smem(dk, es)})
 
 
-def plan(bh: int, N: int, dk: int, dv: int, sms: int) -> dict:
+def plan(bh: int, N: int, dk: int, dv: int, sms: int, es: int = 2) -> dict:
     """K6's plan for bh heads of N rows, head dims dk and dv, on a card of
-    `sms` SMs: the body ("head", a block per head, where a head fits a
+    `sms` SMs, over elements of es bytes (2 bf16, 4 fp32): the body
+    ("head", a block per head, where a head fits a
     block; else "segmented", the core), the segments (1 for the head body:
     the whole head is on chip), blocks, workspace and shared memory of
     each stage, and `plan`, the int list the CUDA entry takes (body,
     segments, segment rows)."""
     if dk <= HEAD_MAX and dv <= HEAD_MAX and \
-            head_smem(N, dk, dv) <= SMEM_LIMIT:
+            head_smem(N, dk, dv, es) <= SMEM_LIMIT:
         return dict(body="head", segments=1, segment_rows=N,
                     blocks={"head": bh}, workspace={},
-                    smem={"head": head_smem(N, dk, dv)},
+                    smem={"head": head_smem(N, dk, dv, es)},
                     plan=[BODIES.index("head"), 1, N])
-    core = core_plan(bh, N, dk, dv, sms)
+    core = core_plan(bh, N, dk, dv, sms, es)
     return dict(core, body="segmented",
                 plan=[BODIES.index("segmented"), core["segments"],
                       core["segment_rows"]])
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_plan(bh, N, dk, dv, sms):
+def _launch_plan(bh, N, dk, dv, sms, es=2):
     """plan's workspace sizes and its int list as the entry takes it (a
-    ctypes array, read only), kept per shape and card."""
-    pl = plan(bh, N, dk, dv, sms)
+    ctypes array, read only), kept per shape, card and element size."""
+    pl = plan(bh, N, dk, dv, sms, es)
     return (tuple(pl["workspace"].values()),
             (ctypes.c_int * len(pl["plan"]))(*pl["plan"]))
 
 
 def _check(q, k, v):
-    if any(t.dtype != torch.bfloat16 or t.dim() != 4 for t in (q, k, v)):
-        raise ValueError(f"{NAME} kernel takes (B, h, N, d) bf16 tensors, "
+    _build.element_dtype(NAME, q, k, v)
+    if any(t.dim() != 4 for t in (q, k, v)):
+        raise ValueError(f"{NAME} kernel takes (B, h, N, d) tensors, "
                          f"got {q.dtype} {tuple(q.shape)}")
     B, h, N, dk = q.shape
     if tuple(k.shape) != (B, h, N, dk) or tuple(v.shape[:3]) != (B, h, N):
         raise ValueError(f"{NAME} kernel: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
     dv = v.shape[-1]
-    if dk % 8 or dv % 8 or max(dk, dv) > MAX_D:
+    if dk % 8 or dv % 8 or max(dk, dv) > MAX_D or \
+            out_smem(dk, q.element_size()) > SMEM_LIMIT:
         raise ValueError(f"{NAME} kernel needs head dims that are "
-                         f"multiples of 8 up to {MAX_D}, got {dk}, {dv}")
+                         f"multiples of 8 up to {MAX_D} (at fp32, an out "
+                         f"stage within shared memory), got {dk}, {dv}")
 
 
 def linear_attention(q, k, v, q_softmax: bool = False, scale: float = 1.0):
@@ -198,16 +213,18 @@ def _launch(q, k, v, q_softmax, scale):
     q, k, v = (_build.aligned(t) for t in (q, k, v))
     B, h, N, dk = q.shape
     dv = v.shape[-1]
-    sizes, ints = _launch_plan(B * h, N, dk, dv, _build.sms(v))
+    sizes, ints = _launch_plan(B * h, N, dk, dv, _build.sms(v),
+                               v.element_size())
     out = torch.empty((B, h, N, dv), dtype=v.dtype, device=v.device)
     # The head body takes no workspace: null pointers for the partials.
     ws, work = (_build.workspace(sizes, v.device) if sizes
                 else (None, [None] * 3))
-    fn = _build.entry(NAME, "linear_attention", [ctypes.c_void_p] * 8 + [
-        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    fn = _build.entry(NAME, _build.symbol("linear_attention", v.dtype),
+                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                      + [ctypes.c_float, ctypes.c_void_p])
     rc = fn(*[_build.ptr(t) for t in (q, k, v, out)], *work, ints, B * h, N,
             dk, dv, int(q_softmax), scale, _build.stream_of(v))
     _build.check(rc, NAME)
     launches += 1
-    _build.tally(NAME, tuple(q.shape), bool(q_softmax))
+    _build.tally(NAME, tuple(q.shape), bool(q_softmax), _build.tag(v))
     return out

@@ -42,6 +42,15 @@ tiles and the band rows (at least a block per SM in every stage at the
 model's shapes). Rounding follows the Pallas kernel: weights rounded to
 bf16, fp32 accumulation, bf16 wherever a flax Dense or Conv emits its
 output.
+
+The fp32 form (csrc/mhca_block.cu mhca_block_f32, the published eval
+protocol's dtype, 11 blocks x 3 paths a forward): the same eight stages
+with fp32 activations, weights and workspace and no rounding points; the
+products on the CUDA cores (mixffn_stages.cuh's fp32 step), the CRPE taps
+of the attention stage in shared memory (`attn_smem(..., es=4)`). `plan(...,
+es=4)` sizes it; the band rows stay those of bf16 (130,304 and 129,536
+bytes of attention-stage shared memory at the two shapes at b = 32: one
+block an SM).
 """
 
 from __future__ import annotations
@@ -113,49 +122,61 @@ def mhca_block_plain(x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws,
                                        lb, w2, b2, s=s, eps_ln=eps2, eps=eps)
 
 
-def attn_smem(s: int, C: int, d: int, rows: int) -> int:
-    """Shared memory of one block of the attention stage (mirrors
-    attn_smem in csrc/mhca_block.cu): the transposed contexts, Q of the
-    band's rows and the zero-padded band of V."""
-    return (d * C * 4 + rows * s * C * 2
-            + (rows + 2 * HALO) * (s + 2 * HALO) * C * 2)
+def attn_smem(s: int, C: int, d: int, rows: int, es: int = 2) -> int:
+    """Shared memory of one block of the attention stage over elements of
+    es bytes (mirrors attn_smem in csrc/mhca_block.cu): the transposed
+    contexts, Q of the band's rows, the zero-padded band of V and, at fp32,
+    the CRPE taps (a 7 x 7 grid of fp32 a channel)."""
+    taps = (2 * HALO + 1) ** 2 * C * 4 if es == 4 else 0
+    return (d * C * 4 + rows * s * C * es
+            + (rows + 2 * HALO) * (s + 2 * HALO) * C * es + taps)
 
 
-def plan(B: int, s: int, C: int, heads: int, hid: int, sms: int) -> dict:
+def plan(B: int, s: int, C: int, heads: int, hid: int, sms: int,
+         es: int = 2) -> dict:
     """K5's launch plan for x (B, s², C) on a card of `sms` SMs: the qkv
     (T, 3C, C) and proj (T, C, C) product tiles (mixffn.token_tile), the
     map rows per attention block (the most of BAND_ROWS that gives a block
     per SM, else 1: a band's V halo is staged once for its rows) and the FFN's forward plan (mixffn.fwd_plan). `plan` is
     the int list the CUDA entry takes; `blocks` the blocks of each stage;
-    `workspace` the bytes of each intermediate in the entry's order."""
+    `workspace` the bytes of each intermediate in the entry's order
+    (elements of es bytes: 2 bf16, 4 for the fp32 form; the contexts are
+    fp32 in both); `smem` the attention stage's shared memory."""
     T, d = B * s * s, C // heads
     gemms = {"qkv": (T, 3 * C, C) + mixffn.token_tile(T, 3 * C, sms),
              "proj": (T, C, C) + mixffn.token_tile(T, C, sms)}
     rows = next((r for r in BAND_ROWS if B * -(-s // r) >= sms), 1)
-    ffn = mixffn.fwd_plan(B, s, C, hid, sms)
+    ffn = mixffn.fwd_plan(B, s, C, hid, sms, es)
     blocks = {k: mixffn._blocks(*g[:2], *g[3:]) for k, g in gemms.items()}
     blocks.update(cpe=B * s, ctx=B * heads, attn=B * -(-s // rows),
                   **{f"ffn_{k}": n for k, n in ffn["blocks"].items()})
-    workspace = {"x1": T * C * 2, "qkv": T * 3 * C * 2,
-                 "ctx": B * C * d * 4, "att": T * C * 2, "x2": T * C * 2,
+    workspace = {"x1": T * C * es, "qkv": T * 3 * C * es,
+                 "ctx": B * C * d * 4, "att": T * C * es, "x2": T * C * es,
                  **ffn["workspace"]}
     return dict(gemms=gemms, band_rows=rows, ffn=ffn, blocks=blocks,
+                smem={"attn": attn_smem(s, C, d, rows, es),
+                      "ctx": (2 * s * s * d + THREADS) * 4,
+                      "qkv": mixffn.gemm_smem(True, *gemms["qkv"][3:], C,
+                                              es),
+                      "proj": mixffn.gemm_smem(False, *gemms["proj"][3:], C,
+                                               es)},
                 plan=[*gemms["qkv"][3:], *gemms["proj"][3:], rows]
                 + ffn["plan"], workspace=workspace)
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_plan(B, s, C, heads, hid, sms):
+def _launch_plan(B, s, C, heads, hid, sms, es=2):
     """plan's workspace sizes and its int list as the entry takes it (a
-    ctypes array, read only), kept per shape and card."""
-    pl = plan(B, s, C, heads, hid, sms)
+    ctypes array, read only), kept per shape, card and element size."""
+    pl = plan(B, s, C, heads, hid, sms, es)
     return (tuple(pl["workspace"].values()),
             (ctypes.c_int * len(pl["plan"]))(*pl["plan"]))
 
 
 def _check(x, s, heads, hid, crpe_ws):
-    if x.dtype != torch.bfloat16 or x.dim() != 3:
-        raise ValueError(f"{NAME} kernel takes a (B, N, C) bf16 tensor, "
+    _build.element_dtype(NAME, x)
+    if x.dim() != 3:
+        raise ValueError(f"{NAME} kernel takes a (B, N, C) tensor, "
                          f"got {tuple(x.shape)} {x.dtype}")
     B, N, C = x.shape
     if N != s * s or C % heads:
@@ -170,7 +191,7 @@ def _check(x, s, heads, hid, crpe_ws):
                          f"three CRPE windows of "
                          f"at most {2 * HALO + 1}² over all C channels")
     if (2 * N * d + THREADS) * 4 > SMEM_LIMIT or \
-            attn_smem(s, C, d, BAND_ROWS[0]) > SMEM_LIMIT:
+            attn_smem(s, C, d, BAND_ROWS[0], x.element_size()) > SMEM_LIMIT:
         raise ValueError(f"{NAME} kernel: (N={N}, C={C}, heads={heads}) "
                          f"exceeds shared memory")
     mixffn._check(x, s, hid, 1)
@@ -211,12 +232,15 @@ def _launch(x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs, wp,
     _check(x, s, heads, hid, crpe_ws)
     global launches
     x = _build.aligned(x)
-    fn = _build.entry(NAME, "mhca_block", [ctypes.c_void_p] * 34 + [
-        ctypes.c_int] * 10 + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    fn = _build.entry(NAME, _build.symbol("mhca_block", x.dtype),
+                      [ctypes.c_void_p] * 34 + [ctypes.c_int] * 10
+                      + [ctypes.c_float] * 4 + [ctypes.c_void_p])
     B, N, C = x.shape
     d = C // heads
-    bf, f32 = mixffn._weight, _build.f32
-    sizes, ints = _launch_plan(B, s, C, heads, hid, _build.sms(x))
+    bf = functools.partial(_build.weight, dtype=x.dtype)
+    f32 = _build.f32
+    sizes, ints = _launch_plan(B, s, C, heads, hid, _build.sms(x),
+                               x.element_size())
     out = torch.empty_like(x)
     ws, work = _build.workspace(sizes, x.device)
     held = (
@@ -232,5 +256,5 @@ def _launch(x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs, wp,
             _build.stream_of(x))
     _build.check(rc, NAME)
     launches += 1
-    _build.tally(NAME, tuple(x.shape))
+    _build.tally(NAME, tuple(x.shape), _build.tag(x))
     return out

@@ -44,6 +44,15 @@ tiles (at least a block per SM in every stage at the model's shapes) and
 sizes the workspace. Rounding points are the Pallas kernel's, the
 depthwise weight rounded to bf16 as it does.
 
+K2 at fp32 (the published eval protocol's dtype; the Pallas kernel is
+dtype-generic): the same three stages with fp32 activations, weights and
+workspace (csrc/mixffn.cu mixffn_ln_skip_f32), every rounding point the
+identity. Hopper has no fp32 tensor-core product, so the products run on
+the CUDA cores (mixffn_stages.cuh on bsa::ffma_step: FFMA from the same
+swizzled panels, 32 deep a step, the bf16 path's accumulator layout and
+epilogues); bound: operations at 67 TFLOP/s of FFMA. `fwd_plan(...,
+es=4)` sizes the fp32 panels and workspace.
+
 K11 bound on the H100: operations at the train shapes (five products of
 2·T·C·hidden flops over T = B·N tokens: at (24, 56², 64, 256) 1.2e10
 flops, 0.012 ms, against ≈ 29 MB of bf16 inputs and outputs, 0.009 ms).
@@ -132,12 +141,6 @@ FWD_SEGMENT = 8  # SEG: map columns of a forward rows-stage work item
 launches = 0
 bwd_launches = 0
 skip_launches = 0
-
-
-def _weight(t):
-    """A weight as the products stage it: contiguous bf16, 16-byte
-    aligned (cp.async)."""
-    return _build.aligned(_build.bf16(t))
 
 
 def mixffn_plain(x, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
@@ -269,18 +272,20 @@ def mixffn_ln_skip_bwd_plain(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2,
     return tuple(gr.to(p.dtype) for gr, p in zip(grads, params))
 
 
-def gemm_smem(aln: bool, bm: int, bn: int, K: int) -> int:
-    """Shared memory of one block of the tiled product (mirrors
-    ffn::gemm_smem in csrc/mixffn_stages.cuh): a 3-deep ring of A and B
-    tiles 64 deep, or with the caller's LN folded in (aln) A's whole
-    normalised panel (K rounded up to 64) and a ring of B tiles; the bf16
-    epilogue's output tile (padded rows) reuses it."""
-    ring_b = GEMM_STAGES * bn * BWD_DEPTH * 2
+def gemm_smem(aln: bool, bm: int, bn: int, K: int, es: int = 2) -> int:
+    """Shared memory of one block of the tiled product over elements of es
+    bytes (mirrors ffn::gemm_smem in csrc/mixffn_stages.cuh): a 3-deep ring
+    of A and B tiles of 128-byte rows (64 bf16 or 32 fp32 deep), or with
+    the caller's LN folded in (aln) A's whole normalised panel (K rounded
+    up to the step depth) and a ring of B tiles; the epilogue's output tile
+    (padded rows) reuses it."""
+    kd = 128 // es
+    ring_b = GEMM_STAGES * bn * 128
     if aln:
-        ops = bm * -(-K // BWD_DEPTH) * BWD_DEPTH * 2 + ring_b
+        ops = bm * -(-K // kd) * kd * es + ring_b
     else:
-        ops = GEMM_STAGES * bm * BWD_DEPTH * 2 + ring_b
-    return max(ops, bm * (bn + 8) * 2)
+        ops = GEMM_STAGES * bm * 128 + ring_b
+    return max(ops, bm * (bn + 8) * es)
 
 
 def rows_smem(s: int, hid: int) -> int:
@@ -289,13 +294,13 @@ def rows_smem(s: int, hid: int) -> int:
     return s * hid * 4
 
 
-def fwd_smem_bytes(s: int, C: int, hid: int) -> int:
+def fwd_smem_bytes(s: int, C: int, hid: int, es: int = 2) -> int:
     """The most shared memory any block of K2's, K9's or K5's FFN stages
-    takes, at the largest tiles: fc1 with the folded LN, the product ring,
-    the conv/rows stage."""
+    takes over elements of es bytes, at the largest tiles: fc1 with the
+    folded LN, the product ring, the conv/rows stage."""
     big = BWD_TILES[0]
-    return max(gemm_smem(True, big, big, C), gemm_smem(False, big, big, 0),
-               rows_smem(s, hid))
+    return max(gemm_smem(True, big, big, C, es),
+               gemm_smem(False, big, big, 0, es), rows_smem(s, hid))
 
 
 def takes(s: int) -> bool:
@@ -340,15 +345,17 @@ def token_tile(T, N, sms):
     return bm, bnn
 
 
-def fwd_plan(B: int, s: int, C: int, hid: int, sms: int) -> dict:
+def fwd_plan(B: int, s: int, C: int, hid: int, sms: int, es: int = 2
+             ) -> dict:
     """The forward plan of K2, K9 and K5's FFN for x (B, s², C), hidden
     `hid`, on a card of `sms` SMs. Products (M, N, K, BM, BN): fc1 (T, hid,
     C) and fc2 (T, C, hid) over the T = B·s² tokens, tiles by `token_tile`;
     the conv/rows stage takes a block per (map row, batch). `plan` is the
     int list the CUDA entries take (ffn::FwdPlan); `blocks` the blocks of
-    each stage; `workspace` the bytes of h and a (bf16, T x hid each);
-    `smem` the shared memory of a block of each stage (fc1 with the LN
-    folded in, K2 and K5, or without, K9)."""
+    each stage; `workspace` the bytes of h and a (T x hid elements of es
+    bytes each: 2 bf16, 4 for the fp32 form); `smem` the shared memory of a
+    block of each stage (fc1 with the LN folded in, K2 and K5, or without,
+    K9)."""
     T = B * s * s
     gemms = {"fc1": (T, hid, C) + token_tile(T, hid, sms),
              "fc2": (T, C, hid) + token_tile(T, C, sms)}
@@ -356,12 +363,12 @@ def fwd_plan(B: int, s: int, C: int, hid: int, sms: int) -> dict:
     blocks = {k: _blocks(*g[:2], *g[3:]) for k, g in gemms.items()}
     blocks["rows"] = B * s
     f1, f2 = gemms["fc1"], gemms["fc2"]
-    smem = {"fc1_ln": gemm_smem(True, f1[3], f1[4], C),
-            "fc1": gemm_smem(False, f1[3], f1[4], C),
+    smem = {"fc1_ln": gemm_smem(True, f1[3], f1[4], C, es),
+            "fc1": gemm_smem(False, f1[3], f1[4], C, es),
             "rows": rows_smem(s, hid),
-            "fc2": gemm_smem(False, f2[3], f2[4], hid)}
+            "fc2": gemm_smem(False, f2[3], f2[4], hid, es)}
     return dict(gemms=gemms, plan=plan, blocks=blocks,
-                workspace={"h": T * hid * 2, "a": T * hid * 2}, smem=smem)
+                workspace={"h": T * hid * es, "a": T * hid * es}, smem=smem)
 
 
 def bwd_plan(B: int, s: int, C: int, hid: int, sms: int) -> dict:
@@ -409,11 +416,14 @@ def bwd_plan(B: int, s: int, C: int, hid: int, sms: int) -> dict:
                 workspace=workspace)
 
 
-def _check(x, s, hid, groups, ln=True):
+def _check(x, s, hid, groups, ln=True, dtypes=_build.DTYPES):
     """Raise on what the kernels do not take; ln: the caller's LN is folded
-    into fc1 (K2, K5), which takes groups of a multiple of 64 channels."""
-    if x.dtype != torch.bfloat16 or x.dim() != 3:
-        raise ValueError(f"{NAME} kernel takes a (B, N, C) bf16 tensor, "
+    into fc1 (K2, K5), which takes groups of a multiple of 64 channels;
+    dtypes: the element types of the kernel's forms (K2 and K5 bf16 and
+    fp32, K9 and K11 bf16)."""
+    _build.element_dtype(NAME, x, dtypes=dtypes)
+    if x.dim() != 3:
+        raise ValueError(f"{NAME} kernel takes a (B, N, C) tensor, "
                          f"got {tuple(x.shape)} {x.dtype}")
     B, N, C = x.shape
     if N != s * s:
@@ -424,7 +434,7 @@ def _check(x, s, hid, groups, ln=True):
     if C % 16 or hid % 64:
         raise ValueError(f"{NAME} kernel needs C % 16 == 0 and "
                          f"hidden % 64 == 0, got C={C}, hidden={hid}")
-    if fwd_smem_bytes(s, C, hid) > SMEM_LIMIT:
+    if fwd_smem_bytes(s, C, hid, x.element_size()) > SMEM_LIMIT:
         raise ValueError(f"{NAME} kernel: a map row's hidden state or the "
                          f"normalised panel (s={s}, C={C}, hidden={hid}) "
                          f"exceeds shared memory")
@@ -435,33 +445,37 @@ def _fwd_args(x, s, hid):
     enqueued) and the entry's trailing arguments (out, h, a, plan) of one
     forward call of K2 or K9 (fwd_plan)."""
     B, _, C = x.shape
-    sizes, plan = _fwd_launch_plan(B, s, C, hid, _build.sms(x))
+    sizes, plan = _fwd_launch_plan(B, s, C, hid, _build.sms(x),
+                                   x.element_size())
     out = torch.empty_like(x)
     ws, work = _build.workspace(sizes, x.device)
     return out, ws, [_build.ptr(out)] + work + [plan]
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_launch_plan(B, s, C, hid, sms):
+def _fwd_launch_plan(B, s, C, hid, sms, es=2):
     """fwd_plan's workspace sizes and its int list as the entries take it
-    (a ctypes array, read only), kept per shape and card."""
-    pl = fwd_plan(B, s, C, hid, sms)
+    (a ctypes array, read only), kept per shape, card and element size."""
+    pl = fwd_plan(B, s, C, hid, sms, es)
     return (tuple(pl["workspace"].values()),
             (ctypes.c_int * len(pl["plan"]))(*pl["plan"]))
 
 
 def _launch(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, s, groups, eps_ln,
             eps):
-    """K2 on the card; lts/ltb are (C,)-tiled. One counted launch runs the
-    three stages of the plan (fwd_plan)."""
+    """K2 on the card (its bf16 or fp32 form, x's dtype); lts/ltb are
+    (C,)-tiled. One counted launch runs the three stages of the plan
+    (fwd_plan)."""
     hid = w1.shape[0]
     _check(x, s, hid, groups)
     global launches
     x = _build.aligned(x)
-    fn = _build.entry(NAME, "mixffn_ln_skip", [ctypes.c_void_p] * 15 + [
-        ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    fn = _build.entry(NAME, _build.symbol("mixffn_ln_skip", x.dtype),
+                      [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                      + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     B, N, C = x.shape
-    bf, f32 = _weight, _build.f32
+    bf = functools.partial(_build.weight, dtype=x.dtype)
+    f32 = _build.f32
     out, ws, tail = _fwd_args(x, s, hid)
     held = (
         x, f32(lts), f32(ltb), bf(w1), f32(b1), bf(dw.reshape(hid, 9)),
@@ -470,20 +484,22 @@ def _launch(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, s, groups, eps_ln,
     rc = fn(*args, B, s, C, hid, groups, eps_ln, eps, _build.stream_of(x))
     _build.check(rc, NAME)
     launches += 1
-    _build.tally(NAME, tuple(x.shape), hid, groups)
+    _build.tally(NAME, tuple(x.shape), hid, groups, _build.tag(x))
     return out
 
 
 def _launch_skip(x, w1, b1, dw, dwb, ls, lb, w2, b2, s, eps):
-    """K9 on the card: K2's stages without the LN and the residual."""
+    """K9 on the card: K2's stages without the LN and the residual (bf16
+    only: it runs in the train step)."""
     hid = w1.shape[0]
-    _check(x, s, hid, 1, ln=False)
+    _check(x, s, hid, 1, ln=False, dtypes=(torch.bfloat16,))
     global skip_launches
     x = _build.aligned(x)
     fn = _build.entry(NAME, "mixffn_skip", [ctypes.c_void_p] * 13 + [
         ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
     B, N, C = x.shape
-    bf, f32 = _weight, _build.f32
+    bf = functools.partial(_build.weight, dtype=torch.bfloat16)
+    f32 = _build.f32
     out, ws, tail = _fwd_args(x, s, hid)
     held = (
         x, bf(w1), f32(b1), bf(dw.reshape(hid, 9)), f32(dwb), f32(ls),
@@ -514,7 +530,7 @@ def _launch_bwd(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, g, s, groups,
     """K11 on the card; lts/ltb are (C,)-tiled. One counted launch runs
     every stage of the plan (bwd_plan)."""
     hid = w1.shape[0]
-    _check(x, s, hid, groups, ln=False)
+    _check(x, s, hid, groups, ln=False, dtypes=(torch.bfloat16,))
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"{BWD_NAME} kernel needs g like x, got "
                          f"{tuple(g.shape)} {g.dtype}")
@@ -531,7 +547,8 @@ def _launch_bwd(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, g, s, groups,
     # The intermediates and partials in the entry's argument order (xn, h,
     # da, a, dh, dxn, pw, pr, pd, pl).
     ws, work = _build.workspace(pl["workspace"].values(), x.device)
-    bf, f = _weight, _build.f32
+    bf = functools.partial(_build.weight, dtype=torch.bfloat16)
+    f = _build.f32
     held = (
         x, g, f(lts), f(ltb), bf(w1), f(b1), bf(dw.reshape(hid, 9)), f(dwb),
         f(ls), f(lb), bf(w2), dx, grads)

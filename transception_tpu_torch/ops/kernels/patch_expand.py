@@ -28,6 +28,13 @@ fp32; the model keeps them in fp32), so no cast is launched per call. The
 backward is autograd of the plain version in the same layout
 (_build.with_plain_backward), as the JAX custom VJP is the VJP of its XLA
 reference (patch_expand.py:68-74).
+
+The fp32 form (csrc/patch_expand.cu patch_expand_f32; the fp32 eval forward
+runs it at the three p = 2 expanders, shuffled, and at the x4 expander in
+pre-shuffle order before the fp32 1x1 head): the same body with fp32 x, W
+and output, no rounding of y, the product on the CUDA cores
+(bsa::ffma_step, a weight tile 32 fp32 deep: the same bytes), fp32 LN
+vectors. `smem_bytes(..., es=4)` doubles the x panel and the output tile.
 """
 
 from __future__ import annotations
@@ -87,18 +94,19 @@ def block_rows(c: int) -> int:
     return 16 * (THREADS // 32 // warps_n(c))
 
 
-def smem_bytes(c: int, C: int, tile: bool = True) -> int:
-    """Shared bytes of a block (expand_stages.cuh smem_bytes): x panel,
-    weight ring, the LN partials where warps share a group, and with
-    `tile` the padded bf16 output tile."""
+def smem_bytes(c: int, C: int, tile: bool = True, es: int = 2) -> int:
+    """Shared bytes of a block over elements of es bytes (expand_stages.cuh
+    smem_bytes): x panel, weight ring (tiles of 128-byte rows), the LN
+    partials where warps share a group, and with `tile` the padded output
+    tile."""
     bm, wn = block_rows(c), warps_n(c)
-    return (bm * C * 2 + STAGES * c * DEPTH * 2
+    return (bm * C * es + STAGES * c * 128
             + (bm * wn * 8 if wn > 1 else 0)
-            + (bm * (c + 8) * 2 if tile else 0))
+            + (bm * (c + 8) * es if tile else 0))
 
 
 def plan(B: int, N: int, C: int, c: int, p: int, sm_count: int,
-         head: bool = False) -> dict:
+         head: bool = False, es: int = 2) -> dict:
     """The launch of K7 (or with head=True, K4's: expand_head.plan) for x
     (B, N, C) expanded into p² groups of c on a card of `sm_count` SMs:
     token tiles of `block_rows` (the last one masked where B·N leaves a
@@ -106,7 +114,8 @@ def plan(B: int, N: int, C: int, c: int, p: int, sm_count: int,
     `groups_per_block` consecutive groups: the fewest splits (a divisor of
     p²; for K4 one that leaves whole quads of groups) that give a block per
     SM, else all p². `warps` is (strips, warps a group), `warp_cols` the
-    columns of a warp; `smem` a block's shared bytes."""
+    columns of a warp; `smem` a block's shared bytes (elements of es
+    bytes)."""
     G, wn, bm = p * p, warps_n(c), block_rows(c)
     tiles = -(-B * N // bm)
     options = [d for d in range(1, G + 1)
@@ -115,23 +124,29 @@ def plan(B: int, N: int, C: int, c: int, p: int, sm_count: int,
     return dict(block_rows=bm, warps=(THREADS // 32 // wn, wn),
                 warp_cols=c // wn, row_tiles=tiles, splits=splits,
                 groups_per_block=G // splits, grid=(tiles, splits),
-                blocks=tiles * splits, smem=smem_bytes(c, C, not head))
+                blocks=tiles * splits, smem=smem_bytes(c, C, not head, es))
 
 
 def _check(x, w, p, c, ls=None, lb=None, shuffle=None):
-    if x.dtype != torch.bfloat16 or x.dim() != 3:
-        raise ValueError(f"{NAME} kernel takes a (B, N, C) bf16 tensor, "
+    _build.element_dtype(NAME, x)
+    if x.dim() != 3:
+        raise ValueError(f"{NAME} kernel takes a (B, N, C) tensor, "
                          f"got {tuple(x.shape)} {x.dtype}")
     C = x.shape[-1]
     if C % DEPTH or C > MAX_CIN or c not in WIDTHS or \
-            tuple(w.shape) != (p * p * c, C):
+            tuple(w.shape) != (p * p * c, C) or \
+            smem_bytes(c, C, True, x.element_size()) > SMEM_LIMIT:
         raise ValueError(f"{NAME} kernel needs C a multiple of {DEPTH} up "
-                         f"to {MAX_CIN}, c in {WIDTHS} and w of shape "
-                         f"(p²c, C), got C={C}, c={c}, w {tuple(w.shape)}")
+                         f"to {MAX_CIN} (a block's panel within shared "
+                         f"memory), c in {WIDTHS} and w of shape (p²c, C), "
+                         f"got C={C}, c={c}, w {tuple(w.shape)}")
     if ls is not None and any(v.dtype not in LN_DTYPES or v.dtype != ls.dtype
                               or tuple(v.shape) != (c,) for v in (ls, lb)):
         raise ValueError(f"{NAME} kernel takes LN vectors of shape ({c},), "
                          f"both bf16 or both fp32")
+    if ls is not None and x.dtype == torch.float32 and \
+            ls.dtype != torch.float32:
+        raise ValueError(f"{NAME} kernel's fp32 form takes fp32 LN vectors")
     if shuffle is not None and shuffle[0] * shuffle[1] != x.shape[1]:
         raise ValueError(f"{NAME}: shuffle {shuffle} is not a map of "
                          f"{x.shape[1]} tokens")
@@ -156,19 +171,20 @@ def _launch(x, w, ls, lb, p, c, eps, shuffle=None):
     global launches
     x = _build.aligned(x)
     B, N, C = x.shape
-    pl = plan(B, N, C, c, p, _build.sms(x))
+    pl = plan(B, N, C, c, p, _build.sms(x), es=x.element_size())
     shape = (B, N, p * p * c) if shuffle is None else (B, p * p * N, c)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    fn = _build.entry(NAME, "patch_expand", [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
-    args = (x, _build.aligned(_build.bf16(w)), ls.contiguous(),
-            lb.contiguous(), out)
+    fn = _build.entry(NAME, _build.symbol("patch_expand", x.dtype),
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                      + [ctypes.c_float, ctypes.c_void_p])
+    args = (x, _build.weight(w, x.dtype), ls.contiguous(), lb.contiguous(),
+            out)
     rc = fn(*[_build.ptr(t) for t in args], B * N, C, c, p, pl["splits"], N,
             N if shuffle is None else shuffle[1], int(shuffle is not None),
             int(ls.dtype == torch.float32), eps, _build.stream_of(x))
     _build.check(rc, NAME)
     launches += 1
-    _build.tally(NAME, tuple(x.shape), p, layout(shuffle))
+    _build.tally(NAME, tuple(x.shape), p, layout(shuffle), _build.tag(x))
     return out
 
 
