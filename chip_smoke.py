@@ -20,9 +20,10 @@ Phases (any failed check exits non-zero):
      both at maps that leave a partial token tile (checks off the main
      path are logged, not rows of the kernels line); and the fp32 forms
      (K1, K2, K5, K6, K3, K7 in both layouts) at every shape the fp32 eval
-     forward gives them, against their fp32 plain versions with TF32 off
-     within FP32_TOL, each with a planted fault, bounds at the fp32 FFMA
-     peak, K3 beside SDPA at fp32;
+     forward gives them, and those the fp32 "pallas" train step gives K1,
+     K5, K6, K7 and K9 (batch 24), against their fp32 plain versions with
+     TF32 off within FP32_TOL, each with a planted fault, bounds at the
+     fp32 FFMA peak, K3 beside SDPA at fp32;
   4. the published MSTransception at full width (224², bf16, random
      weights from a seed) through make_predictor(...).predict_volume on a
      synthetic 48-slice 512² volume, batch 32, with launch counters;
@@ -44,18 +45,26 @@ Phases (any failed check exits non-zero):
      the bound and their factor against SDPA); and for each kernel whose
      backward is autograd of its plain version (K1, K5-K9), one backward
      through its autograd Function against autograd of the plain version;
+     then the same at fp32 (TF32 off): K3, K10, K11 and K2 at every fp32
+     train shape within FP32_TOL, planted faults, bounds at the fp32 peak,
+     K3 and K10 beside SDPA at fp32;
   9. the published MSTransception train step (TrainConfig(): batch 24,
      wide head, SGD + cosine schedule) in three train modes (default,
      ffn_flash_train, and "pallas": use_pallas_train with mhca_ffn_fold
      and drop_path_rate 0.1): Trainer.train on the on-device synthetic
-     stream with the launch counts per step held to
-     models.transception.launches_per_step, a checkpoint and a resume;
+     stream (device_data) with the launch counts per step held to
+     models.transception.launches_per_step, a checkpoint, the in-training
+     eval (on one small synthetic volume, its launches per chunk held to
+     launches_per_forward) and a resume;
      one step against the plain path (use_kernels=False) from the same
      weights on the same batch with the same drop-path masks (loss, every
      gradient leaf, BatchNorm stats) with planted faults in K10, K11 and
      K9; the loss falling over repeated steps on one batch; step time and
      peak memory, kernels on and off; device time of one step
-     (torch.profiler);
+     (torch.profiler); then each mode at TransceptionConfig(dtype=
+     "float32"): one step on the fp32 kernels against the plain path
+     within FP32_LIMITS, launches exactly launches_per_step, planted
+     faults in the fp32 K10, K11 and K9, step time and peak memory;
  10. the fold grid: the published model (b=32) under each fold
      configuration of FOLD_GRID, with the launches per forward held to
      models.transception.launches_per_forward (argmax and logits
@@ -72,11 +81,18 @@ Phases (any failed check exits non-zero):
      that load back; one pass of the fp32 default (the fp32 kernels,
      launches per chunk held to launches_per_forward, finite means); fp16
      with the kernels on, which must raise before any work, naming --dtype
-     float32, --dtype bfloat16 and --no_pallas.
-Every launch of the main-path runs (phases 4, 5-7 at fp32, 9, 10 and 11) is
-tallied by
-shape (ops.kernels.shape_counts); each shape must have been measured in
-phase 3 or 8. The last line is {"ok": true, "device": {...}}; the two
+     float32, --dtype bfloat16 and --no_pallas;
+ 12. the train CLI (cli.train.main in-process, its defaults: bf16, the
+     published model, b=24, augment, 4 loader threads) on Synapse-format
+     .npz slices of 512² written for the run: log lines, a checkpoint, the
+     end-of-run eval on the default test set (finite dice/HD95, per-class
+     lines), results.tsv, launches per step and per eval chunk exact; a
+     second call resuming under --profile (its trace); --throughput at
+     bf16 and fp32; a step's wall time beside its device busy time with
+     the host loader, at both dtypes.
+Every launch of the main-path runs (phases 4, 5-7 at fp32, 9, 10, 11 and
+12) is tallied by shape (ops.kernels.shape_counts); each shape must have
+been measured in phase 3 or 8. The last line is {"ok": true, "device": {...}}; the two
 lines before it list each kernel at each shape (one row per shape) with
 its launches in those runs, its error and its per-launch times and bound,
 then the card's name and power limit. Before them, per run, each kernel's
@@ -85,6 +101,7 @@ launches and summed times.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -191,10 +208,16 @@ def ptxas_report(log_text):
     rows = []
     for part in log_text.split("Compiling entry function")[1:]:
         name = re.search(r"'([^']+)'", part).group(1)
-        short = re.search(r"([a-z_]+_kernel|sum_partials)", name)
-        if short:  # the short name, with a template's mangled arguments
-            tmpl = re.match(r"I(\w+?)EEv", name[short.end():])
-            name = short.group(1) + (f"<{tmpl.group(1)}>" if tmpl else "")
+        # The short name: the mangled identifier (length-prefixed) that
+        # names a kernel, with a template's mangled arguments.
+        for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", name):
+            n, ident = int(m.group(1)), m.group(2)
+            short = ident[:n]
+            if len(ident) >= n and (short.endswith("_kernel")
+                                    or short == "sum_partials"):
+                tmpl = re.match(r"I(\w+?)EEv", name[m.start(2) + n:])
+                name = short + (f"<{tmpl.group(1)}>" if tmpl else "")
+                break
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", part)
@@ -565,16 +588,20 @@ def kernel_cases(gen, B=BATCH, train=False):
     return cases
 
 
-def fp32_kernel_cases(gen, B=BATCH):
+def fp32_kernel_cases(gen, B=BATCH, train=False):
     """The fp32 forms at every shape the fp32 eval forward of the default
     config launches them (TransceptionConfig(dtype="float32"), batch B),
     against their fp32 plain versions with TF32 off, within FP32_TOL: K1
     at the three ETB maps, K2 at the ETB FFN folds, K5 at stages 2-3, K6 at
     stage 4, K3 on the bridge stream, K7 at the three p = 2 expands
     (shuffled) and the x4 expand before the fp32 head (pre-shuffle), each
-    K7 also in its other layout (held, not a row). Inputs and planted
-    faults are the bf16 cases' (_k1_args, ...), K6 and K3 with a fault of
-    their own; bytes at 4 a value, operations at FP32_FLOPS."""
+    K7 also in its other layout (held, not a row). train=True: the forward
+    kernels of the fp32 "pallas" train step that phase 8 does not hold
+    (K1 at the three ETB maps, K5 on stage 2's rate-0 blocks, K6 on the
+    MHCA blocks with drop path, K7 at the p = 2 expands, K9 at the drop-path
+    blocks' FFNs). Inputs and planted faults are the bf16 cases' (_k1_args,
+    ...), K6 and K3 with a fault of their own; bytes at 4 a value,
+    operations at FP32_FLOPS."""
     from transception_tpu_torch.ops.kernels import (
         bridge_attention as ba,
         etb_attention as ea,
@@ -601,8 +628,8 @@ def fp32_kernel_cases(gen, B=BATCH):
              2 * B * N * C * 4 + 4 * C * C * 4, 12 * B * N * C * C,
              base=x, fault=("keys negated",
                             lambda a=bad: ea.etb_attention_plain(*a)))
-    for s, C in ((56, 64), (28, 128), (14, 320)):  # the ETB FFN folds
-        hid = 4 * C
+    for s, C in () if train else ((56, 64), (28, 128), (14, 320)):
+        hid = 4 * C  # the ETB FFN folds
         x, args, bad = _k2_args(gen, B, s, C, C, f32)
         case("mixffn", f"({B},{s * s},{C}) hidden {hid}",
              lambda a=args, s=s: mf.mixffn_ln_skip(*a, s=s),
@@ -612,8 +639,8 @@ def fp32_kernel_cases(gen, B=BATCH):
              base=x, fault=("depthwise taps negated",
                             lambda a=bad, s=s: mf.mixffn_ln_skip_plain(
                                 *a, s=s)))
-    for s, C in ((28, 64), (14, 128)):  # stages 2-3
-        hid, heads, N = 4 * C, 8, s * s
+    for s, C in ((28, 64),) if train else ((28, 64), (14, 128)):
+        hid, heads, N = 4 * C, 8, s * s  # stages 2-3
         x, args, bad = _k5_args(gen, B, s, C, f32)
         case("mhca_block", f"({B},{N},{C}) heads {heads} hidden {hid}",
              lambda a=args, s=s: mb.mhca_block(*a, s=s, heads=8),
@@ -624,17 +651,22 @@ def fp32_kernel_cases(gen, B=BATCH):
              base=x, fault=("key rows of qkv negated",
                             lambda a=bad, s=s: mb.mhca_block_plain(
                                 *a, s=s, heads=8)))
-    # K6 at stage 4 (the factorized attention, scaled; fault: the keys
+    # K6 at stage 4, and in training on the MHCA blocks with drop path at
+    # stages 2-4 (the factorized attention, scaled; fault: the keys
     # negated, which moves only the context).
-    h, N, dh = 8, 49, 40
-    q, k, v = (rand(gen, (B, h, N, dh), f) for f in (1.0, 3.0, 1.0))
-    sc = dh ** -0.5
-    case("linear_attention", f"q/k/v ({B},{h},{N},{dh}) q_softmax False",
-         lambda a=(q, k, v, False, sc): la.linear_attention(*a),
-         lambda a=(q, k, v, False, sc): la.linear_attention_plain(*a),
-         4 * B * h * N * dh * 4, 4 * B * h * N * dh * dh,
-         fault=("keys negated", lambda a=(q, -k, v, False, sc):
-                la.linear_attention_plain(*a)))
+    for h, N, dh in ((8, 49, 40), (8, 784, 8), (8, 196, 16)) if train \
+            else ((8, 49, 40),):
+        q, k, v = (rand(gen, (B, h, N, dh), f) for f in (1.0, 3.0, 1.0))
+        sc = dh ** -0.5
+        case("linear_attention", f"q/k/v ({B},{h},{N},{dh}) q_softmax False",
+             lambda a=(q, k, v, False, sc): la.linear_attention(*a),
+             lambda a=(q, k, v, False, sc): la.linear_attention_plain(*a),
+             4 * B * h * N * dh * 4, 4 * B * h * N * dh * dh,
+             fault=("keys negated", lambda a=(q, -k, v, False, sc):
+                    la.linear_attention_plain(*a)))
+    if train:
+        _fp32_train_only_cases(gen, B, case)
+        return cases
     # K3 on the bridge stream; the library call SDPA at fp32 with TF32 off
     # (fault: the keys' first channel zeroed).
     N, M, d = 6076, 784, 64
@@ -673,6 +705,47 @@ def fp32_kernel_cases(gen, B=BATCH):
     return cases
 
 
+def _fp32_train_only_cases(gen, B, case):
+    """The fp32 "pallas" train step's K7 (the three p = 2 expands, the
+    shuffled layout a row) and K9 (the drop-path blocks' FFNs at 28² and
+    14²; fault: the fc2 bias dropped)."""
+    from transception_tpu_torch.ops.kernels import (
+        mixffn as mf,
+        patch_expand as pe,
+    )
+    f32 = torch.float32
+    for H, C in ((7, 512), (14, 320), (28, 128)):
+        N, c, p = H * H, C // 2, 2
+        args, bad = _k7_args(gen, B, N, C, c, p, f32)
+        for shuffle in ((H, H), None):
+            out = (f"({B},{p * p * N},{c})" if shuffle else
+                   f"({B},{N},{p * p * c}) pre-shuffle")
+            kw = dict(p=p, c=c, shuffle=shuffle)
+            case("patch_expand", f"({B},{N},{C}) -> {out}",
+                 lambda a=args, kw=kw: pe.patch_expand(*a, **kw),
+                 lambda a=args, kw=kw: pe.patch_expand_plain(*a, **kw),
+                 B * N * C * 4 + B * N * p * p * c * 4 + p * p * c * C * 4,
+                 2 * B * N * C * p * p * c,
+                 fault=("LN bias dropped",
+                        lambda a=bad, kw=kw: pe.patch_expand_plain(*a, **kw)),
+                 main=shuffle is not None)
+    for s, C in ((28, 64), (14, 128)):
+        hid, N = 4 * C, s * s
+        args = (rand(gen, (B, N, C)), rand(gen, (hid, C), C ** -0.5),
+                rand(gen, (hid,), 0.02), rand(gen, (hid, 1, 3, 3), 0.3),
+                rand(gen, (hid,), 0.02), rand(gen, (hid,), 0.1, 1.0),
+                rand(gen, (hid,), 0.1), rand(gen, (C, hid), hid ** -0.5),
+                rand(gen, (C,), 0.5))
+        bad = args[:8] + (torch.zeros_like(args[8]),)
+        case("mixffn_skip", f"({B},{N},{C}) hidden {hid}",
+             lambda a=args, s=s: mf.mixffn_skip(*a, s=s),
+             lambda a=args, s=s: mf.mixffn_skip_plain(*a, s=s),
+             2 * B * N * C * 4 + 2 * C * hid * 4 + 9 * hid * 4,
+             4 * B * N * C * hid + 18 * B * N * hid,
+             fault=("fc2 bias dropped",
+                    lambda a=bad, s=s: mf.mixffn_skip_plain(*a, s=s)))
+
+
 def replaces(name):
     """The TPU kernel a counter's kernel replaces (file:line)."""
     from transception_tpu_torch.ops import kernels
@@ -690,7 +763,8 @@ def kernel_phase():
     measured = {}
     gen = torch.Generator().manual_seed(1)
     cases = kernel_cases(gen) + kernel_cases(gen, TRAIN_BATCH, train=True) \
-        + fp32_kernel_cases(gen)
+        + fp32_kernel_cases(gen) \
+        + fp32_kernel_cases(gen, TRAIN_BATCH, train=True)
     for cs in cases:
         name, label = cs["name"], cs["label"]
         key, got = launched_key(name, cs["kfn"])
@@ -972,7 +1046,8 @@ def profile_device(fn, label):
                          "bridge_attention_folded_kernel",
                          "expand_head_kernel", "mhca_", "patch_expand_kernel",
                          "linear_attention_kernel", "rows_kernel",
-                         "cols_kernel", "sum_partials"))}
+                         "cols_kernel", "rows32_kernel", "cols32_kernel",
+                         "sum_partials"))}
     launches = sum(1 for e in prof.events()
                    if e.name.startswith("cudaLaunchKernel"))
     log(f"  {len(kern)} device activities, busy {busy:.3f} ms of "
@@ -1053,52 +1128,61 @@ def grads_check(name, got, want, names, tol=BWD_TOL):
     return worst, ok
 
 
-def train_kernel_phase(measured):
+def train_kernel_phase(measured, dt=torch.bfloat16):
     """Phase 8. K3 and its backward K10, K11 and the grouped K2 at the
-    train step's shapes, added to `measured` per kernel and shape key."""
+    train step's shapes, added to `measured` per kernel and shape key; at
+    dt=float32 their fp32 forms, within FP32_TOL of their fp32 plain
+    versions (TF32 off), bounds at FP32_FLOPS and K3 and K10 beside SDPA
+    at fp32. The plain backwards' checks run at bf16."""
     from transception_tpu_torch.ops.kernels import (
         bridge_attention as ba,
         mixffn as mf,
     )
-    gen = torch.Generator().manual_seed(2)
+    fp32 = dt == torch.float32
+    gen = torch.Generator().manual_seed(12 if fp32 else 2)
     B = TRAIN_BATCH
+    es = 4 if fp32 else 2
+    tol, btol = (FP32_TOL, FP32_TOL) if fp32 else (0.02, BWD_TOL)
+    peak = FP32_FLOPS if fp32 else BF16_FLOPS
+    tag = " fp32" if fp32 else ""
 
     # K3 and K10 at the bridge's shapes; K10's fault: dk's sign flipped.
     N, M, d = 6076, 784, 64
-    q, k, v, g = (rand(gen, (B, 1, n, d), dtype=torch.bfloat16)
-                  for n in (N, M, M, N))
+    q, k, v, g = (rand(gen, (B, 1, n, d), dtype=dt) for n in (N, M, M, N))
     sc = d ** -0.5
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    label = f"q ({B},1,{N},{d}) kv ({B},1,{M},{d})"
+    label = f"q ({B},1,{N},{d}) kv ({B},1,{M},{d}){tag}"
     with torch.no_grad():
         key, got = launched_key(
             "bridge_attention", lambda: ba.bridge_attention(q, k, v, sc))
         err, ok = err_check(f"bridge_attention {label}", got,
-                            ba.bridge_attention_plain(q, k, v, sc), 0.02)
+                            ba.bridge_attention_plain(q, k, v, sc), tol)
         if not ok:
             fail("bridge_attention disagrees with its plain version")
         ms = cuda_ms(lambda: ba.bridge_attention(q, k, v, sc))
         pms = cuda_ms(lambda: ba.bridge_attention_plain(q, k, v, sc),
                       iters=5)
         lms = cuda_ms(lambda: sdpa(q, k, v, scale=sc))
-    nbytes, flops = 2 * B * N * d * 2 + 2 * B * M * d * 2, 4 * B * N * M * d
-    bms, by = bound_ms(nbytes, flops)
+    nbytes, flops = 2 * B * N * d * es + 2 * B * M * d * es, \
+        4 * B * N * M * d
+    bms, by = bound_ms(nbytes, flops, peak)
     log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms (SDPA) {lms:.4f} "
         f"bound_ms {bms:.4f} ({by}) per launch; {against(ms, bms, lms)}")
-    record(measured, key, label, err, ms, pms, lms, nbytes, flops)
+    record(measured, key, label, err, ms, pms, lms, nbytes, flops, peak)
     names = ("dq", "dk", "dv")
     key, got = launched_key("bridge_attention_bwd",
                             lambda: ba.bridge_attention_bwd(q, k, v, g, sc))
     want = ba.bridge_attention_bwd_plain(q, k, v, g, sc)
     torch.cuda.synchronize()
-    err, ok = grads_check("bridge_attention_bwd", got, want, names)
-    log(f"  bridge_attention_bwd q/g ({B},1,{N},{d}) k/v ({B},1,{M},{d}): "
-        f"max_abs_err {err:.6g} (each of dq/dk/dv within {BWD_TOL} x its "
-        f"max) {'ok' if ok else 'FAIL'}")
+    err, ok = grads_check("bridge_attention_bwd", got, want, names, btol)
+    log(f"  bridge_attention_bwd q/g ({B},1,{N},{d}) k/v ({B},1,{M},{d})"
+        f"{tag}: max_abs_err {err:.6g} (each of dq/dk/dv within {btol} x "
+        f"its max) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("bridge_attention_bwd disagrees with its plain version")
     bad = (want[0], -want[1], want[2])
-    if grads_check("  planted fault (dk negated)", bad, want, names)[1]:
+    if grads_check("  planted fault (dk negated)", bad, want, names,
+                   btol)[1]:
         fail("bridge_attention_bwd: the check does not see a planted fault")
     log("    planted fault (dk negated) rejected")
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -1108,22 +1192,23 @@ def train_kernel_phase(measured):
                   iters=3)
     lms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
                                               retain_graph=True))
-    nbytes = (3 * N + 4 * M) * d * 2 * B
+    nbytes = (3 * N + 4 * M) * d * es * B
     flops = 10 * B * N * M * d
-    bms, by = bound_ms(nbytes, flops)
+    bms, by = bound_ms(nbytes, flops, peak)
     log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms (SDPA backward) "
         f"{lms:.4f} bound_ms {bms:.4f} ({by}) per launch; "
         f"{against(ms, bms, lms)}")
-    record(measured, key, label, err, ms, pms, lms, nbytes, flops)
+    record(measured, key, label, err, ms, pms, lms, nbytes, flops, peak)
     del q, k, v, g, got, want, bad, leaves, out
 
-    # K11 and the grouped K2 at every fold of the flash train step.
+    # K11 and the grouped K2 at every fold of the flash train step (and,
+    # of them, the "pallas" step's).
     names = ("dx", "dlts", "dltb", "dw1", "db1", "ddw", "ddwb", "dls", "dlb",
              "dw2", "db2")
     for i, (s, C, hid, groups, eps_ln) in enumerate(FFN_SHAPES):
         gsz = C // groups
-        x = rand(gen, (B, s * s, C), dtype=torch.bfloat16)
-        gy = rand(gen, (B, s * s, C), dtype=torch.bfloat16)
+        x = rand(gen, (B, s * s, C), dtype=dt)
+        gy = rand(gen, (B, s * s, C), dtype=dt)
         p = (rand(gen, (gsz,), 0.1, 1.0).repeat(groups),
              rand(gen, (gsz,), 0.1).repeat(groups),
              rand(gen, (hid, C), C ** -0.5), rand(gen, (hid,), 0.02),
@@ -1131,15 +1216,15 @@ def train_kernel_phase(measured):
              rand(gen, (hid,), 0.1, 1.0), rand(gen, (hid,), 0.1),
              rand(gen, (C, hid), hid ** -0.5), rand(gen, (C,), 0.02))
         label = f"({B},{s * s},{C}) hidden {hid} groups {groups} eps_ln " \
-                f"{eps_ln}"
+                f"{eps_ln}{tag}"
         kw = dict(s=s, groups=groups, eps_ln=eps_ln)
         key, got = launched_key("mixffn_bwd", lambda: mf.mixffn_ln_skip_bwd(
             x, *p, gy, **kw))
         want = mf.mixffn_ln_skip_bwd_plain(x, *p, gy, **kw)
         torch.cuda.synchronize()
-        err, ok = grads_check(f"mixffn_bwd {label}", got, want, names)
+        err, ok = grads_check(f"mixffn_bwd {label}", got, want, names, btol)
         log(f"  mixffn_bwd {label}: max_abs_err {err:.6g} (dx and each "
-            f"parameter gradient within {BWD_TOL} x its max) "
+            f"parameter gradient within {btol} x its max) "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail("mixffn_bwd disagrees with its plain version")
@@ -1154,20 +1239,22 @@ def train_kernel_phase(measured):
             pz = p[:4] + (torch.zeros_like(p[4]),) + p[5:]
             dh0 = mf.mixffn_ln_skip_bwd_plain(x, *pz, gy, **kw)
             bad = (dh0[0],) + want[1:]
-        if grads_check(f"  planted fault ({what})", bad, want, names)[1]:
+        if grads_check(f"  planted fault ({what})", bad, want, names,
+                       btol)[1]:
             fail("mixffn_bwd: the check does not see a planted fault")
         log(f"    planted fault ({what}) rejected")
         ms = cuda_ms(lambda: mf.mixffn_ln_skip_bwd(x, *p, gy, **kw))
         pms = cuda_ms(lambda: mf.mixffn_ln_skip_bwd_plain(x, *p, gy, **kw),
                       iters=3)
         n = B * s * s
-        nbytes = 3 * n * C * 2 + (2 * C * hid + 9 * hid) * 2 + (
+        nbytes = 3 * n * C * es + (2 * C * hid + 9 * hid) * es + (
             2 * C * hid + 13 * hid + 3 * C) * 4 + (5 * hid + 3 * C) * 4
         flops = 10 * n * C * hid + 54 * n * hid
-        bms, by = bound_ms(nbytes, flops)
+        bms, by = bound_ms(nbytes, flops, peak)
         log(f"    ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} ({by}) "
             f"per launch")
-        record(measured, key, label, err, ms, pms, None, nbytes, flops)
+        record(measured, key, label, err, ms, pms, None, nbytes, flops,
+               peak)
         # K2 forward at the same fold (grouped LN where groups > 1): the
         # branch alone; fault: the taps negated.
         lts, ltb = p[0][:gsz], p[1][:gsz]
@@ -1178,13 +1265,13 @@ def train_kernel_phase(measured):
             want = mf.mixffn_ln_skip_plain(*fargs, **kw)
             torch.cuda.synchronize()
             err, ok = err_check(f"mixffn (train fold) {label}", got, want,
-                                0.02, base=x)
+                                tol, base=x)
             if not ok:
                 fail("mixffn disagrees with its plain version")
             badf = fargs[:5] + (-fargs[5],) + fargs[6:]
             _, caught = err_check("  planted fault (taps negated) vs plain",
                                   mf.mixffn_ln_skip_plain(*badf, **kw), want,
-                                  0.02, base=x)
+                                  tol, base=x)
             if caught:
                 fail("mixffn: the check does not see a planted fault")
             kms = cuda_ms(lambda: mf.mixffn_ln_skip(*fargs, **kw))
@@ -1192,10 +1279,11 @@ def train_kernel_phase(measured):
                            iters=5)
         log(f"    forward ms {kms:.4f} plain_ms {kpms:.4f} per launch")
         record(measured, key, label, err, kms, kpms, None,
-               2 * n * C * 2 + 2 * C * hid * 2 + 9 * hid * 2,
-               4 * n * C * hid + 18 * n * hid)
+               2 * n * C * es + 2 * C * hid * es + 9 * hid * es,
+               4 * n * C * hid + 18 * n * hid, peak)
         del x, gy, p, got, want, bad
-    plain_backward_checks(gen)
+    if not fp32:
+        plain_backward_checks(gen)
 
 
 def plain_backward_checks(gen):
@@ -1317,10 +1405,25 @@ def _one_step(model, sd0, img, lbl, seed=None):
             {n: b.float().cpu() for n, b in model.named_buffers()})
 
 
-def _compare_steps(tag, k, p, ref=None):
+# The fp32 train step's limits, kernels against the plain path (TF32 off),
+# stated before the first card run. Both paths are fp32 throughout and
+# differ by the order of fp32 sums alone (the kernels' forms ~1e-6 of the
+# plain versions' scale a launch), which a step's forward and backward
+# through train-mode BatchNorm grows by a few orders of magnitude at
+# most; a bf16 rounding left in anywhere is ~4e-3 a value. So: the loss
+# within 1e-4, all leaves within 1e-3 in relative norm, each leaf within
+# 1e-2 of its norm + 1e-4 of the global norm (a leaf with an exact
+# gradient of 0, a bias before a train-mode BatchNorm, holds noise), BN
+# stats within 1e-3 of their max (+1e-4): ten times tighter than bf16's.
+FP32_LIMITS = dict(loss=1e-4, glob=1e-3, leaf=1e-2, leaf_abs=1e-4, bn=1e-3)
+BF16_LIMITS = dict(loss=LOSS_TOL, glob=GLOBAL_TOL, leaf=LEAF_TOL,
+                   leaf_abs=1e-3, bn=BN_TOL)
+
+
+def _compare_steps(tag, k, p, ref=None, lim=BF16_LIMITS):
     """Kernel step k against plain step p (and both against an fp32
-    reference): loss, every gradient leaf, the BatchNorm stats. Returns
-    whether all checks hold."""
+    reference): loss, every gradient leaf, the BatchNorm stats, within
+    `lim`. Returns whether all checks hold."""
     (lk, gk, bk), (lp, gp, bp) = k, p
     G = math.sqrt(sum(float(g.square().sum()) for g in gp.values()))
     dall = math.sqrt(sum(float((gk[n] - g).square().sum())
@@ -1328,19 +1431,19 @@ def _compare_steps(tag, k, p, ref=None):
     worst, worst_n, cut = 0.0, "", []
     for n, g in gp.items():
         e = float((gk[n] - g).norm())
-        r = e / (LEAF_TOL * float(g.norm()) + 1e-3 * G)
+        r = e / (lim["leaf"] * float(g.norm()) + lim["leaf_abs"] * G)
         if r > worst:
             worst, worst_n = r, n
         if float(g.abs().max()) > 0 and float(gk[n].abs().max()) == 0:
             cut.append(n)
-    bn = max(float((bk[n] - b).abs().max()) / (BN_TOL * float(
+    bn = max(float((bk[n] - b).abs().max()) / (lim["bn"] * float(
         b.abs().max()) + 1e-4) for n, b in bp.items())
-    loss_ok = abs(lk - lp) <= LOSS_TOL * abs(lp)
-    ok = (loss_ok and dall <= GLOBAL_TOL * G and worst <= 1.0 and not cut
+    loss_ok = abs(lk - lp) <= lim["loss"] * abs(lp)
+    ok = (loss_ok and dall <= lim["glob"] * G and worst <= 1.0 and not cut
           and bn <= 1.0)
-    msg = (f"  {tag}: loss kernel {lk:.6f} plain {lp:.6f}; gradients "
-           f"|g_k - g_p|/|g_p| over all {len(gp)} leaves {dall / G:.5f} "
-           f"(limit {GLOBAL_TOL}); worst leaf at {worst:.3f} of its limit "
+    msg = (f"  {tag}: loss kernel {lk:.8f} plain {lp:.8f}; gradients "
+           f"|g_k - g_p|/|g_p| over all {len(gp)} leaves {dall / G:.3g} "
+           f"(limit {lim['glob']}); worst leaf at {worst:.3f} of its limit "
            f"({worst_n}); {len(cut)} leaves zero on the kernel path only; "
            f"BN stats at {bn:.3f} of their limit")
     if ref is not None:
@@ -1354,17 +1457,82 @@ def _compare_steps(tag, k, p, ref=None):
     return ok
 
 
+@contextlib.contextmanager
+def trainer_evals(test_ds=None):
+    """Inside: each in-training eval of a Trainer (train.trainer's
+    run_inference) recorded, with its launches per kernel and per shape
+    key and its chunks of BATCH slices (so that the train steps' launches
+    are the run's minus these); on `test_ds` when given, in place of
+    make_test_dataset's."""
+    from transception_tpu_torch.ops import kernels
+    from transception_tpu_torch.train import trainer as tm
+    rec = {"counts": Counter(), "tallies": Counter(), "chunks": 0,
+           "evals": 0}
+    real_run, real_ds = tm.run_inference, tm.make_test_dataset
+
+    def run(model, ds, *a, **k):
+        c0 = Counter(kernels.launch_counts())
+        t0 = Counter(kernels.shape_counts())
+        out = real_run(model, ds, *a, **k)
+        torch.cuda.synchronize()
+        rec["counts"] += Counter(kernels.launch_counts()) - c0
+        rec["tallies"] += Counter(kernels.shape_counts()) - t0
+        rec["chunks"] += sum(math.ceil(ds.get(i)["image"].shape[0] / BATCH)
+                             for i in range(len(ds)))
+        rec["evals"] += 1
+        return out
+
+    tm.run_inference = run
+    if test_ds is not None:
+        tm.make_test_dataset = lambda cfg: test_ds
+    try:
+        yield rec
+    finally:
+        tm.run_inference, tm.make_test_dataset = real_run, real_ds
+
+
+def held_run(what, counts, ev, steps, per_step, per_fwd):
+    """A Trainer or CLI run's launches: each kernel's, less its evals',
+    exactly steps x launches_per_step, and the evals' exactly their
+    chunks x launches_per_forward."""
+    for name in per_step:
+        n_ev = ev["counts"][name]
+        if n_ev != ev["chunks"] * per_fwd[name]:
+            fail(f"{what}: {name} launched {n_ev} times in {ev['evals']} "
+                 f"evals of {ev['chunks']} chunks, want "
+                 f"{per_fwd[name]} a chunk (launches_per_forward)")
+        if counts[name] - n_ev != steps * per_step[name]:
+            fail(f"{what}: {name} {counts[name] - n_ev} launches in {steps} "
+                 f"steps, want {steps} x {per_step[name]} "
+                 f"(launches_per_step)")
+
+
+def _logged_losses(text):
+    """The losses of a Trainer log's iteration lines."""
+    import re
+    return [float(v) for v in re.findall(
+        r"iteration \d+ : lr \S+ loss (\S+)", text)]
+
+
+# Phase 9's in-training evals: one synthetic volume of 64² (the default
+# test set, two of 512², costs ~45 s of host metrics an eval; phase 12
+# runs it).
+PHASE9_EVAL_HW = 64
+
+
 def train_phase():
     """Phase 9. Returns the launches per shape key of the flash- and
-    pallas-mode Trainer runs, with their step counts."""
+    pallas-mode Trainer runs' train steps, with their step counts."""
     import shutil
 
     from transception_tpu_torch.core.config import DataConfig, TrainConfig
     from transception_tpu_torch.data.device_synthetic import (
         DeviceSyntheticStream,
     )
+    from transception_tpu_torch.data.synapse import SyntheticVolumeDataset
     from transception_tpu_torch.models.transception import (
         MSTransception,
+        launches_per_forward,
         launches_per_step,
     )
     from transception_tpu_torch.ops import kernels
@@ -1381,41 +1549,47 @@ def train_phase():
     for mode, (_, steps) in TRAIN_MODES.items():
         log(f"  -- train mode {mode} --")
         per_step = launches_per_step(_train_cfg(mode))
+        per_fwd = launches_per_forward(_train_cfg(mode))
         seed = DROP_SEED if mode == "pallas" else None
-        # Trainer: a few steps on the stream, a checkpoint, a resume.
+        # Trainer: a few steps on the on-device stream, a checkpoint, the
+        # in-training eval, a resume.
         t0 = time.perf_counter()
         out = OUT_DIR / f"train_{mode}"
         shutil.rmtree(out, ignore_errors=True)
         tcfg = TrainConfig(output_dir=str(out))
-        dcfg = DataConfig(dataset="synthetic")
+        dcfg = DataConfig(dataset="synthetic", device_data=True)
+        vols = SyntheticVolumeDataset(length=1, hw=PHASE9_EVAL_HW)
         tr = Trainer(_train_cfg(mode), tcfg, dcfg, device="cuda")
-        kernels.reset_launches()
-        st, hist = tr.train(max_steps=steps)
-        torch.cuda.synchronize()
-        counts, tallies = kernels.launch_counts(), kernels.shape_counts()
-        log(f"  Trainer.train(max_steps={steps}): losses {hist['loss']} "
-            f"launches {counts} ({time.perf_counter() - t0:.1f} s)")
-        if st.step != steps or not np.isfinite(hist["loss"]).all():
-            fail(f"Trainer run: step {st.step}, losses {hist['loss']}")
-        for name, n in counts.items():
-            if n != steps * per_step[name]:
-                fail(f"{name}: {n} launches in {steps} steps, want {steps} "
-                     f"x {per_step[name]} (launches_per_step)")
+        with trainer_evals(vols) as ev:
+            kernels.reset_launches()
+            st, hist = tr.train(max_steps=steps)
+            torch.cuda.synchronize()
+            counts, tallies = kernels.launch_counts(), kernels.shape_counts()
+        losses = _logged_losses((out / "log.txt").read_text())
+        log(f"  Trainer.train(max_steps={steps}): logged losses {losses}, "
+            f"eval {hist}, launches {counts} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if st.step != steps or not losses or \
+                not np.isfinite(losses + hist["dice"] + hist["hd95"]).all() \
+                or len(hist["dice"]) != 1 or ev["evals"] != 1:
+            fail(f"Trainer run: step {st.step}, losses {losses}, {hist}")
+        held_run(f"Trainer {mode}", counts, ev, steps, per_step, per_fwd)
         if mode != "default":
-            tallies_out[mode] = (tallies, steps)
+            tallies_out[mode] = (Counter(tallies) - ev["tallies"], steps)
         ckpt = out / "ckpt" / f"step_{steps:08d}.pt"
         if not ckpt.exists():
             fail(f"no checkpoint {ckpt}")
         del tr, st
         tr = Trainer(_train_cfg(mode), tcfg, dcfg, device="cuda")
-        st, more = tr.train(max_steps=steps + 1)
+        with trainer_evals(vols):
+            st, more = tr.train(max_steps=steps + 1)
         text = (out / "log.txt").read_text()
-        if st.step != steps + 1 or len(more["loss"]) != 1 or \
+        if st.step != steps + 1 or len(more["dice"]) != 1 or \
                 "resumed from" not in text or \
                 f"iteration {steps + 1} : lr" not in text:
-            fail(f"resume: step {st.step}, losses {more['loss']}")
+            fail(f"resume: step {st.step}, {more}")
         log(f"  resumed from {ckpt.name}: step {steps + 1} loss "
-            f"{more['loss'][0]:.6f}; log: "
+            f"{_logged_losses(text)[-1]:.4f}; log: "
             f"{text.strip().splitlines()[-2][:120]}")
         shutil.rmtree(out / "ckpt")
         del tr, st
@@ -1481,14 +1655,7 @@ def train_phase():
         # Step time in turns (kernels, plain, plain, kernels) and the peak
         # memory of each path alone.
         def timed(m):
-            s2 = TrainState(m, TrainConfig(), 2211 // TRAIN_BATCH)
-            f2 = make_train_step(s2, 9, 0.4, 0.6, wide_head=True,
-                                 gen=_gen(seed))
-            f2(img, lbl)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ms = cuda_ms(lambda: f2(img, lbl), iters=5, warmup=1)
-            return ms, torch.cuda.max_memory_allocated(), f2
+            return _step_time(m, img, lbl, seed, 5)
 
         k_ms1, k_mem, kfn = timed(model)
         del model, kfn
@@ -1511,6 +1678,107 @@ def train_phase():
         del model, kfn, sd0
         torch.cuda.empty_cache()
     return tallies_out
+
+
+def _step_time(model, img, lbl, seed, iters, warmup=1):
+    """ms a train step of `model` on one batch (CUDA events over `iters`
+    steps after one and `warmup`), the peak memory of a step and the step
+    function."""
+    from transception_tpu_torch.core.config import TrainConfig
+    from transception_tpu_torch.train.state import TrainState
+    from transception_tpu_torch.train.trainer import make_train_step
+    st = TrainState(model, TrainConfig(), 2211 // TRAIN_BATCH)
+    fn = make_train_step(st, 9, 0.4, 0.6, wide_head=True, gen=_gen(seed))
+    fn(img, lbl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: fn(img, lbl), iters=iters, warmup=warmup)
+    return ms, torch.cuda.max_memory_allocated(), fn
+
+
+def fp32_train_phase():
+    """Phase 9 at fp32: the published train step at
+    TransceptionConfig(dtype="float32") in the three train modes, TF32
+    off: one step on the kernels against use_kernels=False from the same
+    weights, batch and drop-path masks within FP32_LIMITS, its launches
+    exactly launches_per_step; planted faults in the fp32 K10 (every mode),
+    K11 (flash) and K9 (pallas) must fail the same check; step time and
+    peak memory, kernels on and off. Returns the launches per shape key
+    of each mode's kernel step."""
+    from transception_tpu_torch.data.device_synthetic import (
+        DeviceSyntheticStream,
+    )
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_step,
+    )
+    from transception_tpu_torch.ops import kernels
+    from transception_tpu_torch.ops.kernels import (
+        bridge_attention as ba,
+        mixffn as mf,
+    )
+
+    out = {}
+    batch = DeviceSyntheticStream(TRAIN_BATCH, 224, 9, device="cuda").batch(0)
+    img, lbl = batch["image"], batch["label"]
+    for mode in TRAIN_MODES:
+        log(f"  -- fp32 train mode {mode} --")
+        cfg = _train_cfg(mode, dtype="float32")
+        per_step = launches_per_step(cfg)
+        seed = DROP_SEED if mode == "pallas" else None
+        sd0 = {k: v.clone() for k, v in MSTransception(
+            cfg, "cuda", seed=0).state_dict().items()}
+        plain_m = MSTransception(_train_cfg(mode, dtype="float32",
+                                            use_kernels=False), "cuda")
+        plain = _one_step(plain_m, sd0, img, lbl, seed)
+        p_ms, p_mem, _ = _step_time(plain_m, img, lbl, seed, 3)
+        del plain_m
+        torch.cuda.empty_cache()
+        model = MSTransception(cfg, "cuda")
+        kernels.reset_launches()
+        kern = _one_step(model, sd0, img, lbl, seed)
+        counts = kernels.launch_counts()
+        out[mode] = kernels.shape_counts()
+        if counts != per_step:
+            fail(f"fp32 {mode}: one step launched {counts}, want {per_step}")
+        log(f"  fp32 {mode} one step: launches {counts} = "
+            f"launches_per_step")
+        if not _compare_steps(f"fp32 {mode} one step, kernels vs plain",
+                              kern, plain, lim=FP32_LIMITS):
+            fail("the fp32 kernel path's train step disagrees with the "
+                 "plain path")
+
+        def on_out(hook):
+            return lambda o: lambda *a: hook(o(*a))
+
+        faults = [("fp32 K10 dv zeroed", ba, "_launch_bwd", on_out(
+            lambda r: r[:2] + (torch.zeros_like(r[2]),)))]
+        if mode == "flash":
+            faults.append(("fp32 K11 tap gradient zeroed", mf, "_launch_bwd",
+                           on_out(lambda r: r[:5] + (
+                               torch.zeros_like(r[5]),) + r[6:])))
+        if mode == "pallas":
+            faults.append(("fp32 K9 taps negated", mf, "_launch_skip",
+                           lambda o: lambda *a: o(*a[:3], -a[3], *a[4:])))
+        for what, mod, attr, wrap in faults:
+            orig = getattr(mod, attr)
+            setattr(mod, attr, wrap(orig))
+            try:
+                bad = _one_step(model, sd0, img, lbl, seed)
+            finally:
+                setattr(mod, attr, orig)
+            if _compare_steps(f"  planted fault ({what})", bad, plain,
+                              lim=FP32_LIMITS):
+                fail(f"the fp32 gradient check does not see a planted "
+                     f"fault ({what})")
+        k_ms, k_mem, _ = _step_time(model, img, lbl, seed, 3)
+        log(f"  fp32 train step b={TRAIN_BATCH} {mode}: kernels {k_ms:.3f} "
+            f"ms ({TRAIN_BATCH * 1e3 / k_ms:.1f} img/s), plain {p_ms:.3f} ms "
+            f"({TRAIN_BATCH * 1e3 / p_ms:.1f} img/s); peak memory kernels "
+            f"{k_mem / 2**30:.2f} GiB, plain {p_mem / 2**30:.2f} GiB")
+        del model, sd0, kern, plain, bad
+        torch.cuda.empty_cache()
+    return out
 
 
 AGREE_MIN = 0.98  # class maps against "folds-off" (the JAX sweep's check)
@@ -1804,6 +2072,215 @@ def volume_phase():
     return total, n_fwd
 
 
+# Phase 12: the train CLI on Synapse-format .npz slices of 512² written for
+# the run (CLI_SLICES: two batches of 24 an epoch), CLI_STEPS steps, then a
+# resume to one more under --profile; --throughput's warm-up step and 20.
+CLI_SLICES = 48
+CLI_STEPS = 2
+THROUGHPUT_STEPS = 21
+
+
+def _write_synapse_slices(root, n, hw=512):
+    """n Synapse-format train slices, {case}_sliceNNN.npz with 'image'
+    (fp32 in [0, 1)) and 'label' (classes 0-8 stored as fp32) of hw²,
+    under root/npz, and their names in root/lists/train.txt."""
+    rng = np.random.default_rng(12)
+    (root / "npz").mkdir()
+    (root / "lists").mkdir()
+    names = [f"case{i // 16:04d}_slice{i % 16:03d}" for i in range(n)]
+    for name in names:
+        np.savez(root / "npz" / f"{name}.npz",
+                 image=rng.random((hw, hw), dtype=np.float32),
+                 label=rng.integers(0, 9, (hw, hw)).astype(np.float32))
+    (root / "lists" / "train.txt").write_text("\n".join(names) + "\n")
+    return names
+
+
+def loader_step_profile(root, dtype, warm=1, steps=5, profiled=1):
+    """The published train step (b=24, wide head) fed by the host loader
+    from the .npz slices under root (augment, zoom to 224², 4 threads):
+    wall ms a step over `steps` steps after `warm`, beside the device busy
+    ms a step of `profiled` more under torch.profiler (device activity
+    only: its event processing is seconds a step); and the loader alone,
+    ms a batch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from transception_tpu_torch.core.config import (
+        TrainConfig,
+        TransceptionConfig,
+    )
+    from transception_tpu_torch.data.loader import HostDataLoader, to_device
+    from transception_tpu_torch.data.synapse import SynapseSliceDataset
+    from transception_tpu_torch.models.transception import MSTransception
+    from transception_tpu_torch.train.state import TrainState
+    from transception_tpu_torch.train.trainer import make_train_step
+
+    names = (root / "lists" / "train.txt").read_text().split()
+    (root / "lists" / "train_rep.txt").write_text("\n".join(names * 6))
+    ds = SynapseSliceDataset(str(root / "npz"), str(root / "lists"), 224,
+                             augment=True, split="train_rep")
+    ld = HostDataLoader(ds, TRAIN_BATCH, seed=1234, num_workers=4)
+    it = iter(ld)
+    t0 = time.perf_counter()
+    for _ in range(4):
+        next(it)
+    host_ms = (time.perf_counter() - t0) / 4 * 1e3
+    it.close()
+    dev = torch.device("cuda")
+    model = MSTransception(TransceptionConfig(dtype=dtype), dev, seed=0)
+    st = TrainState(model, TrainConfig(), len(ld))
+    fn = make_train_step(st, 9, 0.4, 0.6, wide_head=True)
+    ld.set_epoch(1)
+    it = iter(ld)
+    for _ in range(warm):
+        fn(*to_device(next(it), dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn(*to_device(next(it), dev))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(profiled):
+            fn(*to_device(next(it), dev))
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t0) / profiled * 1e3
+    it.close()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / profiled
+    log(f"  host loader + train step, {dtype}, b={TRAIN_BATCH}: wall "
+        f"{wall:.1f} ms a step ({TRAIN_BATCH * 1e3 / wall:.1f} img/s); "
+        f"device busy {busy:.1f} ms a step of {pwall:.1f} ms profiled wall "
+        f"(idle share {1 - busy / pwall:.3f}); the loader alone "
+        f"{host_ms:.1f} ms a batch (augment and zoom of 24 slices of 512², "
+        f"4 threads)")
+    del model, st, fn
+    torch.cuda.empty_cache()
+
+
+def cli_phase():
+    """Phase 12. The train CLI (cli.train.main, in-process) at its
+    defaults: bf16, the published TransceptionConfig() at 224², b=24,
+    augment on, 4 loader threads, on Synapse-format .npz slices of 512²
+    written for the run, with the in-training eval on the default test
+    set (SyntheticVolumeDataset: two volumes of 512²). Held: the iteration
+    log lines, the checkpoint, the eval's per-class lines and finite
+    dice/HD95 histories, results.tsv, the launches of each train step
+    exactly launches_per_step and of each eval chunk launches_per_forward;
+    a second call that resumes from the checkpoint under --profile (its
+    trace file); --throughput at bf16 and at --dtype float32 (their
+    lines, launches exactly 21 x launches_per_step without the wide
+    head); and the wall time of a step fed by the host loader beside its
+    device busy time, at both dtypes. Returns the launches per shape key
+    of the train steps, the evals and the throughput steps, with their
+    counts."""
+    import io
+    import re
+    import tempfile
+
+    from transception_tpu_torch.cli import train as cli
+    from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.models.transception import (
+        launches_per_forward,
+        launches_per_step,
+    )
+    from transception_tpu_torch.ops import kernels
+
+    cfg = TransceptionConfig()
+    per_step, per_fwd = launches_per_step(cfg), launches_per_forward(cfg)
+    steps_t, evals_t, chunks = Counter(), Counter(), 0
+    runs = []
+    with tempfile.TemporaryDirectory(
+            dir=Path(__file__).resolve().parent) as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        _write_synapse_slices(root, CLI_SLICES)
+        log(f"  wrote {CLI_SLICES} Synapse-format .npz train slices of 512² "
+            f"in {time.perf_counter() - t0:.1f} s")
+        out = root / "out"
+        argv = ["--dataset", "Synapse", "--root_path", str(root / "npz"),
+                "--list_dir", str(root / "lists"), "--num_workers", "4",
+                "--output_dir", str(out)]
+        for n_steps, extra in ((CLI_STEPS, []),
+                               (CLI_STEPS + 1, ["--profile"])):
+            t0 = time.perf_counter()
+            with trainer_evals() as ev:
+                kernels.reset_launches()
+                st, hist = cli.main(argv + ["--max_steps", str(n_steps)]
+                                    + extra)
+                torch.cuda.synchronize()
+                counts, tallies = (kernels.launch_counts(),
+                                   kernels.shape_counts())
+            secs = time.perf_counter() - t0
+            text = (out / "log.txt").read_text()
+            losses = _logged_losses(text)
+            ran = n_steps - (0 if not extra else CLI_STEPS)
+            log(f"  cli.train --max_steps {n_steps} {' '.join(extra)}: "
+                f"{secs:.1f} s; logged losses {losses}; eval {hist}; "
+                f"{ev['evals']} eval of {ev['chunks']} chunks")
+            ckpt = out / "ckpt" / f"step_{n_steps:08d}.pt"
+            if st.step != n_steps or len(losses) != 1 + bool(extra) or \
+                    not np.isfinite(losses + hist["dice"]
+                                    + hist["hd95"]).all() or \
+                    len(hist["dice"]) != 1 or ev["evals"] != 1 or \
+                    f"iteration {n_steps} : lr" not in text or \
+                    text.count("Mean class 8 mean_dice") != 1 + bool(extra) \
+                    or not ckpt.exists():
+                fail(f"cli.train --max_steps {n_steps}: step {st.step}, "
+                     f"losses {losses}, eval {hist}")
+            held_run(f"cli.train --max_steps {n_steps}", counts, ev, ran,
+                     per_step, per_fwd)
+            steps_t += Counter(tallies) - ev["tallies"]
+            evals_t += ev["tallies"]
+            chunks += ev["chunks"]
+            rows = (out / "results.tsv").read_text().splitlines()
+            if rows[0] != "\tmean_dice\tmean_hd95" or len(rows) != 2 or \
+                    float(rows[1].split("\t")[1]) != hist["dice"][0]:
+                fail(f"results.tsv: {rows}")
+            log(f"    results.tsv: {rows}; launches of a step = "
+                f"launches_per_step, of an eval chunk launches_per_forward")
+            if extra:
+                trace = out / "profile" / "trace.json"
+                if "resumed from" not in text or not trace.exists() or \
+                        trace.stat().st_size == 0:
+                    fail("the --profile call did not resume or left no "
+                         "trace")
+                log(f"    resumed from step {CLI_STEPS}; --profile trace "
+                    f"{trace.stat().st_size / 2**20:.1f} MiB")
+            del st
+            torch.cuda.empty_cache()
+        runs.append(("per train CLI step", steps_t, CLI_STEPS + 1))
+        runs.append(("per forward, train CLI eval", evals_t, chunks))
+
+        for dtype in ("bfloat16", "float32"):
+            want = {k: THROUGHPUT_STEPS * n for k, n in launches_per_step(
+                TransceptionConfig(dtype=dtype), wide_head=False).items()}
+            buf = io.StringIO()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                got = cli.main(["--throughput", "--dtype", dtype])
+            torch.cuda.synchronize()
+            line = buf.getvalue().strip().splitlines()[-1]
+            log(f"  cli.train --throughput --dtype {dtype}: {line} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            counts = kernels.launch_counts()
+            if got != (None, None) or counts != want or not re.fullmatch(
+                    r"train throughput: [0-9.]+ imgs/s \([0-9.]+ ms/step at "
+                    rf"batch {TRAIN_BATCH}\)", line):
+                fail(f"--throughput --dtype {dtype}: {line}, launches "
+                     f"{counts}, want {want}")
+            runs.append((f"per --throughput step, {dtype}",
+                         kernels.shape_counts(), THROUGHPUT_STEPS))
+            torch.cuda.empty_cache()
+
+        for dtype in ("bfloat16", "float32"):
+            loader_step_profile(root, dtype)
+    return runs
+
+
 def run_summary(what, tallies, per, measured):
     """Per kernel, the launches of one run (`tallies`, divided by `per`
     forwards or steps) and their summed kernel, plain, bound and library
@@ -1886,10 +2363,22 @@ def main():
     train_kernel_phase(measured)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 8 (fp32): train-step kernels vs plain versions (fp32, "
+        f"batch {TRAIN_BATCH})")
+    t0 = time.perf_counter()
+    train_kernel_phase(measured, torch.float32)
+    log(f"  phase 8 (fp32): {time.perf_counter() - t0:.1f} s")
+
     log(f"phase 9: the published train step, batch {TRAIN_BATCH}")
     t0 = time.perf_counter()
     step_tallies = train_phase()
     log(f"  phase 9: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 9 (fp32): the published train step at fp32, batch "
+        f"{TRAIN_BATCH}")
+    t0 = time.perf_counter()
+    fp32_step_tallies = fp32_train_phase()
+    log(f"  phase 9 (fp32): {time.perf_counter() - t0:.1f} s")
 
     log(f"phase 10: the fold grid, published model, batch {BATCH}")
     t0 = time.perf_counter()
@@ -1901,17 +2390,24 @@ def main():
     vol_tallies, n_vol = volume_phase()
     log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
 
+    log("phase 12: the train CLI, published model, Synapse .npz slices")
+    t0 = time.perf_counter()
+    cli_runs = cli_phase()
+    log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+
     # The main-path runs: phase 4's forwards, phase 9's flash and pallas
-    # Trainer steps, phase 10's forward per configuration, phase 11's
-    # volume-eval forwards. Every launch's
-    # shape must have been measured in phase 3 or 8, and every measured
-    # shape launched.
+    # Trainer steps and fp32 steps, phase 10's forward per configuration,
+    # phase 11's volume-eval forwards, phase 12's train CLI steps, evals
+    # and throughput steps. Every launch's shape must have been measured
+    # in phase 3 or 8, and every measured shape launched.
     runs = [("per forward, default config", fwd_tallies, n_fwd),
             ("per forward, fp32 default config", fp32_tallies, 1)] + [
         (f"per {mode} train step", t, n)
         for mode, (t, n) in step_tallies.items()] + [
+        (f"per fp32 {mode} train step", t, 1)
+        for mode, t in fp32_step_tallies.items()] + [
         (f"per forward, {name}", t, 1) for name, t in grid_tallies.items()
-    ] + [("per forward, volume eval", vol_tallies, n_vol)]
+    ] + [("per forward, volume eval", vol_tallies, n_vol)] + cli_runs
     total = Counter()
     for _, t, _ in runs:
         total.update(t)

@@ -119,12 +119,10 @@ def test_build_configs_equal_jax_on_shared_fields(argv):
 
 
 @pytest.mark.parametrize("flag", ["--remat", "--no_vectorize_paths",
-                                  "--debug_nans", "--device_data",
+                                  "--debug_nans",
                                   "--head_count 4", "--use_sa_config 2",
                                   "--sa_ker 5", "--inter out", "--num_sp 2",
-                                  "--dil_conv 0", "--root_path /r",
-                                  "--num_workers 2", "--no_augment",
-                                  "--max_steps 3", "--profile"])
+                                  "--dil_conv 0"])
 def test_flags_without_a_port_field_refuse_other_values(flag):
     p, _ = _parsers(("add_model_args", "add_data_args", "add_train_args"))
     dest = flag.split()[0][2:]
@@ -132,6 +130,29 @@ def test_flags_without_a_port_field_refuse_other_values(flag):
     assert p.get_default(dest) == default
     with pytest.raises(ValueError, match=f"--{dest} "):
         pcommon.build_configs(p.parse_args(shlex.split(flag)))
+
+
+@pytest.mark.parametrize("flag,field,value", [
+    ("--device_data", "device_data", True),
+    ("--root_path /r", "root_path", "/r"),
+    ("--num_workers 2", "num_workers", 2),
+    ("--no_augment", "augment", False),
+    ("--max_steps 3", None, 3),
+    ("--profile", None, True)])
+def test_train_flags_are_accepted(flag, field, value):
+    """The train loaders' and the train CLI's flags, refused before the
+    port had them: build_configs takes them, the data ones into
+    DataConfig, as the JAX package's does."""
+    p, j = _parsers(("add_model_args", "add_data_args", "add_train_args"))
+    dest = flag.split()[0][2:]
+    assert dest not in pcommon.UNSUPPORTED
+    args = p.parse_args(shlex.split(flag))
+    data = pcommon.build_configs(args)[1]
+    jdata = jcommon.build_configs(j.parse_args(shlex.split(flag)))[1]
+    if field is None:
+        assert getattr(args, dest) == value
+    else:
+        assert getattr(data, field) == value == getattr(jdata, field)
 
 
 # ---- cli.test.main on the CPU ----

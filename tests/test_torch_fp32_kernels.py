@@ -1,8 +1,10 @@
-"""The fp32 forms of the port's forward kernels (K5, K2, K1, K6, K3, K7):
-the plain PyTorch versions at fp32, which the card holds each fp32 kernel
-against, against the JAX Pallas kernels run with interpret=True at fp32
-on the same numpy inputs; the fp32 launch plans at the published shapes;
-and the kernel launches of the published model's fp32 eval forward.
+"""The fp32 forms of the port's kernels (the forward kernels K5, K2, K1,
+K6, K3, K7 and the train kernels K10, K11, K9): the plain PyTorch versions
+at fp32, which the card holds each fp32 kernel against, against the JAX
+Pallas kernels run with interpret=True at fp32 on the same numpy inputs;
+the fp32 launch plans at the published eval (b = 32) and train (b = 24)
+shapes; the kernel launches of the published model's fp32 eval forward
+and train steps; and the dtypes each kernel takes.
 
 Tolerance: max|port − JAX| <= 2e-5 · max|JAX|. At fp32 every rounding
 point of the Pallas kernels is the identity (`.astype(dt)` to fp32), so
@@ -20,6 +22,7 @@ import torch
 
 from transception_tpu.ops.pallas.bridge_attention_kernel import (
     bridge_softmax_attention,
+    bridge_softmax_attention_bwd,
 )
 from transception_tpu.ops.pallas.expand_kernel import fused_patch_expand
 from transception_tpu.ops.pallas.linear_attention_kernel import (
@@ -27,9 +30,16 @@ from transception_tpu.ops.pallas.linear_attention_kernel import (
     linear_attention as pallas_linear_attention,
 )
 from transception_tpu.ops.pallas.mhca_block_kernel import fused_mhca_block
-from transception_tpu.ops.pallas.mixffn_kernel import fused_mixffn_ln_skip
+from transception_tpu.ops.pallas.mixffn_kernel import (
+    fused_mixffn_ln_skip,
+    fused_mixffn_ln_skip_bwd,
+    fused_mixffn_skip,
+)
 from transception_tpu_torch.core.config import TransceptionConfig
-from transception_tpu_torch.models.transception import launches_per_forward
+from transception_tpu_torch.models.transception import (
+    launches_per_forward,
+    launches_per_step,
+)
 from transception_tpu_torch.ops.kernels import bridge_attention as ba
 from transception_tpu_torch.ops.kernels import etb_attention as ea
 from transception_tpu_torch.ops.kernels import linear_attention as la
@@ -176,6 +186,72 @@ def test_k7_plain_matches_pallas_interpret_fp32(H, C, p, c):
     _close(got, want)
 
 
+@pytest.mark.parametrize("B,h,N,M,d", [(2, 1, 124, 28, 64),
+                                       (1, 1, 600, 96, 64)])
+def test_k10_plain_matches_pallas_interpret_fp32(B, h, N, M, d):
+    n = _rng(17)
+    q, k, v, g = (n(B, h, r, d, scale=1.0) for r in (N, M, M, N))
+    want = bridge_softmax_attention_bwd(*map(jnp.asarray, (q, k, v, g)),
+                                        scale=d ** -0.5, interpret=True)
+    got = ba.bridge_attention_bwd_plain(*map(torch.from_numpy, (q, k, v, g)),
+                                        d ** -0.5)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+def _ffn_params(n, C, hid):
+    """w1 (C, hid), b1, dw (3, 3, hid), dwb, ls, lb, w2 (hid, C), b2 in the
+    Pallas kernels' layouts."""
+    return (n(C, hid, scale=C ** -0.5), n(hid, scale=0.1), n(3, 3, hid),
+            n(hid, scale=0.1), n(hid, scale=0.1, shift=1.0),
+            n(hid, scale=0.1), n(hid, C, scale=hid ** -0.5),
+            n(C, scale=0.1))
+
+
+def _ffn_torch(p):
+    w1, b1, dw, dwb, ls, lb, w2, b2 = map(torch.from_numpy, p)
+    return (_lin(p[0]), b1, _dw(p[2][:, :, None]), dwb, ls, lb, _lin(p[6]),
+            b2)
+
+
+@pytest.mark.parametrize("s,C,hid,groups", [(8, 64, 256, 1),
+                                            (8, 128, 512, 2),
+                                            (8, 320, 1280, 5)])
+def test_k11_plain_matches_pallas_interpret_fp32(s, C, hid, groups):
+    """Every gradient (JAX layouts) at the train step's channel and group
+    layouts, on an 8 x 8 map."""
+    n = _rng(18)
+    x, g = n(2, s * s, C, scale=1.0), n(2, s * s, C, scale=1.0)
+    lts = np.tile(n(C // groups, scale=0.1, shift=1.0), groups)
+    ltb = np.tile(n(C // groups, scale=0.1), groups)
+    p = _ffn_params(n, C, hid)
+    want = fused_mixffn_ln_skip_bwd(
+        *map(jnp.asarray, (x, lts, ltb) + p + (g,)), s=s, hidden=hid,
+        groups=groups, interpret=True)
+    got = mf.mixffn_ln_skip_bwd_plain(
+        torch.from_numpy(x), torch.from_numpy(lts), torch.from_numpy(ltb),
+        *_ffn_torch(p), torch.from_numpy(g), s=s, groups=groups)
+    dx, dlts, dltb, dw1, db1, ddw, ddwb, dls, dlb, dw2, db2 = (
+        t.numpy() for t in got)
+    got = (dx, dlts, dltb, dw1.T, db1, ddw[:, 0].transpose(1, 2, 0), ddwb,
+           dls, dlb, dw2.T, db2)
+    for a, b in zip(got, want):
+        _close(np.ascontiguousarray(a), b)
+
+
+@pytest.mark.parametrize("s,C,hid", [(8, 64, 256), (14, 128, 512)])
+def test_k9_plain_matches_pallas_interpret_fp32(s, C, hid):
+    """The "pallas" mode's MHCA FFN without LN fold (28² and 14² maps at
+    full size; 8² with a row halo and 14² whole here)."""
+    n = _rng(19)
+    x = n(2, s * s, C, scale=1.0)
+    p = _ffn_params(n, C, hid)
+    want = fused_mixffn_skip(*map(jnp.asarray, (x,) + p), s=s, hidden=hid,
+                             interpret=True)
+    got = mf.mixffn_skip_plain(torch.from_numpy(x), *_ffn_torch(p), s=s)
+    _close(got, want)
+
+
 # ---- the fp32 plans at the published shapes (b = 32) ----
 
 def _fits(smem):
@@ -237,6 +313,84 @@ def test_k7_fp32_plan(N, C, c, p):
     assert pl["smem"] == pe.smem_bytes(c, C, True, FP32)
 
 
+# ---- the fp32 train step's plans (b = 24) ----
+
+# The (s, C, hidden, groups) of the flash train step's MixFFN folds
+# (chip_smoke.FFN_SHAPES): K2 forward and K11 at each, at fp32 too.
+TRAIN_FFN = [(56, 64, 256, 1), (28, 64, 256, 1), (28, 128, 512, 1),
+             (28, 128, 512, 2), (14, 128, 512, 1), (14, 320, 1280, 1),
+             (14, 320, 1280, 5)]
+
+
+@pytest.mark.parametrize("s,C,hid,groups", TRAIN_FFN)
+def test_k11_and_k2_fp32_train_plans(s, C, hid, groups):
+    B, T = 24, 24 * s * s
+    pl = mf.bwd_plan(B, s, C, hid, SMS, FP32)
+    ws = pl["workspace"]
+    assert {k: ws[k] for k in ("xn", "h", "a", "dh")} == {
+        "xn": T * C * 4, "h": T * hid * 4, "a": T * hid * 4,
+        "dh": T * hid * 4}
+    assert ws["da"] == T * hid * 4 and ws["dxn"] == T * C * 4
+    # The split products' fp32 partials: within the cap, whole fp32 steps.
+    assert ws["pw"] <= max(mf.BWD_SPLIT_BYTES, 2 * hid * C * 4)
+    assert pl["kper"] % (mf.BWD_DEPTH // 2) == 0
+    assert pl["plan"] == mf.bwd_plan(B, s, C, hid, SMS)["plan"]
+    assert mf.bwd_smem_bytes(C, hid, FP32) <= mf.SMEM_LIMIT
+    assert mf.bwd_smem_bytes(C, hid, FP32) == mf.bwd_smem_bytes(C, hid)
+    fw = mf.fwd_plan(B, s, C, hid, SMS, FP32)
+    assert _fits(fw["smem"]) and fw["workspace"]["h"] == T * hid * 4
+    mf._check(torch.zeros(1, s * s, C), s, hid, groups)  # K2 fp32 takes it
+
+
+@pytest.mark.parametrize("s,C", [(28, 64), (14, 128)])
+def test_k9_fp32_train_plan(s, C):
+    pl = mf.fwd_plan(24, s, C, 4 * C, SMS, FP32)
+    assert _fits({k: v for k, v in pl["smem"].items() if k != "fc1_ln"})
+    assert min(pl["blocks"].values()) >= SMS
+    mf._check(torch.zeros(1, s * s, C), s, 4 * C, 1, ln=False)
+
+
+def test_k10_fp32_smem():
+    """Shared memory of K10's fp32 blocks from the constants it mirrors
+    (csrc/bridge_attention_bwd.cu RW, CW, RC and bridge_softmax.cuh
+    KC32, STAGES): the rows block within a block's limit, the columns
+    block within two an SM."""
+    src = (CSRC / "bridge_attention_bwd.cu").read_text()
+    consts = {k: re.findall(rf"constexpr int {k} = (\d+);", src)
+              for k in ("RW", "RC", "KT")}
+    assert consts == {"RW": [str(ba.F32_WARPS)],
+                      "RC": [str(ba.BWD_ROW_CHUNK)],
+                      "KT": [str(ba.BWD_KEY_TILE)]}
+    rows, cols = ba.bwd_f32_smem()
+    assert rows == 128 * 1024 and rows <= mf.SMEM_LIMIT
+    assert cols <= mf.SMEM_LIMIT // 2
+    assert "RSMEM32" in src and "CSMEM32" in src
+
+
+MODES = {"default": {}, "flash": dict(ffn_flash_train=True),
+         "pallas": dict(use_pallas_train=True, mhca_ffn_fold=True,
+                        drop_path_rate=0.1)}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_fp32_train_step_launches(mode):
+    """An fp32 train step launches what a bf16 one does (the fold
+    structure does not follow the dtype): K3 and K10 3 in every mode,
+    K2 and K11 53 in the flash mode, K9 30 in the "pallas" mode; its
+    fp32 launches are told apart by the "fp32" tag of their shape
+    tally."""
+    got = launches_per_step(TransceptionConfig(dtype="float32",
+                                               **MODES[mode]))
+    assert got == launches_per_step(TransceptionConfig(**MODES[mode]))
+    assert got["bridge_attention"] == got["bridge_attention_bwd"] == 3
+    assert got["mixffn_bwd"] == got["mixffn"]
+    assert got["expand_head"] == 0
+    if mode == "flash":
+        assert got["mixffn"] == 53
+    if mode == "pallas":
+        assert got["mixffn_skip"] == 30
+
+
 # ---- the fp32 eval forward's launches ----
 
 def test_fp32_forward_launches():
@@ -275,25 +429,28 @@ def test_fp16_and_mixed_dtypes_raise(dts):
 
 
 def test_bf16_only_kernels_refuse_fp32():
-    """K8, K9, K10 and K11 have no fp32 form: their checks refuse fp32,
-    where K2 and K3 (their forward partners) take it."""
+    """K8 is the one kernel without an fp32 form: its check refuses fp32.
+    K9, K10 and K11 (fp32 forms since the fp32 train step) take fp32 as
+    K2 and K3 do, and still refuse fp16."""
     x = torch.zeros(1, 64, 64)
     q = torch.zeros(1, 1, 64, 64)
-    mf._check(x, 8, 256, 1)  # K2 at fp32
-    ba._check(q, q, q)       # K3 at fp32
-    with pytest.raises(ValueError):  # K9, K11
-        mf._check(x, 8, 256, 1, ln=False, dtypes=(BF16,))
-    with pytest.raises(ValueError):  # K10
-        ba._check(q, q, q, dtypes=(BF16,))
-    with pytest.raises(ValueError):  # K8
+    mf._check(x, 8, 256, 1)             # K2 at fp32
+    mf._check(x, 8, 256, 1, ln=False)   # K9 and K11 at fp32
+    ba._check(q, q, q)                  # K3 and K10 at fp32
+    with pytest.raises(ValueError):     # K8
         ba._check_folded(x, x, q, q)
+    with pytest.raises(ValueError):     # K9, K11 at fp16
+        mf._check(x.half(), 8, 256, 1, ln=False)
+    with pytest.raises(ValueError):     # K10 at fp16
+        ba._check(q.half(), q.half(), q.half())
 
 
 def test_fp32_entry_names():
     from transception_tpu_torch.ops.kernels import _build
     srcs = " ".join(p.read_text() for p in CSRC.glob("*.cu"))
     for base in ("mixffn_ln_skip", "mhca_block", "etb_attention",
-                 "linear_attention", "bridge_attention", "patch_expand"):
+                 "linear_attention", "bridge_attention", "patch_expand",
+                 "mixffn_skip", "mixffn_ln_skip_bwd", "bridge_attention_bwd"):
         assert _build.symbol(base, BF16) == base
         assert _build.symbol(base, F32) == base + "_f32"
         assert re.search(rf"\b{base}_f32\b", srcs), base

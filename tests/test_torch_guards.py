@@ -25,8 +25,9 @@ MODEL_FIELDS = (
     "mhca_block_fold")
 # DataConfig fields the port mirrors (those its train loop and its test
 # volumes read).
-DATA_FIELDS = ("dataset", "test_path", "list_dir", "img_size", "num_classes",
-               "synthetic_len")
+DATA_FIELDS = ("dataset", "root_path", "test_path", "list_dir", "img_size",
+               "num_classes", "num_workers", "augment", "synthetic_len",
+               "device_data")
 
 
 @pytest.mark.parametrize("name", MODEL_FIELDS)

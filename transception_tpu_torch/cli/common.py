@@ -21,11 +21,7 @@ from transception_tpu_torch.core.config import (
 # Flags the port's configs have no field for: argparse dest -> (default,
 # what is missing). head_count to dil_conv are JAX TransceptionConfig fields
 # of the models the port does not have (ROADMAP.md §1 item 5); remat,
-# vectorize_paths and debug_nans are JAX-only knobs; device_data is the
-# JAX host/device switch of the synthetic train stream (the port's is
-# always made on the device); root_path, num_workers and no_augment feed
-# the train loaders and max_steps and profile the train CLI, which are not
-# ported yet (ROADMAP.md §1 item 3).
+# vectorize_paths and debug_nans are JAX-only knobs.
 UNSUPPORTED = {
     "head_count": (8, "TransceptionConfig.head_count"),
     "use_sa_config": (1, "TransceptionConfig.use_sa_config"),
@@ -38,14 +34,6 @@ UNSUPPORTED = {
                                   "port has one parameter layout, the "
                                   "reference's)"),
     "debug_nans": (False, "jax_debug_nans (a JAX switch)"),
-    "device_data": (False, "DataConfig.device_data (the port's synthetic "
-                           "train stream is always made on the device)"),
-    "root_path": ("./data/Synapse/train_npz",
-                  "DataConfig.root_path (the train slice loaders)"),
-    "num_workers": (4, "DataConfig.num_workers (the train slice loaders)"),
-    "no_augment": (False, "DataConfig.augment (train-time augmentation)"),
-    "max_steps": (None, "the train CLI's --max_steps"),
-    "profile": (False, "the train CLI's --profile"),
 }
 
 
@@ -93,20 +81,22 @@ def add_data_args(p: argparse.ArgumentParser):
                    help="Synapse | ISIC | synthetic (the port has no ISIC)")
     p.add_argument("--root_path", type=str,
                    default="./data/Synapse/train_npz",
-                   help="not in the port (refused): the train loaders")
+                   help="the train slices ({case}.npz; synthetic slices "
+                        "when it is not a directory)")
     # --volume_path is the reference test.py's name for the same thing
     # (test.py:26), accepted as an alias.
     p.add_argument("--test_path", "--volume_path", type=str,
                    default="./data/Synapse/test_vol_h5")
     p.add_argument("--list_dir", type=str, default="./lists/lists_Synapse")
     p.add_argument("--num_workers", type=int, default=4,
-                   help="not in the port (refused): the train loaders")
+                   help="host loader threads (decode and augment)")
     p.add_argument("--z_spacing", type=int, default=1)
     p.add_argument("--device_data", action="store_true",
-                   help="not in the port (refused): its synthetic train "
-                        "stream is always made on the device")
+                   help="synthetic only: make the training batches on the "
+                        "card (no host-to-card copy a step)")
     p.add_argument("--no_augment", action="store_true",
-                   help="not in the port (refused): the train loaders")
+                   help="disable train-time augmentation (the host "
+                        "loader's imgaug-equivalent pipeline)")
 
 
 def add_train_args(p: argparse.ArgumentParser):
@@ -129,11 +119,24 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--tp_size", type=int, default=1)
     p.add_argument("--no_resume", action="store_true")
     p.add_argument("--max_steps", type=int, default=None,
-                   help="not in the port (refused): the train CLI")
+                   help="stop after this many train steps in all")
     p.add_argument("--eval_device_resample", action="store_true",
                    help="in-training evals resample slices on the card")
     p.add_argument("--profile", action="store_true",
-                   help="not in the port (refused): the train CLI")
+                   help="torch.profiler trace of the first steps under "
+                        "{output_dir}/profile")
+
+
+def check_card_dtype(model_cfg, on_card: bool) -> None:
+    """Raise, before any work, for a dtype the CUDA kernels do not take
+    (fp16) on the card with the kernels on, naming the ways out."""
+    if on_card and model_cfg.use_kernels and \
+            model_cfg.dtype not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"--dtype {model_cfg.dtype} on the card: the CUDA kernels take "
+            f"fp32 and bf16; pass --dtype float32 or --dtype bfloat16 to "
+            f"run them, or --no_pallas for the plain PyTorch path at "
+            f"{model_cfg.dtype}")
 
 
 def _refuse_unsupported(args) -> None:
@@ -173,10 +176,14 @@ def build_configs(args):
     ).validate()
     data_cfg = DataConfig(
         dataset=args.dataset.lower(),
+        root_path=args.root_path,
         test_path=args.test_path,
         list_dir=args.list_dir,
         img_size=args.img_size,
         num_classes=num_classes,
+        num_workers=args.num_workers,
+        augment=not getattr(args, "no_augment", False),
+        device_data=getattr(args, "device_data", False),
     )
     train_cfg = TrainConfig(
         base_lr=getattr(args, "base_lr", 0.05),

@@ -28,8 +28,13 @@ from transception_tpu_torch.cli.common import (
     add_data_args,
     add_model_args,
     build_configs,
+    check_card_dtype,
 )
-from transception_tpu_torch.core.device import DeviceLike, resolve_device
+from transception_tpu_torch.core.device import (
+    DeviceLike,
+    fp32_exact,
+    resolve_device,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -149,13 +154,7 @@ def main(argv=None, device: DeviceLike = "cuda"):
 
     model_cfg, data_cfg, _ = build_configs(args)
     on_card = torch.device(device).type == "cuda"
-    if on_card and model_cfg.use_kernels and \
-            model_cfg.dtype not in ("float32", "bfloat16"):
-        raise ValueError(
-            f"--dtype {model_cfg.dtype} on the card: the CUDA kernels take "
-            f"fp32 and bf16; pass --dtype float32 (the protocol's default) "
-            f"or --dtype bfloat16 to run them, or --no_pallas for the plain "
-            f"PyTorch path at {model_cfg.dtype}")
+    check_card_dtype(model_cfg, on_card)
     resolve_device(device)  # no card: raise before any work
     test_ds = make_test_dataset(data_cfg)
 
@@ -170,37 +169,30 @@ def main(argv=None, device: DeviceLike = "cuda"):
         logger.addHandler(h)
     logger.setLevel(logging.INFO)
     logger.propagate = False
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
     try:
         logger.info(str(args))
-        if on_card and model_cfg.dtype == "float32":
-            # The protocol's fp32 on the card is fp32 throughout: cuDNN's
-            # default would run the plain layers' convolutions in TF32.
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            logger.info("fp32 on the card: TF32 off for matmuls and cuDNN "
-                        "convolutions")
-        model = create_model(args.model, model_cfg, device=device, seed=0)
-        load_weights(args.weight_pth, model)
+        with fp32_exact(on_card and model_cfg.dtype == "float32",
+                        logger.info):
+            model = create_model(args.model, model_cfg, device=device,
+                                 seed=0)
+            load_weights(args.weight_pth, model)
 
-        save_dir = None
-        if args.is_savenii:
-            save_dir = os.path.join(args.output_dir, "predictions")
-            os.makedirs(save_dir, exist_ok=True)
-        hd95_spacing = ((float(args.z_spacing), 1.0, 1.0)
-                        if args.hd95_in_mm else None)
-        mean_dice, mean_hd95 = run_inference(
-            model, test_ds, data_cfg.num_classes, patch_size=args.img_size,
-            batch=args.eval_batch, log=logger.info, save_path=save_dir,
-            z_spacing=args.z_spacing, hd95_spacing=hd95_spacing,
-            device_resample=args.device_resample, device=device)
+            save_dir = None
+            if args.is_savenii:
+                save_dir = os.path.join(args.output_dir, "predictions")
+                os.makedirs(save_dir, exist_ok=True)
+            hd95_spacing = ((float(args.z_spacing), 1.0, 1.0)
+                            if args.hd95_in_mm else None)
+            mean_dice, mean_hd95 = run_inference(
+                model, test_ds, data_cfg.num_classes,
+                patch_size=args.img_size, batch=args.eval_batch,
+                log=logger.info, save_path=save_dir,
+                z_spacing=args.z_spacing, hd95_spacing=hd95_spacing,
+                device_resample=args.device_resample, device=device)
         if save_dir is not None:
             logger.info("saved volumes to %s", save_dir)
         return mean_dice, mean_hd95
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
         for h in handlers:
             logger.removeHandler(h)
             h.close()

@@ -205,20 +205,26 @@ DEFAULT_FOLDS: Folds = fold_table(TransceptionConfig())
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The fields of the JAX DataConfig (core/config.py:250-267) that the
-    port reads. Its train loop streams synthetic batches made on the
-    device (the JAX device_data stream); the test volumes read test_path
-    and list_dir (data.synapse.make_test_dataset). The train loaders and
-    their fields (root_path, num_workers, augment) are not ported yet
-    (ROADMAP.md §1 item 3)."""
+    """The JAX DataConfig (core/config.py:250-267), field for field: the
+    train slices (root_path, list_dir, augment) through the host loader's
+    num_workers threads (data.synapse.make_train_dataset,
+    data.loader.HostDataLoader), or with device_data the synthetic batches
+    made on the device (synthetic only); the test volumes read test_path
+    and list_dir (data.synapse.make_test_dataset)."""
 
     dataset: str = "synapse"  # synapse | isic | synthetic
+    root_path: str = "./data/Synapse/train_npz"
     test_path: str = "./data/Synapse/test_vol_h5"
     list_dir: str = "./lists/lists_Synapse"
     img_size: int = 224
     num_classes: int = 9
-    # Length of the synthetic stream (lists_Synapse/train.txt).
+    num_workers: int = 4
+    augment: bool = True
+    # Length of the synthetic train set (lists_Synapse/train.txt).
     synthetic_len: int = 2211
+    # Synthetic train batches made on the device (DeviceSyntheticStream)
+    # instead of streamed from the host; synthetic only.
+    device_data: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -18,3 +19,24 @@ def resolve_device(device: DeviceLike) -> torch.device:
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch path on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def fp32_exact(on: bool, log: Optional[Callable[[str], None]] = None):
+    """TF32 off for matmuls and cuDNN convolutions while `on` (fp32 on the
+    card is fp32 throughout: PyTorch's cuDNN default would run the plain
+    layers' convolutions in TF32), said through `log`; the previous
+    switches restored after."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    if on:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if log:
+            log("fp32 on the card: TF32 off for matmuls and cuDNN "
+                "convolutions")
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev

@@ -12,10 +12,11 @@
 // per map row, fc2 with the bias and residual in the product's epilogue.
 // Bound on the H100: near the ridge of bytes and operations; what it takes
 // in practice is the hidden state (h and a in device memory for the length
-// of one call). K2 also has an fp32 form (mixffn_ln_skip_f32, the fp32
-// eval forward's): the same stages at E = float, products on the CUDA
-// cores (67 TFLOP/s of FFMA bound it by operations at every shape). The design notes are in mixffn_stages.cuh and
-// ops/kernels/mixffn.py.
+// of one call). K2 and K9 also have fp32 forms (mixffn_ln_skip_f32, the
+// fp32 eval forward's and train step's; mixffn_skip_f32, the fp32 train
+// step's): the same stages at E = float, products on the CUDA cores (67
+// TFLOP/s of FFMA bound them by operations at every shape). The design
+// notes are in mixffn_stages.cuh and ops/kernels/mixffn.py.
 #include "mixffn_stages.cuh"
 
 // x, out: (B, s², C) E; w1 (hid, C), dw (hid, 9), w2 (C, hid) E; lts/ltb
@@ -48,14 +49,20 @@ LN_SKIP(mixffn_ln_skip, bf16)
 LN_SKIP(mixffn_ln_skip_f32, float)
 #undef LN_SKIP
 
-extern "C" int mixffn_skip(const bf16* x, const bf16* w1, const float* b1,
-                           const bf16* dw, const float* dwb, const float* ls,
-                           const float* lb, const bf16* w2, const float* b2,
-                           bf16* out, bf16* h, bf16* a, const int* plan,
-                           int B, int s, int C, int hid, float eps,
-                           void* stream) {
-  return ffn::forward<9, true, bf16>(x, ffn::Norm{}, w1, b1, dw, dwb, ls, lb,
-                                     w2, b2, nullptr, h, a, out, plan, B, s,
-                                     C, hid, eps,
-                                     static_cast<cudaStream_t>(stream));
-}
+// K9: x, out (B, s², C) E; w1, dw, w2 E; the vectors fp32; h, a the
+// (B·s², hid) E workspace. E: bf16, or fp32 for mixffn_skip_f32 (the fp32
+// train step's), the BARE chain at E = float.
+#define SKIP(NAME, E)                                                        \
+  extern "C" int NAME(const E* x, const E* w1, const float* b1, const E* dw, \
+                      const float* dwb, const float* ls, const float* lb,    \
+                      const E* w2, const float* b2, E* out, E* h, E* a,      \
+                      const int* plan, int B, int s, int C, int hid,         \
+                      float eps, void* stream) {                             \
+    return ffn::forward<9, true, E>(x, ffn::Norm{}, w1, b1, dw, dwb, ls, lb, \
+                                    w2, b2, nullptr, h, a, out, plan, B, s,  \
+                                    C, hid, eps,                             \
+                                    static_cast<cudaStream_t>(stream));      \
+  }
+SKIP(mixffn_skip, bf16)
+SKIP(mixffn_skip_f32, float)
+#undef SKIP

@@ -42,6 +42,14 @@
 // (ops/kernels/mixffn.py bwd_plan) picks the tiles, the splits and the
 // token ranges per block and allocates the intermediates. No atomics: two
 // launches give the same bits.
+//
+// The fp32 form (mixffn_ln_skip_bwd_f32, the fp32 train step's): every
+// stage is a template on the element type E of the activations, weights
+// and the E intermediates (xn, h, a, dh), bf16 or fp32. At fp32 the
+// rounding points are identities and the products are the tiled product's
+// fp32 step (mixffn_stages.cuh: bsa::ffma_step on the CUDA cores, 32 deep
+// a staged step); the fp32 intermediates and partials are the same. Bound
+// at fp32: operations at 67 TFLOP/s of FFMA.
 #include "mixffn_stages.cuh"
 
 namespace {
@@ -59,11 +67,12 @@ constexpr float INV_SQRT_2PI = 0.3989422804014327f;
 
 // Mean and rsqrt(E[x²] - mean² + eps) of one token over channels
 // [c0, c0 + n), reduced over the warp.
-__device__ __forceinline__ float2 ln_stats(const bf16* src, int c0, int n,
+template <typename E>
+__device__ __forceinline__ float2 ln_stats(const E* src, int c0, int n,
                                            float eps_ln, int lane) {
   float sm = 0.0f, sq = 0.0f;
   for (int c = c0 + lane; c < c0 + n; c += 32) {
-    const float v = __bfloat162float(src[c]);
+    const float v = tof(src[c]);
     sm += v;
     sq += v * v;
   }
@@ -74,31 +83,33 @@ __device__ __forceinline__ float2 ln_stats(const bf16* src, int c0, int n,
 }
 
 // The caller's LayerNorm of one token over channels [c0, c0 + n).
-__device__ __forceinline__ void ln_range(const bf16* src, bf16* dst,
+template <typename E>
+__device__ __forceinline__ void ln_range(const E* src, E* dst,
                                          const float* lts, const float* ltb,
                                          int c0, int n, float eps_ln,
                                          int lane) {
   const float2 st = ln_stats(src, c0, n, eps_ln, lane);
   for (int c = c0 + lane; c < c0 + n; c += 32) {
-    const float v = __bfloat162float(src[c]);
-    dst[c] = __float2bfloat16((v - st.x) * st.y * lts[c] + ltb[c]);
+    const float v = tof(src[c]);
+    dst[c] = fromf<E>((v - st.x) * st.y * lts[c] + ltb[c]);
   }
 }
 
 // One product of the backward (owner tag 11 in the profile).
-template <bool AMK, bool BNK, int EPI>
-cudaError_t gemm(int bm, int bn, const bf16* A, int lda, const bf16* B,
-                 int ldb, void* out, int ldo, const float* bias, int M,
-                 int N, int K, int kper, size_t split, cudaStream_t st) {
+template <bool AMK, bool BNK, int EPI, typename E>
+cudaError_t gemm(int bm, int bn, const E* A, int lda, const E* B, int ldb,
+                 void* out, int ldo, const float* bias, int M, int N, int K,
+                 int kper, size_t split, cudaStream_t st) {
   return ffn::gemm<11, AMK, BNK, false, EPI>(bm, bn, A, lda, B, ldb, out, ldo,
                                              bias, nullptr, ffn::Norm{}, M, N,
                                              K, kper, split, st);
 }
 
-// Stage 1: xn = bf16(groupLN(x)), a warp per token.
+// Stage 1: xn = E(groupLN(x)), a warp per token.
+template <typename E>
 __global__ void __launch_bounds__(THREADS)
-mixffn_bwd_ln_kernel(const bf16* x, const float* lts, const float* ltb,
-                     bf16* xn, int T, int C, int gsz, float eps_ln) {
+mixffn_bwd_ln_kernel(const E* x, const float* lts, const float* ltb, E* xn,
+                     int T, int C, int gsz, float eps_ln) {
   const int n = blockIdx.x * NW + (threadIdx.x >> 5);
   if (n >= T) return;
   for (int c0 = 0; c0 < C; c0 += gsz)
@@ -172,22 +183,23 @@ struct Window {
   }
 };
 
-// Stage 3a: d = bf16(conv3x3(h) + dwb) (the forward's tap order), written
+// Stage 3a: d = E(conv3x3(h) + dwb) (the forward's tap order), written
 // into a's buffer. One block per (NW map columns, batch row, CH channels):
 // warp w walks column blockIdx.x·NW + w down the map, lane l takes channel
 // blockIdx.z·CH + l, coalesced across the lanes.
+template <typename E>
 __global__ void __launch_bounds__(THREADS)
-mixffn_bwd_conv_kernel(const bf16* h, const bf16* dw, const float* dwb,
-                       bf16* d, int s, int H) {
+mixffn_bwd_conv_kernel(const E* h, const E* dw, const float* dwb, E* d,
+                       int s, int H) {
   const int j = blockIdx.x * NW + (threadIdx.x >> 5);
   const int c = blockIdx.z * CH + (threadIdx.x & 31);
   if (j >= s || c >= H) return;
   const size_t base = (size_t)blockIdx.y * s * s * H + c;
   float wk[9];
 #pragma unroll
-  for (int q = 0; q < 9; ++q) wk[q] = __bfloat162float(dw[(size_t)c * 9 + q]);
+  for (int q = 0; q < 9; ++q) wk[q] = tof(dw[(size_t)c * 9 + q]);
   const float bd = dwb[c];
-  Window<bf16> wh{h + base, s, j, (size_t)H};
+  Window<E> wh{h + base, s, j, (size_t)H};
   wh.start();
   for (int i = 0; i < s; ++i) {
     float acc = 0.0f;
@@ -195,7 +207,7 @@ mixffn_bwd_conv_kernel(const bf16* h, const bf16* dw, const float* dwb,
     for (int dj = 0; dj < 3; ++dj)
 #pragma unroll
       for (int di = 0; di < 3; ++di) acc += wh.v[di][dj] * wk[di * 3 + dj];
-    d[base + (size_t)(i * s + j) * H] = __float2bfloat16(acc + bd);
+    d[base + (size_t)(i * s + j) * H] = fromf<E>(acc + bd);
     wh.step(i);
   }
 }
@@ -203,11 +215,12 @@ mixffn_bwd_conv_kernel(const bf16* h, const bf16* dw, const float* dwb,
 // Stage 3b, per tile of TT tokens (the block's tiles [blockIdx.x·tpb, +tpb))
 // over the whole hidden width, a thread per channel: y = d + h, the hidden
 // LN's statistics, z, GELU′, dz = da·GELU′, the LN backward's two means,
-// dy over da, a = bf16(GELU(z)) over d. y and dz of the tile stay in shared
+// dy over da, a = E(GELU(z)) over d. y and dz of the tile stay in shared
 // memory (each thread touches only its own channels there); the per-token
 // sums go through block_sum2.
+template <typename E>
 __global__ void __launch_bounds__(THREADS)
-mixffn_bwd_rows_kernel(const bf16* h, float* da, bf16* a, const float* ls,
+mixffn_bwd_rows_kernel(const E* h, float* da, E* a, const float* ls,
                        const float* lb, float* part, int T, int H, int tpb,
                        float eps) {
   extern __shared__ __align__(16) float sm[];
@@ -228,9 +241,7 @@ mixffn_bwd_rows_kernel(const bf16* h, float* da, bf16* a, const float* ls,
 #pragma unroll
       for (int t = 0; t < TT; ++t) {
         const size_t e = (size_t)(n0 + t) * H + c;
-        const float y = n0 + t < T ? __bfloat162float(a[e]) +
-                                         __bfloat162float(h[e])
-                                   : 0.0f;
+        const float y = n0 + t < T ? tof(a[e]) + tof(h[e]) : 0.0f;
         ys[t * H + c] = y;
         p1[t] += y;
         p2[t] += y * y;
@@ -244,7 +255,7 @@ mixffn_bwd_rows_kernel(const bf16* h, float* da, bf16* a, const float* ls,
       inv[t] = rsqrtf(tok[t * 4 + 1] / H - mean[t] * mean[t] + eps);
       p1[t] = p2[t] = 0.0f;
     }
-    // z, GELU′, dz; a = bf16(z·Φ(z)); the sums of dyh = dz·ls and dyh·yh.
+    // z, GELU′, dz; a = E(z·Φ(z)); the sums of dyh = dz·ls and dyh·yh.
     for (int c = threadIdx.x; c < H; c += THREADS) {
       const float lsc = ls[c], lbc = lb[c];
       float dls = 0.0f, dlb = 0.0f;
@@ -253,7 +264,7 @@ mixffn_bwd_rows_kernel(const bf16* h, float* da, bf16* a, const float* ls,
         if (n0 + t >= T) continue;
         const size_t e = (size_t)(n0 + t) * H + c;
         const float yh = (ys[t * H + c] - mean[t]) * inv[t];
-        const float z = rbf(yh * lsc + lbc);
+        const float z = rnd<E>(yh * lsc + lbc);
         const float half1e = 0.5f * (1.0f + erff(z * RSQRT2));
         const float gp = half1e + z * expf(-0.5f * z * z) * INV_SQRT_2PI;
         const float dz = da[e] * gp;
@@ -262,7 +273,7 @@ mixffn_bwd_rows_kernel(const bf16* h, float* da, bf16* a, const float* ls,
         p2[t] += dz * lsc * yh;
         dls += dz * yh;
         dlb += dz;
-        a[e] = __float2bfloat16(z * half1e);
+        a[e] = fromf<E>(z * half1e);
       }
       col[H + c] += dls;
       col[2 * H + c] += dlb;
@@ -294,14 +305,15 @@ mixffn_bwd_rows_kernel(const bf16* h, float* da, bf16* a, const float* ls,
 }
 
 // Stage 4: dh = dy + the conv transpose of dy (a correlation with the
-// taps), rounded to bf16; the tap gradients Σ dy(i, j)·h(i+di−1, j+dj−1)
+// taps), rounded to E; the tap gradients Σ dy(i, j)·h(i+di−1, j+dj−1)
 // and db1 (from the fp32 dh). The column walk of stage 3a, with windows of
 // dy and h; the block's warps are added in a fixed order into partial
 // blockIdx.y·gridDim.x + blockIdx.x, laid out [db1 (H), ddw (H x 9)], of
 // which the block writes its CH channels.
+template <typename E>
 __global__ void __launch_bounds__(THREADS)
-mixffn_bwd_dwt_kernel(const float* dy, const bf16* h, const bf16* dw,
-                      bf16* dh, float* part, int s, int H) {
+mixffn_bwd_dwt_kernel(const float* dy, const E* h, const E* dw, E* dh,
+                      float* part, int s, int H) {
   __shared__ float red[10][NW][CH];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int j = blockIdx.x * NW + w, c = blockIdx.z * CH + lane;
@@ -312,10 +324,9 @@ mixffn_bwd_dwt_kernel(const float* dy, const bf16* h, const bf16* dw,
     const size_t base = (size_t)blockIdx.y * s * s * H + c;
     float wk[9];
 #pragma unroll
-    for (int q = 0; q < 9; ++q)
-      wk[q] = __bfloat162float(dw[(size_t)c * 9 + q]);
+    for (int q = 0; q < 9; ++q) wk[q] = tof(dw[(size_t)c * 9 + q]);
     Window<float> wd{dy + base, s, j, (size_t)H};
-    Window<bf16> wh{h + base, s, j, (size_t)H};
+    Window<E> wh{h + base, s, j, (size_t)H};
     wd.start();
     wh.start();
     for (int i = 0; i < s; ++i) {
@@ -328,7 +339,7 @@ mixffn_bwd_dwt_kernel(const float* dy, const bf16* h, const bf16* dw,
           d += wd.v[2 - di][2 - dj] * wk[di * 3 + dj];  // dy(i-di+1, j-dj+1)
           acc[di * 3 + dj] += dyc * wh.v[di][dj];        // h(i+di-1, j+dj-1)
         }
-      dh[base + (size_t)(i * s + j) * H] = __float2bfloat16(d);
+      dh[base + (size_t)(i * s + j) * H] = fromf<E>(d);
       acc[9] += d;
       wd.step(i);
       wh.step(i);
@@ -354,9 +365,10 @@ mixffn_bwd_dwt_kernel(const float* dy, const bf16* h, const bf16* dw,
 // dx = inv·(d − mean(d) − yhx·mean(d·yhx)) + g with d = dxn·lts; the
 // block's partials of db2 (Σ g), dlts (Σ dxn·yhx) and dltb (Σ dxn), kept
 // per warp in shared memory (each entry written by one lane only).
+template <typename E>
 __global__ void __launch_bounds__(THREADS)
-mixffn_bwd_lnb_kernel(const bf16* x, const bf16* g, const float* dxn,
-                      const float* lts, bf16* dx, float* part, int T, int C,
+mixffn_bwd_lnb_kernel(const E* x, const E* g, const float* dxn,
+                      const float* lts, E* dx, float* part, int T, int C,
                       int gsz, int tpb, float eps_ln) {
   extern __shared__ __align__(16) float red[];  // 3 x NW x C
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -364,15 +376,15 @@ mixffn_bwd_lnb_kernel(const bf16* x, const bf16* g, const float* dxn,
   __syncthreads();
   const int nb = blockIdx.x * tpb * TT, ne = min(T, nb + tpb * TT);
   for (int n = nb + w; n < ne; n += NW) {
-    const bf16* src = x + (size_t)n * C;
-    const bf16* gc = g + (size_t)n * C;
+    const E* src = x + (size_t)n * C;
+    const E* gc = g + (size_t)n * C;
     const float* dxr = dxn + (size_t)n * C;
     for (int c0 = 0; c0 < C; c0 += gsz) {
       const float2 ms = ln_stats(src, c0, gsz, eps_ln, lane);
       const float mean = ms.x, inv = ms.y;
       float n1 = 0.0f, n2 = 0.0f;
       for (int c = c0 + lane; c < c0 + gsz; c += 32) {
-        const float yhx = (__bfloat162float(src[c]) - mean) * inv;
+        const float yhx = (tof(src[c]) - mean) * inv;
         const float d = dxr[c] * lts[c];
         n1 += d;
         n2 += d * yhx;
@@ -380,10 +392,10 @@ mixffn_bwd_lnb_kernel(const bf16* x, const bf16* g, const float* dxn,
       n1 = warp_sum(n1) / gsz;
       n2 = warp_sum(n2) / gsz;
       for (int c = c0 + lane; c < c0 + gsz; c += 32) {
-        const float yhx = (__bfloat162float(src[c]) - mean) * inv;
-        const float gv = __bfloat162float(gc[c]);
+        const float yhx = (tof(src[c]) - mean) * inv;
+        const float gv = tof(gc[c]);
         const float d = dxr[c] * lts[c];
-        dx[(size_t)n * C + c] = __float2bfloat16(inv * (d - n1 - yhx * n2) + gv);
+        dx[(size_t)n * C + c] = fromf<E>(inv * (d - n1 - yhx * n2) + gv);
         red[(0 * NW + w) * C + c] += gv;
         red[(1 * NW + w) * C + c] += dxr[c] * yhx;
         red[(2 * NW + w) * C + c] += dxr[c];
@@ -443,22 +455,23 @@ enum Plan {
 
 }  // namespace
 
-// x, g, dx: (B, s², C) bf16; w1 (hid, C), dw (hid, 9), w2 (C, hid) bf16;
+// x, g, dx: (B, s², C) E; w1 (hid, C), dw (hid, 9), w2 (C, hid) E;
 // lts/ltb (C,) the tiled group-LN scale/bias, the rest fp32 vectors.
 // grads: fp32 dw1 (hid, C), dw2 (C, hid), db1, ddw (hid, 9), ddwb, dls,
-// dlb, db2, dlts, dltb. Workspace (T = B·s² tokens): xn (T, C) bf16, h
-// (T, hid) bf16, da (T, hid) fp32 (dy after stage 3), a and dh (T, hid)
-// bf16 (a holds the conv output d until stage 3b), dxn (T, C) fp32;
+// dlb, db2, dlts, dltb. Workspace (T = B·s² tokens): xn (T, C) E, h
+// (T, hid) E, da (T, hid) fp32 (dy after stage 3), a and dh (T, hid)
+// E (a holds the conv output d until stage 3b), dxn (T, C) fp32;
 // partials pw (splits, 2·hid·C), pr (blocks, 3·hid), pd (B·ceil(s/NW),
-// 10·hid), pl (blocks, 3·C), fp32. plan: PLAN_LEN ints.
-extern "C" int mixffn_ln_skip_bwd(
-    const bf16* x, const bf16* g, const float* lts, const float* ltb,
-    const bf16* w1, const float* b1, const bf16* dw, const float* dwb,
-    const float* ls, const float* lb, const bf16* w2, bf16* dx,
-    float* grads, bf16* xn, bf16* h, float* da, bf16* a, bf16* dh,
-    float* dxn, float* pw, float* pr, float* pd, float* pl, const int* plan,
-    int B, int s, int C, int hid, int groups, float eps_ln, float eps,
-    void* stream) {
+// 10·hid), pl (blocks, 3·C), fp32. plan: PLAN_LEN ints. E: bf16, or fp32
+// for mixffn_ln_skip_bwd_f32.
+template <typename E>
+int ln_skip_bwd(const E* x, const E* g, const float* lts, const float* ltb,
+                const E* w1, const float* b1, const E* dw, const float* dwb,
+                const float* ls, const float* lb, const E* w2, E* dx,
+                float* grads, E* xn, E* h, float* da, E* a, E* dh, float* dxn,
+                float* pw, float* pr, float* pd, float* pl, const int* plan,
+                int B, int s, int C, int hid, int groups, float eps_ln,
+                float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int T = B * s * s, H = hid, gsz = C / groups;
   const int P = plan[BLOCKS], tpb = plan[TILES_PER_BLOCK];
@@ -467,7 +480,7 @@ extern "C" int mixffn_ln_skip_bwd(
   cudaError_t e;
 #define STEP(call) \
   if ((e = (call))) return e
-  mixffn_bwd_ln_kernel<<<(T + NW - 1) / NW, THREADS, 0, st>>>(
+  mixffn_bwd_ln_kernel<E><<<(T + NW - 1) / NW, THREADS, 0, st>>>(
       x, lts, ltb, xn, T, C, gsz, eps_ln);
   STEP(cudaGetLastError());
   STEP((gemm<true, true, EPI_BIAS>(plan[H_BM], plan[H_BN], xn, C, w1, C, h, H,
@@ -476,14 +489,14 @@ extern "C" int mixffn_ln_skip_bwd(
                                  H, nullptr, T, H, C, (C + BK - 1) / BK * BK,
                                  0, st)));
   const dim3 walk((s + NW - 1) / NW, B, (H + CH - 1) / CH);
-  mixffn_bwd_conv_kernel<<<walk, THREADS, 0, st>>>(h, dw, dwb, a, s, H);
+  mixffn_bwd_conv_kernel<E><<<walk, THREADS, 0, st>>>(h, dw, dwb, a, s, H);
   STEP(cudaGetLastError());
   const size_t rs = rows_smem(H);
-  STEP(set_smem((const void*)mixffn_bwd_rows_kernel, rs));
-  mixffn_bwd_rows_kernel<<<P, THREADS, rs, st>>>(h, da, a, ls, lb, pr, T, H,
-                                                 tpb, eps);
+  STEP(set_smem((const void*)mixffn_bwd_rows_kernel<E>, rs));
+  mixffn_bwd_rows_kernel<E><<<P, THREADS, rs, st>>>(h, da, a, ls, lb, pr, T,
+                                                    H, tpb, eps);
   STEP(cudaGetLastError());
-  mixffn_bwd_dwt_kernel<<<walk, THREADS, 0, st>>>(da, h, dw, dh, pd, s, H);
+  mixffn_bwd_dwt_kernel<E><<<walk, THREADS, 0, st>>>(da, h, dw, dh, pd, s, H);
   STEP(cudaGetLastError());
   STEP((gemm<true, false, EPI_F32>(plan[DXN_BM], plan[DXN_BN], dh, H, w1, C,
                                  dxn, C, nullptr, T, C, H,
@@ -495,9 +508,9 @@ extern "C" int mixffn_ln_skip_bwd(
                                   pw + HC, H, nullptr, C, H, T, kper, 2 * HC,
                                   st)));
   const size_t ls_ = (size_t)3 * NW * C * 4;
-  STEP(set_smem((const void*)mixffn_bwd_lnb_kernel, ls_));
-  mixffn_bwd_lnb_kernel<<<P, THREADS, ls_, st>>>(x, g, dxn, lts, dx, pl, T,
-                                                 C, gsz, tpb, eps_ln);
+  STEP(set_smem((const void*)mixffn_bwd_lnb_kernel<E>, ls_));
+  mixffn_bwd_lnb_kernel<E><<<P, THREADS, ls_, st>>>(x, g, dxn, lts, dx, pl, T,
+                                                    C, gsz, tpb, eps_ln);
   STEP(cudaGetLastError());
   const Sums sums{{pw, pd, pr, pl},
                   {S, (int)(walk.x * walk.y), P, P},
@@ -511,3 +524,20 @@ extern "C" int mixffn_ln_skip_bwd(
 #undef STEP
   return cudaSuccess;
 }
+
+#define LN_SKIP_BWD(NAME, E)                                                  \
+  extern "C" int NAME(const E* x, const E* g, const float* lts,               \
+                      const float* ltb, const E* w1, const float* b1,         \
+                      const E* dw, const float* dwb, const float* ls,         \
+                      const float* lb, const E* w2, E* dx, float* grads,      \
+                      E* xn, E* h, float* da, E* a, E* dh, float* dxn,        \
+                      float* pw, float* pr, float* pd, float* pl,             \
+                      const int* plan, int B, int s, int C, int hid,          \
+                      int groups, float eps_ln, float eps, void* stream) {    \
+    return ln_skip_bwd<E>(x, g, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, dx,    \
+                          grads, xn, h, da, a, dh, dxn, pw, pr, pd, pl, plan, \
+                          B, s, C, hid, groups, eps_ln, eps, stream);         \
+  }
+LN_SKIP_BWD(mixffn_ln_skip_bwd, bf16)
+LN_SKIP_BWD(mixffn_ln_skip_bwd_f32, float)
+#undef LN_SKIP_BWD

@@ -163,6 +163,9 @@ def launches_per_step(cfg: TransceptionConfig, wide_head: bool = True
     ops.kernels.launch_counts: a pure function of the config, as
     launches_per_forward, with the train step's fold switches, kernel set
     and drop-path rates; K10 and K11 once per K3 and K2 forward (the other
-    kernels' backwards are autograd of their plain versions).
-    chip_smoke.py holds the card's counters to it."""
+    kernels' backwards are autograd of their plain versions). The same at
+    fp32: the fp32 forms (K3, K10, K2, K11, K9 and the "pallas" mode's
+    K1, K5-K7) launch where the bf16 ones do, under the same counters;
+    their shape tallies end with "fp32". chip_smoke.py holds the card's
+    counters to it."""
     return _launches(cfg, True, "wide" if wide_head else "logits")

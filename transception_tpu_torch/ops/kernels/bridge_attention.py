@@ -75,6 +75,21 @@ result is the same in every run. The (N, M) matrices
 stay on chip; E/S and T·s/S are the bf16-rounded tensor-core operands of
 dV and dK, with fp32 accumulation; the JAX backward is fp32 throughout.
 
+K10 at fp32 (csrc/bridge_attention_bwd.cu bridge_attention_bwd_f32, the
+fp32 train step's, 3 launches a step): the same rows and columns kernels,
+statistics, launch plan and fixed-order sum of the segments' partials,
+with nothing rounded: E/S and T·s/S enter their products in fp32. The
+products run on the CUDA cores (FFMA), with both operands in shared
+memory as in K3's fp32 form: a warp's 16 rows of q and g (rows kernel) or
+of k and v (columns kernel) in 8 KB of its own, 64-key fp32 chunks of K
+and V (rows) or 64-row chunks of Q, G and the statistics (columns)
+through the 2-deep ring (128 KB a rows block, 98 KB a columns block);
+lane (g, t) forms the dots of rows g, g + 8 with the ring's rows 8j + 2t +
+e as K3's fp32 logits do, and the quad's shuffles hand each lane the 16
+values a row needs for the product with the ring's rows. exp is
+ex2.approx. Bound: operations, 10·B·N·M·d at 67 TFLOP/s of FFMA (1.09 ms
+at b=24; the kernels do 9 products of 2·B·N·M·d, 1.3x the function's).
+
 K8 replaces bridge_attention_kernel.py:307 `bridge_attention_folded`
 (pallas_call at :332): res + proj(MHA(x·Wq + bq)) with x the post-norm1
 stream and res the raw layer input, (B, 6076, 64), against K3's k/v, in
@@ -156,8 +171,8 @@ def bridge_attention_plain(q, k, v, scale: float):
 
 
 def _check(q, k, v, dtypes=_build.DTYPES):
-    """Raise on what K3 (bf16 or fp32) or, with dtypes=(bf16,), K10 and K8
-    do not take."""
+    """Raise on what K3 and K10 (bf16 or fp32) or, with dtypes=(bf16,),
+    K8 do not take."""
     _build.element_dtype(NAME, q, k, v, dtypes=dtypes)
     for t in (q, k, v):
         if t.dim() != 4:
@@ -197,6 +212,19 @@ def f32_smem() -> int:
     blocks an SM)."""
     return (F32_STAGES * 2 * F32_KEY_CHUNK * HEAD_DIM * 4
             + F32_WARPS * 16 * HEAD_DIM * 4)
+
+
+def bwd_f32_smem() -> tuple:
+    """Shared memory of a block of K10's fp32 form (mirrors RSMEM32 and
+    CSMEM32 of csrc/bridge_attention_bwd.cu): the rows kernel's 2-deep ring
+    of fp32 K and V chunks and its 8 warps' rows of q and g (128 KB); the
+    columns kernel's ring of BWD_ROW_CHUNK rows of fp32 Q and G with their
+    statistics and its 4 warps' rows of k and v."""
+    rows = F32_STAGES * 2 * F32_KEY_CHUNK * HEAD_DIM * 4 + \
+        F32_WARPS * 2 * 16 * HEAD_DIM * 4
+    ring = F32_STAGES * (2 * BWD_ROW_CHUNK * HEAD_DIM * 4 + BWD_ROW_CHUNK * 16)
+    cols = ring + BWD_KEY_TILE // 16 * 2 * 16 * HEAD_DIM * 4
+    return rows, cols
 
 
 def _check_scale(scale):
@@ -246,7 +274,8 @@ def bridge_attention_bwd(q, k, v, g, scale: float):
 
 
 def _launch_bwd(q, k, v, g, scale):
-    _check(q, k, v, dtypes=(torch.bfloat16,))
+    """K10 on the card, its bf16 or fp32 form (q's dtype)."""
+    _check(q, k, v)
     if g.shape != q.shape or g.dtype != q.dtype:
         raise ValueError(f"{BWD_NAME} kernel needs g like q, got "
                          f"{tuple(g.shape)} {g.dtype}")
@@ -263,16 +292,16 @@ def _launch_bwd(q, k, v, g, scale):
     stats = torch.empty(B * h, N, 4, **f32)
     dkp = torch.empty(nseg, B * h, M, d, **f32)  # the segments' partials
     dvp = torch.empty_like(dkp)
-    fn = _build.load(BWD_NAME).bridge_attention_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
-        ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn = _build.entry(BWD_NAME, _build.symbol(BWD_NAME, q.dtype),
+                      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                      + [ctypes.c_float] + [ctypes.c_int] * 2
+                      + [ctypes.c_void_p])
     P = _build.ptr
     rc = fn(P(q), P(k), P(v), P(g), P(dq), P(dk), P(dv), P(stats), P(dkp),
             P(dvp), B * h, N, M, scale, nseg, seg_rows, _build.stream_of(q))
     _build.check(rc, BWD_NAME)
     bwd_launches += 1
-    _build.tally(BWD_NAME, tuple(q.shape))
+    _build.tally(BWD_NAME, tuple(q.shape), _build.tag(q))
     return dq, dk, dv
 
 

@@ -104,6 +104,14 @@ K9 design: K2's stages, the BARE instantiation of the same forward chain
 (csrc/mixffn_stages.cuh ffn::forward): fc1 stages x as it is instead of
 normalising it, and fc2's epilogue adds no residual. Three launches a
 call, with K2's plan (`fwd_plan`).
+
+K11 and K9 at fp32 (the fp32 train step's: K11 at every flash fold, K9
+in the "pallas" mode's drop-path blocks): the same stages at E = float
+(csrc/mixffn_bwd.cu mixffn_ln_skip_bwd_f32, csrc/mixffn.cu
+mixffn_skip_f32), every rounding point the identity, the products on the
+CUDA cores through the tiled product's fp32 step (bsa::ffma_step), the
+plans sized with es=4 (`bwd_plan`, `bwd_smem_bytes`, `fwd_plan`). Bound:
+operations at 67 TFLOP/s of FFMA.
 """
 
 from __future__ import annotations
@@ -311,16 +319,18 @@ def takes(s: int) -> bool:
     return s % 2 == 0
 
 
-def bwd_smem_bytes(C: int, hid: int) -> int:
-    """Largest shared memory of a K11 block (mirrors csrc/mixffn_bwd.cu):
-    the rows kernel's y and dz of a token tile over the hidden width, its
-    three column partials and reductions (rows_smem); the LN backward's
-    per-warp column partials; a 128 x 128 product's 3-deep operand ring."""
+def bwd_smem_bytes(C: int, hid: int, es: int = 2) -> int:
+    """Largest shared memory of a K11 block over elements of es bytes
+    (mirrors csrc/mixffn_bwd.cu): the rows kernel's y and dz of a token
+    tile over the hidden width, its three column partials and reductions
+    (rows_smem, fp32 at either es); the LN backward's per-warp column
+    partials; a 128 x 128 product's 3-deep operand ring or its epilogue
+    tile (gemm_smem)."""
     nw, tt = BWD_THREADS // 32, BWD_TOKEN_TILE
     rows = (2 * tt * hid + 3 * hid + 2 * tt * BWD_THREADS + tt * 4) * 4
     lnb = 3 * nw * C * 4
-    gemm = 3 * 2 * BWD_TILES[0] * BWD_DEPTH * 2
-    return max(rows, lnb, gemm)
+    big = BWD_TILES[0]
+    return max(rows, lnb, gemm_smem(False, big, big, 0, es))
 
 
 def _blocks(M, N, bm, bn):
@@ -371,9 +381,10 @@ def fwd_plan(B: int, s: int, C: int, hid: int, sms: int, es: int = 2
                 workspace={"h": T * hid * es, "a": T * hid * es}, smem=smem)
 
 
-def bwd_plan(B: int, s: int, C: int, hid: int, sms: int) -> dict:
+def bwd_plan(B: int, s: int, C: int, hid: int, sms: int, es: int = 2
+             ) -> dict:
     """K11's launch plan for x (B, s², C), hidden `hid`, on a card of `sms`
-    SMs. Products (M, N, K): h (T, hid, C), da (T, hid, C), dxn (T, C,
+    SMs, over elements of es bytes (2 bf16, 4 for the fp32 form). Products (M, N, K): h (T, hid, C), da (T, hid, C), dxn (T, C,
     hid), then dw1 (hid, C, T) and dw2 (C, hid, T) with K split into
     `splits` token ranges of `kper` (whole BWD_DEPTH tiles). An output tile
     side is BIG where it divides the side, else SMALL; the token products
@@ -387,7 +398,11 @@ def bwd_plan(B: int, s: int, C: int, hid: int, sms: int) -> dict:
     columns, batch row, BWD_CHANNELS channels); the transpose writes one
     partial per (batch row, column group): `walk_partials`.
     `plan` is the int list the CUDA entry takes; `workspace` the bytes of
-    each intermediate and partial it is handed."""
+    each intermediate and partial it is handed (xn, h, a and dh in the
+    element type, the rest fp32 at either). The split depth is whole
+    BWD_DEPTH tiles at both element types (a multiple of the fp32 step's
+    32), and the partials are fp32 at both, so BWD_SPLIT_BYTES caps the
+    same bytes at fp32."""
     T = B * s * s
     gemms = {"h": (T, hid, C) + token_tile(T, hid, sms),
              "da": (T, hid, C) + token_tile(T, hid, sms),
@@ -407,8 +422,8 @@ def bwd_plan(B: int, s: int, C: int, hid: int, sms: int) -> dict:
     blocks = -(-tiles // tpb)
     plan = [v for k in ("h", "da", "dxn", "dw1", "dw2")
             for v in gemms[k][3:]] + [splits, kper, blocks, tpb]
-    workspace = {"xn": T * C * 2, "h": T * hid * 2, "da": T * hid * 4,
-                 "a": T * hid * 2, "dh": T * hid * 2, "dxn": T * C * 4,
+    workspace = {"xn": T * C * es, "h": T * hid * es, "da": T * hid * 4,
+                 "a": T * hid * es, "dh": T * hid * es, "dxn": T * C * 4,
                  "pw": splits * 2 * hid * C * 4, "pr": blocks * 3 * hid * 4,
                  "pd": walk * 10 * hid * 4, "pl": blocks * 3 * C * 4}
     return dict(gemms=gemms, splits=splits, kper=kper, blocks=blocks,
@@ -419,8 +434,8 @@ def bwd_plan(B: int, s: int, C: int, hid: int, sms: int) -> dict:
 def _check(x, s, hid, groups, ln=True, dtypes=_build.DTYPES):
     """Raise on what the kernels do not take; ln: the caller's LN is folded
     into fc1 (K2, K5), which takes groups of a multiple of 64 channels;
-    dtypes: the element types of the kernel's forms (K2 and K5 bf16 and
-    fp32, K9 and K11 bf16)."""
+    dtypes: the element types of the kernel's forms (bf16 and fp32 for
+    K2, K5, K9 and K11)."""
     _build.element_dtype(NAME, x, dtypes=dtypes)
     if x.dim() != 3:
         raise ValueError(f"{NAME} kernel takes a (B, N, C) tensor, "
@@ -489,16 +504,17 @@ def _launch(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, s, groups, eps_ln,
 
 
 def _launch_skip(x, w1, b1, dw, dwb, ls, lb, w2, b2, s, eps):
-    """K9 on the card: K2's stages without the LN and the residual (bf16
-    only: it runs in the train step)."""
+    """K9 on the card: K2's stages without the LN and the residual, its
+    bf16 or fp32 form (x's dtype)."""
     hid = w1.shape[0]
-    _check(x, s, hid, 1, ln=False, dtypes=(torch.bfloat16,))
+    _check(x, s, hid, 1, ln=False)
     global skip_launches
     x = _build.aligned(x)
-    fn = _build.entry(NAME, "mixffn_skip", [ctypes.c_void_p] * 13 + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    fn = _build.entry(NAME, _build.symbol(SKIP_NAME, x.dtype),
+                      [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+                      + [ctypes.c_float, ctypes.c_void_p])
     B, N, C = x.shape
-    bf = functools.partial(_build.weight, dtype=torch.bfloat16)
+    bf = functools.partial(_build.weight, dtype=x.dtype)
     f32 = _build.f32
     out, ws, tail = _fwd_args(x, s, hid)
     held = (
@@ -508,7 +524,7 @@ def _launch_skip(x, w1, b1, dw, dwb, ls, lb, w2, b2, s, eps):
     rc = fn(*args, B, s, C, hid, eps, _build.stream_of(x))
     _build.check(rc, SKIP_NAME)
     skip_launches += 1
-    _build.tally(SKIP_NAME, tuple(x.shape), hid)
+    _build.tally(SKIP_NAME, tuple(x.shape), hid, _build.tag(x))
     return out
 
 
@@ -527,41 +543,43 @@ def mixffn_skip(x, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
 
 def _launch_bwd(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, g, s, groups,
                 eps_ln, eps):
-    """K11 on the card; lts/ltb are (C,)-tiled. One counted launch runs
-    every stage of the plan (bwd_plan)."""
+    """K11 on the card, its bf16 or fp32 form (x's dtype); lts/ltb are
+    (C,)-tiled. One counted launch runs every stage of the plan
+    (bwd_plan)."""
     hid = w1.shape[0]
-    _check(x, s, hid, groups, ln=False, dtypes=(torch.bfloat16,))
+    _check(x, s, hid, groups, ln=False)
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"{BWD_NAME} kernel needs g like x, got "
                          f"{tuple(g.shape)} {g.dtype}")
     B, N, C = x.shape
-    if bwd_smem_bytes(C, hid) > SMEM_LIMIT:
+    es = x.element_size()
+    if bwd_smem_bytes(C, hid, es) > SMEM_LIMIT:
         raise ValueError(f"{BWD_NAME} kernel: a token tile (C={C}, "
                          f"hidden={hid}) exceeds shared memory")
     global bwd_launches
     x, g = _build.aligned(x), _build.aligned(g)
-    pl = bwd_plan(B, s, C, hid, _build.sms(x))
+    pl = bwd_plan(B, s, C, hid, _build.sms(x), es)
     dx = torch.empty_like(x)
     grads = torch.empty(2 * hid * C + 13 * hid + 3 * C, device=x.device,
                         dtype=torch.float32)
     # The intermediates and partials in the entry's argument order (xn, h,
     # da, a, dh, dxn, pw, pr, pd, pl).
     ws, work = _build.workspace(pl["workspace"].values(), x.device)
-    bf = functools.partial(_build.weight, dtype=torch.bfloat16)
+    bf = functools.partial(_build.weight, dtype=x.dtype)
     f = _build.f32
     held = (
         x, g, f(lts), f(ltb), bf(w1), f(b1), bf(dw.reshape(hid, 9)), f(dwb),
         f(ls), f(lb), bf(w2), dx, grads)
     args = [_build.ptr(t) for t in held] + work
     plan = (ctypes.c_int * len(pl["plan"]))(*pl["plan"])
-    fn = _build.entry(BWD_NAME, "mixffn_ln_skip_bwd", [ctypes.c_void_p] * 24
-                      + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-                      + [ctypes.c_void_p])
+    fn = _build.entry(BWD_NAME, _build.symbol("mixffn_ln_skip_bwd", x.dtype),
+                      [ctypes.c_void_p] * 24 + [ctypes.c_int] * 5
+                      + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     rc = fn(*args, plan, B, s, C, hid, groups, eps_ln, eps,
             _build.stream_of(x))
     _build.check(rc, BWD_NAME)
     bwd_launches += 1
-    _build.tally(BWD_NAME, tuple(x.shape), hid, groups)
+    _build.tally(BWD_NAME, tuple(x.shape), hid, groups, _build.tag(x))
     sizes = (hid * C, C * hid, hid, 9 * hid, hid, hid, hid, C, C, C)
     dw1, dw2, db1, ddw, ddwb, dls, dlb, db2, dlts, dltb = torch.split(
         grads, sizes)
