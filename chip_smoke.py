@@ -19,11 +19,15 @@ Phases (any failed check exits non-zero):
      order), K7 also at the logits path's x4 shape, K4 also at batch 1,
      both at maps that leave a partial token tile (checks off the main
      path are logged, not rows of the kernels line); and the fp32 forms
-     (K1, K2, K5, K6, K3, K7 in both layouts) at every shape the fp32 eval
-     forward gives them, and those the fp32 "pallas" train step gives K1,
-     K5, K6, K7 and K9 (batch 24), against their fp32 plain versions with
-     TF32 off within FP32_TOL, each with a planted fault, bounds at the
-     fp32 FFMA peak, K3 beside SDPA at fp32;
+     (K1, K2, K5, K6, K3, K8, K7 in both layouts) at every shape the fp32
+     eval forward gives them in the published model, its K8 fold
+     configurations and the ablation variants (K8's fp32 form beside
+     "SDPA fp32 + 2 F.linear + add", K2 at the bridge folds, K6 at the ETB
+     maps and the 4-stage backbone's 56² stage), and those the fp32
+     "pallas" train step gives K1, K5, K6, K7 and K9 (batch 24), against
+     their fp32 plain versions with TF32 off within FP32_TOL, each with a
+     planted fault, bounds at the fp32 FFMA peak, K3 beside SDPA at fp32;
+     and the bf16 shapes of phase 13's batch-8 forwards;
   4. the published MSTransception at full width (224², bf16, random
      weights from a seed) through make_predictor(...).predict_volume on a
      synthetic 48-slice 512² volume, batch 32, with launch counters;
@@ -42,7 +46,8 @@ Phases (any failed check exits non-zero):
      attention (K3) and its backward (K10), the MixFFN backward (K11) and
      the grouped MixFFN forward (K2), the backwards and K2 each with a
      planted fault the check must reject (K3 and K10 with their share of
-     the bound and their factor against SDPA); and for each kernel whose
+     the bound and their factor against SDPA), and K8 at batch 24 (the sp
+     and para bridges keep it in training); and for each kernel whose
      backward is autograd of its plain version (K1, K5-K9), one backward
      through its autograd Function against autograd of the plain version;
      then the same at fp32 (TF32 off): K3, K10, K11 and K2 at every fp32
@@ -69,7 +74,10 @@ Phases (any failed check exits non-zero):
      configuration of FOLD_GRID, with the launches per forward held to
      models.transception.launches_per_forward (argmax and logits
      forwards), the class maps to "folds-off"'s, the kernel path to
-     use_kernels=False under the same config, and the forward time;
+     use_kernels=False under the same config, and the forward time; then
+     the three configurations with bridge_attn_fold once at fp32, on K8's
+     fp32 form (launches exact, kernel vs plain within phase 5's fp32
+     limits);
  11. volume eval: the published model through run_inference on two
      synthetic 512² volumes (its log lines, launches per chunk, the wall
      time per volume split into load, resample, forward, back-resize and
@@ -85,13 +93,25 @@ Phases (any failed check exits non-zero):
  12. the train CLI (cli.train.main in-process, its defaults: bf16, the
      published model, b=24, augment, 4 loader threads) on Synapse-format
      .npz slices of 512² written for the run: log lines, a checkpoint, the
-     end-of-run eval on the default test set (finite dice/HD95, per-class
-     lines), results.tsv, launches per step and per eval chunk exact; a
+     end-of-run eval on one small synthetic volume (finite dice/HD95,
+     per-class lines), results.tsv, launches per step and per eval chunk exact; a
      second call resuming under --profile (its trace); --throughput at
      bf16 and fp32; a step's wall time beside its device busy time with
      the host loader, at both dtypes.
-Every launch of the main-path runs (phases 4, 5-7 at fp32, 9, 10, 11 and
-12) is tallied by shape (ops.kernels.shape_counts); each shape must have
+ 13. the ablation family (models/registry.py) at full width: the four
+     variants (4-stage and casa backbones, sp and para bridges) through
+     predict_volume at b=32 in bf16 and fp32 (launches exactly
+     launches_per_forward, the kernel path against use_kernels=False and
+     at bf16 against an fp32 model, forward time) and one b=24 train step
+     each in the default mode against the plain path (the bf16 step
+     limits, launches exactly launches_per_step); one bf16 forward at b=8
+     for each other IFF mode, each token MLP and no bridge, held the same
+     way; cli.test.main with --have_bridge sp at its fp32 default on one
+     64² synthetic volume (every K8 call the fp32 kernel, none its plain
+     version); cli.train.main --model mstransception_para for 2 steps with
+     its end-of-run eval on that volume.
+Every launch of the main-path runs (phases 4, 5-7 at fp32, 9, 10, 11, 12
+and 13) is tallied by shape (ops.kernels.shape_counts); each shape must have
 been measured in phase 3 or 8. The last line is {"ok": true, "device": {...}}; the two
 lines before it list each kernel at each shape (one row per shape) with
 its launches in those runs, its error and its per-launch times and bound,
@@ -263,7 +283,7 @@ def record(measured, key, label, err, ms, pms, lms, nbytes, flops,
 
 
 def pinned(cfg):
-    """cfg with its six fold switches resolved for eval: the structure
+    """cfg with its seven fold switches resolved for eval: the structure
     stays the same when use_kernels is switched off."""
     import dataclasses
 
@@ -273,7 +293,7 @@ def pinned(cfg):
         cfg, bridge_attn_fold=sw.bridge_attn,
         bridge_ffn_use_pallas=sw.bridge_ffn, etb_attn_fold=sw.etb_attn,
         etb_ffn_fold=sw.etb_ffn, mhca_block_fold=sw.mhca_block,
-        mhca_ffn_fold=sw.mhca_ffn)
+        mhca_ffn_fold=sw.mhca_ffn, sp_bridge_fold=sw.sp_bridge)
 
 
 def rand(gen, shape, scale=1.0, shift=0.0, dtype=torch.float32):
@@ -429,6 +449,34 @@ def _patch_expand_cases(gen, B, case, train):
                  main=on_path and shuffle is not None)
 
 
+def _k8_args(gen, k, v, dt):
+    """K8's inputs against k/v (B, 1, M, 64) at dtype dt: x and res, wq
+    scaled up so the softmax is peaked and the branch (output minus res)
+    is of the order of v; the planted fault (the out-projection bias
+    dropped); the library call computing the same function (SDPA on the
+    same q/k/v plus two F.linear and the add, in dt); bytes and flops."""
+    B, _, M, d = k.shape
+    N = 6076
+    x, res = (rand(gen, (B, N, d), dtype=dt) for _ in range(2))
+    wq, wp = rand(gen, (d, d), 4 * d ** -0.5), rand(gen, (d, d), d ** -0.5)
+    bq, bp = rand(gen, (d,), 0.1), rand(gen, (d,), 0.5)
+    args = (x, res, wq, bq, k, v, wp, bp, d ** -0.5)
+    bad = args[:7] + (torch.zeros_like(bp),) + args[8:]
+    w = [t.to(dt) for t in (wq, bq, wp, bp)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lin = torch.nn.functional.linear
+
+    def lib():
+        qq = lin(x, w[0], w[1])[:, None]
+        return lin(sdpa(qq, k, v, scale=d ** -0.5)[:, 0], w[2], w[3]) + res
+
+    es = torch.finfo(dt).bits // 8
+    nbytes = 3 * B * N * d * es + 2 * B * M * d * es + 2 * d * d * es \
+        + 2 * d * 4
+    flops = 4 * B * N * M * d + 4 * B * N * d * d
+    return args, bad, lib, nbytes, flops
+
+
 def _serving_only_cases(gen, B, case):
     """The serving path's K2, K3, K8 and K4 shapes (the train step's K2
     and K3 are held in phase 8)."""
@@ -472,35 +520,20 @@ def _serving_only_cases(gen, B, case):
     k = rand(gen, (B, 1, M, d), dtype=torch.bfloat16)
     vv = rand(gen, (B, 1, M, d), dtype=torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lin = torch.nn.functional.linear
     case("bridge_attention", f"q ({B},1,{N},{d}) kv ({B},1,{M},{d})",
          lambda a=(q, k, vv): ba.bridge_attention(*a, d ** -0.5),
          lambda a=(q, k, vv): ba.bridge_attention_plain(*a, d ** -0.5),
          2 * B * N * d * 2 + 2 * B * M * d * 2, 4 * B * N * M * d, 0.02,
          lfn=lambda a=(q, k, vv): sdpa(*a, scale=d ** -0.5))
-    # K8: the folded bridge attention; wq scaled up so the softmax is
-    # peaked and the branch (output minus res) is of the order of v; the
-    # library call: SDPA on the same q/k/v plus two F.linear and the add.
-    # Fault: the out-projection bias dropped.
-    x, res = (rand(gen, (B, N, d), dtype=torch.bfloat16) for _ in range(2))
-    wq, wp = rand(gen, (d, d), 4 * d ** -0.5), rand(gen, (d, d), d ** -0.5)
-    bq, bp = rand(gen, (d,), 0.1), rand(gen, (d,), 0.5)
-    args = (x, res, wq, bq, k, vv, wp, bp, d ** -0.5)
-    bad = args[:7] + (torch.zeros_like(bp),) + args[8:]
-    wq16, bq16, wp16, bp16 = (t.to(torch.bfloat16) for t in (wq, bq, wp, bp))
-
-    def lib_folded(x=x, res=res, k=k, v=vv):
-        qq = lin(x, wq16, bq16)[:, None]
-        return lin(sdpa(qq, k, v, scale=d ** -0.5)[:, 0], wp16, bp16) + res
-
+    # K8: the folded bridge attention (_k8_args).
+    args, bad, lib, nbytes, flops = _k8_args(gen, k, vv, torch.bfloat16)
     case("bridge_attention_folded",
          f"x/res ({B},{N},{d}) kv ({B},1,{M},{d})",
          lambda a=args: ba.bridge_attention_folded(*a),
          lambda a=args: ba.bridge_attention_folded_plain(*a),
-         3 * B * N * d * 2 + 2 * B * M * d * 2 + 2 * d * d * 2 + 2 * d * 4,
-         4 * B * N * M * d + 4 * B * N * d * d, 0.02, lfn=lib_folded,
-         base=res, fault=("out-projection bias dropped",
-                          lambda a=bad: ba.bridge_attention_folded_plain(*a)))
+         nbytes, flops, 0.02, lfn=lib, base=args[1],
+         fault=("out-projection bias dropped",
+                lambda a=bad: ba.bridge_attention_folded_plain(*a)))
     _expand_head_cases(gen, B, case)
 
 def kernel_cases(gen, B=BATCH, train=False):
@@ -558,7 +591,10 @@ def kernel_cases(gen, B=BATCH, train=False):
     # etb_attn_fold off.
     mhca = ((8, 49, 40, False), (8, 784, 8, False), (8, 196, 16, False))
     etb = ((1, 3136, 64, True), (1, 784, 128, True), (1, 196, 320, True))
-    for h, N, dh, q_sm in mhca if train else mhca + etb:
+    # The 4-stage backbone's stage 1 (56², C = 64): its blocks run
+    # unfolded in eval, as in JAX (kernels.mhca_block.takes).
+    stage56 = ((8, 3136, 8, False),)
+    for h, N, dh, q_sm in mhca if train else mhca + etb + stage56:
         q, k, v = (rand(gen, (B, h, N, dh), f, dtype=torch.bfloat16)
                    for f in (1.0, 3.0, 1.0))
         sc = 1.0 if q_sm else dh ** -0.5
@@ -654,15 +690,20 @@ def fp32_kernel_cases(gen, B=BATCH, train=False):
     # K6 at stage 4, and in training on the MHCA blocks with drop path at
     # stages 2-4 (the factorized attention, scaled; fault: the keys
     # negated, which moves only the context).
-    for h, N, dh in ((8, 49, 40), (8, 784, 8), (8, 196, 16)) if train \
-            else ((8, 49, 40),):
+    # With etb_attn_fold off (the fold grid's "etb-off" at fp32) the ETB
+    # attention (the softmax of Q); the 4-stage backbone's 56² stage.
+    shapes = ((8, 49, 40, False), (8, 784, 8, False), (8, 196, 16, False)) \
+        if train else ((8, 49, 40, False), (1, 3136, 64, True),
+                       (1, 784, 128, True), (1, 196, 320, True),
+                       (8, 3136, 8, False))
+    for h, N, dh, q_sm in shapes:
         q, k, v = (rand(gen, (B, h, N, dh), f) for f in (1.0, 3.0, 1.0))
-        sc = dh ** -0.5
-        case("linear_attention", f"q/k/v ({B},{h},{N},{dh}) q_softmax False",
-             lambda a=(q, k, v, False, sc): la.linear_attention(*a),
-             lambda a=(q, k, v, False, sc): la.linear_attention_plain(*a),
+        sc = 1.0 if q_sm else dh ** -0.5
+        case("linear_attention", f"q/k/v ({B},{h},{N},{dh}) q_softmax {q_sm}",
+             lambda a=(q, k, v, q_sm, sc): la.linear_attention(*a),
+             lambda a=(q, k, v, q_sm, sc): la.linear_attention_plain(*a),
              4 * B * h * N * dh * 4, 4 * B * h * N * dh * dh,
-             fault=("keys negated", lambda a=(q, -k, v, False, sc):
+             fault=("keys negated", lambda a=(q, -k, v, q_sm, sc):
                     la.linear_attention_plain(*a)))
     if train:
         _fp32_train_only_cases(gen, B, case)
@@ -683,6 +724,32 @@ def fp32_kernel_cases(gen, B=BATCH, train=False):
          lfn=lambda a=(q, k, vv): sdpa(*a, scale=d ** -0.5),
          fault=("first key channel zeroed", lambda a=(q, kbad, vv):
                 ba.bridge_attention_plain(*a, d ** -0.5)))
+    # K8's fp32 form (the fp32 sp and para bridges, the fold grid's K8
+    # configurations at fp32); the library call at fp32 (_k8_args).
+    args, bad, lib, nbytes, flops = _k8_args(gen, k, vv, f32)
+    case("bridge_attention_folded",
+         f"x/res ({B},{N},{d}) kv ({B},1,{M},{d})",
+         lambda a=args: ba.bridge_attention_folded(*a),
+         lambda a=args: ba.bridge_attention_folded_plain(*a),
+         nbytes, flops, lfn=lib, base=args[1],
+         fault=("out-projection bias dropped",
+                lambda a=bad: ba.bridge_attention_folded_plain(*a)))
+    # K2 at the bridge's folds (the fp32 sp and para bridges, the fold
+    # grid's bridge_ffn_use_pallas at fp32): norm2 as a grouped LN of 64
+    # channels at scales 1-3.
+    for s, C, groups in ((56, 64, 1), (28, 128, 2), (14, 320, 5)):
+        hid = 4 * C
+        x, fargs, fbad = _k2_args(gen, B, s, C, C // groups, f32)
+        kw = dict(s=s, groups=groups, eps_ln=1e-5)
+        case("mixffn", f"({B},{s * s},{C}) hidden {hid} groups {groups} "
+             f"(bridge fold)",
+             lambda a=fargs, kw=kw: mf.mixffn_ln_skip(*a, **kw),
+             lambda a=fargs, kw=kw: mf.mixffn_ln_skip_plain(*a, **kw),
+             2 * B * s * s * C * 4 + 2 * C * hid * 4 + 9 * hid * 4,
+             4 * B * s * s * C * hid + 18 * B * s * s * hid,
+             base=x, fault=("depthwise taps negated",
+                            lambda a=fbad, kw=kw: mf.mixffn_ln_skip_plain(
+                                *a, **kw)))
     # K7: the main path's layout is a row.
     for H, W, C, p, main_shuffled in ((7, 7, 512, 2, True),
                                       (14, 14, 320, 2, True),
@@ -746,6 +813,29 @@ def _fp32_train_only_cases(gen, B, case):
                     lambda a=bad, s=s: mf.mixffn_skip_plain(*a, s=s)))
 
 
+# Phase 13's forwards of the other IFF modes, token MLPs and no bridge.
+VARIANT_BATCH = 8
+
+
+def small_batch_cases(gen, B=VARIANT_BATCH):
+    """The bf16 serving shapes at batch B that phase 13's argmax forwards
+    of the default structure launch: K1 and K2 at the ETB maps, K3, K5, K6
+    at stage 4, the three p = 2 K7 expands and K4 (kernel_cases' main
+    rows at B, without the fold-only and logits-only shapes)."""
+    def launched(cs):
+        n, label = cs["name"], cs["label"]
+        if n in ("bridge_attention_folded", "mixffn_skip"):
+            return False
+        if n == "mixffn":
+            return "groups" not in label
+        if n == "linear_attention":
+            return f"({B},8,49,40)" in label
+        if n == "patch_expand":  # not the logits path's x4 expand
+            return not label.startswith(f"({B},3136,64)")
+        return True
+    return [cs for cs in kernel_cases(gen, B) if cs["main"] and launched(cs)]
+
+
 def replaces(name):
     """The TPU kernel a counter's kernel replaces (file:line)."""
     from transception_tpu_torch.ops import kernels
@@ -764,7 +854,8 @@ def kernel_phase():
     gen = torch.Generator().manual_seed(1)
     cases = kernel_cases(gen) + kernel_cases(gen, TRAIN_BATCH, train=True) \
         + fp32_kernel_cases(gen) \
-        + fp32_kernel_cases(gen, TRAIN_BATCH, train=True)
+        + fp32_kernel_cases(gen, TRAIN_BATCH, train=True) \
+        + small_batch_cases(gen)
     for cs in cases:
         name, label = cs["name"], cs["label"]
         key, got = launched_key(name, cs["kfn"])
@@ -1044,6 +1135,7 @@ def profile_device(fn, label):
         k in n for k in ("lin_", "mixffn_", "bridge_attention_kernel",
                          "bridge_attention_f32_kernel",
                          "bridge_attention_folded_kernel",
+                         "bridge_attention_folded_f32_kernel",
                          "expand_head_kernel", "mhca_", "patch_expand_kernel",
                          "linear_attention_kernel", "rows_kernel",
                          "cols_kernel", "rows32_kernel", "cols32_kernel",
@@ -1199,6 +1291,8 @@ def train_kernel_phase(measured, dt=torch.bfloat16):
         f"{lms:.4f} bound_ms {bms:.4f} ({by}) per launch; "
         f"{against(ms, bms, lms)}")
     record(measured, key, label, err, ms, pms, lms, nbytes, flops, peak)
+    if not fp32:
+        _folded_train_case(measured, gen, k, v)
     del q, k, v, g, got, want, bad, leaves, out
 
     # K11 and the grouped K2 at every fold of the flash train step (and,
@@ -1284,6 +1378,37 @@ def train_kernel_phase(measured, dt=torch.bfloat16):
         del x, gy, p, got, want, bad
     if not fp32:
         plain_backward_checks(gen)
+
+
+def _folded_train_case(measured, gen, k, v):
+    """K8 at the train step's batch (bf16, _k8_args): the sp and para
+    bridges keep it in training (phase 13), its backward autograd of the
+    plain version. The branch alone, with the planted fault."""
+    from transception_tpu_torch.ops.kernels import bridge_attention as ba
+    args, bad, lib, nbytes, flops = _k8_args(gen, k, v, torch.bfloat16)
+    B, N, d = args[0].shape
+    label = f"x/res ({B},{N},{d}) kv ({B},1,{k.shape[2]},{d})"
+    with torch.no_grad():
+        key, got = launched_key("bridge_attention_folded",
+                                lambda: ba.bridge_attention_folded(*args))
+        want = ba.bridge_attention_folded_plain(*args)
+        err, ok = err_check(f"bridge_attention_folded {label}", got, want,
+                            0.02, base=args[1])
+        if not ok:
+            fail("bridge_attention_folded disagrees with its plain version")
+        if err_check("  planted fault (out-projection bias dropped) vs "
+                     "plain", ba.bridge_attention_folded_plain(*bad), want,
+                     0.02, base=args[1])[1]:
+            fail("bridge_attention_folded: the check does not see a "
+                 "planted fault")
+        ms = cuda_ms(lambda: ba.bridge_attention_folded(*args))
+        pms = cuda_ms(lambda: ba.bridge_attention_folded_plain(*args),
+                      iters=5)
+        lms = cuda_ms(lib)
+    bms, by = bound_ms(nbytes, flops)
+    log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} bound_ms "
+        f"{bms:.4f} ({by}) per launch; {against(ms, bms, lms)}")
+    record(measured, key, label, err, ms, pms, lms, nbytes, flops)
 
 
 def plain_backward_checks(gen):
@@ -1514,9 +1639,9 @@ def _logged_losses(text):
         r"iteration \d+ : lr \S+ loss (\S+)", text)]
 
 
-# Phase 9's in-training evals: one synthetic volume of 64² (the default
-# test set, two of 512², costs ~45 s of host metrics an eval; phase 12
-# runs it).
+# Phases 9 and 12's in-training evals: one synthetic volume of 64² (the
+# default test set, two of 512², costs ~45 s of host metrics an eval;
+# phase 11 runs it).
 PHASE9_EVAL_HW = 64
 
 
@@ -1789,8 +1914,10 @@ def fold_grid_phase(x):
     from seed 0) under every configuration of FOLD_GRID: launches per
     forward against launches_per_forward, class maps against "folds-off",
     the kernel path against use_kernels=False on the same weights and
-    config, forward time (CUDA events, best of two). Returns the launches
-    per shape key of each configuration's argmax and logits forwards."""
+    config, forward time (CUDA events, best of two); then the three
+    configurations with bridge_attn_fold (K8) once at fp32, on K8's fp32
+    form. Returns the launches per shape key of each configuration's
+    argmax and logits forwards and of the fp32 ones."""
     import dataclasses
 
     from transception_tpu_torch.core.config import TransceptionConfig
@@ -1859,6 +1986,44 @@ def fold_grid_phase(x):
             f"(threshold {AGREE_MIN})")
         if a < AGREE_MIN:
             fail(f"{name}: class maps disagree with folds-off")
+    # The configurations that run K8, once at fp32 (its fp32 form): the
+    # argmax forward's launches exactly launches_per_forward, logits and
+    # class maps against use_kernels=False within phase 5's fp32 limits.
+    for name, over in FOLD_GRID:
+        cfg = pinned(TransceptionConfig(dtype="float32", **over))
+        if not cfg.bridge_attn_fold:
+            continue
+        model = MSTransception(cfg, "cuda", seed=0)
+        model.load_state_dict(sd)
+        run(model, True)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        k_ids = run(model, True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        tallies[f"{name} fp32"] = kernels.shape_counts()
+        plain = MSTransception(dataclasses.replace(cfg, use_kernels=False),
+                               "cuda")
+        plain.load_state_dict(sd)
+        lk, lp, p_ids = run(model, False), run(plain, False), run(plain, True)
+        torch.cuda.synchronize()
+        rel = ((lk - lp).abs().max() / lp.abs().max()).item()
+        agree = (k_ids == p_ids).float().mean().item()
+        log(f"  {name} fp32: launches {({k: n for k, n in counts.items() if n})}"
+            f"; vs use_kernels=False: logits {rel:.6g} of max|plain| "
+            f"(tolerance {FP32_LOGITS_TOL}), class maps {agree:.6f} "
+            f"(threshold {FP32_AGREE})")
+        if counts != launches_per_forward(cfg):
+            fail(f"{name} fp32: launches {counts}, want "
+                 f"{launches_per_forward(cfg)}")
+        if counts["bridge_attention_folded"] == 0:
+            fail(f"{name} fp32: K8's fp32 form never launched")
+        if not torch.isfinite(lk).all() or rel > FP32_LOGITS_TOL or \
+                agree < FP32_AGREE:
+            fail(f"{name} fp32: the kernel path disagrees with the plain "
+                 f"path")
+        del model, plain, lk, lp
+        torch.cuda.empty_cache()
     return tallies
 
 
@@ -2164,8 +2329,10 @@ def cli_phase():
     """Phase 12. The train CLI (cli.train.main, in-process) at its
     defaults: bf16, the published TransceptionConfig() at 224², b=24,
     augment on, 4 loader threads, on Synapse-format .npz slices of 512²
-    written for the run, with the in-training eval on the default test
-    set (SyntheticVolumeDataset: two volumes of 512²). Held: the iteration
+    written for the run, with the in-training eval on one small synthetic
+    volume (as phase 9's: the default test set, two volumes of 512² with
+    uniform random labels, costs ~45 s of host HD95 an eval, and phase 11
+    runs it three times). Held: the iteration
     log lines, the checkpoint, the eval's per-class lines and finite
     dice/HD95 histories, results.tsv, the launches of each train step
     exactly launches_per_step and of each eval chunk launches_per_forward;
@@ -2182,6 +2349,7 @@ def cli_phase():
 
     from transception_tpu_torch.cli import train as cli
     from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.data.synapse import SyntheticVolumeDataset
     from transception_tpu_torch.models.transception import (
         launches_per_forward,
         launches_per_step,
@@ -2191,6 +2359,7 @@ def cli_phase():
     cfg = TransceptionConfig()
     per_step, per_fwd = launches_per_step(cfg), launches_per_forward(cfg)
     steps_t, evals_t, chunks = Counter(), Counter(), 0
+    small = SyntheticVolumeDataset(length=1, hw=PHASE9_EVAL_HW)
     runs = []
     with tempfile.TemporaryDirectory(
             dir=Path(__file__).resolve().parent) as tmp:
@@ -2206,7 +2375,7 @@ def cli_phase():
         for n_steps, extra in ((CLI_STEPS, []),
                                (CLI_STEPS + 1, ["--profile"])):
             t0 = time.perf_counter()
-            with trainer_evals() as ev:
+            with trainer_evals(small) as ev:
                 kernels.reset_launches()
                 st, hist = cli.main(argv + ["--max_steps", str(n_steps)]
                                     + extra)
@@ -2278,6 +2447,266 @@ def cli_phase():
 
         for dtype in ("bfloat16", "float32"):
             loader_step_profile(root, dtype)
+    return runs
+
+
+# Phase 13: the registry's ablation variants (models/registry.py), and the
+# other IFF modes, token MLPs and no bridge at VARIANT_BATCH.
+VARIANTS = ("mstransception_4stage", "mstransception_casa",
+            "mstransception_sp", "mstransception_para")
+VARIANT_GRID = tuple((f"concat {c}", dict(concat=c)) for c in (
+    "normal", "3d", "se", "skn", "cbam", "cam", "cam_fact")) + (
+    ("token_mlp mix", dict(token_mlp="mix")),
+    ("token_mlp mlp", dict(token_mlp="mlp")),
+    ("have_bridge none", dict(have_bridge="none")))
+VARIANT_EVAL_HW = 64  # the small synthetic test volume of the CLI runs
+
+
+def _paths_agree(what, model, x, fp32):
+    """The kernel path of `model` against use_kernels=False on the same
+    weights and pinned structure, on slices x: logits and class maps
+    within phase 5's limits (bf16: 0.05 of max|plain| and 0.98 equal, and
+    against an fp32 plain model the kernel's maps at most 0.005 less
+    equal than the plain path's; fp32: FP32_LOGITS_TOL and FP32_AGREE).
+    Returns (kernel ms, plain ms) of the argmax forward (CUDA events)."""
+    import dataclasses
+
+    from transception_tpu_torch.models.transception import MSTransception
+    cfg = dataclasses.replace(pinned(model.cfg), use_kernels=False)
+    plain = MSTransception(cfg, "cuda")
+    plain.load_state_dict(model.state_dict())
+
+    def fwd(m, argmax=True):
+        with torch.inference_mode():
+            return m(x, argmax=argmax)
+
+    lk, lp = fwd(model, False), fwd(plain, False)
+    ik, ip = fwd(model), fwd(plain)
+    torch.cuda.synchronize()
+    rel = ((lk - lp).abs().max() / lp.abs().max()).item()
+    agree = (ik == ip).float().mean().item()
+    tol, amin = (FP32_LOGITS_TOL, FP32_AGREE) if fp32 else (0.05, AGREE_MIN)
+    ms = cuda_ms(lambda: fwd(model), iters=3, warmup=1)
+    pms = cuda_ms(lambda: fwd(plain), iters=2, warmup=1)
+    msg = (f"  {what}: vs use_kernels=False logits {rel:.6g} of max|plain| "
+           f"(tolerance {tol}), class maps {agree:.6f} (threshold {amin})")
+    trails = False
+    if not fp32:
+        ref = MSTransception(dataclasses.replace(cfg, dtype="float32"),
+                             "cuda")
+        ref.load_state_dict(model.state_dict())
+        ir = fwd(ref)
+        a_kr, a_pr = ((i == ir).float().mean().item() for i in (ik, ip))
+        trails = a_kr < a_pr - 0.005
+        msg += (f"; vs an fp32 model kernel {a_kr:.6f}, plain {a_pr:.6f} "
+                f"(kernel may trail plain by at most 0.005)")
+        del ref
+    log(msg + f"; forward b={x.shape[0]} argmax {ms:.3f} ms (plain "
+        f"{pms:.3f} ms)")
+    if not torch.isfinite(lk).all() or rel > tol or agree < amin or trails:
+        fail(f"{what}: the kernel path disagrees with the plain path")
+    del plain
+    return ms, pms
+
+
+def variants_phase():
+    """Phase 13. The four ablation variants of the registry at full width
+    (224², widths 64/128/320/512, random weights from seed 0): each
+    through make_predictor(...).predict_volume on BATCH slices of 512² at
+    bf16 and at fp32 (launches exactly launches_per_forward, the kernel
+    path against the plain path, forward time), and one train step at
+    TRAIN_BATCH in the default train mode against the plain path from the
+    same weights with the same dropout and drop-path masks (the bf16 step
+    limits; launches exactly launches_per_step). Then one bf16 argmax
+    forward at VARIANT_BATCH for each other IFF mode, each token MLP and
+    no bridge against its plain path, launches exact; cli.test.main with
+    --have_bridge sp at its fp32 default on one small synthetic volume,
+    which must launch K8's fp32 form on every routed call and never its
+    plain version; cli.train.main --model mstransception_para for
+    CLI_STEPS steps on the on-card synthetic stream with its end-of-run
+    eval on that volume. Returns the runs' launches per shape key."""
+    import dataclasses
+    import tempfile
+
+    from transception_tpu_torch.cli import test as test_cli
+    from transception_tpu_torch.cli import train as train_cli
+    from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.data import synapse
+    from transception_tpu_torch.data.device_synthetic import (
+        DeviceSyntheticStream,
+    )
+    from transception_tpu_torch.eval.inference import (
+        make_predictor,
+        resize_slices,
+    )
+    from transception_tpu_torch.models.registry import model_config
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_forward,
+        launches_per_step,
+    )
+    from transception_tpu_torch.ops import kernels
+    from transception_tpu_torch.ops.kernels import bridge_attention as ba
+
+    runs = []
+    vol = np.random.default_rng(13).random((BATCH, 512, 512),
+                                           dtype=np.float32)
+    x = torch.from_numpy((resize_slices(vol, 224) - 0.5) / 0.5).cuda()[
+        ..., None]
+    batch = DeviceSyntheticStream(TRAIN_BATCH, 224, 9, device="cuda").batch(1)
+    img, lbl = batch["image"], batch["label"]
+    for name in VARIANTS:
+        for dtype in ("bfloat16", "float32"):
+            t0 = time.perf_counter()
+            cfg = model_config(name, TransceptionConfig(dtype=dtype))
+            model = MSTransception(cfg, "cuda", seed=0)
+            predict = make_predictor(model, cfg.img_size, BATCH)
+            predict.predict_volume(vol)  # warm-up
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            pred = predict.predict_volume(vol)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            runs.append((f"per forward, {name} {dtype}",
+                         kernels.shape_counts(), 1))
+            short = {k: n for k, n in counts.items() if n}
+            log(f"  {name} {dtype}: predict_volume {pred.shape} "
+                f"{pred.dtype}, launches {short}")
+            if pred.shape != (BATCH, 224, 224) or pred.dtype != np.uint8:
+                fail(f"{name} {dtype}: predict_volume output {pred.shape}")
+            if counts != launches_per_forward(cfg):
+                fail(f"{name} {dtype}: launches {counts}, want "
+                     f"{launches_per_forward(cfg)}")
+            _paths_agree(f"{name} {dtype}", model, x, dtype == "float32")
+            log(f"    {time.perf_counter() - t0:.1f} s")
+            del model, predict
+            torch.cuda.empty_cache()
+        # One train step (bf16, default mode) against the plain path.
+        t0 = time.perf_counter()
+        cfg = model_config(name, TransceptionConfig())
+        model = MSTransception(cfg, "cuda", seed=0)
+        sd0 = {k: t.clone() for k, t in model.state_dict().items()}
+        kernels.reset_launches()
+        k_step = _one_step(model, sd0, img, lbl, DROP_SEED)
+        counts = kernels.launch_counts()
+        runs.append((f"per {name} train step", kernels.shape_counts(), 1))
+        if counts != launches_per_step(cfg):
+            fail(f"{name} train step: launches {counts}, want "
+                 f"{launches_per_step(cfg)}")
+        del model
+        plain = MSTransception(dataclasses.replace(cfg, use_kernels=False),
+                               "cuda")
+        p_step = _one_step(plain, sd0, img, lbl, DROP_SEED)
+        if not _compare_steps(f"{name} train step b={TRAIN_BATCH}, "
+                              f"launches {({k: n for k, n in counts.items() if n})}",
+                              k_step, p_step):
+            fail(f"{name}: the kernel train step disagrees with the plain "
+                 f"path")
+        log(f"    {time.perf_counter() - t0:.1f} s")
+        del plain, sd0, k_step, p_step
+        torch.cuda.empty_cache()
+
+    x8 = x[:VARIANT_BATCH]
+    for name, over in VARIANT_GRID:
+        cfg = TransceptionConfig(**over)
+        model = MSTransception(cfg, "cuda", seed=0)
+        with torch.inference_mode():
+            model(x8, argmax=True)  # warm-up
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            model(x8, argmax=True)
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        runs.append((f"per forward, {name} b={VARIANT_BATCH}",
+                     kernels.shape_counts(), 1))
+        if counts != launches_per_forward(cfg):
+            fail(f"{name}: launches {counts}, want "
+                 f"{launches_per_forward(cfg)}")
+        _paths_agree(f"{name} b={VARIANT_BATCH}, launches "
+                     f"{({k: n for k, n in counts.items() if n})}", model, x8,
+                     False)
+        del model
+        torch.cuda.empty_cache()
+
+    small = synapse.SyntheticVolumeDataset(length=1, hw=VARIANT_EVAL_HW)
+    chunks = math.ceil(small.get(0)["image"].shape[0] / BATCH)
+    with tempfile.TemporaryDirectory(
+            dir=Path(__file__).resolve().parent) as tmp:
+        # The test CLI with --have_bridge sp at its fp32 default.
+        t0 = time.perf_counter()
+        sp_cfg = TransceptionConfig(have_bridge="sp", dtype="float32")
+        model = MSTransception(sp_cfg, "cuda", seed=0)
+        torch.save(model.state_dict(), f"{tmp}/sp.pth")
+        del model
+        plain_calls = []
+        real_plain, real_ds = ba.bridge_attention_folded_plain, \
+            synapse.make_test_dataset
+
+        def counted_plain(*a, **k):
+            plain_calls.append(1)
+            return real_plain(*a, **k)
+
+        ba.bridge_attention_folded_plain = counted_plain
+        synapse.make_test_dataset = lambda cfg: small
+        try:
+            kernels.reset_launches()
+            means = test_cli.main(["--dataset", "synthetic", "--have_bridge",
+                                   "sp", "--weight_pth", f"{tmp}/sp.pth",
+                                   "--output_dir", f"{tmp}/sp"])
+            torch.cuda.synchronize()
+        finally:
+            ba.bridge_attention_folded_plain = real_plain
+            synapse.make_test_dataset = real_ds
+        counts, routed = kernels.launch_counts(), kernels.routed_counts()
+        tallies = kernels.shape_counts()
+        runs.append(("per forward, cli.test --have_bridge sp (fp32)",
+                     tallies, chunks))
+        want = {k: n * chunks
+                for k, n in launches_per_forward(sp_cfg).items()}
+        k8 = {key: n for key, n in tallies.items()
+              if key[0] == "bridge_attention_folded"}
+        log(f"  cli.test --have_bridge sp (fp32 default): means {means}; "
+            f"launches {({k: n for k, n in counts.items() if n})} over "
+            f"{chunks} chunks; K8 launches by shape {k8}; K8 plain calls "
+            f"{len(plain_calls)} ({time.perf_counter() - t0:.1f} s)")
+        if counts != want or not k8 or \
+                any(key[-1] != "fp32" for key in k8) or plain_calls or \
+                routed.get("bridge_attention_folded") != \
+                counts["bridge_attention_folded"] or \
+                not all(math.isfinite(v) for v in means):
+            fail("cli.test --have_bridge sp did not run K8's fp32 form on "
+                 "every call, or its launches are not launches_per_forward")
+
+        # The train CLI with the para bridge.
+        t0 = time.perf_counter()
+        para = model_config("mstransception_para", TransceptionConfig())
+        out = Path(tmp) / "para"
+        with trainer_evals(small) as ev:
+            kernels.reset_launches()
+            st, hist = train_cli.main([
+                "--model", "mstransception_para", "--dataset", "synthetic",
+                "--device_data", "--max_steps", str(CLI_STEPS),
+                "--output_dir", str(out)])
+            torch.cuda.synchronize()
+            counts, tallies = kernels.launch_counts(), kernels.shape_counts()
+        losses = _logged_losses((out / "log.txt").read_text())
+        log(f"  cli.train --model mstransception_para --max_steps "
+            f"{CLI_STEPS}: logged losses {losses}, eval {hist}, launches "
+            f"{({k: n for k, n in counts.items() if n})} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if st.model.cfg.have_bridge != "para" or st.step != CLI_STEPS or \
+                not losses or not np.isfinite(
+                    losses + hist["dice"] + hist["hd95"]).all() or \
+                ev["evals"] != 1:
+            fail(f"cli.train para: step {st.step}, losses {losses}, {hist}")
+        held_run("cli.train para", counts, ev, CLI_STEPS,
+                 launches_per_step(para), launches_per_forward(para))
+        runs.append(("per para train CLI step",
+                     Counter(tallies) - ev["tallies"], CLI_STEPS))
+        runs.append(("per forward, para train CLI eval", ev["tallies"],
+                     ev["chunks"]))
+        del st
+        torch.cuda.empty_cache()
     return runs
 
 
@@ -2395,10 +2824,17 @@ def main():
     cli_runs = cli_phase()
     log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
 
+    log("phase 13: the ablation variants (4-stage, casa, sp, para; the IFF "
+        "modes, token MLPs, no bridge)")
+    t0 = time.perf_counter()
+    variant_runs = variants_phase()
+    log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
+
     # The main-path runs: phase 4's forwards, phase 9's flash and pallas
     # Trainer steps and fp32 steps, phase 10's forward per configuration,
     # phase 11's volume-eval forwards, phase 12's train CLI steps, evals
-    # and throughput steps. Every launch's shape must have been measured
+    # and throughput steps, phase 13's variant forwards, steps and CLI
+    # runs. Every launch's shape must have been measured
     # in phase 3 or 8, and every measured shape launched.
     runs = [("per forward, default config", fwd_tallies, n_fwd),
             ("per forward, fp32 default config", fp32_tallies, 1)] + [
@@ -2407,7 +2843,8 @@ def main():
         (f"per fp32 {mode} train step", t, 1)
         for mode, t in fp32_step_tallies.items()] + [
         (f"per forward, {name}", t, 1) for name, t in grid_tallies.items()
-    ] + [("per forward, volume eval", vol_tallies, n_vol)] + cli_runs
+    ] + [("per forward, volume eval", vol_tallies, n_vol)] + cli_runs \
+        + variant_runs
     total = Counter()
     for _, t, _ in runs:
         total.update(t)

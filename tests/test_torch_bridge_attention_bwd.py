@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 from transception_tpu.ops.pallas.bridge_attention_kernel import (
     bridge_softmax_attention_bwd,

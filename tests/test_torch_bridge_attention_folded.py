@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 from transception_tpu.ops.pallas.bridge_attention import _reference_folded
 from transception_tpu.ops.pallas.bridge_attention_kernel import (

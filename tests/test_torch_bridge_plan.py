@@ -13,6 +13,7 @@ import re
 
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 from transception_tpu_torch.ops.kernels import bridge_attention as ba
 

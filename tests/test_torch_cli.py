@@ -11,6 +11,7 @@ import shlex
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 from transception_tpu.cli import common as jcommon
 from transception_tpu.models.registry import MODEL_REGISTRY
@@ -62,6 +63,28 @@ def test_registry_refuses_unported_models(name):
         registry.create_model(name, _tiny_cfg(), device="cpu")
 
 
+@pytest.mark.parametrize("name", registry.PORTED)
+def test_registry_builds_ported_models(name):
+    """Each ported name builds the JAX registry's config (every shared
+    field equal), and both CLIs' --model takes it."""
+    from transception_tpu.core.config import TransceptionConfig as JConfig
+    jcfg = MODEL_REGISTRY[name](JConfig(img_size=32, stage1_layers=1,
+                                        num_path=(1, 1, 1),
+                                        num_layers=(1, 1, 1))).cfg
+    m = registry.create_model(name.upper(), _tiny_cfg(), device="cpu")
+    assert isinstance(m, MSTransception)
+    for f in dataclasses.fields(m.cfg):
+        if hasattr(jcfg, f.name) and f.name != "dtype":
+            assert getattr(m.cfg, f.name) == getattr(jcfg, f.name), f.name
+    from transception_tpu_torch.cli import train as ptrain
+    for parser, extra in ((pcli._parser(), ["--weight_pth", "w.pth"]),
+                          (ptrain._parser(), [])):
+        args = parser.parse_args(["--model", name] + TINY + extra)
+        cfg = pcommon.build_configs(args)[0]
+        assert registry.model_config(args.model, cfg) == \
+            registry.model_config(name, _tiny_cfg(dtype=cfg.dtype))
+
+
 def test_registry_unknown_name_is_a_key_error():
     from transception_tpu.models.registry import create_model as jcreate
     for create in (registry.create_model, jcreate):
@@ -98,6 +121,8 @@ ARGVS = [
     "--eval_interval 3 --eval_schedule reference --model_name m "
     "--grad_clipping --no_scheduler --accumulation_steps 2 --dp_size 2 "
     "--tp_size 1 --no_resume --eval_device_resample --output_dir /o",
+    "--concat se --have_bridge sp --Stage_3or4 4 --use_sa_config 2 "
+    "--sa_ker 5 --inter out --num_sp 2 --token_mlp mix",
 ]
 
 
@@ -120,8 +145,7 @@ def test_build_configs_equal_jax_on_shared_fields(argv):
 
 @pytest.mark.parametrize("flag", ["--remat", "--no_vectorize_paths",
                                   "--debug_nans",
-                                  "--head_count 4", "--use_sa_config 2",
-                                  "--sa_ker 5", "--inter out", "--num_sp 2",
+                                  "--head_count 4",
                                   "--dil_conv 0"])
 def test_flags_without_a_port_field_refuse_other_values(flag):
     p, _ = _parsers(("add_model_args", "add_data_args", "add_train_args"))
@@ -130,6 +154,20 @@ def test_flags_without_a_port_field_refuse_other_values(flag):
     assert p.get_default(dest) == default
     with pytest.raises(ValueError, match=f"--{dest} "):
         pcommon.build_configs(p.parse_args(shlex.split(flag)))
+
+
+@pytest.mark.parametrize("flag,field,value", [
+    ("--use_sa_config 2", "use_sa_config", 2), ("--sa_ker 5", "sa_ker", 5),
+    ("--inter out", "inter", "out"), ("--num_sp 2", "num_sp", 2)])
+def test_ablation_flags_are_accepted(flag, field, value):
+    """The ablation knobs refused before the port had the variants:
+    build_configs takes them into TransceptionConfig, as the JAX package's
+    does."""
+    p, j = _parsers(("add_model_args", "add_data_args", "add_train_args"))
+    assert flag.split()[0][2:] not in pcommon.UNSUPPORTED
+    got = pcommon.build_configs(p.parse_args(shlex.split(flag)))[0]
+    want = jcommon.build_configs(j.parse_args(shlex.split(flag)))[0]
+    assert getattr(got, field) == value == getattr(want, field)
 
 
 @pytest.mark.parametrize("flag,field,value", [

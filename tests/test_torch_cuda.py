@@ -227,9 +227,9 @@ def test_linear_attention_repeat_bit_identical(gen, shape, q_softmax):
                        la.linear_attention(*args))
 
 
-def _folded_inputs(gen, N, M):
-    x, res = (_r(gen, 2, N, 64, dtype=torch.bfloat16) for _ in range(2))
-    k, v = (_r(gen, 2, 1, M, 64, dtype=torch.bfloat16) for _ in range(2))
+def _folded_inputs(gen, N, M, dtype=torch.bfloat16):
+    x, res = (_r(gen, 2, N, 64, dtype=dtype) for _ in range(2))
+    k, v = (_r(gen, 2, 1, M, 64, dtype=dtype) for _ in range(2))
     w = [_r(gen, 64, 64, scale=0.2), _r(gen, 64, scale=0.1)]
     return (x, res, w[0], w[1], k, v, _r(gen, 64, 64, scale=0.2),
             _r(gen, 64, scale=0.1), 0.125)
@@ -240,13 +240,17 @@ def _folded_inputs(gen, N, M):
 # short last chunk (800 = 7 x 112 + 16).
 @pytest.mark.parametrize("N,M", [(124, 16), (6076, 784), (300, 800),
                                  (300, 48)])
-def test_bridge_attention_folded_kernel(gen, N, M):
-    """K8 on its branch alone (output minus res), with a ragged tile."""
-    args = _folded_inputs(gen, N, M)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_bridge_attention_folded_kernel(gen, N, M, dtype):
+    """K8 on its branch alone (output minus res), with a ragged tile; its
+    fp32 form within 1e-4 of the branch's scale."""
+    args = _folded_inputs(gen, N, M, dtype)
     res = args[1]
     n0 = ba.folded_launches
     _close(ba.bridge_attention_folded(*args),
-           ba.bridge_attention_folded_plain(*args), base=res)
+           ba.bridge_attention_folded_plain(*args),
+           rel=1e-4 if dtype == torch.float32 else 0.02, base=res)
     assert ba.folded_launches == n0 + 1
 
 
@@ -286,7 +290,7 @@ def test_kernels_off_run_plain_on_the_card(gen):
 
 
 def test_kernels_raise_instead_of_falling_back(gen):
-    x = _r(gen, 1, 64, 64)  # fp32 on the card: no kernel takes it
+    x = _r(gen, 1, 64, 64, dtype=torch.float16)  # no kernel takes fp16
     w = torch.zeros(64, 64, device="cuda")
     v = torch.zeros(64, device="cuda")
     with pytest.raises(ValueError):
@@ -356,10 +360,12 @@ def test_bridge_attention_kernels_repeat_bit_identical(gen, B, h, N, M):
 
 
 @pytest.mark.parametrize("N,M", [(300, 800), (6076, 784)])
-def test_bridge_attention_folded_repeat_bit_identical(gen, N, M):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_bridge_attention_folded_repeat_bit_identical(gen, N, M, dtype):
     """No atomics in K8: two launches on the same inputs give the same
     bits."""
-    args = _folded_inputs(gen, N, M)
+    args = _folded_inputs(gen, N, M, dtype)
     assert torch.equal(ba.bridge_attention_folded(*args),
                        ba.bridge_attention_folded(*args))
 

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 import transception_tpu.ops.attention as ja
 # Imported before any test patches the MixFFN facade's platform gate: it

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 from transception_tpu.ops.pallas.linear_attention import _reference_etb_folded
 from transception_tpu.ops.pallas.linear_attention_kernel import (

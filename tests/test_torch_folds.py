@@ -21,6 +21,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 from chip_smoke import FOLD_GRID
 from conftest import tiny_config

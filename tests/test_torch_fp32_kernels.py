@@ -19,8 +19,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 from transception_tpu.ops.pallas.bridge_attention_kernel import (
+    bridge_attention_folded as pallas_folded,
     bridge_softmax_attention,
     bridge_softmax_attention_bwd,
 )
@@ -168,6 +170,28 @@ def test_k3_plain_matches_pallas_interpret_fp32(B, h, N, M, d):
     got = ba.bridge_attention_plain(*map(torch.from_numpy, (q, k, v)),
                                     d ** -0.5)
     _close(got, want)
+
+
+@pytest.mark.parametrize("B,N,M", [(2, 600, 96), (1, 300, 112)])
+def test_k8_plain_matches_pallas_interpret_fp32(B, N, M):
+    """K8's fp32 plain version (the sp and para bridges' fp32 attention),
+    one head of 64: the Pallas kernel pads the stream to 512-row tiles,
+    the port's kernel masks its ragged tile. The whole output and the
+    branch (output minus res) are held."""
+    n = _rng(16)
+    x, res, k, v = (n(B, N, 64, scale=1.0), n(B, N, 64, scale=1.0),
+                    n(B, 1, M, 64, scale=1.0), n(B, 1, M, 64, scale=1.0))
+    wq, wp = n(64, 64, scale=0.5), n(64, 64, scale=0.2)
+    bq, bp = n(64, scale=0.1), n(64, scale=0.1)
+    want = np.asarray(pallas_folded(
+        *map(jnp.asarray, (x, res, wq, bq, k, v, wp, bp)), scale=0.125,
+        interpret=True))
+    t = torch.from_numpy
+    got = ba.bridge_attention_folded_plain(
+        t(x), t(res), t(wq).T, t(bq), t(k), t(v), t(wp).T, t(bp), 0.125)
+    assert got.dtype == F32
+    _close(got, want)
+    _close(got - t(res), want - res)
 
 
 @pytest.mark.parametrize("H,C,p,c", [(8, 128, 2, 64), (4, 512, 2, 256),
@@ -429,16 +453,26 @@ def test_fp16_and_mixed_dtypes_raise(dts):
 
 
 def test_bf16_only_kernels_refuse_fp32():
-    """K8 is the one kernel without an fp32 form: its check refuses fp32.
-    K9, K10 and K11 (fp32 forms since the fp32 train step) take fp32 as
-    K2 and K3 do, and still refuse fp16."""
+    """K4 (the bf16 argmax head, bf16-only in both packages) is the one
+    kernel without an fp32 form: its check refuses fp32. K8 takes fp32
+    since the fp32 sp and para bridges; K9, K10 and K11 (fp32 forms since
+    the fp32 train step) take fp32 as K2 and K3 do. K8-K11 refuse fp16."""
+    from transception_tpu_torch.ops.kernels import expand_head as eh
     x = torch.zeros(1, 64, 64)
     q = torch.zeros(1, 1, 64, 64)
+    w16 = torch.zeros(1024, 64)
+    with pytest.raises(ValueError):     # K4
+        eh._check(x, w16, torch.zeros(9, 64), p=4, c=64)
+    assert ba._check_folded(x, x, q, q) == F32       # K8 at fp32
+    assert ba._check_folded(x.bfloat16(), x.bfloat16(), q.bfloat16(),
+                            q.bfloat16()) == BF16
     mf._check(x, 8, 256, 1)             # K2 at fp32
     mf._check(x, 8, 256, 1, ln=False)   # K9 and K11 at fp32
     ba._check(q, q, q)                  # K3 and K10 at fp32
-    with pytest.raises(ValueError):     # K8
-        ba._check_folded(x, x, q, q)
+    with pytest.raises(ValueError):     # K8 at fp16
+        ba._check_folded(x.half(), x.half(), q.half(), q.half())
+    with pytest.raises(ValueError):     # K8 with a mix of dtypes
+        ba._check_folded(x, x.bfloat16(), q, q)
     with pytest.raises(ValueError):     # K9, K11 at fp16
         mf._check(x.half(), 8, 256, 1, ln=False)
     with pytest.raises(ValueError):     # K10 at fp16
@@ -450,7 +484,8 @@ def test_fp32_entry_names():
     srcs = " ".join(p.read_text() for p in CSRC.glob("*.cu"))
     for base in ("mixffn_ln_skip", "mhca_block", "etb_attention",
                  "linear_attention", "bridge_attention", "patch_expand",
-                 "mixffn_skip", "mixffn_ln_skip_bwd", "bridge_attention_bwd"):
+                 "mixffn_skip", "mixffn_ln_skip_bwd", "bridge_attention_bwd",
+                 "bridge_attention_folded"):
         assert _build.symbol(base, BF16) == base
         assert _build.symbol(base, F32) == base + "_f32"
         assert re.search(rf"\b{base}_f32\b", srcs), base

@@ -9,6 +9,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 from transception_tpu.core import config as jcfg
 from transception_tpu_torch.core import config as pcfg
@@ -22,7 +23,7 @@ MODEL_FIELDS = (
     "drop_path_rate", "use_pallas_train", "ffn_flash_train",
     "bridge_attn_fold",
     "bridge_ffn_use_pallas", "etb_attn_fold", "etb_ffn_fold", "mhca_ffn_fold",
-    "mhca_block_fold")
+    "mhca_block_fold", "use_sa_config", "sa_ker", "inter", "num_sp")
 # DataConfig fields the port mirrors (those its train loop and its test
 # volumes read).
 DATA_FIELDS = ("dataset", "root_path", "test_path", "list_dir", "img_size",
@@ -46,7 +47,12 @@ def test_config_helpers_match_jax():
         assert (pcfg.br_config_to_ch_att_list(k)
                 == jcfg.br_config_to_ch_att_list(k))
     extra = {f.name for f in dataclasses.fields(pcfg.TransceptionConfig)}
-    assert extra - set(MODEL_FIELDS) == {"use_kernels"}
+    assert extra - set(MODEL_FIELDS) == {"use_kernels", "sp_bridge_fold"}
+    for k in range(6):
+        for concat in ("cbam", "coord"):
+            for stage in (3, 4, 0):
+                assert pcfg.use_sa_config_to_list(k, concat, stage) == \
+                    jcfg.use_sa_config_to_list(k, concat, stage)
 
 
 def test_train_config_matches_jax():
@@ -237,10 +243,35 @@ def test_kernel_sets_match_jax_train_step_gating(use_kernels, flash):
             bridge_attn=on(jc.bridge_attn_fold),
             bridge_ffn=on(jc.bridge_ffn_use_pallas),
             etb_attn=on(jc.etb_attn_fold), etb_ffn=on(jc.etb_ffn_fold),
-            mhca_block=on(jc.mhca_block_fold), mhca_ffn=on(jc.mhca_ffn_fold))
+            mhca_block=on(jc.mhca_block_fold), mhca_ffn=on(jc.mhca_ffn_fold),
+            sp_bridge=on(jc.bridge_use_pallas))
     assert sw == pcfg.fold_switches(
         pcfg.TransceptionConfig(use_kernels=True, ffn_flash_train=flash),
         training=True)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+@pytest.mark.parametrize("bridge", ["sp", "para"])
+def test_sp_and_para_bridges_keep_their_kernels_in_training(bridge, flash):
+    """JAX's train step keeps the bridge's kernel switch on
+    (bridge_use_pallas=True, train/trainer.py:104), and its sp and para
+    bridges take no attn_fold or ffn_use_pallas (models/transception.py:
+    63-73): their folded attention (K8) and FFN folds (K2 + K11) run in
+    training, in the port as in JAX."""
+    from transception_tpu.models.transception import MSTransception
+    from transception_tpu.train.trainer import train_step_model
+    from transception_tpu_torch.ops import kernels
+    jc = train_step_model(MSTransception(jcfg.TransceptionConfig(
+        have_bridge=bridge, ffn_flash_train=flash))).cfg
+    assert jc.bridge_use_pallas is True
+    pc = pcfg.TransceptionConfig(have_bridge=bridge, ffn_flash_train=flash)
+    got = kernels.kernel_set(pc, training=True)
+    assert {"bridge_attention_folded", "mixffn"} <= got
+    assert pcfg.fold_switches(pc, training=True).sp_bridge
+    off = dataclasses.replace(pc, use_kernels=False)
+    assert kernels.kernel_set(off, training=True) == frozenset()
+    assert pcfg.fold_switches(off, training=True).sp_bridge
+    assert not pcfg.fold_switches(off, training=False).sp_bridge
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
@@ -269,4 +300,5 @@ def test_pallas_train_keeps_the_eval_kernels_and_folds(use_kernels):
         bridge_attn=on(jc.bridge_attn_fold),
         bridge_ffn=on(jc.bridge_ffn_use_pallas),
         etb_attn=on(jc.etb_attn_fold), etb_ffn=on(jc.etb_ffn_fold),
-        mhca_block=on(jc.mhca_block_fold), mhca_ffn=on(jc.mhca_ffn_fold))
+        mhca_block=on(jc.mhca_block_fold), mhca_ffn=on(jc.mhca_ffn_fold),
+        sp_bridge=on(jc.bridge_use_pallas))

@@ -13,6 +13,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 from transception_tpu.core.config import DataConfig as JDataConfig
 from transception_tpu.data import loader as jloader

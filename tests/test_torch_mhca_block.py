@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 from transception_tpu.ops.pallas.mhca_block import _reference_impl
 from transception_tpu.ops.pallas.mhca_block_kernel import fused_mhca_block

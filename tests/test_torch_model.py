@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 from transception_tpu.eval.inference import make_predictor as jax_predictor
 from transception_tpu.models.transception import MSTransception as JModel

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 from transception_tpu.ops.pallas.expand_kernel import fused_patch_expand
 from transception_tpu.ops.pallas.patch_expand import _reference_pre_shuffle

@@ -16,6 +16,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 from flax import linen as fnn
 
 from transception_tpu.core.config import TrainConfig as JTrainConfig

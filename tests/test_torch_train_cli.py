@@ -19,6 +19,7 @@ import types
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 from transception_tpu.cli import common as jcommon
 from transception_tpu.data.loader import HostDataLoader as JLoader

@@ -3,7 +3,8 @@ three train steps of the tiny model (tests/conftest.py tiny_config, fp32,
 at 64² so that train-mode BatchNorm has more than a handful of values per
 channel in the deepest stage) from the same weights (load_jax_variables)
 and the same numpy batches, against JAX make_train_step, with the wide
-head (as the Trainer runs it) and without, in three train modes: the
+head (as the Trainer runs it; without it, the standard head, in
+tests/test_torch_train_step_std.py), in three train modes: the
 default, ffn_flash_train, and "pallas" (use_pallas_train with
 mhca_ffn_fold, drop_path_rate 0: the eval kernels' structure in training,
 K1, K2 and K5 folds included). On the CPU both packages run their plain
@@ -37,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (torch's threads per xdist worker)
 
 from conftest import tiny_config
 from transception_tpu.core.config import TrainConfig as JTrainConfig
@@ -95,11 +97,9 @@ def setup():
     return jc, jm, v, xs, ys
 
 
-@pytest.fixture(scope="module", params=[True, False], ids=["wide", "std"])
-def jax_run(request, setup):
+def jax_steps(setup, wide):
     """JAX: gradients of step 1 and make_train_step over three steps (one
     jit holding both)."""
-    wide = request.param
     jc, jm, v, xs, ys = setup
     tx, _ = make_optimizer(JTrainConfig(**TC), SPE)
     step = j_make_step(jm, 9, 0.4, 0.6, wide_head=wide)
@@ -125,6 +125,14 @@ def jax_run(request, setup):
                             np.asarray, {"params": st.params,
                                          "batch_stats": st.batch_stats})))
     return wide, out
+
+
+@pytest.fixture(scope="module", params=[True], ids=["wide"])
+def jax_run(request, setup):
+    """The JAX steps with the wide head (the standard head's are
+    tests/test_torch_train_step_std.py's, so that the two JAX compiles run
+    on two workers)."""
+    return jax_steps(setup, request.param)
 
 
 def _port_tensors(jc, variables):
@@ -165,8 +173,8 @@ def port_run(setup):
     return get
 
 
-@pytest.mark.parametrize("mode", list(MODES))
-def test_train_step_matches_jax(setup, jax_run, port_run, mode):
+def check_step_matches_jax(setup, jax_run, port_run, mode):
+    """The port's three steps in train mode `mode` against the JAX run."""
     wide, jout = jax_run
     jc, _, v, _, _ = setup
     pout = port_run(wide, mode)
@@ -194,6 +202,11 @@ def test_train_step_matches_jax(setup, jax_run, port_run, mode):
     js = _port_tensors(jc, jout[-1]["variables"])
     for n, t in pout[-1]["state"].items():
         torch.testing.assert_close(t, js[n], rtol=1e-4, atol=1e-5, msg=n)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_train_step_matches_jax(setup, jax_run, port_run, mode):
+    check_step_matches_jax(setup, jax_run, port_run, mode)
 
 
 def test_flash_mode_equals_default_on_cpu(port_run):

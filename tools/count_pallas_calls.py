@@ -4,10 +4,17 @@ jax.default_backend patched to "tpu", so that the kernel gates decide as on
 a TPU. Prints one JSON object: pallas_call counts by kernel name for the
 eval forward (argmax, b=32) and the train step (b=24, wide head) of the
 published TransceptionConfig at fp32 (the published eval protocol's
-dtype), per train mode.
+dtype), per train mode; with --model, of that registry model (the four
+MSTransception variants: models/registry.py), at --dtype; with
+--forward_only, only the eval forward; with a TransceptionConfig field
+=value (--set concat=se), that config.
 
     JAX_PLATFORMS=cpu python tools/count_pallas_calls.py
+    JAX_PLATFORMS=cpu python tools/count_pallas_calls.py \
+        --model mstransception_sp --dtype bfloat16
 """
+
+import argparse
 
 import dataclasses
 import json
@@ -25,6 +32,7 @@ from transception_tpu.core.config import (  # noqa: E402
     TrainConfig,
     TransceptionConfig,
 )
+from transception_tpu.models.registry import MODEL_REGISTRY  # noqa: E402
 from transception_tpu.models.transception import MSTransception  # noqa: E402
 from transception_tpu.train.state import create_train_state  # noqa: E402
 from transception_tpu.train.trainer import (  # noqa: E402
@@ -54,6 +62,11 @@ def pallas_calls(jaxpr, out=None):
     return out
 
 
+def variant_config(name, cfg):
+    """The TransceptionConfig registry model `name` builds from `cfg`."""
+    return MODEL_REGISTRY[name](cfg).cfg
+
+
 def forward_counts(cfg, batch=32):
     model = MSTransception(cfg)
     x = jax.ShapeDtypeStruct((batch, 224, 224, 1), jnp.float32)
@@ -79,10 +92,29 @@ def train_counts(cfg, batch=24):
     return pallas_calls(jaxpr.jaxpr)
 
 
+def _value(text):
+    for cast in (int, float):
+        try:
+            return cast(text)
+        except ValueError:
+            pass
+    return text
+
+
 def main():
-    cfg = TransceptionConfig(dtype="float32")
-    res = {"dtype": cfg.dtype, "forward_b32": dict(forward_counts(cfg))}
-    for mode, over in MODES.items():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="mstransception")
+    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--forward_only", action="store_true")
+    ap.add_argument("--set", action="append", default=[],
+                    help="a TransceptionConfig field=value")
+    args = ap.parse_args()
+    over = dict(kv.split("=", 1) for kv in args.set)
+    cfg = variant_config(args.model, TransceptionConfig(
+        dtype=args.dtype, **{k: _value(v) for k, v in over.items()}))
+    res = {"model": args.model, "dtype": cfg.dtype, "set": over,
+           "forward_b32": dict(forward_counts(cfg))}
+    for mode, over in ({} if args.forward_only else MODES).items():
         res[f"train_b24_{mode}"] = dict(
             train_counts(dataclasses.replace(cfg, **over)))
     print(json.dumps(res))

@@ -19,16 +19,13 @@ from transception_tpu_torch.core.config import (
 )
 
 # Flags the port's configs have no field for: argparse dest -> (default,
-# what is missing). head_count to dil_conv are JAX TransceptionConfig fields
-# of the models the port does not have (ROADMAP.md §1 item 5); remat,
-# vectorize_paths and debug_nans are JAX-only knobs.
+# what is missing). head_count and dil_conv are JAX TransceptionConfig
+# fields that only the legacy models read (transception_tpu/models/
+# legacy.py:181-301; ROADMAP.md §1 item 5); remat, vectorize_paths and
+# debug_nans are JAX-only knobs.
 UNSUPPORTED = {
-    "head_count": (8, "TransceptionConfig.head_count"),
-    "use_sa_config": (1, "TransceptionConfig.use_sa_config"),
-    "sa_ker": (7, "TransceptionConfig.sa_ker"),
-    "inter": ("res", "TransceptionConfig.inter"),
-    "num_sp": (1, "TransceptionConfig.num_sp"),
-    "dil_conv": (1, "TransceptionConfig.dil_conv"),
+    "head_count": (8, "TransceptionConfig.head_count (legacy models)"),
+    "dil_conv": (1, "TransceptionConfig.dil_conv (legacy models)"),
     "remat": (False, "TransceptionConfig.remat (rematerialised stages)"),
     "no_vectorize_paths": (False, "TransceptionConfig.vectorize_paths (the "
                                   "port has one parameter layout, the "
@@ -39,17 +36,18 @@ UNSUPPORTED = {
 
 def add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--model", type=str, default="mstransception",
-                   help="registry name (models/registry.py; the port has "
-                        "mstransception)")
+                   help="registry name (models/registry.py): "
+                        "mstransception, mstransception_4stage, "
+                        "mstransception_casa, mstransception_sp, "
+                        "mstransception_para")
     p.add_argument("--num_classes", type=int, default=9)
     p.add_argument("--img_size", type=int, default=224)
     p.add_argument("--head_count", type=int, default=8)
     p.add_argument("--MSViT_config", type=int, default=2)
     p.add_argument("--concat", type=str, default="coord",
-                   help="IFF: normal|3d|se|skn|cbam|coord|cam|cam_fact "
-                        "(the port has coord)")
+                   help="IFF: normal|3d|se|skn|cbam|coord|cam|cam_fact")
     p.add_argument("--have_bridge", type=str, default="original",
-                   help="original|sp|para|none (the port has original)")
+                   help="original|sp|para|none")
     p.add_argument("--use_sa_config", type=int, default=1)
     p.add_argument("--sa_ker", type=int, default=7)
     p.add_argument("--Stage_3or4", type=int, default=3)
@@ -57,7 +55,8 @@ def add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--num_sp", type=int, default=1)
     p.add_argument("--br_config", type=int, default=2)
     p.add_argument("--dil_conv", type=int, default=1)
-    p.add_argument("--token_mlp", type=str, default="mix_skip")
+    p.add_argument("--token_mlp", type=str, default="mix_skip",
+                   help="mix|mix_skip|mlp")
     p.add_argument("--num_layers", type=str, default="3,8,3",
                    help="comma-separated MHCA layers per stage")
     p.add_argument("--num_path", type=str, default="3,3,3",
@@ -169,6 +168,10 @@ def build_configs(args):
         have_bridge=args.have_bridge,
         br_ch_att_list=br_config_to_ch_att_list(args.br_config),
         stage_3or4=args.Stage_3or4,
+        use_sa_config=args.use_sa_config,
+        sa_ker=args.sa_ker,
+        inter=args.inter,
+        num_sp=args.num_sp,
         token_mlp=args.token_mlp,
         dtype=args.dtype,
         use_kernels=not getattr(args, "no_pallas", False),

@@ -102,10 +102,10 @@ def main(argv=None, device: DeviceLike = "cuda"):
 
     if args.throughput:
         with fp32_exact(on_card and model_cfg.dtype == "float32"):
-            throughput(model, model_cfg, train_cfg, args.img_size, dev)
+            throughput(model, model.cfg, train_cfg, args.img_size, dev)
         return None, None
 
-    trainer = Trainer(model_cfg, train_cfg, data_cfg, device=dev,
+    trainer = Trainer(model.cfg, train_cfg, data_cfg, device=dev,
                       model=model)
     to_stdout = logging.StreamHandler(sys.stdout)
     to_stdout.setFormatter(logging.Formatter("%(message)s"))

@@ -2,10 +2,11 @@
 
 The port's state_dict keys are the reference torch keys, derived from the
 flax parameter paths by the same translation as the JAX package's
-convert/torch2flax.py:68 `flax_path_to_torch_key` (a copy of the part the
-port's modules use: the 'ln'/'bn' wrapper levels drop, list modules
-`name_i` become `name.i` or their renamed torch ModuleList, `inv_res`
-becomes `InvRes`, flax leaf names become torch ones). `load_jax_variables`
+convert/torch2flax.py:68 `flax_path_to_torch_key` (a copy: the 'ln'/'bn'
+wrapper levels drop, list modules `name_i` become `name.i` or their
+renamed torch ModuleList, `inv_res` becomes `InvRes`, the fusion blocks'
+and the para/sp bridges' modules their reference names, flax leaf names
+torch ones), with its fallback keys for the fusion blocks' Sequentials. `load_jax_variables`
 applies the inverse layout transforms and fills the port in place, strictly.
 """
 
@@ -19,14 +20,20 @@ import torch
 
 from transception_tpu_torch.core.device import DeviceLike, resolve_device
 
+# Copies of the tables of transception_tpu/convert/torch2flax.py:24-65.
 _LIST_RENAMES = {
     "block1": "block1",
     "mhca_blks": "mhca_blks",
     "layers": "MHCA_layers",
     "patch_embeds": "patch_embeds",
     "conv": "conv_list",  # ConvRelPosEnc conv_{j}
+    "stem": "stem",  # the 4-stage backbone's Conv2d_BN stem
+    "group_attention": "group_attention",  # SpatialAwareTrans blocks
+    "fc_back": "fc_back",
+    "fcs": "fcs",  # SK's per-path fcs
 }
-_PLAIN_RENAMES = {"inv_res": "InvRes"}
+_PLAIN_RENAMES = {"inv_res": "InvRes",
+                  "channel_attention": "channelAttention"}
 _LIST_RE = re.compile(r"^([a-zA-Z_0-9]*?)_(\d+)$")
 _LEAF_RENAMES = {
     "kernel": "weight",
@@ -34,6 +41,14 @@ _LEAF_RENAMES = {
     "bias": "bias",
     "mean": "running_mean",
     "var": "running_var",
+    "gamma": "gamma",
+}
+# (parent module, flax name) -> torch name: the fusion blocks' Sequentials.
+_CONTEXT_RENAMES = {
+    ("se", "fc1"): "excitation.0",
+    ("se", "fc2"): "excitation.2",
+    ("ca", "se_fc1"): "se.0",
+    ("ca", "se_fc2"): "se.2",
 }
 
 
@@ -44,13 +59,41 @@ def flax_path_to_torch_key(path: str) -> str:
     if body and body[-1] in ("ln", "bn"):
         body = body[:-1]
     out: List[str] = []
-    for e in body:
+    for i, e in enumerate(body):
         m = _LIST_RE.match(e)
+        parent = body[i - 1] if i > 0 else ""
         if m and m.group(1) in _LIST_RENAMES:
             out += [_LIST_RENAMES[m.group(1)], m.group(2)]
+        elif e in _PLAIN_RENAMES:
+            out.append(_PLAIN_RENAMES[e])
+        elif (parent, e) in _CONTEXT_RENAMES:
+            out.append(_CONTEXT_RENAMES[(parent, e)])
         else:
-            out.append(_PLAIN_RENAMES.get(e, e))
-    return ".".join(out) + "." + _LEAF_RENAMES.get(leaf, leaf)
+            out.append({"se_fc1": "se.0", "se_fc2": "se.2"}.get(e, e))
+    key = ".".join(out)
+    key = key.replace("aggregate.fc1", "aggregate.excitation.0")
+    key = key.replace("aggregate.fc2", "aggregate.excitation.2")
+    full = f"{key}.{_LEAF_RENAMES.get(leaf, leaf)}"
+    # The para bridge's proj_act (Linear, LN, GELU; MSTr.py:2506-2510) and
+    # the sp bridge's SpatialAwareTrans inside bridge_layer1 (:2682).
+    full = full.replace("bridge.proj.", "bridge.proj_act.0.")
+    full = full.replace("bridge.proj_norm.", "bridge.proj_act.1.")
+    return full.replace("bridge.bridge_layer1_sp.",
+                        "bridge.bridge_layer1.scale_fuse_att.")
+
+
+def _candidate_keys(key: str) -> List[str]:
+    """key, then the fusion blocks' Sequential placements of conv and bn
+    (CBAM's conv2d_bn_act.0/1, SK's conv_bn_ac.0/2), as
+    torch2flax.py:122-139 tries them."""
+    cands = [key,
+             re.sub(r"aggregate\.conv\.weight$",
+                    "aggregate.conv2d_bn_act.0.weight", key),
+             re.sub(r"aggregate\.bn\.", "aggregate.conv2d_bn_act.1.", key),
+             re.sub(r"aggregate\.conv\.(weight|bias)$",
+                    r"aggregate.conv_bn_ac.0.\1", key),
+             re.sub(r"aggregate\.bn\.", "aggregate.conv_bn_ac.2.", key)]
+    return list(dict.fromkeys(cands))
 
 
 def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
@@ -77,8 +120,11 @@ def _jax_entries(variables) -> Iterator[Tuple[str, str, np.ndarray]]:
 
 def _to_torch_layout(arr: np.ndarray, want: Tuple[int, ...]) -> np.ndarray:
     """flax HWIO conv kernel -> OIHW (depthwise (kh, kw, 1, C) -> (C, 1,
-    kh, kw)); Dense (in, out) -> Linear (out, in); vectors unchanged."""
-    if arr.ndim == 4 and len(want) == 4:
+    kh, kw)); Dense (in, out) -> Linear (out, in); the Conv3d kernel (O,
+    C·P) -> (O, C, P, 1, 1); vectors unchanged."""
+    if arr.ndim == 2 and len(want) == 5:
+        arr = arr.reshape(want)
+    elif arr.ndim == 4 and len(want) == 4:
         arr = arr.transpose(3, 2, 0, 1)
     elif arr.ndim == 2 and len(want) == 2:
         arr = arr.T
@@ -96,6 +142,8 @@ def load_jax_variables(model: torch.nn.Module, variables: Dict,
     filled, unused, bad = set(), [], []
     with torch.no_grad():
         for path, key, arr in _jax_entries(variables):
+            key = next((k for k in _candidate_keys(key) if k in targets),
+                       key)
             t = targets.get(key)
             if t is None:
                 unused.append(f"{path} -> {key}")

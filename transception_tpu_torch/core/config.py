@@ -39,6 +39,30 @@ def br_config_to_ch_att_list(br_config: int) -> Tuple[bool, bool, bool, bool]:
     return table.get(br_config, (True, False, True, False))
 
 
+def use_sa_config_to_list(use_sa_config: int, concat: str, stage_3or4: int
+                          ) -> Tuple[bool, ...]:
+    """CBAM spatial-attention switches per stage (networks/MSTr.py:
+    2766-2779): any concat but cbam, or the 4-stage backbone, forces
+    (T, T, T, F)."""
+    table = {
+        1: (True, True, False),
+        2: (True, False, False),
+        3: (False, False, False),
+        4: (True, True, True),
+    }
+    lst = table.get(use_sa_config, (True, True, True, False))
+    if concat != "cbam" or stage_3or4 == 4:
+        lst = (True, True, True, False)
+    return lst
+
+
+# The values of the ablation switches the model takes (JAX core/config.py
+# 82-90, 240-241; train_MSTransception.py:18-95).
+TOKEN_MLPS = ("mix", "mix_skip", "mlp")
+CONCATS = ("normal", "3d", "se", "skn", "cbam", "coord", "cam", "cam_fact")
+BRIDGES = ("original", "sp", "para", "none", "None")
+
+
 @dataclasses.dataclass(frozen=True)
 class TransceptionConfig:
     """MSTransception architecture; defaults are the published model."""
@@ -52,11 +76,16 @@ class TransceptionConfig:
     num_layers: Tuple[int, ...] = (3, 8, 3)
     num_heads: Tuple[int, ...] = (8, 8, 8)
     mlp_ratio: int = 4
-    token_mlp: str = "mix_skip"
+    token_mlp: str = "mix_skip"  # mix | mix_skip | mlp
+    # IFF fusion of the MHCA stages: normal|3d|se|skn|cbam|coord|cam|cam_fact
     concat: str = "coord"
-    have_bridge: str = "original"
+    have_bridge: str = "original"  # original | sp | para | none
     br_ch_att_list: Tuple[bool, bool, bool, bool] = (True, False, False, False)
-    stage_3or4: int = 3
+    stage_3or4: int = 3  # 3 | 4 | anything else: the casa backbone
+    use_sa_config: int = 1  # CBAM spatial gates per stage (use_sa_list)
+    sa_ker: int = 7  # CBAM spatial gate's kernel size
+    inter: str = "res"  # casa CBAM interface: res | out
+    num_sp: int = 1  # SpatialAwareTrans layers of the 'sp' bridge
     bridge_dim: int = 64
     bridge_heads: int = 1
     reduction_ratios: Tuple[int, int, int, int] = (1, 2, 4, 8)
@@ -100,6 +129,13 @@ class TransceptionConfig:
     etb_ffn_fold: Optional[bool] = None
     mhca_ffn_fold: Optional[bool] = False
     mhca_block_fold: Optional[bool] = True
+    # The sp and para bridges' folds: their spatial attention as K8 and
+    # their per-scale FFNs as K2 (norm2 as a grouped LN), both by the
+    # bridge's kernel switch, JAX's bridge_use_pallas (those bridges take
+    # no attn_fold or ffn_use_pallas, JAX models/transception.py:63-73).
+    # None follows use_kernels in eval and is on in training, where the
+    # JAX train step sets bridge_use_pallas (train/trainer.py:104).
+    sp_bridge_fold: Optional[bool] = None
     # Run the hand-written CUDA kernels (ops/kernels) on CUDA tensors.
     # False runs their plain PyTorch versions instead (comparison only).
     use_kernels: bool = True
@@ -107,6 +143,11 @@ class TransceptionConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def use_sa_list(self) -> Tuple[bool, ...]:
+        return use_sa_config_to_list(self.use_sa_config, self.concat,
+                                     self.stage_3or4)
 
     @property
     def stage1_res(self) -> int:
@@ -131,14 +172,12 @@ class TransceptionConfig:
     def validate(self) -> "TransceptionConfig":
         if self.img_size % 32:
             raise ValueError("img_size must be divisible by 32")
-        if self.token_mlp != "mix_skip":
-            raise ValueError("the port implements token_mlp='mix_skip' only")
-        if self.concat != "coord":
-            raise ValueError("the port implements concat='coord' only")
-        if self.have_bridge != "original":
-            raise ValueError("the port implements have_bridge='original' only")
-        if self.stage_3or4 != 3:
-            raise ValueError("the port implements the 3-stage backbone only")
+        if self.token_mlp not in TOKEN_MLPS:
+            raise ValueError(f"token_mlp must be one of {TOKEN_MLPS}")
+        if self.concat not in CONCATS:
+            raise ValueError(f"concat must be one of {CONCATS}")
+        if self.have_bridge not in BRIDGES:
+            raise ValueError(f"have_bridge must be one of {BRIDGES}")
         if not len(self.num_path) == len(self.num_layers) == len(
                 self.num_heads) == 3:
             raise ValueError("num_path/num_layers/num_heads need 3 entries")
@@ -159,6 +198,7 @@ class FoldSwitches(NamedTuple):
     etb_ffn: bool
     mhca_block: bool
     mhca_ffn: bool
+    sp_bridge: bool  # the sp and para bridges' attention and FFN folds
 
 
 def fold_switches(cfg: TransceptionConfig, training: bool) -> FoldSwitches:
@@ -168,15 +208,20 @@ def fold_switches(cfg: TransceptionConfig, training: bool) -> FoldSwitches:
     use_pallas_train as in eval, a switch of None following
     use_pallas_train; else the bridge attention and the MHCA block
     unfolded, the ETB attention unfolded, the three FFN folds on only with
-    ffn_flash_train. The train resolution does not depend on use_kernels,
+    ffn_flash_train; the sp and para bridges' folds (sp_bridge_fold) on in
+    training in every mode, as JAX's bridge_use_pallas. The train
+    resolution does not depend on use_kernels,
     so the plain path (use_kernels=False) runs the kernel path's structure.
     (The MHCA blocks with a drop-path rate above 0 unfold in training
     whatever their switches say, ops.attention.MHCABlock.) A function of
     the config alone, never of the device."""
+    sp = (training or cfg.use_kernels) if cfg.sp_bridge_fold is None \
+        else bool(cfg.sp_bridge_fold)
     if training and not cfg.use_pallas_train:
         f = cfg.ffn_flash_train
         return FoldSwitches(bridge_attn=False, bridge_ffn=f, etb_attn=False,
-                            etb_ffn=f, mhca_block=False, mhca_ffn=f)
+                            etb_ffn=f, mhca_block=False, mhca_ffn=f,
+                            sp_bridge=sp)
     follow = cfg.use_pallas_train if training else cfg.use_kernels
 
     def pick(v):
@@ -187,7 +232,7 @@ def fold_switches(cfg: TransceptionConfig, training: bool) -> FoldSwitches:
         bridge_ffn=pick(cfg.bridge_ffn_use_pallas),
         etb_attn=pick(cfg.etb_attn_fold), etb_ffn=pick(cfg.etb_ffn_fold),
         mhca_block=pick(cfg.mhca_block_fold),
-        mhca_ffn=pick(cfg.mhca_ffn_fold))
+        mhca_ffn=pick(cfg.mhca_ffn_fold), sp_bridge=sp)
 
 
 Folds = Tuple[FoldSwitches, FoldSwitches]

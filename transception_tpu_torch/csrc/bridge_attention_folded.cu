@@ -35,6 +35,25 @@
 // an SM: held to K3's 80 registers for 3 blocks, the kernel spills. Rows
 // past N load as zero and are never stored. No atomics: every run gives
 // the same bits.
+//
+// The fp32 form (bridge_attention_folded_f32, the fp32 models' sp and para
+// bridges and any fp32 model with bridge_attn_fold): nothing rounded, every
+// product on the CUDA cores (FFMA), on K3's fp32 path. The same block of 8
+// warps over 128 rows; each warp keeps its 16 rows in its 4 KB of shared
+// memory (bridge_softmax.cuh Q32), which hold in turn x, q, the attention
+// output and the projection:
+//   prologue  Wq (64 x 64 fp32, 16 KB) into the first tile of the ring and
+//             the warp's x rows (zero past N) into its rows, with cp.async;
+//             q = x·Wqᵀ + bq by dots16_f32 (lane (g, t): rows g, g + 8,
+//             columns 8j + 2t + e, as softmax_av_f32's logits), written
+//             back over x;
+//   attention softmax_av_f32 on the rows (64-key fp32 chunks of K and V
+//             through the 2-deep ring; ex2.approx);
+//   epilogue  o / rowsum over q, Wp into the now free ring, proj = ·Wpᵀ +
+//             bp the same way, + res in fp32 with 16-byte coalesced reads,
+//             stored for the rows below N.
+// 64 KB of ring, 32 KB of rows and the biases: 2 blocks an SM where the
+// registers allow (at most 128 a thread; the loops stay rolled).
 #include "bridge_softmax.cuh"
 
 namespace {
@@ -163,6 +182,101 @@ bridge_attention_folded_kernel(const bf16* x, const bf16* res, const bf16* wq,
   }
 }
 
+// o (16 x 64, the accumulator layout) = the warp's rows at qs times the
+// (64, 64) weight at ws (rows = output columns), + bias.
+__device__ __forceinline__ void dense64_f32(uint32_t qs, uint32_t ws,
+                                            const float* bias,
+                                            float (&o)[8][4]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll  // o indexed by n: rolled, it would go to local memory
+  for (int n = 0; n < 4; ++n) {
+    float s[2][4];
+    bsa::dots16_f32(qs, ws, n * 16, s);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        o[2 * n + j][i] = s[j][i] + bias[(2 * n + j) * 8 + 2 * t + (i & 1)];
+  }
+}
+
+// o / f[h] for rows g + 8h into the warp's rows at qs (swizzled fp32), after
+// every lane is done reading them.
+__device__ __forceinline__ void put_rows32(const float (&o)[8][4],
+                                           const float (&f)[2], uint32_t qs) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      asm volatile("st.shared.v2.f32 [%0], {%1,%2};\n" ::"r"(
+                       qs + bsa::swz32(g + 8 * h, 2 * j + (t >> 1)) +
+                       8 * (t & 1)),
+                   "f"(o[j][2 * h] / f[h]), "f"(o[j][2 * h + 1] / f[h]));
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(32 * WARPS, 2)
+bridge_attention_folded_f32_kernel(const float* x, const float* res,
+                                   const float* wq, const float* bq,
+                                   const float* k, const float* v,
+                                   const float* wp, const float* bp,
+                                   float* out, int N, int M, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t ring = bsa::smem_addr(smem);
+  const int b = blockIdx.y, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * ROWS + w * 16;
+  const uint32_t qs = ring + bsa::RING32 + w * bsa::Q32;
+  float* bs = reinterpret_cast<float*>(smem + bsa::RING32 + WARPS * bsa::Q32);
+  const size_t xo = (size_t)b * N * bsa::D, ko = (size_t)b * M * bsa::D;
+  const float one[2] = {1.0f, 1.0f};
+
+  bsa::load_tile32(ring, wq, bsa::D, bsa::D);
+  for (int i = lane; i < 16 * 16; i += 32) {
+    const int r = i >> 4, c = i & 15;
+    const bool ok = r0 + r < N;
+    bsa::cp_async16(qs + bsa::swz32(r, c),
+                    x + xo + (size_t)(ok ? r0 + r : 0) * bsa::D + c * 4, ok);
+  }
+  bsa::cp_async_commit();
+  if (threadIdx.x < 2 * bsa::D)
+    bs[threadIdx.x] = threadIdx.x < bsa::D ? bq[threadIdx.x]
+                                           : bp[threadIdx.x - bsa::D];
+  bsa::cp_async_wait<0>();
+  __syncthreads();
+
+  // q = x·Wqᵀ + bq over the warp's x rows.
+  float o[8][4], rs[2];
+  dense64_f32(qs, ring, bs, o);
+  put_rows32(o, one, qs);
+  __syncthreads();  // every warp is done with Wq: the ring is softmax_av's
+
+  bsa::softmax_av_f32(qs, k + ko, v + ko, M, scale * bsa::LOG2E, ring, o,
+                      rs);
+
+  // proj = (o / rs)·Wpᵀ + bp.
+  bsa::load_tile32(ring, wp, bsa::D, bsa::D);
+  bsa::cp_async_commit();
+  put_rows32(o, rs, qs);
+  bsa::cp_async_wait<0>();
+  __syncthreads();
+  dense64_f32(qs, ring, bs + bsa::D, o);
+  put_rows32(o, one, qs);
+
+  // out = proj + res for the rows below N, 16 bytes a lane.
+#pragma unroll
+  for (int i = lane; i < 16 * 16; i += 32) {
+    const int r = i >> 4, c = i & 15;
+    if (r0 + r >= N) continue;
+    const float4 pv = lds128(qs + bsa::swz32(r, c));
+    const size_t off = xo + (size_t)(r0 + r) * bsa::D + c * 4;
+    const float4 rv = *reinterpret_cast<const float4*>(res + off);
+    *reinterpret_cast<float4*>(out + off) =
+        make_float4(pv.x + rv.x, pv.y + rv.y, pv.z + rv.z, pv.w + rv.w);
+  }
+}
+
 }  // namespace
 
 extern "C" int bridge_attention_folded(const bf16* x, const bf16* res,
@@ -176,6 +290,23 @@ extern "C" int bridge_attention_folded(const bf16* x, const bf16* res,
   const dim3 grid((N + ROWS - 1) / ROWS, B);
   bridge_attention_folded_kernel<<<grid, 32 * WARPS, SMEM,
                                    static_cast<cudaStream_t>(stream)>>>(
+      x, res, wq, bq, k, v, wp, bp, out, N, M, scale);
+  return cudaGetLastError();
+}
+
+extern "C" int bridge_attention_folded_f32(const float* x, const float* res,
+                                           const float* wq, const float* bq,
+                                           const float* k, const float* v,
+                                           const float* wp, const float* bp,
+                                           float* out, int B, int N, int M,
+                                           float scale, void* stream) {
+  constexpr int SMEM32 = bsa::RING32 + WARPS * bsa::Q32 + 2 * bsa::D * 4;
+  cudaError_t e =
+      set_smem((const void*)bridge_attention_folded_f32_kernel, SMEM32);
+  if (e) return e;
+  const dim3 grid((N + ROWS - 1) / ROWS, B);
+  bridge_attention_folded_f32_kernel<<<grid, 32 * WARPS, SMEM32,
+                                       static_cast<cudaStream_t>(stream)>>>(
       x, res, wq, bq, k, v, wp, bp, out, N, M, scale);
   return cudaGetLastError();
 }

@@ -369,6 +369,40 @@ __device__ __forceinline__ void load_tile32(uint32_t s, const float* g,
   }
 }
 
+// The dots of a warp's 16 rows staged at qs (rows of 64 fp32, swz32)
+// with the 16 rows n0.. of the tile at ks: lane (g, t) forms those of its
+// rows g, g + 8 with rows n0 + 8j + 2t + e, in s[j][e] and s[j][2 + e] (the
+// mma accumulator layout), each sum in column order. The logits of
+// softmax_av_f32 (ks a K chunk) and the products of K8's fp32 form with a
+// 64 x 64 weight (ks its rows, the output columns).
+__device__ __forceinline__ void dots16_f32(uint32_t qs, uint32_t ks, int n0,
+                                           float (&s)[2][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll 1  // 6 live float4 a step: 2 blocks an SM need <= 128 regs
+  for (int c = 0; c < 16; ++c) {
+    const float4 q0 = lds128(qs + swz32(g, c));
+    const float4 q1 = lds128(qs + swz32(g + 8, c));
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4 kv = lds128(ks + swz32(n0 + 8 * j + 2 * t + e, c));
+        float& a = s[j][e];
+        float& b = s[j][2 + e];
+        a = fmaf(q0.x, kv.x, a);
+        a = fmaf(q0.y, kv.y, a);
+        a = fmaf(q0.z, kv.z, a);
+        a = fmaf(q0.w, kv.w, a);
+        b = fmaf(q1.x, kv.x, b);
+        b = fmaf(q1.y, kv.y, b);
+        b = fmaf(q1.z, kv.z, b);
+        b = fmaf(q1.w, kv.w, b);
+      }
+  }
+}
+
 // softmax_av at fp32 on the CUDA cores, for the warp's 16 query rows
 // staged at qs: o (16 x 64) = Σ e·V and rs[h] the row sums of e for rows
 // g + 8h, e = exp(l − m) with m the row max over all M keys, nothing
@@ -396,32 +430,6 @@ __device__ __forceinline__ void softmax_av_f32(uint32_t qs, const float* kg,
     }
     cp_async_commit();  // empty groups keep the count uniform
   };
-  // Logits of rows g, g + 8 against keys k0 + 8j + 2t + e of the tile ks.
-  auto logits = [&](uint32_t ks, int k0, float (&s)[2][4]) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll 1  // 6 live float4 a step: 2 blocks an SM need <= 128 regs
-    for (int c = 0; c < 16; ++c) {
-      const float4 q0 = lds128(qs + swz32(g, c));
-      const float4 q1 = lds128(qs + swz32(g + 8, c));
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float4 kv = lds128(ks + swz32(k0 + 8 * j + 2 * t + e, c));
-          float& a = s[j][e];
-          float& b = s[j][2 + e];
-          a = fmaf(q0.x, kv.x, a);
-          a = fmaf(q0.y, kv.y, a);
-          a = fmaf(q0.z, kv.z, a);
-          a = fmaf(q0.w, kv.w, a);
-          b = fmaf(q1.x, kv.x, b);
-          b = fmaf(q1.y, kv.y, b);
-          b = fmaf(q1.z, kv.z, b);
-          b = fmaf(q1.w, kv.w, b);
-        }
-    }
-  };
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) fetch(st);
 
@@ -438,7 +446,7 @@ __device__ __forceinline__ void softmax_av_f32(uint32_t qs, const float* kg,
     const uint32_t ks = ring + (st % STAGES) * 2 * TILE32;
     for (int k16 = 0; k16 < nks; ++k16) {
       float s[2][4];
-      logits(ks, k16 * 16, s);
+      dots16_f32(qs, ks, k16 * 16, s);
       if (st < nch) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {

@@ -1,7 +1,9 @@
 """MSTransception (networks/MSTr.py:2759-2852), PyTorch port of
 transception_tpu/models/transception.py:24.
 
-MSViT backbone -> 'original' dual bridge -> 4-stage decoder cascade. NHWC
+Backbone (3-stage, 4-stage or casa MSViT, cfg.stage_3or4) -> bridge
+('original' dual bridge, 'sp', 'para' or none, cfg.have_bridge) -> 4-stage
+decoder cascade (cfg.token_mlp's FFN in every transformer block). NHWC
 in and out: input (B, H, W, 1|3), output (B, H, W, num_classes) fp32
 logits, (B, H, W) uint8 class ids with argmax=True, or in training the
 pre-shuffle logits with wide_head=True. Gray inputs are repeated to 3
@@ -27,9 +29,18 @@ from transception_tpu_torch.core.config import (
     fold_table,
 )
 from transception_tpu_torch.core.device import DeviceLike, resolve_device
-from transception_tpu_torch.models.bridge import BridgeBlock4, BridgeGeometry
+from transception_tpu_torch.models.bridge import (
+    BridgeBlock4,
+    BridgeBlockPara,
+    BridgeBlockSp,
+    BridgeGeometry,
+)
 from transception_tpu_torch.models.decoder import DecoderLayer
-from transception_tpu_torch.models.msvit import MSViT, dpr_schedule
+from transception_tpu_torch.models.msvit import (
+    STAGES4,
+    dpr_schedule,
+    make_backbone,
+)
 from transception_tpu_torch.ops import kernels
 from transception_tpu_torch.ops.common import init_weights
 
@@ -53,16 +64,25 @@ class MSTransception(nn.Module):
         self.cfg = cfg
         dt = cfg.compute_dtype
         folds = fold_table(cfg)
-        self.backbone = MSViT(cfg)
+        self.backbone = make_backbone(cfg)
         geo = BridgeGeometry(cfg.img_size, cfg.dims, cfg.bridge_dim)
-        self.bridge = BridgeBlock4(geo, cfg.bridge_heads, cfg.br_ch_att_list,
-                                   cfg.reduction_ratios, dt, folds)
+        rr = cfg.reduction_ratios
+        self.bridge = None
+        if cfg.have_bridge == "sp":
+            self.bridge = BridgeBlockSp(geo, cfg.dims, cfg.bridge_heads,
+                                        cfg.num_sp, rr, dt, folds)
+        elif cfg.have_bridge == "para":
+            self.bridge = BridgeBlockPara(geo, cfg.bridge_heads, rr, dt, folds)
+        elif cfg.have_bridge not in ("none", "None"):
+            self.bridge = BridgeBlock4(geo, cfg.bridge_heads,
+                                       cfg.br_ch_att_list, rr, dt, folds)
         d = cfg.dims
         ins = cfg.decoder_in_chans()
         for i in range(4):
             self.add_module(f"decoder_{3 - i}", DecoderLayer(
                 ins[i], d[3 - i], cfg.num_classes, is_last=(i == 3),
-                bottom=(i == 0), dtype=dt, folds=folds))
+                bottom=(i == 0), dtype=dt, folds=folds,
+                token_mlp=cfg.token_mlp))
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(dev).eval()
 
@@ -75,18 +95,38 @@ class MSTransception(nn.Module):
         fp32 logits in pre-shuffle token order (transception.py:36-40).
         The kernels of kernels.kernel_set(cfg, self.training) run. In
         training with drop_path_rate > 0, `gen` (a torch.Generator on the
-        model's device, the JAX step's dropout key) draws the masks."""
+        model's device, the JAX step's dropout key) draws the masks (and
+        those of the sp bridge's MLP dropout)."""
         if x.shape[-1] == 1:
             x = x.expand(*x.shape[:-1], 3)
         with kernels.enabled(kernels.kernel_set(self.cfg, self.training)):
-            enc = self.bridge(self.backbone(x.to(self.cfg.compute_dtype),
-                                            gen))
+            enc = self.backbone(x.to(self.cfg.compute_dtype), gen)
+            if isinstance(self.bridge, BridgeBlockSp):
+                enc = self.bridge(enc, gen)
+            elif self.bridge is not None:
+                enc = self.bridge(enc)
             B, h4, w4, c4 = enc[3].shape
             t = self.decoder_3(enc[3].reshape(B, h4 * w4, c4))
             t = self.decoder_2(t, enc[2])
             t = self.decoder_1(t, enc[1])
             return self.decoder_0(t, enc[0], argmax_head=argmax,
                                   wide_head=wide_head)
+
+
+def _backbone_stages(cfg: TransceptionConfig, training: bool):
+    """(ETB map sides, [(map side, width, paths, drop-path rates)] of the
+    MHCA stages) of cfg's backbone (models.msvit.make_backbone); the rates
+    are 0 in eval (drop path is the identity there)."""
+    s1, d = cfg.stage1_res, cfg.dims
+    rate = cfg.drop_path_rate if training else 0.0
+    if cfg.stage_3or4 == 4:
+        rates = dpr_schedule(rate, STAGES4["num_layers"])
+        return [], [(s1 >> i, (d[0], d[0], d[1], d[2])[i],
+                     STAGES4["num_path"][i], rates[i]) for i in range(4)]
+    casa = cfg.stage_3or4 != 3  # the casa backbone runs no drop path
+    rates = dpr_schedule(0.0 if casa else rate, cfg.num_layers)
+    return [s1] * cfg.stage1_layers, [
+        (s1 >> (i + 1), d[i], cfg.num_path[i], rates[i]) for i in range(3)]
 
 
 def _forward_calls(cfg: TransceptionConfig, training: bool,
@@ -99,32 +139,41 @@ def _forward_calls(cfg: TransceptionConfig, training: bool,
     sw = fold_switches(cfg, training)
     s1 = cfg.stage1_res
     takes = kernels.mixffn.takes
+    es = 2 if cfg.compute_dtype == torch.bfloat16 else 4
     calls = Counter()
-    # Stage 1 and decoders 2/1/0: two ETBs each at s1, s1/4, s1/2, s1.
-    for s in [s1] * cfg.stage1_layers + [s1 // 4, s1 // 2, s1] * 2:
+    etb_sides, stages = _backbone_stages(cfg, training)
+    # Stage 1 (3-stage and casa) and decoders 2/1/0: two ETBs each at s1/4,
+    # s1/2, s1; their FFN folds with token_mlp mix_skip only.
+    for s in etb_sides + [s1 // 4, s1 // 2, s1] * 2:
         calls["etb_attention" if sw.etb_attn else "linear_attention"] += 1
-        if sw.etb_ffn and takes(s):
+        if sw.etb_ffn and cfg.token_mlp == "mix_skip" and takes(s):
             calls["mixffn"] += 1
-    # MHCA stages 2-4 at s1/2, s1/4, s1/8, every path at the stage's rates.
-    rates = dpr_schedule(cfg.drop_path_rate if training else 0.0,
-                         cfg.num_layers)
-    for i, (paths, stage) in enumerate(zip(cfg.num_path, rates)):
-        s = s1 >> (i + 1)
+    # MHCA stages, every path at the stage's rates; K5 where it takes the
+    # map (kernels.mhca_block.takes).
+    for s, C, paths, stage in stages:
         for rate in stage:
             exact = rate == 0.0
-            if sw.mhca_block and exact and s % 2 == 0:
+            if sw.mhca_block and exact and \
+                    kernels.mhca_block.takes(s, C, C * cfg.mlp_ratio, es):
                 calls["mhca_block"] += paths
                 continue
             calls["linear_attention"] += paths
             if sw.mhca_ffn and takes(s):
                 calls["mixffn" if exact else "mixffn_skip"] += paths
     # Bridge: spatial attention layers; the per-scale FFN folds.
-    for ch_att in cfg.br_ch_att_list:
-        if not ch_att:
-            calls["bridge_attention_folded" if sw.bridge_attn
-                  else "bridge_attention"] += 1
-        if sw.bridge_ffn:
-            calls["mixffn"] += sum(takes(s1 >> i) for i in range(4))
+    ffn = sum(takes(s1 >> i) for i in range(4))
+    if cfg.have_bridge in ("sp", "para"):
+        spatial = 4 if cfg.have_bridge == "sp" else 3
+        calls["bridge_attention_folded" if sw.sp_bridge
+              else "bridge_attention"] += spatial
+        calls["mixffn"] += 4 * ffn if sw.sp_bridge else 0
+    elif cfg.have_bridge not in ("none", "None"):
+        for ch_att in cfg.br_ch_att_list:
+            if not ch_att:
+                calls["bridge_attention_folded" if sw.bridge_attn
+                      else "bridge_attention"] += 1
+            if sw.bridge_ffn:
+                calls["mixffn"] += ffn
     # Decoders 3/2/1 expand x2; decoder 0 x4 (+ head + argmax in bf16).
     calls["patch_expand"] += 3
     if head == "argmax" and cfg.compute_dtype == torch.bfloat16:

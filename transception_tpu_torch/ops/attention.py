@@ -14,7 +14,8 @@ module's .training), as the JAX modules do from theirs:
     K6 with the softmax of Q) -> + x; the FFN sub-block as the MixFFN
     kernel with norm2 and the residual folded in (K2) or norm2 ->
     MixFFN_skip -> + x (ops/attention.py:146-215);
-  * MHCABlock: the whole block as one kernel (K5) on an even-sided map, or
+  * MHCABlock: the whole block as one kernel (K5) where it takes the map
+    (even sides within the TPU kernel's working-set budget), or
     its modules with the factorized attention through K6, whose FFN
     sub-block folds into K2 with mhca_ffn_fold (with drop path active it
     runs through the unfolded MixFFN kernel, K9, instead) (:300-392).
@@ -35,11 +36,13 @@ from torch import nn
 from transception_tpu_torch.core.config import DEFAULT_FOLDS, Folds
 from transception_tpu_torch.ops import kernels
 from transception_tpu_torch.ops.common import (
+    MLPFFN,
     ConvPosEnc,
     DepthwiseConv,
     LayerNorm,
     Linear,
     MixFFNSkip,
+    make_ffn,
 )
 
 
@@ -111,20 +114,24 @@ class EfficientAttention(nn.Module):
 
 
 class EfficientTransformerBlock(nn.Module):
-    """LN -> EfficientAttention -> res -> LN -> MixFFN_skip -> res
-    (MSTr.py:146-173). With etb_attn_fold the attention sub-block is one
-    call of the folded ETB kernel (norm1 + QKV + attention + reprojection +
-    residual), with etb_ffn_fold the FFN sub-block one call of the MixFFN
-    kernel with norm2 and the residual folded in; else their modules."""
+    """LN -> EfficientAttention -> res -> LN -> FFN -> res (MSTr.py:
+    146-173), the FFN of token_mlp (make_ffn; JAX ops/attention.py:
+    199-212). With etb_attn_fold the attention sub-block is one call of the
+    folded ETB kernel (norm1 + QKV + attention + reprojection + residual),
+    with etb_ffn_fold and token_mlp 'mix_skip' the FFN sub-block one call
+    of the MixFFN kernel with norm2 and the residual folded in; else their
+    modules. The 'mlp' FFN runs on the tokens alone, without dropout: the
+    JAX block passes it no train flag (and H, W where it takes none, which
+    raises there)."""
 
     def __init__(self, dim: int, dtype=torch.bfloat16,
-                 folds: Folds = DEFAULT_FOLDS):
+                 folds: Folds = DEFAULT_FOLDS, token_mlp: str = "mix_skip"):
         super().__init__()
-        self.dtype, self.folds = dtype, folds
+        self.dtype, self.folds, self.token_mlp = dtype, folds, token_mlp
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.attn = EfficientAttention(dim, dtype=dtype)
         self.norm2 = LayerNorm(dim, dtype=dtype)
-        self.mlp = MixFFNSkip(dim, dim * 4, dtype=dtype)
+        self.mlp = make_ffn(token_mlp, dim, dim * 4, dtype)
 
     def forward(self, x, H: int, W: int):
         if H != W:
@@ -140,9 +147,12 @@ class EfficientTransformerBlock(nn.Module):
                 a.reprojection.bias, self.norm1.eps)
         else:
             x = x + self.attn(self.norm1(x))
-        if sw.etb_ffn:
+        if sw.etb_ffn and self.token_mlp == "mix_skip":
             return self.mlp.folded(x, H, self.norm2)
-        return x + self.mlp(self.norm2(x), H, W)
+        h = self.norm2(x)
+        if isinstance(self.mlp, MLPFFN):
+            return x + self.mlp(h)
+        return x + self.mlp(h, H, W)
 
 
 class ConvRelPosEnc(nn.Module):
@@ -192,7 +202,8 @@ class FactorAttConvRelPosEnc(nn.Module):
 class MHCABlock(nn.Module):
     """CPE -> LN -> FactorAtt(+CRPE) -> res -> LN -> MixFFN_skip -> res
     (MSTr.py:905-946, LN eps 1e-6): with mhca_block_fold the whole-block
-    kernel on even-sided maps, else the unfolded path of
+    kernel where it takes the map (kernels.mhca_block.takes), else the
+    unfolded path of
     ops/attention.py:366-392, whose norm2 + FFN + residual fold into the
     MixFFN kernel with mhca_ffn_fold (:375-386). Both folds only where
     drop path is the identity (eval, or rate 0), as in JAX; otherwise the
@@ -210,13 +221,22 @@ class MHCABlock(nn.Module):
         self.norm2 = LayerNorm(dim, eps=1e-6, dtype=dtype)
         self.mlp = MixFFNSkip(dim, dim * mlp_ratio, dtype=dtype)
 
+    def folds_block(self, s: int) -> bool:
+        """Whether this block on an s x s map is a K5 shape
+        (kernels.mhca_block.takes)."""
+        fc1 = self.mlp.fc1
+        return kernels.mhca_block.takes(
+            s, fc1.weight.shape[1], fc1.weight.shape[0],
+            torch.finfo(fc1.dtype).bits // 8)
+
     def forward(self, x, H: int, W: int, cpe: ConvPosEnc,
                 crpe: ConvRelPosEnc, gen: Optional[torch.Generator] = None):
         sw = self.folds[self.training]
         exact = not self.training or self.drop_path_rate == 0.0
-        if sw.mhca_block and exact and H == W and H % 2 == 0:
+        if sw.mhca_block and exact and H == W and self.folds_block(H):
             # The whole block as one kernel call where the TPU ran its
-            # kernel (even map sides, ops/pallas/mhca_block_kernel.py:56).
+            # kernel (even map sides within its VMEM budget,
+            # ops/pallas/mhca_block_kernel.py:56).
             fa = self.factoratt_crpe
             convs = crpe.conv_list
             return kernels.mhca_block.mhca_block(

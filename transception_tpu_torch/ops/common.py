@@ -194,6 +194,70 @@ class MixFFNSkip(nn.Module):
                   s=s, groups=groups, eps_ln=ln.eps, eps=self.norm1.eps)
 
 
+class MixFFN(nn.Module):
+    """fc1 -> DWConv -> GELU -> fc2 (MSTr.py:35-46; JAX ops/common.py:209),
+    the FFN of token_mlp='mix'."""
+
+    def __init__(self, c1: int, c2: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.fc1 = Linear(c1, c2, dtype=dtype)
+        self.dwconv = DWConv(c2, dtype=dtype)
+        self.fc2 = Linear(c2, c1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+        B, N, _ = x.shape
+        h = self.fc1(x)
+        h = self.dwconv.dwconv(h.reshape(B, H, W, -1)).reshape(B, N, -1)
+        return self.fc2(gelu(h))
+
+
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator
+            ) -> torch.Tensor:
+    """flax nn.Dropout in training: each element kept with probability
+    1 - rate (a Bernoulli mask drawn from `gen`, on x's device) and divided
+    by it, else 0."""
+    if gen is None:
+        raise ValueError("dropout in training needs a torch.Generator (the "
+                         "train step's gen)")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+class MLPFFN(nn.Module):
+    """fc1 -> GELU -> dropout -> fc2 -> dropout, rate 0.1 (MSTr.py:63-77;
+    JAX ops/common.py:338): the FFN of token_mlp='mlp' and of the sp
+    bridge's InterTransBlock. The masks are drawn from the caller's
+    generator where `deterministic` is False."""
+
+    def __init__(self, c1: int, c2: int, drop_rate: float = 0.1,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.drop_rate = drop_rate
+        self.fc1 = Linear(c1, c2, dtype=dtype)
+        self.fc2 = Linear(c2, c1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        def drop(t):
+            return t if deterministic or self.drop_rate == 0.0 else \
+                dropout(t, self.drop_rate, gen)
+
+        return drop(self.fc2(drop(gelu(self.fc1(x)))))
+
+
+def make_ffn(token_mlp: str, dim: int, hidden: int, dtype=torch.bfloat16
+             ) -> nn.Module:
+    """The FFN of the token_mlp switch (MSTr.py:157-162; JAX ops/common.py
+    357): MixFFN ('mix'), MixFFNSkip ('mix_skip'), MLPFFN (any other)."""
+    if token_mlp == "mix":
+        return MixFFN(dim, hidden, dtype)
+    if token_mlp == "mix_skip":
+        return MixFFNSkip(dim, hidden, dtype)
+    return MLPFFN(dim, hidden, dtype=dtype)
+
+
 class OverlapPatchEmbed(nn.Module):
     """Conv(k=7, s=4, p=3) stem + LN, returns tokens (MSTr.py:292-304)."""
 

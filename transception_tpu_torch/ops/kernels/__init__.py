@@ -49,13 +49,20 @@ def kernel_set(cfg, training: bool) -> frozenset:
     with use_pallas_train (those without a backward kernel differentiated
     through their plain versions), else only those with a backward kernel:
     the bridge attention (K3 + K10), plus the MixFFN folds (K2 + K11) with
-    ffn_flash_train; none with use_kernels=False."""
+    ffn_flash_train, plus in the sp and para bridges, whose kernel switch
+    JAX's train step keeps on, the folded attention (K8, its backward
+    autograd of the plain version) and the FFN folds (K2 + K11); none with
+    use_kernels=False."""
     if not cfg.use_kernels:
         return frozenset()
     if not training or cfg.use_pallas_train:
         return SWITCHES
-    return frozenset({"bridge_attention"}
-                     | ({"mixffn"} if cfg.ffn_flash_train else set()))
+    from transception_tpu_torch.core.config import fold_switches
+    on = {"bridge_attention"} | ({"mixffn"} if cfg.ffn_flash_train else set())
+    if cfg.have_bridge in ("sp", "para") and \
+            fold_switches(cfg, True).sp_bridge:
+        on |= {"bridge_attention_folded", "mixffn"}
+    return frozenset(on)
 
 
 def reset_launches() -> None:

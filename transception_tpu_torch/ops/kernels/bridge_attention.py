@@ -354,23 +354,24 @@ def bridge_attention_folded_plain(x, res, wq, bq, k, v, wp, bp,
 
 
 def _check_folded(x, res, k, v):
-    if x.dtype != torch.bfloat16 or x.dim() != 3 or res.shape != x.shape \
-            or res.dtype != x.dtype:
+    dt = _build.element_dtype(FOLDED_NAME, x, res)
+    if x.dim() != 3 or res.shape != x.shape:
         raise ValueError(f"{FOLDED_NAME} kernel takes x and res (B, N, "
-                         f"{HEAD_DIM}) bf16, got {tuple(x.shape)} {x.dtype},"
-                         f" {tuple(res.shape)} {res.dtype}")
+                         f"{HEAD_DIM}) of one shape, got {tuple(x.shape)} "
+                         f"{dt}, {tuple(res.shape)} {res.dtype}")
     B, N, C = x.shape
     if C != HEAD_DIM or k.shape[:2] != (B, 1):
         raise ValueError(f"{FOLDED_NAME} kernel takes one head of "
                          f"{HEAD_DIM} channels, got x {tuple(x.shape)}, "
                          f"k {tuple(k.shape)}")
-    _check(x[:, None], k, v, dtypes=(torch.bfloat16,))
+    _check(x[:, None], k, v, dtypes=(dt,))
+    return dt
 
 
 def bridge_attention_folded(x, res, wq, bq, k, v, wp, bp, scale: float):
     """K8 wrapper: the plain version for a CPU tensor or with the kernel
-    off, else the CUDA kernel, whose backward is autograd of the plain
-    version."""
+    off, else the CUDA kernel (its bf16 or fp32 form, x's dtype), whose
+    backward is autograd of the plain version."""
     if _build.plain(FOLDED_NAME, x):
         return bridge_attention_folded_plain(x, res, wq, bq, k, v, wp, bp,
                                              scale)
@@ -382,22 +383,21 @@ def bridge_attention_folded(x, res, wq, bq, k, v, wp, bp, scale: float):
 
 def _launch_folded(x, res, wq, bq, k, v, wp, bp, scale):
     _check_scale(scale)
-    _check_folded(x, res, k, v)
+    dt = _check_folded(x, res, k, v)
     global folded_launches
     x, res, k, v = (_build.aligned(t) for t in (x, res, k, v))
     B, N, C = x.shape
     M = k.shape[2]
     out = torch.empty_like(x)
-    bf = functools.partial(_build.weight, dtype=torch.bfloat16)
+    w = functools.partial(_build.weight, dtype=dt)
     f32 = _build.f32
-    args = (x, res, bf(wq), f32(bq), k, v, bf(wp), f32(bp), out)
-    fn = _build.load(FOLDED_NAME).bridge_attention_folded
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p]
+    args = (x, res, w(wq), f32(bq), k, v, w(wp), f32(bp), out)
+    fn = _build.entry(FOLDED_NAME, _build.symbol(FOLDED_NAME, dt),
+                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                      + [ctypes.c_float, ctypes.c_void_p])
     rc = fn(*[_build.ptr(t) for t in args], B, N, M, scale,
             _build.stream_of(x))
     _build.check(rc, FOLDED_NAME)
     folded_launches += 1
-    _build.tally(FOLDED_NAME, tuple(x.shape))
+    _build.tally(FOLDED_NAME, tuple(x.shape), _build.tag(x))
     return out

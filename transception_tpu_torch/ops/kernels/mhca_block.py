@@ -73,6 +73,24 @@ BAND_ROWS = (4, 2)   # map rows per attention block, the most that fills
 launches = 0
 
 
+# The TPU kernel's VMEM budget (transception_tpu/ops/pallas/mixffn_kernel.py
+# _VMEM_BUDGET), which decides where the JAX package runs it.
+TPU_VMEM_BUDGET = 10 * 1024 * 1024
+
+
+def takes(s: int, C: int, hid: int, es: int, wmax: int = 7) -> bool:
+    """Whether an MHCA block on an s x s map of C channels (FFN width hid,
+    elements of es bytes) folds into K5: where the JAX package runs its
+    whole-block kernel (mhca_block_kernel.py:56-87 eligible_block): even
+    sides, and the TPU kernel's working set within its VMEM budget, which
+    the 56² stage of the 4-stage backbone exceeds (11.0 MB at bf16). A
+    routing by shape, made before the call."""
+    need = ((s + 2) ** 2 * C * 4 + (s + wmax - 1) ** 2 * C * 4
+            + (s + 2) ** 2 * hid * 4 + s * s * C * es * 6 + s * s * hid * 4
+            + C * (5 * C + 2 * hid) * es)
+    return s % 2 == 0 and need <= TPU_VMEM_BUDGET
+
+
 def _dwconv(xm, w, b, dt):
     """Depthwise conv of an NCHW fp32 map with the weight rounded to dt,
     'same' padding, fp32 bias; fp32 out."""

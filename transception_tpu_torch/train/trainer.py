@@ -7,8 +7,8 @@ the SGD update with its per-iteration schedule (train.state). The kernels
 that run are those of the JAX package's train_step_model (trainer.py:
 90-119), which the model picks in train mode (ops.kernels.kernel_set).
 The step's random generator is the JAX step's dropout key: it draws the
-MHCA blocks' drop-path masks (drop_path_rate > 0; the MLP FFN whose
-dropout the key would also feed is not ported). The Trainer makes it on
+MHCA blocks' drop-path masks (drop_path_rate > 0) and the dropout masks of
+the sp bridge's MLP FFN. The Trainer makes it on
 the model's device from TrainConfig.seed, each step advances it, and the
 checkpoint keeps its state, so that a resumed run draws the masks an
 uninterrupted one would.
@@ -87,8 +87,9 @@ def make_train_step(state: TrainState, num_classes: int, ce_w: float,
     """step(images, labels) -> {loss, loss_ce, loss_dice} (detached
     tensors): forward in train mode, loss, backward, update. wide_head:
     logits in pre-pixel-shuffle order against the permuted labels
-    (the same loss up to fp32 summation order). gen: the drop-path
-    generator, on the model's device (needed with drop_path_rate > 0)."""
+    (the same loss up to fp32 summation order). gen: the drop-path and
+    dropout generator, on the model's device (needed with drop_path_rate
+    > 0 and by the sp bridge's MLP dropout)."""
     model = state.model
 
     def train_step(images: torch.Tensor,
@@ -165,6 +166,8 @@ class Trainer:
         self.model_cfg, self.cfg, self.data_cfg = model_cfg, train_cfg, \
             data_cfg
         self.device = resolve_device(device)
+        # Any registry variant: the model is a function of its config
+        # (models.registry.model_config).
         self.model = model if model is not None else MSTransception(
             model_cfg, self.device, seed=train_cfg.seed)
         os.makedirs(train_cfg.output_dir, exist_ok=True)
