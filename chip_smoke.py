@@ -6,8 +6,9 @@ Phases (any failed check exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
      the ptxas report (registers, spills) of the kernels redesigned for
-     registers and the card's tensor cores, K3, K10, K8, K4, K7 and every
-     stage of K1, K2, K5, K6, K9 and K11, which must not spill;
+     registers and the card's tensor cores, K3, K10, K8, K4, K7 (and the
+     fp32 forms in their libraries, K3's and K8's on the 3xTF32 core) and
+     every stage of K1, K2, K5, K6, K9 and K11, which must not spill;
   3. each kernel against its plain PyTorch version at every shape the
      serving path gives it in any fold configuration (bf16, batch 32) and
      at the shapes the "pallas" train step gives K1, K5-K7 and K9 (batch
@@ -23,11 +24,15 @@ Phases (any failed check exits non-zero):
      eval forward gives them in the published model, its K8 fold
      configurations and the ablation variants (K8's fp32 form beside
      "SDPA fp32 + 2 F.linear + add", K2 at the bridge folds, K6 at the ETB
-     maps and the 4-stage backbone's 56² stage), and those the fp32
-     "pallas" train step gives K1, K5, K6, K7 and K9 (batch 24), against
-     their fp32 plain versions with TF32 off within FP32_TOL, each with a
-     planted fault, bounds at the fp32 FFMA peak, K3 beside SDPA at fp32;
-     and the bf16 shapes of phase 13's batch-8 forwards;
+     maps and the 4-stage backbone's 56² stage; K3 and K8 also at ragged
+     stream tiles, N = 129 and 300), and those the fp32 "pallas" train
+     step gives K1, K5, K6, K7 and K9 (batch 24), against their fp32
+     plain versions with TF32 off within FP32_TOL, each with a planted
+     fault, bounds at the fp32 FFMA peak (K3's and K8's, which multiply as
+     3xTF32 on the tensor cores, at TF32X3_FLOPS with the FFMA bound
+     logged beside), K3 beside SDPA at fp32; the bf16 shapes of phase
+     13's batch-8 forwards; and K3's and K8's fp32 forms with a NaN in
+     an input, which must come out where the plain version's does;
   4. the published MSTransception at full width (224², bf16, random
      weights from a seed) through make_predictor(...).predict_volume on a
      synthetic 48-slice 512² volume, batch 32, with launch counters;
@@ -136,6 +141,10 @@ import torch
 
 BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak, FLOP/s
 FP32_FLOPS = 67e12    # H100 SXM fp32 peak outside the tensor cores (FFMA)
+# fp32-accurate products as 3 TF32 products each (3xTF32) on the tensor
+# cores' dense TF32 peak: the bound of K3's and K8's fp32 forms, which
+# multiply so (their FFMA bound at FP32_FLOPS is logged beside it).
+TF32X3_FLOPS = 495e12 / 3
 # The fp32 kernels against their fp32 plain versions (TF32 off), stated
 # before the first card run: max|kernel - plain| <= FP32_TOL x max|plain|
 # (branch alone for the residual kernels); the fp32 forward's logits within
@@ -207,10 +216,19 @@ def cuda_ms(fn, iters=10, warmup=2):
 
 def bound_ms(nbytes, flops, peak=BF16_FLOPS):
     """The least time of a kernel's work: its bytes at the HBM rate or its
-    operations at `peak` (the bf16 tensor-core rate, or FP32_FLOPS for the
-    fp32 forms), whichever is longer."""
+    operations at `peak` (the bf16 tensor-core rate, FP32_FLOPS for the
+    fp32 forms on the CUDA cores, TF32X3_FLOPS for those on 3xTF32),
+    whichever is longer."""
     t_b, t_f = nbytes / HBM_BYTES * 1e3, flops / peak * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def ffma_note(nbytes, flops, peak):
+    """For a kernel bound at TF32X3_FLOPS, its bound at the FFMA peak
+    too (the other fp32 forms' yardstick), for the log line."""
+    if peak != TF32X3_FLOPS:
+        return ""
+    return f"; FFMA bound_ms {bound_ms(nbytes, flops, FP32_FLOPS)[0]:.4f}"
 
 
 def against(ms, bms, lms):
@@ -637,7 +655,8 @@ def fp32_kernel_cases(gen, B=BATCH, train=False):
     MHCA blocks with drop path, K7 at the p = 2 expands, K9 at the drop-path
     blocks' FFNs). Inputs and planted faults are the bf16 cases' (_k1_args,
     ...), K6 and K3 with a fault of their own; bytes at 4 a value,
-    operations at FP32_FLOPS."""
+    operations at FP32_FLOPS, K3's and K8's (3xTF32) at TF32X3_FLOPS. K3
+    and K8 also at ragged stream tiles (N = 129, 300; held, not rows)."""
     from transception_tpu_torch.ops.kernels import (
         bridge_attention as ba,
         etb_attention as ea,
@@ -650,11 +669,10 @@ def fp32_kernel_cases(gen, B=BATCH, train=False):
     f32 = torch.float32
 
     def case(name, label, kfn, pfn, nbytes, flops, lfn=None, base=None,
-             fault=None, main=True):
+             fault=None, main=True, peak=FP32_FLOPS):
         cases.append(dict(name=name, label=f"{label} fp32", kfn=kfn, pfn=pfn,
                           lfn=lfn, nbytes=nbytes, flops=flops, tol=FP32_TOL,
-                          base=base, fault=fault, main=main,
-                          peak=FP32_FLOPS))
+                          base=base, fault=fault, main=main, peak=peak))
 
     for N, C in ((3136, 64), (784, 128), (196, 320)):
         x, args, bad = _k1_args(gen, B, N, C, f32)
@@ -723,7 +741,21 @@ def fp32_kernel_cases(gen, B=BATCH, train=False):
          2 * B * N * d * 4 + 2 * B * M * d * 4, 4 * B * N * M * d,
          lfn=lambda a=(q, k, vv): sdpa(*a, scale=d ** -0.5),
          fault=("first key channel zeroed", lambda a=(q, kbad, vv):
-                ba.bridge_attention_plain(*a, d ** -0.5)))
+                ba.bridge_attention_plain(*a, d ** -0.5)),
+         peak=TF32X3_FLOPS)
+    # K3 at ragged stream tiles: 129 and 300 rows against the 192-row
+    # blocks (held; the main path's stream is 6076 rows).
+    for n in (129, 300):
+        qr = q[:2, :, :n].contiguous()
+        kv = (k[:2], vv[:2], kbad[:2])
+        case("bridge_attention", f"q (2,1,{n},{d}) kv (2,1,{M},{d})",
+             lambda a=(qr,) + kv[:2]: ba.bridge_attention(*a, d ** -0.5),
+             lambda a=(qr,) + kv[:2]: ba.bridge_attention_plain(
+                 *a, d ** -0.5),
+             2 * 2 * n * d * 4 + 2 * 2 * M * d * 4, 4 * 2 * n * M * d,
+             fault=("first key channel zeroed", lambda a=(qr, kv[2], kv[1]):
+                    ba.bridge_attention_plain(*a, d ** -0.5)),
+             main=False)
     # K8's fp32 form (the fp32 sp and para bridges, the fold grid's K8
     # configurations at fp32); the library call at fp32 (_k8_args).
     args, bad, lib, nbytes, flops = _k8_args(gen, k, vv, f32)
@@ -733,7 +765,20 @@ def fp32_kernel_cases(gen, B=BATCH, train=False):
          lambda a=args: ba.bridge_attention_folded_plain(*a),
          nbytes, flops, lfn=lib, base=args[1],
          fault=("out-projection bias dropped",
-                lambda a=bad: ba.bridge_attention_folded_plain(*a)))
+                lambda a=bad: ba.bridge_attention_folded_plain(*a)),
+         peak=TF32X3_FLOPS)
+    for n in (129, 300):  # K8 at ragged stream tiles (held)
+        ar = tuple(t[:2, :n].contiguous() for t in args[:2]) + \
+            args[2:4] + (args[4][:2], args[5][:2]) + args[6:]
+        br = ar[:7] + bad[7:8] + ar[8:]
+        case("bridge_attention_folded",
+             f"x/res (2,{n},{d}) kv (2,1,{M},{d})",
+             lambda a=ar: ba.bridge_attention_folded(*a),
+             lambda a=ar: ba.bridge_attention_folded_plain(*a),
+             0, 0, base=ar[1],
+             fault=("out-projection bias dropped",
+                    lambda a=br: ba.bridge_attention_folded_plain(*a)),
+             main=False)
     # K2 at the bridge's folds (the fp32 sp and para bridges, the fold
     # grid's bridge_ffn_use_pallas at fp32): norm2 as a grouped LN of 64
     # channels at scales 1-3.
@@ -884,10 +929,54 @@ def kernel_phase():
         bms, by = bound_ms(cs["nbytes"], cs["flops"], peak)
         log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms "
             f"{lms if lms is None else round(lms, 4)} bound_ms {bms:.4f} "
-            f"({by}) per launch; {against(ms, bms, lms)}")
+            f"({by}) per launch; {against(ms, bms, lms)}"
+            f"{ffma_note(cs['nbytes'], cs['flops'], peak)}")
         record(measured, key, label, err, ms, pms, lms, cs["nbytes"],
                cs["flops"], peak)
+    nan_checks(gen)
     return measured
+
+
+def nan_checks(gen):
+    """K3's and K8's fp32 forms (3xTF32) with a NaN planted as a CUDA
+    operation makes it (0x7fffffff) in q, k, v, x, Wq or Wp: NaN where the
+    plain version has NaN, the rest within FP32_TOL (K8 on its branch)."""
+    from transception_tpu_torch.ops.kernels import bridge_attention as ba
+
+    def r(*shape, s=1.0):
+        return (torch.randn(shape, generator=gen) * s).to("cuda")
+
+    q, k, v = r(2, 1, 300, 64), r(2, 1, 784, 64), r(2, 1, 784, 64)
+    x, res = r(2, 300, 64), r(2, 300, 64)
+    k3 = (ba.bridge_attention, ba.bridge_attention_plain, [q, k, v, 0.125])
+    k8 = (ba.bridge_attention_folded, ba.bridge_attention_folded_plain,
+          [x, res, r(64, 64, s=0.2), r(64), k, v, r(64, 64, s=0.2), r(64),
+           0.125])
+    for name, (kfn, pfn, args), i, at in (
+            ("K3 q row", k3, 0, (0, 0, 5, 3)),
+            ("K3 k key", k3, 1, (0, 0, 17, 3)),
+            ("K3 v key", k3, 2, (0, 0, 17, 3)),
+            ("K8 x row", k8, 0, (0, 5, 3)), ("K8 Wq", k8, 2, (5, 3)),
+            ("K8 Wp", k8, 6, (5, 3))):
+        args = list(args)
+        args[i] = args[i].clone()
+        args[i].view(torch.int32)[at] = 0x7FFFFFFF
+        got, want = kfn(*args), pfn(*args)
+        if kfn is ba.bridge_attention_folded:
+            got, want = got - res, want - res
+        torch.cuda.synchronize()
+        nan = want.isnan()
+        same = bool(nan.any()) and torch.equal(got.isnan(), nan)
+        err = 0.0
+        if same and not nan.all():
+            err = ((got - want)[~nan].abs().max()
+                   / want[~nan].abs().max()).item()
+        ok = same and err <= FP32_TOL
+        log(f"  NaN in {name} (fp32): {int(nan.sum())} NaN outputs, the "
+            f"kernel's {'the same' if same else 'NOT the same'}; the rest "
+            f"within {err:.3g} of max|plain| {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{name}: a NaN does not come out as in the plain version")
 
 
 def compare_paths(model, x, seed):
@@ -1224,8 +1313,9 @@ def train_kernel_phase(measured, dt=torch.bfloat16):
     """Phase 8. K3 and its backward K10, K11 and the grouped K2 at the
     train step's shapes, added to `measured` per kernel and shape key; at
     dt=float32 their fp32 forms, within FP32_TOL of their fp32 plain
-    versions (TF32 off), bounds at FP32_FLOPS and K3 and K10 beside SDPA
-    at fp32. The plain backwards' checks run at bf16."""
+    versions (TF32 off), bounds at FP32_FLOPS (K3's at TF32X3_FLOPS) and
+    K3 and K10 beside SDPA at fp32. The plain backwards' checks run at
+    bf16."""
     from transception_tpu_torch.ops.kernels import (
         bridge_attention as ba,
         mixffn as mf,
@@ -1257,10 +1347,12 @@ def train_kernel_phase(measured, dt=torch.bfloat16):
         lms = cuda_ms(lambda: sdpa(q, k, v, scale=sc))
     nbytes, flops = 2 * B * N * d * es + 2 * B * M * d * es, \
         4 * B * N * M * d
-    bms, by = bound_ms(nbytes, flops, peak)
+    k3peak = TF32X3_FLOPS if fp32 else peak  # K3's fp32 form: 3xTF32
+    bms, by = bound_ms(nbytes, flops, k3peak)
     log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms (SDPA) {lms:.4f} "
-        f"bound_ms {bms:.4f} ({by}) per launch; {against(ms, bms, lms)}")
-    record(measured, key, label, err, ms, pms, lms, nbytes, flops, peak)
+        f"bound_ms {bms:.4f} ({by}) per launch; {against(ms, bms, lms)}"
+        f"{ffma_note(nbytes, flops, k3peak)}")
+    record(measured, key, label, err, ms, pms, lms, nbytes, flops, k3peak)
     names = ("dq", "dk", "dv")
     key, got = launched_key("bridge_attention_bwd",
                             lambda: ba.bridge_attention_bwd(q, k, v, g, sc))

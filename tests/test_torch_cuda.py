@@ -135,6 +135,36 @@ def test_bridge_attention_kernel(gen, B, h, N, M):
     assert ba.launches == n0 + 1
 
 
+@pytest.mark.parametrize("B,h,N,M", BRIDGE_SHAPES)
+def test_bridge_attention_f32_kernel(gen, B, h, N, M):
+    """K3's fp32 form (3xTF32 on the tensor cores, one pass over the keys)
+    within 1e-4 of max|plain| (fp32 plain version, TF32 off by default),
+    at ragged query tiles and short last key chunks and steps; twice on
+    the same inputs, the same bits."""
+    q, k, v = (_r(gen, B, h, n, 64) for n in (N, M, M))
+    n0 = ba.launches
+    got = ba.bridge_attention(q, k, v, 0.125)
+    _close(got, ba.bridge_attention_plain(q, k, v, 0.125), rel=1e-4)
+    assert ba.launches == n0 + 1
+    assert torch.equal(got, ba.bridge_attention(q, k, v, 0.125))
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_bridge_attention_f32_nan_as_plain(gen, which):
+    """A NaN in q, k or v reaches K3's fp32 output where it reaches the
+    plain version's (the 3xTF32 split keeps NaNs): a row, every row, a
+    channel; the rest within 1e-4 of max|plain|."""
+    q, k, v = (_r(gen, 2, 1, n, 64) for n in (300, 784, 784))
+    # The NaN a CUDA operation produces, 0x7fffffff.
+    at = {"q": q[0, 0, 5], "k": k[0, 0, 17], "v": v[0, 0, 17]}[which]
+    at.view(torch.int32)[3] = 0x7FFFFFFF
+    got = ba.bridge_attention(q, k, v, 0.125)
+    want = ba.bridge_attention_plain(q, k, v, 0.125)
+    nan = want.isnan()
+    assert nan.any() and torch.equal(got.isnan(), nan)
+    _close(got[~nan], want[~nan], rel=1e-4)
+
+
 # (B, H, W): partial token tiles (2 x 200, 2 x 1000 tokens against tiles of
 # 128), one slice (batch 1: the groups split in quads), the serving map.
 @pytest.mark.parametrize("B,H,W", [(2, 10, 20), (2, 25, 40), (1, 56, 56),
@@ -252,6 +282,22 @@ def test_bridge_attention_folded_kernel(gen, N, M, dtype):
            ba.bridge_attention_folded_plain(*args),
            rel=1e-4 if dtype == torch.float32 else 0.02, base=res)
     assert ba.folded_launches == n0 + 1
+
+
+@pytest.mark.parametrize("which", ["x", "wq", "wp"])
+def test_bridge_attention_folded_f32_nan_as_plain(gen, which):
+    """A NaN in a row of x, in Wq or in Wp reaches K8's fp32 output where
+    it reaches the plain version's (the projections' 3xTF32 splits keep
+    NaNs); the rest of the branch within 1e-4 of its scale."""
+    args = list(_folded_inputs(gen, 300, 784, torch.float32))
+    i, at = {"x": (0, (0, 5, 3)), "wq": (2, (5, 3)), "wp": (6, (5, 3))}[which]
+    args[i].view(torch.int32)[at] = 0x7FFFFFFF  # a CUDA operation's NaN
+    got = ba.bridge_attention_folded(*args)
+    want = ba.bridge_attention_folded_plain(*args)
+    nan = want.isnan()
+    assert nan.any() and torch.equal(got.isnan(), nan)
+    if not nan.all():  # (a NaN in Wq reaches every row)
+        _close(got[~nan], want[~nan], rel=1e-4, base=args[1][~nan])
 
 
 # (B, H, W, C, p): the three p = 2 widths (c = 256, 160, 64; ragged token

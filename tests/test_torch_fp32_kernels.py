@@ -320,12 +320,21 @@ def test_k6_fp32_plan():
 
 
 def test_k3_fp32_smem_and_grid():
-    consts = {k: re.findall(rf"constexpr int {k} = (\d+);",
-                            (CSRC / "bridge_softmax.cuh").read_text())
-              for k in ("KC32", "STAGES")}
-    assert consts == {"KC32": [str(ba.F32_KEY_CHUNK)],
-                      "STAGES": [str(ba.F32_STAGES)]}
-    assert ba.f32_smem() <= mf.SMEM_LIMIT // 2  # two blocks an SM
+    """The 3xTF32 core's block shape (csrc/bridge_softmax.cuh F32_WARPS,
+    F32_KC, F32_STAGES, F32_KS) mirrored by the wrapper; K3's and K8's
+    fp32 blocks within a block's shared memory (one block an SM: q, the
+    output and the sums take more than the registers two would leave);
+    the published stream's grid over every SM."""
+    src = (CSRC / "bridge_softmax.cuh").read_text()
+    consts = {k: re.findall(rf"constexpr int {k} = (\d+);", src)
+              for k in ("F32_WARPS", "F32_KC", "F32_STAGES", "F32_KS")}
+    assert consts == {"F32_WARPS": [str(ba.F32_WARPS)],
+                      "F32_KC": [str(ba.F32_KEY_CHUNK)],
+                      "F32_STAGES": [str(ba.F32_STAGES)],
+                      "F32_KS": [str(ba.F32_KEY_STEP)]}
+    assert ba.F32_KEY_CHUNK % ba.F32_KEY_STEP == 0
+    assert ba.f32_smem() < ba.f32_smem(folded=True) <= mf.SMEM_LIMIT
+    assert 2 * ba.f32_smem() > mf.SMEM_LIMIT
     assert -(-6076 // (16 * ba.F32_WARPS)) * 32 >= SMS
 
 
@@ -382,9 +391,14 @@ def test_k10_fp32_smem():
     src = (CSRC / "bridge_attention_bwd.cu").read_text()
     consts = {k: re.findall(rf"constexpr int {k} = (\d+);", src)
               for k in ("RW", "RC", "KT")}
-    assert consts == {"RW": [str(ba.F32_WARPS)],
+    assert consts == {"RW": [str(ba.BWD_F32_WARPS)],
                       "RC": [str(ba.BWD_ROW_CHUNK)],
                       "KT": [str(ba.BWD_KEY_TILE)]}
+    hdr = (CSRC / "bridge_softmax.cuh").read_text()
+    assert re.findall(r"constexpr int KC32 = (\d+);", hdr) == [
+        str(ba.BWD_F32_KEY_CHUNK)]
+    assert re.findall(r"constexpr int STAGES = (\d+);", hdr) == [
+        str(ba.BWD_F32_STAGES)]
     rows, cols = ba.bwd_f32_smem()
     assert rows == 128 * 1024 and rows <= mf.SMEM_LIMIT
     assert cols <= mf.SMEM_LIMIT // 2

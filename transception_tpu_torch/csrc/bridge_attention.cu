@@ -21,15 +21,25 @@
 // a 3-deep ring (86 KB, 2 blocks) measured slower. Query rows past N load
 // as zero and are never stored. No atomics: every run gives the same bits.
 //
-// The fp32 form (bridge_attention_f32, the fp32 eval forward's): the same
-// block of 8 warps over 128 query rows and the same two passes, on the
-// CUDA cores (bridge_softmax.cuh softmax_av_f32): each warp's 16 query rows
-// in its 4 KB of shared memory, K and V through the ring in 64-key chunks
-// of fp32 (96 KB a block with the rows: 2 blocks an SM where the
-// registers allow, at most 128 a thread), nothing rounded;
-// exp as ex2.approx (about 2 ulp, ~1e-7 relative against the 1e-4 limit of
-// the card check). Bound: operations, 4·B·N·M·d flops at 67 TFLOP/s of
-// FFMA (the kernel does 6·B·N·M·d: pass 1 forms Q·Kᵀ again).
+// The fp32 form (bridge_attention_f32, the fp32 eval forward's and the
+// fp32 train step's): bridge_softmax.cuh attend32, 3xTF32 products on the
+// tensor cores in one pass over K and V with an online max, nothing
+// rounded to a narrower type. A block of F32_WARPS = 12 warps over 192
+// query rows, one block an SM: each warp splits its 16 rows of q once into
+// its 8 KB of shared memory while the first K/V chunk is in flight; the
+// block splits each 64-key chunk of K and V once (K hi and lo, Vᵀ hi and
+// lo) and every warp reads its fragments with ldmatrix. The output is
+// divided by the row sum and written through the warp's q rows as 16-byte
+// rows. Why this shape: the products are latency-bound chains of mma.sync
+// (12 warps an SM ran faster than 8 or 10), and 12 warps an SM leave 168
+// registers a thread, which the core needs (149) without a spill; 224 KB
+// of shared memory (the raw ring of 2 chunks, the split chunk and 12
+// warps' q) hold one block an SM. Splitting K and V per warp instead (8
+// times a chunk) was slower, issue-bound on the split's integer
+// instructions. exp as ex2.approx (about 2 ulp).
+// Bound: operations, the function's 4·B·N·M·d flops as 3 TF32 products
+// each at 495 TFLOP/s (0.2365 ms at b=32; at 67 TFLOP/s of FFMA, 0.5825
+// ms). Query rows past N load as zero and are never stored. No atomics.
 #include "bridge_softmax.cuh"
 
 namespace {
@@ -56,27 +66,20 @@ bridge_attention_kernel(const bf16* q, const bf16* k, const bf16* v,
                         out + (size_t)bh * N * bsa::D, r0, N);
 }
 
-__global__ void __launch_bounds__(32 * WARPS)
+__global__ void __launch_bounds__(32 * bsa::F32_WARPS, 1)
 bridge_attention_f32_kernel(const float* q, const float* k, const float* v,
                             float* out, int N, int M, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t ring = bsa::smem_addr(smem);
-  const int bh = blockIdx.y, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * ROWS + w * 16;
-  const uint32_t qs = ring + bsa::RING32 + w * bsa::Q32;
-  const float* qg = q + (size_t)bh * N * bsa::D;
-  // The warp's 16 query rows, zero past N (committed with the ring's first
-  // chunk).
-  for (int i = lane; i < 16 * 16; i += 32) {
-    const int r = i >> 4, c = i & 15;
-    const bool ok = r0 + r < N;
-    bsa::cp_async16(qs + bsa::swz32(r, c),
-                    qg + (size_t)(ok ? r0 + r : 0) * bsa::D + c * 4, ok);
-  }
+  const uint32_t sm = bsa::smem_addr(smem);
+  const int bh = blockIdx.y, w = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * bsa::F32_ROWS + w * 16;
+  const uint32_t qs = sm + bsa::F32_RING + bsa::F32_SPLIT + w * bsa::F32_Q;
+  const float* kg = k + (size_t)bh * M * bsa::D;
+  const float* vg = v + (size_t)bh * M * bsa::D;
+  bsa::prefetch_kv(sm, kg, vg, M);
+  bsa::stage_q(q + (size_t)bh * N * bsa::D, r0, N, qs);
   float o[8][4], rs[2];
-  bsa::softmax_av_f32(qs, k + (size_t)bh * M * bsa::D,
-                      v + (size_t)bh * M * bsa::D, M, scale * bsa::LOG2E,
-                      ring, o, rs);
+  bsa::attend32(qs, kg, vg, M, scale * bsa::LOG2E, sm, o, rs);
   bsa::store_rows32(o, rs, qs, out + (size_t)bh * N * bsa::D, r0, N);
 }
 
@@ -98,11 +101,11 @@ extern "C" int bridge_attention(const bf16* q, const bf16* k, const bf16* v,
 extern "C" int bridge_attention_f32(const float* q, const float* k,
                                     const float* v, float* out, int BH, int N,
                                     int M, float scale, void* stream) {
-  constexpr int SMEM = bsa::RING32 + WARPS * bsa::Q32;
-  cudaError_t e = set_smem((const void*)bridge_attention_f32_kernel, SMEM);
+  cudaError_t e =
+      set_smem((const void*)bridge_attention_f32_kernel, bsa::F32_SMEM);
   if (e) return e;
-  const dim3 grid((N + ROWS - 1) / ROWS, BH);
-  bridge_attention_f32_kernel<<<grid, 32 * WARPS, SMEM,
+  const dim3 grid((N + bsa::F32_ROWS - 1) / bsa::F32_ROWS, BH);
+  bridge_attention_f32_kernel<<<grid, 32 * bsa::F32_WARPS, bsa::F32_SMEM,
                                 static_cast<cudaStream_t>(stream)>>>(
       q, k, v, out, N, M, scale);
   return cudaGetLastError();

@@ -46,9 +46,8 @@
 // The fp32 form (bridge_attention_bwd_f32, the fp32 train step's): the
 // same two kernels, the same statistics and the same fixed-order sum of
 // the segments' partials, fp32 throughout with nothing rounded, on the
-// CUDA cores (FFMA; Hopper has no fp32 tensor-core product). Operands stay
-// in shared memory as at fp32 in K3 (bridge_softmax.cuh softmax_av_f32):
-// rows of 64 fp32 swizzled in 16-byte chunks. A warp holds its 16 rows
+// CUDA cores (FFMA). Operands stay in shared memory (bridge_softmax.cuh
+// swz32): rows of 64 fp32 swizzled in 16-byte chunks. A warp holds its 16 rows
 // (rows kernel: q and g; cols kernel: k and v) in 8 KB of its own, the
 // other side comes through the 2-deep cp.async ring (64-key chunks of K and
 // V, 128 KB a rows block: one block an SM; RC-row chunks of Q, G and the

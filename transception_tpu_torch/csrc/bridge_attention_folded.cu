@@ -37,23 +37,25 @@
 // the same bits.
 //
 // The fp32 form (bridge_attention_folded_f32, the fp32 models' sp and para
-// bridges and any fp32 model with bridge_attn_fold): nothing rounded, every
-// product on the CUDA cores (FFMA), on K3's fp32 path. The same block of 8
-// warps over 128 rows; each warp keeps its 16 rows in its 4 KB of shared
-// memory (bridge_softmax.cuh Q32), which hold in turn x, q, the attention
-// output and the projection:
-//   prologue  Wq (64 x 64 fp32, 16 KB) into the first tile of the ring and
-//             the warp's x rows (zero past N) into its rows, with cp.async;
-//             q = x·Wqᵀ + bq by dots16_f32 (lane (g, t): rows g, g + 8,
-//             columns 8j + 2t + e, as softmax_av_f32's logits), written
-//             back over x;
-//   attention softmax_av_f32 on the rows (64-key fp32 chunks of K and V
-//             through the 2-deep ring; ex2.approx);
-//   epilogue  o / rowsum over q, Wp into the now free ring, proj = ·Wpᵀ +
-//             bp the same way, + res in fp32 with 16-byte coalesced reads,
-//             stored for the rows below N.
-// 64 KB of ring, 32 KB of rows and the biases: 2 blocks an SM where the
-// registers allow (at most 128 a thread; the loops stay rolled).
+// bridges and any fp32 model with bridge_attn_fold): K3's fp32 form
+// (bridge_softmax.cuh attend32, 3xTF32 on the tensor cores, one pass) with
+// the projections folded around it as 3xTF32 products too; nothing
+// rounded to a narrower type, the rounding points the mirror's. The same
+// block of 12 warps over 192 rows, one block an SM:
+//   prologue  Wq (64 x 64 fp32, 16 KB) into the room of the split chunk
+//             and the first K/V chunk into the ring, with cp.async; x's A
+//             fragments split from device memory a channel step at a
+//             time; q = x·Wqᵀ + bq split into the warp's q rows;
+//   attention attend32 (64-key fp32 chunks of K and V, split once a
+//             block; ex2.approx);
+//   epilogue  Wp into the split chunk's room, now free; o / rowsum is the
+//             A fragment of ·Wpᵀ in the channel order 2t, 2t + 1 (columns
+//             t, t + 4), so the lane reads Wp's two neighbouring columns
+//             at once; + bp, staged through the warp's q rows; + res in
+//             fp32 with 16-byte coalesced reads, stored for the rows
+//             below N.
+// K3's 224 KB of shared memory and the biases. Bound: operations,
+// 4·B·N·M·d + 4·B·N·d² flops as 3 TF32 products at 495 TFLOP/s.
 #include "bridge_softmax.cuh"
 
 namespace {
@@ -182,87 +184,116 @@ bridge_attention_folded_kernel(const bf16* x, const bf16* res, const bf16* wq,
   }
 }
 
-// o (16 x 64, the accumulator layout) = the warp's rows at qs times the
-// (64, 64) weight at ws (rows = output columns), + bias.
-__device__ __forceinline__ void dense64_f32(uint32_t qs, uint32_t ws,
-                                            const float* bias,
-                                            float (&o)[8][4]) {
-  const int t = threadIdx.x & 3;
-#pragma unroll  // o indexed by n: rolled, it would go to local memory
-  for (int n = 0; n < 4; ++n) {
-    float s[2][4];
-    bsa::dots16_f32(qs, ws, n * 16, s);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        o[2 * n + j][i] = s[j][i] + bias[(2 * n + j) * 8 + 2 * t + (i & 1)];
-  }
-}
+constexpr int W32 = bsa::D * bsa::ROW32;  // one 64 x 64 fp32 weight
+constexpr int SMEM32 = bsa::F32_SMEM + 2 * bsa::D * 4;
+static_assert(bsa::F32_SPLIT >= W32, "a weight fits the split chunk's room");
 
-// o / f[h] for rows g + 8h into the warp's rows at qs (swizzled fp32), after
-// every lane is done reading them.
-__device__ __forceinline__ void put_rows32(const float (&o)[8][4],
-                                           const float (&f)[2], uint32_t qs) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      asm volatile("st.shared.v2.f32 [%0], {%1,%2};\n" ::"r"(
-                       qs + bsa::swz32(g + 8 * h, 2 * j + (t >> 1)) +
-                       8 * (t & 1)),
-                   "f"(o[j][2 * h] / f[h]), "f"(o[j][2 * h + 1] / f[h]));
-  __syncwarp();
-}
-
-__global__ void __launch_bounds__(32 * WARPS, 2)
+__global__ void __launch_bounds__(32 * bsa::F32_WARPS, 1)
 bridge_attention_folded_f32_kernel(const float* x, const float* res,
                                    const float* wq, const float* bq,
                                    const float* k, const float* v,
                                    const float* wp, const float* bp,
                                    float* out, int N, int M, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t ring = bsa::smem_addr(smem);
+  const uint32_t sm = bsa::smem_addr(smem);
+  const uint32_t ws = sm + bsa::F32_RING;  // Wq, then Wp: the split room
+  float* bs = reinterpret_cast<float*>(smem + bsa::F32_SMEM);
   const int b = blockIdx.y, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * ROWS + w * 16;
-  const uint32_t qs = ring + bsa::RING32 + w * bsa::Q32;
-  float* bs = reinterpret_cast<float*>(smem + bsa::RING32 + WARPS * bsa::Q32);
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * bsa::F32_ROWS + w * 16;
+  const uint32_t qs = sm + bsa::F32_RING + bsa::F32_SPLIT + w * bsa::F32_Q;
   const size_t xo = (size_t)b * N * bsa::D, ko = (size_t)b * M * bsa::D;
-  const float one[2] = {1.0f, 1.0f};
 
-  bsa::load_tile32(ring, wq, bsa::D, bsa::D);
-  for (int i = lane; i < 16 * 16; i += 32) {
-    const int r = i >> 4, c = i & 15;
-    const bool ok = r0 + r < N;
-    bsa::cp_async16(qs + bsa::swz32(r, c),
-                    x + xo + (size_t)(ok ? r0 + r : 0) * bsa::D + c * 4, ok);
-  }
+  bsa::load_tile32(ws, wq, bsa::D, bsa::D);
   bsa::cp_async_commit();
+  bsa::prefetch_kv(sm, k + ko, v + ko, M);
   if (threadIdx.x < 2 * bsa::D)
     bs[threadIdx.x] = threadIdx.x < bsa::D ? bq[threadIdx.x]
                                            : bp[threadIdx.x - bsa::D];
-  bsa::cp_async_wait<0>();
+  bsa::cp_async_wait<bsa::F32_STAGES - 1>();  // Wq landed
   __syncthreads();
 
-  // q = x·Wqᵀ + bq over the warp's x rows.
+  // q = x·Wqᵀ + bq, split into the warp's q rows: channel step kk's A
+  // fragment split from x in device memory (rows past N zero), and lane
+  // (g, t) reads Wq[8n + g][8kk + t] and [8kk + t + 4].
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + g + 8 * (i & 1);
+      const float xv =
+          r < N ? x[xo + (size_t)r * bsa::D + 8 * kk + t + 4 * (i >> 1)]
+                : 0.0f;
+      bsa::split(xv, ah[i], al[i]);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      bsa::mma3(acc[n], ah, al,
+                lds32(ws + bsa::swz32(8 * n + g, 2 * kk) + 4 * t),
+                lds32(ws + bsa::swz32(8 * n + g, 2 * kk + 1) + 4 * t));
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float b0 = bs[8 * n + 2 * t], b1 = bs[8 * n + 2 * t + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t h0, l0, h1, l1;
+      bsa::split(acc[n][2 * h] + b0, h0, l0);
+      bsa::split(acc[n][2 * h + 1] + b1, h1, l1);
+      const uint32_t at =
+          qs + bsa::swz32(g + 8 * h, 2 * n + (t >> 1)) + 8 * (t & 1);
+      bsa::sts64(at, h0, h1);
+      bsa::sts64(at + bsa::Q32, l0, l1);
+    }
+  }
+  __syncwarp();  // (attend32 opens with a barrier: Wq is then free)
+
   float o[8][4], rs[2];
-  dense64_f32(qs, ring, bs, o);
-  put_rows32(o, one, qs);
-  __syncthreads();  // every warp is done with Wq: the ring is softmax_av's
+  bsa::attend32(qs, k + ko, v + ko, M, scale * bsa::LOG2E, sm, o, rs);
 
-  bsa::softmax_av_f32(qs, k + ko, v + ko, M, scale * bsa::LOG2E, ring, o,
-                      rs);
-
-  // proj = (o / rs)·Wpᵀ + bp.
-  bsa::load_tile32(ring, wp, bsa::D, bsa::D);
+  // proj = (o / rs)·Wpᵀ + bp: channel step c's A fragment holds the
+  // output's channels 8c + 2t (column t) and 8c + 2t + 1 (column t + 4),
+  // the accumulators' own pairs, so lane (g, t) reads Wp[8n + g][8c + 2t]
+  // and its neighbour; Wp in the split room, now free.
+  bsa::load_tile32(ws, wp, bsa::D, bsa::D);
   bsa::cp_async_commit();
-  put_rows32(o, rs, qs);
   bsa::cp_async_wait<0>();
   __syncthreads();
-  dense64_f32(qs, ring, bs + bsa::D, o);
-  put_rows32(o, one, qs);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    uint32_t ph[4], pl[4];
+    bsa::split(o[c][0] / rs[0], ph[0], pl[0]);
+    bsa::split(o[c][2] / rs[1], ph[1], pl[1]);
+    bsa::split(o[c][1] / rs[0], ph[2], pl[2]);
+    bsa::split(o[c][3] / rs[1], ph[3], pl[3]);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 wv =
+          lds64(ws + bsa::swz32(8 * n + g, 2 * c + (t >> 1)) + 8 * (t & 1));
+      bsa::mma3(acc[n], ph, pl, wv.x, wv.y);
+    }
+  }
+  // + bp into the warp's (free) q rows.
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float b0 = bs[bsa::D + 8 * n + 2 * t];
+    const float b1 = bs[bsa::D + 8 * n + 2 * t + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      asm volatile("st.shared.v2.f32 [%0], {%1,%2};\n" ::"r"(
+                       qs + bsa::swz32(g + 8 * h, 2 * n + (t >> 1)) +
+                       8 * (t & 1)),
+                   "f"(acc[n][2 * h] + b0), "f"(acc[n][2 * h + 1] + b1));
+  }
+  __syncwarp();
 
   // out = proj + res for the rows below N, 16 bytes a lane.
 #pragma unroll
@@ -300,12 +331,11 @@ extern "C" int bridge_attention_folded_f32(const float* x, const float* res,
                                            const float* wp, const float* bp,
                                            float* out, int B, int N, int M,
                                            float scale, void* stream) {
-  constexpr int SMEM32 = bsa::RING32 + WARPS * bsa::Q32 + 2 * bsa::D * 4;
   cudaError_t e =
       set_smem((const void*)bridge_attention_folded_f32_kernel, SMEM32);
   if (e) return e;
-  const dim3 grid((N + ROWS - 1) / ROWS, B);
-  bridge_attention_folded_f32_kernel<<<grid, 32 * WARPS, SMEM32,
+  const dim3 grid((N + bsa::F32_ROWS - 1) / bsa::F32_ROWS, B);
+  bridge_attention_folded_f32_kernel<<<grid, 32 * bsa::F32_WARPS, SMEM32,
                                        static_cast<cudaStream_t>(stream)>>>(
       x, res, wq, bq, k, v, wp, bp, out, N, M, scale);
   return cudaGetLastError();

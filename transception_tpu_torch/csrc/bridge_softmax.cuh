@@ -5,7 +5,9 @@
 // (transception_tpu/ops/pallas/bridge_attention_kernel.py:59-75): fp32
 // logits, the row max over all M keys before any exponential, e = exp(l − m)
 // summed unrounded in fp32 with bf16(e) multiplied into V, one divide of the
-// fp32 output by the sum at the caller.
+// fp32 output by the sum at the caller. At fp32 (K3's and K8's fp32
+// forms) the core is attend32 below: 3xTF32 products on the tensor cores,
+// one pass with an online max.
 //
 // Layouts (PTX ISA, mma.m16n8k16 with .bf16): a warp's 16 x 16 A fragment
 // is 4 registers of two bf16 (rows g and g+8, columns 2t, 2t+1 and 8 more;
@@ -66,6 +68,12 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
 }
 
 __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
@@ -261,8 +269,9 @@ __device__ __forceinline__ void softmax_av(const uint32_t (&qa)[4][4],
 }
 
 // ---- The fp32 product step ----
-// Hopper has no fp32 tensor-core product (TF32 keeps ~3 decimal digits),
-// so the fp32 forms of the kernels multiply on the CUDA cores with FFMA.
+// The fp32 forms of the staged kernels (mixffn_stages.cuh,
+// expand_stages.cuh) multiply on the CUDA cores with FFMA (K3's and K8's
+// use the 3xTF32 core below).
 // Their staged tiles keep the bf16 layout's 128-byte swizzled panel rows,
 // which hold 32 fp32 columns: a product step is 32 deep at fp32.
 
@@ -341,18 +350,18 @@ __device__ __forceinline__ void ffma_step(uint32_t sa, uint32_t sb, int wm,
   }
 }
 
-// ---- K3's fp32 form ----
+// ---- Rows of 64 fp32 ----
 // Rows of 64 fp32 (256 bytes), 16-byte chunk c (0..15) of row r at chunk
 // c ^ (r % 8) (the XOR keeps each half of the row in place): the 8 rows a
-// quad-strided load touches fall in 8 different bank groups. K and V go
-// through the same 2-deep ring as at bf16, in chunks of 64 keys (16 KB a
-// tile); each warp keeps its 16 query rows in its own 4 KB of shared
-// memory, which later stages its output rows.
+// quad-strided load or an ldmatrix 8 x 8 matrix touches fall in 8
+// different bank groups. K10's fp32 form stages K and V through the
+// 2-deep ring in chunks of KC32 keys (16 KB a tile) and a warp's 16 rows
+// in Q32 bytes; the 3xTF32 core below stages the same rows.
 constexpr int ROW32 = D * 4;
-constexpr int KC32 = 64;                     // keys per staged chunk
+constexpr int KC32 = 64;                     // K10: keys per staged chunk
 constexpr int TILE32 = KC32 * ROW32;
 constexpr int RING32 = STAGES * 2 * TILE32;  // K + V per stage
-constexpr int Q32 = 16 * ROW32;              // a warp's query rows
+constexpr int Q32 = 16 * ROW32;              // a warp's rows
 
 __device__ __forceinline__ uint32_t swz32(int r, int c) {
   return r * ROW32 + ((c ^ (r & 7)) << 4);
@@ -369,135 +378,337 @@ __device__ __forceinline__ void load_tile32(uint32_t s, const float* g,
   }
 }
 
-// The dots of a warp's 16 rows staged at qs (rows of 64 fp32, swz32)
-// with the 16 rows n0.. of the tile at ks: lane (g, t) forms those of its
-// rows g, g + 8 with rows n0 + 8j + 2t + e, in s[j][e] and s[j][2 + e] (the
-// mma accumulator layout), each sum in column order. The logits of
-// softmax_av_f32 (ks a K chunk) and the products of K8's fp32 form with a
-// 64 x 64 weight (ks its rows, the output columns).
-__device__ __forceinline__ void dots16_f32(uint32_t qs, uint32_t ks, int n0,
-                                           float (&s)[2][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+// ---- The fp32 attention core: 3xTF32 on the tensor cores ----
+// K3's and K8's fp32 forms. Hopper's tensor cores take fp32 operands only
+// as TF32 (10 mantissa bits), so each operand x is split into hi =
+// tf32(x) and lo = tf32(x − hi) (round to nearest, ties away) and a
+// product is lo·hi + hi·lo + hi·hi, accumulated in fp32: about 2^-22
+// relative per operand against fp32, where hi·hi alone keeps ~5e-4.
+// Products are mma.m16n8k8 (.tf32, fp32 accumulate; g = lane / 4, t =
+// lane % 4): the A fragment holds rows g, g + 8 at columns t, t + 4; the
+// B fragment rows t, t + 4 at column g; the accumulator row g, g + 8 at
+// columns 2t, 2t + 1. Every fragment is one ldmatrix.x4 of 16-byte chunks
+// of 8 rows (a lane's 32-bit word t of row g), hi and lo apart:
+// - q (16 rows x 64 a warp) is split once, into the warp's own rows of
+//   shared memory;
+// - each chunk of K and V is split once per block, not once per warp:
+//   the block's threads turn the chunk's raw fp32 rows (cp.async ring)
+//   into K hi and lo rows and Vᵀ hi and lo rows (channel-major);
+// - an 8-key tile of logits holds keys t and t + 4 where the accumulator
+//   has columns 2t and 2t + 1 (the lanes' ldmatrix row addresses pick K's
+//   rows in that order), so after ex2 it is the A fragment of P·V over
+//   those 8 keys with no shuffle.
+// The tensor cores' fp32 sums round toward zero, a bias that grows with
+// the number of products added into one accumulator (over all 784 keys,
+// several times the error of the split): the logits keep hi·hi apart
+// from the two small terms, P·V sums one step of keys apart, and both are
+// added in fp32 (round to nearest).
+// One pass over K and V with an online max: when a row's max rises, its
+// sum and output are rescaled by 2^(m_old − m_new). Nothing is rounded to
+// a narrower type (the TPU kernel's e.astype(v.dtype) is the identity at
+// fp32).
+constexpr int F32_WARPS = 12;  // warps a block, 16 query rows each
+constexpr int F32_KC = 64;     // keys per staged chunk
+constexpr int F32_STAGES = 2;  // depth of the raw K/V ring
+constexpr int F32_KS = 32;     // keys per online-softmax step
+constexpr int F32_ROWS = 16 * F32_WARPS;
+constexpr int F32_TILE = F32_KC * ROW32;  // a chunk of K or V (or of Vᵀ)
+constexpr int F32_VROW = F32_KC * 4;      // a Vᵀ row (channel): its keys
+constexpr int F32_RING = F32_STAGES * 2 * F32_TILE;  // raw K + V a stage
+constexpr int F32_SPLIT = 4 * F32_TILE;  // K hi, K lo, Vᵀ hi, Vᵀ lo
+constexpr int F32_Q = 2 * Q32;           // a warp's q rows, hi and lo
+constexpr int F32_SMEM = F32_RING + F32_SPLIT + F32_WARPS * F32_Q;
+static_assert(F32_KC % 32 == 0, "Vᵀ rows of at least 8 16-byte chunks");
+static_assert(F32_KC % F32_KS == 0 && F32_KS % 16 == 0, "whole steps");
+
+// Byte offset of 16-byte chunk c of row r of Vᵀ (swizzled as swz32).
+__device__ __forceinline__ uint32_t swzv(int r, int c) {
+  return r * F32_VROW + ((c ^ (r & 7)) << 4);
+}
+
+// x rounded to TF32: round to nearest, ties away from zero, 10 mantissa
+// bits (the low 13 bits zero); infinities and NaNs kept, so a NaN in an
+// operand reaches the output as in the plain version.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo: hi = tf32(x), lo = tf32(x − hi) (x − hi is exact).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// split for the probabilities e in [0, 1], in the inner loop: the same
+// rounding as an add and a mask (cvt.rna adds a compare and select for
+// infinities and NaNs). A NaN e (a NaN logit) becomes a zero here, but
+// the row sum takes e itself, so the row still comes out NaN.
+__device__ __forceinline__ void split_unit(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split4(const float4& x, uint4& h, uint4& l) {
+  split(x.x, h.x, l.x);
+  split(x.y, h.y, l.y);
+  split(x.z, h.z, l.z);
+  split(x.w, h.w, l.w);
+}
+
+// c += a · b on the tensor cores (16 x 8 x 8, TF32 in, fp32 accumulate).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a · b at fp32 accuracy (3xTF32), the small terms first: a = ah +
+// al, b = (b0, b1) in fp32, split here. The projections of K8.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t h0, l0, h1, l1;
+  split(b0, h0, l0);
+  split(b1, h1, l1);
+  mma_tf32(c, al, h0, h1);
+  mma_tf32(c, ah, l0, l1);
+  mma_tf32(c, ah, h0, h1);
+}
+
+__device__ __forceinline__ void sts128(uint32_t a, const uint4& v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1,%2,%3,%4};\n" ::"r"(a), "r"(v.x),
+               "r"(v.y), "r"(v.z), "r"(v.w));
+}
+
+__device__ __forceinline__ void sts64(uint32_t a, uint32_t x, uint32_t y) {
+  asm volatile("st.shared.v2.b32 [%0], {%1,%2};\n" ::"r"(a), "r"(x), "r"(y));
+}
+
+// The warp's 16 rows r0.. of a (n, 64) fp32 matrix in device memory,
+// split, into its q rows at qs (hi, then lo Q32 bytes on; swz32); rows
+// >= n are zero.
+__device__ __forceinline__ void stage_q(const float* p, int r0, int n,
+                                        uint32_t qs) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll 1  // 6 live float4 a step: 2 blocks an SM need <= 128 regs
-  for (int c = 0; c < 16; ++c) {
-    const float4 q0 = lds128(qs + swz32(g, c));
-    const float4 q1 = lds128(qs + swz32(g + 8, c));
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float4 kv = lds128(ks + swz32(n0 + 8 * j + 2 * t + e, c));
-        float& a = s[j][e];
-        float& b = s[j][2 + e];
-        a = fmaf(q0.x, kv.x, a);
-        a = fmaf(q0.y, kv.y, a);
-        a = fmaf(q0.z, kv.z, a);
-        a = fmaf(q0.w, kv.w, a);
-        b = fmaf(q1.x, kv.x, b);
-        b = fmaf(q1.y, kv.y, b);
-        b = fmaf(q1.z, kv.z, b);
-        b = fmaf(q1.w, kv.w, b);
-      }
+  for (int i = threadIdx.x & 31; i < 16 * 16; i += 32) {
+    const int r = i >> 4, c = i & 15;
+    const float4 x =
+        r0 + r < n
+            ? *reinterpret_cast<const float4*>(p + (size_t)(r0 + r) * D + c * 4)
+            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    uint4 h, l;
+    split4(x, h, l);
+    sts128(qs + swz32(r, c), h);
+    sts128(qs + Q32 + swz32(r, c), l);
   }
 }
 
-// softmax_av at fp32 on the CUDA cores, for the warp's 16 query rows
-// staged at qs: o (16 x 64) = Σ e·V and rs[h] the row sums of e for rows
-// g + 8h, e = exp(l − m) with m the row max over all M keys, nothing
-// rounded. Lane (g, t) forms the logits of rows g and g + 8 against keys
-// 8j + 2t + e of each 16-key step (the layout of the bf16 path), then the
-// quad's shuffles hand each lane the probabilities of all 16 keys for
-// P·V into its columns 8j + 2t, 8j + 2t + 1. The ring schedule is
-// softmax_av's (pass 1 the max, pass 2 the sums and P·V); a last chunk
-// shorter than KC32 (a multiple of 16) runs its whole 16-key steps only.
-__device__ __forceinline__ void softmax_av_f32(uint32_t qs, const float* kg,
-                                               const float* vg, int M,
-                                               float sl2, uint32_t ring,
-                                               float (&o)[8][4],
-                                               float (&rs)[2]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int nch = (M + KC32 - 1) / KC32, steps = 2 * nch;
-  auto fetch = [&](int st) {
-    if (st < steps) {
-      const int key0 = (st < nch ? st : st - nch) * KC32;
-      const int rows = min(KC32, M - key0);
-      const uint32_t slot = ring + (st % STAGES) * 2 * TILE32;
-      load_tile32(slot, kg + (size_t)key0 * D, rows, rows);
-      if (st >= nch)
-        load_tile32(slot + TILE32, vg + (size_t)key0 * D, rows, rows);
-    }
-    cp_async_commit();  // empty groups keep the count uniform
-  };
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) fetch(st);
+// Chunk c of K and V into its slot of the raw ring, by all threads of the
+// block, as one cp.async group (empty past the last chunk, so the count
+// of groups stays uniform).
+__device__ __forceinline__ void fetch_kv(uint32_t ring, const float* kg,
+                                         const float* vg, int M, int c) {
+  if (c * F32_KC < M) {
+    const int key0 = c * F32_KC, rows = min(F32_KC, M - key0);
+    const uint32_t slot = ring + (c % F32_STAGES) * 2 * F32_TILE;
+    load_tile32(slot, kg + (size_t)key0 * D, rows, rows);
+    load_tile32(slot + F32_TILE, vg + (size_t)key0 * D, rows, rows);
+  }
+  cp_async_commit();
+}
 
-  float mx[2] = {-INFINITY, -INFINITY}, m2[2] = {0.0f, 0.0f};
+// The ring's first F32_STAGES - 1 chunks, before attend32 (which waits
+// for them): the caller's own loads overlap them.
+__device__ __forceinline__ void prefetch_kv(uint32_t ring, const float* kg,
+                                            const float* vg, int M) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  for (int c = 0; c < F32_STAGES - 1; ++c) fetch_kv(ring, kg, vg, M, c);
+}
+
+// The first `rows` keys of a raw chunk (K at slot, V after it) split at
+// sp into K hi and lo (rows as staged, swz32) and Vᵀ hi and lo (row =
+// channel, 16-byte chunk kc = keys 4kc..4kc + 3, swzv). By all threads of
+// the block: 4 channels of a key or 4 keys of a channel each, every
+// access free of bank conflicts.
+__device__ __forceinline__ void split_kv(uint32_t slot, uint32_t sp,
+                                         int rows) {
+  for (int i = threadIdx.x; i < rows * 16; i += blockDim.x) {
+    const uint32_t at = swz32(i >> 4, i & 15);
+    uint4 h, l;
+    split4(lds128(slot + at), h, l);
+    sts128(sp + at, h);
+    sts128(sp + F32_TILE + at, l);
+  }
+  for (int i = threadIdx.x; i < rows * 16; i += blockDim.x) {
+    const int ch = i & (D - 1), kc = i / D;
+    const uint32_t col = slot + F32_TILE + 4 * (ch & 3);
+    float4 x;
+    x.x = lds32(col + swz32(4 * kc, ch >> 2));
+    x.y = lds32(col + swz32(4 * kc + 1, ch >> 2));
+    x.z = lds32(col + swz32(4 * kc + 2, ch >> 2));
+    x.w = lds32(col + swz32(4 * kc + 3, ch >> 2));
+    uint4 h, l;
+    split4(x, h, l);
+    const uint32_t at = swzv(ch, kc);
+    sts128(sp + 2 * F32_TILE + at, h);
+    sts128(sp + 3 * F32_TILE + at, l);
+  }
+}
+
+// One warp's 16 query rows of softmax(q·Kᵀ·scale)·V at fp32 before the
+// divide: o (16 x 64, the accumulator layout: o[n] columns 8n + 2t, + 1)
+// = Σ e·V and rs[h] the row sums of e for rows g + 8h, with e = exp(l −
+// m), m the running row max. qs: the warp's split q rows (stage_q's
+// layout); kg, vg: this batch·head's (M, 64) K and V; sl2 =
+// scale·log2(e); smem: the block's shared memory (the raw ring, then the
+// split chunk), the ring's first chunks issued by prefetch_kv. Called by
+// every thread of the block (it synchronises the block).
+//
+// K and V go through a ring of F32_STAGES raw chunks of F32_KC keys,
+// filled with cp.async by the whole block (the copy of chunk c +
+// F32_STAGES - 1 is in flight while chunk c computes). Per chunk: a
+// barrier, split_kv, a barrier, then steps of F32_KS keys: the logits
+// (per 16 channels: four ldmatrix.x4 of q, hi and lo of two channel
+// steps, then two of K and 6 mma an 8-key tile), the new row max and the
+// factor on the old sums, e = 2^(l·sl2 − m·sl2) (ex2.approx), and P·V
+// (two ldmatrix.x2 and 3 mma 8 keys and 8 channels: one 8-key tile's P at
+// a time keeps the registers within the 168 a thread of 12 warps an SM).
+// A last step shorter than F32_KS (M is a multiple of 16) skips its
+// missing 8-key tiles, their logits −inf.
+__device__ __forceinline__ void attend32(uint32_t qs, const float* kg,
+                                         const float* vg, int M, float sl2,
+                                         uint32_t smem, float (&o)[8][4],
+                                         float (&rs)[2]) {
+  constexpr int NT = F32_KS / 8;  // 8-key tiles a step
+  const int lane = threadIdx.x & 31, l7 = lane & 7, l3 = lane >> 3;
+  const int nch = (M + F32_KC - 1) / F32_KC;
+  const uint32_t sp = smem + F32_RING;  // K hi, K lo, Vᵀ hi, Vᵀ lo
+  // q's ldmatrix rows: l7 + 8 (l3 % 2) at chunk 2kk + l3 / 2 (the four 8 x
+  // 4 blocks of an A fragment); K's: key (l7 / 2) + 4 (l7 % 2) of an
+  // 8-key tile, so that accumulator columns 2t, 2t + 1 are keys t, t + 4,
+  // at chunk 4m + l3 (channel steps 2m and 2m + 1).
+  const uint32_t qrow = qs + (l7 + 8 * (l3 & 1)) * ROW32;
+  const int kr = (l7 >> 1) + 4 * (l7 & 1);
+  float m2[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
   rs[0] = rs[1] = 0.0f;
-  for (int st = 0; st < steps; ++st) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // step st (and the query rows) landed
-    fetch(st + STAGES - 1);
-    const int key0 = (st < nch ? st : st - nch) * KC32;
-    const int nks = min(KC32, M - key0) / 16;
-    const uint32_t ks = ring + (st % STAGES) * 2 * TILE32;
-    for (int k16 = 0; k16 < nks; ++k16) {
-      float s[2][4];
-      dots16_f32(qs, ks, k16 * 16, s);
-      if (st < nch) {
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<F32_STAGES - 2>();
+    __syncthreads();  // chunk c landed; every warp is done with chunk c - 1
+    fetch_kv(smem, kg, vg, M, c + F32_STAGES - 1);
+    const int rows = min(F32_KC, M - c * F32_KC);
+    split_kv(smem + (c % F32_STAGES) * 2 * F32_TILE, sp, rows);
+    __syncthreads();  // the split chunk is ready
+    for (int k0 = 0; k0 < rows; k0 += F32_KS) {
+      const int nv = min(F32_KS, rows - k0) / 8;  // 8-key tiles present
+      // The logits: keys k0 + 8j + t (column 2t) and + 4 (2t + 1), rows
+      // g, g + 8; hi·hi in sh, the small terms in sl.
+      float sh[NT][4], sl[NT][4];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-          mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sh[j][i] = sl[j][i] = 0.0f;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        uint32_t ah[2][4], al[2][4];  // q's channel steps 2m + v
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const uint32_t qa = qrow + (((4 * m + 2 * v + (l3 >> 1)) ^ l7) << 4);
+          ldsm_x4(qa, ah[v]);
+          ldsm_x4(qa + Q32, al[v]);
         }
-        continue;
-      }
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+        for (int j = 0; j < NT; ++j) {
+          if (j < nv) {
+            uint32_t h[4], l[4];  // b0, b1 of channel steps 2m, 2m + 1
+            const uint32_t at =
+                sp + (k0 + 8 * j) * ROW32 + swz32(kr, 4 * m + l3);
+            ldsm_x4(at, h);
+            ldsm_x4(at + F32_TILE, l);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          s[j][2 * h] = ex2(fmaf(s[j][2 * h], sl2, -m2[h]));
-          s[j][2 * h + 1] = ex2(fmaf(s[j][2 * h + 1], sl2, -m2[h]));
-          rs[h] += s[j][2 * h] + s[j][2 * h + 1];
-        }
-      // Keys 8j + 2m + e of the step are lane (g, m)'s s[j][e] (row g)
-      // and s[j][2 + e] (row g + 8).
-      const uint32_t vs = ks + TILE32;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll 1
-        for (int m = 0; m < 4; ++m) {
-          const int src = (lane & ~3) | m;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float p0 = __shfl_sync(FULL_MASK, s[j][e], src);
-            const float p1 = __shfl_sync(FULL_MASK, s[j][2 + e], src);
-            const int key = k16 * 16 + 8 * j + 2 * m + e;
-#pragma unroll
-            for (int c = 0; c < 8; ++c) {
-              const float2 v =
-                  lds64(vs + swz32(key, 2 * c + (t >> 1)) + 8 * (t & 1));
-              o[c][0] = fmaf(p0, v.x, o[c][0]);
-              o[c][1] = fmaf(p0, v.y, o[c][1]);
-              o[c][2] = fmaf(p1, v.x, o[c][2]);
-              o[c][3] = fmaf(p1, v.y, o[c][3]);
+            for (int v = 0; v < 2; ++v) {
+              mma_tf32(sl[j], al[v], h[2 * v], h[2 * v + 1]);
+              mma_tf32(sl[j], ah[v], l[2 * v], l[2 * v + 1]);
+              mma_tf32(sh[j], ah[v], h[2 * v], h[2 * v + 1]);
             }
           }
         }
       }
-    }
-    if (st == nch - 1) {
-      m2[0] = quad_max(mx[0]) * sl2;
-      m2[1] = quad_max(mx[1]) * sl2;
+      float(&s)[NT][4] = sh;  // the logits, hi·hi and the small terms added
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[j][i] = j < nv ? sh[j][i] + sl[j][i] : -INFINITY;
+      // The running max (log2 units; the max of the raw logits, as the
+      // launchers refuse a scale that is not positive) and the factor
+      // 2^(m_old − m_new) on the row's sum and output (0 at the first
+      // step: m2 = −inf).
+      float a[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float cm = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          cm = fmaxf(cm, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+        const float mn = fmaxf(m2[h], quad_max(cm) * sl2);
+        a[h] = ex2(m2[h] - mn);
+        m2[h] = mn;
+        rs[h] *= a[h];
+      }
+      // e, its row sums, and the step's P·V in an accumulator of its own,
+      // added to the rescaled output with one FFMA. Tile u's e is its A
+      // fragment (keys 8u + t, + 4 at columns t, t + 4); 8 keys of Vᵀ's
+      // rows 8n.. (channels) its B fragment, hi and lo.
+      float po[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        po[n][0] = po[n][1] = po[n][2] = po[n][3] = 0.0f;
+#pragma unroll
+      for (int u = 0; u < NT; ++u) {
+        if (u < nv) {
+          float e[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            e[i] = ex2(fmaf(s[u][i], sl2, -m2[i >> 1]));
+          rs[0] += e[0] + e[1];
+          rs[1] += e[2] + e[3];
+          uint32_t ph[4], pl[4];
+          split_unit(e[0], ph[0], pl[0]);
+          split_unit(e[2], ph[1], pl[1]);
+          split_unit(e[1], ph[2], pl[2]);
+          split_unit(e[3], ph[3], pl[3]);
+          const uint32_t vo = sp + 2 * F32_TILE +
+                              swzv(l7, (k0 >> 2) + 2 * u + (l3 & 1));
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            uint32_t h[2], l[2];
+            ldsm_x2(vo + n * 8 * F32_VROW, h);
+            ldsm_x2(vo + n * 8 * F32_VROW + F32_TILE, l);
+            mma_tf32(po[n], pl, h[0], h[1]);
+            mma_tf32(po[n], ph, l[0], l[1]);
+            mma_tf32(po[n], ph, h[0], h[1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          o[n][i] = fmaf(o[n][i], a[i >> 1], po[n][i]);
     }
   }
   rs[0] = quad_sum(rs[0]);
   rs[1] = quad_sum(rs[1]);
   cp_async_wait<0>();
-  __syncthreads();  // the ring is free for the caller
+  __syncthreads();  // the ring and the split chunk are free for the caller
 }
 
 // A warp's 16 x 64 fp32 block o divided by f[h] for rows g + 8h, to rows

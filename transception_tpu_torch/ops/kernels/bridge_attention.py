@@ -36,17 +36,29 @@ chunk shorter than 112 (a multiple of 16) is computed over its whole
 16-key steps. No atomics.
 
 K3 at fp32 (csrc/bridge_attention.cu bridge_attention_f32, the published
-eval protocol's dtype, 3 launches a forward): the same block of 8 warps
-over 128 query rows and the same two passes on the CUDA cores
-(bridge_softmax.cuh softmax_av_f32). Each warp keeps its 16 query rows in
-4 KB of shared memory (128 fp32 a lane would not fit in registers), K and
-V come through the 2-deep ring in 64-key chunks of fp32 (96 KB a block, 2
-blocks an SM where the registers allow), lane (g, t) forms the logits of
-rows g, g + 8 against keys 8j + 2t + e as at bf16 and the quad's shuffles
-hand it the probabilities of all 16 keys of a step for P·V; nothing is
-rounded; exp is ex2.approx (about 2 ulp). Bound: operations, the
-function's 4·B·N·M·d flops at 67 TFLOP/s of FFMA (0.58 ms at b=32; the
-kernel does 6·B·N·M·d: pass 1 forms Q·Kᵀ again).
+eval protocol's dtype and the fp32 train step's, 3 launches a forward):
+bridge_softmax.cuh attend32, fp32-accurate products on the tensor cores
+as 3xTF32 (each operand x split into hi = tf32(x) and lo = tf32(x − hi),
+rounded to nearest, ties away, a NaN kept as NaN; a·b = lo·hi + hi·lo +
+hi·hi in fp32, about 2^-22 relative an operand), in one pass over K and V with an
+online max: the TPU kernel's second pass exists for its bf16 rounding
+of e, the identity at fp32, so the running sum and output are rescaled
+by 2^(m_old − m_new) when a row's max rises (4·B·N·M·d flops, not 6). A
+block of 12 warps over 192 query rows, one block an SM: each warp's q
+split once into its own 8 KB of shared memory; K and V through a 2-deep
+cp.async ring of raw 64-key fp32 chunks, each split once per block into
+K hi and lo and Vᵀ hi and lo (channel-major), so every B fragment is an
+ldmatrix; mma.m16n8k8 with the logits' tile holding keys t, t + 4 where
+P·V's A fragment wants them, so e never leaves the registers. The tensor
+cores' fp32 sums round toward zero: the logits keep hi·hi apart from the
+small terms, and P·V sums each 32-key step apart, both added in fp32.
+exp is ex2.approx; no atomics. The kernel reads nothing of
+torch.backends.cuda.matmul.allow_tf32; its plain version runs fp32 with
+TF32 off (core/device.py fp32_exact). Bound: operations, 4·B·N·M·d
+flops as 3 TF32 products each at 495 TFLOP/s (0.2365 ms at b=32;
+0.5825 ms at 67 TFLOP/s of FFMA, the other fp32 forms' yardstick). Where
+the time goes is in PERF.md; warps, chunk, ring depth and step are
+F32_WARPS, F32_KEY_CHUNK, F32_STAGES and F32_KEY_STEP below.
 
 K10 bound on the H100: operations. Per launch about 10·B·N·M·d flop
 (recomputed logits, dP = G·Vᵀ, T·K, Tᵀ·Q, Eᵀ·G: 7.3e10 at B = 24, 0.074 ms
@@ -104,7 +116,8 @@ residual added in fp32, rounded. In fp32 these are the mirror's
 
 K8 bound on the H100: operations (about 4·B·N·M·d for the attention plus
 4·B·N·C² for the projections, 4.2e10 flops at B = 32, 0.043 ms at the bf16
-peak, against ~81 MB of bf16 traffic, 0.024 ms).
+peak, against ~81 MB of bf16 traffic, 0.024 ms; its fp32 form's 3xTF32
+bound 0.2556 ms, FFMA 0.6300 ms).
 
 K8 design (csrc/bridge_attention_folded.cu): K3's core with the
 projections folded around it. The attention dominates the flops, so K8
@@ -123,6 +136,16 @@ points are the ones above; the row max is taken on the raw logits, so
 ragged last tile of 6076) load as zero and are never stored; the TPU's
 padding of the stream is not carried over. One head of d = 64, as the
 published bridge (bridge_heads 1).
+
+K8 at fp32 (bridge_attention_folded_f32; the fp32 sp and para bridges,
+any fp32 model with bridge_attn_fold): K3's fp32 block with the
+projections as 3xTF32 products too. q = x·Wqᵀ + bq from x's split A
+fragments and Wq (in the room of the split chunk, before the first one)
+goes into the warp's split q rows; attend32; (o / rowsum)·Wpᵀ takes the
+output's accumulators as its A fragment (channels 2t, 2t + 1 at columns
+t, t + 4) against Wp, loaded into the same room after the last chunk;
++ bp, staged in the warp's q rows, + res in fp32. The rounding points
+are the mirror's (bridge_attention.py:79-100).
 """
 
 from __future__ import annotations
@@ -145,11 +168,18 @@ BWD_REPLACES = "transception_tpu/ops/pallas/bridge_attention_kernel.py:190"
 BWD_KEY_TILE = 64  # keys a columns block holds (4 warps of 16 keys)
 BWD_ROW_CHUNK = 64  # query rows a columns block stages at a time
 BWD_BLOCKS_PER_SM = 8  # K10 columns blocks the launch plan aims for per SM
-# K3's fp32 form (csrc/bridge_softmax.cuh KC32, STAGES; 8 warps of 16 query
-# rows in csrc/bridge_attention.cu): keys per staged fp32 K/V chunk.
-F32_KEY_CHUNK = 64
-F32_STAGES = 2
-F32_WARPS = 8
+# K3's and K8's fp32 forms: the 3xTF32 core's block shape, F32_WARPS,
+# F32_KC, F32_STAGES and F32_KS of csrc/bridge_softmax.cuh
+# (tests/test_torch_fp32_kernels.py holds the two equal).
+F32_WARPS = 12  # warps a block, 16 query rows each: one block an SM
+F32_KEY_CHUNK = 64  # keys per staged chunk
+F32_STAGES = 2  # depth of the raw K/V ring
+F32_KEY_STEP = 32  # keys per online-softmax step
+# K10's fp32 form: KC32 and STAGES of csrc/bridge_softmax.cuh, RW of
+# csrc/bridge_attention_bwd.cu.
+BWD_F32_KEY_CHUNK = 64
+BWD_F32_STAGES = 2
+BWD_F32_WARPS = 8
 FOLDED_NAME = "bridge_attention_folded"
 FOLDED_REPLACES = "transception_tpu/ops/pallas/bridge_attention_kernel.py:307"
 launches = 0
@@ -206,12 +236,16 @@ def bridge_attention_bwd_plain(q, k, v, g, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def f32_smem() -> int:
-    """Shared memory of one block of K3's fp32 form: the 2-deep ring of
-    fp32 K and V chunks and each warp's 16 query rows (96 KB: room for 2
-    blocks an SM)."""
-    return (F32_STAGES * 2 * F32_KEY_CHUNK * HEAD_DIM * 4
-            + F32_WARPS * 16 * HEAD_DIM * 4)
+def f32_smem(folded: bool = False) -> int:
+    """Shared memory of a block of K3's fp32 form (F32_SMEM of
+    csrc/bridge_softmax.cuh): the raw ring of fp32 K and V chunks, the
+    chunk split into hi and lo (K, and V transposed) and each warp's split
+    q rows (224 KB at 12 warps: one block an SM). folded: K8's, which adds
+    its two bias vectors (its weights borrow the split chunk's room)."""
+    tile = F32_KEY_CHUNK * HEAD_DIM * 4
+    q = 2 * 16 * HEAD_DIM * 4
+    return (F32_STAGES * 2 * tile + 4 * tile + F32_WARPS * q
+            + (2 * HEAD_DIM * 4 if folded else 0))
 
 
 def bwd_f32_smem() -> tuple:
@@ -220,9 +254,10 @@ def bwd_f32_smem() -> tuple:
     of fp32 K and V chunks and its 8 warps' rows of q and g (128 KB); the
     columns kernel's ring of BWD_ROW_CHUNK rows of fp32 Q and G with their
     statistics and its 4 warps' rows of k and v."""
-    rows = F32_STAGES * 2 * F32_KEY_CHUNK * HEAD_DIM * 4 + \
-        F32_WARPS * 2 * 16 * HEAD_DIM * 4
-    ring = F32_STAGES * (2 * BWD_ROW_CHUNK * HEAD_DIM * 4 + BWD_ROW_CHUNK * 16)
+    rows = BWD_F32_STAGES * 2 * BWD_F32_KEY_CHUNK * HEAD_DIM * 4 + \
+        BWD_F32_WARPS * 2 * 16 * HEAD_DIM * 4
+    ring = BWD_F32_STAGES * (2 * BWD_ROW_CHUNK * HEAD_DIM * 4
+                             + BWD_ROW_CHUNK * 16)
     cols = ring + BWD_KEY_TILE // 16 * 2 * 16 * HEAD_DIM * 4
     return rows, cols
 
