@@ -7,7 +7,7 @@ Phases (any failed check exits non-zero):
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
      the ptxas report (registers, spills) of the kernels redesigned for
      registers and the card's tensor cores, K3, K10, K8, K4, K7 (and the
-     fp32 forms in their libraries, K3's and K8's on the 3xTF32 core) and
+     fp32 forms in their libraries, K3's, K8's and K10's on 3xTF32) and
      every stage of K1, K2, K5, K6, K9 and K11, which must not spill;
   3. each kernel against its plain PyTorch version at every shape the
      serving path gives it in any fold configuration (bf16, batch 32) and
@@ -31,8 +31,8 @@ Phases (any failed check exits non-zero):
      fault, bounds at the fp32 FFMA peak (K3's and K8's, which multiply as
      3xTF32 on the tensor cores, at TF32X3_FLOPS with the FFMA bound
      logged beside), K3 beside SDPA at fp32; the bf16 shapes of phase
-     13's batch-8 forwards; and K3's and K8's fp32 forms with a NaN in
-     an input, which must come out where the plain version's does;
+     13's batch-8 forwards; and K3's, K8's and K10's fp32 forms with a
+     NaN in an input, which must come out where the plain version's does;
   4. the published MSTransception at full width (224², bf16, random
      weights from a seed) through make_predictor(...).predict_volume on a
      synthetic 48-slice 512² volume, batch 32, with launch counters;
@@ -42,7 +42,7 @@ Phases (any failed check exits non-zero):
   6. forward time at batch 32, kernels on and off (same structure);
   7. device busy time and idle share of one forward (torch.profiler), the
      device time of each stage of K1, K2, K5 and K6 and of K4 and K7 by
-     kernel name, and the cudaLaunchKernel calls per forward;
+     kernel name, and the device activities per forward;
      then 5-7 at fp32: the published model at dtype float32 on its fp32
      kernels against its plain path (logits, class maps, launches exactly
      launches_per_forward), forward time and device busy time;
@@ -56,8 +56,10 @@ Phases (any failed check exits non-zero):
      backward is autograd of its plain version (K1, K5-K9), one backward
      through its autograd Function against autograd of the plain version;
      then the same at fp32 (TF32 off): K3, K10, K11 and K2 at every fp32
-     train shape within FP32_TOL, planted faults, bounds at the fp32 peak,
-     K3 and K10 beside SDPA at fp32;
+     train shape within FP32_TOL, planted faults, bounds at the fp32 peak
+     (K3's and K10's, 3xTF32, at TF32X3_FLOPS with the FFMA bound logged
+     beside), K3 and K10 beside SDPA at fp32, and K10 also at ragged
+     shapes (N 300 against M 800 and 240, B·h above 1; held, not rows);
   9. the published MSTransception train step (TrainConfig(): batch 24,
      wide head, SGD + cosine schedule) in three train modes (default,
      ffn_flash_train, and "pallas": use_pallas_train with mhca_ffn_fold
@@ -74,7 +76,8 @@ Phases (any failed check exits non-zero):
      (torch.profiler); then each mode at TransceptionConfig(dtype=
      "float32"): one step on the fp32 kernels against the plain path
      within FP32_LIMITS, launches exactly launches_per_step, planted
-     faults in the fp32 K10, K11 and K9, step time and peak memory;
+     faults in the fp32 K10, K11 and K9, step time and peak memory,
+     device busy time of a step (torch.profiler);
  10. the fold grid: the published model (b=32) under each fold
      configuration of FOLD_GRID, with the launches per forward held to
      models.transception.launches_per_forward (argmax and logits
@@ -142,8 +145,8 @@ import torch
 BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak, FLOP/s
 FP32_FLOPS = 67e12    # H100 SXM fp32 peak outside the tensor cores (FFMA)
 # fp32-accurate products as 3 TF32 products each (3xTF32) on the tensor
-# cores' dense TF32 peak: the bound of K3's and K8's fp32 forms, which
-# multiply so (their FFMA bound at FP32_FLOPS is logged beside it).
+# cores' dense TF32 peak: the bound of K3's, K8's and K10's fp32 forms,
+# which multiply so (their FFMA bound at FP32_FLOPS is logged beside it).
 TF32X3_FLOPS = 495e12 / 3
 # The fp32 kernels against their fp32 plain versions (TF32 off), stated
 # before the first card run: max|kernel - plain| <= FP32_TOL x max|plain|
@@ -938,9 +941,10 @@ def kernel_phase():
 
 
 def nan_checks(gen):
-    """K3's and K8's fp32 forms (3xTF32) with a NaN planted as a CUDA
-    operation makes it (0x7fffffff) in q, k, v, x, Wq or Wp: NaN where the
-    plain version has NaN, the rest within FP32_TOL (K8 on its branch)."""
+    """K3's, K8's and K10's fp32 forms (3xTF32) with a NaN planted as a
+    CUDA operation makes it (0x7fffffff) in q, k, v, x, Wq or Wp (K10: q,
+    k, v or g): NaN where the plain version has NaN, the rest within
+    FP32_TOL (K8 on its branch, K10 per gradient)."""
     from transception_tpu_torch.ops.kernels import bridge_attention as ba
 
     def r(*shape, s=1.0):
@@ -977,6 +981,34 @@ def nan_checks(gen):
             f"within {err:.3g} of max|plain| {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{name}: a NaN does not come out as in the plain version")
+    g = r(2, 1, 300, 64)
+    for which, i, at in (("q row", 0, (0, 0, 5, 3)),
+                         ("k key", 1, (0, 0, 17, 3)),
+                         ("v key", 2, (0, 0, 17, 3)),
+                         ("g row", 3, (0, 0, 5, 3))):
+        args = [q, k, v, g]
+        args[i] = args[i].clone()
+        args[i].view(torch.int32)[at] = 0x7FFFFFFF
+        got = ba.bridge_attention_bwd(*args, 0.125)
+        want = ba.bridge_attention_bwd_plain(*args, 0.125)
+        torch.cuda.synchronize()
+        counts, ok = [], any(bool(w.isnan().any()) for w in want)
+        for a, b in zip(got, want):
+            nan = b.isnan()
+            same = torch.equal(a.isnan(), nan)
+            err = 0.0
+            if same and not nan.all():
+                err = ((a - b)[~nan].abs().max()
+                       / b[~nan].abs().max()).item()
+            counts.append(f"{int(nan.sum())}{'' if same else ' NOT the same'}"
+                          f" ({err:.3g})")
+            ok &= same and err <= FP32_TOL
+        log(f"  NaN in K10 {which} (fp32): NaN dq/dk/dv, the kernel's "
+            f"against the plain version's, the rest's error: "
+            f"{', '.join(counts)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K10 {which}: a NaN does not come out as in the plain "
+                 f"version")
 
 
 def compare_paths(model, x, seed):
@@ -1198,15 +1230,16 @@ def stage_of(name):
 
 
 def profile_device(fn, label):
-    """Device busy time, idle share and the top kernels of one call."""
+    """Device busy time, idle share and the top kernels of one call,
+    from a trace of the device alone (a fraction of a full trace's cost
+    on a train step's ~14k launches)."""
     from collections import Counter
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1229,12 +1262,9 @@ def profile_device(fn, label):
                          "linear_attention_kernel", "rows_kernel",
                          "cols_kernel", "rows32_kernel", "cols32_kernel",
                          "sum_partials"))}
-    launches = sum(1 for e in prof.events()
-                   if e.name.startswith("cudaLaunchKernel"))
     log(f"  {len(kern)} device activities, busy {busy:.3f} ms of "
         f"{wall_ms:.3f} ms wall (idle share {1 - busy / wall_ms:.3f}); "
-        f"port kernels {sum(port.values()):.3f} ms; {launches} "
-        f"cudaLaunchKernel calls")
+        f"port kernels {sum(port.values()):.3f} ms")
     for name, t in by_name.most_common(12):
         log(f"    {t:9.3f} ms  {name[:90]}")
     # Every port kernel by name (K11's stages one by one), then the stages
@@ -1313,9 +1343,9 @@ def train_kernel_phase(measured, dt=torch.bfloat16):
     """Phase 8. K3 and its backward K10, K11 and the grouped K2 at the
     train step's shapes, added to `measured` per kernel and shape key; at
     dt=float32 their fp32 forms, within FP32_TOL of their fp32 plain
-    versions (TF32 off), bounds at FP32_FLOPS (K3's at TF32X3_FLOPS) and
-    K3 and K10 beside SDPA at fp32. The plain backwards' checks run at
-    bf16."""
+    versions (TF32 off), bounds at FP32_FLOPS (K3's and K10's at
+    TF32X3_FLOPS) and K3 and K10 beside SDPA at fp32, K10 also at ragged
+    shapes (held, not rows). The plain backwards' checks run at bf16."""
     from transception_tpu_torch.ops.kernels import (
         bridge_attention as ba,
         mixffn as mf,
@@ -1347,7 +1377,7 @@ def train_kernel_phase(measured, dt=torch.bfloat16):
         lms = cuda_ms(lambda: sdpa(q, k, v, scale=sc))
     nbytes, flops = 2 * B * N * d * es + 2 * B * M * d * es, \
         4 * B * N * M * d
-    k3peak = TF32X3_FLOPS if fp32 else peak  # K3's fp32 form: 3xTF32
+    k3peak = TF32X3_FLOPS if fp32 else peak  # K3's, K10's fp32 forms: 3xTF32
     bms, by = bound_ms(nbytes, flops, k3peak)
     log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms (SDPA) {lms:.4f} "
         f"bound_ms {bms:.4f} ({by}) per launch; {against(ms, bms, lms)}"
@@ -1378,13 +1408,15 @@ def train_kernel_phase(measured, dt=torch.bfloat16):
                                               retain_graph=True))
     nbytes = (3 * N + 4 * M) * d * es * B
     flops = 10 * B * N * M * d
-    bms, by = bound_ms(nbytes, flops, peak)
+    bms, by = bound_ms(nbytes, flops, k3peak)
     log(f"    ms {ms:.4f} plain_ms {pms:.4f} library_ms (SDPA backward) "
         f"{lms:.4f} bound_ms {bms:.4f} ({by}) per launch; "
-        f"{against(ms, bms, lms)}")
-    record(measured, key, label, err, ms, pms, lms, nbytes, flops, peak)
+        f"{against(ms, bms, lms)}{ffma_note(nbytes, flops, k3peak)}")
+    record(measured, key, label, err, ms, pms, lms, nbytes, flops, k3peak)
     if not fp32:
         _folded_train_case(measured, gen, k, v)
+    else:
+        _k10_ragged_fp32(gen, names)
     del q, k, v, g, got, want, bad, leaves, out
 
     # K11 and the grouped K2 at every fold of the flash train step (and,
@@ -1470,6 +1502,37 @@ def train_kernel_phase(measured, dt=torch.bfloat16):
         del x, gy, p, got, want, bad
     if not fp32:
         plain_backward_checks(gen)
+
+
+def _k10_ragged_fp32(gen, names):
+    """K10's fp32 form at ragged shapes: 300 query rows (ragged against
+    the rows kernel's 128-row blocks and the columns kernel's 32-row
+    chunks) against 800 keys (whole 32-key chunks, a last 112-key tile
+    with one warp of keys), 816 keys (a short last 32-key chunk, a last
+    tile with two warps of keys) and 240 keys (both short, B·h 6), each
+    gradient within FP32_TOL of its max, with its planted fault (dk
+    negated); logged, not rows of the kernels line."""
+    from transception_tpu_torch.ops.kernels import bridge_attention as ba
+    for B, h, N, M in ((2, 1, 300, 800), (2, 1, 300, 816),
+                       (3, 2, 300, 240)):
+        q, k, v, g = (rand(gen, (B, h, n, 64)) for n in (N, M, M, N))
+        got = ba.bridge_attention_bwd(q, k, v, g, 0.125)
+        want = ba.bridge_attention_bwd_plain(q, k, v, g, 0.125)
+        torch.cuda.synchronize()
+        err, ok = grads_check("bridge_attention_bwd", got, want, names,
+                              FP32_TOL)
+        log(f"  bridge_attention_bwd q/g ({B},{h},{N},64) k/v "
+            f"({B},{h},{M},64) fp32: max_abs_err {err:.6g} (each of "
+            f"dq/dk/dv within {FP32_TOL} x its max) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("bridge_attention_bwd fp32 disagrees with its plain version "
+                 "at a ragged shape")
+        bad = (want[0], -want[1], want[2])
+        if grads_check("  planted fault (dk negated)", bad, want, names,
+                       FP32_TOL)[1]:
+            fail("bridge_attention_bwd: the check does not see a planted "
+                 "fault")
+        log("    planted fault (dk negated) rejected")
 
 
 def _folded_train_case(measured, gen, k, v):
@@ -1920,8 +1983,9 @@ def fp32_train_phase():
     weights, batch and drop-path masks within FP32_LIMITS, its launches
     exactly launches_per_step; planted faults in the fp32 K10 (every mode),
     K11 (flash) and K9 (pallas) must fail the same check; step time and
-    peak memory, kernels on and off. Returns the launches per shape key
-    of each mode's kernel step."""
+    peak memory, kernels on and off; device busy time of a kernel step
+    (torch.profiler). Returns the launches per shape key of each mode's
+    kernel step."""
     from transception_tpu_torch.data.device_synthetic import (
         DeviceSyntheticStream,
     )
@@ -1988,12 +2052,13 @@ def fp32_train_phase():
                               lim=FP32_LIMITS):
                 fail(f"the fp32 gradient check does not see a planted "
                      f"fault ({what})")
-        k_ms, k_mem, _ = _step_time(model, img, lbl, seed, 3)
+        k_ms, k_mem, kfn = _step_time(model, img, lbl, seed, 3)
         log(f"  fp32 train step b={TRAIN_BATCH} {mode}: kernels {k_ms:.3f} "
             f"ms ({TRAIN_BATCH * 1e3 / k_ms:.1f} img/s), plain {p_ms:.3f} ms "
             f"({TRAIN_BATCH * 1e3 / p_ms:.1f} img/s); peak memory kernels "
             f"{k_mem / 2**30:.2f} GiB, plain {p_mem / 2**30:.2f} GiB")
-        del model, sd0, kern, plain, bad
+        profile_device(lambda: kfn(img, lbl), f"train_fp32_{mode}")
+        del model, sd0, kern, plain, bad, kfn
         torch.cuda.empty_cache()
     return out
 

@@ -58,11 +58,47 @@ def test_key_tiles_cover_keys(bh, n, m, sms):
 
 
 @pytest.mark.parametrize("name,const", [("RC", "BWD_ROW_CHUNK"),
-                                        ("KT", "BWD_KEY_TILE")])
+                                        ("KT", "BWD_KEY_TILE"),
+                                        ("RC3", "BWD_F32_ROW_CHUNK"),
+                                        ("KT3", "BWD_F32_KEY_TILE")])
 def test_plan_tiling_matches_cuda_source(name, const):
     found = re.findall(rf"constexpr int {name} = (\d+);",
                        BWD_SOURCE.read_text())
     assert found == [str(getattr(ba, const))]
+
+
+@pytest.mark.parametrize("bh,n,m,sms", SHAPES)
+def test_fp32_segments_cover_rows_in_whole_chunks(bh, n, m, sms):
+    """The fp32 form's plan: whole BWD_F32_ROW_CHUNK-row chunks that cover
+    N exactly, none empty."""
+    nseg, seg_rows = ba.bwd_plan(bh, n, m, sms, fp32=True)
+    assert nseg >= 1 and seg_rows % ba.BWD_F32_ROW_CHUNK == 0
+    bounds = _segments(n, nseg, seg_rows)
+    assert all(lo < hi for lo, hi in bounds)
+    assert [r for lo, hi in bounds for r in range(lo, hi)] == list(range(n))
+
+
+@pytest.mark.parametrize("bh,n,m,sms", SHAPES)
+def test_fp32_key_tiles_cover_keys(bh, n, m, sms):
+    """The fp32 columns kernel's ceil(M / BWD_F32_KEY_TILE) tiles of 16-key
+    warps cover the M keys, each warp wholly inside M or past it."""
+    kt = ba.BWD_F32_KEY_TILE
+    assert kt % 16 == 0 and 16 <= kt <= 16 * 8
+    tiles = -(-m // kt)
+    assert (tiles - 1) * kt < m <= tiles * kt
+    assert all(w + 16 <= m or w >= m for w in range(0, tiles * kt, 16))
+
+
+def test_plans_pinned():
+    """Both plans at the published train step (b=24) and forward (b=32)
+    on an H100 SXM: bf16 4 segments of 1536 rows (64-row chunks, 64-key
+    tiles: 13 x 4 x 24 = 1248 blocks, 8 an SM); fp32 7 of 896 (32-row
+    chunks, 112-key tiles: 7 x 7 x 24 = 1176 blocks, one an SM at a time)."""
+    assert ba.bwd_plan(24, 6076, 784, 132) == (4, 1536)
+    assert ba.bwd_plan(24, 6076, 784, 132, fp32=True) == (7, 896)
+    assert ba.bwd_plan(32, 6076, 784, 132) == (3, 2048)
+    assert ba.bwd_plan(32, 6076, 784, 132, fp32=True) == (5, 1216)
+    assert ba.bwd_plan(2, 300, 800, 132, fp32=True) == (10, 32)
 
 
 def test_published_step_fills_the_card():

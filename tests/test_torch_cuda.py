@@ -12,7 +12,7 @@ add their input back are held on the branch alone (output minus input).
 The backward kernels (K10, K11) are held per gradient, each within 2% of
 its own max: they round their tensor-core operands to bf16 (as the
 forwards do) and sum their per-block partials in another order than the
-plain versions. So are the plain backwards of K1 and K5-K9 (autograd of
+plain versions; K10's fp32 form (3xTF32) within 1e-4. So are the plain backwards of K1 and K5-K9 (autograd of
 the plain version through the kernels' autograd Function) against
 autograd of the plain version itself.
 """
@@ -121,9 +121,10 @@ BRIDGE_SHAPES = [(2, 1, 124, 16), (2, 1, 6076, 784), (2, 1, 300, 128),
                  (2, 1, 300, 800), (1, 2, 6076, 48), (2, 2, 600, 96)]
 
 
-def _bridge_inputs(gen, B, h, N, M):
-    return tuple(_r(gen, B, h, n, 64, dtype=torch.bfloat16)
-                 for n in (N, M, M, N))
+def _bridge_inputs(gen, B, h, N, M, dtype=torch.bfloat16):
+    """q, k, v, g drawn at `dtype` (fp32 draws carry all 24 bits: a bf16
+    value has no lo part for a 3xTF32 split)."""
+    return tuple(_r(gen, B, h, n, 64, dtype=dtype) for n in (N, M, M, N))
 
 
 @pytest.mark.parametrize("B,h,N,M", BRIDGE_SHAPES)
@@ -379,30 +380,59 @@ def test_tiny_model_uses_every_kernel(gen, folds):
                           "mixffn_skip": 0}
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
 @pytest.mark.parametrize("B,h,N,M", BRIDGE_SHAPES)
-def test_bridge_attention_bwd_kernel(gen, B, h, N, M):
-    q, k, v, g = _bridge_inputs(gen, B, h, N, M)
+def test_bridge_attention_bwd_kernel(gen, B, h, N, M, dtype):
+    """K10 per gradient against its plain version: bf16 within 2% of each
+    gradient's max; its fp32 form (3xTF32 on the tensor cores; the fp32
+    plain version with TF32 off by default) within 1e-4, at ragged query
+    chunks, short last key chunks and key tiles past M."""
+    q, k, v, g = _bridge_inputs(gen, B, h, N, M, dtype)
     n0 = ba.bwd_launches
     got = ba.bridge_attention_bwd(q, k, v, g, 0.125)
     want = ba.bridge_attention_bwd_plain(q, k, v, g, 0.125)
     assert ba.bwd_launches == n0 + 1
     for a, b in zip(got, want):
-        assert a.dtype == b.dtype == torch.bfloat16
-        _close(a, b)
+        assert a.dtype == b.dtype == dtype
+        _close(a, b, rel=1e-4 if dtype == torch.float32 else 0.02)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
 @pytest.mark.parametrize("B,h,N,M", [(2, 1, 60, 784), (3, 2, 124, 240),
                                      (24, 1, 6076, 784)])
-def test_bridge_attention_kernels_repeat_bit_identical(gen, B, h, N, M):
-    """No atomics in K3 or K10 (K10 with one row segment at the first
-    shape, with several at the others, bwd_plan): two launches on the same
-    inputs give the same bits."""
-    q, k, v, g = _bridge_inputs(gen, B, h, N, M)
+def test_bridge_attention_kernels_repeat_bit_identical(gen, B, h, N, M,
+                                                       dtype):
+    """No atomics in K3 or K10, at either dtype (K10 with one row segment
+    at the first shape, with several at the others, bwd_plan): two
+    launches on the same inputs give the same bits."""
+    q, k, v, g = _bridge_inputs(gen, B, h, N, M, dtype)
     assert torch.equal(ba.bridge_attention(q, k, v, 0.125),
                        ba.bridge_attention(q, k, v, 0.125))
     one = ba.bridge_attention_bwd(q, k, v, g, 0.125)
     two = ba.bridge_attention_bwd(q, k, v, g, 0.125)
     assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "g"])
+def test_bridge_attention_bwd_f32_nan_as_plain(gen, which):
+    """A NaN in q, k, v or g reaches K10's fp32 gradients where it reaches
+    the plain version's (every split keeps NaNs, E/S and T·s/S too); the
+    rest within 1e-4 of each gradient's max|plain|."""
+    q, k, v, g = (_r(gen, 2, 1, n, 64) for n in (300, 784, 784, 300))
+    # The NaN a CUDA operation produces, 0x7fffffff.
+    at = {"q": q[0, 0, 5], "k": k[0, 0, 17], "v": v[0, 0, 17],
+          "g": g[0, 0, 5]}[which]
+    at.view(torch.int32)[3] = 0x7FFFFFFF
+    got = ba.bridge_attention_bwd(q, k, v, g, 0.125)
+    want = ba.bridge_attention_bwd_plain(q, k, v, g, 0.125)
+    assert any(b.isnan().any() for b in want)
+    for a, b in zip(got, want):
+        nan = b.isnan()
+        assert torch.equal(a.isnan(), nan)
+        if not nan.all():
+            _close(a[~nan], b[~nan], rel=1e-4)
 
 
 @pytest.mark.parametrize("N,M", [(300, 800), (6076, 784)])

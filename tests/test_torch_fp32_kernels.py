@@ -384,24 +384,23 @@ def test_k9_fp32_train_plan(s, C):
 
 
 def test_k10_fp32_smem():
-    """Shared memory of K10's fp32 blocks from the constants it mirrors
-    (csrc/bridge_attention_bwd.cu RW, CW, RC and bridge_softmax.cuh
-    KC32, STAGES): the rows block within a block's limit, the columns
-    block within two an SM."""
+    """Shared memory of K10's fp32 blocks (3xTF32) from the constants it
+    mirrors (csrc/bridge_attention_bwd.cu RW, KC3, RC3, KT3 and
+    bridge_softmax.cuh STAGES): the rows block 208 KB, the columns block
+    209 KB, each within a block's limit (one block an SM)."""
     src = (CSRC / "bridge_attention_bwd.cu").read_text()
     consts = {k: re.findall(rf"constexpr int {k} = (\d+);", src)
-              for k in ("RW", "RC", "KT")}
+              for k in ("RW", "KC3", "RC3", "KT3")}
     assert consts == {"RW": [str(ba.BWD_F32_WARPS)],
-                      "RC": [str(ba.BWD_ROW_CHUNK)],
-                      "KT": [str(ba.BWD_KEY_TILE)]}
+                      "KC3": [str(ba.BWD_F32_KEY_CHUNK)],
+                      "RC3": [str(ba.BWD_F32_ROW_CHUNK)],
+                      "KT3": [str(ba.BWD_F32_KEY_TILE)]}
     hdr = (CSRC / "bridge_softmax.cuh").read_text()
-    assert re.findall(r"constexpr int KC32 = (\d+);", hdr) == [
-        str(ba.BWD_F32_KEY_CHUNK)]
     assert re.findall(r"constexpr int STAGES = (\d+);", hdr) == [
         str(ba.BWD_F32_STAGES)]
     rows, cols = ba.bwd_f32_smem()
-    assert rows == 128 * 1024 and rows <= mf.SMEM_LIMIT
-    assert cols <= mf.SMEM_LIMIT // 2
+    assert (rows, cols) == (208 * 1024, 209 * 1024)
+    assert max(rows, cols) <= mf.SMEM_LIMIT
     assert "RSMEM32" in src and "CSMEM32" in src
 
 

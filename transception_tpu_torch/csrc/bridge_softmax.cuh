@@ -354,13 +354,9 @@ __device__ __forceinline__ void ffma_step(uint32_t sa, uint32_t sb, int wm,
 // Rows of 64 fp32 (256 bytes), 16-byte chunk c (0..15) of row r at chunk
 // c ^ (r % 8) (the XOR keeps each half of the row in place): the 8 rows a
 // quad-strided load or an ldmatrix 8 x 8 matrix touches fall in 8
-// different bank groups. K10's fp32 form stages K and V through the
-// 2-deep ring in chunks of KC32 keys (16 KB a tile) and a warp's 16 rows
-// in Q32 bytes; the 3xTF32 core below stages the same rows.
+// different bank groups. A warp's 16 rows take Q32 bytes; the 3xTF32
+// core below and K10's fp32 form stage their rows this way.
 constexpr int ROW32 = D * 4;
-constexpr int KC32 = 64;                     // K10: keys per staged chunk
-constexpr int TILE32 = KC32 * ROW32;
-constexpr int RING32 = STAGES * 2 * TILE32;  // K + V per stage
 constexpr int Q32 = 16 * ROW32;              // a warp's rows
 
 __device__ __forceinline__ uint32_t swz32(int r, int c) {

@@ -89,18 +89,31 @@ dV and dK, with fp32 accumulation; the JAX backward is fp32 throughout.
 
 K10 at fp32 (csrc/bridge_attention_bwd.cu bridge_attention_bwd_f32, the
 fp32 train step's, 3 launches a step): the same rows and columns kernels,
-statistics, launch plan and fixed-order sum of the segments' partials,
-with nothing rounded: E/S and T·s/S enter their products in fp32. The
-products run on the CUDA cores (FFMA), with both operands in shared
-memory as in K3's fp32 form: a warp's 16 rows of q and g (rows kernel) or
-of k and v (columns kernel) in 8 KB of its own, 64-key fp32 chunks of K
-and V (rows) or 64-row chunks of Q, G and the statistics (columns)
-through the 2-deep ring (128 KB a rows block, 98 KB a columns block);
-lane (g, t) forms the dots of rows g, g + 8 with the ring's rows 8j + 2t +
-e as K3's fp32 logits do, and the quad's shuffles hand each lane the 16
-values a row needs for the product with the ring's rows. exp is
-ex2.approx. Bound: operations, 10·B·N·M·d at 67 TFLOP/s of FFMA (1.09 ms
-at b=24; the kernels do 9 products of 2·B·N·M·d, 1.3x the function's).
+statistics and fixed-order sum of the segments' partials, with nothing
+rounded to a narrower type, every product 3xTF32 on the tensor cores as
+in K3's fp32 form (bridge_softmax.cuh's split, mma.m16n8k8 at TF32; lo·hi
++ hi·lo + hi·hi in fp32). A warp's own 16 rows (rows kernel: q and g;
+columns kernel: k and v) are split into hi and lo once, into its own 16
+KB of shared memory, and read as A fragments (the rows kernel holds q's
+and g's hi fragments in registers); each chunk of the other side comes
+through a 2-deep cp.async ring and is split once a block, each value
+once, as rows (the B operand of L = Q·Kᵀ and dP = G·Vᵀ, or of Lᵀ = K·Qᵀ
+and dPᵀ = V·Gᵀ) and transposed (Kᵀ for T·K; Gᵀ and Qᵀ for (E/S)ᵀ·G and
+(T·s/S)ᵀ·Q).
+The logit tiles read their B rows so that an accumulator's columns 2t,
+2t + 1 are the tile's rows t, t + 4, where the next product's A fragment
+holds them: T, E/S and T·s/S are split in registers and never reach
+shared memory. The tensor cores' fp32 sums round toward zero, so the
+logits and dP keep hi·hi apart from the small terms, and the three
+second products are summed a chunk apart and added into fp32 totals. The
+split is cvt.rna everywhere, so NaNs reach the gradients as in the plain
+version. Shared memory sets the chunks (BWD_F32_*, one block an SM): 32
+keys a chunk and 8 warps in the rows kernel (208 KB); 32 query rows a
+chunk and 112 keys (7 warps) a block in the columns kernel (209 KB), so
+`bwd_plan(..., fp32=True)` cuts the rows in 32-row chunks. exp is
+ex2.approx. Bound: operations, 10·B·N·M·d flops as 3 TF32 products each
+at 495 TFLOP/s (0.4434 ms at b=24; 1.09 ms at 67 TFLOP/s of FFMA); the
+kernels do 9 products of 2·B·N·M·d, 1.8x the function's.
 
 K8 replaces bridge_attention_kernel.py:307 `bridge_attention_folded`
 (pallas_call at :332): res + proj(MHA(x·Wq + bq)) with x the post-norm1
@@ -175,11 +188,14 @@ F32_WARPS = 12  # warps a block, 16 query rows each: one block an SM
 F32_KEY_CHUNK = 64  # keys per staged chunk
 F32_STAGES = 2  # depth of the raw K/V ring
 F32_KEY_STEP = 32  # keys per online-softmax step
-# K10's fp32 form: KC32 and STAGES of csrc/bridge_softmax.cuh, RW of
-# csrc/bridge_attention_bwd.cu.
-BWD_F32_KEY_CHUNK = 64
-BWD_F32_STAGES = 2
-BWD_F32_WARPS = 8
+# K10's fp32 form: KC3, RW, RC3 and KT3 of csrc/bridge_attention_bwd.cu,
+# STAGES of csrc/bridge_softmax.cuh (tests/test_torch_fp32_kernels.py and
+# tests/test_torch_bridge_plan.py hold them equal).
+BWD_F32_KEY_CHUNK = 32  # keys a rows block stages at a time
+BWD_F32_STAGES = 2  # depth of the raw rings
+BWD_F32_WARPS = 8  # warps of the rows kernel, 16 query rows each
+BWD_F32_ROW_CHUNK = 32  # query rows a columns block stages at a time
+BWD_F32_KEY_TILE = 112  # keys a columns block holds (7 warps of 16 keys)
 FOLDED_NAME = "bridge_attention_folded"
 FOLDED_REPLACES = "transception_tpu/ops/pallas/bridge_attention_kernel.py:307"
 launches = 0
@@ -250,15 +266,17 @@ def f32_smem(folded: bool = False) -> int:
 
 def bwd_f32_smem() -> tuple:
     """Shared memory of a block of K10's fp32 form (mirrors RSMEM32 and
-    CSMEM32 of csrc/bridge_attention_bwd.cu): the rows kernel's 2-deep ring
-    of fp32 K and V chunks and its 8 warps' rows of q and g (128 KB); the
-    columns kernel's ring of BWD_ROW_CHUNK rows of fp32 Q and G with their
-    statistics and its 4 warps' rows of k and v."""
-    rows = BWD_F32_STAGES * 2 * BWD_F32_KEY_CHUNK * HEAD_DIM * 4 + \
-        BWD_F32_WARPS * 2 * 16 * HEAD_DIM * 4
-    ring = BWD_F32_STAGES * (2 * BWD_ROW_CHUNK * HEAD_DIM * 4
-                             + BWD_ROW_CHUNK * 16)
-    cols = ring + BWD_KEY_TILE // 16 * 2 * 16 * HEAD_DIM * 4
+    CSMEM32 of csrc/bridge_attention_bwd.cu): the rows kernel's ring of
+    raw K and V chunks, the chunk split (K and V rows, Kᵀ; hi and lo) and
+    its warps' split q and g rows (208 KB); the columns kernel's ring of
+    raw Q and G chunks with their statistics, the chunk split (Q and G
+    rows, Qᵀ and Gᵀ) and its warps' split k and v rows (209 KB)."""
+    kc = BWD_F32_KEY_CHUNK * HEAD_DIM * 4  # a chunk of K, or Kᵀ
+    rc = BWD_F32_ROW_CHUNK * HEAD_DIM * 4  # a chunk of Q, or Qᵀ
+    warp = 4 * 16 * HEAD_DIM * 4  # two blocks of 16 rows, hi and lo
+    rows = BWD_F32_STAGES * 2 * kc + 6 * kc + BWD_F32_WARPS * warp
+    cols = BWD_F32_STAGES * (2 * rc + BWD_F32_ROW_CHUNK * 16) + 8 * rc \
+        + BWD_F32_KEY_TILE // 16 * warp
     return rows, cols
 
 
@@ -285,19 +303,23 @@ def _launch(q, k, v, scale):
     return out
 
 
-def bwd_plan(bh: int, n: int, m: int, sms: int):
+def bwd_plan(bh: int, n: int, m: int, sms: int, fp32: bool = False):
     """Launch plan of K10's columns kernel for bh batch·heads, n query rows
     and m keys on a card of `sms` SMs: (nseg, seg_rows). The kernel's
     grid has a block per BWD_KEY_TILE keys, per row segment and per
     batch·head; the query rows are cut into nseg segments of seg_rows
     rows, whole BWD_ROW_CHUNK-row chunks and none empty, so that the grid
     has BWD_BLOCKS_PER_SM blocks per SM or as many segments as there are
-    chunks. The segments' fp32 partials are added in a fixed order."""
-    tiles = -(-m // BWD_KEY_TILE)
-    chunks = -(-n // BWD_ROW_CHUNK)
+    chunks. fp32: the fp32 form's BWD_F32_KEY_TILE and BWD_F32_ROW_CHUNK
+    (one block an SM: the grid then runs in about BWD_BLOCKS_PER_SM
+    waves). The segments' fp32 partials are added in a fixed order."""
+    key_tile, row_chunk = ((BWD_F32_KEY_TILE, BWD_F32_ROW_CHUNK) if fp32
+                           else (BWD_KEY_TILE, BWD_ROW_CHUNK))
+    tiles = -(-m // key_tile)
+    chunks = -(-n // row_chunk)
     want = -(-BWD_BLOCKS_PER_SM * sms // (tiles * bh))
     per = -(-chunks // max(1, min(chunks, want)))
-    return -(-chunks // per), per * BWD_ROW_CHUNK
+    return -(-chunks // per), per * row_chunk
 
 
 def bridge_attention_bwd(q, k, v, g, scale: float):
@@ -321,7 +343,8 @@ def _launch_bwd(q, k, v, g, scale):
     M = k.shape[2]
     nseg, seg_rows = bwd_plan(
         B * h, N, M,
-        torch.cuda.get_device_properties(q.device).multi_processor_count)
+        torch.cuda.get_device_properties(q.device).multi_processor_count,
+        fp32=q.dtype == torch.float32)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     f32 = dict(device=q.device, dtype=torch.float32)
     stats = torch.empty(B * h, N, 4, **f32)
