@@ -1,4 +1,5 @@
-"""GPU smoke run of the PyTorch port (transception_tpu_torch) on one card.
+"""GPU smoke run of the PyTorch port (transception_tpu_torch) on one card
+(phase 14 also spawns ranks on every other visible card).
 
     python3 chip_smoke.py
 
@@ -98,8 +99,9 @@ Phases (any failed check exits non-zero):
      launches per chunk held to launches_per_forward, finite means); fp16
      with the kernels on, which must raise before any work, naming --dtype
      float32, --dtype bfloat16 and --no_pallas;
- 12. the train CLI (cli.train.main in-process, its defaults: bf16, the
-     published model, b=24, augment, 4 loader threads) on Synapse-format
+ 12. the train CLI (cli.train.main in-process at --dp_size 1, else its
+     defaults: bf16, the published model, b=24, augment, 4 loader
+     threads) on Synapse-format
      .npz slices of 512² written for the run: log lines, a checkpoint, the
      end-of-run eval on one small synthetic volume (finite dice/HD95,
      per-class lines), results.tsv, launches per step and per eval chunk exact; a
@@ -116,10 +118,21 @@ Phases (any failed check exits non-zero):
      for each other IFF mode, each token MLP and no bridge, held the same
      way; cli.test.main with --have_bridge sp at its fp32 default on one
      64² synthetic volume (every K8 call the fp32 kernel, none its plain
-     version); cli.train.main --model mstransception_para for 2 steps with
-     its end-of-run eval on that volume.
-Every launch of the main-path runs (phases 4, 5-7 at fp32, 9, 10, 11, 12
-and 13) is tallied by shape (ops.kernels.shape_counts); each shape must have
+     version); cli.train.main --model mstransception_para --dp_size 1 for
+     2 steps with its end-of-run eval on that volume.
+ 14. data parallelism (parallel.mesh): a process group over NCCL of
+     torch.cuda.device_count() ranks (forced at one rank on a one-card
+     machine); one b=24 step through the data-parallel Trainer in bf16
+     default, bf16 ffn_flash_train and fp32 default against the
+     one-process Trainer's step (phase 9's limits, launches exactly
+     launches_per_step, bit equality logged; ms a step, DP and one
+     process, CUDA events over DP_TIME_STEPS); the test CLI's
+     slice-sharded eval against --dp_size 1 (means, per-case lines, class
+     maps);
+     --dp_size beyond the cards refused; with two cards or more, the same
+     at world 2 (and at every card) in spawned ranks.
+Every launch of the main-path runs (phases 4, 5-7 at fp32, 9, 10, 11, 12,
+13 and 14) is tallied by shape (ops.kernels.shape_counts); each shape must have
 been measured in phase 3 or 8. The last line is {"ok": true, "device": {...}}; the two
 lines before it list each kernel at each shape (one row per shape) with
 its launches in those runs, its error and its per-launch times and bound,
@@ -2483,7 +2496,8 @@ def loader_step_profile(root, dtype, warm=1, steps=5, profiled=1):
 
 
 def cli_phase():
-    """Phase 12. The train CLI (cli.train.main, in-process) at its
+    """Phase 12. The train CLI (cli.train.main, in-process at --dp_size
+    1, whose default would start a rank on every visible card) at its
     defaults: bf16, the published TransceptionConfig() at 224², b=24,
     augment on, 4 loader threads, on Synapse-format .npz slices of 512²
     written for the run, with the in-training eval on one small synthetic
@@ -2528,7 +2542,7 @@ def cli_phase():
         out = root / "out"
         argv = ["--dataset", "Synapse", "--root_path", str(root / "npz"),
                 "--list_dir", str(root / "lists"), "--num_workers", "4",
-                "--output_dir", str(out)]
+                "--output_dir", str(out), "--dp_size", "1"]
         for n_steps, extra in ((CLI_STEPS, []),
                                (CLI_STEPS + 1, ["--profile"])):
             t0 = time.perf_counter()
@@ -2587,7 +2601,8 @@ def cli_phase():
             kernels.reset_launches()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
-                got = cli.main(["--throughput", "--dtype", dtype])
+                got = cli.main(["--throughput", "--dtype", dtype,
+                                "--dp_size", "1"])
             torch.cuda.synchronize()
             line = buf.getvalue().strip().splitlines()[-1]
             log(f"  cli.train --throughput --dtype {dtype}: {line} "
@@ -2843,7 +2858,7 @@ def variants_phase():
             st, hist = train_cli.main([
                 "--model", "mstransception_para", "--dataset", "synthetic",
                 "--device_data", "--max_steps", str(CLI_STEPS),
-                "--output_dir", str(out)])
+                "--dp_size", "1", "--output_dir", str(out)])
             torch.cuda.synchronize()
             counts, tallies = kernels.launch_counts(), kernels.shape_counts()
         losses = _logged_losses((out / "log.txt").read_text())
@@ -2865,6 +2880,276 @@ def variants_phase():
         del st
         torch.cuda.empty_cache()
     return runs
+
+
+# ---- phase 14: data parallelism on the card ----
+
+# One b=24 step each through the data-parallel Trainer: (label,
+# TransceptionConfig overrides, the limits of phase 9 for its dtype).
+DP_MODES = (("bf16 default", {}, BF16_LIMITS),
+            ("bf16 flash", dict(ffn_flash_train=True), BF16_LIMITS),
+            ("fp32 default", dict(dtype="float32"), FP32_LIMITS))
+DP_EVAL_HW = 64       # the test CLI's one synthetic volume
+
+
+def _dp_trainer(overrides, out, mesh=None):
+    """A Trainer of the published model (TrainConfig(): b=24, wide head;
+    weights from its seed) on `mesh` (None: the one-process Trainer)."""
+    from transception_tpu_torch.core.config import (
+        DataConfig,
+        TrainConfig,
+        TransceptionConfig,
+    )
+    from transception_tpu_torch.parallel.mesh import DataMesh
+    from transception_tpu_torch.train.trainer import Trainer
+    if mesh is None:
+        mesh = DataMesh(0, 1, torch.device("cuda", 0))
+    return Trainer(TransceptionConfig(**overrides),
+                   TrainConfig(output_dir=str(out)),
+                   DataConfig(dataset="synthetic"), device="cuda",
+                   mesh=mesh)
+
+
+DP_TIME_STEPS = 3     # steps timed after the compared one (CUDA events)
+
+
+def _dp_step(tr, img, lbl):
+    """One Trainer step on this rank's rows of the global batch: (the
+    global loss, gradients, buffers) on the host, as _one_step gives
+    them, and the ms of a step over DP_TIME_STEPS more (the weights move
+    on; the result is taken first)."""
+    _, step = tr.init_state(2211 // TRAIN_BATCH)
+    rows = tr.mesh.rows(img.shape[0])
+    met = step(img[rows], lbl[rows])
+    torch.cuda.synchronize()
+    m = tr.model
+    res = (float(met["loss"]),
+           {n: p.grad.float().cpu() for n, p in m.named_parameters()},
+           {n: b.float().cpu() for n, b in m.named_buffers()})
+    return res, cuda_ms(lambda: step(img[rows], lbl[rows]),
+                        iters=DP_TIME_STEPS, warmup=0)
+
+
+def _bits_equal(a, b):
+    """Leaves of (loss, grads, buffers) a and b with the same bits."""
+    same = sum(torch.equal(x, b[1][n]) for n, x in a[1].items()) + sum(
+        torch.equal(x, b[2][n]) for n, x in a[2].items())
+    return a[0] == b[0], same, len(a[1]) + len(a[2])
+
+
+def _dp_volume():
+    from transception_tpu_torch.data.synapse import SyntheticVolumeDataset
+    return SyntheticVolumeDataset(length=1, hw=DP_EVAL_HW)
+
+
+def _dp_test_cli(dp, weights, out, read=True):
+    """cli.test.main --dp_size dp at its fp32 default on one synthetic
+    volume of DP_EVAL_HW² (--is_savenii): (means, and where `read` the
+    per-case and mean log lines and the saved class maps)."""
+    import re
+
+    from transception_tpu_torch.cli import test as test_cli
+    from transception_tpu_torch.data import synapse
+    from transception_tpu_torch.eval.nifti import load_nifti
+    real = synapse.make_test_dataset
+    synapse.make_test_dataset = lambda cfg: _dp_volume()
+    try:
+        means = test_cli.main(["--dataset", "synthetic", "--dp_size",
+                               str(dp), "--weight_pth", str(weights),
+                               "--output_dir", str(out), "--is_savenii"])
+        torch.cuda.synchronize()
+    finally:
+        synapse.make_test_dataset = real
+    lines, pred = None, None
+    if read:
+        lines = re.findall(r"\] (idx .*|Mean class .*|Testing .*)",
+                           (out / "test_log" / "eval.txt").read_text())
+        pred = load_nifti(str(out / "predictions" /
+                              "synthetic_vol_0_pred.nii.gz"))[0]
+    return means, lines, pred
+
+
+def _dp_rank(out_dir, weights):
+    """One rank of phase 14's multi-card run (spawned; the group from its
+    environment): the DP_MODES steps on its rows, saved for the parent,
+    and its share of the test CLI's sharded eval."""
+    from transception_tpu_torch.data.device_synthetic import (
+        DeviceSyntheticStream,
+    )
+    from transception_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(int(os.environ["WORLD_SIZE"]), device="cuda")
+    out = Path(out_dir)
+    batch = DeviceSyntheticStream(TRAIN_BATCH, 224, 9,
+                                  device=mesh.device).batch(0)
+    for label, over, _ in DP_MODES:
+        tr = _dp_trainer(over, out / f"r{mesh.rank}", mesh)
+        res, ms = _dp_step(tr, batch["image"], batch["label"])
+        torch.save(res, out / f"rank{mesh.rank}_{label}.pt")
+        if mesh.is_main:
+            print(f"  DP {label} world {mesh.world}: {ms:.1f} ms a step "
+                  f"(rank 0, {TRAIN_BATCH // mesh.world} rows)", flush=True)
+        del tr
+        torch.cuda.empty_cache()
+    res = _dp_test_cli(mesh.world, weights, out / "cli", mesh.is_main)
+    torch.save(res, out / f"rank{mesh.rank}_cli.pt")
+    mesh.close()
+
+
+def dp_phase():
+    """Phase 14. Data parallelism (parallel.mesh) on the card: a process
+    group over NCCL of torch.cuda.device_count() ranks, forced at one rank
+    where the machine has one card. One b=24 step through the data-parallel
+    Trainer (DistributedDataParallel, global-batch BatchNorm and Dice) in
+    each of DP_MODES against the one-process Trainer's step from the same
+    weights on the same batch (loss, every gradient leaf, BatchNorm stats
+    within phase 9's limits; launches exactly launches_per_step; whether
+    the bits are equal is logged; the ms of a step of each, CUDA events
+    over DP_TIME_STEPS more steps); the test CLI's slice-sharded eval
+    (with the group up) against --dp_size 1 (means, per-case lines, class
+    maps); --dp_size beyond the cards refused before any work. With two
+    cards or more, the same steps and eval at world 2 (spawned ranks, a
+    card each): rank 0 against the one-process step, rank 1's bits equal
+    to rank 0's. Returns the runs' launches per shape key."""
+    import shutil
+
+    from transception_tpu_torch.cli import train as train_cli
+    from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.data.device_synthetic import (
+        DeviceSyntheticStream,
+    )
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_forward,
+        launches_per_step,
+    )
+    from transception_tpu_torch.ops import kernels
+    from transception_tpu_torch.parallel.mesh import make_mesh, spawn
+
+    cards = torch.cuda.device_count()
+    out = OUT_DIR / "dp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    batch = DeviceSyntheticStream(TRAIN_BATCH, 224, 9, device="cuda").batch(0)
+    img, lbl = batch["image"], batch["label"]
+    refs, one_ms = {}, {}
+    for label, over, _ in DP_MODES:
+        tr = _dp_trainer(over, out / "one")
+        refs[label], one_ms[label] = _dp_step(tr, img, lbl)
+        del tr
+        torch.cuda.empty_cache()
+    weights = out / "w.pth"
+    torch.save(MSTransception(TransceptionConfig(dtype="float32"), "cuda",
+                              seed=0).state_dict(), weights)
+    one_cli = _dp_test_cli(1, weights, out / "cli_one")
+
+    runs = []
+    mesh = make_mesh(cards, device="cuda", force=True) if cards == 1 \
+        else None
+    if mesh is not None:
+        log(f"  process group: NCCL, world {mesh.world} (forced: "
+            f"{cards} card)")
+        try:
+            for label, over, lim in DP_MODES:
+                tr = _dp_trainer(over, out / "dp", mesh)
+                want = launches_per_step(tr.model.cfg)
+                kernels.reset_launches()
+                got, ms = _dp_step(tr, img, lbl)
+                counts = kernels.launch_counts()
+                runs.append((f"per DP {label} train step",
+                             kernels.shape_counts(), 1 + DP_TIME_STEPS))
+                want = {k: n * (1 + DP_TIME_STEPS) for k, n in want.items()}
+                if counts != want:
+                    fail(f"DP {label}: launched {counts}, want {want}")
+                n_bn = sum(type(mod).__name__ == "BatchNorm"
+                           for mod in tr.model.modules())
+                log(f"  DP {label}: {ms:.1f} ms a step, one process "
+                    f"{one_ms[label]:.1f} ms (CUDA events over "
+                    f"{DP_TIME_STEPS} steps; {n_bn} BatchNorm layers, an "
+                    f"all-reduce each forward and backward)")
+                eq = _bits_equal(got, refs[label])
+                log(f"  DP {label}: launches {counts} = "
+                    f"{1 + DP_TIME_STEPS} x launches_per_step; bits equal "
+                    f"to one process: loss {eq[0]}, {eq[1]} of {eq[2]} "
+                    f"leaves")
+                if not _compare_steps(f"DP {label} (world {mesh.world}) vs "
+                                      f"one process", got, refs[label],
+                                      lim=lim):
+                    fail(f"the data-parallel {label} step disagrees with "
+                         f"the one-process step")
+                del tr
+                torch.cuda.empty_cache()
+            kernels.reset_launches()
+            dp_cli = _dp_test_cli(mesh.world, weights, out / "cli_dp")
+            chunks = math.ceil(_dp_volume().get(0)["image"].shape[0] / BATCH)
+            counts = kernels.launch_counts()
+            runs.append(("per forward, sharded cli.test eval (fp32)",
+                         kernels.shape_counts(), chunks))
+            want = {k: n * chunks for k, n in launches_per_forward(
+                TransceptionConfig(dtype="float32")).items()}
+            if counts != want:
+                fail(f"sharded cli.test: launched {counts}, want {want}")
+        finally:
+            mesh.close()
+        _same_eval(f"cli.test sharded over world {mesh.world}", dp_cli,
+                   one_cli)
+
+    for argv in (["--dp_size", str(cards + 1)],):
+        try:
+            train_cli.main(argv + ["--output_dir", str(out / "refused")])
+        except RuntimeError as e:
+            log(f"  cli.train {' '.join(argv)}: refused before any work: "
+                f"{e}")
+            if f"needs {cards + 1} cards, have {cards}" not in str(e):
+                fail(f"--dp_size {cards + 1}: the refusal does not name "
+                     f"the counts")
+        else:
+            fail(f"cli.train --dp_size {cards + 1} did not raise")
+        if (out / "refused" / "log.txt").exists():
+            fail("the refused run started work")
+
+    if cards < 2:
+        log("  a multi-card run was not possible here: one card "
+            "(torch.cuda.device_count() == 1); world 2 not run")
+        return runs
+    for world in sorted({2, cards}):
+        t0 = time.perf_counter()
+        wdir = out / f"world{world}"
+        wdir.mkdir()
+        spawn(_dp_rank, world, (str(wdir), str(weights)))
+        for label, _, lim in DP_MODES:
+            log(f"  one process {label}: {one_ms[label]:.1f} ms a step")
+            r0 = torch.load(wdir / f"rank0_{label}.pt", weights_only=False)
+            if not _compare_steps(f"DP {label} (world {world}, rank 0) vs "
+                                  f"one process", r0, refs[label], lim=lim):
+                fail(f"world {world}: the {label} step disagrees with the "
+                     f"one-process step")
+            for r in range(1, world):
+                rr = torch.load(wdir / f"rank{r}_{label}.pt",
+                                weights_only=False)
+                eq = _bits_equal(rr, r0)
+                if not eq[0] or eq[1] != eq[2]:
+                    fail(f"world {world} {label}: rank {r} holds other bits "
+                         f"than rank 0 ({eq})")
+            log(f"  DP {label} world {world}: ranks hold equal bits")
+        _same_eval(f"cli.test sharded over world {world}",
+                   torch.load(wdir / "rank0_cli.pt", weights_only=False),
+                   one_cli)
+        log(f"  world {world}: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def _same_eval(what, got, want):
+    """The sharded test CLI's means, per-case lines and class maps against
+    the one-process run's."""
+    (gm, gl, gp), (wm, wl, wp) = got, want
+    same = gm == wm and gl == wl and np.array_equal(gp, wp)
+    log(f"  {what}: means {gm} vs {wm}; {len(gl)} log lines "
+        f"{'equal' if gl == wl else 'DIFFER'}; class maps "
+        f"{'equal' if np.array_equal(gp, wp) else 'DIFFER'}")
+    if not same:
+        fail(f"{what} disagrees with --dp_size 1")
 
 
 def run_summary(what, tallies, per, measured):
@@ -2987,11 +3272,18 @@ def main():
     variant_runs = variants_phase()
     log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 14: data parallelism, published model, batch {TRAIN_BATCH}")
+    t0 = time.perf_counter()
+    dp_runs = dp_phase()
+    log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+
     # The main-path runs: phase 4's forwards, phase 9's flash and pallas
     # Trainer steps and fp32 steps, phase 10's forward per configuration,
     # phase 11's volume-eval forwards, phase 12's train CLI steps, evals
     # and throughput steps, phase 13's variant forwards, steps and CLI
-    # runs. Every launch's shape must have been measured
+    # runs, phase 14's data-parallel steps and sharded eval (world 1; the
+    # ranks of a multi-card run are other processes). Every launch's shape
+    # must have been measured
     # in phase 3 or 8, and every measured shape launched.
     runs = [("per forward, default config", fwd_tallies, n_fwd),
             ("per forward, fp32 default config", fp32_tallies, 1)] + [
@@ -3001,7 +3293,7 @@ def main():
         for mode, t in fp32_step_tallies.items()] + [
         (f"per forward, {name}", t, 1) for name, t in grid_tallies.items()
     ] + [("per forward, volume eval", vol_tallies, n_vol)] + cli_runs \
-        + variant_runs
+        + variant_runs + dp_runs
     total = Counter()
     for _, t, _ in runs:
         total.update(t)

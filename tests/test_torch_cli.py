@@ -320,15 +320,22 @@ def test_load_weights_refusals(tmp_path, weights):
     with pytest.raises(ValueError, match="shape"):
         pcli.load_weights(str(tmp_path / "bad.pth"), m)
     (tmp_path / "orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="orbax.*item 7"):
+    with pytest.raises(NotImplementedError,
+                       match="orbax.*scripts/orbax_to_torch.py"):
         pcli.load_weights(str(tmp_path / "orbax"), m)
 
 
 def test_cli_refusals(tmp_path, data):
     pth = tmp_path / "w.pth"
-    with pytest.raises(ValueError, match="ROADMAP.md §1 item 4"):
-        pcli.main(_argv(data, tmp_path, pth, "--dp_size", "2"),
-                  device="cpu")
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    dp = max(cards + 1, 2)
+    with pytest.raises(RuntimeError, match=f"needs {dp} cards, "
+                                           f"have {cards}"):
+        pcli.main(_argv(data, tmp_path, pth, "--dp_size", str(dp)))
+    from transception_tpu_torch.cli import train as ptrain
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
+        ptrain.main(["--tp_size", "2", "--output_dir", str(tmp_path)],
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="ISIC"):
         pcli.main(_argv(data, tmp_path, pth, "--dataset", "ISIC"),
                   device="cpu")

@@ -164,9 +164,22 @@ def test_early_break_stops_the_producer():
 
 
 def test_one_process_only():
+    """Process 1 of 2 takes its shard of each global batch of 4: rows
+    2-3 of the one-process batch (tests/test_torch_data_parallel.py holds
+    every shard against JAX's)."""
     ds = psyn.SyntheticSliceDataset(length=8, img_size=8)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ploader.HostDataLoader(ds, 4, process_index=1, process_count=2)
+
+    def body():
+        whole = list(ploader.HostDataLoader(ds, 4, num_workers=1))
+        shard = list(ploader.HostDataLoader(ds, 4, num_workers=1,
+                                            process_index=1,
+                                            process_count=2))
+        assert len(shard) == len(whole) == 2
+        for s, w in zip(shard, whole):
+            for k in ("image", "label"):
+                np.testing.assert_array_equal(s[k], w[k][2:4])
+            assert s["case_name"] == w["case_name"][2:4]
+    bounded(body)
 
 
 def test_to_device():

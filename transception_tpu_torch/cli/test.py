@@ -11,7 +11,12 @@ spacing like utils.py:100-109. The default dtype is float32, the
 published protocol, and runs the fp32 forms of the CUDA kernels on the
 card with TF32 off; --dtype bfloat16 runs their bf16 forms, --no_pallas
 the plain PyTorch path. Weights: a reference .pth/.pt state_dict or a port
-checkpoint (load_weights).
+checkpoint (load_weights); a JAX package's orbax checkpoint directory
+converts to a port checkpoint with scripts/orbax_to_torch.py. --dp_size N
+evaluates over N cards, each rank forwarding its share of every chunk of
+--eval_batch slices (parallel.mesh; rank 0 scores and logs); under
+torchrun each process is one rank, without it the CLI starts its N ranks
+itself.
 """
 
 from __future__ import annotations
@@ -34,6 +39,12 @@ from transception_tpu_torch.core.device import (
     DeviceLike,
     fp32_exact,
     resolve_device,
+)
+from transception_tpu_torch.parallel.mesh import (
+    data_size,
+    launched,
+    make_mesh,
+    spawn,
 )
 
 logger = logging.getLogger(__name__)
@@ -76,13 +87,15 @@ def load_weights(weight_pth: str, model: torch.nn.Module) -> torch.nn.Module:
         keys the port lacks are allowed only among the reference's dead
         parameters (DEAD_KEYS), which are logged. Anything else raises.
     An orbax checkpoint directory (the JAX package's) raises
-    NotImplementedError."""
+    NotImplementedError naming its converter: reading orbax needs JAX,
+    which the port does not import."""
     if os.path.isdir(weight_pth):
         raise NotImplementedError(
             f"{weight_pth} is a directory (an orbax checkpoint of the JAX "
-            f"package?): reading orbax needs orbax/tensorstore and is not "
-            f"ported yet (ROADMAP.md §1 item 7); convert it with the JAX "
-            f"package or pass a .pth")
+            f"package?): the port reads no orbax (it needs JAX); convert it "
+            f"to a port checkpoint with scripts/orbax_to_torch.py, where "
+            f"JAX and orbax are installed, and pass the step_*.pt it "
+            f"writes")
     sd = torch.load(weight_pth, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and {"model", "optimizer", "step"} <= set(sd):
         model.load_state_dict(sd["model"])
@@ -128,8 +141,8 @@ def _parser() -> argparse.ArgumentParser:
                         "with no spacing, utils.py:54)")
     p.add_argument("--eval_batch", type=int, default=32)
     p.add_argument("--dp_size", type=int, default=1,
-                   help="data-parallel eval over this many cards: the port "
-                        "has one (only 1 is accepted)")
+                   help="data-parallel eval over this many cards (each "
+                        "chunk of --eval_batch slices split over them)")
     p.add_argument("--device_resample", action="store_true",
                    help="run the protocol's order-3 spline input resample "
                         "on the card (float64 products against exact "
@@ -143,10 +156,8 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None, device: DeviceLike = "cuda"):
     """Parse `argv` (sys.argv by default), evaluate on `device` and return
     (mean dice, mean hd95)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
-    if args.dp_size > 1:
-        raise ValueError(f"--dp_size {args.dp_size}: multi-GPU eval is not "
-                         f"ported yet (ROADMAP.md §1 item 4)")
 
     from transception_tpu_torch.data.synapse import make_test_dataset
     from transception_tpu_torch.eval.inference import run_inference
@@ -155,16 +166,32 @@ def main(argv=None, device: DeviceLike = "cuda"):
     model_cfg, data_cfg, _ = build_configs(args)
     on_card = torch.device(device).type == "cuda"
     check_card_dtype(model_cfg, on_card)
+    # The data axis, checked before any work (the cards, the chunks'
+    # split); a process group already up (a launch) is joined.
+    mesh = None
+    if args.dp_size > 1 or launched():
+        dp = data_size(args.dp_size, device)
+        if args.eval_batch % dp:
+            raise ValueError(
+                f"eval batch {args.eval_batch} not divisible by the mesh "
+                f"'data' axis ({dp}); pick a multiple so chunks shard "
+                f"evenly")
+        if not launched():
+            return spawn(main, dp, (argv, device))
+        mesh = make_mesh(dp, 1, device)
+        device = mesh.device
     resolve_device(device)  # no card: raise before any work
     test_ds = make_test_dataset(data_cfg)
 
-    log_dir = os.path.join(args.output_dir, "test_log")
-    os.makedirs(log_dir, exist_ok=True)
-    to_file = logging.FileHandler(os.path.join(log_dir, "eval.txt"))
-    to_file.setFormatter(logging.Formatter(
-        "[%(asctime)s.%(msecs)03d] %(message)s", datefmt="%H:%M:%S"))
-    to_stdout = logging.StreamHandler(sys.stdout)
-    handlers = (to_file, to_stdout)
+    main_rank = mesh is None or mesh.is_main
+    handlers = ()
+    if main_rank:
+        log_dir = os.path.join(args.output_dir, "test_log")
+        os.makedirs(log_dir, exist_ok=True)
+        to_file = logging.FileHandler(os.path.join(log_dir, "eval.txt"))
+        to_file.setFormatter(logging.Formatter(
+            "[%(asctime)s.%(msecs)03d] %(message)s", datefmt="%H:%M:%S"))
+        handlers = (to_file, logging.StreamHandler(sys.stdout))
     for h in handlers:
         logger.addHandler(h)
     logger.setLevel(logging.INFO)
@@ -178,7 +205,7 @@ def main(argv=None, device: DeviceLike = "cuda"):
             load_weights(args.weight_pth, model)
 
             save_dir = None
-            if args.is_savenii:
+            if args.is_savenii and main_rank:
                 save_dir = os.path.join(args.output_dir, "predictions")
                 os.makedirs(save_dir, exist_ok=True)
             hd95_spacing = ((float(args.z_spacing), 1.0, 1.0)
@@ -188,7 +215,8 @@ def main(argv=None, device: DeviceLike = "cuda"):
                 patch_size=args.img_size, batch=args.eval_batch,
                 log=logger.info, save_path=save_dir,
                 z_spacing=args.z_spacing, hd95_spacing=hd95_spacing,
-                device_resample=args.device_resample, device=device)
+                device_resample=args.device_resample, device=device,
+                mesh=mesh)
         if save_dir is not None:
             logger.info("saved volumes to %s", save_dir)
         return mean_dice, mean_hd95
@@ -196,6 +224,8 @@ def main(argv=None, device: DeviceLike = "cuda"):
         for h in handlers:
             logger.removeHandler(h)
             h.close()
+        if mesh is not None:
+            mesh.close()
 
 
 if __name__ == "__main__":

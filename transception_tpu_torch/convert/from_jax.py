@@ -8,6 +8,10 @@ renamed torch ModuleList, `inv_res` becomes `InvRes`, the fusion blocks'
 and the para/sp bridges' modules their reference names, flax leaf names
 torch ones), with its fallback keys for the fusion blocks' Sequentials. `load_jax_variables`
 applies the inverse layout transforms and fills the port in place, strictly.
+`train_state_from_jax` converts a whole JAX Trainer checkpoint (the raw
+pytree of transception_tpu/train/trainer.py:223-233 save_checkpoint) into
+the port's TrainState.state_dict(): model, SGD momentum buffers and
+counters; scripts/orbax_to_torch.py reads the orbax directory for it.
 """
 
 from __future__ import annotations
@@ -131,6 +135,34 @@ def _to_torch_layout(arr: np.ndarray, want: Tuple[int, ...]) -> np.ndarray:
     return np.array(arr, dtype=np.float32, order="C", copy=True)
 
 
+def _port_arrays(targets: Dict[str, torch.Tensor], variables: Dict,
+                 what: str) -> Dict[str, np.ndarray]:
+    """{port key: array in the port's layout} for every leaf of a JAX
+    {'params', 'batch_stats'} tree, strictly against `targets` (port key ->
+    tensor): raises if any JAX leaf has no port tensor, any target is left
+    unfilled, or a shape disagrees."""
+    out, unused, bad = {}, [], []
+    for path, key, arr in _jax_entries(variables):
+        key = next((k for k in _candidate_keys(key) if k in targets), key)
+        t = targets.get(key)
+        if t is None:
+            unused.append(f"{path} -> {key}")
+            continue
+        a = _to_torch_layout(arr, tuple(t.shape))
+        if a.shape != tuple(t.shape):
+            bad.append(f"{path} -> {key}: {a.shape} vs {tuple(t.shape)}")
+            continue
+        out[key] = a
+    unfilled = sorted(set(targets) - set(out))
+    if unused or unfilled or bad:
+        raise KeyError(
+            f"{what}: "
+            f"{len(unused)} unused JAX leaves {unused[:20]}; "
+            f"{len(unfilled)} unfilled port tensors {unfilled[:20]}; "
+            f"{len(bad)} shape mismatches {bad[:20]}")
+    return out
+
+
 def load_jax_variables(model: torch.nn.Module, variables: Dict,
                        device: DeviceLike = "cuda") -> torch.nn.Module:
     """Move `model` to `device` and fill it in place from a JAX
@@ -139,26 +171,65 @@ def load_jax_variables(model: torch.nn.Module, variables: Dict,
     shape disagrees."""
     model.to(resolve_device(device))
     targets = model.state_dict()
-    filled, unused, bad = set(), [], []
+    arrays = _port_arrays(targets, variables, "load_jax_variables")
     with torch.no_grad():
-        for path, key, arr in _jax_entries(variables):
-            key = next((k for k in _candidate_keys(key) if k in targets),
-                       key)
-            t = targets.get(key)
-            if t is None:
-                unused.append(f"{path} -> {key}")
-                continue
-            a = _to_torch_layout(arr, tuple(t.shape))
-            if a.shape != tuple(t.shape):
-                bad.append(f"{path} -> {key}: {a.shape} vs {tuple(t.shape)}")
-                continue
-            t.copy_(torch.from_numpy(a))
-            filled.add(key)
-    unfilled = sorted(set(targets) - filled)
-    if unused or unfilled or bad:
-        raise KeyError(
-            "load_jax_variables: "
-            f"{len(unused)} unused JAX leaves {unused[:20]}; "
-            f"{len(unfilled)} unfilled port tensors {unfilled[:20]}; "
-            f"{len(bad)} shape mismatches {bad[:20]}")
+        for key, a in arrays.items():
+            targets[key].copy_(torch.from_numpy(a))
     return model
+
+
+def train_state_from_jax(tree: Dict, model: torch.nn.Module, train_cfg,
+                         steps_per_epoch: int) -> dict:
+    """A port TrainState.state_dict() (train/state.py) from the raw pytree
+    of a JAX Trainer checkpoint, {'params', 'batch_stats', 'opt_state',
+    'step'} (transception_tpu/train/trainer.py:223-233), numpy only.
+
+    `model` (on the CPU, of the run's config) is filled from params and
+    batch_stats (load_jax_variables). The optimizer is the recipe's chain
+    (transception_tpu/train/state.py:56-64): clip_by_global_norm when
+    train_cfg.grad_clipping, add_decayed_weights, trace, then
+    scale_by_learning_rate, inside optax MultiSteps when
+    grad_accum_steps > 1. trace's leaves are torch SGD's momentum buffers
+    (both keep buf = g + wd·p + 0.9·buf), moved into the port's layout as
+    the params are; `updates` is the schedule's count, `step` the JAX
+    step. A checkpoint taken inside an accumulation window (MultiSteps
+    mini_step != 0) raises: the port keeps no partial gradient sums. A
+    chain that does not match train_cfg raises."""
+    from transception_tpu_torch.train.state import TrainState
+    k = train_cfg.grad_accum_steps
+    opt = tree["opt_state"]
+    multi = isinstance(opt, dict) and "inner_opt_state" in opt
+    if multi != (k > 1):
+        does = "accumulates" if multi else "does not accumulate"
+        raise ValueError(f"the checkpoint {does} gradients (optax "
+                         f"MultiSteps) but grad_accum_steps is {k}")
+    if multi:
+        mini = int(np.asarray(opt["mini_step"]))
+        if mini:
+            raise ValueError(
+                f"the checkpoint was taken {mini} micro-steps into an "
+                f"accumulation window of {k}: the port keeps no partial "
+                f"gradient sums, so only a checkpoint at a window boundary "
+                f"(mini_step 0) converts")
+        opt = opt["inner_opt_state"]
+    chain = list(opt)  # orbax restores the chain's tuple as a list
+    want = 3 + bool(train_cfg.grad_clipping)
+    if len(chain) != want or not isinstance(chain[-2], dict) \
+            or "trace" not in chain[-2] or "count" not in chain[-1]:
+        raise ValueError(
+            f"the checkpoint's optimizer chain has {len(chain)} transforms; "
+            f"the recipe of grad_clipping={train_cfg.grad_clipping} has "
+            f"{want} (clip, decay, trace, lr)")
+    load_jax_variables(model, {"params": tree["params"],
+                               "batch_stats": tree.get("batch_stats", {})},
+                       device="cpu")
+    params = dict(model.named_parameters())
+    bufs = _port_arrays(params, {"params": chain[-2]["trace"]},
+                        "train_state_from_jax (momentum)")
+    state = TrainState(model, train_cfg, steps_per_epoch)
+    for name, p in params.items():
+        state.optimizer.state[p]["momentum_buffer"] = \
+            torch.from_numpy(bufs[name])
+    state.step = int(np.asarray(tree["step"]))
+    state.updates = int(np.asarray(chain[-1]["count"]))
+    return state.state_dict()

@@ -6,9 +6,10 @@ It replaces the reference's torch DataLoader (trainer.py:104-105, 4 forked
 workers) with a thread pool that overlaps numpy augmentation with the
 card's steps. The per-epoch order and each item's generator are the JAX
 package's formulas, so the same dataset, seed and epoch give the same
-batches bit for bit (tests/test_torch_loader.py). Multi-process sharding is
-not ported (ROADMAP.md §1 item 4): process_index and process_count stay 0
-and 1.
+batches bit for bit (tests/test_torch_loader.py). Under data parallelism
+(parallel.mesh) each rank loads its contiguous 1/process_count of every
+global batch, each item with the generator of its global position, so
+the ranks' shards, concatenated, are the one-process batch.
 """
 
 from __future__ import annotations
@@ -29,21 +30,24 @@ class HostDataLoader:
     seed+worker_id, train_MSTransception.py:101-102; here determinism is
     exact across restarts). Item i of the epoch's order draws its
     augmentation from default_rng((seed·1000003 + epoch·131 + i) &
-    0x7FFFFFFF). A producer thread fills a queue of at most `prefetch`
-    batches from a pool of `num_workers` threads; breaking out of the
-    iteration stops it.
+    0x7FFFFFFF). Process process_index of process_count loads rows
+    [index·b/count, (index + 1)·b/count) of each global batch of b
+    (loader.py:26-43, 94-97 of the JAX package). A producer thread fills a
+    queue of at most `prefetch` batches from a pool of `num_workers`
+    threads; breaking out of the iteration stops it.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 1234, num_workers: int = 4,
                  drop_last: bool = True, process_index: int = 0,
                  process_count: int = 1, prefetch: int = 2):
-        if (process_index, process_count) != (0, 1):
-            raise NotImplementedError(
-                "multi-process data parallelism is not ported yet "
-                "(ROADMAP.md §1 item 4): process_index 0 of 1 only")
+        assert batch_size % process_count == 0, (
+            "global batch must divide across hosts")
         self.dataset = dataset
         self.global_batch = batch_size
+        self.local_batch = batch_size // process_count
+        self.process_index = process_index
+        self.process_count = process_count
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = max(1, num_workers)
@@ -98,7 +102,10 @@ class HostDataLoader:
                         return
                     start = b * self.global_batch
                     idxs = order[start:start + self.global_batch]
-                    futs = [pool.submit(load_item, start + j, i)
+                    # This process's contiguous shard of the global batch.
+                    lo = self.process_index * self.local_batch
+                    idxs = idxs[lo:lo + self.local_batch]
+                    futs = [pool.submit(load_item, start + lo + j, i)
                             for j, i in enumerate(idxs)]
                     items = [f.result() for f in futs]
                     batch = {

@@ -13,6 +13,14 @@ default), the spline on the card as two products against exact operators
 (make_predictor(device_resample=True)), and everything on the card but
 the metrics (make_device_predictor). run_inference loops a volume dataset
 with the next volume's load and the last volume's metrics on host threads.
+
+Each takes mesh= (parallel.mesh.DataMesh, JAX's make_predictor(mesh=)):
+every chunk of `batch` slices splits over the ranks, each rank forwards
+its contiguous rows on its card, and the class maps are all-gathered, so
+every rank holds the chunk's maps; run_inference leaves the back-resize,
+the metrics, the NIfTI export and the logs to rank 0 and gives every rank
+rank 0's means. Eval BatchNorm applies running statistics, so a slice's
+map does not depend on which rank ran it.
 """
 
 from __future__ import annotations
@@ -29,6 +37,11 @@ from scipy import ndimage
 
 from transception_tpu_torch.core.device import DeviceLike, resolve_device
 from transception_tpu_torch.eval.metrics import metric_per_case
+from transception_tpu_torch.parallel.mesh import (
+    DataMesh,
+    broadcast_floats,
+    gather_rows,
+)
 
 
 def resize_slices(vol: np.ndarray, size: int,
@@ -119,6 +132,20 @@ def _normalise(t: torch.Tensor) -> torch.Tensor:
     return (t - 0.5) / 0.5
 
 
+def _shards(batch: int, device: DeviceLike, mesh: Optional[DataMesh]):
+    """(device, this rank's rows of a chunk of `batch` slices, the
+    all-gather of the ranks' outputs) for an optional mesh; the chunk must
+    split evenly (the JAX package's error, inference.py:169-173)."""
+    if mesh is None:
+        return resolve_device(device), slice(0, batch), lambda t: t
+    if batch % mesh.world:
+        raise ValueError(
+            f"eval batch {batch} not divisible by the mesh 'data' axis "
+            f"({mesh.world}); pick a multiple so chunks shard evenly")
+    return (mesh.device, mesh.rows(batch),
+            lambda t: gather_rows(t, mesh))
+
+
 class _Clock:
     """Wall seconds per part of predict_volume, for run_inference's
     per-volume split."""
@@ -135,7 +162,8 @@ class _Clock:
 
 def make_predictor(model, patch_size: int = 224, batch: int = 32,
                    device: DeviceLike = "cuda",
-                   device_resample: bool = False):
+                   device_resample: bool = False,
+                   mesh: Optional[DataMesh] = None):
     """Returns predict((D, patch, patch) normalised float32) -> (D, patch,
     patch) uint8, with predict.predict_volume((D, h, w) raw volume in
     [0, 1]) -> (D, patch, patch) uint8. The model runs with argmax=True
@@ -149,17 +177,20 @@ def make_predictor(model, patch_size: int = 224, batch: int = 32,
     skip the resample on either path.
     predict_volume.seconds holds the wall seconds of its last call spent
     resampling on the host and in the forwards (enqueue and the wait for
-    the card)."""
-    dev = resolve_device(device)
+    the card). mesh: each rank resamples and forwards its rows of every
+    chunk (the module docstring); the results are the whole volume's on
+    every rank."""
+    dev, rows, gather = _shards(batch, device, mesh)
     model = model.to(dev).eval()
     ops = {}
+    nb = rows.stop - rows.start
 
     def fwd(x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return model(x[..., None], argmax=True)
+            return gather(model(x[..., None], argmax=True))
 
-    def _pad(sl: np.ndarray) -> np.ndarray:
-        pad = batch - sl.shape[0]
+    def _pad(sl: np.ndarray, n: int = batch) -> np.ndarray:
+        pad = n - sl.shape[0]
         return np.pad(sl, ((0, pad), (0, 0), (0, 0))) if pad else sl
 
     def _to_dev(sl: np.ndarray) -> torch.Tensor:
@@ -171,9 +202,17 @@ def make_predictor(model, patch_size: int = 224, batch: int = 32,
     def predict(slices: np.ndarray) -> np.ndarray:
         d = slices.shape[0]
         outs = [fwd(_to_dev(_pad(slices[c * batch:(c + 1) * batch]
-                                 .astype(np.float32))))
+                                 .astype(np.float32))[rows]))
                 for c in range(math.ceil(d / batch))]
         return _gather(outs, d)
+
+    def _host_rows(chunk: np.ndarray) -> np.ndarray:
+        """This rank's rows of the padded, resampled, normalised chunk:
+        only its own slices are resampled (the spline is per slice)."""
+        mine = chunk[rows]
+        if not mine.shape[0]:
+            return np.zeros((nb, patch_size, patch_size), np.float32)
+        return _pad(_normalise(resize_slices(mine, patch_size)), nb)
 
     def _raw_forward(chunk: np.ndarray, h: int, w: int) -> torch.Tensor:
         if (h, w) not in ops:
@@ -190,9 +229,9 @@ def make_predictor(model, patch_size: int = 224, batch: int = 32,
         for c in range(math.ceil(d / batch)):
             chunk = vol[c * batch:(c + 1) * batch]
             if raw:
-                outs.append(_raw_forward(_pad(chunk), h, w))
+                outs.append(_raw_forward(_pad(chunk)[rows], h, w))
             else:
-                sl = _pad(_normalise(resize_slices(chunk, patch_size)))
+                sl = _host_rows(chunk)
                 clock.lap("resample")
                 outs.append(fwd(_to_dev(sl)))
             clock.lap("forward")
@@ -207,7 +246,8 @@ def make_predictor(model, patch_size: int = 224, batch: int = 32,
 
 
 def make_device_predictor(model, patch_size: int = 224, batch: int = 32,
-                          device: DeviceLike = "cuda"):
+                          device: DeviceLike = "cuda",
+                          mesh: Optional[DataMesh] = None):
     """Serving-path predictor (JAX make_device_predictor,
     inference.py:315-374): resize, normalise, forward, argmax and the
     order-0 back-resize all on the card. The spline in is _resample (float64
@@ -216,8 +256,9 @@ def make_device_predictor(model, patch_size: int = 224, batch: int = 32,
     multiplied in (bit-exact to the host's _resize_pred_back). One
     operator set is cached per native (h, w). Returns predict((D, h, w)
     raw volume in [0, 1]) -> (D, h, w) uint8; the host sees raw slices in
-    and class maps out."""
-    dev = resolve_device(device)
+    and class maps out. mesh: each rank runs its rows of every chunk, the
+    maps are all-gathered."""
+    dev, rows, gather = _shards(batch, device, mesh)
     model = model.to(dev).eval()
     cache = {}
 
@@ -249,8 +290,8 @@ def make_device_predictor(model, patch_size: int = 224, batch: int = 32,
         n_chunks = math.ceil(d / batch)
         x = np.pad(np.asarray(vol, np.float32),
                    ((0, n_chunks * batch - d), (0, 0), (0, 0)))
-        outs = [fwd(torch.from_numpy(x[c * batch:(c + 1) * batch]).to(dev),
-                    h, w)
+        outs = [gather(fwd(torch.from_numpy(
+                    x[c * batch:(c + 1) * batch][rows]).to(dev), h, w))
                 for c in range(n_chunks)]
         return torch.cat(outs).cpu().numpy()[:d]
 
@@ -287,7 +328,8 @@ def run_inference(model, volume_dataset, classes: int,
                   save_path: Optional[str] = None, z_spacing: float = 1.0,
                   hd95_spacing=None, device_resample: bool = False,
                   device: DeviceLike = "cuda",
-                  stats: Optional[List[dict]] = None):
+                  stats: Optional[List[dict]] = None,
+                  mesh: Optional[DataMesh] = None):
     """Loop the test volumes, accumulate the per-case metric matrix and
     log per-class means (JAX run_inference, inference.py:404-499; the
     reference's test.py:104-123). Returns (mean dice, mean hd95).
@@ -307,9 +349,16 @@ def run_inference(model, volume_dataset, classes: int,
     run on a one-thread metric pool while the card predicts volume i+1.
     Neither thread touches a CUDA tensor: the metrics get numpy class maps
     and every launch stays on the calling thread. The per-case log lines
-    stay in case order."""
+    stay in case order.
+
+    mesh: every rank loads each volume and forwards its rows of each chunk
+    (make_predictor); rank 0 alone resizes back, scores, exports, logs and
+    fills `stats`, and every rank returns rank 0's means."""
     predict = make_predictor(model, patch_size, batch, device=device,
-                             device_resample=device_resample)
+                             device_resample=device_resample, mesh=mesh)
+    main = mesh is None or mesh.is_main
+    if not main:
+        log, save_path, stats = None, None, None
     metric_sum = np.zeros((classes - 1, 2), np.float64)
     n = len(volume_dataset)
     if log:  # test.py:107
@@ -348,6 +397,8 @@ def run_inference(model, volume_dataset, classes: int,
             h, w = image.shape[1:]
             t1 = time.perf_counter()
             pred_patch = predict.predict_volume(image)
+            if not main:
+                continue
             t2 = time.perf_counter()
             prediction = _resize_pred_back(pred_patch, h, w)
             t3 = time.perf_counter()
@@ -381,8 +432,8 @@ def run_inference(model, volume_dataset, classes: int,
         for c in range(1, classes):
             log(f"Mean class {c} mean_dice {metric_mean[c - 1, 0]:.6f} "
                 f"mean_hd95 {metric_mean[c - 1, 1]:.6f}")
-    performance = metric_mean[:, 0].mean()
-    mean_hd95 = metric_mean[:, 1].mean()
+    performance, mean_hd95 = broadcast_floats(
+        [metric_mean[:, 0].mean(), metric_mean[:, 1].mean()], mesh)
     if log:
         # Byte-identical to test.py:122 ('%f' == ':.6f') and to the JAX
         # package's line.

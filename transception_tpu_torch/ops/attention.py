@@ -44,6 +44,7 @@ from transception_tpu_torch.ops.common import (
     MixFFNSkip,
     make_ffn,
 )
+from transception_tpu_torch.parallel.mesh import global_rand
 
 
 def drop_path(x: torch.Tensor, rate: float, training: bool,
@@ -52,15 +53,15 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
     training, each sample kept with probability 1 - rate (a Bernoulli
     mask drawn from `gen`, a torch.Generator on x's device) and rescaled,
     x · mask / keep with keep in x's dtype, as jnp divides by the Python
-    float; the identity in eval or at rate 0."""
+    float; the identity in eval or at rate 0. Under data parallelism the
+    mask is this rank's rows of the global batch's (global_rand)."""
     if not training or rate == 0.0:
         return x
     if gen is None:
         raise ValueError("drop_path in training needs a torch.Generator "
                          "(the train step's gen)")
     keep = 1.0 - rate
-    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=gen,
-                   device=x.device)
+    u = global_rand((x.shape[0],) + (1,) * (x.dim() - 1), gen, x.device)
     mask = (u < keep).to(x.dtype)
     return x * mask / torch.tensor(keep, dtype=x.dtype, device=x.device)
 

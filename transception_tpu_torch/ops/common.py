@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from transception_tpu_torch.parallel.mesh import global_rand
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, evaluated in fp32 and returned in x's dtype."""
@@ -214,13 +216,14 @@ class MixFFN(nn.Module):
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator
             ) -> torch.Tensor:
     """flax nn.Dropout in training: each element kept with probability
-    1 - rate (a Bernoulli mask drawn from `gen`, on x's device) and divided
+    1 - rate (a Bernoulli mask drawn from `gen`, on x's device; this
+    rank's rows of the global batch's under data parallelism) and divided
     by it, else 0."""
     if gen is None:
         raise ValueError("dropout in training needs a torch.Generator (the "
                          "train step's gen)")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    mask = global_rand(x.shape, gen, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

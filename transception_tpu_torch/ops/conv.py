@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from transception_tpu_torch.ops.common import Conv2d, DepthwiseConv
+from transception_tpu_torch.parallel.mesh import active, global_sum
 
 
 class BatchNorm(nn.Module):
@@ -24,7 +25,11 @@ class BatchNorm(nn.Module):
     over (B, H, W) and the fast biased variance E[x²] − E[x]² (clamped at
     0), y = (x − mean)·(rsqrt(var + eps)·scale) + bias cast to the compute
     dtype, and the running stats updated as 0.9·r + 0.1·batch with the
-    biased variance (F.batch_norm would store the unbiased one).
+    biased variance (F.batch_norm would store the unbiased one). Under
+    data parallelism (parallel.mesh.data_parallel) the moments are of the
+    global batch: the per-channel sums of x and x² and the count are
+    summed over the ranks (global_sum, differentiable), so every rank
+    normalises and updates its running stats as the one-process step.
 
     Eval mode: fp32 computes the same affine with the running stats; other
     compute dtypes follow _EvalBNAffine (ops/conv.py:57-80): the rsqrt
@@ -50,8 +55,17 @@ class BatchNorm(nn.Module):
         if self.training:
             xf = x.float()
             axes = tuple(range(xf.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            if active() is None:
+                mean = xf.mean(axes)
+                var = torch.clamp_min((xf * xf).mean(axes) - mean * mean,
+                                      0.0)
+            else:
+                c = xf.shape[-1]
+                s = global_sum(torch.cat([
+                    xf.sum(axes), (xf * xf).sum(axes),
+                    xf.new_full((1,), xf.numel() // c)]))
+                mean = s[:c] / s[-1]
+                var = torch.clamp_min(s[c:2 * c] / s[-1] - mean * mean, 0.0)
             with torch.no_grad():
                 self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
                 self.running_var.copy_(0.9 * self.running_var + 0.1 * var)

@@ -2,6 +2,14 @@
 transception_tpu/train/losses.py (reference trainer.py:141-143,
 utils.py:24-47). All accumulation in fp32; Dice is per class over the
 whole batch, classes include the background, smooth 1e-5.
+
+Under data parallelism (parallel.mesh.data_parallel) segmentation_loss
+takes the Dice over the global batch: the per-class sums are summed over
+the ranks before the ratio (global_sum, differentiable). The CE stays
+each rank's mean over its own pixels: the ranks' shards are equal, so
+DistributedDataParallel's gradient mean of those is the global CE's
+gradient, and each rank's Dice gradient, the sum of the R ranks' copies,
+comes back to one copy in the same mean.
 """
 
 from __future__ import annotations
@@ -10,6 +18,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from transception_tpu_torch.parallel.mesh import global_sum
 
 
 def _one_hot(labels: torch.Tensor, k: int) -> torch.Tensor:
@@ -58,14 +68,15 @@ def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor,
                       num_classes: int, ce_weight: float = 0.4,
                       dice_weight: float = 0.6):
     """(total, ce, dice), one fp32 log-softmax and one one-hot shared by
-    both terms (softmax = exp(log_softmax))."""
+    both terms (softmax = exp(log_softmax)); the Dice over the global
+    batch under data parallelism, the CE this rank's mean."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     onehot = _one_hot(labels, num_classes)
     ce = -(onehot * logp).sum(-1).mean()
     p = torch.exp(logp)
     axes = tuple(range(p.dim() - 1))
-    intersect = (p * onehot).sum(axes)
-    z = (p * p).sum(axes)
-    y = onehot.sum(axes)
+    intersect, z, y = global_sum(torch.cat([
+        (p * onehot).sum(axes), (p * p).sum(axes), onehot.sum(axes)])
+    ).split(num_classes)
     dc = (1.0 - (2.0 * intersect + 1e-5) / (z + y + 1e-5)).mean()
     return ce_weight * ce + dice_weight * dc, ce, dc

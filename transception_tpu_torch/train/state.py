@@ -49,6 +49,8 @@ class TrainState:
     step); `updates` counts optimizer updates (the schedule's count).
     `gen`, the drop-path generator, is checkpointed with them."""
 
+    CLIP_NORM = 5.0  # clip_grad_norm max_norm (trainer.py:147-148)
+
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig,
                  steps_per_epoch: int,
                  gen: Optional[torch.Generator] = None):
@@ -59,6 +61,11 @@ class TrainState:
             dampening=0.0, weight_decay=cfg.weight_decay, nesterov=False)
         self.step = 0
         self.updates = 0
+
+    def ends_window(self) -> bool:
+        """Whether the step about to run ends an accumulation window (its
+        apply_gradients takes the update)."""
+        return (self.step + 1) % self.cfg.grad_accum_steps == 0
 
     def zero_grad(self) -> None:
         """Clear the gradients at the start of an accumulation window."""
@@ -84,7 +91,7 @@ class TrainState:
             for p in params:
                 p.grad.div_(k)
         if self.cfg.grad_clipping:
-            torch.nn.utils.clip_grad_norm_(params, 5.0)
+            torch.nn.utils.clip_grad_norm_(params, self.CLIP_NORM)
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.updates)
         self.optimizer.step()

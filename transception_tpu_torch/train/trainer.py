@@ -19,10 +19,24 @@ batches made on the device), the iteration log line every 50 steps,
 checkpoints and the in-training volume eval (run_inference) on the
 'interval' or 'reference' schedule and at the end, TensorBoard scalars
 and images, results.tsv and the curves.
+
+Data parallelism (TrainConfig.dp_size, parallel.mesh): each rank loads
+its shard of every global batch (TrainConfig.batch_size is the global
+batch, and the learning rate scales by it), the model runs under
+DistributedDataParallel, and the step runs inside
+parallel.mesh.data_parallel, which makes the BatchNorm moments, the Dice
+sums and the drop-path and dropout masks those of the global batch: the
+step is the one-process step on the global batch. Under accumulation the
+micro-steps skip the gradient all-reduce (no_sync). Checkpoints hold the
+bare model's keys (no "module." prefix), so a run of any world size
+resumes any other's; logs, TensorBoard, results.tsv and checkpoints come
+from rank 0, and every rank takes its shard of the in-training eval
+(chunks of eval_batch(world) slices).
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import logging
 import os
@@ -37,11 +51,7 @@ from transception_tpu_torch.core.config import (
     TrainConfig,
     TransceptionConfig,
 )
-from transception_tpu_torch.core.device import (
-    DeviceLike,
-    fp32_exact,
-    resolve_device,
-)
+from transception_tpu_torch.core.device import DeviceLike, fp32_exact
 from transception_tpu_torch.data.device_synthetic import DeviceSyntheticStream
 from transception_tpu_torch.data.loader import HostDataLoader, to_device
 from transception_tpu_torch.data.synapse import (
@@ -50,6 +60,14 @@ from transception_tpu_torch.data.synapse import (
 )
 from transception_tpu_torch.eval.inference import run_inference
 from transception_tpu_torch.models.transception import MSTransception
+from transception_tpu_torch.parallel.mesh import (
+    DataMesh,
+    data_parallel,
+    launch_world,
+    launched,
+    make_mesh,
+    mean_over_ranks,
+)
 from transception_tpu_torch.train.losses import (
     segmentation_loss,
     shuffle_labels_wide,
@@ -57,6 +75,18 @@ from transception_tpu_torch.train.losses import (
 from transception_tpu_torch.train.state import TrainState
 
 logger = logging.getLogger("transception_tpu_torch")
+
+# Slices per chunk of the in-training eval (run_inference's default); under
+# a mesh the chunk is the least multiple of the world at or above it, so
+# that it splits over the ranks (eval_batch).
+EVAL_BATCH = 32
+
+
+def eval_batch(world: int) -> int:
+    """The in-training eval's chunk for a data axis of `world` ranks:
+    EVAL_BATCH where the world divides it (1, 2, 4, 8, ...), else the next
+    multiple of the world (33 at 3 ranks)."""
+    return -(-EVAL_BATCH // world) * world
 
 
 def reference_eval_schedule(epoch: int, max_epoch: int, eval_interval: int,
@@ -83,28 +113,39 @@ def reference_eval_schedule(epoch: int, max_epoch: int, eval_interval: int,
 
 def make_train_step(state: TrainState, num_classes: int, ce_w: float,
                     dice_w: float, wide_head: bool = False,
-                    gen: Optional[torch.Generator] = None):
+                    gen: Optional[torch.Generator] = None,
+                    net: Optional[torch.nn.Module] = None,
+                    mesh: Optional[DataMesh] = None):
     """step(images, labels) -> {loss, loss_ce, loss_dice} (detached
     tensors): forward in train mode, loss, backward, update. wide_head:
     logits in pre-pixel-shuffle order against the permuted labels
     (the same loss up to fp32 summation order). gen: the drop-path and
     dropout generator, on the model's device (needed with drop_path_rate
-    > 0 and by the sp bridge's MLP dropout)."""
+    > 0 and by the sp bridge's MLP dropout). net: what runs the forward,
+    state.model or its DistributedDataParallel wrapper; with `mesh` the
+    step takes this rank's rows of the global batch inside
+    data_parallel(mesh), and the metrics are the global batch's (the
+    ranks' means averaged)."""
     model = state.model
+    net = model if net is None else net
+    ddp = isinstance(net, torch.nn.parallel.DistributedDataParallel)
 
     def train_step(images: torch.Tensor,
                    labels: torch.Tensor) -> Dict[str, torch.Tensor]:
-        model.train()
+        net.train()
         state.zero_grad()
-        out = model(images, wide_head=wide_head, gen=gen)
-        if wide_head:
-            labels = shuffle_labels_wide(labels)
-        total, ce, dc = segmentation_loss(out, labels, num_classes, ce_w,
-                                          dice_w)
-        total.backward()
+        sync = not ddp or state.ends_window()
+        with data_parallel(mesh), \
+                (contextlib.nullcontext() if sync else net.no_sync()):
+            out = net(images, wide_head=wide_head, gen=gen)
+            if wide_head:
+                labels = shuffle_labels_wide(labels)
+            total, ce, dc = segmentation_loss(out, labels, num_classes,
+                                              ce_w, dice_w)
+            total.backward()
         state.apply_gradients()
-        return {"loss": total.detach(), "loss_ce": ce.detach(),
-                "loss_dice": dc.detach()}
+        m = mean_over_ranks(torch.stack([total, ce, dc]).detach(), mesh)
+        return {"loss": m[0], "loss_ce": m[1], "loss_dice": m[2]}
 
     return train_step
 
@@ -158,14 +199,35 @@ class Trainer:
     generator's state (torch.save, output_dir/ckpt/step_XXXXXXXX.pt);
     train() resumes from the newest. Logs go to output_dir/log.txt,
     TensorBoard's to output_dir/tb (when the tensorboard package is
-    installed), the eval histories to output_dir/results.tsv."""
+    installed), the eval histories to output_dir/results.tsv.
+
+    mesh: this process's place on the data axis (parallel.mesh.DataMesh);
+    by default the launch's: make_mesh of train_cfg.dp_size where it is
+    above 0, else of the launch's world (torchrun, or the CLI's
+    --dp_size), which is 1 in a process that no launch started. A
+    Trainer never starts ranks, so "every visible card" (dp_size -1) is
+    the CLI's to carry out. tp_size > 1 is refused."""
 
     def __init__(self, model_cfg: TransceptionConfig, train_cfg: TrainConfig,
                  data_cfg: DataConfig, device: DeviceLike = "cuda",
-                 model: Optional[torch.nn.Module] = None):
+                 model: Optional[torch.nn.Module] = None,
+                 mesh: Optional[DataMesh] = None):
+        if train_cfg.tp_size > 1:
+            raise NotImplementedError(
+                f"tp_size {train_cfg.tp_size}: the TP axis is not ported "
+                f"(ROADMAP.md §1 item 4); train with tp_size 1")
         self.model_cfg, self.cfg, self.data_cfg = model_cfg, train_cfg, \
             data_cfg
-        self.device = resolve_device(device)
+        # The data axis: this process's rank (make_mesh raises, before any
+        # work, for more ranks than cards or than the launch has); a world
+        # of one has no group.
+        if mesh is None:
+            dp = train_cfg.dp_size if train_cfg.dp_size > 0 else (
+                launch_world() if launched() else 1)
+            mesh = make_mesh(dp, 1, device)
+        self.mesh = mesh
+        self.device = self.mesh.device
+        self.main = self.mesh.is_main
         # Any registry variant: the model is a function of its config
         # (models.registry.model_config).
         self.model = model if model is not None else MSTransception(
@@ -177,6 +239,31 @@ class Trainer:
 
     def _ckpt_dir(self) -> str:
         return os.path.abspath(os.path.join(self.cfg.output_dir, "ckpt"))
+
+    def _dp(self) -> Optional[DataMesh]:
+        """The mesh where this run has a process group, else None."""
+        return self.mesh if self.mesh.group is not None else None
+
+    def init_state(self, steps_per_epoch: int):
+        """(TrainState, step function) of a run: the drop-path generator
+        seeded TrainConfig.seed on the device, and under a process group
+        the model wrapped in DistributedDataParallel (the bare model stays
+        the state's, so checkpoints keep its keys)."""
+        cfg, dc = self.cfg, self.data_cfg
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(cfg.seed)
+        state = TrainState(self.model, cfg, steps_per_epoch, gen)
+        net = self.model
+        if self._dp() is not None:
+            net = torch.nn.parallel.DistributedDataParallel(
+                self.model,
+                device_ids=([self.device] if self.device.type == "cuda"
+                            else None),
+                broadcast_buffers=False)
+        step_fn = make_train_step(state, dc.num_classes, cfg.ce_weight,
+                                  cfg.dice_weight, self._use_wide_head(),
+                                  gen, net, self._dp())
+        return state, step_fn
 
     def save_checkpoint(self, state: TrainState) -> str:
         os.makedirs(self._ckpt_dir(), exist_ok=True)
@@ -206,10 +293,13 @@ class Trainer:
                 "is only meaningful for the synthetic dataset")
             return DeviceSyntheticStream(cfg.batch_size, dc.img_size,
                                          dc.num_classes, dc.synthetic_len,
-                                         cfg.seed, self.device)
+                                         cfg.seed, self.device,
+                                         self.mesh.rank, self.mesh.world)
         return HostDataLoader(make_train_dataset(dc), cfg.batch_size,
                               shuffle=True, seed=cfg.seed,
-                              num_workers=dc.num_workers)
+                              num_workers=dc.num_workers,
+                              process_index=self.mesh.rank,
+                              process_count=self.mesh.world)
 
     def train(self, max_steps: Optional[int] = None
               ) -> Tuple[TrainState, Dict[str, List[float]]]:
@@ -219,20 +309,28 @@ class Trainer:
         Trainer."""
         test_ds = make_test_dataset(self.data_cfg)
         loader = self._loader()
-        handler = logging.FileHandler(
-            os.path.join(self.cfg.output_dir, "log.txt"))
-        handler.setFormatter(logging.Formatter(
-            "[%(asctime)s.%(msecs)03d] %(message)s", datefmt="%H:%M:%S"))
-        logger.addHandler(handler)
-        logger.setLevel(logging.INFO)
+        handler = None
+        if self.main:
+            handler = logging.FileHandler(
+                os.path.join(self.cfg.output_dir, "log.txt"))
+            handler.setFormatter(logging.Formatter(
+                "[%(asctime)s.%(msecs)03d] %(message)s",
+                datefmt="%H:%M:%S"))
+            logger.addHandler(handler)
+            logger.setLevel(logging.INFO)
         exact = (self.device.type == "cuda"
                  and self.model_cfg.compute_dtype == torch.float32)
         try:
-            with fp32_exact(exact, logger.info):
+            with fp32_exact(exact, self._log):
                 return self._train_loop(loader, test_ds, max_steps)
         finally:
-            logger.removeHandler(handler)
-            handler.close()
+            if handler is not None:
+                logger.removeHandler(handler)
+                handler.close()
+
+    def _log(self, msg: str) -> None:
+        if self.main:
+            logger.info(msg)
 
     def _writer(self):
         """A TensorBoard SummaryWriter under output_dir/tb, or None (with
@@ -248,19 +346,18 @@ class Trainer:
     def _train_loop(self, loader, test_ds, max_steps):
         cfg, dc = self.cfg, self.data_cfg
         steps_per_epoch = len(loader)
-        logger.info("%d iterations per epoch, %d max iterations",
-                    steps_per_epoch, steps_per_epoch * cfg.max_epochs)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(cfg.seed)
-        state = TrainState(self.model, cfg, steps_per_epoch, gen)
+        self._log(f"{steps_per_epoch} iterations per epoch, "
+                  f"{steps_per_epoch * cfg.max_epochs} max iterations")
+        if self._dp() is not None:
+            self._log(f"data parallel over {self.mesh.world} ranks: "
+                      f"{cfg.batch_size // self.mesh.world} of each global "
+                      f"batch of {cfg.batch_size} a rank")
+        state, step_fn = self.init_state(steps_per_epoch)
         latest = self.latest_checkpoint() if cfg.resume else None
         if latest:
             self.restore_checkpoint(state, latest)
-            logger.info("resumed from %s (step %d)", latest, state.step)
-        step_fn = make_train_step(state, dc.num_classes, cfg.ce_weight,
-                                  cfg.dice_weight, self._use_wide_head(),
-                                  gen)
-        writer = self._writer()
+            self._log(f"resumed from {latest} (step {state.step})")
+        writer = self._writer() if self.main else None
 
         def flush(pending):
             for tb_it, tb_m in pending:
@@ -291,7 +388,7 @@ class Trainer:
                     tb_pending.append((it, metrics))
                 if writer is not None and it % 200 == 0:
                     _log_images(writer, self.model, images, labels, it)
-                if it % 50 == 0 or done:
+                if self.main and (it % 50 == 0 or done):
                     if writer is not None:
                         flush(tb_pending)
                     m = {k: float(v) for k, v in metrics.items()}
@@ -312,20 +409,23 @@ class Trainer:
             else:
                 do_save = (epoch + 1) % cfg.ckpt_every == 0
                 do_eval = (epoch + 1) % cfg.eval_interval == 0
-            if done or do_save:
+            if (done or do_save) and self.main:
                 self.save_checkpoint(state)
             if done or do_eval:
                 d, h = run_inference(
                     self.model, test_ds, dc.num_classes,
-                    patch_size=dc.img_size, log=logger.info,
+                    patch_size=dc.img_size,
+                    batch=eval_batch(self.mesh.world),
+                    log=logger.info if self.main else None,
                     device_resample=cfg.eval_device_resample,
-                    device=self.device)
+                    device=self.device, mesh=self._dp())
                 dice_hist.append(d)
                 hd95_hist.append(h)
         if writer is not None:
             flush(tb_pending)
             writer.close()
-        self._plot_results(dice_hist, hd95_hist)
+        if self.main:
+            self._plot_results(dice_hist, hd95_hist)
         return state, {"dice": dice_hist, "hd95": hd95_hist}
 
     def _plot_results(self, dice_hist, hd95_hist):
