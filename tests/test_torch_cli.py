@@ -57,13 +57,32 @@ def test_registry_names_cover_jax():
         assert torch.equal(a, b), k
 
 
-@pytest.mark.parametrize("name", registry.NOT_PORTED)
-def test_registry_refuses_unported_models(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
-        registry.create_model(name, _tiny_cfg(), device="cpu")
+@pytest.mark.parametrize("name", registry.LEGACY)
+def test_registry_builds_legacy_models(name):
+    """Each legacy name builds the JAX registry's model class with the
+    caller's config as it is (head_count and dil_conv included), both
+    CLIs' --model takes it, and the model runs: fp32 logits of the
+    input's shape."""
+    from transception_tpu.core.config import TransceptionConfig as JConfig
+    from transception_tpu_torch.cli import train as ptrain
+    jm = MODEL_REGISTRY[name](JConfig(img_size=32, dil_conv=0))
+    cfg = _tiny_cfg(dtype="float32", dil_conv=0, head_count=4)
+    m = registry.create_model(name.upper(), cfg, device="cpu")
+    assert type(m).__name__ == type(jm).__name__ and m.cfg == cfg
+    with torch.no_grad():
+        out = m(torch.rand(2, 32, 32, 1))
+    assert out.shape == (2, 32, 32, 9) and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    for parser, extra in ((pcli._parser(), ["--weight_pth", "w.pth"]),
+                          (ptrain._parser(), [])):
+        args = parser.parse_args(["--model", name, "--dtype", "float32",
+                                  "--dil_conv", "0", "--head_count", "4"]
+                                 + TINY + extra)
+        assert registry.model_config(
+            args.model, pcommon.build_configs(args)[0]) == cfg
 
 
-@pytest.mark.parametrize("name", registry.PORTED)
+@pytest.mark.parametrize("name", registry.VARIANTS)
 def test_registry_builds_ported_models(name):
     """Each ported name builds the JAX registry's config (every shared
     field equal), and both CLIs' --model takes it."""
@@ -144,9 +163,7 @@ def test_build_configs_equal_jax_on_shared_fields(argv):
 
 
 @pytest.mark.parametrize("flag", ["--remat", "--no_vectorize_paths",
-                                  "--debug_nans",
-                                  "--head_count 4",
-                                  "--dil_conv 0"])
+                                  "--debug_nans"])
 def test_flags_without_a_port_field_refuse_other_values(flag):
     p, _ = _parsers(("add_model_args", "add_data_args", "add_train_args"))
     dest = flag.split()[0][2:]
@@ -158,11 +175,13 @@ def test_flags_without_a_port_field_refuse_other_values(flag):
 
 @pytest.mark.parametrize("flag,field,value", [
     ("--use_sa_config 2", "use_sa_config", 2), ("--sa_ker 5", "sa_ker", 5),
-    ("--inter out", "inter", "out"), ("--num_sp 2", "num_sp", 2)])
+    ("--inter out", "inter", "out"), ("--num_sp 2", "num_sp", 2),
+    ("--head_count 4", "head_count", 4), ("--dil_conv 0", "dil_conv", 0)])
 def test_ablation_flags_are_accepted(flag, field, value):
-    """The ablation knobs refused before the port had the variants:
-    build_configs takes them into TransceptionConfig, as the JAX package's
-    does."""
+    """The ablation knobs refused before the port had the variants, and
+    the legacy models' head_count and dil_conv refused before it had
+    them: build_configs takes them into TransceptionConfig, as the JAX
+    package's does."""
     p, j = _parsers(("add_model_args", "add_data_args", "add_train_args"))
     assert flag.split()[0][2:] not in pcommon.UNSUPPORTED
     got = pcommon.build_configs(p.parse_args(shlex.split(flag)))[0]

@@ -258,6 +258,21 @@ def test_linear_attention_repeat_bit_identical(gen, shape, q_softmax):
                        la.linear_attention(*args))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [
+    # the legacy models' (models/legacy.py): the two-branch encoder's
+    # head_count-8 fused sequences, EffMiT's and ResInception's wide heads
+    # (fp32 at 512: the out stage's context in two pieces)
+    (2, 8, 1460, 16), (2, 8, 74, 64), (2, 1, 49, 512), (2, 1, 147, 512),
+    (2, 1, 2352, 128)])
+def test_linear_attention_legacy_shapes(gen, shape, dtype):
+    q, k, v = (_r(gen, *shape, scale=f, dtype=dtype) for f in (1.0, 3.0, 1.0))
+    _close(la.linear_attention(q, k, v, True),
+           la.linear_attention_plain(q, k, v, True),
+           rel=1e-4 if dtype == torch.float32 else 0.02)
+
+
 def _folded_inputs(gen, N, M, dtype=torch.bfloat16):
     x, res = (_r(gen, 2, N, 64, dtype=dtype) for _ in range(2))
     k, v = (_r(gen, 2, 1, M, 64, dtype=dtype) for _ in range(2))

@@ -175,3 +175,37 @@ def test_plans_are_functions_of_shape_and_card():
     for args in ((256, 784, 8, 8), (32, 3136, 64, 64)):
         assert la.plan(*args, SMS) == la.plan(*args, SMS)
         assert la._launch_plan(*args, SMS) is la._launch_plan(*args, SMS)
+
+
+# (B, h, N, d) of the legacy models' K6 calls at 224² (models/legacy.py):
+# the two-branch encoder's fused sequences at head_count 8, EffMiT's
+# stage-4 blocks, ResInception's one-head fused sequences ('15', '135').
+LEGACY = [(B, h, N, d) for B in (32, 24) for h, N, d in (
+    (8, 1460, 16), (8, 340, 40), (8, 74, 64), (1, 49, 512), (1, 2352, 128),
+    (1, 588, 320), (1, 147, 512), (1, 3136, 128), (1, 784, 320),
+    (1, 196, 512))]
+
+
+@pytest.mark.parametrize("es", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("B,h,N,d", LEGACY)
+def test_k6_legacy_shapes_fit(B, h, N, d, es):
+    """Every legacy shape has a plan within shared memory at both element
+    sizes; the head body where a head fits a block."""
+    pl = la.plan(B * h, N, d, d, SMS, es)
+    assert max(pl["smem"].values()) <= la.SMEM_LIMIT
+    fits = d <= la.HEAD_MAX and la.head_smem(N, d, d, es) <= la.SMEM_LIMIT
+    assert pl["body"] == ("head" if fits else "segmented")
+
+
+def test_out_stage_context_pieces():
+    """The out stage stages the context's column tile whole beside Q's
+    rows where it fits (every bf16 head dim up to 512, fp32 up to 320),
+    else in pieces of whole 64-row tiles: fp32 at 512, 384 rows and then
+    128, within the card's shared memory; the source's limit is the
+    plan's."""
+    for d, es in ((512, 2), (320, 4), (64, 4), (8, 2)):
+        assert la.out_ctx_rows(d, es) == -(-d // 64) * 64
+    assert la.out_ctx_rows(512, 4) == 384
+    assert la.out_smem(512, 4) == (64 * 512 + 384 * 64) * 4 <= la.SMEM_LIMIT
+    assert re.findall(r"constexpr size_t OUT_SMEM_MAX = (\d+);",
+                      CORE.read_text()) == [str(la.SMEM_LIMIT)]

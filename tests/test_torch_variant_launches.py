@@ -7,7 +7,10 @@ the counts at the published 224² shapes of each registry variant, which
 chip_smoke.py holds the card to, are the ones the JAX programs' traced
 pallas_calls give (tools/count_pallas_calls.py; ROADMAP.md §2), apart
 from the port's stated choices (K6 on the MHCA blocks the JAX package
-runs through XLA; K2 on the 14² folds; K9 at 14²)."""
+runs through XLA; K2 on the 14² folds; K9 at 14²). The same for the
+legacy models (models/legacy.py launches_per_forward / launches_per_step
+against the wrappers' routing at the tiny config, and the 224² counts
+against the JAX trace of the registry models themselves)."""
 
 import dataclasses
 
@@ -133,3 +136,53 @@ def test_published_shape_launches(name):
                            (dict(use_pallas_train=True), pallas)):
             assert _kids(launches_per_step(
                 dataclasses.replace(cfg, **over))) == want, over
+
+
+# The legacy models (models/legacy.py) at 224² per kernel, in the eval
+# forward and in a train step (every train mode alike: JAX
+# train_step_model leaves these models as they are): the JAX programs'
+# traced pallas_calls (tools/count_pallas_calls.py --model NAME: MISSFormer
+# K8 4 + K2 8 a forward, K8 4 + K2 8 + K11 8 a step; the other four none)
+# under the port's stated rules: K6 on every linear attention and K7 on
+# the four expands, where JAX runs XLA; K2 and K11 also at the bridge's 14²
+# scale.
+LEGACY_224 = {
+    "transception": (dict(K6=14, K7=4), dict(K6=14, K7=4)),
+    "missformer": (dict(K2=12, K7=4, K8=4), dict(K2=12, K7=4, K8=4, K11=12)),
+    "effmissformer": (dict(K6=14, K7=4), dict(K6=14, K7=4)),
+    "resinception": (dict(K6=14, K7=4), dict(K6=14, K7=4)),
+    "resinception_135": (dict(K6=14, K7=4), dict(K6=14, K7=4)),
+}
+
+
+@pytest.mark.parametrize("name", list(LEGACY_224))
+def test_legacy_shape_launches(name):
+    from transception_tpu_torch.models import legacy
+    fwd, step = LEGACY_224[name]
+    for dtype in ("bfloat16", "float32"):
+        cfg = TransceptionConfig(dtype=dtype)
+        assert _kids(legacy.launches_per_forward(name, cfg)) == fwd
+        for over in MODES.values():
+            assert _kids(legacy.launches_per_step(
+                name, dataclasses.replace(cfg, **over))) == step, over
+    off = TransceptionConfig(use_kernels=False)
+    assert not _kids(legacy.launches_per_forward(name, off))
+    assert not _kids(legacy.launches_per_step(name, off))
+
+
+@pytest.mark.parametrize("name", list(LEGACY_224))
+def test_legacy_forward_routes_equal_launches_per_forward(name):
+    """The kernel wrappers' decisions in one eval forward of each legacy
+    model at the tiny config (32², dil_conv 0) are
+    legacy.launches_per_forward's, and none without use_kernels."""
+    from transception_tpu_torch.models import legacy
+    from transception_tpu_torch.models.registry import create_model
+    x = torch.randn(2, 32, 32, 1, generator=torch.Generator().manual_seed(0))
+    for use_kernels in (True, False):
+        cfg = dataclasses.replace(TINY, dil_conv=0, use_kernels=use_kernels)
+        m = create_model(name, cfg, device="cpu", seed=0)
+        kernels.reset_launches()
+        with torch.no_grad():
+            m(x)
+        assert kernels.routed_counts() == _nonzero(
+            legacy.launches_per_forward(name, cfg))

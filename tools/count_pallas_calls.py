@@ -2,12 +2,14 @@
 tracing them (jax.make_jaxpr, nothing compiled) on the CPU with
 jax.default_backend patched to "tpu", so that the kernel gates decide as on
 a TPU. Prints one JSON object: pallas_call counts by kernel name for the
-eval forward (argmax, b=32) and the train step (b=24, wide head) of the
-published TransceptionConfig at fp32 (the published eval protocol's
-dtype), per train mode; with --model, of that registry model (the four
-MSTransception variants: models/registry.py), at --dtype; with
---forward_only, only the eval forward; with a TransceptionConfig field
-=value (--set concat=se), that config.
+eval forward (b=32: the fused argmax where the model has one, else the
+argmax of its logits) and the train step (b=24, the wide head where the
+model has one) of the published TransceptionConfig at fp32 (the published
+eval protocol's dtype), per train mode; with --model, of that registry
+model itself (the MSTransception variants and the legacy models:
+models/registry.py), at --dtype; with --forward_only, only the eval
+forward; with a TransceptionConfig field=value (--set concat=se), that
+config.
 
     JAX_PLATFORMS=cpu python tools/count_pallas_calls.py
     JAX_PLATFORMS=cpu python tools/count_pallas_calls.py \
@@ -15,8 +17,8 @@ MSTransception variants: models/registry.py), at --dtype; with
 """
 
 import argparse
-
 import dataclasses
+import inspect
 import json
 import sys
 from collections import Counter
@@ -33,7 +35,6 @@ from transception_tpu.core.config import (  # noqa: E402
     TransceptionConfig,
 )
 from transception_tpu.models.registry import MODEL_REGISTRY  # noqa: E402
-from transception_tpu.models.transception import MSTransception  # noqa: E402
 from transception_tpu.train.state import create_train_state  # noqa: E402
 from transception_tpu.train.trainer import (  # noqa: E402
     make_train_step,
@@ -62,30 +63,35 @@ def pallas_calls(jaxpr, out=None):
     return out
 
 
-def variant_config(name, cfg):
-    """The TransceptionConfig registry model `name` builds from `cfg`."""
-    return MODEL_REGISTRY[name](cfg).cfg
+def takes(model, kwarg):
+    """Whether the flax model's __call__ takes keyword `kwarg` (argmax,
+    wide_head: MSTransception's, not the legacy models')."""
+    return kwarg in inspect.signature(type(model).__call__).parameters
 
 
-def forward_counts(cfg, batch=32):
-    model = MSTransception(cfg)
+def forward_counts(model, batch=32):
     x = jax.ShapeDtypeStruct((batch, 224, 224, 1), jnp.float32)
     variables = jax.eval_shape(
         lambda k: model.init(k, jnp.zeros(x.shape, x.dtype), train=False),
         jax.random.PRNGKey(0))
-    jaxpr = jax.make_jaxpr(
-        lambda v, im: model.apply(v, im, argmax=True))(variables, x)
-    return pallas_calls(jaxpr.jaxpr)
+
+    def ids(v, im):  # as eval/inference.py's predictors take them
+        if takes(model, "argmax"):
+            return model.apply(v, im, argmax=True)
+        return jnp.argmax(model.apply(v, im), axis=-1).astype(jnp.uint8)
+
+    return pallas_calls(jax.make_jaxpr(ids)(variables, x).jaxpr)
 
 
-def train_counts(cfg, batch=24):
-    model = train_step_model(MSTransception(cfg))
+def train_counts(model, batch=24):
+    model = train_step_model(model)
     x = jnp.zeros((batch, 224, 224, 1), jnp.float32)
     y = jax.ShapeDtypeStruct((batch, 224, 224), jnp.int32)
     state = jax.eval_shape(lambda k: create_train_state(
         model, TrainConfig(batch_size=batch), 92, x, k),
         jax.random.PRNGKey(0))
-    step = make_train_step(model, 9, 0.4, 0.6, wide_head=True)
+    step = make_train_step(model, 9, 0.4, 0.6,
+                           wide_head=takes(model, "wide_head"))
     key = jax.ShapeDtypeStruct((2,), jnp.uint32)
     jaxpr = jax.make_jaxpr(step)(
         state, jax.ShapeDtypeStruct(x.shape, x.dtype), y, key)
@@ -110,13 +116,14 @@ def main():
                     help="a TransceptionConfig field=value")
     args = ap.parse_args()
     over = dict(kv.split("=", 1) for kv in args.set)
-    cfg = variant_config(args.model, TransceptionConfig(
-        dtype=args.dtype, **{k: _value(v) for k, v in over.items()}))
+    cfg = TransceptionConfig(dtype=args.dtype,
+                             **{k: _value(v) for k, v in over.items()})
+    build = MODEL_REGISTRY[args.model]
     res = {"model": args.model, "dtype": cfg.dtype, "set": over,
-           "forward_b32": dict(forward_counts(cfg))}
+           "forward_b32": dict(forward_counts(build(cfg)))}
     for mode, over in ({} if args.forward_only else MODES).items():
         res[f"train_b24_{mode}"] = dict(
-            train_counts(dataclasses.replace(cfg, **over)))
+            train_counts(build(dataclasses.replace(cfg, **over))))
     print(json.dumps(res))
 
 

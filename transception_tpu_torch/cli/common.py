@@ -19,13 +19,9 @@ from transception_tpu_torch.core.config import (
 )
 
 # Flags the port's configs have no field for: argparse dest -> (default,
-# what is missing). head_count and dil_conv are JAX TransceptionConfig
-# fields that only the legacy models read (transception_tpu/models/
-# legacy.py:181-301; ROADMAP.md §1 item 5); remat, vectorize_paths and
-# debug_nans are JAX-only knobs.
+# what is missing). remat, vectorize_paths and debug_nans are JAX-only
+# knobs.
 UNSUPPORTED = {
-    "head_count": (8, "TransceptionConfig.head_count (legacy models)"),
-    "dil_conv": (1, "TransceptionConfig.dil_conv (legacy models)"),
     "remat": (False, "TransceptionConfig.remat (rematerialised stages)"),
     "no_vectorize_paths": (False, "TransceptionConfig.vectorize_paths (the "
                                   "port has one parameter layout, the "
@@ -39,7 +35,9 @@ def add_model_args(p: argparse.ArgumentParser):
                    help="registry name (models/registry.py): "
                         "mstransception, mstransception_4stage, "
                         "mstransception_casa, mstransception_sp, "
-                        "mstransception_para")
+                        "mstransception_para; the legacy models "
+                        "transception, missformer, effmissformer, "
+                        "resinception, resinception_135")
     p.add_argument("--num_classes", type=int, default=9)
     p.add_argument("--img_size", type=int, default=224)
     p.add_argument("--head_count", type=int, default=8)
@@ -172,6 +170,8 @@ def build_configs(args):
         sa_ker=args.sa_ker,
         inter=args.inter,
         num_sp=args.num_sp,
+        head_count=args.head_count,
+        dil_conv=args.dil_conv,
         token_mlp=args.token_mlp,
         dtype=args.dtype,
         use_kernels=not getattr(args, "no_pallas", False),

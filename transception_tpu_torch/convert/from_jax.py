@@ -6,7 +6,13 @@ convert/torch2flax.py:68 `flax_path_to_torch_key` (a copy: the 'ln'/'bn'
 wrapper levels drop, list modules `name_i` become `name.i` or their
 renamed torch ModuleList, `inv_res` becomes `InvRes`, the fusion blocks'
 and the para/sp bridges' modules their reference names, flax leaf names
-torch ones), with its fallback keys for the fusion blocks' Sequentials. `load_jax_variables`
+torch ones), with its fallback keys for the fusion blocks' Sequentials.
+The legacy models' trees (models/legacy.py) pass the same translation:
+their stages' blocks block{s}_{i} become the ModuleLists block{s}.{i};
+patch_embed2_1, resInception2_2 and layer_former_1 (no list names) keep
+their flax names, as do conv1_1_s2 and sk_concat2 (whose SK Sequential
+takes the fallback keys), and the MultiRes branches' conv, bn (with its
+statistics) and norm leaves. `load_jax_variables`
 applies the inverse layout transforms and fills the port in place, strictly.
 `train_state_from_jax` converts a whole JAX Trainer checkpoint (the raw
 pytree of transception_tpu/train/trainer.py:223-233 save_checkpoint) into
@@ -27,6 +33,9 @@ from transception_tpu_torch.core.device import DeviceLike, resolve_device
 # Copies of the tables of transception_tpu/convert/torch2flax.py:24-65.
 _LIST_RENAMES = {
     "block1": "block1",
+    "block2": "block2",  # the legacy encoders' stages 2-4
+    "block3": "block3",
+    "block4": "block4",
     "mhca_blks": "mhca_blks",
     "layers": "MHCA_layers",
     "patch_embeds": "patch_embeds",
@@ -89,14 +98,16 @@ def flax_path_to_torch_key(path: str) -> str:
 def _candidate_keys(key: str) -> List[str]:
     """key, then the fusion blocks' Sequential placements of conv and bn
     (CBAM's conv2d_bn_act.0/1, SK's conv_bn_ac.0/2), as
-    torch2flax.py:122-139 tries them."""
+    torch2flax.py:122-139 tries them; SK's also under the legacy
+    two-branch encoder's sk_concat{s} (models/legacy.py MiT3Inception)."""
+    sk = r"(aggregate|sk_concat\d)"
     cands = [key,
              re.sub(r"aggregate\.conv\.weight$",
                     "aggregate.conv2d_bn_act.0.weight", key),
              re.sub(r"aggregate\.bn\.", "aggregate.conv2d_bn_act.1.", key),
-             re.sub(r"aggregate\.conv\.(weight|bias)$",
-                    r"aggregate.conv_bn_ac.0.\1", key),
-             re.sub(r"aggregate\.bn\.", "aggregate.conv_bn_ac.2.", key)]
+             re.sub(sk + r"\.conv\.(weight|bias)$", r"\1.conv_bn_ac.0.\2",
+                    key),
+             re.sub(sk + r"\.bn\.", r"\1.conv_bn_ac.2.", key)]
     return list(dict.fromkeys(cands))
 
 

@@ -86,6 +86,11 @@ class TransceptionConfig:
     sa_ker: int = 7  # CBAM spatial gate's kernel size
     inter: str = "res"  # casa CBAM interface: res | out
     num_sp: int = 1  # SpatialAwareTrans layers of the 'sp' bridge
+    # The legacy models' knobs (models/legacy.py): the heads of the
+    # two-branch encoders' fused-sequence attention, and the dilated (1)
+    # or plain (0) patch-embed schedules of the inception encoders.
+    head_count: int = 8
+    dil_conv: int = 1
     bridge_dim: int = 64
     bridge_heads: int = 1
     reduction_ratios: Tuple[int, int, int, int] = (1, 2, 4, 8)

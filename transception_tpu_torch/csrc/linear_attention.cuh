@@ -28,10 +28,11 @@
 //             here, else written as an fp32 partial;
 //   3. sum    (S > 1) the S partials added in order and rounded to bf16;
 //   4. out    per (64 output columns, 64 rows, batch·head): Q's rows over
-//             all dk channels and the context's column tile (dk x 64)
-//             staged by cp.async, the channel softmax of Q in place (eight
-//             lanes a row), Q'·ctx on the tensor cores, scale, one rounding,
-//             16-byte stores through a padded tile.
+//             all dk channels and the context's column tile (dk x 64, in
+//             pieces of out_ctx_rows where the whole does not fit beside
+//             Q: fp32 at dk = 512) staged by cp.async, the channel softmax
+//             of Q in place (eight lanes a row), Q'·ctx on the tensor cores,
+//             scale, one rounding, 16-byte stores through a padded tile.
 // The out stage recomputes Q's row softmax for each column tile rather
 // than streaming the whole context past one block: at C = 320 the context
 // (200 KB in bf16) and the rows do not fit a block together, and a block
@@ -266,12 +267,23 @@ __global__ void lin_sum_kernel(const float* pctx, int S, size_t n, E* ctx) {
   ctx[i] = fromf<E>(s);
 }
 
-// Q's rows (RO x dk rounded up to 64) and the context's column tile (that
-// many rows x CT), elements of es bytes; the padded output tile reuses
-// them.
+// Rows of the context's column tile an out-stage block stages at once
+// (a multiple of CT): all dk (rounded up to 64) where they fit beside Q's
+// rows in OUT_SMEM_MAX, else as many as fit, in pieces one after another
+// (fp32 at dk = 512: 384, then 128).
+constexpr size_t OUT_SMEM_MAX = 232448;  // what a block may opt into, sm_90
+__host__ __device__ inline int out_ctx_rows(int dk, int es = 2) {
+  const long dkp = (dk + CT - 1) / CT * CT;
+  const long room = ((long)OUT_SMEM_MAX / es - RO * dkp) / CT / CT * CT;
+  return (int)(room < dkp ? room : dkp);
+}
+
+// Q's rows (RO x dk rounded up to 64) and a piece of the context's column
+// tile (out_ctx_rows x CT), elements of es bytes; the padded output tile
+// reuses them.
 __host__ __device__ inline size_t out_smem(int dk, int es = 2) {
   const size_t dkp = (dk + CT - 1) / CT * CT;
-  return (RO + CT) * dkp * es;
+  return (RO * dkp + (size_t)out_ctx_rows(dk, es) * CT) * es;
 }
 
 template <int KID, typename E>
@@ -284,13 +296,15 @@ lin_out_kernel(View<E> q, const E* ctx, View<E> o, int N, int dk, int dv,
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = bsa::smem_addr(smem);
   const int dkp = (dk + CT - 1) / CT * CT, nk = dkp / KS;
+  const int kp = out_ctx_rows(dk, (int)sizeof(E));  // context rows a piece
   const int c0 = blockIdx.x * CT, n0 = blockIdx.y * RO, bh = blockIdx.z;
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
   const int wm = (w % T::WARPS_M) * T::WM, wn = (w / T::WARPS_M) * T::WN;
-  const uint32_t sc = base + nk * RO * 128;  // the context: dkp rows
+  const uint32_t sc = base + nk * RO * 128;  // the context: kp rows
+  const E* cb = ctx + (size_t)bh * dk * dv + c0;
   stage_rt(base, q.at(bh, n0), q.ld, RO, dkp, N - n0, dk);
   bsa::cp_async_commit();
-  stage_rt(sc, ctx + (size_t)bh * dk * dv + c0, dv, dkp, CT, dk, dv - c0);
+  stage_rt(sc, cb, dv, kp, CT, dk, dv - c0);
   bsa::cp_async_commit();
   if (q_softmax) {
     // Q' = E(softmax of each row over its dk channels) in place while
@@ -343,12 +357,22 @@ lin_out_kernel(View<E> q, const E* ctx, View<E> o, int N, int dk, int dv,
 #pragma unroll
     for (int j = 0; j < T::NT; ++j)
       acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
-  // Step it: Q's panel it and the context's rows it·KS.. (its column
-  // panels dkp rows apart).
-  for (int it = 0; it < nk; ++it)
-    ffn::mma_step<RO, CT, true, false, E>(base + it * RO * 128,
-                                          sc + it * KS * 128, wm, wn, acc,
-                                          KS * 128, dkp * 128);
+  // Step it: Q's panel it and the context's rows it·KS.. of the piece
+  // staged (its column panels kp rows apart); the next piece is staged
+  // over the last once every warp is done with it.
+  for (int p0 = 0; p0 < dkp; p0 += kp) {
+    if (p0) {
+      __syncthreads();
+      stage_rt(sc, cb + (size_t)p0 * dv, dv, kp, CT, dk - p0, dv - c0);
+      bsa::cp_async_commit();
+      bsa::cp_async_wait<0>();
+      __syncthreads();
+    }
+    for (int it = p0 / KS; it < min(p0 + kp, dkp) / KS; ++it)
+      ffn::mma_step<RO, CT, true, false, E>(base + it * RO * 128,
+                                            sc + (it * KS - p0) * 128, wm,
+                                            wn, acc, KS * 128, kp * 128);
+  }
 
   // E(scale · acc) into a padded tile over the operands, then 16-byte
   // stores of EC columns a thread.
@@ -382,7 +406,7 @@ cudaError_t attention(View<E> q, View<E> k, View<E> v, View<E> o,
                       int dk, int dv, int S, int rps, int q_softmax,
                       float scale, cudaStream_t st) {
   if (S <= 0 || rps <= 0 || (size_t)S * rps < (size_t)N || dk % 8 ||
-      dv % 8 || rps % RCH<E>)
+      dv % 8 || rps % RCH<E> || out_ctx_rows(dk, (int)sizeof(E)) < CT)
     return cudaErrorInvalidValue;
   cudaError_t e;
   lin_stats_kernel<KID, E><<<dim3((dk + SCOLS - 1) / SCOLS, S, BH), THREADS,

@@ -25,6 +25,7 @@ map does not depend on which rank ran it.
 
 from __future__ import annotations
 
+import inspect
 import math
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -160,6 +161,16 @@ class _Clock:
         self._t = now
 
 
+def class_ids(model, x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) uint8 class ids of the (B, H, W, 1) slices x: the model's
+    fused argmax where it has one (MSTransception's argmax=True), else the
+    argmax of its fp32 logits (the legacy models), as the JAX predictors
+    (inference.py:178-189, 326-354)."""
+    if "argmax" in inspect.signature(model.forward).parameters:
+        return model(x, argmax=True)
+    return model(x).argmax(-1).to(torch.uint8)
+
+
 def make_predictor(model, patch_size: int = 224, batch: int = 32,
                    device: DeviceLike = "cuda",
                    device_resample: bool = False,
@@ -187,7 +198,7 @@ def make_predictor(model, patch_size: int = 224, batch: int = 32,
 
     def fwd(x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return gather(model(x[..., None], argmax=True))
+            return gather(class_ids(model, x[..., None]))
 
     def _pad(sl: np.ndarray, n: int = batch) -> np.ndarray:
         pad = n - sl.shape[0]
@@ -279,9 +290,9 @@ def make_device_predictor(model, patch_size: int = 224, batch: int = 32,
         (a_h, a_w), ridx, cidx, ok = _ops_for(h, w)
         with torch.inference_mode():
             if (h, w) == (patch_size, patch_size):
-                return model(_normalise(x)[..., None], argmax=True)
-            pred = model(_normalise(_resample(x, a_h, a_w))[..., None],
-                         argmax=True)
+                return class_ids(model, _normalise(x)[..., None])
+            pred = class_ids(model,
+                             _normalise(_resample(x, a_h, a_w))[..., None])
             pred = pred.index_select(1, ridx).index_select(2, cidx)
             return pred * ok if ok is not None else pred
 

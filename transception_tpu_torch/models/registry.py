@@ -1,11 +1,12 @@
 """Model registry of the port, by the names of the JAX package's
 (transception_tpu/models/registry.py:31-57).
 
-The published MSTransception and its four ablation variants are ported:
-each variant is the published config with the fields the JAX registry
-sets. The legacy models (the two-branch encoder and the baselines) raise
-NotImplementedError, and a name neither registry knows raises KeyError, as
-the JAX create_model does.
+The published MSTransception and its four ablation variants: each variant
+is the published config with the fields the JAX registry sets. The legacy
+models (the two-branch Transception, MISSFormer, EffMISSFormer and the
+ResInception pair, models/legacy.py) take the caller's config as it is,
+as the JAX registry passes it. A name the registry does not know raises
+KeyError, as the JAX create_model does.
 """
 
 from __future__ import annotations
@@ -25,26 +26,22 @@ VARIANTS = {
     "mstransception_sp": dict(have_bridge="sp", num_sp=1),
     "mstransception_para": dict(have_bridge="para"),
 }
-PORTED = tuple(VARIANTS)
-# The JAX registry's other models: the legacy two-branch encoder and the
-# baselines (ROADMAP.md §1 item 5).
-NOT_PORTED = ("transception", "missformer", "effmissformer", "resinception",
-              "resinception_135")
+# The legacy models (models/legacy.py MODELS; JAX registry.py:46-57).
+LEGACY = ("transception", "missformer", "effmissformer", "resinception",
+          "resinception_135")
+PORTED = tuple(VARIANTS) + LEGACY
+NOT_PORTED = ()
 
 
 def model_config(name: str, cfg: Optional[TransceptionConfig] = None
                  ) -> TransceptionConfig:
     """The config registry model `name` runs: `cfg` (the published one by
-    default) with the fields the name sets."""
+    default) with the fields the name sets (none for a legacy model)."""
     key = name.lower()
-    if key in NOT_PORTED:
-        raise NotImplementedError(
-            f"model '{name}' is not ported yet (ROADMAP.md §1 item 5: the "
-            f"legacy models); the port has {list(PORTED)}")
     if key not in PORTED:
-        raise KeyError(f"unknown model '{name}'; have "
-                       f"{sorted(PORTED + NOT_PORTED)}")
-    return dataclasses.replace(cfg or TransceptionConfig(), **VARIANTS[key])
+        raise KeyError(f"unknown model '{name}'; have {sorted(PORTED)}")
+    return dataclasses.replace(cfg or TransceptionConfig(),
+                               **VARIANTS.get(key, {}))
 
 
 def create_model(name: str, cfg: Optional[TransceptionConfig] = None,
@@ -52,5 +49,9 @@ def create_model(name: str, cfg: Optional[TransceptionConfig] = None,
     """The model registered as `name` (case-insensitive) with config `cfg`
     (the published one by default), weights drawn from `seed`, on
     `device`."""
+    cfg = model_config(name, cfg)
+    if name.lower() in LEGACY:
+        from transception_tpu_torch.models import legacy
+        return legacy.build(name.lower(), cfg, device, seed)
     from transception_tpu_torch.models.transception import MSTransception
-    return MSTransception(model_config(name, cfg), device, seed)
+    return MSTransception(cfg, device, seed)

@@ -45,6 +45,20 @@ from transception_tpu_torch.ops import kernels
 from transception_tpu_torch.ops.common import init_weights
 
 
+def model_device(cfg: TransceptionConfig, device: DeviceLike
+                 ) -> torch.device:
+    """The device a model of config `cfg` is built on; raises for CUDA
+    when it is absent, and on the card for a compute dtype the CUDA
+    kernels do not take (bf16 and fp32) while they are on."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and cfg.use_kernels and \
+            cfg.compute_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the CUDA kernels take bf16 or fp32, not "
+                         f"{cfg.dtype}; build such a model on the card "
+                         f"with use_kernels=False")
+    return dev
+
+
 class MSTransception(nn.Module):
     """U-shaped hierarchical transformer for 2-D medical image
     segmentation. Weights are drawn from `seed` (flax-equivalent init);
@@ -55,12 +69,7 @@ class MSTransception(nn.Module):
                  device: DeviceLike = "cuda", seed: int = 0):
         super().__init__()
         cfg = cfg.validate()
-        dev = resolve_device(device)
-        if dev.type == "cuda" and cfg.use_kernels and \
-                cfg.compute_dtype not in (torch.bfloat16, torch.float32):
-            raise ValueError(f"the CUDA kernels take bf16 or fp32, not "
-                             f"{cfg.dtype}; build such a model on the card "
-                             f"with use_kernels=False")
+        dev = model_device(cfg, device)
         self.cfg = cfg
         dt = cfg.compute_dtype
         folds = fold_table(cfg)

@@ -60,14 +60,16 @@ class Linear(nn.Module):
 
 class Conv2d(nn.Module):
     """flax nn.Conv on NHWC maps: weight (O, I/groups, kh, kw) fp32,
-    operands and output in the compute dtype."""
+    operands and output in the compute dtype; `dilation` is flax's
+    kernel_dilation."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, groups: int = 1,
-                 bias: bool = True, dtype=torch.bfloat16):
+                 bias: bool = True, dtype=torch.bfloat16, dilation: int = 1):
         super().__init__()
         self.dtype = dtype
         self.stride, self.padding, self.groups = stride, padding, groups
+        self.dilation = dilation
         self.weight = nn.Parameter(
             torch.empty(out_ch, in_ch // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
@@ -81,7 +83,8 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt),
-                     None, self.stride, self.padding, 1, self.groups)
+                     None, self.stride, self.padding, self.dilation,
+                     self.groups)
         y = y.permute(0, 2, 3, 1)
         if self.bias is not None:
             y = y + self.bias.to(dt)

@@ -10,7 +10,14 @@ Replaces transception_tpu/ops/pallas/linear_attention_kernel.py:235
     (B, 8, 784, 8) and (B, 8, 196, 16);
   * the EfficientAttention of the ETBs with etb_attn_fold off, q_softmax
     True (ops/attention.py:33-55): (B, 1, 3136, 64), (B, 1, 784, 128) and
-    (B, 1, 196, 320).
+    (B, 1, 196, 320);
+  * the legacy models' linear attentions (models/legacy.py), q_softmax
+    True: their unfolded ETBs at those maps and EffMiT's stage 4,
+    (B, 1, 49, 512); the two-branch encoder's fused sequences at
+    head_count 8, (B, 8, 1460, 16), (B, 8, 340, 40), (B, 8, 74, 64);
+    ResInception's one-head fused sequences, (B, 1, 2352, 128),
+    (B, 1, 588, 320), (B, 1, 147, 512) and ('135') (B, 1, 3136, 128),
+    (B, 1, 784, 320), (B, 1, 196, 512).
 The TPU gate sends head dims under 64 to XLA (VMEM tiling); the H100 has
 no such limit.
 
@@ -45,7 +52,10 @@ eval forward runs its head body at stage 4, (B, 8, 49, 40)): both bodies at
 fp32 with no rounding points; the core's products on the CUDA cores
 (mixffn_stages.cuh's fp32 step, 32-row ctx chunks of the same bytes). The
 plans take the element size (`plan(..., es=4)`): the head body's q, k, v
-and context double, the out stage's Q rows and context tile double.
+and context double, the out stage's Q rows and context tile double; where
+the whole context tile no longer fits beside Q's rows (fp32 at head dim
+512), the out stage stages it in pieces of whole 64-row tiles, one after
+another (out_ctx_rows: 384 rows, then 128).
 """
 
 from __future__ import annotations
@@ -71,7 +81,7 @@ OUT_ROWS = 64
 STATS_COLS = 32
 CTX_STAGES = 3
 HEAD_MAX = 64
-MAX_D = 512  # the segmented body's widest head (out-stage shared memory)
+MAX_D = 512  # the segmented body's widest head
 BODIES = ("head", "segmented")
 launches = 0
 
@@ -115,12 +125,23 @@ def ctx_smem() -> int:
     return CTX_STAGES * 2 * CHUNK_ROWS * CTX_TILE * 2 + 2 * CTX_TILE * 4
 
 
+def out_ctx_rows(dk: int, es: int = 2) -> int:
+    """Rows of the context's column tile one core out-stage block stages
+    at once (lin::out_ctx_rows): all of dk rounded up to 64 where they fit
+    beside Q's rows in SMEM_LIMIT, else as many whole 64-row tiles as fit
+    (fp32 at dk = 512: 384 rows, then the other 128)."""
+    dkp = _cdiv(dk, CTX_TILE) * CTX_TILE
+    room = (SMEM_LIMIT // es - OUT_ROWS * dkp) // CTX_TILE // CTX_TILE \
+        * CTX_TILE
+    return min(room, dkp)
+
+
 def out_smem(dk: int, es: int = 2) -> int:
     """Shared memory of one core out-stage block over elements of es bytes
-    (lin::out_smem): Q's rows over dk rounded up to 64 channels and the
-    context's column tile."""
+    (lin::out_smem): Q's rows over dk rounded up to 64 channels and a
+    piece of out_ctx_rows rows of the context's column tile."""
     dkp = _cdiv(dk, CTX_TILE) * CTX_TILE
-    return (OUT_ROWS + CTX_TILE) * dkp * es
+    return (OUT_ROWS * dkp + out_ctx_rows(dk, es) * CTX_TILE) * es
 
 
 def core_plan(bh: int, N: int, dk: int, dv: int, sms: int, es: int = 2
@@ -190,10 +211,9 @@ def _check(q, k, v):
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
     dv = v.shape[-1]
     if dk % 8 or dv % 8 or max(dk, dv) > MAX_D or \
-            out_smem(dk, q.element_size()) > SMEM_LIMIT:
+            out_ctx_rows(dk, q.element_size()) < CTX_TILE:
         raise ValueError(f"{NAME} kernel needs head dims that are "
-                         f"multiples of 8 up to {MAX_D} (at fp32, an out "
-                         f"stage within shared memory), got {dk}, {dv}")
+                         f"multiples of 8 up to {MAX_D}, got {dk}, {dv}")
 
 
 def linear_attention(q, k, v, q_softmax: bool = False, scale: float = 1.0):

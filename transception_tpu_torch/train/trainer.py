@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import inspect
 import logging
 import os
 import time
@@ -58,7 +59,7 @@ from transception_tpu_torch.data.synapse import (
     make_test_dataset,
     make_train_dataset,
 )
-from transception_tpu_torch.eval.inference import run_inference
+from transception_tpu_torch.eval.inference import class_ids, run_inference
 from transception_tpu_torch.models.transception import MSTransception
 from transception_tpu_torch.parallel.mesh import (
     DataMesh,
@@ -129,6 +130,12 @@ def make_train_step(state: TrainState, num_classes: int, ce_w: float,
     model = state.model
     net = model if net is None else net
     ddp = isinstance(net, torch.nn.parallel.DistributedDataParallel)
+    # The generator where the model draws masks (MSTransception); the wide
+    # head where asked (the legacy models have neither).
+    kw = {"gen": gen} if "gen" in inspect.signature(
+        model.forward).parameters else {}
+    if wide_head:
+        kw["wide_head"] = True
 
     def train_step(images: torch.Tensor,
                    labels: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -137,7 +144,7 @@ def make_train_step(state: TrainState, num_classes: int, ce_w: float,
         sync = not ddp or state.ends_window()
         with data_parallel(mesh), \
                 (contextlib.nullcontext() if sync else net.no_sync()):
-            out = net(images, wide_head=wide_head, gen=gen)
+            out = net(images, **kw)
             if wide_head:
                 labels = shuffle_labels_wide(labels)
             total, ce, dc = segmentation_loss(out, labels, num_classes,
@@ -161,7 +168,7 @@ def _log_images(writer, model, images, labels, it):
     model.eval()
     try:
         with torch.no_grad():
-            pred = model(images[:1], argmax=True)[0].cpu().numpy()
+            pred = class_ids(model, images[:1])[0].cpu().numpy()
     finally:
         model.train(was_training)
     writer.add_image("train/Image", img[None], it)
@@ -228,14 +235,18 @@ class Trainer:
         self.mesh = mesh
         self.device = self.mesh.device
         self.main = self.mesh.is_main
-        # Any registry variant: the model is a function of its config
-        # (models.registry.model_config).
+        # Any registry model (the CLIs pass models.registry.create_model's);
+        # by default the MSTransception of model_cfg.
         self.model = model if model is not None else MSTransception(
             model_cfg, self.device, seed=train_cfg.seed)
         os.makedirs(train_cfg.output_dir, exist_ok=True)
 
     def _use_wide_head(self) -> bool:
-        return self.cfg.wide_loss and self.data_cfg.img_size % 4 == 0
+        """The wide-layout loss (TrainConfig.wide_loss): MSTransception
+        only (the legacy models have no wide head, JAX trainer.py:
+        202-209), and the label shuffle needs img_size % 4 == 0."""
+        return (self.cfg.wide_loss and isinstance(self.model, MSTransception)
+                and self.data_cfg.img_size % 4 == 0)
 
     def _ckpt_dir(self) -> str:
         return os.path.abspath(os.path.join(self.cfg.output_dir, "ckpt"))
