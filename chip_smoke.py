@@ -152,8 +152,34 @@ Phases (any failed check exits non-zero):
      CLI_STEPS steps (the checkpoint's BatchNorm statistics against the
      trained model's, and restored into a fresh model), then a call that
      resumes from it for one more step.
+ 16. ISIC 2018 (data/isic.py) on the published model at 2 classes:
+     dice_eval at b=32 over synthetic lesions and a preprocessed .npz
+     written for the run, bf16 and fp32, kernels against use_kernels=False
+     (per-image masks >= 0.99 equal at bf16, at fp32 every pixel but
+     near-ties of the plain path's logits; the mean-dice gap; launches exactly launches_per_forward(argmax=False));
+     a b=24 train step on the Trainer's ISIC batch at bf16 and fp32
+     against the plain step (BF16_LIMITS / FP32_LIMITS, launches exactly
+     launches_per_step); cli.test --dataset ISIC.
+ 17. the serving export (serve/export.py): cli.export of the published
+     model at --export_batch 32, bf16, its program's kernel operators
+     those the eager forward launches; loaded in a fresh process that
+     never imports the models, its logits against the eager forward's
+     (bit for bit, or within two eager runs' spread) and its launches
+     exactly launches_per_forward(argmax=False); --plain_xla for the CPU
+     (one block a stage), run in a process that sees no card, against the
+     eager CPU forward.
+ 18. remat: the b=24 bf16 "pallas" step (drop path 0.1) twice without and
+     once with TransceptionConfig.remat, two steps each: losses,
+     gradients, parameters, BatchNorm statistics within twice the
+     run-to-run spread, the generators' states equal, launches exactly
+     launches_per_step (the recompute's included), peak memory of both
+     beside the card's name and power limit.
+ 19. utils/profiling.py on the b=32 bf16 logits forward:
+     device_time_per_call against CUDA events around the same traced
+     calls (each within 10%), cost_analysis of the kernel
+     and the plain path (equal flops and bytes), profile_model_sections.
 Every launch of the main-path runs (phases 4, 5-7 at fp32, 9, 10, 11, 12,
-13, 14 and 15) is tallied by shape (ops.kernels.shape_counts); each shape
+13, 14, 15, 16 and 18) is tallied by shape (ops.kernels.shape_counts); each shape
 must have been measured in phase 3 or 8. The last line is {"ok": true, "device": {...}}; the two
 lines before it list each kernel at each shape (one row per shape) with
 its launches in those runs, its error and its per-launch times and bound,
@@ -1778,17 +1804,17 @@ def _gen(seed):
         device="cuda").manual_seed(seed)
 
 
-def _one_step(model, sd0, img, lbl, seed=None, wide_head=True):
+def _one_step(model, sd0, img, lbl, seed=None, wide_head=True, classes=9):
     """One train step of `model` from the weights sd0, its drop-path masks
     drawn from a generator seeded `seed`, with the wide head (the legacy
-    models: without): loss, gradients and buffers after the step (on the
-    host)."""
+    models: without), over `classes` classes: loss, gradients and buffers
+    after the step (on the host)."""
     from transception_tpu_torch.core.config import TrainConfig
     from transception_tpu_torch.train.state import TrainState
     from transception_tpu_torch.train.trainer import make_train_step
     model.load_state_dict(sd0)
     st = TrainState(model, TrainConfig(), 2211 // TRAIN_BATCH)
-    met = make_train_step(st, 9, 0.4, 0.6, wide_head=wide_head,
+    met = make_train_step(st, classes, 0.4, 0.6, wide_head=wide_head,
                           gen=_gen(seed))(img, lbl)
     torch.cuda.synchronize()
     return (float(met["loss"]),
@@ -2008,19 +2034,20 @@ def train_phase():
         if not _compare_steps(f"{mode} one step, kernels vs plain", kern,
                               plain, ref):
             fail("the kernel path's train step disagrees with the plain path")
-        # Planted faults through hooks that exist only here: (what, module,
-        # launcher, the launcher with the fault given the launcher).
+        # Planted faults, each in the module's operator handle that the
+        # autograd Function calls: (what, module, operator, the operator
+        # with the fault given the operator).
         def on_out(hook):
             return lambda o: lambda *a: hook(o(*a))
 
-        faults = [("K10 dv zeroed", ba, "_launch_bwd", on_out(
+        faults = [("K10 dv zeroed", ba, "BWD_OP", on_out(
             lambda r: r[:2] + (torch.zeros_like(r[2]),)))]
         if mode == "flash":
-            faults.append(("K11 tap gradient zeroed", mf, "_launch_bwd",
+            faults.append(("K11 tap gradient zeroed", mf, "BWD_OP",
                            on_out(lambda r: r[:5] + (
                                torch.zeros_like(r[5]),) + r[6:])))
         if mode == "pallas":
-            faults.append(("K9 taps negated", mf, "_launch_skip",
+            faults.append(("K9 taps negated", mf, "SKIP_OP",
                            lambda o: lambda *a: o(*a[:3], -a[3], *a[4:])))
         for what, mod, attr, wrap in faults:
             orig = getattr(mod, attr)
@@ -2145,14 +2172,14 @@ def fp32_train_phase():
         def on_out(hook):
             return lambda o: lambda *a: hook(o(*a))
 
-        faults = [("fp32 K10 dv zeroed", ba, "_launch_bwd", on_out(
+        faults = [("fp32 K10 dv zeroed", ba, "BWD_OP", on_out(
             lambda r: r[:2] + (torch.zeros_like(r[2]),)))]
         if mode == "flash":
-            faults.append(("fp32 K11 tap gradient zeroed", mf, "_launch_bwd",
+            faults.append(("fp32 K11 tap gradient zeroed", mf, "BWD_OP",
                            on_out(lambda r: r[:5] + (
                                torch.zeros_like(r[5]),) + r[6:])))
         if mode == "pallas":
-            faults.append(("fp32 K9 taps negated", mf, "_launch_skip",
+            faults.append(("fp32 K9 taps negated", mf, "SKIP_OP",
                            lambda o: lambda *a: o(*a[:3], -a[3], *a[4:])))
         for what, mod, attr, wrap in faults:
             orig = getattr(mod, attr)
@@ -3612,6 +3639,636 @@ def legacy_phase():
     return runs
 
 
+# ---- phases 16-19: ISIC 2018, the serving export, remat, profiling ----
+
+ISIC_IMAGES = 32      # synthetic lesions a dice_eval: one batch of BATCH
+ISIC_AGREE = 0.99     # bf16 per-image masks, kernels against the plain path
+ISIC_NPZ = 8          # preprocessed images written for the run (256², RGB)
+
+
+def _isic_eval(model, ds, out_dir):
+    """dice_eval of `model` over `ds` in batches of BATCH, its masks saved
+    under out_dir (.npy where the machine has no PIL): (mean dice, {case:
+    mask}, launches, shape tallies, its log lines)."""
+    import shutil
+
+    from transception_tpu_torch.data.isic import dice_eval
+    from transception_tpu_torch.ops import kernels
+    shutil.rmtree(out_dir, ignore_errors=True)
+    lines = []
+    kernels.reset_launches()
+    d = dice_eval(model, ds, model.cfg.img_size, batch=BATCH,
+                  log=lines.append, save_path=str(out_dir), device="cuda")
+    torch.cuda.synchronize()
+    counts, tallies = kernels.launch_counts(), kernels.shape_counts()
+    masks = {}
+    for p in sorted(out_dir.iterdir()):
+        if p.suffix == ".npy":
+            masks[p.stem] = np.load(p) > 0
+        elif p.suffix == ".png":
+            from PIL import Image
+            masks[p.stem] = np.asarray(Image.open(p)) > 127
+    return d, masks, counts, tallies, lines
+
+
+def _isic_ties(plain, ds, lines, mk, mp, name):
+    """fp32 masks that differ between the kernel and plain paths: each
+    differing pixel must be a near-tie, its two logits on the plain path
+    within FP32_LOGITS_TOL x max|logit| (the fp32 forward's logits limit,
+    phase 5), where the paths' fp32 sums in another order may pick either
+    class. Logs the pixels and their margins."""
+    cases = [ln.split()[1] for ln in lines if ln.startswith("case ")]
+    worst, top = 0.0, 0.0
+    for i, case in enumerate(cases):
+        bad = mk[f"{case}_pred"] != mp[f"{case}_pred"]
+        if not bad.any():
+            continue
+        x = torch.from_numpy(ds.get(i, np.random.default_rng(0))["image"])
+        with torch.inference_mode():
+            logits = plain(x[None].cuda())[0].float().cpu()
+        margin = (logits[..., 1] - logits[..., 0]).abs()[
+            torch.from_numpy(bad)]
+        worst = max(worst, float(margin.max()))
+        top = max(top, float(logits.abs().max()))
+    log(f"  isic fp32 {name}: the differing pixels' logit margins on the "
+        f"plain path up to {worst:.3g}, max|logit| {top:.3g} (limit "
+        f"{FP32_LOGITS_TOL} x max)")
+    if worst > FP32_LOGITS_TOL * top:
+        fail(f"isic fp32 {name}: a pixel differs beyond a near-tie "
+             f"(margin {worst:.3g})")
+
+
+def _held_forwards(what, counts, cfg, n_fwd, argmax=False):
+    from transception_tpu_torch.models.transception import (
+        launches_per_forward,
+    )
+    for name, per in launches_per_forward(cfg, argmax=argmax).items():
+        if counts[name] != per * n_fwd:
+            fail(f"{what}: {name} launched {counts[name]} times, want "
+                 f"{per} x {n_fwd} (launches_per_forward)")
+
+
+def isic_phase():
+    """Phase 16: ISIC 2018 (data/isic.py) on the published model at 224²
+    with 2 classes. dice_eval at b=32 over SyntheticISICDataset and over a
+    preprocessed .npz written for the run, bf16 and fp32, the kernels
+    against use_kernels=False on the same weights: per-image masks agree on
+    >= ISIC_AGREE of the pixels at bf16, and at fp32 on every pixel but
+    near-ties (_isic_ties; differing pixels counted), the mean-dice gap
+    logged, launches exactly
+    launches_per_forward(argmax=False) a batch; one b=24 train step on an
+    ISIC batch of the Trainer's loader (dataset="isic": augmented
+    3-channel lesions) at bf16 and at fp32 against the plain step within
+    BF16_LIMITS / FP32_LIMITS, launches exactly launches_per_step; the test
+    CLI with --dataset ISIC (bf16, --is_savenii: a mask per case)."""
+    import dataclasses
+    import shutil
+
+    from transception_tpu_torch.cli import test as test_cli
+    from transception_tpu_torch.core.config import (
+        DataConfig,
+        TransceptionConfig,
+    )
+    from transception_tpu_torch.core.device import fp32_exact
+    from transception_tpu_torch.data.isic import SyntheticISICDataset
+    from transception_tpu_torch.data.loader import HostDataLoader, to_device
+    from transception_tpu_torch.data.synapse import (
+        make_test_dataset,
+        make_train_dataset,
+    )
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_step,
+    )
+    from transception_tpu_torch.ops import kernels
+
+    out = OUT_DIR / "isic"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    npz = out / "isic_test.npz"
+    np.savez(npz, image=rng.random((ISIC_NPZ, 256, 256, 3),
+                                   dtype=np.float32),
+             label=(rng.random((ISIC_NPZ, 256, 256)) > 0.5).astype(
+                 np.float32))
+    absent = str(out / "absent")
+    sets = {"synthetic": SyntheticISICDataset(length=ISIC_IMAGES,
+                                              img_size=224),
+            "npz": make_test_dataset(DataConfig(
+                dataset="isic", test_path=str(npz), img_size=224,
+                num_classes=2))}
+    if type(sets["npz"]).__name__ != "ISICPreprocessedDataset":
+        fail(f"make_test_dataset picked {type(sets['npz']).__name__} for "
+             f"an .npz")
+    runs = []
+    for dtype in ("bfloat16", "float32"):
+        cfg = pinned(TransceptionConfig(num_classes=2, dtype=dtype))
+        with fp32_exact(dtype == "float32"):
+            model = MSTransception(cfg, "cuda", seed=0)
+            plain = MSTransception(dataclasses.replace(cfg,
+                                                       use_kernels=False),
+                                   "cuda", seed=0)
+            plain.load_state_dict(model.state_dict())
+            for name, ds in sets.items():
+                t0 = time.perf_counter()
+                dk, mk, ck, tk, lines = _isic_eval(
+                    model, ds, out / f"{dtype}_{name}_kernels")
+                secs = time.perf_counter() - t0
+                dp, mp, cp, _, _ = _isic_eval(
+                    plain, ds, out / f"{dtype}_{name}_plain")
+                n_fwd = math.ceil(len(ds) / BATCH)
+                _held_forwards(f"isic {dtype} {name}", ck, cfg, n_fwd)
+                if any(cp.values()):
+                    fail(f"isic {dtype} {name}: the plain path launched "
+                         f"{cp}")
+                if len(mk) != len(ds) or set(mk) != set(mp):
+                    fail(f"isic {dtype} {name}: {len(mk)} masks saved for "
+                         f"{len(ds)} images")
+                agree = [float((mk[c] == mp[c]).mean()) for c in mk]
+                differ = sum(int((mk[c] != mp[c]).sum()) for c in mk)
+                per_case = sum(ln.startswith("case ") for ln in lines)
+                log(f"  isic {dtype} {name}: {len(mk)} images, mean dice "
+                    f"kernels {dk:.6f} plain {dp:.6f} (gap "
+                    f"{abs(dk - dp):.3g}); masks agree {min(agree):.6f} "
+                    f"worst image, {differ} pixels differ in all; "
+                    f"{per_case} case lines; {secs:.2f} s")
+                if per_case != len(ds) or not np.isfinite(dk):
+                    fail(f"isic {dtype} {name}: {per_case} case lines, "
+                         f"dice {dk}")
+                if dtype == "bfloat16" and min(agree) < ISIC_AGREE:
+                    fail(f"isic bf16 {name}: an image's masks agree on "
+                         f"{min(agree):.4f} < {ISIC_AGREE}")
+                if dtype == "float32" and differ:
+                    _isic_ties(plain, ds, lines, mk, mp, name)
+                runs.append((f"per forward, isic {dtype} {name}", tk,
+                             n_fwd))
+            del model, plain
+            torch.cuda.empty_cache()
+
+    # One b=24 train step on an ISIC batch, kernels against plain.
+    dc = DataConfig(dataset="isic", root_path=absent, img_size=224,
+                    num_classes=2)
+    train_ds = make_train_dataset(dc)
+    batch = next(iter(HostDataLoader(train_ds, TRAIN_BATCH, seed=1234,
+                                     num_workers=8)))
+    img, lbl = to_device(batch, torch.device("cuda"))
+    if tuple(img.shape) != (TRAIN_BATCH, 224, 224, 3) or \
+            int(lbl.max()) > 1:
+        fail(f"isic train batch {tuple(img.shape)}, labels up to "
+             f"{int(lbl.max())}")
+    for dtype, lim in (("bfloat16", BF16_LIMITS), ("float32", FP32_LIMITS)):
+        cfg = TransceptionConfig(num_classes=2, dtype=dtype)
+        with fp32_exact(dtype == "float32"):
+            k = MSTransception(cfg, "cuda", seed=0)
+            p = MSTransception(dataclasses.replace(cfg, use_kernels=False),
+                               "cuda", seed=0)
+            sd0 = {n: t.clone() for n, t in k.state_dict().items()}
+            kernels.reset_launches()
+            sk = _one_step(k, sd0, img, lbl, classes=2)
+            counts, tallies = kernels.launch_counts(), kernels.shape_counts()
+            want = launches_per_step(cfg)
+            if counts != want:
+                fail(f"isic {dtype} step: launches {counts}, want {want}")
+            sp = _one_step(p, sd0, img, lbl, classes=2)
+            if not _compare_steps(f"isic {dtype} step b={TRAIN_BATCH}", sk,
+                                  sp, lim=lim):
+                fail(f"isic {dtype} step: kernels against plain beyond "
+                     f"the limits")
+            runs.append((f"per isic {dtype} train step", tallies, 1))
+            del k, p, sd0
+            torch.cuda.empty_cache()
+
+    # The test CLI with --dataset ISIC (no data at --test_path: the 256
+    # synthetic lesions), bf16, masks saved.
+    cfg = TransceptionConfig(num_classes=2)
+    pth = out / "isic.pth"
+    torch.save(MSTransception(cfg, "cuda", seed=0).state_dict(), pth)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    dice, hd95 = test_cli.main([
+        "--dataset", "ISIC", "--weight_pth", str(pth), "--test_path", absent,
+        "--dtype", "bfloat16", "--eval_batch", str(BATCH), "--is_savenii",
+        "--output_dir", str(out / "cli")])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, tallies = kernels.launch_counts(), kernels.shape_counts()
+    saved = list((out / "cli" / "predictions").iterdir())
+    text = (out / "cli" / "test_log" / "eval.txt").read_text()
+    n_fwd = math.ceil(256 / BATCH)
+    log(f"  cli.test --dataset ISIC: mean dice {dice:.6f}, hd95 {hd95}, "
+        f"{len(saved)} masks saved, {secs:.2f} s")
+    if hd95 != 0.0 or not np.isfinite(dice) or len(saved) != 256 or \
+            "over 256 images" not in text:
+        fail("cli.test --dataset ISIC: wrong result or log")
+    _held_forwards("cli.test --dataset ISIC", counts, cfg, n_fwd)
+    runs.append(("per forward, cli.test ISIC", tallies, n_fwd))
+    return runs
+
+
+# A fresh process that loads an exported artifact and runs it on a saved
+# input: it imports the kernels' registration (load_exported), never the
+# models; prints the launches of one call and what it imported.
+EXPORT_LOADER = """
+import json, sys
+import numpy as np
+import torch
+flags = json.loads(sys.argv[4])
+torch.backends.cuda.matmul.allow_tf32 = flags["matmul_tf32"]
+torch.backends.cudnn.allow_tf32 = flags["cudnn_tf32"]
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \\
+    flags["bf16_reduction"]
+from transception_tpu_torch.ops import kernels
+from transception_tpu_torch.serve.export import load_exported
+fn = load_exported(sys.argv[1])
+x = np.load(sys.argv[2])
+fn(x)
+if fn.device.type == "cuda":
+    torch.cuda.synchronize()
+kernels.reset_launches()
+out = fn(x)
+if fn.device.type == "cuda":
+    torch.cuda.synchronize()
+np.save(sys.argv[3], out.float().cpu().numpy())
+print(json.dumps({"models": "transception_tpu_torch.models" in sys.modules,
+                  "jax": "jax" in sys.modules, "device": str(fn.device),
+                  "cuda": torch.cuda.is_available(),
+                  "launches": kernels.launch_counts()}))
+"""
+
+
+# The loader processes started, each stopped when phase 17 ends.
+_LOADERS = []
+
+
+def _load_exported_elsewhere(artifact, x_path, out_path, cpu=False):
+    """Start a fresh process (EXPORT_LOADER) that runs `artifact` on the
+    input saved at x_path into out_path, on the card or, with `cpu`,
+    where no card is visible; _loaded collects it."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    if cpu:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    # This process's numerics switches (TF32, bf16 reductions), so that
+    # the loaded program runs with the eager forward's.
+    flags = json.dumps({
+        "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+        "bf16_reduction": torch.backends.cuda.matmul
+        .allow_bf16_reduced_precision_reduction})
+    proc = subprocess.Popen([sys.executable, "-c", EXPORT_LOADER,
+                             str(artifact), str(x_path), str(out_path),
+                             flags], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+    _LOADERS.append(proc)
+    return proc, artifact, out_path, time.perf_counter()
+
+
+def _loaded(started):
+    """The result of a loader that _load_exported_elsewhere started:
+    (what it printed, its output, seconds from its start to its end)."""
+    proc, artifact, out_path, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"loading {artifact} in a fresh process: no end in 600 s")
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"loading {artifact} in a fresh process: {stderr[-3000:]}")
+    info = json.loads(stdout.strip().splitlines()[-1])
+    return info, np.load(out_path), secs
+
+
+# The CPU leg of phase 17 at the published widths, one block a stage.
+CPU_EXPORT_DEPTH = dict(stage1_layers=1, num_layers=(1, 1, 1),
+                        num_path=(1, 1, 1))
+
+
+def export_phase():
+    """Phase 17: the serving export (serve/export.py, cli/export.py).
+    cli.export on the published model (weights from a .pth) at
+    --export_batch 32, bf16, for the card: the program's kernel operators;
+    loaded in a fresh process that never imports the models, its logits
+    against the eager forward's (bit for bit, or within two eager runs'
+    own spread) and its launches against launches_per_forward(argmax=
+    False); --plain_xla --platforms cpu at fp32 (batch 2, the published
+    widths at CPU_EXPORT_DEPTH), loaded in a process that sees no card,
+    against the eager CPU forward (1e-5 of max|logit|)."""
+    import shutil
+
+    from transception_tpu_torch.cli import export as export_cli
+    from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_forward,
+    )
+    from transception_tpu_torch.ops import kernels
+    from transception_tpu_torch.serve.export import load_exported
+
+    out = OUT_DIR / "export"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    cfg = TransceptionConfig()
+    model = MSTransception(cfg, "cuda", seed=0)
+    pth = out / "w.pth"
+    torch.save(model.state_dict(), pth)
+    t0 = time.perf_counter()
+    art = export_cli.main(["--weight_pth", str(pth), "--out",
+                           str(out / "model.pt2"), "--export_batch",
+                           str(BATCH)])
+    export_s = time.perf_counter() - t0
+    fn = load_exported(art)
+    ops = Counter(str(n.target).split(".")[1]
+                  for n in fn.program.graph.nodes
+                  if n.op == "call_function"
+                  and str(n.target).startswith(kernels.NAMESPACE))
+    per = {k: n for k, n in launches_per_forward(cfg, argmax=False).items()
+           if n}
+    log(f"  cli.export b={BATCH} bf16: {os.path.getsize(art)} bytes in "
+        f"{export_s:.1f} s; kernel operators in the program {dict(ops)}")
+    if dict(ops) != per:
+        fail(f"export: the program calls {dict(ops)}, the eager forward "
+             f"launches {per}")
+    del fn
+    x = np.random.default_rng(3).random((BATCH, 224, 224, 1),
+                                        dtype=np.float32)
+    np.save(out / "x.npy", x)
+    xt = torch.from_numpy(x).cuda()
+    # Under no_grad, as the program was traced and as it runs.
+    with torch.no_grad():
+        e1 = model(xt).float().cpu().numpy()
+        e2 = model(xt).float().cpu().numpy()
+    spread = float(np.abs(e1 - e2).max())
+    # The card's loader runs while this process exports the CPU leg and
+    # starts its loader (the loaders' seconds include that overlap).
+    on_card = _load_exported_elsewhere(art, out / "x.npy", out / "y.npy")
+    try:
+        cpu_model = _export_legs(on_card, export_cli, out, x, e1, spread,
+                                 cfg)
+    finally:
+        for proc in _LOADERS:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+
+def _export_legs(on_card, export_cli, out, x, e1, spread, cfg):
+    """Phase 17 after the card's export: the --plain_xla CPU leg exported
+    and its loader started, then both loaders' results held. Returns the
+    CPU leg's model."""
+    from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_forward,
+    )
+    # --plain_xla for the CPU, loaded where no card is visible: the
+    # published widths at one block a stage (CPU_EXPORT_DEPTH; the full
+    # depth took ~115 s of the host's time to trace and run).
+    x2 = x[:2]
+    np.save(out / "x2.npy", x2)
+    cpu_model = MSTransception(TransceptionConfig(
+        dtype="float32", **CPU_EXPORT_DEPTH), "cpu")
+    small_pth = out / "w_small.pth"
+    torch.save(cpu_model.state_dict(), small_pth)
+    depth = ["--stage1_layers", str(CPU_EXPORT_DEPTH["stage1_layers"])] + [
+        a for k in ("num_layers", "num_path") for a in (
+            f"--{k}", ",".join(map(str, CPU_EXPORT_DEPTH[k])))]
+    t0 = time.perf_counter()
+    plain_art = export_cli.main([
+        "--weight_pth", str(small_pth), "--out", str(out / "plain.pt2"),
+        "--export_batch", "2", "--plain_xla", "--platforms", "cpu",
+        "--dtype", "float32", *depth])
+    plain_s = time.perf_counter() - t0
+    on_cpu = _load_exported_elsewhere(plain_art, out / "x2.npy",
+                                      out / "y2.npy", cpu=True)
+    info, got, secs = _loaded(on_card)
+    d = float(np.abs(got - e1).max())
+    log(f"  loaded in a fresh process ({secs:.1f} s): models imported "
+        f"{info['models']}, jax {info['jax']}, device {info['device']}; "
+        f"max|exported - eager| {d:.3g} (two eager runs {spread:.3g}); "
+        f"launches {info['launches']}")
+    if info["models"] or info["jax"] or info["device"] != "cuda:0":
+        fail(f"export: the loading process imported the models or ran "
+             f"elsewhere: {info}")
+    if d > spread:
+        fail(f"export: exported logits {d:.3g} from the eager forward's, "
+             f"beyond two eager runs' spread {spread:.3g}")
+    want = launches_per_forward(cfg, argmax=False)
+    if info["launches"] != want:
+        fail(f"export: the loaded program launched {info['launches']}, "
+             f"want {want}")
+    info, got, secs = _loaded(on_cpu)
+    with torch.no_grad():
+        want_cpu = cpu_model(torch.from_numpy(x2)).numpy()
+    d = float(np.abs(got - want_cpu).max())
+    top = float(np.abs(want_cpu).max())
+    log(f"  --plain_xla --platforms cpu: exported in {plain_s:.1f} s, run "
+        f"in a process with no card ({secs:.1f} s, cuda visible "
+        f"{info['cuda']}): max|exported - eager CPU| {d:.3g} of max "
+        f"{top:.3g}, launches {sum(info['launches'].values())}")
+    if info["cuda"] or info["device"] != "cpu" or d > 1e-5 * top or \
+            any(info["launches"].values()):
+        fail("export --plain_xla on the CPU: wrong device, launches or "
+             "logits")
+    return cpu_model
+
+
+REMAT_STEPS = 2
+
+
+def _remat_run(cfg, img, lbl):
+    """REMAT_STEPS "pallas" steps of a fresh model of `cfg` (drop-path
+    generator DROP_SEED): losses, the last gradients, parameters and
+    buffers, the generator's state, launches and shape tallies, peak
+    memory of the steps (bytes)."""
+    from transception_tpu_torch.core.config import TrainConfig
+    from transception_tpu_torch.models.transception import MSTransception
+    from transception_tpu_torch.ops import kernels
+    from transception_tpu_torch.train.state import TrainState
+    from transception_tpu_torch.train.trainer import make_train_step
+    m = MSTransception(cfg, "cuda", seed=0)
+    gen = _gen(DROP_SEED)
+    st = TrainState(m, TrainConfig(), 2211 // TRAIN_BATCH, gen)
+    step = make_train_step(st, 9, 0.4, 0.6, wide_head=True, gen=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses = [float(step(img, lbl)["loss"]) for _ in range(REMAT_STEPS)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    res = dict(losses=losses,
+               grads={n: p.grad.float().cpu()
+                      for n, p in m.named_parameters()},
+               params={n: p.detach().float().cpu()
+                       for n, p in m.named_parameters()},
+               bn={n: b.float().cpu() for n, b in m.named_buffers()},
+               gen=gen.get_state(), counts=kernels.launch_counts(),
+               tallies=kernels.shape_counts(), peak=peak, secs=secs)
+    del m, st, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def _max_diff(a, b):
+    return max(float((a[n] - t).abs().max()) for n, t in b.items())
+
+
+def remat_phase():
+    """Phase 18: TransceptionConfig.remat on the published model, b=24
+    bf16 in the "pallas" mode (drop path 0.1): REMAT_STEPS steps with remat
+    off twice and on once from the same weights, batch and generator seed.
+    The run-to-run spread of the kernels (off against off) is logged; on
+    against off must be within twice it for the losses, the gradients, the
+    parameters and the BatchNorm statistics (0 where the spread is 0), and
+    the generators' states must be equal; launches exactly REMAT_STEPS x
+    launches_per_step (the recompute's included); peak memory of both."""
+    import dataclasses
+
+    from transception_tpu_torch.models.transception import launches_per_step
+
+    g = torch.Generator().manual_seed(11)
+    img = torch.rand(TRAIN_BATCH, 224, 224, 1, generator=g).cuda()
+    lbl = torch.randint(0, 9, (TRAIN_BATCH, 224, 224), generator=g).cuda()
+    cfg = _train_cfg("pallas")
+    off1, off2 = _remat_run(cfg, img, lbl), _remat_run(cfg, img, lbl)
+    rcfg = dataclasses.replace(cfg, remat=True)
+    on = _remat_run(rcfg, img, lbl)
+    card = gpu_line()
+    parts = ("grads", "params", "bn")
+    spread = {k: _max_diff(off1[k], off2[k]) for k in parts}
+    spread["loss"] = max(abs(a - b) for a, b in zip(off1["losses"],
+                                                    off2["losses"]))
+    diff = {k: _max_diff(on[k], off1[k]) for k in parts}
+    diff["loss"] = max(abs(a - b) for a, b in zip(on["losses"],
+                                                  off1["losses"]))
+    log(f"  remat b={TRAIN_BATCH} bf16 pallas, {REMAT_STEPS} steps: losses "
+        f"off {off1['losses']} on {on['losses']}; max|on - off| "
+        f"{ {k: f'{v:.3g}' for k, v in diff.items()} }, run-to-run spread "
+        f"(off, off) { {k: f'{v:.3g}' for k, v in spread.items()} }; "
+        f"generator state equal {torch.equal(on['gen'], off1['gen'])}")
+    log(f"  remat peak memory ({card}): off "
+        f"{off1['peak'] / 2**30:.3f} GiB, on {on['peak'] / 2**30:.3f} GiB; "
+        f"{REMAT_STEPS} steps (wall, after the first run's warm-up) off "
+        f"{off2['secs']:.3f} s, on {on['secs']:.3f} s")
+    bad = [k for k in diff if diff[k] > 2 * spread[k]]
+    if bad:
+        fail(f"remat: {bad} beyond twice the run-to-run spread")
+    if not torch.equal(on["gen"], off1["gen"]) or \
+            not torch.equal(off1["gen"], off2["gen"]):
+        fail("remat: the drop-path generator's state differs")
+    for c, run in ((cfg, off1), (rcfg, on)):
+        want = {k: REMAT_STEPS * n for k, n in launches_per_step(c).items()}
+        if run["counts"] != want:
+            fail(f"remat={c.remat}: launches {run['counts']}, want {want}")
+    if on["peak"] >= off1["peak"]:
+        fail("remat: no less peak memory than without it")
+    return [("per remat pallas train step", on["tallies"], REMAT_STEPS)]
+
+
+DEVICE_TIME_TOL = 0.10  # device_time_per_call against CUDA events
+
+
+def profiling_phase():
+    """Phase 19: utils/profiling.py on the published b=32 bf16 logits
+    forward: device_time_per_call (the median span of 5 traced calls)
+    against CUDA events recorded around each of the same calls, inside
+    its traced window: every call's span must be within DEVICE_TIME_TOL
+    of its events, whose excess over the span is the host's time before
+    the first launch and after the last, on the card's clock; the median
+    of 5 untraced calls' events beside them (the profiler's cost on the
+    host-bound forward, measured); cost_analysis on the kernel path and
+    on the plain path (use_kernels=False, the same structure), whose
+    flops and bytes must be equal; and profile_model_sections' four
+    times."""
+    import dataclasses
+
+    from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.models.transception import MSTransception
+    from transception_tpu_torch.ops import kernels
+    from transception_tpu_torch.utils import profiling
+
+    cfg = pinned(TransceptionConfig())
+    model = MSTransception(cfg, "cuda", seed=0)
+    x = torch.rand(BATCH, 224, 224, 1,
+                   generator=torch.Generator().manual_seed(5)).cuda()
+
+    def fwd():
+        with torch.inference_mode():
+            return model(x)
+
+    def event_ms():
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fwd()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    pairs = []
+
+    def traced_fwd():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fwd()
+        b.record()
+        pairs.append((a, b))
+
+    fwd()
+    untraced = sorted(event_ms() for _ in range(5))[2]
+    dev_s, parsed = profiling.device_time_per_call(
+        traced_fwd, iters=5, trace_dir=str(OUT_DIR / "device_time"))
+    card = gpu_line()
+    if dev_s is None:
+        fail("device_time_per_call saw no device activity on the card")
+    torch.cuda.synchronize()
+    ev = [a.elapsed_time(b) for a, b in pairs]
+    spans = [t * 1e3 for t in parsed["call_times_s"]]
+    if len(spans) != len(ev):
+        fail(f"device_time_per_call read {len(spans)} spans of "
+             f"{len(ev)} calls")
+    ratios = [t / e for t, e in zip(spans, ev)]
+    busy = sorted(parsed["busy_times_s"])[len(parsed["busy_times_s"]) // 2]
+    mid = sorted(ev)[len(ev) // 2]
+    log(f"  device_time_per_call b={BATCH} bf16 logits ({card}): span "
+        f"{dev_s * 1e3:.3f} ms (busy {busy * 1e3:.3f} ms, "
+        f"{len(parsed['kernel_times_s'])} kernel names); CUDA events "
+        f"around the same traced calls {mid:.3f} ms (median), span/events "
+        f"by call " + ", ".join(f"{r:.4f}" for r in ratios)
+        + "; events less span (host before the first launch and after the "
+        "last) " + ", ".join(f"{e - t:.3f}" for t, e in zip(spans, ev))
+        + f" ms; untraced calls' events {untraced:.3f} ms (median of 5): "
+        f"traced/untraced {mid / untraced:.3f}")
+    if any(abs(r - 1) > DEVICE_TIME_TOL for r in ratios):
+        fail(f"device_time_per_call: a call's span is not within "
+             f"{DEVICE_TIME_TOL:.0%} of CUDA events around the same call")
+    plain = MSTransception(dataclasses.replace(cfg, use_kernels=False),
+                           "cuda", seed=0)
+    costs = {}
+    for name, m in (("kernels", model), ("plain", plain)):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            costs[name] = profiling.cost_analysis(m, x)
+        log(f"  cost_analysis {name}: {costs[name]} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    if costs["kernels"] != costs["plain"]:
+        fail("cost_analysis: the kernel and plain paths report different "
+             "work")
+    del plain, model
+    torch.cuda.empty_cache()
+    secs = profiling.profile_model_sections(TransceptionConfig(),
+                                            batch=BATCH, log=None)
+    log(f"  profile_model_sections b={BATCH} bf16 ({card}): "
+        + ", ".join(f"{k} {v:.1f}" if k == "slices_per_s" else
+                    f"{k} {v * 1e3:.3f} ms" for k, v in secs.items()))
+
+
 def run_summary(what, tallies, per, measured):
     """Per kernel, the launches of one run (`tallies`, divided by `per`
     forwards or steps) and their summed kernel, plain, bound and library
@@ -3743,6 +4400,26 @@ def main():
     legacy_runs = legacy_phase()
     log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
 
+    log("phase 16: ISIC 2018, published model at 2 classes")
+    t0 = time.perf_counter()
+    isic_runs = isic_phase()
+    log(f"  phase 16: {time.perf_counter() - t0:.1f} s")
+
+    log("phase 17: the serving export (torch.export, kernel operators)")
+    t0 = time.perf_counter()
+    export_phase()
+    log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 18: remat, published train step, batch {TRAIN_BATCH}")
+    t0 = time.perf_counter()
+    remat_runs = remat_phase()
+    log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 19: utils/profiling.py, published forward, batch {BATCH}")
+    t0 = time.perf_counter()
+    profiling_phase()
+    log(f"  phase 19: {time.perf_counter() - t0:.1f} s")
+
     # The main-path runs: phase 4's forwards, phase 9's flash and pallas
     # Trainer steps and fp32 steps, phase 10's forward per configuration,
     # phase 11's volume-eval forwards, phase 12's train CLI steps, evals
@@ -3760,7 +4437,7 @@ def main():
         for mode, t in fp32_step_tallies.items()] + [
         (f"per forward, {name}", t, 1) for name, t in grid_tallies.items()
     ] + [("per forward, volume eval", vol_tallies, n_vol)] + cli_runs \
-        + variant_runs + dp_runs + legacy_runs
+        + variant_runs + dp_runs + legacy_runs + isic_runs + remat_runs
     total = Counter()
     for _, t, _ in runs:
         total.update(t)

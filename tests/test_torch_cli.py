@@ -162,8 +162,7 @@ def test_build_configs_equal_jax_on_shared_fields(argv):
     assert ported[0].use_kernels == ref[0].use_pallas
 
 
-@pytest.mark.parametrize("flag", ["--remat", "--no_vectorize_paths",
-                                  "--debug_nans"])
+@pytest.mark.parametrize("flag", ["--no_vectorize_paths", "--debug_nans"])
 def test_flags_without_a_port_field_refuse_other_values(flag):
     p, _ = _parsers(("add_model_args", "add_data_args", "add_train_args"))
     dest = flag.split()[0][2:]
@@ -176,7 +175,8 @@ def test_flags_without_a_port_field_refuse_other_values(flag):
 @pytest.mark.parametrize("flag,field,value", [
     ("--use_sa_config 2", "use_sa_config", 2), ("--sa_ker 5", "sa_ker", 5),
     ("--inter out", "inter", "out"), ("--num_sp 2", "num_sp", 2),
-    ("--head_count 4", "head_count", 4), ("--dil_conv 0", "dil_conv", 0)])
+    ("--head_count 4", "head_count", 4), ("--dil_conv 0", "dil_conv", 0),
+    ("--remat", "remat", True)])
 def test_ablation_flags_are_accepted(flag, field, value):
     """The ablation knobs refused before the port had the variants, and
     the legacy models' head_count and dil_conv refused before it had
@@ -355,11 +355,6 @@ def test_cli_refusals(tmp_path, data):
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
         ptrain.main(["--tp_size", "2", "--output_dir", str(tmp_path)],
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ISIC"):
-        pcli.main(_argv(data, tmp_path, pth, "--dataset", "ISIC"),
-                  device="cpu")
-    with pytest.raises(ValueError, match="--remat"):
-        pcli.main(_argv(data, tmp_path, pth, "--remat"), device="cpu")
     if not torch.cuda.is_available():
         torch.save({}, pth)
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -119,8 +119,15 @@ def test_make_train_dataset_follows_jax(npz_slices, tmp_path):
         assert type(got).__name__ == type(want).__name__
         assert len(got) == len(want)
         assert vars(got) == vars(want)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
-        psyn.make_train_dataset(DataConfig(dataset="isic"))
+    # ISIC: a missing root_path gives the synthetic lesions, as in JAX
+    # (the raw and preprocessed layouts: tests/test_torch_isic.py).
+    kw = dict(dataset="isic", root_path=str(tmp_path / "absent"),
+              img_size=32, augment=False)
+    got = psyn.make_train_dataset(DataConfig(**kw))
+    want = jsyn.make_train_dataset(JDataConfig(**kw))
+    assert type(got).__name__ == type(want).__name__ == \
+        "SyntheticISICDataset"
+    assert vars(got) == vars(want)
 
 
 def test_epoch_reshuffle_and_drop_last():

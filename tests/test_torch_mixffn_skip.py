@@ -218,19 +218,23 @@ def test_plain_backward_reaches_every_input(monkeypatch, name):
 
 
 def test_wrapper_raises_without_its_library(monkeypatch):
-    """A tensor off the CPU with the K9 switch on goes to the kernel, and a
-    library that cannot be loaded raises: no quiet plain version. (A meta
-    tensor stands in for the card's; tests/test_torch_cuda.py holds the
-    same on the card.)"""
+    """A tensor off the CPU with the K9 switch on goes to K9's operator
+    (on a meta tensor its fake implementation: the shape, no launch), and
+    the operator's CUDA implementation raises where its library cannot be
+    loaded: no quiet plain version. (A meta tensor stands in for the
+    card's; tests/test_torch_cuda.py holds the same on the card.)"""
     def missing(name):
         raise RuntimeError(f"kernel build failed: no library {name}")
 
     monkeypatch.setattr(_build, "load", missing)
     x, p = _inputs(1, 8, 32, 128)
     args = [torch.from_numpy(x).bfloat16()] + list(_torch_params(p))
+    meta = [t.to("meta") for t in args]
     kernels.reset_launches()
     with pytest.raises(RuntimeError, match="no library mixffn"):
-        mf.mixffn_skip(*(t.to("meta") for t in args), s=8)
+        mf._launch_skip(*meta, 8, 1e-5)
+    out = mf.mixffn_skip(*meta, s=8)
+    assert out.device.type == "meta" and out.shape == x.shape
     assert mf.skip_launches == 0
     assert kernels.routed_counts() == {"mixffn_skip": 1}
     with kernels.enabled(False):  # the switch off: the plain version

@@ -336,9 +336,22 @@ def test_trainer_checkpoints_and_resumes(tmp_path, monkeypatch):
 
 
 def test_trainer_refuses_other_datasets(tmp_path):
-    """Synapse slices now train (tests/test_torch_train_cli.py); ISIC is
-    not ported and raises, naming ROADMAP.md §1 item 5."""
-    tr = _tiny_trainer(tmp_path)
-    tr.data_cfg = DataConfig(dataset="isic")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
-        tr.train(max_steps=1)
+    """Synapse slices train (tests/test_torch_train_cli.py), and so does
+    ISIC 2018: with no data at root_path the Trainer takes the synthetic
+    lesions (3-channel images, 2 classes, the wide head's label shuffle)
+    and its in-training eval is data.isic.dice_eval (HD95 0.0, as the
+    JAX Trainer reports)."""
+    cfg = TransceptionConfig(img_size=32, dtype="float32", stage1_layers=1,
+                             num_path=(1, 1, 1), num_layers=(1, 1, 1),
+                             num_classes=2)
+    absent = str(tmp_path / "absent")
+    tr = Trainer(cfg, TrainConfig(batch_size=2, max_epochs=1,
+                                  output_dir=str(tmp_path / "isic")),
+                 DataConfig(dataset="isic", root_path=absent,
+                            test_path=absent, img_size=32, num_classes=2,
+                            augment=False), device="cpu")
+    st, hist = tr.train(max_steps=1)
+    assert st.step == 1 and hist["hd95"] == [0.0]
+    assert 0.0 <= hist["dice"][0] <= 1.0
+    log = (tmp_path / "isic" / "log.txt").read_text()
+    assert "ISIC eval: mean_dice" in log and "case synthetic_isic_0" in log

@@ -147,8 +147,15 @@ def test_make_test_dataset_picks_like_jax(tmp_path):
         assert type(p).__name__ == type(j).__name__
         assert len(p) == len(j)
         assert p.get(0)["case_name"] == j.get(0)["case_name"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
-        psyn.make_test_dataset(DataConfig(dataset="isic"))
+    # ISIC: a missing test_path gives the synthetic lesions, as in JAX.
+    kw = dict(dataset="isic", test_path=str(tmp_path / "absent"),
+              img_size=32)
+    p = psyn.make_test_dataset(DataConfig(**kw))
+    j = jsyn.make_test_dataset(JDataConfig(**kw))
+    assert type(p).__name__ == type(j).__name__ == "SyntheticISICDataset"
+    assert len(p) == len(j)
+    rng = np.random.default_rng(0)
+    assert p.get(0, rng)["case_name"] == j.get(0, rng)["case_name"]
 
 
 # ---- run_inference's protocol, with one numpy stub for both packages ----

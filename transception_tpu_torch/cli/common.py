@@ -19,10 +19,8 @@ from transception_tpu_torch.core.config import (
 )
 
 # Flags the port's configs have no field for: argparse dest -> (default,
-# what is missing). remat, vectorize_paths and debug_nans are JAX-only
-# knobs.
+# what is missing). vectorize_paths and debug_nans are JAX-only knobs.
 UNSUPPORTED = {
-    "remat": (False, "TransceptionConfig.remat (rematerialised stages)"),
     "no_vectorize_paths": (False, "TransceptionConfig.vectorize_paths (the "
                                   "port has one parameter layout, the "
                                   "reference's)"),
@@ -62,7 +60,9 @@ def add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--stage1_layers", type=int, default=2)
     p.add_argument("--dtype", type=str, default="bfloat16")
     p.add_argument("--remat", action="store_true",
-                   help="not in the port (refused)")
+                   help="recompute each MHCA stage of the 3-stage backbone "
+                        "in the backward (torch.utils.checkpoint): less "
+                        "memory a train step")
     p.add_argument("--no_pallas", action="store_true",
                    help="run the plain PyTorch versions in place of the "
                         "CUDA kernels (use_kernels=False)")
@@ -75,7 +75,7 @@ def add_model_args(p: argparse.ArgumentParser):
 
 def add_data_args(p: argparse.ArgumentParser):
     p.add_argument("--dataset", type=str, default="Synapse",
-                   help="Synapse | ISIC | synthetic (the port has no ISIC)")
+                   help="Synapse | ISIC | synthetic")
     p.add_argument("--root_path", type=str,
                    default="./data/Synapse/train_npz",
                    help="the train slices ({case}.npz; synthetic slices "
@@ -176,6 +176,7 @@ def build_configs(args):
         dtype=args.dtype,
         use_kernels=not getattr(args, "no_pallas", False),
         drop_path_rate=getattr(args, "drop_path_rate", 0.0),
+        remat=getattr(args, "remat", False),
     ).validate()
     data_cfg = DataConfig(
         dataset=args.dataset.lower(),

@@ -7,7 +7,9 @@ Runs slice-batched volume inference over the test list on the card and
 reports per-class and mean DSC/HD95 (the reference's test.py:104-123
 protocol), logging to {output_dir}/test_log/eval.txt and to stdout.
 --is_savenii writes img/pred/gt .nii.gz volumes with (1, 1, z_spacing)
-spacing like utils.py:100-109. The default dtype is float32, the
+spacing like utils.py:100-109. --dataset ISIC scores ISIC 2018 images
+instead (data.isic.dice_eval: per-case dice and IoU, the mean; HD95 is
+reported as 0.0), --is_savenii then writing {case}_pred.png masks. The default dtype is float32, the
 published protocol, and runs the fp32 forms of the CUDA kernels on the
 card with TF32 off; --dtype bfloat16 runs their bf16 forms, --no_pallas
 the plain PyTorch path. Weights: a reference .pth/.pt state_dict or a port
@@ -208,15 +210,25 @@ def main(argv=None, device: DeviceLike = "cuda"):
             if args.is_savenii and main_rank:
                 save_dir = os.path.join(args.output_dir, "predictions")
                 os.makedirs(save_dir, exist_ok=True)
-            hd95_spacing = ((float(args.z_spacing), 1.0, 1.0)
-                            if args.hd95_in_mm else None)
-            mean_dice, mean_hd95 = run_inference(
-                model, test_ds, data_cfg.num_classes,
-                patch_size=args.img_size, batch=args.eval_batch,
-                log=logger.info, save_path=save_dir,
-                z_spacing=args.z_spacing, hd95_spacing=hd95_spacing,
-                device_resample=args.device_resample, device=device,
-                mesh=mesh)
+            if data_cfg.dataset == "isic":
+                # Images, not volumes: each rank scores the whole split,
+                # rank 0 logs it; no HD95 (0.0, as the JAX CLI reports).
+                from transception_tpu_torch.data.isic import dice_eval
+                mean_dice = dice_eval(
+                    model, test_ds, args.img_size, batch=args.eval_batch,
+                    log=logger.info if main_rank else None,
+                    save_path=save_dir, device=device)
+                mean_hd95 = 0.0
+            else:
+                hd95_spacing = ((float(args.z_spacing), 1.0, 1.0)
+                                if args.hd95_in_mm else None)
+                mean_dice, mean_hd95 = run_inference(
+                    model, test_ds, data_cfg.num_classes,
+                    patch_size=args.img_size, batch=args.eval_batch,
+                    log=logger.info, save_path=save_dir,
+                    z_spacing=args.z_spacing, hd95_spacing=hd95_spacing,
+                    device_resample=args.device_resample, device=device,
+                    mesh=mesh)
         if save_dir is not None:
             logger.info("saved volumes to %s", save_dir)
         return mean_dice, mean_hd95

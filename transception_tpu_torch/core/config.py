@@ -7,7 +7,8 @@ MSTransception, networks/MSTr.py:2759-2823), its `ffn_flash_train`, its
 bridge_ffn_use_pallas, etb_attn_fold, etb_ffn_fold, mhca_ffn_fold,
 mhca_block_fold), each picking for one family of blocks between one
 folded kernel and the chain of separate modules; `fold_switches` resolves
-them for eval or training. The TPU-only knobs (remat, vectorize_paths,
+them for eval or training; `remat` recomputes the MHCA stages in the
+backward as the JAX field does. The TPU-only knobs (vectorize_paths,
 bridge sequence sharding, bridge_use_pallas, lane packing and the kernel
 fallback ladder) are not carried over; `use_kernels` selects the
 hand-written CUDA kernels on the card (and what a fold switch of None follows, as JAX's
@@ -109,6 +110,11 @@ class TransceptionConfig:
     # through their plain versions. A block with a drop-path rate above 0
     # runs unfolded in training, so that stochastic depth stays exact.
     use_pallas_train: bool = False
+    # Recompute each MHCA stage of the 3-stage backbone in the backward
+    # instead of keeping its activations (torch.utils.checkpoint, where the
+    # JAX MSViT applies nn.remat, msvit.py:198-199; not in the casa or
+    # 4-stage backbones): less memory a train step, the same step.
+    remat: bool = False
     # Keep the fused MixFFN_skip kernels on in the train step (ETB, MHCA
     # and bridge per-scale FFNs, K2 forward + K11 backward), as the JAX
     # field of this name; off, the train step runs only the bridge

@@ -6,7 +6,8 @@ augmented (data.augment) and zoomed to img_size on the host. Test split:
 {case}.npy.h5 whole volumes with 'image'/'label' (D, H, W). The synthetic
 variants give deterministic random slices and volumes of the same layout,
 bit-identical to the JAX package's (same seeds), for machines without the
-dataset. ISIC is not ported (ROADMAP.md §1 item 5).
+dataset. The ISIC 2018 datasets are in data.isic; the factories pick
+them for dataset="isic".
 """
 
 from __future__ import annotations
@@ -139,19 +140,39 @@ class SyntheticVolumeDataset:
                 "case_name": f"synthetic_vol_{idx}"}
 
 
-def _refuse_isic(cfg) -> None:
-    if cfg.dataset == "isic":
-        raise NotImplementedError(
-            "the ISIC dataset and its dice_eval are not ported yet "
-            "(ROADMAP.md §1 item 5)")
+def _make_isic(path: str, img_size: int, augment: bool):
+    """The ISIC dataset at `path`, as the JAX package picks it
+    (transception_tpu/data/synapse.py:126-145): an existing .npz/.npy is
+    the preprocessed layout; a directory with images/ and masks/ (or the
+    official ISIC2018_Task1-2_Training_Input and
+    ISIC2018_Task1_Training_GroundTruth) the raw layout; anything else the
+    synthetic lesions."""
+    from transception_tpu_torch.data.isic import (
+        ISICDataset,
+        ISICPreprocessedDataset,
+        SyntheticISICDataset,
+    )
+    if path.endswith((".npz", ".npy")) and os.path.exists(path):
+        return ISICPreprocessedDataset(path, img_size, augment)
+    if os.path.isdir(path):
+        for img_sub, mask_sub in (
+                ("images", "masks"),
+                ("ISIC2018_Task1-2_Training_Input",
+                 "ISIC2018_Task1_Training_GroundTruth")):
+            i, m = os.path.join(path, img_sub), os.path.join(path, mask_sub)
+            if os.path.isdir(i) and os.path.isdir(m):
+                return ISICDataset(i, m, img_size, augment)
+    return SyntheticISICDataset(img_size=img_size, augment=augment)
 
 
 def make_train_dataset(cfg):
-    """DataConfig -> train slices: the synthetic slices for
+    """DataConfig -> train items: ISIC at cfg.root_path for
+    dataset="isic" (_make_isic); the synthetic slices for
     dataset="synthetic" or when cfg.root_path is not a directory (as the
     JAX package does), else the Synapse .npz slices of
-    {cfg.list_dir}/train.txt under root_path. ISIC is not ported yet."""
-    _refuse_isic(cfg)
+    {cfg.list_dir}/train.txt under root_path."""
+    if cfg.dataset == "isic":
+        return _make_isic(cfg.root_path, cfg.img_size, cfg.augment)
     if cfg.dataset == "synthetic" or not os.path.isdir(cfg.root_path):
         return SyntheticSliceDataset(length=cfg.synthetic_len,
                                      img_size=cfg.img_size,
@@ -162,11 +183,13 @@ def make_train_dataset(cfg):
 
 
 def make_test_dataset(cfg):
-    """DataConfig -> test volumes: the synthetic set for
-    dataset="synthetic" or when cfg.test_path is not a directory (as the
-    JAX package does), else the Synapse .npy.h5 volumes of
-    {cfg.list_dir}/test_vol.txt. ISIC is not ported yet."""
-    _refuse_isic(cfg)
+    """DataConfig -> test set: ISIC at cfg.test_path, unaugmented, for
+    dataset="isic" (its items are images, scored by data.isic.dice_eval);
+    the synthetic volumes for dataset="synthetic" or when cfg.test_path is
+    not a directory (as the JAX package does), else the Synapse .npy.h5
+    volumes of {cfg.list_dir}/test_vol.txt."""
+    if cfg.dataset == "isic":
+        return _make_isic(cfg.test_path, cfg.img_size, augment=False)
     if cfg.dataset == "synthetic" or not os.path.isdir(cfg.test_path):
         return SyntheticVolumeDataset(num_classes=cfg.num_classes)
     return SynapseVolumeDataset(cfg.test_path, cfg.list_dir)

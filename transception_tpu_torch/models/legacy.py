@@ -623,7 +623,8 @@ class _LegacyModel(nn.Module):
         fused argmax: eval.inference takes the argmax of the logits)."""
         if x.shape[-1] == 1:
             x = x.expand(*x.shape[:-1], 3)
-        with kernels.enabled(kernel_set(self.cfg)):
+        with kernels.enabled(kernel_set(self.cfg)
+                             & kernels.active()):
             return self._decode(self.encode(x.to(self.cfg.compute_dtype)))
 
 

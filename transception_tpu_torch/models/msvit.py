@@ -18,6 +18,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from transception_tpu_torch.core.config import (
     CRPE_WINDOW,
@@ -31,7 +32,11 @@ from transception_tpu_torch.ops.attention import (
     MHCAEncoder,
 )
 from transception_tpu_torch.ops.common import LayerNorm, OverlapPatchEmbed
-from transception_tpu_torch.ops.conv import Conv2dBN, PatchEmbedStage, ResBlock
+from transception_tpu_torch.ops.conv import (
+    Conv2dBN,
+    PatchEmbedStage,
+    ResBlock,
+)
 from transception_tpu_torch.ops.fusion import (
     CBAMBlock,
     CBAMBlockCasa,
@@ -115,6 +120,42 @@ class MHCAStage(nn.Module):
                               else outs)
 
 
+def remat_stage(stage: nn.Module, paths: List[torch.Tensor],
+                gen: Optional[torch.Generator]) -> torch.Tensor:
+    """stage(paths, gen) with its activations recomputed in the backward
+    instead of kept (torch.utils.checkpoint, non-reentrant, the whole
+    forward recomputed: the JAX package's nn.remat). The recompute draws
+    the forward's drop-path masks again: `gen`, which checkpoint's
+    preserve_rng_state does not cover, is set back to its state before the
+    forward for the recompute and put back after it, so the next draw is
+    the one a run without remat makes; and the stage's buffers (its
+    BatchNorms' running statistics) are copied back after the recompute,
+    so they hold what the forward committed, once, as flax's nn.remat
+    commits batch_stats once."""
+    before = None if gen is None else gen.get_state()
+    calls = []
+
+    def run(*xs):
+        calls.append(None)
+        if len(calls) == 1:
+            return stage(list(xs), gen)
+        after = None if gen is None else gen.get_state()
+        if gen is not None:
+            gen.set_state(before)
+        held = [(b, b.clone()) for b in stage.buffers()]
+        try:
+            return stage(list(xs), gen)
+        finally:
+            with torch.no_grad():
+                for b, v in held:
+                    b.copy_(v)
+            if gen is not None:
+                gen.set_state(after)
+
+    with checkpoint.set_checkpoint_early_stop(False):
+        return checkpoint.checkpoint(run, *paths, use_reentrant=False)
+
+
 def _use_sa(cfg: TransceptionConfig, s: int) -> bool:
     lst = cfg.use_sa_list
     return lst[min(s, len(lst) - 1)]
@@ -125,13 +166,16 @@ class MSViT(nn.Module):
     transformer blocks + LN. Stages 2-4: RIPM patch-embed stage + MHCA
     stage (the casa stages with casa=True, MSViTCasa). Returns the 4 NHWC
     scale maps. The blocks run the structure of cfg's fold switches (JAX
-    msvit.py:160-296); `gen` draws the drop-path masks in training. The
-    casa backbone runs no drop path (JAX msvit.py:285-294)."""
+    msvit.py:160-296); `gen` draws the drop-path masks in training. With
+    cfg.remat each MHCA stage is recomputed in the backward (remat_stage;
+    JAX msvit.py:198-199), where autograd records. The casa backbone runs
+    no drop path and no remat (JAX msvit.py:285-294)."""
 
     casa = False
 
     def __init__(self, cfg: TransceptionConfig):
         super().__init__()
+        self.remat = cfg.remat and not self.casa
         dt = cfg.compute_dtype
         folds = fold_table(cfg)
         d = cfg.dims
@@ -159,9 +203,12 @@ class MSViT(nn.Module):
             t = blk(t, H, W)
         m = self.norm1(t).reshape(t.shape[0], H, W, -1)
         outs = [m]
+        remat = self.remat and torch.is_grad_enabled()
         for s in range(2, 5):
             paths = getattr(self, f"patch_embed_stage{s}")(m)
-            m = getattr(self, f"mhca_stage{s}")(paths, gen)
+            stage = getattr(self, f"mhca_stage{s}")
+            m = remat_stage(stage, paths, gen) if remat else stage(paths,
+                                                                   gen)
             outs.append(m)
         return outs
 

@@ -102,13 +102,15 @@ class MSTransception(nn.Module):
         computed before the final pixel shuffle (decoder.py:154-201).
         wide_head=True (training) returns (B, (H/4)·(W/4), 16, num_classes)
         fp32 logits in pre-shuffle token order (transception.py:36-40).
-        The kernels of kernels.kernel_set(cfg, self.training) run. In
+        The kernels of kernels.kernel_set(cfg, self.training) run that the
+        caller's kernels.enabled scope leaves on (all by default). In
         training with drop_path_rate > 0, `gen` (a torch.Generator on the
         model's device, the JAX step's dropout key) draws the masks (and
         those of the sp bridge's MLP dropout)."""
         if x.shape[-1] == 1:
             x = x.expand(*x.shape[:-1], 3)
-        with kernels.enabled(kernels.kernel_set(self.cfg, self.training)):
+        with kernels.enabled(kernels.kernel_set(self.cfg, self.training)
+                             & kernels.active()):
             enc = self.backbone(x.to(self.cfg.compute_dtype), gen)
             if isinstance(self.bridge, BridgeBlockSp):
                 enc = self.bridge(enc, gen)
@@ -138,27 +140,13 @@ def _backbone_stages(cfg: TransceptionConfig, training: bool):
         (s1 >> (i + 1), d[i], cfg.num_path[i], rates[i]) for i in range(3)]
 
 
-def _forward_calls(cfg: TransceptionConfig, training: bool,
-                   head: str) -> Counter:
-    """Kernel-wrapper calls of one forward by kernel switch: the structure
-    the fold switches give each block at each map side, and in training
-    the MHCA blocks' drop-path rates (a rate above 0 unfolds the block).
-    head: "argmax", "logits" or "wide" (the wide head's expand is a plain
-    Linear, DecoderLayer.wide_head)."""
-    sw = fold_switches(cfg, training)
-    s1 = cfg.stage1_res
+def _mhca_calls(cfg: TransceptionConfig, stages, sw) -> Counter:
+    """Kernel-wrapper calls of the MHCA stages of _backbone_stages: every
+    path at the stage's rates; K5 where it takes the map
+    (kernels.mhca_block.takes)."""
     takes = kernels.mixffn.takes
     es = 2 if cfg.compute_dtype == torch.bfloat16 else 4
     calls = Counter()
-    etb_sides, stages = _backbone_stages(cfg, training)
-    # Stage 1 (3-stage and casa) and decoders 2/1/0: two ETBs each at s1/4,
-    # s1/2, s1; their FFN folds with token_mlp mix_skip only.
-    for s in etb_sides + [s1 // 4, s1 // 2, s1] * 2:
-        calls["etb_attention" if sw.etb_attn else "linear_attention"] += 1
-        if sw.etb_ffn and cfg.token_mlp == "mix_skip" and takes(s):
-            calls["mixffn"] += 1
-    # MHCA stages, every path at the stage's rates; K5 where it takes the
-    # map (kernels.mhca_block.takes).
     for s, C, paths, stage in stages:
         for rate in stage:
             exact = rate == 0.0
@@ -169,6 +157,28 @@ def _forward_calls(cfg: TransceptionConfig, training: bool,
             calls["linear_attention"] += paths
             if sw.mhca_ffn and takes(s):
                 calls["mixffn" if exact else "mixffn_skip"] += paths
+    return calls
+
+
+def _forward_calls(cfg: TransceptionConfig, training: bool,
+                   head: str) -> Counter:
+    """Kernel-wrapper calls of one forward by kernel switch: the structure
+    the fold switches give each block at each map side, and in training
+    the MHCA blocks' drop-path rates (a rate above 0 unfolds the block).
+    head: "argmax", "logits" or "wide" (the wide head's expand is a plain
+    Linear, DecoderLayer.wide_head)."""
+    sw = fold_switches(cfg, training)
+    s1 = cfg.stage1_res
+    takes = kernels.mixffn.takes
+    calls = Counter()
+    etb_sides, stages = _backbone_stages(cfg, training)
+    # Stage 1 (3-stage and casa) and decoders 2/1/0: two ETBs each at s1/4,
+    # s1/2, s1; their FFN folds with token_mlp mix_skip only.
+    for s in etb_sides + [s1 // 4, s1 // 2, s1] * 2:
+        calls["etb_attention" if sw.etb_attn else "linear_attention"] += 1
+        if sw.etb_ffn and cfg.token_mlp == "mix_skip" and takes(s):
+            calls["mixffn"] += 1
+    calls.update(_mhca_calls(cfg, stages, sw))
     # Bridge: spatial attention layers; the per-scale FFN folds.
     ffn = sum(takes(s1 >> i) for i in range(4))
     if cfg.have_bridge in ("sp", "para"):
@@ -201,6 +211,14 @@ def _launches(cfg: TransceptionConfig, training: bool, head: str) -> dict:
     if training:  # one backward kernel per K3 and K2 forward
         counts[kernels.bridge_attention.BWD_NAME] = counts["bridge_attention"]
         counts[kernels.mixffn.BWD_NAME] = counts["mixffn"]
+    if training and cfg.remat and cfg.stage_3or4 == 3:
+        # The backward recomputes each MHCA stage's forward (msvit.
+        # remat_stage): its forward kernels launch twice.
+        again = _mhca_calls(cfg, _backbone_stages(cfg, True)[1],
+                            fold_switches(cfg, True))
+        for name, n in again.items():
+            if name in on:
+                counts[name] += n
     return counts
 
 
@@ -224,6 +242,7 @@ def launches_per_step(cfg: TransceptionConfig, wide_head: bool = True
     kernels' backwards are autograd of their plain versions). The same at
     fp32: the fp32 forms (K3, K10, K2, K11, K9 and the "pallas" mode's
     K1, K5-K7) launch where the bf16 ones do, under the same counters;
-    their shape tallies end with "fp32". chip_smoke.py holds the card's
-    counters to it."""
+    their shape tallies end with "fp32". With cfg.remat (the 3-stage
+    backbone) the MHCA stages' forward kernels launch once more, in the
+    recompute. chip_smoke.py holds the card's counters to it."""
     return _launches(cfg, True, "wide" if wide_head else "logits")

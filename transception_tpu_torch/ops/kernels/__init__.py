@@ -1,11 +1,17 @@
 """Hand-written CUDA kernels of the port, one module each.
 
 Every module holds the kernel's plain PyTorch version (same rounding points
-as the Pallas kernel it replaces), a wrapper that runs the plain version
-for CPU tensors (or with the kernel switched off, `enabled(...)`) and
-launches the kernel (or raises) for CUDA tensors, and an integer
-`launches` counter bumped once per launch, beside a tally of the launch's
-shape (`shape_counts`). bridge_attention and mixffn also hold their
+as the Pallas kernel it replaces), the kernel as a torch.library operator
+of the namespace `transception_torch` (_build.define: CUDA implementation
+the launch, CPU implementation the plain version, a fake implementation
+for FakeTensor and torch.export), a wrapper that runs the plain version
+with the kernel switched off (`enabled(...)`) or where autograd records on
+the CPU and else calls the operator, which launches the kernel (or raises)
+for CUDA tensors, and an integer `launches` counter bumped once per launch
+inside the CUDA implementation, beside a tally of the launch's shape
+(`shape_counts`): a trace counts nothing, a loaded exported program's
+run counts its launches. Importing this package registers the operators
+(serve.export.load_exported imports it, not the models). bridge_attention and mixffn also hold their
 backward kernels (K10, K11) with a `bwd_launches` counter, and join
 forward and backward in a torch.autograd.Function; bridge_attention also
 holds the folded bridge attention (K8, `folded_launches`), mixffn the
@@ -27,7 +33,9 @@ from transception_tpu_torch.ops.kernels import (  # noqa: F401
 )
 from transception_tpu_torch.ops.kernels import _build
 from transception_tpu_torch.ops.kernels._build import (  # noqa: F401
+    NAMESPACE,
     SWITCHES,
+    active,
     enabled,
 )
 

@@ -5,6 +5,13 @@ a plain C interface (no PyTorch headers: seconds per file), loaded with
 ctypes. Libraries are keyed by a hash of the sources and flags and built
 at first use into `transception_tpu_torch/build/` (git-ignored); `build()`
 starts one nvcc per missing library, all at once.
+
+Every kernel is a torch.library operator of the namespace
+`transception_torch` (`define`): its CUDA implementation is the ctypes
+launch (which counts the launch), its CPU implementation the kernel's
+plain version, and its fake implementation gives the output's shape and
+dtype, so that torch.export traces a wrapper routed to its kernel and a
+loaded artifact runs (and counts) the same launches as the eager forward.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import subprocess
 import time
 from collections import Counter
 from pathlib import Path
-from typing import Dict, FrozenSet, Iterable, Union
+from typing import Callable, Dict, FrozenSet, Iterable, Union
 
 import torch
 
@@ -72,14 +79,24 @@ def enabled(kernels: Union[bool, Iterable[str]]):
         _on = prev
 
 
+def active() -> FrozenSet[str]:
+    """The kernels the caller's `enabled` scope has on (all by default);
+    a model's forward runs those of its kernel set that are among them."""
+    return _on
+
+
 def plain(name: str, t) -> bool:
     """The one kernel-or-plain decision of every wrapper: the plain version
-    for a CPU tensor or with kernel `name` switched off, else the kernel.
-    A call with the switch on is counted in `routed`."""
+    with kernel `name` switched off, or for a CPU tensor while autograd
+    records (grad mode on: autograd then differentiates the plain version
+    itself); else the kernel's operator (`define`), which launches the
+    kernel for a CUDA tensor and runs the same plain version for a CPU
+    one (an eval forward under no_grad, a trace for torch.export). A call
+    with the switch on is counted in `routed`."""
     if name not in _on:
         return True
     routed[name] += 1
-    return t.device.type == "cpu"
+    return t.device.type == "cpu" and torch.is_grad_enabled()
 
 
 def tally(name: str, *key) -> None:
@@ -141,6 +158,33 @@ def with_plain_backward(kernel, plain_fn, *tensors):
     if not needs_graph(*tensors):
         return kernel(*tensors)
     return _PlainBackward.apply(kernel, plain_fn, *tensors)
+
+
+# ---- the kernels as torch.library operators ----
+
+NAMESPACE = "transception_torch"
+_LIB = torch.library.Library(NAMESPACE, "DEF")
+# Operator name -> its CPU implementation, the kernel's plain version with
+# the operator's signature (utils.profiling costs an operator as it).
+PLAIN_OPS: Dict[str, Callable] = {}
+
+
+def define(name: str, schema: str, cuda: Callable, cpu: Callable,
+           fake: Callable):
+    """Register kernel `name` as the operator transception_torch::name with
+    `schema` ("(Tensor x, ..., float eps) -> Tensor"): `cuda` the launch
+    (it checks its inputs, raises on what the kernel does not take, never
+    falls back, and counts the launch), `cpu` the plain version, `fake`
+    the output's shape and dtype (FakeTensor, meta tensors, torch.export).
+    A launch plan is worked out inside `cuda`, on the card that runs it,
+    so none is a constant of an exported program. Returns the operator's
+    overload, which the wrappers call."""
+    _LIB.define(name + schema)
+    _LIB.impl(name, cuda, "CUDA")
+    _LIB.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
+    PLAIN_OPS[name] = cpu
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
 
 
 def _nvcc() -> str:

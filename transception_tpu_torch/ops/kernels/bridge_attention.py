@@ -286,8 +286,11 @@ def _check_scale(scale):
 
 
 def _launch(q, k, v, scale):
+    """One counted launch of K3 (its bf16 or fp32 form, q's dtype)."""
     _check_scale(scale)
+    _check(q, k, v)
     global launches
+    q, k, v = (_build.aligned(t) for t in (q, k, v))
     B, h, N, d = q.shape
     M = k.shape[2]
     out = torch.empty_like(q)
@@ -324,10 +327,11 @@ def bwd_plan(bh: int, n: int, m: int, sms: int, fp32: bool = False):
 
 def bridge_attention_bwd(q, k, v, g, scale: float):
     """K10 wrapper: (dq, dk, dv) of softmax(q·kᵀ·scale)·v for cotangent
-    g; the plain version for a CPU tensor or with the kernel off."""
+    g; the plain version with the kernel off or where autograd records on
+    the CPU, else K10's operator."""
     if _build.plain(NAME, q):
         return bridge_attention_bwd_plain(q, k, v, g, scale)
-    return _launch_bwd(q, k, v, g, scale)
+    return BWD_OP(q, k, v, g, scale)
 
 
 def _launch_bwd(q, k, v, g, scale):
@@ -364,34 +368,31 @@ def _launch_bwd(q, k, v, g, scale):
 
 
 class BridgeAttention(torch.autograd.Function):
-    """K3 forward and K10 backward (the plain versions on the CPU). Saves
-    q, k and v; the forward's result is K3's, bit for bit."""
+    """K3 forward and K10 backward (their operators: the plain versions on
+    the CPU). Saves q, k and v; the forward's result is K3's, bit for
+    bit."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        if q.device.type == "cpu":
-            out = bridge_attention_plain(q, k, v, scale)
-        else:
-            _check(q, k, v)
-            out = _launch(*(_build.aligned(t) for t in (q, k, v)), scale)
+        out = OP(q, k, v, scale)
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        bwd = (bridge_attention_bwd_plain if q.device.type == "cpu"
-               else _launch_bwd)
-        return (*bwd(q, k, v, g, ctx.scale), None)
+        return (*BWD_OP(*ctx.saved_tensors, g, ctx.scale), None)
 
 
 def bridge_attention(q, k, v, scale: float):
-    """Wrapper: plain version for a CPU tensor or with the kernel off,
-    else K3 forward and K10 backward (BridgeAttention)."""
+    """Wrapper: plain version with the kernel off or where autograd records
+    on the CPU, else K3's operator, with K10's backward (BridgeAttention)
+    where autograd records."""
     if _build.plain(NAME, q):
         return bridge_attention_plain(q, k, v, scale)
-    return BridgeAttention.apply(q, k, v, scale)
+    if _build.needs_graph(q, k, v):
+        return BridgeAttention.apply(q, k, v, scale)
+    return OP(q, k, v, scale)
 
 
 def bridge_attention_folded_plain(x, res, wq, bq, k, v, wp, bp,
@@ -427,14 +428,15 @@ def _check_folded(x, res, k, v):
 
 
 def bridge_attention_folded(x, res, wq, bq, k, v, wp, bp, scale: float):
-    """K8 wrapper: the plain version for a CPU tensor or with the kernel
-    off, else the CUDA kernel (its bf16 or fp32 form, x's dtype), whose
-    backward is autograd of the plain version."""
+    """K8 wrapper: the plain version with the kernel off or where autograd
+    records on the CPU, else K8's operator (the CUDA kernel, its bf16 or
+    fp32 form, x's dtype), whose backward is autograd of the plain
+    version."""
     if _build.plain(FOLDED_NAME, x):
         return bridge_attention_folded_plain(x, res, wq, bq, k, v, wp, bp,
                                              scale)
     return _build.with_plain_backward(
-        lambda *a: _launch_folded(*a, scale),
+        lambda *a: FOLDED_OP(*a, scale),
         lambda *a: bridge_attention_folded_plain(*a, scale),
         x, res, wq, bq, k, v, wp, bp)
 
@@ -459,3 +461,16 @@ def _launch_folded(x, res, wq, bq, k, v, wp, bp, scale):
     folded_launches += 1
     _build.tally(FOLDED_NAME, tuple(x.shape), _build.tag(x))
     return out
+
+
+OP = _build.define(
+    NAME, "(Tensor q, Tensor k, Tensor v, float scale) -> Tensor", _launch,
+    bridge_attention_plain, lambda q, *a: q.new_empty(q.shape))
+BWD_OP = _build.define(
+    BWD_NAME, "(Tensor q, Tensor k, Tensor v, Tensor g, float scale) -> "
+    "(Tensor, Tensor, Tensor)", _launch_bwd, bridge_attention_bwd_plain,
+    lambda q, k, v, *a: tuple(t.new_empty(t.shape) for t in (q, k, v)))
+FOLDED_OP = _build.define(
+    FOLDED_NAME, "(Tensor x, Tensor res, Tensor wq, Tensor bq, Tensor k, "
+    "Tensor v, Tensor wp, Tensor bp, float scale) -> Tensor", _launch_folded,
+    bridge_attention_folded_plain, lambda x, *a: x.new_empty(x.shape))

@@ -146,14 +146,14 @@ def _check(x, weights):
 
 def etb_attention(x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp,
                   eps: float = 1e-5):
-    """Wrapper: plain version for a CPU tensor or with the kernels off,
-    the CUDA kernel otherwise, whose backward is autograd of the plain
-    version."""
+    """Wrapper: plain version with the kernels off or where autograd
+    records on the CPU, else the operator (the CUDA kernel, whose backward
+    is autograd of the plain version)."""
     if _build.plain(NAME, x):
         return etb_attention_plain(x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp,
                                    eps)
     return _build.with_plain_backward(
-        lambda *a: _launch(*a, eps), lambda *a: etb_attention_plain(*a, eps),
+        lambda *a: OP(*a, eps), lambda *a: etb_attention_plain(*a, eps),
         x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp)
 
 
@@ -179,3 +179,9 @@ def _launch(x, ls, lb, wq, bq, wk, bk, wv, bv, wp, bp, eps):
     launches += 1
     _build.tally(NAME, tuple(x.shape), _build.tag(x))
     return out
+
+
+OP = _build.define(
+    NAME, "(Tensor x, Tensor ls, Tensor lb, Tensor wq, Tensor bq, Tensor wk, "
+    "Tensor bk, Tensor wv, Tensor bv, Tensor wp, Tensor bp, float eps) -> "
+    "Tensor", _launch, etb_attention_plain, lambda x, *a: x.new_empty(x.shape))

@@ -99,20 +99,34 @@ def _check(x, w, hw, p, c, ls=None, lb=None, hb=None, shuffle=None):
 
 def expand_head(x, w, ls, lb, hw, hb, *, p: int, c: int,
                 eps: float = 1e-5, shuffle=None):
-    """Wrapper: plain version for a CPU tensor or with the kernels off,
-    the CUDA kernel otherwise. shuffle=(H, W): the (B, p·H, p·W) map."""
+    """Wrapper: plain version with the kernels off or where autograd
+    records on the CPU, else the operator (the CUDA kernel; it has no
+    backward). shuffle=(H, W): the (B, p·H, p·W) map."""
     if _build.plain(NAME, x):
         return expand_head_plain(x, w, ls, lb, hw, hb, p=p, c=c, eps=eps,
                                  shuffle=shuffle)
     _build.forward_only(NAME, x, w, ls, lb, hw, hb)
+    return OP(x, w, ls, lb, hw, hb, p, c, eps,
+              None if shuffle is None else list(shuffle))
+
+
+def out_shape(x, p: int, shuffle=None) -> tuple:
+    """K4's ids for x (B, N, C): pre-shuffle (B, N, p²), or the shuffled
+    (B, p·H, p·W) map."""
+    B, N, _ = x.shape
+    return (B, N, p * p) if shuffle is None else (B, p * shuffle[0],
+                                                  p * shuffle[1])
+
+
+def _launch(x, w, ls, lb, hw, hb, p, c, eps, shuffle=None):
+    """One counted launch of K4."""
     _check(x, w, hw, p, c, ls, lb, hb, shuffle)
     global launches
     x = _build.aligned(x)
     B, N, C = x.shape
     pl = plan(B, N, C, _build.sms(x))
-    shape = (B, N, p * p) if shuffle is None else (B, p * shuffle[0],
-                                                   p * shuffle[1])
-    ids = torch.empty(shape, dtype=torch.uint8, device=x.device)
+    ids = torch.empty(out_shape(x, p, shuffle), dtype=torch.uint8,
+                      device=x.device)
     args = (x, _build.weight(w, torch.bfloat16), ls.contiguous(),
             lb.contiguous(), hw.contiguous(), hb.contiguous(), ids)
     fn = _build.entry(NAME, "expand_head", [ctypes.c_void_p] * 7 + [
@@ -126,3 +140,12 @@ def expand_head(x, w, ls, lb, hw, hb, *, p: int, c: int,
     launches += 1
     _build.tally(NAME, tuple(x.shape), pe.layout(shuffle))
     return ids
+
+
+OP = _build.define(
+    NAME, "(Tensor x, Tensor w, Tensor ls, Tensor lb, Tensor hw, Tensor hb, "
+    "int p, int c, float eps, int[]? shuffle) -> Tensor", _launch,
+    lambda x, w, ls, lb, hw, hb, p, c, eps, shuffle: expand_head_plain(
+        x, w, ls, lb, hw, hb, p=p, c=c, eps=eps, shuffle=shuffle),
+    lambda x, w, ls, lb, hw, hb, p, c, eps, shuffle: x.new_empty(
+        out_shape(x, p, shuffle), dtype=torch.uint8))

@@ -217,13 +217,13 @@ def _check(q, k, v):
 
 
 def linear_attention(q, k, v, q_softmax: bool = False, scale: float = 1.0):
-    """Wrapper: plain version for a CPU tensor or with the kernels off,
-    the CUDA kernel otherwise, whose backward is autograd of the plain
-    version."""
+    """Wrapper: plain version with the kernels off or where autograd
+    records on the CPU, else the operator (the CUDA kernel, whose backward
+    is autograd of the plain version)."""
     if _build.plain(NAME, v):
         return linear_attention_plain(q, k, v, q_softmax, scale)
     return _build.with_plain_backward(
-        lambda *a: _launch(*a, q_softmax, scale),
+        lambda *a: OP(*a, q_softmax, scale),
         lambda *a: linear_attention_plain(*a, q_softmax, scale), q, k, v)
 
 
@@ -248,3 +248,9 @@ def _launch(q, k, v, q_softmax, scale):
     launches += 1
     _build.tally(NAME, tuple(q.shape), bool(q_softmax), _build.tag(v))
     return out
+
+
+OP = _build.define(
+    NAME, "(Tensor q, Tensor k, Tensor v, bool q_softmax, float scale) -> "
+    "Tensor", _launch, linear_attention_plain,
+    lambda q, k, v, *a: v.new_empty(tuple(q.shape[:3]) + (v.shape[-1],)))

@@ -219,9 +219,9 @@ def mhca_block(x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs,
                wp, bp, ln2_s, ln2_b, w1, b1, dw, dwb, ls, lb, w2, b2, *,
                s: int, heads: int, eps1: float = 1e-6, eps2: float = 1e-6,
                eps: float = 1e-5):
-    """Wrapper: plain version for a CPU tensor or with the kernels off,
-    the CUDA kernels otherwise (one counted launch per block), whose
-    backward is autograd of the plain version."""
+    """Wrapper: plain version with the kernels off or where autograd
+    records on the CPU, else the operator (the CUDA kernels, one counted
+    launch per block, whose backward is autograd of the plain version)."""
     kw = dict(s=s, heads=heads, eps1=eps1, eps2=eps2, eps=eps)
     if _build.plain(NAME, x):
         return mhca_block_plain(
@@ -230,21 +230,31 @@ def mhca_block(x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs,
     nw = len(crpe_ws)
 
     def unflat(fn):
-        # The flat tensors back into the wrapper's arguments (the CRPE
+        # The flat tensors back into the operator's arguments (the CRPE
         # weights and biases are lists).
         def call(*a):
             return fn(*a[:7], list(a[7:7 + nw]), list(a[7 + nw:7 + 2 * nw]),
-                      *a[7 + 2 * nw:], **kw)
+                      *a[7 + 2 * nw:], *kw.values())
         return call
 
     return _build.with_plain_backward(
-        unflat(_launch), unflat(mhca_block_plain),
+        unflat(OP), unflat(_plain_op),
         x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, *crpe_ws, *crpe_bs, wp,
         bp, ln2_s, ln2_b, w1, b1, dw, dwb, ls, lb, w2, b2)
 
 
+def _plain_op(x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs,
+              wp, bp, ln2_s, ln2_b, w1, b1, dw, dwb, ls, lb, w2, b2, s,
+              heads, eps1, eps2, eps):
+    """mhca_block_plain with the operator's positional signature."""
+    return mhca_block_plain(
+        x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs, wp, bp,
+        ln2_s, ln2_b, w1, b1, dw, dwb, ls, lb, w2, b2, s=s, heads=heads,
+        eps1=eps1, eps2=eps2, eps=eps)
+
+
 def _launch(x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs, wp,
-            bp, ln2_s, ln2_b, w1, b1, dw, dwb, ls, lb, w2, b2, *, s, heads,
+            bp, ln2_s, ln2_b, w1, b1, dw, dwb, ls, lb, w2, b2, s, heads,
             eps1, eps2, eps):
     hid = w1.shape[0]
     _check(x, s, heads, hid, crpe_ws)
@@ -276,3 +286,12 @@ def _launch(x, cpe_w, cpe_b, ln1_s, ln1_b, wqkv, bqkv, crpe_ws, crpe_bs, wp,
     launches += 1
     _build.tally(NAME, tuple(x.shape), _build.tag(x))
     return out
+
+
+OP = _build.define(
+    NAME, "(Tensor x, Tensor cpe_w, Tensor cpe_b, Tensor ln1_s, Tensor ln1_b, "
+    "Tensor wqkv, Tensor bqkv, Tensor[] crpe_ws, Tensor[] crpe_bs, "
+    "Tensor wp, Tensor bp, Tensor ln2_s, Tensor ln2_b, Tensor w1, Tensor b1, "
+    "Tensor dw, Tensor dwb, Tensor ls, Tensor lb, Tensor w2, Tensor b2, "
+    "int s, int heads, float eps1, float eps2, float eps) -> Tensor",
+    _launch, _plain_op, lambda x, *a: x.new_empty(x.shape))

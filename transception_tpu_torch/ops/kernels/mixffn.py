@@ -530,13 +530,14 @@ def _launch_skip(x, w1, b1, dw, dwb, ls, lb, w2, b2, s, eps):
 
 def mixffn_skip(x, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
                 eps: float = 1e-5):
-    """K9 wrapper: the plain version for a CPU tensor or with the kernel
-    off, else K9, whose backward is autograd of the plain version."""
+    """K9 wrapper: the plain version with the kernel off or where autograd
+    records on the CPU, else K9's operator, whose backward is autograd of
+    the plain version."""
     if _build.plain(SKIP_NAME, x):
         return mixffn_skip_plain(x, w1, b1, dw, dwb, ls, lb, w2, b2, s=s,
                                  eps=eps)
     return _build.with_plain_backward(
-        lambda *a: _launch_skip(*a, s, eps),
+        lambda *a: SKIP_OP(*a, s, eps),
         lambda *a: mixffn_skip_plain(*a, s=s, eps=eps),
         x, w1, b1, dw, dwb, ls, lb, w2, b2)
 
@@ -593,54 +594,75 @@ def mixffn_ln_skip_bwd(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, g, *,
                        s: int, groups: int = 1, eps_ln: float = 1e-5,
                        eps: float = 1e-5):
     """K11 wrapper: the grads of (x, lts, ltb, w1, ..., b2) for cotangent g,
-    lts/ltb (C,)-tiled; the plain version for a CPU tensor or with the
-    kernel off."""
+    lts/ltb (C,)-tiled; the plain version with the kernel off or where
+    autograd records on the CPU, else K11's operator."""
     if _build.plain(NAME, x):
         return mixffn_ln_skip_bwd_plain(x, lts, ltb, w1, b1, dw, dwb, ls, lb,
                                         w2, b2, g, s=s, groups=groups,
                                         eps_ln=eps_ln, eps=eps)
-    return _launch_bwd(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, g, s,
-                       groups, eps_ln, eps)
+    return BWD_OP(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, g, s,
+                  groups, eps_ln, eps)
 
 
 class MixFFN(torch.autograd.Function):
-    """K2 forward and K11 backward (the plain versions on the CPU) of
-    x + mixffn(groupLN(x)) with the (C,)-tiled LN scale and bias."""
+    """K2 forward and K11 backward (their operators: the plain versions on
+    the CPU) of x + mixffn(groupLN(x)) with the (C,)-tiled LN scale and
+    bias."""
 
     @staticmethod
     def forward(ctx, x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, s, groups,
                 eps_ln, eps):
         params = (lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2)
-        if x.device.type == "cpu":
-            out = mixffn_plain(x, *params[2:], s=s,
-                               pre_ln=(lts, ltb, groups, eps_ln),
-                               residual=True, eps=eps)
-        else:
-            out = _launch(x, *params, s, groups, eps_ln, eps)
+        out = OP(x, *params, s, groups, eps_ln, eps)
         ctx.save_for_backward(x, *params)
         ctx.cfg = (s, groups, eps_ln, eps)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        s, groups, eps_ln, eps = ctx.cfg
-        saved = ctx.saved_tensors
-        if saved[0].device.type == "cpu":
-            grads = mixffn_ln_skip_bwd_plain(*saved, g, s=s, groups=groups,
-                                             eps_ln=eps_ln, eps=eps)
-        else:
-            grads = _launch_bwd(*saved, g, s, groups, eps_ln, eps)
-        return grads + (None,) * 4
+        return tuple(BWD_OP(*ctx.saved_tensors, g, *ctx.cfg)) + (None,) * 4
 
 
 def mixffn_ln_skip(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
                    groups: int = 1, eps_ln: float = 1e-5, eps: float = 1e-5):
-    """x + mixffn(LN(x)): plain version for a CPU tensor or with the kernel
-    off, else K2 forward and K11 backward (MixFFN). lts/ltb are the
-    caller's (C/groups,) LN scale and bias."""
+    """x + mixffn(LN(x)): plain version with the kernel off or where
+    autograd records on the CPU, else K2's operator, with K11's backward
+    (MixFFN) where autograd records. lts/ltb are the caller's (C/groups,)
+    LN scale and bias."""
     if _build.plain(NAME, x):
         return mixffn_ln_skip_plain(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2,
                                     b2, s=s, groups=groups, eps_ln=eps_ln,
                                     eps=eps)
-    return MixFFN.apply(x, lts.repeat(groups), ltb.repeat(groups), w1, b1,
-                        dw, dwb, ls, lb, w2, b2, s, groups, eps_ln, eps)
+    args = (x, lts.repeat(groups), ltb.repeat(groups), w1, b1, dw, dwb, ls,
+            lb, w2, b2, s, groups, eps_ln, eps)
+    if _build.needs_graph(*args[:11]):
+        return MixFFN.apply(*args)
+    return OP(*args)
+
+
+def _tiled_plain(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, s, groups,
+                 eps_ln, eps):
+    """K2's plain version with the operator's signature (lts/ltb tiled)."""
+    return mixffn_plain(x, w1, b1, dw, dwb, ls, lb, w2, b2, s=s,
+                        pre_ln=(lts, ltb, groups, eps_ln), residual=True,
+                        eps=eps)
+
+
+_FFN = ("Tensor x, Tensor lts, Tensor ltb, Tensor w1, Tensor b1, Tensor dw, "
+        "Tensor dwb, Tensor ls, Tensor lb, Tensor w2, Tensor b2")
+OP = _build.define(
+    NAME, f"({_FFN}, int s, int groups, float eps_ln, float eps) -> Tensor",
+    _launch, _tiled_plain, lambda x, *a: x.new_empty(x.shape))
+BWD_OP = _build.define(
+    BWD_NAME, f"({_FFN}, Tensor g, int s, int groups, float eps_ln, "
+    "float eps) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, "
+    "Tensor, Tensor, Tensor, Tensor)", _launch_bwd,
+    lambda *a: mixffn_ln_skip_bwd_plain(*a[:12], s=a[12], groups=a[13],
+                                        eps_ln=a[14], eps=a[15]),
+    lambda *a: tuple(t.new_empty(t.shape) for t in a[:11]))
+SKIP_OP = _build.define(
+    SKIP_NAME, "(Tensor x, Tensor w1, Tensor b1, Tensor dw, Tensor dwb, "
+    "Tensor ls, Tensor lb, Tensor w2, Tensor b2, int s, float eps) -> Tensor",
+    _launch_skip,
+    lambda *a: mixffn_skip_plain(*a[:9], s=a[9], eps=a[10]),
+    lambda x, *a: x.new_empty(x.shape))

@@ -154,14 +154,16 @@ def _check(x, w, p, c, ls=None, lb=None, shuffle=None):
 
 def patch_expand(x, w, ls, lb, *, p: int, c: int, eps: float = 1e-5,
                  shuffle=None):
-    """Wrapper: plain version for a CPU tensor or with the kernels off,
-    the CUDA kernel otherwise, whose backward is autograd of the plain
-    version. shuffle=(H, W): the pixel-shuffled layout (B, p²·H·W, c)."""
+    """Wrapper: plain version with the kernels off or where autograd
+    records on the CPU, else the operator (the CUDA kernel, whose backward
+    is autograd of the plain version). shuffle=(H, W): the pixel-shuffled
+    layout (B, p²·H·W, c)."""
     if _build.plain(NAME, x):
         return patch_expand_plain(x, w, ls, lb, p=p, c=c, eps=eps,
                                   shuffle=shuffle)
+    shuffle = None if shuffle is None else list(shuffle)
     return _build.with_plain_backward(
-        lambda *a: _launch(*a, p, c, eps, shuffle),
+        lambda *a: OP(*a, p, c, eps, shuffle),
         lambda *a: patch_expand_plain(*a, p=p, c=c, eps=eps,
                                       shuffle=shuffle), x, w, ls, lb)
 
@@ -172,8 +174,8 @@ def _launch(x, w, ls, lb, p, c, eps, shuffle=None):
     x = _build.aligned(x)
     B, N, C = x.shape
     pl = plan(B, N, C, c, p, _build.sms(x), es=x.element_size())
-    shape = (B, N, p * p * c) if shuffle is None else (B, p * p * N, c)
-    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    out = torch.empty(out_shape(x, p, c, shuffle), dtype=x.dtype,
+                      device=x.device)
     fn = _build.entry(NAME, _build.symbol("patch_expand", x.dtype),
                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                       + [ctypes.c_float, ctypes.c_void_p])
@@ -191,3 +193,19 @@ def _launch(x, w, ls, lb, p, c, eps, shuffle=None):
 def layout(shuffle) -> str:
     """The layout part of a K4 or K7 launch's tally key."""
     return "pre-shuffle" if shuffle is None else "shuffled"
+
+
+def out_shape(x, p: int, c: int, shuffle=None) -> tuple:
+    """K7's output shape for x (B, N, C): pre-shuffle (B, N, p²·c), or
+    shuffled (B, p²·N, c)."""
+    B, N, _ = x.shape
+    return (B, N, p * p * c) if shuffle is None else (B, p * p * N, c)
+
+
+OP = _build.define(
+    NAME, "(Tensor x, Tensor w, Tensor ls, Tensor lb, int p, int c, "
+    "float eps, int[]? shuffle) -> Tensor", _launch,
+    lambda x, w, ls, lb, p, c, eps, shuffle: patch_expand_plain(
+        x, w, ls, lb, p=p, c=c, eps=eps, shuffle=shuffle),
+    lambda x, w, ls, lb, p, c, eps, shuffle: x.new_empty(
+        out_shape(x, p, c, shuffle)))

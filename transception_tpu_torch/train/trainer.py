@@ -13,11 +13,12 @@ the model's device from TrainConfig.seed, each step advances it, and the
 checkpoint keeps its state, so that a resumed run draws the masks an
 uninterrupted one would.
 
-The loop (Trainer.train) is the JAX one: Synapse or synthetic slices
-through HostDataLoader (or, with DataConfig.device_data, the synthetic
-batches made on the device), the iteration log line every 50 steps,
-checkpoints and the in-training volume eval (run_inference) on the
-'interval' or 'reference' schedule and at the end, TensorBoard scalars
+The loop (Trainer.train) is the JAX one: Synapse, ISIC 2018 or synthetic
+slices through HostDataLoader (or, with DataConfig.device_data, the
+synthetic batches made on the device), the iteration log line every 50
+steps, checkpoints and the in-training eval (run_inference over volumes;
+data.isic.dice_eval over ISIC images) on the 'interval' or 'reference'
+schedule and at the end, TensorBoard scalars
 and images, results.tsv and the curves.
 
 Data parallelism (TrainConfig.dp_size, parallel.mesh): each rank loads
@@ -54,6 +55,7 @@ from transception_tpu_torch.core.config import (
 )
 from transception_tpu_torch.core.device import DeviceLike, fp32_exact
 from transception_tpu_torch.data.device_synthetic import DeviceSyntheticStream
+from transception_tpu_torch.data.isic import dice_eval
 from transception_tpu_torch.data.loader import HostDataLoader, to_device
 from transception_tpu_torch.data.synapse import (
     make_test_dataset,
@@ -199,8 +201,8 @@ def write_results_tsv(path: str, dice_hist: List[float],
 
 
 class Trainer:
-    """End-to-end Synapse trainer (the reference's trainer_synapse), on the
-    card unless `device` says otherwise.
+    """End-to-end Synapse (or ISIC 2018) trainer (the reference's
+    trainer_synapse), on the card unless `device` says otherwise.
 
     Checkpoints keep model, optimizer, schedule, step and the drop-path
     generator's state (torch.save, output_dir/ckpt/step_XXXXXXXX.pt);
@@ -423,13 +425,21 @@ class Trainer:
             if (done or do_save) and self.main:
                 self.save_checkpoint(state)
             if done or do_eval:
-                d, h = run_inference(
-                    self.model, test_ds, dc.num_classes,
-                    patch_size=dc.img_size,
-                    batch=eval_batch(self.mesh.world),
-                    log=logger.info if self.main else None,
-                    device_resample=cfg.eval_device_resample,
-                    device=self.device, mesh=self._dp())
+                if dc.dataset == "isic":
+                    # Every rank scores the whole split (no collective);
+                    # no HD95 (0.0, as the JAX Trainer reports).
+                    d = dice_eval(self.model, test_ds, dc.img_size,
+                                  log=logger.info if self.main else None,
+                                  device=self.device)
+                    h = 0.0
+                else:
+                    d, h = run_inference(
+                        self.model, test_ds, dc.num_classes,
+                        patch_size=dc.img_size,
+                        batch=eval_batch(self.mesh.world),
+                        log=logger.info if self.main else None,
+                        device_resample=cfg.eval_device_resample,
+                        device=self.device, mesh=self._dp())
                 dice_hist.append(d)
                 hd95_hist.append(h)
         if writer is not None:
