@@ -178,9 +178,21 @@ Phases (any failed check exits non-zero):
      device_time_per_call against CUDA events around the same traced
      calls (each within 10%), cost_analysis of the kernel
      and the plain path (equal flops and bytes), profile_model_sections.
+ 20. the tensor-parallel axis: (a) K2's and K11's hidden-sharded forms
+     (mixffn_tp, mixffn_tp_bwd) at the ETB folds of the train steps
+     (b=24), tp 2 and 4, bf16 and fp32, each shard's stages in turn with
+     the partials summed in rank order, against the unsharded kernel and
+     the sharded plain stages (phase 8's limits, planted faults), each
+     stage timed; (b) a tp=2 step (published widths, one block and one
+     path a stage) as two spawned ranks sharing card 0 over gloo, in the
+     default, flash and pallas modes at bf16 and flash at fp32, against
+     the one-process step (phase 9's limits, launches exactly
+     launches_per_step(cfg, tp)), the flash checkpoint resumed in one
+     process; NCCL tp 2 with two cards, dp2 x tp2 and tp 4 with four;
+     (c) --tp_size beyond the cards refused before any work.
 Every launch of the main-path runs (phases 4, 5-7 at fp32, 9, 10, 11, 12,
-13, 14, 15, 16 and 18) is tallied by shape (ops.kernels.shape_counts); each shape
-must have been measured in phase 3 or 8. The last line is {"ok": true, "device": {...}}; the two
+13, 14, 15, 16, 18 and 20) is tallied by shape (ops.kernels.shape_counts);
+each shape must have been measured in phase 3, 8 or 20 (a). The last line is {"ok": true, "device": {...}}; the two
 lines before it list each kernel at each shape (one row per shape) with
 its launches in those runs, its error and its per-launch times and bound,
 then the card's name and power limit. Before them, per run, each kernel's
@@ -355,7 +367,9 @@ def record(measured, key, label, err, ms, pms, lms, nbytes, flops,
                                            err)
         return
     bms, by = bound_ms(nbytes, flops, peak)
-    src = {"mixffn_skip": "mixffn"}.get(name, name)  # K9 shares K2's library
+    # K9 and K2's hidden-sharded form share K2's library, K11's its own.
+    src = {"mixffn_skip": "mixffn", "mixffn_tp": "mixffn",
+           "mixffn_tp_bwd": "mixffn_bwd"}.get(name, name)
     measured[key] = {
         "name": name, "shape": label, "route": "cuda",
         "source": f"transception_tpu_torch/csrc/{src}.cu",
@@ -1023,7 +1037,9 @@ def replaces(name):
             return getattr(mod, {"launches": "REPLACES",
                                  "bwd_launches": "BWD_REPLACES",
                                  "folded_launches": "FOLDED_REPLACES",
-                                 "skip_launches": "SKIP_REPLACES"}[attr])
+                                 "skip_launches": "SKIP_REPLACES",
+                                 "tp_launches": "TP_REPLACES",
+                                 "tp_bwd_launches": "TP_BWD_REPLACES"}[attr])
     raise KeyError(name)
 
 
@@ -4269,6 +4285,411 @@ def profiling_phase():
                     f"{k} {v * 1e3:.3f} ms" for k, v in secs.items()))
 
 
+# ---- phase 20: the tensor-parallel ('model') axis ----
+
+# The ETB FFN folds of the flash and "pallas" train steps, (s, C, hidden),
+# the folds the TP rules shard (parallel.mesh.shard_layout): stage 1 and
+# decoder_0 (56², 64), decoder_1 (28², 128), decoder_2 (14², 320).
+TP_SHAPES = ((56, 64, 256), (28, 128, 512), (14, 320, 1280))
+TP_SIZES = (2, 4)
+TP_MAIN = 2   # the model axis of the steps: two ranks share the one card
+TP_WIDE = 4   # and of the NCCL flash step with four cards
+# The steps' depth: one block a stage and one path a stage at the
+# published widths and map sides (every shape one the full model launches).
+TP_DEPTH = dict(num_layers=(1, 1, 1), num_path=(1, 1, 1))
+TP_MODES = (("bf16 default", {}, BF16_LIMITS),
+            ("bf16 flash", dict(ffn_flash_train=True), BF16_LIMITS),
+            ("bf16 pallas", dict(use_pallas_train=True, mhca_ffn_fold=True,
+                                 drop_path_rate=0.1), BF16_LIMITS),
+            ("fp32 flash", dict(ffn_flash_train=True, dtype="float32"),
+             FP32_LIMITS))
+TP_CKPT_MODE = "bf16 flash"  # its checkpoint resumes in one process
+TP_TIME_STEPS = 2            # steps timed after the compared ones
+
+
+def _tp_shards(p, tp, r):
+    """Rank r's shards of (lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2)."""
+    lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2 = p
+    n = w1.shape[0] // tp
+    k = slice(r * n, (r + 1) * n)
+    return lts, ltb, w1[k], b1[k], dw[k], dwb[k], ls[k], lb[k], w2[:, k], b2
+
+
+def _tp_forward(x, p, s, tp, ops, fault=False):
+    """K2's hidden-sharded form over tp shards in one process: each
+    rank's stages in turn (ops: the operators, or the plain stages), the
+    partials summed in rank order. fault: each rank normalises by its own
+    partial sums (the planted fault: the sum left out). Returns (out, the
+    summed sums)."""
+    fc1, fc2, out = ops
+    hid = p[2].shape[0]
+    sh = [_tp_shards(p, tp, r) for r in range(tp)]
+    part = [fc1(x, *q[:6], s, 1, 1e-5, hid) for q in sh]
+    st = sum(pt[1] for pt in part)
+    pp = sum(fc2(h, *q[4:9], stp if fault else st, s, hid, 1e-5)
+             for (h, stp), q in zip(part, sh))
+    return out(pp, p[9], x), st
+
+
+def _tp_backward(x, g, p, s, tp, st, ops, fault=False):
+    """K11's hidden-sharded form over tp shards in one process, as
+    _tp_forward: the eleven gradients of mixffn_ln_skip_bwd, the shards'
+    pieces concatenated. fault: the LN backward's sums left unsummed."""
+    rows, dh, ln = ops
+    hid = p[2].shape[0]
+    sh = [_tp_shards(p, tp, r) for r in range(tp)]
+    rr = [rows(x, g, *q[:9], st, s, 1, hid, 1e-5, 1e-5) for q in sh]
+    m = sum(r[5] for r in rr)
+    dd = [dh(*r[:5], g, q[4], q[6], q[2], st, r[5] if fault else m, s, hid,
+             1e-5) for r, q in zip(rr, sh)]
+    dx, dlts, dltb, db2 = ln(x, g, sum(d[0] for d in dd), p[0], 1, 1e-5)
+
+    def cat(src, i, dim=0):
+        return torch.cat([t[i] for t in src], dim)
+
+    return (dx, dlts, dltb, cat(dd, 1), cat(dd, 2), cat(dd, 3), cat(dd, 4),
+            cat(rr, 6), cat(rr, 7), cat(dd, 5, 1), db2)
+
+
+def _tallied(name, fn):
+    """fn's result and the one shape key of kernel `name` its launches
+    tallied."""
+    from transception_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    out = fn()
+    keys = [k for k in kernels.shape_counts() if k[0] == name]
+    if len(keys) != 1:
+        fail(f"{name}: tallied {kernels.shape_counts()}")
+    return keys[0], out
+
+
+def tp_kernel_phase(measured):
+    """Phase 20 (a). K2's and K11's hidden-sharded forms on the card at
+    every ETB fold of the flash and pallas train steps at b=24, tp 2 and
+    4, bf16 and fp32: each shard's stages launched in turn and the
+    partials summed in rank order, against the unsharded kernel (K2, K11)
+    and against the sharded plain stages, within phase 8's limits (the
+    forward's branch alone); a planted fault each (the sums over the
+    hidden width left out) must fail. Each stage of rank 0's shard timed
+    (CUDA events), the bound of a shard's work (its flops and bytes). The
+    shapes of the steps (tp 2; with four cards tp 4 at bf16, the NCCL
+    tp 4 step's) join `measured`; the others are logged."""
+    from transception_tpu_torch.ops.kernels import mixffn as mf
+    kops = (mf.TP_FC1_OP, mf.TP_FC2_OP, mf.TP_OUT_OP)
+    pops = (mf.tp_fc1_plain, mf.tp_fc2_plain, mf.tp_out_plain)
+    kbops = (mf.TP_BWD_ROWS_OP, mf.TP_BWD_DH_OP, mf.TP_BWD_LN_OP)
+    pbops = (mf.tp_bwd_rows_plain, mf.tp_bwd_dh_plain, mf.tp_bwd_ln_plain)
+    names = ("dx", "dlts", "dltb", "dw1", "db1", "ddw", "ddwb", "dls", "dlb",
+             "dw2", "db2")
+    B = TRAIN_BATCH
+    gen = torch.Generator().manual_seed(20)
+    for dt in (torch.bfloat16, torch.float32):
+        fp32 = dt == torch.float32
+        es, tag = (4, " fp32") if fp32 else (2, "")
+        tol, btol = (FP32_TOL, FP32_TOL) if fp32 else (0.02, BWD_TOL)
+        peak = FP32_FLOPS if fp32 else BF16_FLOPS
+        for s, C, hid in TP_SHAPES:
+            n = B * s * s
+            x = rand(gen, (B, n // B, C), dtype=dt)
+            gy = rand(gen, (B, n // B, C), dtype=dt)
+            p = (rand(gen, (C,), 0.1, 1.0), rand(gen, (C,), 0.1),
+                 rand(gen, (hid, C), C ** -0.5), rand(gen, (hid,), 0.02),
+                 rand(gen, (hid, 1, 3, 3), 0.3), rand(gen, (hid,), 0.02),
+                 rand(gen, (hid,), 0.1, 1.0), rand(gen, (hid,), 0.1),
+                 rand(gen, (C, hid), hid ** -0.5), rand(gen, (C,), 0.02))
+            with torch.no_grad():
+                whole = mf.mixffn_ln_skip(x, *p, s=s)
+                whole_g = mf.mixffn_ln_skip_bwd(x, *p, gy, s=s)
+            for tp in TP_SIZES:
+                hl = hid // tp
+                label = f"({B},{s * s},{C}) hidden {hid}, tp {tp} " \
+                        f"({hl} a rank){tag}"
+                with torch.no_grad():
+                    fkey, (got, st) = _tallied(mf.TP_NAME, lambda: _tp_forward(
+                        x, p, s, tp, kops))
+                    want, _ = _tp_forward(x, p, s, tp, pops)
+                    err, ok = err_check(f"mixffn_tp {label} vs sharded "
+                                        f"plain", got, want, tol, base=x)
+                    e2, ok2 = err_check(f"mixffn_tp {label} vs unsharded "
+                                        f"K2", got, whole, tol, base=x)
+                    if not (ok and ok2):
+                        fail("the sharded K2 disagrees")
+                    bad, _ = _tp_forward(x, p, s, tp, pops, fault=True)
+                    if err_check("  planted fault (the LN's sums not "
+                                 "summed)", bad, want, tol, base=x)[1]:
+                        fail("mixffn_tp: the check does not see a fault")
+                    bkey, gk = _tallied(mf.TP_BWD_NAME, lambda: _tp_backward(
+                        x, gy, p, s, tp, st, kbops))
+                    gp = _tp_backward(x, gy, p, s, tp, st, pbops)
+                    torch.cuda.synchronize()
+                    gp = tuple(t.to(w.dtype) for t, w in zip(gp, gk))
+                    berr, bok = grads_check(f"mixffn_tp_bwd {label}", gk,
+                                            gp, names, btol)
+                    berr2, bok2 = grads_check(f"mixffn_tp_bwd {label} vs "
+                                              f"K11", gk, whole_g, names,
+                                              btol)
+                    log(f"  mixffn_tp_bwd {label}: max_abs_err {berr:.6g} "
+                        f"vs sharded plain, {berr2:.6g} vs unsharded K11 "
+                        f"(each within {btol} x its max) "
+                        f"{'ok' if bok and bok2 else 'FAIL'}")
+                    if not (bok and bok2):
+                        fail("the sharded K11 disagrees")
+                    badg = _tp_backward(x, gy, p, s, tp, st, pbops,
+                                        fault=True)
+                    badg = tuple(t.to(w.dtype) for t, w in zip(badg, gk))
+                    if grads_check("  planted fault (the LN backward's sums "
+                                   "not summed)", badg, gp, names, btol)[1]:
+                        fail("mixffn_tp_bwd: the check does not see a "
+                             "fault")
+                    log("    planted faults rejected")
+                    # Rank 0's shard, stage by stage.
+                    q = _tp_shards(p, tp, 0)
+                    h0, _ = mf.TP_FC1_OP(x, *q[:6], s, 1, 1e-5, hid)
+                    pp = mf.TP_FC2_OP(h0, *q[4:9], st, s, hid, 1e-5)
+                    rr = mf.TP_BWD_ROWS_OP(x, gy, *q[:9], st, s, 1, hid,
+                                           1e-5, 1e-5)
+                    dxn = mf.TP_BWD_DH_OP(*rr[:5], gy, q[4], q[6], q[2], st,
+                                          rr[5], s, hid, 1e-5)[0]
+                    fwd = {
+                        "fc1": (lambda: mf.TP_FC1_OP(x, *q[:6], s, 1, 1e-5,
+                                                     hid),
+                                lambda: mf.tp_fc1_plain(x, *q[:6], s, 1,
+                                                        1e-5, hid)),
+                        "fc2": (lambda: mf.TP_FC2_OP(h0, *q[4:9], st, s,
+                                                     hid, 1e-5),
+                                lambda: mf.tp_fc2_plain(h0, *q[4:9], st, s,
+                                                        hid, 1e-5)),
+                        "out": (lambda: mf.TP_OUT_OP(pp, p[9], x),
+                                lambda: mf.tp_out_plain(pp, p[9], x))}
+                    bwd = {
+                        "rows": (lambda: mf.TP_BWD_ROWS_OP(
+                            x, gy, *q[:9], st, s, 1, hid, 1e-5, 1e-5),
+                            lambda: mf.tp_bwd_rows_plain(
+                                x, gy, *q[:9], st, s, 1, hid, 1e-5, 1e-5)),
+                        "dh": (lambda: mf.TP_BWD_DH_OP(
+                            *rr[:5], gy, q[4], q[6], q[2], st, rr[5], s, hid,
+                            1e-5), lambda: mf.tp_bwd_dh_plain(
+                            *rr[:5], gy, q[4], q[6], q[2], st, rr[5], s, hid,
+                            1e-5)),
+                        "ln": (lambda: mf.TP_BWD_LN_OP(x, gy, dxn, p[0], 1,
+                                                       1e-5),
+                               lambda: mf.tp_bwd_ln_plain(x, gy, dxn, p[0],
+                                                          1, 1e-5))}
+                    for form, stages, key, e, nbytes, flops in (
+                            (mf.TP_NAME, fwd, fkey, max(err, e2),
+                             2 * n * C * es + (2 * C * hl + 9 * hl) * es
+                             + 2 * n * C * 4 + 2 * n * 8,
+                             4 * n * C * hl + 18 * n * hl),
+                            (mf.TP_BWD_NAME, bwd, bkey, max(berr, berr2),
+                             3 * n * C * es + (2 * C * hl + 9 * hl) * es
+                             + (2 * C * hl + 13 * hl + 3 * C) * 4
+                             + 2 * n * C * 4 + 3 * n * 8,
+                             10 * n * C * hl + 54 * n * hl)):
+                        t = {k: (cuda_ms(f), cuda_ms(pf, iters=3))
+                             for k, (f, pf) in stages.items()}
+                        ms = sum(a for a, _ in t.values())
+                        pms = sum(b for _, b in t.values())
+                        bms, by = bound_ms(nbytes, flops, peak)
+                        log(f"    {form} {label}: rank 0's stages "
+                            + ", ".join(f"{k} {a:.4f} ms (plain {b:.4f})"
+                                        for k, (a, b) in t.items())
+                            + f"; ms {ms:.4f} plain_ms {pms:.4f} bound_ms "
+                            f"{bms:.4f} ({by}) per launch, library call "
+                            f"none")
+                        if tp == TP_MAIN or (
+                                tp == TP_WIDE and not fp32 and
+                                torch.cuda.device_count() >= TP_WIDE):
+                            record(measured, key, label, e, ms, pms, None,
+                                   nbytes, flops, peak)
+            del x, gy, p, whole, whole_g
+
+
+def _tp_trainer(over, out, mesh=None):
+    """A Trainer of the published widths at TP_DEPTH (TrainConfig(): b=24,
+    wide head; weights from its seed) on `mesh` (None: one process)."""
+    from transception_tpu_torch.core.config import (
+        DataConfig,
+        TrainConfig,
+        TransceptionConfig,
+    )
+    from transception_tpu_torch.parallel.mesh import DataMesh
+    from transception_tpu_torch.train.trainer import Trainer
+    if mesh is None:
+        mesh = DataMesh(0, 1, torch.device("cuda", 0))
+    return Trainer(TransceptionConfig(**TP_DEPTH, **over),
+                   TrainConfig(output_dir=str(out), tp_size=mesh.tp),
+                   DataConfig(dataset="synthetic"), device="cuda",
+                   mesh=mesh)
+
+
+def _tp_rank(out_dir, backend, dp, tp, labels):
+    """One rank of phase 20 (b) (spawned): the modes `labels` on a dp x tp
+    mesh over `backend` (gloo: every rank on card 0; NCCL: a card each),
+    one step each on its data rank's rows, the counters and tallies of the
+    step, the gathered gradients; in TP_CKPT_MODE the checkpoint and the
+    next step; then the ms of a step. Rank (0, 0) saves the results."""
+    from transception_tpu_torch.data.device_synthetic import (
+        DeviceSyntheticStream,
+    )
+    from transception_tpu_torch.models.transception import launches_per_step
+    from transception_tpu_torch.ops import kernels
+    from transception_tpu_torch.parallel.mesh import (
+        gather_state_dict,
+        make_mesh,
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if backend == "gloo":
+        os.environ["LOCAL_RANK"] = "0"
+    mesh = make_mesh(dp, tp, device="cuda", backend=backend)
+    out = Path(out_dir)
+    batch = DeviceSyntheticStream(TRAIN_BATCH, 224, 9,
+                                  device=mesh.device).batch(0)
+    rows = mesh.rows(TRAIN_BATCH)
+    img, lbl = batch["image"][rows], batch["label"][rows]
+    res = {}
+
+    def taken(tr, met):
+        torch.cuda.synchronize()
+        g = gather_state_dict({n: p.grad for n, p in
+                               tr.model.named_parameters()}, tr.layout,
+                              mesh.axis)
+        return (float(met["loss"]), {n: t.float().cpu() for n, t in g.items()},
+                {n: b.float().cpu() for n, b in tr.model.named_buffers()})
+
+    try:
+        for label in labels:
+            over = next(m[1] for m in TP_MODES if m[0] == label)
+            tr = _tp_trainer(over, out / f"{label}_{mesh.rank}_{mesh.t}",
+                             mesh)
+            state, step = tr.init_state(2211 // TRAIN_BATCH)
+            kernels.reset_launches()
+            met = step(img, lbl)
+            r = {"step": taken(tr, met), "counts": kernels.launch_counts(),
+                 "shapes": dict(kernels.shape_counts()),
+                 "want": launches_per_step(tr.model.cfg, tp=tp)}
+            if label == TP_CKPT_MODE:
+                r["ckpt"] = tr.save_checkpoint(state)
+                r["next"] = taken(tr, step(img, lbl))
+            r["ms"] = cuda_ms(lambda: step(img, lbl), iters=TP_TIME_STEPS,
+                              warmup=0)
+            res[label] = r
+            del tr, state, step
+            torch.cuda.empty_cache()
+        if mesh.is_main:
+            torch.save(res, out / "rank0.pt")
+    finally:
+        mesh.close()
+
+
+def tp_phase():
+    """Phase 20 (b, c). A tp=2 train step on the card: two spawned ranks
+    share card 0 over the gloo backend on CUDA tensors (NCCL refuses two
+    ranks on one card; the CLIs keep NCCL, a card a rank), in the default,
+    flash and pallas modes at bf16 and the flash mode at fp32, each
+    against the one-process Trainer's step from the same weights on the
+    same batch within phase 9's limits, its launches exactly
+    launches_per_step(cfg, tp) (the ETB FFN folds on the hidden-sharded
+    K2 and K11), its ms logged (gloo stages each sum through the host:
+    not TP's speed). The flash mode's checkpoint (rank (0, 0), the full
+    layout) resumes in one process and gives the ranks' next step. With
+    two cards or more, tp 2 over NCCL a card a rank; with four, dp2 x tp2
+    and tp 4.
+    cli.train --tp_size beyond the cards is refused before any work.
+    Returns the runs' launches per shape key."""
+    import shutil
+
+    from transception_tpu_torch.cli import train as train_cli
+    from transception_tpu_torch.data.device_synthetic import (
+        DeviceSyntheticStream,
+    )
+    from transception_tpu_torch.parallel.mesh import spawn
+
+    cards = torch.cuda.device_count()
+    out = OUT_DIR / "tp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    batch = DeviceSyntheticStream(TRAIN_BATCH, 224, 9, device="cuda").batch(0)
+    img, lbl = batch["image"], batch["label"]
+    refs, one_ms = {}, {}
+    for label, over, _ in TP_MODES:
+        tr = _tp_trainer(over, out / "one")
+        refs[label], one_ms[label] = _dp_step(tr, img, lbl)
+        del tr
+        torch.cuda.empty_cache()
+    runs = []
+    meshes = [("gloo", 1, TP_MAIN, [m[0] for m in TP_MODES])]
+    if cards >= 2:
+        meshes.append(("nccl", 1, 2, [TP_CKPT_MODE]))
+    if cards >= 4:
+        meshes += [("nccl", 2, 2, [TP_CKPT_MODE]),
+                   ("nccl", 1, TP_WIDE, [TP_CKPT_MODE])]
+    for backend, dp, tp, labels in meshes:
+        t0 = time.perf_counter()
+        where = (f"{backend}, dp{dp} x tp{tp}"
+                 + (", every rank on card 0" if backend == "gloo" else
+                    ", a card a rank"))
+        wdir = out / f"{backend}_dp{dp}_tp{tp}"
+        wdir.mkdir()
+        spawn(_tp_rank, dp * tp, (str(wdir), backend, dp, tp, labels))
+        res = torch.load(wdir / "rank0.pt", weights_only=False)
+        for label in labels:
+            r, lim = res[label], dict((m[0], m[2]) for m in TP_MODES)[label]
+            if r["counts"] != r["want"]:
+                fail(f"TP {label} ({where}): launched {r['counts']}, want "
+                     f"launches_per_step {r['want']}")
+            runs.append((f"per TP {label} train step ({where}, rank 0)",
+                         r["shapes"], 1))
+            log(f"  TP {label} ({where}): launches = launches_per_step "
+                f"(mixffn_tp {r['counts']['mixffn_tp']}, mixffn_tp_bwd "
+                f"{r['counts']['mixffn_tp_bwd']}, mixffn "
+                f"{r['counts']['mixffn']}); {r['ms']:.1f} ms a step (CUDA "
+                f"events over {TP_TIME_STEPS} steps"
+                + ("; gloo sums through the host: not TP's speed"
+                   if backend == "gloo" else "")
+                + f"), one process {one_ms[label]:.1f} ms")
+            if not _compare_steps(f"TP {label} ({where}) vs one process",
+                                  r["step"], refs[label], lim=lim):
+                fail(f"the tp {label} step disagrees with the one-process "
+                     f"step")
+            if "ckpt" in r:
+                tr = _tp_trainer(dict(m[:2] for m in TP_MODES)[label],
+                                 wdir / "resumed")
+                state, step = tr.init_state(2211 // TRAIN_BATCH)
+                tr.restore_checkpoint(state, r["ckpt"])
+                met = step(img, lbl)
+                torch.cuda.synchronize()
+                nxt = (float(met["loss"]),
+                       {n: p.grad.float().cpu()
+                        for n, p in tr.model.named_parameters()},
+                       {n: b.float().cpu() for n, b in tr.model.named_buffers()})
+                if not _compare_steps(f"TP {label} ({where}): its checkpoint "
+                                      f"resumed in one process, next step "
+                                      f"vs the ranks'", nxt, r["next"],
+                                      lim=lim):
+                    fail("the tp checkpoint does not resume to the ranks' "
+                         "next step")
+                del tr, state, step
+                torch.cuda.empty_cache()
+        log(f"  {where}: {time.perf_counter() - t0:.1f} s")
+    tp = 2 if cards == 1 else cards + 1
+    try:
+        train_cli.main(["--tp_size", str(tp), "--output_dir",
+                        str(out / "refused")])
+    except RuntimeError as e:
+        log(f"  cli.train --tp_size {tp}: refused before any work: {e}")
+        if f"needs {tp} cards, have {cards}" not in str(e):
+            fail(f"--tp_size {tp}: the refusal does not name the counts")
+    else:
+        fail(f"cli.train --tp_size {tp} did not raise")
+    if (out / "refused" / "log.txt").exists():
+        fail("the refused run started work")
+    if cards < 2:
+        log("  NCCL tp runs were not possible here: one card "
+            "(torch.cuda.device_count() == 1)")
+    return runs
+
+
 def run_summary(what, tallies, per, measured):
     """Per kernel, the launches of one run (`tallies`, divided by `per`
     forwards or steps) and their summed kernel, plain, bound and library
@@ -4420,6 +4841,15 @@ def main():
     profiling_phase()
     log(f"  phase 19: {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 20: the tensor-parallel axis (K2's and K11's "
+        f"hidden-sharded forms; a tp={TP_MAIN} step, batch {TRAIN_BATCH})")
+    t0 = time.perf_counter()
+    tp_kernel_phase(measured)
+    log(f"  phase 20 (a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tp_runs = tp_phase()
+    log(f"  phase 20 (b, c): {time.perf_counter() - t0:.1f} s")
+
     # The main-path runs: phase 4's forwards, phase 9's flash and pallas
     # Trainer steps and fp32 steps, phase 10's forward per configuration,
     # phase 11's volume-eval forwards, phase 12's train CLI steps, evals
@@ -4437,7 +4867,8 @@ def main():
         for mode, t in fp32_step_tallies.items()] + [
         (f"per forward, {name}", t, 1) for name, t in grid_tallies.items()
     ] + [("per forward, volume eval", vol_tallies, n_vol)] + cli_runs \
-        + variant_runs + dp_runs + legacy_runs + isic_runs + remat_runs
+        + variant_runs + dp_runs + legacy_runs + isic_runs + remat_runs \
+        + tp_runs
     total = Counter()
     for _, t, _ in runs:
         total.update(t)

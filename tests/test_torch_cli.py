@@ -352,9 +352,12 @@ def test_cli_refusals(tmp_path, data):
                                            f"have {cards}"):
         pcli.main(_argv(data, tmp_path, pth, "--dp_size", str(dp)))
     from transception_tpu_torch.cli import train as ptrain
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
-        ptrain.main(["--tp_size", "2", "--output_dir", str(tmp_path)],
-                    device="cpu")
+    # The model axis counts its ranks' cards too: tp ranks on a host of
+    # fewer cards are refused before any work.
+    tp = max(cards + 1, 2)
+    with pytest.raises(RuntimeError, match=f"mesh 1x{tp} needs {tp} cards, "
+                                           f"have {cards}"):
+        ptrain.main(["--tp_size", str(tp), "--output_dir", str(tmp_path)])
     if not torch.cuda.is_available():
         torch.save({}, pth)
         with pytest.raises(RuntimeError, match="CUDA"):

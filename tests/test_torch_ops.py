@@ -49,6 +49,14 @@ def _cases():
             [_r(g, n, 1, kz, kz, scale=1 / kz) for n, kz in zip(chs, (3, 5,
                                                                    7))],
             [_r(g, n, scale=0.1) for n in chs], w, b, lts, ltb] + ffn
+    k2 = slice(0, HID // 2)
+    half = [t[k2] for t in ffn[:6]] + [ffn[6][:, k2]]
+    hh, st = mf.tp_fc1_plain(x, lts, ltb, *half[:4], S, 1, 1e-5, HID)
+    st = st * 2
+    rows_args = [x, gx, lts, ltb, *half, st, S, 1, HID, 1e-5, 1e-5]
+    rows = mf.tp_bwd_rows_plain(*rows_args)
+    dh_args = [*rows[:5], gx, half[2], half[4], half[0], st, rows[5] * 2, S,
+               HID, 1e-5]
     xe = _r(g, 2, 9, C)
     wex, ls8, lb8 = _r(g, 32, C, scale=C ** -0.5), _r(g, 8) + 1, _r(g, 8)
     wh, lsh, lbh = _r(g, 16 * 64, C, scale=C ** -0.5), _r(g, 64) + 1, \
@@ -65,6 +73,22 @@ def _cases():
                                                    s=S)),
         "mixffn_skip": (mf.SKIP_OP, [x, *ffn, S, 1e-5],
                         mf.mixffn_skip_plain(x, *ffn, s=S)),
+        # K2's and K11's hidden-sharded stages, at a shard of half the
+        # hidden channels (hid_all = 2·hid) with made-up summed sums.
+        "mixffn_tp": (mf.TP_FC1_OP, [x, lts, ltb, *half[:4], S, 1, 1e-5,
+                                     HID],
+                      mf.tp_fc1_plain(x, lts, ltb, *half[:4], S, 1, 1e-5,
+                                      HID)),
+        "mixffn_tp_fc2": (mf.TP_FC2_OP, [hh, *half[2:7], st, S, HID, 1e-5],
+                          mf.tp_fc2_plain(hh, *half[2:7], st, S, HID, 1e-5)),
+        "mixffn_tp_out": (mf.TP_OUT_OP, [gx, ffn[7], x],
+                          mf.tp_out_plain(gx, ffn[7], x)),
+        "mixffn_tp_bwd": (mf.TP_BWD_ROWS_OP, rows_args,
+                          mf.tp_bwd_rows_plain(*rows_args)),
+        "mixffn_tp_bwd_dh": (mf.TP_BWD_DH_OP, dh_args,
+                             mf.tp_bwd_dh_plain(*dh_args)),
+        "mixffn_tp_bwd_ln": (mf.TP_BWD_LN_OP, [x, gx, gx, lts, 1, 1e-5],
+                             mf.tp_bwd_ln_plain(x, gx, gx, lts, 1, 1e-5)),
         "bridge_attention": (ba.OP, [q, k, v, 0.25],
                              ba.bridge_attention_plain(q, k, v, 0.25)),
         "bridge_attention_bwd": (ba.BWD_OP, [q, k, v, q, 0.25],

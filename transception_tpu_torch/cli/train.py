@@ -18,8 +18,14 @@ Data parallelism: --dp_size N trains over N cards, one rank a card, on
 global batches of --batch_size (parallel.mesh; the default -1 takes every
 visible card). Under torchrun (--nproc_per_node N) each process is one
 rank; without it the CLI starts its N ranks itself. Rank 0 writes the
-logs, checkpoints and results. --tp_size above 1 is refused (the TP axis
-is not ported, ROADMAP.md §1 item 4).
+logs, checkpoints and results.
+
+Tensor parallelism: --tp_size T shards the weights of the JAX package's
+TP rules over T ranks of a model axis (Trainer; dp·tp ranks, one a card,
+rank r at (d, t) = divmod(r, T)); the CLI starts the dp·tp ranks itself
+outside torchrun. More ranks than cards, a legacy model, and a T that
+leaves a sharded FFN a hidden width its kernels do not take are refused
+before any work.
 """
 
 from __future__ import annotations
@@ -110,19 +116,26 @@ def main(argv=None, device: DeviceLike = "cuda"):
     model_cfg, data_cfg, train_cfg = build_configs(args)
     on_card = torch.device(device).type == "cuda"
     check_card_dtype(model_cfg, on_card)
-    if train_cfg.tp_size > 1:
-        raise NotImplementedError(
-            f"--tp_size {train_cfg.tp_size}: the TP axis is not ported "
-            f"(ROADMAP.md §1 item 4); train with --tp_size 1")
-    # The data axis, checked before any work: the cards, and the global
-    # batch's split over the ranks.
-    dp = data_size(train_cfg.dp_size, device)
+    # The mesh, checked before any work: the cards, the global batch's
+    # split over the data axis, and the model axis's shards.
+    tp = max(train_cfg.tp_size, 1)
+    dp = data_size(train_cfg.dp_size, device, tp)
     if train_cfg.batch_size % dp:
         raise ValueError(f"--batch_size {train_cfg.batch_size} does not "
                          f"divide over --dp_size {dp} ranks")
-    if dp > 1 and not launched():
-        return None, spawn(_rank, dp, (argv, device))
-    mesh = make_mesh(dp, 1, device)
+    if tp > 1 and not launched():
+        from transception_tpu_torch.models.registry import LEGACY
+        from transception_tpu_torch.models.transception import check_tp
+        if args.model.lower() in LEGACY:
+            raise NotImplementedError(
+                f"--tp_size {tp} with --model {args.model}: the TP axis "
+                f"runs the MSTransception family (ROADMAP.md §1 item 4 "
+                f"queues the legacy models); train it with --tp_size 1")
+        check_tp(create_model(args.model, model_cfg, device="cpu"), tp,
+                 device)
+    if dp * tp > 1 and not launched():
+        return None, spawn(_rank, dp * tp, (argv, device))
+    mesh = make_mesh(dp, tp, device)
     dev = mesh.device
     model = create_model(args.model, model_cfg, device=dev,
                          seed=train_cfg.seed)

@@ -66,3 +66,72 @@ LN_SKIP(mixffn_ln_skip_f32, float)
 SKIP(mixffn_skip, bf16)
 SKIP(mixffn_skip_f32, float)
 #undef SKIP
+
+// K2's hidden-sharded form, for a MixFFN whose fc1 rows, conv, hidden LN
+// and fc2 columns are sharded over the model axis (hid of its hid_all
+// channels on this rank): three entries, between which the caller sums
+// over the ranks (parallel/tensor.py):
+//   mixffn_tp_fc1   h = E(groupLN(x)·w1ᵀ + b1), then each token's
+//                   partial (Σ y, Σ y²) of y = E(conv3x3(h) + dwb) + h
+//                   into st (B·s², 2) fp32;
+//   mixffn_tp_fc2   with st summed: z = E(LN(y)) over hid_all channels,
+//                   a = E(GELU(z)) (workspace), p = a·w2ᵀ (B·s², C) fp32;
+//   mixffn_tp_out   with p summed: out = E(E(p + b2) + x).
+// The unsharded K2's rounding points; only the order of the fp32 sums
+// moves. x, out (B, s², C) E; w1 (hid, C), dw (hid, 9), w2 (C, hid) E;
+// the vectors fp32; h, a (B·s², hid) E. E: bf16, or fp32 (_f32).
+#define TP_FWD(SUF, E)                                                       \
+  extern "C" int mixffn_tp_fc1##SUF(                                         \
+      const E* x, const float* lts, const float* ltb, const E* w1,           \
+      const float* b1, const E* dw, const float* dwb, E* h, float* st,       \
+      const int* plan, int B, int s, int C, int hid, int groups,             \
+      float eps_ln, void* stream) {                                          \
+    return ffn::fc1_stats<2, E>(x, ffn::Norm{lts, ltb, C / groups, eps_ln},  \
+                                w1, b1, dw, dwb, h,                          \
+                                reinterpret_cast<float2*>(st), plan, B, s,   \
+                                C, hid, static_cast<cudaStream_t>(stream));  \
+  }                                                                          \
+  extern "C" int mixffn_tp_fc2##SUF(                                         \
+      const E* h, const E* dw, const float* dwb, const float* ls,            \
+      const float* lb, const E* w2, const float* st, float* p, E* a,         \
+      const int* plan, int B, int s, int C, int hid, int hid_all, float eps, \
+      void* stream) {                                                        \
+    return ffn::act_fc2<2, E>(h, dw, dwb, ls, lb, w2,                        \
+                              reinterpret_cast<const float2*>(st), a, p,     \
+                              plan, B, s, C, hid, hid_all, eps,              \
+                              static_cast<cudaStream_t>(stream));            \
+  }
+TP_FWD(, bf16)
+TP_FWD(_f32, float)
+#undef TP_FWD
+
+// out = E(E(p + b2) + x) over n = T·C elements, C channels a token: a
+// thread a pair of elements (C even).
+template <typename E>
+__global__ void __launch_bounds__(256)
+mixffn_tp_out_kernel(const float* p, const float* b2, const E* x, E* out,
+                     size_t n, int C) {
+  for (size_t i = 2 * ((size_t)blockIdx.x * blockDim.x + threadIdx.x); i < n;
+       i += 2 * (size_t)gridDim.x * blockDim.x) {
+    const int c = (int)(i % C);
+    const float2 v = *reinterpret_cast<const float2*>(p + i);
+    const float2 r = ld2<E>(x + i);
+    st2<E>(out + i, rnd<E>(v.x + b2[c]) + r.x, rnd<E>(v.y + b2[c + 1]) + r.y);
+  }
+}
+
+#define TP_OUT(SUF, E)                                                     \
+  extern "C" int mixffn_tp_out##SUF(const float* p, const float* b2,       \
+                                    const E* x, E* out, int T, int C,      \
+                                    void* stream) {                        \
+    const size_t n = (size_t)T * C;                                        \
+    const size_t want = (n / 2 + 255) / 256;                               \
+    const int blocks = (int)(want < 8192 ? want : 8192);                   \
+    mixffn_tp_out_kernel<E><<<blocks, 256, 0,                              \
+                              static_cast<cudaStream_t>(stream)>>>(        \
+        p, b2, x, out, n, C);                                              \
+    return cudaGetLastError();                                             \
+  }
+TP_OUT(, bf16)
+TP_OUT(_f32, float)
+#undef TP_OUT

@@ -447,6 +447,114 @@ __global__ void mixffn_bwd_sum_kernel(Sums s, float* grads, int wblocks) {
   if ((threadIdx.x & 31) == 0) grads[i] = v;
 }
 
+// K11's hidden-sharded form (H of the hidden layer's Hn channels on this
+// rank; st holds each token's (Σ y, Σ y²) summed over the ranks, from the
+// forward). The rows kernel splits at the LN backward's two sums over the
+// hidden width:
+// A: z, GELU′, dz = da·GELU′ (over da), a = E(GELU(z)), the block's
+//    partials of dls and dlb, and each token's partial (Σ dz·ls,
+//    Σ dz·ls·ŷ) into m; the caller sums m over the ranks;
+// B: with m summed, dy = inv·(dz·ls − m₁ − ŷ·m₂) into dy and the block's
+//    partials of ddwb.
+// The tiles and token ranges are the unsharded rows kernel's.
+template <typename E>
+__global__ void __launch_bounds__(THREADS)
+mixffn_tp_rows_a_kernel(const E* h, const E* d, float* da, E* a,
+                        const float* ls, const float* lb, const float2* st,
+                        float2* m, float* part, int T, int H, int Hn,
+                        int tpb, float eps) {
+  extern __shared__ __align__(16) float sm[];
+  float* col = sm;                      // dls, dlb: 2 x H
+  float* red = col + 2 * H;             // 2 x TT x THREADS
+  float* tok = red + 2 * TT * THREADS;  // TT x 4
+  const int ntile = (T + TT - 1) / TT;
+  for (int c = threadIdx.x; c < 2 * H; c += THREADS) col[c] = 0.0f;
+  const int tile1 = min(ntile, (blockIdx.x + 1) * tpb);
+  for (int tile = blockIdx.x * tpb; tile < tile1; ++tile) {
+    const int n0 = tile * TT;
+    float mean[TT], inv[TT], p1[TT], p2[TT];
+#pragma unroll
+    for (int t = 0; t < TT; ++t) {
+      const float2 v = n0 + t < T ? st[n0 + t] : make_float2(0.0f, 1.0f);
+      mean[t] = v.x / Hn;
+      inv[t] = rsqrtf(v.y / Hn - mean[t] * mean[t] + eps);
+      p1[t] = p2[t] = 0.0f;
+    }
+    for (int c = threadIdx.x; c < H; c += THREADS) {
+      const float lsc = ls[c], lbc = lb[c];
+      float dls = 0.0f, dlb = 0.0f;
+#pragma unroll
+      for (int t = 0; t < TT; ++t) {
+        if (n0 + t >= T) continue;
+        const size_t e = (size_t)(n0 + t) * H + c;
+        const float yh = (tof(d[e]) + tof(h[e]) - mean[t]) * inv[t];
+        const float z = rnd<E>(yh * lsc + lbc);
+        const float half1e = 0.5f * (1.0f + erff(z * RSQRT2));
+        const float gp = half1e + z * expf(-0.5f * z * z) * INV_SQRT_2PI;
+        const float dz = da[e] * gp;
+        da[e] = dz;
+        p1[t] += dz * lsc;
+        p2[t] += dz * lsc * yh;
+        dls += dz * yh;
+        dlb += dz;
+        a[e] = fromf<E>(z * half1e);
+      }
+      col[c] += dls;
+      col[H + c] += dlb;
+    }
+    block_sum2(p1, p2, red, tok, 0);
+    if (threadIdx.x < TT && n0 + (int)threadIdx.x < T)
+      m[n0 + threadIdx.x] =
+          make_float2(tok[threadIdx.x * 4], tok[threadIdx.x * 4 + 1]);
+  }
+  __syncthreads();
+  float* p = part + (size_t)blockIdx.x * 2 * H;
+  for (int c = threadIdx.x; c < 2 * H; c += THREADS) p[c] = col[c];
+}
+
+template <typename E>
+__global__ void __launch_bounds__(THREADS)
+mixffn_tp_rows_b_kernel(const E* h, const E* d, const float* dz,
+                        const float* ls, const float2* st, const float2* m,
+                        float* dy, float* part, int T, int H, int Hn,
+                        int tpb, float eps) {
+  extern __shared__ __align__(16) float col[];  // ddwb: H
+  const int ntile = (T + TT - 1) / TT;
+  for (int c = threadIdx.x; c < H; c += THREADS) col[c] = 0.0f;
+  const int tile1 = min(ntile, (blockIdx.x + 1) * tpb);
+  for (int tile = blockIdx.x * tpb; tile < tile1; ++tile) {
+    const int n0 = tile * TT;
+    float mean[TT], inv[TT], m1[TT], m2[TT];
+#pragma unroll
+    for (int t = 0; t < TT; ++t) {
+      const bool in = n0 + t < T;
+      const float2 v = in ? st[n0 + t] : make_float2(0.0f, 1.0f);
+      const float2 q = in ? m[n0 + t] : make_float2(0.0f, 0.0f);
+      mean[t] = v.x / Hn;
+      inv[t] = rsqrtf(v.y / Hn - mean[t] * mean[t] + eps);
+      m1[t] = q.x / Hn;
+      m2[t] = q.y / Hn;
+    }
+    for (int c = threadIdx.x; c < H; c += THREADS) {
+      const float lsc = ls[c];
+      float dd = 0.0f;
+#pragma unroll
+      for (int t = 0; t < TT; ++t) {
+        if (n0 + t >= T) continue;
+        const size_t e = (size_t)(n0 + t) * H + c;
+        const float yh = (tof(d[e]) + tof(h[e]) - mean[t]) * inv[t];
+        const float v = inv[t] * (dz[e] * lsc - m1[t] - yh * m2[t]);
+        dy[e] = v;
+        dd += v;
+      }
+      col[c] += dd;
+    }
+  }
+  __syncthreads();
+  float* p = part + (size_t)blockIdx.x * H;
+  for (int c = threadIdx.x; c < H; c += THREADS) p[c] = col[c];
+}
+
 // Indices into the wrapper's plan (ops/kernels/mixffn.py bwd_plan).
 enum Plan {
   H_BM, H_BN, DA_BM, DA_BN, DXN_BM, DXN_BN, DW1_BM, DW1_BN, DW2_BM, DW2_BN,
@@ -541,3 +649,155 @@ int ln_skip_bwd(const E* x, const E* g, const float* lts, const float* ltb,
 LN_SKIP_BWD(mixffn_ln_skip_bwd, bf16)
 LN_SKIP_BWD(mixffn_ln_skip_bwd_f32, float)
 #undef LN_SKIP_BWD
+
+// The entries of K11's hidden-sharded form (H of the hidden layer's Hn
+// channels on this rank), between which the caller sums over the ranks:
+//   mixffn_tp_bwd_rows  xn, h, da = g·w2 (on the rank's w2 columns), the
+//                       conv d, then rows A (above): dz, a, the partial
+//                       sums m (B·s², 2), and dls, dlb summed (grads:
+//                       2·H fp32);
+//   mixffn_tp_bwd_dh    with m summed: rows B (dy), the depthwise
+//                       transpose (dh), the fp32 partial dxn = dh·w1
+//                       (B·s², C), dw1 = dhᵀ·xn, dw2 = gᵀ·a (the rank's
+//                       columns), the sums (grads: dw1, dw2, db1, ddw,
+//                       ddwb);
+//   mixffn_tp_bwd_ln    with dxn summed: the caller's group-LN backward,
+//                       dx = LN′(dxn·lts) + g, and db2, dlts, dltb (grads:
+//                       3·C), equal on every rank.
+// The unsharded K11's stages, tiles and plan (bwd_plan at hidden H); st is
+// the forward's summed (Σ y, Σ y²). E: bf16, or fp32 (_f32).
+template <typename E>
+int tp_bwd_rows(const E* x, const E* g, const float* lts, const float* ltb,
+                const E* w1, const float* b1, const E* dw, const float* dwb,
+                const float* ls, const float* lb, const E* w2,
+                const float* st, E* xn, E* h, E* d, E* a, float* dz,
+                float* m, float* grads, float* pr, const int* plan, int B,
+                int s, int C, int H, int Hn, int groups, float eps_ln,
+                float eps, void* stream) {
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const int T = B * s * s, gsz = C / groups;
+  const int P = plan[BLOCKS], tpb = plan[TILES_PER_BLOCK];
+  cudaError_t e;
+#define STEP(call) \
+  if ((e = (call))) return e
+  mixffn_bwd_ln_kernel<E><<<(T + NW - 1) / NW, THREADS, 0, cs>>>(
+      x, lts, ltb, xn, T, C, gsz, eps_ln);
+  STEP(cudaGetLastError());
+  STEP((gemm<true, true, EPI_BIAS>(plan[H_BM], plan[H_BN], xn, C, w1, C, h, H,
+                                   b1, T, H, C, (C + BK - 1) / BK * BK, 0,
+                                   cs)));
+  STEP((gemm<true, false, EPI_F32>(plan[DA_BM], plan[DA_BN], g, C, w2, H, dz,
+                                   H, nullptr, T, H, C,
+                                   (C + BK - 1) / BK * BK, 0, cs)));
+  const dim3 walk((s + NW - 1) / NW, B, (H + CH - 1) / CH);
+  mixffn_bwd_conv_kernel<E><<<walk, THREADS, 0, cs>>>(h, dw, dwb, d, s, H);
+  STEP(cudaGetLastError());
+  const size_t rs = (size_t)(2 * H + 2 * TT * THREADS + TT * 4) * 4;
+  STEP(set_smem((const void*)mixffn_tp_rows_a_kernel<E>, rs));
+  mixffn_tp_rows_a_kernel<E><<<P, THREADS, rs, cs>>>(
+      h, d, dz, a, ls, lb, reinterpret_cast<const float2*>(st),
+      reinterpret_cast<float2*>(m), pr, T, H, Hn, tpb, eps);
+  STEP(cudaGetLastError());
+  const Sums sums{{pr, pr, pr, pr}, {0, 0, P, 0},
+                  {0, 0, 2 * (size_t)H, 2 * (size_t)H}};
+  mixffn_bwd_sum_kernel<<<(2 * H + 7) / 8, 256, 0, cs>>>(sums, grads, 0);
+  STEP(cudaGetLastError());
+  return cudaSuccess;
+}
+
+template <typename E>
+int tp_bwd_dh(const E* xn, const E* h, const E* d, const E* a,
+              const float* dz, const E* g, const E* dw, const float* ls,
+              const E* w1, const float* st, const float* m, float* dxn,
+              float* grads, float* dy, E* dh, float* pw, float* pd,
+              float* pr, const int* plan, int B, int s, int C, int H, int Hn,
+              float eps, void* stream) {
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const int T = B * s * s;
+  const int P = plan[BLOCKS], tpb = plan[TILES_PER_BLOCK];
+  const int kper = plan[KPER];
+  const size_t HC = (size_t)H * C;
+  cudaError_t e;
+  const size_t rs = (size_t)H * 4;
+  STEP(set_smem((const void*)mixffn_tp_rows_b_kernel<E>, rs));
+  mixffn_tp_rows_b_kernel<E><<<P, THREADS, rs, cs>>>(
+      h, d, dz, ls, reinterpret_cast<const float2*>(st),
+      reinterpret_cast<const float2*>(m), dy, pr, T, H, Hn, tpb, eps);
+  STEP(cudaGetLastError());
+  const dim3 walk((s + NW - 1) / NW, B, (H + CH - 1) / CH);
+  mixffn_bwd_dwt_kernel<E><<<walk, THREADS, 0, cs>>>(dy, h, dw, dh, pd, s, H);
+  STEP(cudaGetLastError());
+  STEP((gemm<true, false, EPI_F32>(plan[DXN_BM], plan[DXN_BN], dh, H, w1, C,
+                                   dxn, C, nullptr, T, C, H,
+                                   (H + BK - 1) / BK * BK, 0, cs)));
+  STEP((gemm<false, false, EPI_F32>(plan[DW1_BM], plan[DW1_BN], dh, H, xn, C,
+                                    pw, C, nullptr, H, C, T, kper, 2 * HC,
+                                    cs)));
+  STEP((gemm<false, false, EPI_F32>(plan[DW2_BM], plan[DW2_BN], g, C, a, H,
+                                    pw + HC, H, nullptr, C, H, T, kper,
+                                    2 * HC, cs)));
+  const Sums sums{{pw, pd, pr, pr},
+                  {plan[SPLITS], (int)(walk.x * walk.y), P, 0},
+                  {2 * HC, 2 * HC + 10 * (size_t)H, 2 * HC + 11 * (size_t)H,
+                   2 * HC + 11 * (size_t)H}};
+  const int wblocks = (int)((sums.end[0] + 255) / 256);
+  const int rblocks = (int)((sums.end[3] - sums.end[0] + 7) / 8);
+  mixffn_bwd_sum_kernel<<<wblocks + rblocks, 256, 0, cs>>>(sums, grads,
+                                                           wblocks);
+  STEP(cudaGetLastError());
+  return cudaSuccess;
+}
+
+template <typename E>
+int tp_bwd_ln(const E* x, const E* g, const float* dxn, const float* lts,
+              E* dx, float* grads, float* pl, int P, int tpb, int B, int s,
+              int C, int groups, float eps_ln, void* stream) {
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const int T = B * s * s;
+  cudaError_t e;
+  const size_t ls_ = (size_t)3 * NW * C * 4;
+  STEP(set_smem((const void*)mixffn_bwd_lnb_kernel<E>, ls_));
+  mixffn_bwd_lnb_kernel<E><<<P, THREADS, ls_, cs>>>(x, g, dxn, lts, dx, pl, T,
+                                                    C, C / groups, tpb,
+                                                    eps_ln);
+  STEP(cudaGetLastError());
+  const Sums sums{{pl, pl, pl, pl}, {0, 0, 0, P},
+                  {0, 0, 0, 3 * (size_t)C}};
+  mixffn_bwd_sum_kernel<<<(3 * C + 7) / 8, 256, 0, cs>>>(sums, grads, 0);
+  STEP(cudaGetLastError());
+#undef STEP
+  return cudaSuccess;
+}
+
+#define TP_BWD(SUF, E)                                                        \
+  extern "C" int mixffn_tp_bwd_rows##SUF(                                     \
+      const E* x, const E* g, const float* lts, const float* ltb,             \
+      const E* w1, const float* b1, const E* dw, const float* dwb,            \
+      const float* ls, const float* lb, const E* w2, const float* st, E* xn,  \
+      E* h, E* d, E* a, float* dz, float* m, float* grads, float* pr,         \
+      const int* plan, int B, int s, int C, int hid, int hid_all,             \
+      int groups, float eps_ln, float eps, void* stream) {                    \
+    return tp_bwd_rows<E>(x, g, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, st,   \
+                          xn, h, d, a, dz, m, grads, pr, plan, B, s, C, hid,  \
+                          hid_all, groups, eps_ln, eps, stream);              \
+  }                                                                           \
+  extern "C" int mixffn_tp_bwd_dh##SUF(                                       \
+      const E* xn, const E* h, const E* d, const E* a, const float* dz,       \
+      const E* g, const E* dw, const float* ls, const E* w1,                  \
+      const float* st, const float* m, float* dxn, float* grads, float* dy,   \
+      E* dh, float* pw, float* pd, float* pr, const int* plan, int B, int s,  \
+      int C, int hid, int hid_all, float eps, void* stream) {                 \
+    return tp_bwd_dh<E>(xn, h, d, a, dz, g, dw, ls, w1, st, m, dxn, grads,    \
+                        dy, dh, pw, pd, pr, plan, B, s, C, hid, hid_all, eps, \
+                        stream);                                              \
+  }                                                                           \
+  extern "C" int mixffn_tp_bwd_ln##SUF(                                       \
+      const E* x, const E* g, const float* dxn, const float* lts, E* dx,      \
+      float* grads, float* pl, int blocks, int tpb, int B, int s, int C,      \
+      int groups, float eps_ln, void* stream) {                               \
+    return tp_bwd_ln<E>(x, g, dxn, lts, dx, grads, pl, blocks, tpb, B, s, C,  \
+                        groups, eps_ln, stream);                              \
+  }
+TP_BWD(, bf16)
+TP_BWD(_f32, float)
+#undef TP_BWD

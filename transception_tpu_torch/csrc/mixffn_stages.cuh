@@ -428,18 +428,25 @@ inline int depth(int K) {
   return (K + KD<E> - 1) / KD<E> * KD<E>;
 }
 
+// What the rows stage does with y: the hidden LN over the block's H
+// channels (ROWS_FULL); or, for a hidden layer sharded over the model
+// axis (H of its Hn channels here), the token's partial sums (Σ y, Σ y²)
+// into st (ROWS_STATS), or the LN from st's sums over all Hn channels,
+// summed over the ranks in between (ROWS_NORM).
+constexpr int ROWS_FULL = 0, ROWS_STATS = 1, ROWS_NORM = 2;
+
 // Stage 2 of the forward, per (map row r = blockIdx.x, batch blockIdx.y).
 // A work item is a pair of hidden channels (c, c + 1) over SEG columns of
 // the row: the thread loads the 3 x (SEG + 2) window of h around them
 // (rows r-1, r, r+1, zero off the map) at once, as pairs, then
 // d = E(conv3x3(h) + dwb) with the taps in registers and y = d + h
 // into shared memory (s x H fp32). Then a warp per token: the hidden LN's
-// statistics over y, z = E(LN(y)), a = E(GELU(z)).
-template <int KID, typename E>
+// statistics over y, z = E(LN(y)), a = E(GELU(z)) (MODE, above).
+template <int KID, typename E, int MODE = ROWS_FULL>
 __global__ void __launch_bounds__(THREADS)
 mixffn_convrows_kernel(const E* h, const E* dw, const float* dwb,
                        const float* ls, const float* lb, E* a, int s, int H,
-                       float eps) {
+                       float eps, float2* st, int Hn) {
   extern __shared__ __align__(16) float ys[];  // s x H
   const int r = blockIdx.x, P = H / 2, nseg = (s + SEG - 1) / SEG;
   const size_t brow = (size_t)blockIdx.y * s;  // map row 0 of batch row b
@@ -489,15 +496,25 @@ mixffn_convrows_kernel(const E* h, const E* dw, const float* dwb,
   for (int j = w; j < s; j += NW) {
     const float2* y = reinterpret_cast<const float2*>(ys + (size_t)j * H);
     float sm = 0.0f, sq = 0.0f;
-    for (int p = lane; p < P; p += 32) {
-      const float2 v = y[p];
-      sm += v.x + v.y;
-      sq += v.x * v.x + v.y * v.y;
+    if constexpr (MODE == ROWS_NORM) {
+      const float2 t = st[t0 + j];
+      sm = t.x;
+      sq = t.y;
+    } else {
+      for (int p = lane; p < P; p += 32) {
+        const float2 v = y[p];
+        sm += v.x + v.y;
+        sq += v.x * v.x + v.y * v.y;
+      }
+      sm = warp_sum(sm);
+      sq = warp_sum(sq);
     }
-    sm = warp_sum(sm);
-    sq = warp_sum(sq);
-    const float mean = sm / H;
-    const float inv = rsqrtf(sq / H - mean * mean + eps);
+    if constexpr (MODE == ROWS_STATS) {
+      if (lane == 0) st[t0 + j] = make_float2(sm, sq);
+      continue;
+    }
+    const float mean = sm / Hn;
+    const float inv = rsqrtf(sq / Hn - mean * mean + eps);
     Pair<E>* out = reinterpret_cast<Pair<E>*>(a + (t0 + j) * H);
     for (int p = lane; p < P; p += 32) {
       const float2 v = y[p];
@@ -537,11 +554,58 @@ cudaError_t forward(const E* x, Norm nrm, const E* w1, const float* b1,
   if ((e = set_smem((const void*)mixffn_convrows_kernel<KID, E>, rs)))
     return e;
   mixffn_convrows_kernel<KID, E><<<dim3(s, B), THREADS, rs, st>>>(
-      h, dw, dwb, ls, lb, a, s, H, eps);
+      h, dw, dwb, ls, lb, a, s, H, eps, nullptr, H);
   if ((e = cudaGetLastError())) return e;
   return gemm<KID, true, true, false, BARE ? EPI_BIAS : EPI_RESID>(
       plan[FC2_BM], plan[FC2_BN], a, H, w2, H, out, C, b2, res, Norm{}, T, C,
       H, depth<E>(H), 0, st);
+}
+
+// The forward of a MixFFN whose hidden layer is sharded over the model
+// axis (H of its Hn channels on this rank), split at its two sums over
+// the hidden width, between which the caller sums over the ranks:
+//   fc1_stats  h = E(groupLN(x)·w1ᵀ + b1) on the rank's w1 rows, then the
+//              conv and each token's partial (Σ y, Σ y²) into st;
+//   act_fc2    the LN from the summed st over Hn channels, a = E(GELU(z)),
+//              and the fp32 partial p = a·w2ᵀ over the rank's w2 columns
+//              (no bias, no residual: the caller sums p over the ranks).
+// Two launches each; the plan is fwd_plan's at hidden H.
+template <int KID, typename E>
+cudaError_t fc1_stats(const E* x, Norm nrm, const E* w1, const float* b1,
+                      const E* dw, const float* dwb, E* h, float2* stats,
+                      const int* plan, int B, int s, int C, int H,
+                      cudaStream_t st) {
+  const int T = B * s * s;
+  cudaError_t e;
+  e = gemm<KID, true, true, true, EPI_BIAS>(plan[FC1_BM], plan[FC1_BN], x, C,
+                                            w1, C, h, H, b1, nullptr, nrm, T,
+                                            H, C, depth<E>(C), 0, st);
+  if (e) return e;
+  const size_t rs = rows_smem(s, H);
+  const void* fn = (const void*)mixffn_convrows_kernel<KID, E, ROWS_STATS>;
+  if ((e = set_smem(fn, rs))) return e;
+  mixffn_convrows_kernel<KID, E, ROWS_STATS><<<dim3(s, B), THREADS, rs, st>>>(
+      h, dw, dwb, nullptr, nullptr, nullptr, s, H, 0.0f, stats, H);
+  return cudaGetLastError();
+}
+
+template <int KID, typename E>
+cudaError_t act_fc2(const E* h, const E* dw, const float* dwb,
+                    const float* ls, const float* lb, const E* w2,
+                    const float2* stats, E* a, float* p, const int* plan,
+                    int B, int s, int C, int H, int Hn, float eps,
+                    cudaStream_t st) {
+  const int T = B * s * s;
+  cudaError_t e;
+  const size_t rs = rows_smem(s, H);
+  const void* fn = (const void*)mixffn_convrows_kernel<KID, E, ROWS_NORM>;
+  if ((e = set_smem(fn, rs))) return e;
+  mixffn_convrows_kernel<KID, E, ROWS_NORM><<<dim3(s, B), THREADS, rs, st>>>(
+      h, dw, dwb, ls, lb, a, s, H, eps, const_cast<float2*>(stats), Hn);
+  if ((e = cudaGetLastError())) return e;
+  return gemm<KID, true, true, false, EPI_F32>(
+      plan[FC2_BM], plan[FC2_BN], a, H, w2, H, p, C, nullptr, nullptr,
+      Norm{}, T, C, H, depth<E>(H), 0, st);
 }
 
 }  // namespace ffn

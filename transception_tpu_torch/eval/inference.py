@@ -363,12 +363,15 @@ def run_inference(model, volume_dataset, classes: int,
     stay in case order.
 
     mesh: every rank loads each volume and forwards its rows of each chunk
-    (make_predictor); rank 0 alone resizes back, scores, exports, logs and
-    fills `stats`, and every rank returns rank 0's means."""
+    (make_predictor); the data axis's rank 0 alone resizes back and
+    scores, and every rank of its data group returns its means. Of those,
+    rank (0, 0) of the (data, model) mesh alone exports, logs and fills
+    `stats` (under tensor parallelism each model rank's data group scores
+    the same volumes)."""
     predict = make_predictor(model, patch_size, batch, device=device,
                              device_resample=device_resample, mesh=mesh)
-    main = mesh is None or mesh.is_main
-    if not main:
+    main = mesh is None or mesh.rank == 0
+    if not (main and (mesh is None or mesh.is_main)):
         log, save_path, stats = None, None, None
     metric_sum = np.zeros((classes - 1, 2), np.float64)
     n = len(volume_dataset)

@@ -161,23 +161,29 @@ def _mhca_calls(cfg: TransceptionConfig, stages, sw) -> Counter:
 
 
 def _forward_calls(cfg: TransceptionConfig, training: bool,
-                   head: str) -> Counter:
-    """Kernel-wrapper calls of one forward by kernel switch: the structure
-    the fold switches give each block at each map side, and in training
-    the MHCA blocks' drop-path rates (a rate above 0 unfolds the block).
-    head: "argmax", "logits" or "wide" (the wide head's expand is a plain
-    Linear, DecoderLayer.wide_head)."""
+                   head: str, tp: int = 1) -> Counter:
+    """Kernel-wrapper calls of one forward by kernel (by switch name, the
+    hidden-sharded K2 by its own): the structure the fold switches give
+    each block at each map side, and in training the MHCA blocks'
+    drop-path rates (a rate above 0 unfolds the block). head: "argmax",
+    "logits" or "wide" (the wide head's expand is a plain Linear,
+    DecoderLayer.wide_head). tp: the model axis; an ETB's FFN whose hidden
+    width (4 x its width) divides by tp is sharded (parallel.mesh
+    shard_layout) and its fold runs the hidden-sharded K2."""
     sw = fold_switches(cfg, training)
     s1 = cfg.stage1_res
+    d = cfg.dims
     takes = kernels.mixffn.takes
     calls = Counter()
     etb_sides, stages = _backbone_stages(cfg, training)
+    width = {s1: d[0], s1 // 2: d[1], s1 // 4: d[2]}
     # Stage 1 (3-stage and casa) and decoders 2/1/0: two ETBs each at s1/4,
     # s1/2, s1; their FFN folds with token_mlp mix_skip only.
     for s in etb_sides + [s1 // 4, s1 // 2, s1] * 2:
         calls["etb_attention" if sw.etb_attn else "linear_attention"] += 1
         if sw.etb_ffn and cfg.token_mlp == "mix_skip" and takes(s):
-            calls["mixffn"] += 1
+            sharded = tp > 1 and 4 * width[s] % tp == 0
+            calls[kernels.mixffn.TP_NAME if sharded else "mixffn"] += 1
     calls.update(_mhca_calls(cfg, stages, sw))
     # Bridge: spatial attention layers; the per-scale FFN folds.
     ffn = sum(takes(s1 >> i) for i in range(4))
@@ -202,15 +208,18 @@ def _forward_calls(cfg: TransceptionConfig, training: bool,
     return calls
 
 
-def _launches(cfg: TransceptionConfig, training: bool, head: str) -> dict:
+def _launches(cfg: TransceptionConfig, training: bool, head: str,
+              tp: int = 1) -> dict:
     counts = {name: 0 for name, _, _ in kernels.COUNTERS}
     on = kernels.kernel_set(cfg, training)
-    for name, n in _forward_calls(cfg, training, head).items():
-        if name in on:
+    mx = kernels.mixffn
+    for name, n in _forward_calls(cfg, training, head, tp).items():
+        if (mx.NAME if name == mx.TP_NAME else name) in on:
             counts[name] += n
     if training:  # one backward kernel per K3 and K2 forward
         counts[kernels.bridge_attention.BWD_NAME] = counts["bridge_attention"]
-        counts[kernels.mixffn.BWD_NAME] = counts["mixffn"]
+        counts[mx.BWD_NAME] = counts["mixffn"]
+        counts[mx.TP_BWD_NAME] = counts[mx.TP_NAME]
     if training and cfg.remat and cfg.stage_3or4 == 3:
         # The backward recomputes each MHCA stage's forward (msvit.
         # remat_stage): its forward kernels launch twice.
@@ -232,8 +241,8 @@ def launches_per_forward(cfg: TransceptionConfig,
     return _launches(cfg, False, "argmax" if argmax else "logits")
 
 
-def launches_per_step(cfg: TransceptionConfig, wide_head: bool = True
-                      ) -> dict:
+def launches_per_step(cfg: TransceptionConfig, wide_head: bool = True,
+                      tp: int = 1) -> dict:
     """Kernel launches of one train step (forward and backward) of an
     MSTransception with config `cfg` on the card, per counter of
     ops.kernels.launch_counts: a pure function of the config, as
@@ -244,5 +253,35 @@ def launches_per_step(cfg: TransceptionConfig, wide_head: bool = True
     K1, K5-K7) launch where the bf16 ones do, under the same counters;
     their shape tallies end with "fp32". With cfg.remat (the 3-stage
     backbone) the MHCA stages' forward kernels launch once more, in the
-    recompute. chip_smoke.py holds the card's counters to it."""
-    return _launches(cfg, True, "wide" if wide_head else "logits")
+    recompute. Under a model axis of tp ranks the sharded ETB FFN folds
+    run the hidden-sharded K2 and K11 (mixffn_tp, mixffn_tp_bwd) in
+    place of K2 and K11. chip_smoke.py holds the card's counters to it."""
+    return _launches(cfg, True, "wide" if wide_head else "logits", tp)
+
+
+def check_tp(model: nn.Module, tp: int, device: DeviceLike) -> None:
+    """Raise, before any work and naming the FFN, where a model axis of tp
+    ranks would shard a hidden layer that the model's train-step kernels
+    on `device` cannot take: on the card, the hidden-sharded K2 and K11
+    (the MixFFN_skip folds, with the MixFFN kernel in the train kernel
+    set) take multiples of 64 hidden channels a rank, as K2 does
+    (ops/kernels/mixffn.py _check); their plain versions, on the CPU, take
+    any width."""
+    from transception_tpu_torch.ops.common import MixFFNSkip
+    from transception_tpu_torch.parallel.mesh import shard_layout
+    cfg = getattr(model, "cfg", None)
+    if tp <= 1 or cfg is None or not cfg.use_kernels or \
+            torch.device(device).type != "cuda" or \
+            kernels.mixffn.NAME not in kernels.kernel_set(cfg, True):
+        return
+    sd = model.state_dict()
+    for key in shard_layout(sd, tp):
+        ffn = key[:-len(".fc1.weight")]
+        if key.endswith(".fc1.weight") and \
+                isinstance(model.get_submodule(ffn), MixFFNSkip):
+            hid = sd[key].shape[0]
+            if hid // tp % 64:
+                raise ValueError(
+                    f"tp_size {tp}: {ffn}'s hidden layer of {hid} channels "
+                    f"would keep {hid // tp} a rank; the hidden-sharded "
+                    f"MixFFN kernels (K2, K11) take a multiple of 64 a rank")

@@ -32,9 +32,22 @@ def _xavier_(t: torch.Tensor, fan_in: int, fan_out: int,
         t.copy_(torch.rand(t.shape, generator=gen) * (2 * bound) - bound)
 
 
+def _keep(t: torch.Tensor, dim: int, blk: slice) -> nn.Parameter:
+    """A parameter of t's block `blk` along `dim`."""
+    return nn.Parameter(t.detach()[(slice(None),) * dim + (blk,)].clone())
+
+
 class Linear(nn.Module):
     """flax nn.Dense in the compute dtype: weight (out, in) fp32, operands
-    rounded to `dtype`, fp32 accumulation, output rounded to `dtype`."""
+    rounded to `dtype`, fp32 accumulation, output rounded to `dtype`.
+
+    Sharded over a model axis (shard_, parallel.tensor.ModelAxis): "col"
+    keeps the rank's output features (and bias) and takes its input
+    through the axis's copy; "gather" also gathers the output features
+    for the replicated code that reads them; "row" keeps the rank's input
+    features, sums the fp32 partial products over the ranks, then rounds
+    and adds the whole bias: the unsharded values up to the order of the
+    fp32 sums."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, dtype=torch.bfloat16):
@@ -43,6 +56,20 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = (nn.Parameter(torch.empty(out_features)) if bias
                      else None)
+        self.tp = None
+
+    def shard_(self, axis, mode: str) -> None:
+        """Keep this rank's shard of the weights (mode "col", "gather" or
+        "row") and run sharded."""
+        if mode == "row":
+            self.weight = _keep(self.weight, 1,
+                                axis.block(self.weight.shape[1]))
+        else:
+            blk = axis.block(self.weight.shape[0])
+            self.weight = _keep(self.weight, 0, blk)
+            if self.bias is not None:
+                self.bias = _keep(self.bias, 0, blk)
+        self.tp = (axis, mode)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         out_f, in_f = self.weight.shape
@@ -52,9 +79,19 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if self.tp is not None:
+            axis, mode = self.tp
+            if mode == "row":
+                y = axis.reduce(F.linear(x.to(dt).float(),
+                                         self.weight.to(dt).float())).to(dt)
+                return y + self.bias.to(dt) if self.bias is not None else y
+            # The input gradient's partials are summed in fp32.
+            x = axis.copy(x.float())
         y = F.linear(x.to(dt), self.weight.to(dt))
         if self.bias is not None:
             y = y + self.bias.to(dt)
+        if self.tp is not None and self.tp[1] == "gather":
+            y = self.tp[0].gather(y)
         return y
 
 
@@ -89,6 +126,16 @@ class Conv2d(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y
+
+
+def shard_depthwise_(conv: Conv2d, axis) -> None:
+    """Keep this rank's channels of a depthwise conv (a conv per channel:
+    no collective)."""
+    blk = axis.block(conv.weight.shape[0])
+    conv.weight = _keep(conv.weight, 0, blk)
+    if conv.bias is not None:
+        conv.bias = _keep(conv.bias, 0, blk)
+    conv.groups = conv.weight.shape[0]
 
 
 def DepthwiseConv(ch: int, k: int, stride: int = 1, bias: bool = True,
@@ -165,6 +212,21 @@ class MixFFNSkip(nn.Module):
         self.dwconv = DWConv(c2, dtype=dtype)
         self.norm1 = LayerNorm(c2, dtype=dtype)
         self.fc2 = Linear(c2, c1, dtype=dtype)
+        self.tp = None
+
+    def shard_(self, axis) -> None:
+        """Keep this rank's hidden channels (fc1's rows, the conv's and
+        the hidden LN's channels, fc2's columns): the hidden-sharded forms
+        of K2 and K11 (ops/kernels/mixffn.py) then run it, with the hidden
+        width's sums over the model axis."""
+        self.hidden = self.fc1.weight.shape[0]
+        self.fc1.shard_(axis, "col")
+        shard_depthwise_(self.dwconv.dwconv, axis)
+        blk = axis.block(self.hidden)
+        self.norm1.weight = _keep(self.norm1.weight, 0, blk)
+        self.norm1.bias = _keep(self.norm1.bias, 0, blk)
+        self.fc2.shard_(axis, "row")
+        self.tp = axis
 
     def params(self):
         return (self.fc1.weight, self.fc1.bias, self.dwconv.dwconv.weight,
@@ -179,6 +241,14 @@ class MixFFNSkip(nn.Module):
         from transception_tpu_torch.ops.kernels import mixffn
         if H != W:
             raise ValueError("MixFFNSkip needs a square token map")
+        if self.tp is not None:
+            if kernel:
+                raise NotImplementedError(
+                    "the unfolded MixFFN kernel (K9) has no hidden-sharded "
+                    "form: the TP rules shard no FFN that runs it")
+            return mixffn.mixffn_tp_plain(
+                x.to(self.fc1.dtype), *self.params(), s=H,
+                hid_all=self.hidden, axis=self.tp, eps=self.norm1.eps)
         fn = (mixffn.mixffn_skip if kernel and mixffn.takes(H)
               else mixffn.mixffn_skip_plain)
         return fn(x.to(self.fc1.dtype), *self.params(), s=H,
@@ -193,6 +263,11 @@ class MixFFNSkip(nn.Module):
         bridge scale-4 folds at 224, in eval and in training. A routing by
         shape, made before the call."""
         from transception_tpu_torch.ops.kernels import mixffn
+        if self.tp is not None:
+            return mixffn.mixffn_ln_skip_tp(
+                x.to(self.fc1.dtype), ln.weight, ln.bias, *self.params(),
+                s=s, hid_all=self.hidden, axis=self.tp, groups=groups,
+                eps_ln=ln.eps, eps=self.norm1.eps)
         fn = (mixffn.mixffn_ln_skip if mixffn.takes(s)
               else mixffn.mixffn_ln_skip_plain)
         return fn(x.to(self.fc1.dtype), ln.weight, ln.bias, *self.params(),
@@ -208,6 +283,13 @@ class MixFFN(nn.Module):
         self.fc1 = Linear(c1, c2, dtype=dtype)
         self.dwconv = DWConv(c2, dtype=dtype)
         self.fc2 = Linear(c2, c1, dtype=dtype)
+
+    def shard_(self, axis) -> None:
+        """Keep this rank's hidden channels: fc1 column-parallel, the conv
+        per channel, fc2 row-parallel."""
+        self.fc1.shard_(axis, "col")
+        shard_depthwise_(self.dwconv.dwconv, axis)
+        self.fc2.shard_(axis, "row")
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
         B, N, _ = x.shape
@@ -244,8 +326,20 @@ class MLPFFN(nn.Module):
         self.fc1 = Linear(c1, c2, dtype=dtype)
         self.fc2 = Linear(c2, c1, dtype=dtype)
 
+    def shard_(self, axis) -> None:
+        """Keep this rank's hidden channels: fc1 column-parallel, fc2
+        row-parallel."""
+        self.fc1.shard_(axis, "col")
+        self.fc2.shard_(axis, "row")
+
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.fc1.tp is not None and not deterministic and \
+                self.drop_rate > 0.0:
+            raise NotImplementedError(
+                "dropout on a hidden-sharded MLP FFN: the TP rules shard "
+                "none that drops (the bridge's are replicated)")
+
         def drop(t):
             return t if deterministic or self.drop_rate == 0.0 else \
                 dropout(t, self.drop_rate, gen)

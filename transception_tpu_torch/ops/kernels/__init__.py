@@ -15,7 +15,9 @@ run counts its launches. Importing this package registers the operators
 backward kernels (K10, K11) with a `bwd_launches` counter, and join
 forward and backward in a torch.autograd.Function; bridge_attention also
 holds the folded bridge attention (K8, `folded_launches`), mixffn the
-unfolded MixFFN_skip (K9, `skip_launches`). The forward kernels without a
+unfolded MixFFN_skip (K9, `skip_launches`) and K2's and K11's forms for
+a hidden layer sharded over the model axis (`tp_launches`,
+`tp_bwd_launches`). The forward kernels without a
 backward kernel (K1, K5-K9) are differentiated through their plain
 versions (_build.with_plain_backward, as the JAX custom VJPs through their
 jnp mirrors); K4, the eval argmax head, refuses to run where autograd
@@ -46,7 +48,9 @@ COUNTERS = tuple((m.NAME, m, "launches") for m in (
     (bridge_attention.BWD_NAME, bridge_attention, "bwd_launches"),
     (mixffn.BWD_NAME, mixffn, "bwd_launches"),
     (bridge_attention.FOLDED_NAME, bridge_attention, "folded_launches"),
-    (mixffn.SKIP_NAME, mixffn, "skip_launches"))
+    (mixffn.SKIP_NAME, mixffn, "skip_launches"),
+    (mixffn.TP_NAME, mixffn, "tp_launches"),
+    (mixffn.TP_BWD_NAME, mixffn, "tp_bwd_launches"))
 
 
 def kernel_set(cfg, training: bool) -> frozenset:

@@ -666,3 +666,446 @@ SKIP_OP = _build.define(
     _launch_skip,
     lambda *a: mixffn_skip_plain(*a[:9], s=a[9], eps=a[10]),
     lambda x, *a: x.new_empty(x.shape))
+
+
+# ---- K2 and K11 hidden-sharded over the model axis ----
+#
+# A non-bridge FFN of the JAX package's TP rules (parallel/mesh.py) keeps
+# hid of its hid_all hidden channels on each rank of the model axis: its
+# fc1 rows, depthwise conv, hidden LN and fc2 columns. Its forward and
+# backward split where they sum over the hidden width, and the caller sums
+# over the ranks in between (parallel/tensor.py ModelAxis):
+#   forward   tp_fc1 (h, and each token's partial (Σ y, Σ y²)), the sum;
+#             tp_fc2 (the LN over hid_all channels, GELU, the fp32 fc2
+#             partial), the sum; tp_out (+ b2, the rounding, + x);
+#   backward  tp_bwd_rows (the recompute, dz, a, dls, dlb and each
+#             token's partial (Σ dz·ls, Σ dz·ls·ŷ)), the sum; tp_bwd_dh
+#             (dy, dh, the fp32 partial dxn = dh·w1, dw1, db1, the conv's
+#             grads, dw2), the sum; tp_bwd_ln (the caller's LN backward:
+#             dx, dlts, dltb, db2, equal on every rank).
+# Each stage is an operator (CUDA: csrc/mixffn.cu mixffn_tp_*, csrc/
+# mixffn_bwd.cu mixffn_tp_bwd_*, on the unsharded kernels' stages; CPU:
+# the plain version below, with the same split). The first stage of each
+# carries the form's name, TP_NAME (tp_fc1) and TP_BWD_NAME
+# (tp_bwd_rows), and counts its one launch, tallied with (x's shape,
+# hid_all, hid, groups).
+
+TP_NAME = "mixffn_tp"
+TP_REPLACES = REPLACES
+TP_BWD_NAME = "mixffn_tp_bwd"
+TP_BWD_REPLACES = BWD_REPLACES
+tp_launches = 0
+tp_bwd_launches = 0
+
+
+def _conv_y(h, dw, dwb, s):
+    """d = E(conv3x3(h) + dwb) and y = d + h (fp32) on h's channels."""
+    dt = h.dtype
+    B, N, hl = h.shape
+    hm = h.float().reshape(B, s, s, hl).permute(0, 3, 1, 2)
+    d = F.conv2d(hm, dw.to(dt).float(), dwb.float(), padding=1, groups=hl)
+    d = d.permute(0, 2, 3, 1).reshape(B, N, hl).to(dt)
+    return d, d.float() + h.float()
+
+
+def _moments(st, hid_all, eps):
+    """mean and rsqrt(var + eps) of each token from its (Σ y, Σ y²) over
+    hid_all channels."""
+    mean = st[..., :1] / hid_all
+    return mean, torch.rsqrt(st[..., 1:] / hid_all - mean * mean + eps)
+
+
+def _pair(a, b):
+    return torch.stack([a.sum(-1), b.sum(-1)], -1)
+
+
+def tp_fc1_plain(x, lts, ltb, w1, b1, dw, dwb, s, groups, eps_ln, hid_all):
+    """Plain stage 1 (lts/ltb (C,)-tiled): h = E(groupLN(x)·w1ᵀ + b1) on
+    the rank's rows, and each token's partial (Σ y, Σ y²) fp32."""
+    dt = x.dtype
+    xn = group_ln(x, lts, ltb, groups, eps_ln)
+    h = F.linear(xn.float(), w1.to(dt).float(), b1.float()).to(dt)
+    _, y = _conv_y(h, dw, dwb, s)
+    return h, _pair(y, y * y)
+
+
+def tp_fc2_plain(h, dw, dwb, ls, lb, w2, st, s, hid_all, eps):
+    """Plain stage 2, st summed over the ranks: the fp32 partial a·w2ᵀ."""
+    dt = h.dtype
+    _, y = _conv_y(h, dw, dwb, s)
+    mean, inv = _moments(st, hid_all, eps)
+    a = gelu(((y - mean) * inv * ls.float() + lb.float()).to(dt))
+    return F.linear(a.float(), w2.to(dt).float())
+
+
+def tp_out_plain(p, b2, x):
+    """Plain stage 3, p summed over the ranks: E(E(p + b2) + x)."""
+    dt = x.dtype
+    return ((p + b2.float()).to(dt).float() + x.float()).to(dt)
+
+
+def tp_bwd_rows_plain(x, g, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, st, s,
+                      groups, hid_all, eps_ln, eps):
+    """Plain K11 stage 1 on the rank's channels (the unsharded plain
+    backward's math, st the forward's summed sums): (xn, h, d, a) in x's
+    dtype, dz fp32, the partial m = (Σ dz·ls, Σ dz·ls·ŷ), dls, dlb."""
+    f32, dt = torch.float32, x.dtype
+    B, N, C = x.shape
+    gsz = C // groups
+    xr = x.to(f32).reshape(B, N, groups, gsz)
+    mu = xr.mean(-1, keepdim=True)
+    inv = torch.rsqrt((xr * xr).mean(-1, keepdim=True) - mu * mu + eps_ln)
+    xn = (((xr - mu) * inv).reshape(B, N, C) * lts.to(f32)
+          + ltb.to(f32)).to(dt)
+    h = (xn.to(f32) @ w1.to(dt).to(f32).t() + b1.to(f32)).to(dt)
+    d, y = _conv_y(h, dw, dwb, s)
+    muy, invy = _moments(st, hid_all, eps)
+    yh = (y - muy) * invy
+    z = (yh * ls.to(f32) + lb.to(f32)).to(dt).to(f32)
+    half1e = 0.5 * (1.0 + torch.erf(z * 2.0 ** -0.5))
+    gp = half1e + z * torch.exp(-0.5 * z * z) * (2.0 * torch.pi) ** -0.5
+    dz = (g.to(f32) @ w2.to(dt).to(f32)) * gp
+    dyh = dz * ls.to(f32)
+    return (xn, h, d, (z * half1e).to(dt), dz, _pair(dyh, dyh * yh),
+            (dz * yh).sum((0, 1)), dz.sum((0, 1)))
+
+
+def tp_bwd_dh_plain(xn, h, d, a, dz, g, dw, ls, w1, st, m, s, hid_all,
+                    eps):
+    """Plain K11 stage 2, m summed over the ranks: the fp32 partial dxn
+    and the rank's (dw1, db1, ddw, ddwb, dw2)."""
+    f32, dt = torch.float32, h.dtype
+    B, N, hl = h.shape
+    y = d.to(f32) + h.to(f32)
+    muy, invy = _moments(st, hid_all, eps)
+    yh = (y - muy) * invy
+    dy = invy * (dz * ls.to(f32) - m[..., :1] / hid_all
+                 - yh * (m[..., 1:] / hid_all))
+    dwk = dw.to(dt).to(f32)
+    hm = h.to(f32).reshape(B, s, s, hl).permute(0, 3, 1, 2)
+    ddp = F.pad(dy.reshape(B, s, s, hl).permute(0, 3, 1, 2), (1, 1, 1, 1))
+    hp = F.pad(hm, (1, 1, 1, 1))
+    dhc = torch.zeros_like(hm)
+    ddw = torch.zeros(hl, 3, 3, dtype=f32, device=h.device)
+    ddm = ddp[:, :, 1:1 + s, 1:1 + s]
+    for di in range(3):
+        for dj in range(3):
+            tap = dwk[:, 0, di, dj].reshape(1, hl, 1, 1)
+            dhc += ddp[:, :, 2 - di:2 - di + s, 2 - dj:2 - dj + s] * tap
+            ddw[:, di, dj] = (ddm * hp[:, :, di:di + s, dj:dj + s]).sum(
+                (0, 2, 3))
+    dh = dy + dhc.permute(0, 2, 3, 1).reshape(B, N, hl)
+
+    def flat(t):
+        return t.reshape(-1, t.shape[-1]).to(f32)
+
+    return (dh @ w1.to(dt).to(f32), flat(dh).t() @ flat(xn), dh.sum((0, 1)),
+            ddw.reshape(hl, 1, 3, 3), dy.sum((0, 1)),
+            flat(g).t() @ flat(a))
+
+
+def tp_bwd_ln_plain(x, g, dxn, lts, groups, eps_ln):
+    """Plain K11 stage 3, dxn summed over the ranks: the caller's group-LN
+    backward plus the residual, (dx, dlts, dltb, db2)."""
+    f32, dt = torch.float32, x.dtype
+    B, N, C = x.shape
+    gsz = C // groups
+    xr = x.to(f32).reshape(B, N, groups, gsz)
+    mu = xr.mean(-1, keepdim=True)
+    inv = torch.rsqrt((xr * xr).mean(-1, keepdim=True) - mu * mu + eps_ln)
+    yhx = (xr - mu) * inv
+    dyhx = (dxn * lts.to(f32)).reshape(B, N, groups, gsz)
+    dx = inv * (dyhx - dyhx.mean(-1, keepdim=True)
+                - yhx * (dyhx * yhx).mean(-1, keepdim=True))
+    dx = dx.reshape(B, N, C) + g.to(f32)
+    return (dx.to(dt), (dxn * yhx.reshape(B, N, C)).sum((0, 1)),
+            dxn.sum((0, 1)), g.to(f32).sum((0, 1)))
+
+
+def _tp_tally(name, x, *key):
+    _build.tally(name, tuple(x.shape), *key, _build.tag(x))
+
+
+def _launch_tp_fc1(x, lts, ltb, w1, b1, dw, dwb, s, groups, eps_ln,
+                   hid_all):
+    hid = w1.shape[0]
+    _check(x, s, hid, groups)
+    global tp_launches
+    x = _build.aligned(x)
+    B, N, C = x.shape
+    _, plan = _fwd_launch_plan(B, s, C, hid, _build.sms(x), x.element_size())
+    h = x.new_empty((B, N, hid))
+    st = torch.empty((B, N, 2), device=x.device, dtype=torch.float32)
+    bf = functools.partial(_build.weight, dtype=x.dtype)
+    f = _build.f32
+    held = (x, f(lts), f(ltb), bf(w1), f(b1), bf(dw.reshape(hid, 9)), f(dwb),
+            h, st)
+    fn = _build.entry(NAME, _build.symbol("mixffn_tp_fc1", x.dtype),
+                      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                      + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(*[_build.ptr(t) for t in held], plan, B, s, C, hid, groups,
+            eps_ln, _build.stream_of(x))
+    _build.check(rc, "mixffn_tp_fc1")
+    tp_launches += 1
+    _tp_tally(TP_NAME, x, hid_all, hid, groups)
+    return h, st
+
+
+def _launch_tp_fc2(h, dw, dwb, ls, lb, w2, st, s, hid_all, eps):
+    B, N, hid = h.shape
+    C = w2.shape[0]
+    h = _build.aligned(h)
+    sizes, plan = _fwd_launch_plan(B, s, C, hid, _build.sms(h),
+                                   h.element_size())
+    p = torch.empty((B, N, C), device=h.device, dtype=torch.float32)
+    ws, work = _build.workspace(sizes[1:], h.device)  # a
+    bf = functools.partial(_build.weight, dtype=h.dtype)
+    f = _build.f32
+    held = (h, bf(dw.reshape(hid, 9)), f(dwb), f(ls), f(lb), bf(w2),
+            f(st), p)
+    fn = _build.entry(NAME, _build.symbol("mixffn_tp_fc2", h.dtype),
+                      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                      + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(*[_build.ptr(t) for t in held], *work, plan, B, s, C, hid,
+            hid_all, eps, _build.stream_of(h))
+    _build.check(rc, "mixffn_tp_fc2")
+    return p
+
+
+def _launch_tp_out(p, b2, x):
+    x = _build.aligned(x)
+    B, N, C = x.shape
+    if p.shape != x.shape or C % 2:
+        raise ValueError(f"mixffn_tp_out needs p like x (C even), got "
+                         f"{tuple(p.shape)}, {tuple(x.shape)}")
+    out = torch.empty_like(x)
+    fn = _build.entry(NAME, _build.symbol("mixffn_tp_out", x.dtype),
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                      + [ctypes.c_void_p])
+    rc = fn(_build.ptr(_build.aligned(p.contiguous())),
+            _build.ptr(_build.f32(b2)), _build.ptr(x), _build.ptr(out),
+            B * N, C, _build.stream_of(x))
+    _build.check(rc, "mixffn_tp_out")
+    return out
+
+
+def _tp_bwd_plan(x, s, hid):
+    B, N, C = x.shape
+    es = x.element_size()
+    if bwd_smem_bytes(C, hid, es) > SMEM_LIMIT:
+        raise ValueError(f"{TP_BWD_NAME} kernel: a token tile (C={C}, "
+                         f"hidden={hid}) exceeds shared memory")
+    return bwd_plan(B, s, C, hid, _build.sms(x), es)
+
+
+def _launch_tp_bwd_rows(x, g, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, st, s,
+                        groups, hid_all, eps_ln, eps):
+    hid = w1.shape[0]
+    _check(x, s, hid, groups, ln=False)
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"{TP_BWD_NAME} kernel needs g like x, got "
+                         f"{tuple(g.shape)} {g.dtype}")
+    global tp_bwd_launches
+    x, g = _build.aligned(x), _build.aligned(g)
+    B, N, C = x.shape
+    pl = _tp_bwd_plan(x, s, hid)
+    xn = torch.empty_like(x)
+    h, d, a = (x.new_empty((B, N, hid)) for _ in range(3))
+    dz = torch.empty((B, N, hid), device=x.device, dtype=torch.float32)
+    m = torch.empty((B, N, 2), device=x.device, dtype=torch.float32)
+    grads = torch.empty(2 * hid, device=x.device, dtype=torch.float32)
+    ws, work = _build.workspace([pl["blocks"] * 2 * hid * 4], x.device)
+    bf = functools.partial(_build.weight, dtype=x.dtype)
+    f = _build.f32
+    held = (x, g, f(lts), f(ltb), bf(w1), f(b1), bf(dw.reshape(hid, 9)),
+            f(dwb), f(ls), f(lb), bf(w2), f(st), xn, h, d, a, dz, m, grads)
+    plan = (ctypes.c_int * len(pl["plan"]))(*pl["plan"])
+    fn = _build.entry(BWD_NAME, _build.symbol("mixffn_tp_bwd_rows", x.dtype),
+                      [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6
+                      + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    rc = fn(*[_build.ptr(t) for t in held], *work, plan, B, s, C, hid,
+            hid_all, groups, eps_ln, eps, _build.stream_of(x))
+    _build.check(rc, "mixffn_tp_bwd_rows")
+    tp_bwd_launches += 1
+    _tp_tally(TP_BWD_NAME, x, hid_all, hid, groups)
+    return xn, h, d, a, dz, m, grads[:hid], grads[hid:]
+
+
+def _launch_tp_bwd_dh(xn, h, d, a, dz, g, dw, ls, w1, st, m, s, hid_all,
+                      eps):
+    B, N, hid = h.shape
+    C = xn.shape[-1]
+    pl = _tp_bwd_plan(xn, s, hid)
+    T = B * N
+    dxn = torch.empty((B, N, C), device=h.device, dtype=torch.float32)
+    grads = torch.empty(2 * hid * C + 11 * hid, device=h.device,
+                        dtype=torch.float32)
+    w = pl["workspace"]
+    ws, work = _build.workspace(
+        [T * hid * 4, w["dh"], w["pw"], w["pd"], pl["blocks"] * hid * 4],
+        h.device)
+    bf = functools.partial(_build.weight, dtype=h.dtype)
+    f = _build.f32
+    al = _build.aligned
+    held = (al(xn), al(h), al(d), al(a), f(dz), al(g), bf(dw.reshape(hid, 9)),
+            f(ls), bf(w1), f(st), f(m), dxn, grads)
+    plan = (ctypes.c_int * len(pl["plan"]))(*pl["plan"])
+    fn = _build.entry(BWD_NAME, _build.symbol("mixffn_tp_bwd_dh", h.dtype),
+                      [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
+                      + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(*[_build.ptr(t) for t in held], *work, plan, B, s, C, hid,
+            hid_all, eps, _build.stream_of(h))
+    _build.check(rc, "mixffn_tp_bwd_dh")
+    dw1, dw2, db1, ddw, ddwb = torch.split(
+        grads, (hid * C, C * hid, hid, 9 * hid, hid))
+    return (dxn, dw1.view(hid, C), db1, ddw.view(hid, 1, 3, 3), ddwb,
+            dw2.view(C, hid))
+
+
+def _launch_tp_bwd_ln(x, g, dxn, lts, groups, eps_ln):
+    x, g = _build.aligned(x), _build.aligned(g)
+    B, N, C = x.shape
+    s = int(round(N ** 0.5))
+    # bwd_plan's token ranges, which do not depend on the hidden width.
+    pl = bwd_plan(B, s, C, 64, _build.sms(x), x.element_size())
+    dx = torch.empty_like(x)
+    grads = torch.empty(3 * C, device=x.device, dtype=torch.float32)
+    ws, work = _build.workspace([pl["workspace"]["pl"]], x.device)
+    fn = _build.entry(BWD_NAME, _build.symbol("mixffn_tp_bwd_ln", x.dtype),
+                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                      + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(_build.ptr(x), _build.ptr(g), _build.ptr(_build.f32(dxn)),
+            _build.ptr(_build.f32(lts)), _build.ptr(dx), _build.ptr(grads),
+            *work, pl["blocks"], pl["tiles_per_block"], B, s, C, groups,
+            eps_ln, _build.stream_of(x))
+    _build.check(rc, "mixffn_tp_bwd_ln")
+    db2, dlts, dltb = torch.split(grads, (C, C, C))
+    return dx, dlts, dltb, db2
+
+
+_VEC = "Tensor w1, Tensor b1, Tensor dw, Tensor dwb"
+TP_FC1_OP = _build.define(
+    TP_NAME, f"(Tensor x, Tensor lts, Tensor ltb, {_VEC}, int s, "
+    "int groups, float eps_ln, int hid_all) -> (Tensor, Tensor)",
+    _launch_tp_fc1, tp_fc1_plain,
+    lambda x, lts, ltb, w1, *a: (
+        x.new_empty(x.shape[:2] + (w1.shape[0],)),
+        x.new_empty(x.shape[:2] + (2,), dtype=torch.float32)))
+TP_FC2_OP = _build.define(
+    "mixffn_tp_fc2", "(Tensor h, Tensor dw, Tensor dwb, Tensor ls, "
+    "Tensor lb, Tensor w2, Tensor st, int s, int hid_all, float eps) -> "
+    "Tensor", _launch_tp_fc2, tp_fc2_plain,
+    lambda h, dw, dwb, ls, lb, w2, *a: h.new_empty(
+        h.shape[:2] + (w2.shape[0],), dtype=torch.float32))
+TP_OUT_OP = _build.define(
+    "mixffn_tp_out", "(Tensor p, Tensor b2, Tensor x) -> Tensor",
+    _launch_tp_out, tp_out_plain, lambda p, b2, x: x.new_empty(x.shape))
+TP_BWD_ROWS_OP = _build.define(
+    TP_BWD_NAME, f"(Tensor x, Tensor g, Tensor lts, Tensor ltb, "
+    f"{_VEC}, Tensor ls, Tensor lb, Tensor w2, Tensor st, int s, "
+    "int groups, int hid_all, float eps_ln, float eps) -> (Tensor, Tensor, "
+    "Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _launch_tp_bwd_rows, tp_bwd_rows_plain,
+    lambda x, g, lts, ltb, w1, *a: (
+        x.new_empty(x.shape),
+        *(x.new_empty(x.shape[:2] + (w1.shape[0],)) for _ in range(3)),
+        x.new_empty(x.shape[:2] + (w1.shape[0],), dtype=torch.float32),
+        x.new_empty(x.shape[:2] + (2,), dtype=torch.float32),
+        *(x.new_empty((w1.shape[0],), dtype=torch.float32)
+          for _ in range(2))))
+TP_BWD_DH_OP = _build.define(
+    "mixffn_tp_bwd_dh", "(Tensor xn, Tensor h, Tensor d, Tensor a, "
+    "Tensor dz, Tensor g, Tensor dw, Tensor ls, Tensor w1, Tensor st, "
+    "Tensor m, int s, int hid_all, float eps) -> (Tensor, Tensor, Tensor, "
+    "Tensor, Tensor, Tensor)", _launch_tp_bwd_dh, tp_bwd_dh_plain,
+    lambda xn, h, d, a, dz, g, dw, ls, w1, *r: tuple(
+        xn.new_empty(sh, dtype=torch.float32) for sh in (
+            xn.shape, w1.shape, w1.shape[:1], dw.shape, w1.shape[:1],
+            (w1.shape[1], w1.shape[0]))))
+TP_BWD_LN_OP = _build.define(
+    "mixffn_tp_bwd_ln", "(Tensor x, Tensor g, Tensor dxn, Tensor lts, "
+    "int groups, float eps_ln) -> (Tensor, Tensor, Tensor, Tensor)",
+    _launch_tp_bwd_ln, tp_bwd_ln_plain,
+    lambda x, g, dxn, lts, *a: (x.new_empty(x.shape),) + tuple(
+        x.new_empty(lts.shape, dtype=torch.float32) for _ in range(3)))
+
+
+class MixFFNTP(torch.autograd.Function):
+    """The hidden-sharded K2 forward and K11 backward (their operators:
+    the plain stages on the CPU) of x + mixffn(groupLN(x)), lts/ltb
+    (C,)-tiled, with the model axis's sums between the stages. The
+    forward's summed (Σ y, Σ y²) are saved for the backward."""
+
+    @staticmethod
+    def forward(ctx, x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, s,
+                groups, eps_ln, eps, hid_all, axis):
+        h, st = TP_FC1_OP(x, lts, ltb, w1, b1, dw, dwb, s, groups, eps_ln,
+                          hid_all)
+        axis.all_reduce_(st)
+        p = TP_FC2_OP(h, dw, dwb, ls, lb, w2, st, s, hid_all, eps)
+        axis.all_reduce_(p)
+        ctx.save_for_backward(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, st)
+        ctx.cfg = (s, groups, eps_ln, eps, hid_all, axis)
+        ctx.b2_dtype = b2.dtype
+        return TP_OUT_OP(p, b2, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, st = ctx.saved_tensors
+        s, groups, eps_ln, eps, hid_all, axis = ctx.cfg
+        g = g.contiguous()
+        xn, h, d, a, dz, m, dls, dlb = TP_BWD_ROWS_OP(
+            x, g, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, st, s, groups,
+            hid_all, eps_ln, eps)
+        axis.all_reduce_(m)
+        dxn, dw1, db1, ddw, ddwb, dw2 = TP_BWD_DH_OP(
+            xn, h, d, a, dz, g, dw, ls, w1, st, m, s, hid_all, eps)
+        axis.all_reduce_(dxn)
+        dx, dlts, dltb, db2 = TP_BWD_LN_OP(x, g, dxn, lts, groups, eps_ln)
+        grads = (dlts, dltb, dw1, db1, ddw, ddwb, dls, dlb, dw2)
+        params = (lts, ltb, w1, b1, dw, dwb, ls, lb, w2)
+        return (dx,) + tuple(gr.to(p.dtype) for gr, p in zip(grads, params)) \
+            + (db2.to(ctx.b2_dtype),) + (None,) * 6
+
+
+def mixffn_tp_plain(x, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
+                    hid_all: int, axis, pre_ln=None, residual=False,
+                    eps: float = 1e-5):
+    """The hidden-sharded MixFFN_skip as plain PyTorch, differentiable:
+    the plain version's rounding points with the model axis's autograd
+    collectives (axis: parallel.tensor.ModelAxis) where the hidden width
+    is summed. pre_ln = ((C,)-tiled scale, bias, groups, eps) or None;
+    residual: + x."""
+    dt = x.dtype
+    xin = x if pre_ln is None else group_ln(x, *pre_ln)
+    xin = axis.copy(xin.float()).to(dt)
+    h = F.linear(xin.float(), w1.to(dt).float(), b1.float()).to(dt)
+    _, y = _conv_y(h, dw, dwb, s)
+    mean, inv = _moments(axis.sum(_pair(y, y * y)), hid_all, eps)
+    a = gelu(((y - mean) * inv * ls.float() + lb.float()).to(dt))
+    p = axis.reduce(F.linear(a.float(), w2.to(dt).float()))
+    out = (p + b2.float()).to(dt)
+    if residual:
+        out = (out.float() + x.float()).to(dt)
+    return out
+
+
+def mixffn_ln_skip_tp(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, *,
+                      s: int, hid_all: int, axis, groups: int = 1,
+                      eps_ln: float = 1e-5, eps: float = 1e-5):
+    """x + mixffn(LN(x)) with the FFN's hidden layer sharded over `axis`
+    (w1 .. lb the rank's shards, w2 its columns, b2 whole): with the
+    MixFFN kernel switched on and a map it takes (`takes`), the sharded K2
+    and K11 (MixFFNTP; on the CPU their plain stages), else
+    mixffn_tp_plain. lts/ltb: the caller's (C/groups,) LN scale and
+    bias."""
+    if NAME in _build.active() and takes(s):
+        _build.routed[TP_NAME] += 1
+        return MixFFNTP.apply(x, lts.repeat(groups), ltb.repeat(groups), w1,
+                              b1, dw, dwb, ls, lb, w2, b2, s, groups, eps_ln,
+                              eps, hid_all, axis)
+    return mixffn_tp_plain(x, w1, b1, dw, dwb, ls, lb, w2, b2, s=s,
+                           hid_all=hid_all, axis=axis,
+                           pre_ln=(lts.repeat(groups), ltb.repeat(groups),
+                                   groups, eps_ln),
+                           residual=True, eps=eps)

@@ -10,13 +10,15 @@ schedule stepped per iteration to T = epochs · steps_per_epoch (or the
 update as optax counts. Optional clip_grad_norm_(5) before the update and
 gradient accumulation over grad_accum_steps (optax MultiSteps: the update
 takes the mean of the micro-steps' gradients; the schedule counts
-updates).
+updates). Under tensor parallelism (parallel.mesh.shard_model) the
+sharded parameters' momentum lives on the shards, the clip takes the
+whole model's norm, and checkpoints hold the full layout.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -53,8 +55,14 @@ class TrainState:
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig,
                  steps_per_epoch: int,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None,
+                 tp: Optional[Tuple[Dict[str, int], object]] = None):
+        """tp: (layout, axis) of a model sharded over the model axis
+        (parallel.mesh.shard_model): its sharded parameters and their
+        momentum live on the shards, the clip's norm counts each once,
+        and state_dict / load_state_dict hold the full layout."""
         self.model, self.cfg, self.gen = model, cfg, gen
+        self.tp = tp
         self.schedule = make_lr_schedule(cfg, steps_per_epoch)
         self.optimizer = torch.optim.SGD(
             model.parameters(), lr=self.schedule(0), momentum=cfg.momentum,
@@ -90,16 +98,62 @@ class TrainState:
         if k > 1:
             for p in params:
                 p.grad.div_(k)
-        if self.cfg.grad_clipping:
+        if self.cfg.grad_clipping and self.tp is None:
             torch.nn.utils.clip_grad_norm_(params, self.CLIP_NORM)
+        elif self.cfg.grad_clipping:
+            self._clip_sharded()
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.updates)
         self.optimizer.step()
         self.updates += 1
 
+    def _clip_sharded(self) -> None:
+        """clip_grad_norm_ of the whole model's gradient under TP: the
+        squares of the sharded parameters' gradients summed over the model
+        group, each replicated parameter's counted once (every rank holds
+        the same), then torch's rule, max_norm / (norm + 1e-6) at most 1."""
+        layout, axis = self.tp
+        sq = {True: [], False: []}
+        for n, p in self.model.named_parameters():
+            if p.requires_grad:
+                sq[n in layout].append(
+                    torch.linalg.vector_norm(p.grad.float()) ** 2)
+        z = torch.zeros((), device=next(self.model.parameters()).device)
+        shard = axis.all_reduce_(torch.stack(sq[True]).sum() if sq[True]
+                                 else z.clone())
+        rep = torch.stack(sq[False]).sum() if sq[False] else z
+        norm = torch.sqrt(rep + shard)
+        coef = torch.clamp(self.CLIP_NORM / (norm + 1e-6), max=1.0)
+        for p in self.model.parameters():
+            if p.requires_grad:
+                p.grad.mul_(coef.to(p.grad.dtype))
+
+    def _names(self):
+        """Parameter names in the optimizer's index order."""
+        return [n for n, _ in self.model.named_parameters()]
+
     def state_dict(self) -> dict:
-        sd = {"model": self.model.state_dict(),
-              "optimizer": self.optimizer.state_dict(),
+        """Model, optimizer, schedule, step and generator; under TP the
+        full layout (a collective: every rank of the model group calls
+        it)."""
+        model, opt = self.model.state_dict(), self.optimizer.state_dict()
+        if self.tp is not None:
+            from transception_tpu_torch.parallel.mesh import (
+                gather_state_dict,
+            )
+            layout, axis = self.tp
+            model = gather_state_dict(model, layout, axis)
+            names = self._names()
+            bufs = {names[i]: st["momentum_buffer"]
+                    for i, st in opt["state"].items()
+                    if st.get("momentum_buffer") is not None}
+            full = gather_state_dict(bufs, layout, axis)
+            opt = dict(opt, state={
+                i: dict(st, momentum_buffer=full[names[i]])
+                if names[i] in full else st
+                for i, st in opt["state"].items()})
+        sd = {"model": model,
+              "optimizer": opt,
               "schedule": {"updates": self.updates,
                            "lr": self.schedule(self.updates)},
               "step": self.step}
@@ -108,8 +162,27 @@ class TrainState:
         return sd
 
     def load_state_dict(self, sd: dict) -> None:
-        self.model.load_state_dict(sd["model"])
-        self.optimizer.load_state_dict(sd["optimizer"])
+        """A state_dict of the full layout (any tp); under TP this rank
+        takes its shards."""
+        model, opt = sd["model"], sd["optimizer"]
+        if self.tp is not None:
+            from transception_tpu_torch.parallel.mesh import (
+                shard_state_dict,
+            )
+            layout, axis = self.tp
+            model = shard_state_dict(model, layout, axis.size, axis.rank)
+            names = self._names()
+            bufs = shard_state_dict(
+                {names[i]: st["momentum_buffer"]
+                 for i, st in opt["state"].items()
+                 if st.get("momentum_buffer") is not None},
+                layout, axis.size, axis.rank)
+            opt = dict(opt, state={
+                i: dict(st, momentum_buffer=bufs[names[i]])
+                if names[i] in bufs else st
+                for i, st in opt["state"].items()})
+        self.model.load_state_dict(model)
+        self.optimizer.load_state_dict(opt)
         self.updates = int(sd["schedule"]["updates"])
         self.step = int(sd["step"])
         if self.gen is not None and "gen" in sd:

@@ -33,11 +33,27 @@ bare model's keys (no "module." prefix), so a run of any world size
 resumes any other's; logs, TensorBoard, results.tsv and checkpoints come
 from rank 0, and every rank takes its shard of the in-training eval
 (chunks of eval_batch(world) slices).
+
+Tensor parallelism (TrainConfig.tp_size, the JAX package's 'model' mesh
+axis): dp·tp ranks, rank r at (d, t) = divmod(r, tp). The model's weights
+that the JAX TP rules shard (parallel.mesh.shard_layout: the non-bridge
+FFNs' fc1/fc2 with their hidden channels, the qkv projections) keep each
+rank's shard (parallel.mesh.shard_model), and their forward and backward
+sum over the model group (parallel.tensor; K2 and K11 in their
+hidden-sharded forms). The data axis is the data group's: the loader and
+the masks take the data rank d, DistributedDataParallel and the global
+sums run over the data group, so the model ranks of one d see the same
+batch. The step is the one-process step on the global batch, up to the
+order of fp32 sums, as GSPMD's is. Checkpoints hold the full layout
+(gathered; written by rank (0, 0)), so a run of any tp resumes any
+other's; the in-training eval runs a full copy of the model on the
+gathered weights. The legacy models take tp_size 1 only.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import csv
 import inspect
 import logging
@@ -62,14 +78,19 @@ from transception_tpu_torch.data.synapse import (
     make_train_dataset,
 )
 from transception_tpu_torch.eval.inference import class_ids, run_inference
-from transception_tpu_torch.models.transception import MSTransception
+from transception_tpu_torch.models.transception import (
+    MSTransception,
+    check_tp,
+)
 from transception_tpu_torch.parallel.mesh import (
     DataMesh,
     data_parallel,
+    gather_state_dict,
     launch_world,
     launched,
     make_mesh,
     mean_over_ranks,
+    shard_model,
 )
 from transception_tpu_torch.train.losses import (
     segmentation_loss,
@@ -210,30 +231,39 @@ class Trainer:
     TensorBoard's to output_dir/tb (when the tensorboard package is
     installed), the eval histories to output_dir/results.tsv.
 
-    mesh: this process's place on the data axis (parallel.mesh.DataMesh);
-    by default the launch's: make_mesh of train_cfg.dp_size where it is
-    above 0, else of the launch's world (torchrun, or the CLI's
-    --dp_size), which is 1 in a process that no launch started. A
-    Trainer never starts ranks, so "every visible card" (dp_size -1) is
-    the CLI's to carry out. tp_size > 1 is refused."""
+    mesh: this process's place on the (data, model) mesh
+    (parallel.mesh.DataMesh); by default the launch's: make_mesh of
+    train_cfg.dp_size x train_cfg.tp_size, dp_size 0 or below meaning the
+    launch's world over tp_size (torchrun, or the CLI's --dp_size and
+    --tp_size), which is 1 in a process that no launch started. A Trainer
+    never starts ranks, so "every visible card" (dp_size -1) is the CLI's
+    to carry out. At tp > 1 the model is sharded in place; a legacy model
+    is refused."""
 
     def __init__(self, model_cfg: TransceptionConfig, train_cfg: TrainConfig,
                  data_cfg: DataConfig, device: DeviceLike = "cuda",
                  model: Optional[torch.nn.Module] = None,
                  mesh: Optional[DataMesh] = None):
-        if train_cfg.tp_size > 1:
-            raise NotImplementedError(
-                f"tp_size {train_cfg.tp_size}: the TP axis is not ported "
-                f"(ROADMAP.md §1 item 4); train with tp_size 1")
         self.model_cfg, self.cfg, self.data_cfg = model_cfg, train_cfg, \
             data_cfg
-        # The data axis: this process's rank (make_mesh raises, before any
+        tp = max(train_cfg.tp_size, 1)
+        if tp > 1 and model is not None and \
+                not isinstance(model, MSTransception):
+            raise NotImplementedError(
+                f"tp_size {tp} with the legacy model "
+                f"{type(model).__name__}: the TP axis runs the "
+                f"MSTransception family (ROADMAP.md §1 item 4 queues the "
+                f"legacy models); train it with tp_size 1")
+        # The mesh: this process's ranks (make_mesh raises, before any
         # work, for more ranks than cards or than the launch has); a world
         # of one has no group.
         if mesh is None:
             dp = train_cfg.dp_size if train_cfg.dp_size > 0 else (
-                launch_world() if launched() else 1)
-            mesh = make_mesh(dp, 1, device)
+                max(launch_world() // tp, 1) if launched() else 1)
+            mesh = make_mesh(dp, tp, device)
+        if mesh.tp != tp:
+            raise ValueError(f"tp_size {tp}, but the mesh's model axis has "
+                             f"{mesh.tp} ranks")
         self.mesh = mesh
         self.device = self.mesh.device
         self.main = self.mesh.is_main
@@ -241,7 +271,22 @@ class Trainer:
         # by default the MSTransception of model_cfg.
         self.model = model if model is not None else MSTransception(
             model_cfg, self.device, seed=train_cfg.seed)
+        # Under TP: a full copy for the eval, then this rank's shards.
+        self.layout: dict = {}
+        self.eval_model = self.model
+        if tp > 1:
+            check_tp(self.model, tp, self.device)
+            self.eval_model = copy.deepcopy(self.model)
+            self.layout = shard_model(self.model, self.mesh.axis)
         os.makedirs(train_cfg.output_dir, exist_ok=True)
+
+    def _eval_net(self) -> torch.nn.Module:
+        """The model the eval runs: the model, or under TP its full copy
+        with the gathered weights (a collective: every rank calls it)."""
+        if self.mesh.tp > 1:
+            self.eval_model.load_state_dict(gather_state_dict(
+                self.model.state_dict(), self.layout, self.mesh.axis))
+        return self.eval_model
 
     def _use_wide_head(self) -> bool:
         """The wide-layout loss (TrainConfig.wide_loss): MSTransception
@@ -265,23 +310,31 @@ class Trainer:
         cfg, dc = self.cfg, self.data_cfg
         gen = torch.Generator(device=self.device)
         gen.manual_seed(cfg.seed)
-        state = TrainState(self.model, cfg, steps_per_epoch, gen)
+        state = TrainState(self.model, cfg, steps_per_epoch, gen,
+                           tp=((self.layout, self.mesh.axis)
+                               if self.mesh.tp > 1 else None))
         net = self.model
         if self._dp() is not None:
             net = torch.nn.parallel.DistributedDataParallel(
                 self.model,
                 device_ids=([self.device] if self.device.type == "cuda"
                             else None),
-                broadcast_buffers=False)
+                broadcast_buffers=False, process_group=self.mesh.group)
         step_fn = make_train_step(state, dc.num_classes, cfg.ce_weight,
                                   cfg.dice_weight, self._use_wide_head(),
                                   gen, net, self._dp())
         return state, step_fn
 
-    def save_checkpoint(self, state: TrainState) -> str:
+    def save_checkpoint(self, state: TrainState) -> Optional[str]:
+        """Rank (0, 0) writes the state's full layout (under TP every rank
+        takes part in the gather); returns the path there, None on the
+        other ranks."""
+        sd = state.state_dict()
+        if not self.main:
+            return None
         os.makedirs(self._ckpt_dir(), exist_ok=True)
         path = os.path.join(self._ckpt_dir(), f"step_{state.step:08d}.pt")
-        torch.save(state.state_dict(), path + ".tmp")
+        torch.save(sd, path + ".tmp")
         os.replace(path + ".tmp", path)
         logger.info("saved checkpoint to %s", path)
         return path
@@ -345,16 +398,16 @@ class Trainer:
         if self.main:
             logger.info(msg)
 
-    def _writer(self):
-        """A TensorBoard SummaryWriter under output_dir/tb, or None (with
-        one log line) where the tensorboard package is not installed."""
+    def _summary_writer(self):
+        """TensorBoard's SummaryWriter class, or None (with one log line on
+        rank (0, 0)) where the tensorboard package is not installed. Every
+        rank finds the same."""
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError as e:
-            logger.info("TensorBoard scalars and images are not written: %s",
-                        e)
+            self._log(f"TensorBoard scalars and images are not written: {e}")
             return None
-        return SummaryWriter(os.path.join(self.cfg.output_dir, "tb"))
+        return SummaryWriter
 
     def _train_loop(self, loader, test_ds, max_steps):
         cfg, dc = self.cfg, self.data_cfg
@@ -365,12 +418,22 @@ class Trainer:
             self._log(f"data parallel over {self.mesh.world} ranks: "
                       f"{cfg.batch_size // self.mesh.world} of each global "
                       f"batch of {cfg.batch_size} a rank")
+        if self.mesh.tp > 1:
+            self._log(f"tensor parallel over {self.mesh.tp} ranks: "
+                      f"{len(self.layout)} sharded tensors")
         state, step_fn = self.init_state(steps_per_epoch)
         latest = self.latest_checkpoint() if cfg.resume else None
         if latest:
             self.restore_checkpoint(state, latest)
             self._log(f"resumed from {latest} (step {state.step})")
-        writer = self._writer() if self.main else None
+        # Rank (0, 0) writes TensorBoard's scalars and images. Under TP the
+        # images' model runs on gathered weights, a collective: every rank
+        # of data rank 0's model group gathers, and only where the package
+        # imports.
+        tb = self._summary_writer()
+        writer = (tb(os.path.join(cfg.output_dir, "tb"))
+                  if tb is not None and self.main else None)
+        with_images = tb is not None and self.mesh.rank == 0
 
         def flush(pending):
             for tb_it, tb_m in pending:
@@ -399,8 +462,10 @@ class Trainer:
                     # Device scalars, read at the 50-step line: reading one
                     # here would wait for the card every 10 steps.
                     tb_pending.append((it, metrics))
-                if writer is not None and it % 200 == 0:
-                    _log_images(writer, self.model, images, labels, it)
+                if with_images and it % 200 == 0:
+                    net = self._eval_net()
+                    if writer is not None:
+                        _log_images(writer, net, images, labels, it)
                 if self.main and (it % 50 == 0 or done):
                     if writer is not None:
                         flush(tb_pending)
@@ -422,19 +487,20 @@ class Trainer:
             else:
                 do_save = (epoch + 1) % cfg.ckpt_every == 0
                 do_eval = (epoch + 1) % cfg.eval_interval == 0
-            if (done or do_save) and self.main:
+            if done or do_save:
                 self.save_checkpoint(state)
             if done or do_eval:
+                net = self._eval_net()
                 if dc.dataset == "isic":
                     # Every rank scores the whole split (no collective);
                     # no HD95 (0.0, as the JAX Trainer reports).
-                    d = dice_eval(self.model, test_ds, dc.img_size,
+                    d = dice_eval(net, test_ds, dc.img_size,
                                   log=logger.info if self.main else None,
                                   device=self.device)
                     h = 0.0
                 else:
                     d, h = run_inference(
-                        self.model, test_ds, dc.num_classes,
+                        net, test_ds, dc.num_classes,
                         patch_size=dc.img_size,
                         batch=eval_batch(self.mesh.world),
                         log=logger.info if self.main else None,
