@@ -92,7 +92,7 @@ Phases (any failed check exits non-zero):
      fp32 form (launches exact, kernel vs plain within phase 5's fp32
      limits);
  11. volume eval: the published model through run_inference on one
-     synthetic 512² volume of 17 slices (its log lines, launches per
+     synthetic 512² volume's first 8 slices (its log lines, launches per
      chunk, the wall time split into load, resample, forward, back-resize
      and the wait for the metrics, and the metric thread's time), the two
      on-card resample paths against the host path with TF32 off and on
@@ -190,13 +190,28 @@ Phases (any failed check exits non-zero):
      launches_per_step(cfg, tp)), the flash checkpoint resumed in one
      process; NCCL tp 2 with two cards, dp2 x tp2 and tp 4 with four;
      (c) --tp_size beyond the cards refused before any work.
+ 21. the bridge's sequence sharding (bridge_seq_shard_axis "model"):
+     (a) K2's and K11's row-block forms (a block of map rows with its
+     halo rows) at every bridge scale tp 2 and 4 split (b=24, C = 64·m,
+     bf16 and fp32) against their plain versions, the interior rows
+     against the full-map K2, the blocks' K11 gradients summed against
+     the full-map K11 (planted faults: the halo rows dropped, their dx
+     left out), rank 0's block timed; (b) K3, K10 and K8 on each rank's
+     query rows (3038 and 1519 of 6076) against the full-stream launch,
+     dk/dv summed (fault: not summed); (c) a sequence-sharded tp=2 step
+     in phase 20's four modes as two gloo ranks on card 0 against phase
+     20's one-process step (phase 9's limits, launches exactly
+     launches_per_step), its checkpoint resumed in one process, and the
+     sharded eval forward (the bridge's folds on) at bf16 and fp32
+     against the one process (class maps, logits, launches).
 Every launch of the main-path runs (phases 4, 5-7 at fp32, 9, 10, 11, 12,
-13, 14, 15, 16, 18 and 20) is tallied by shape (ops.kernels.shape_counts);
-each shape must have been measured in phase 3, 8 or 20 (a). The last line is {"ok": true, "device": {...}}; the two
-lines before it list each kernel at each shape (one row per shape) with
-its launches in those runs, its error and its per-launch times and bound,
-then the card's name and power limit. Before them, per run, each kernel's
-launches and summed times.
+13, 14, 15, 16, 18, 20 and 21) is tallied by shape
+(ops.kernels.shape_counts); each shape must have been measured in phase
+3, 8, 20 (a) or 21 (a, b). The last line is {"ok": true, "device":
+{...}}; the two lines before it list each kernel at each shape (one row
+per shape) with its launches in those runs, its error and its per-launch
+times and bound, then the card's name and power limit. Before them, per
+run, each kernel's launches and summed times.
 """
 
 from __future__ import annotations
@@ -1457,7 +1472,7 @@ TRAIN_MODES = {
                     drop_path_rate=0.1), 2)}
 DROP_SEED = 7         # the drop-path generator of the one-step comparisons
 BWD_TOL = 0.02        # each gradient within 2% of its own max
-TRAIN_STEPS = 8       # repeated-batch steps; the loss must fall from 1 to 8
+TRAIN_STEPS = 5       # repeated-batch steps; the loss must fall from 1 to 5
 LOSS_TOL = 0.01       # kernel vs plain path: loss within 1%
 # Gradient limits of one step against the plain path, between the sound
 # readings (global 0.0013 default / 0.0027 flash) and the planted faults'
@@ -2091,14 +2106,14 @@ def train_phase():
         # Step time in turns (kernels, plain, plain, kernels) and the peak
         # memory of each path alone.
         def timed(m):
-            return _step_time(m, img, lbl, seed, 5)
+            return _step_time(m, img, lbl, seed, 3)
 
         k_ms1, k_mem, kfn = timed(model)
         del model, kfn
         torch.cuda.empty_cache()
         plain_m = MSTransception(_train_cfg(mode, use_kernels=False), "cuda")
         p_ms1, p_mem, pfn = timed(plain_m)
-        p_ms2 = cuda_ms(lambda: pfn(img, lbl), iters=5, warmup=0)
+        p_ms2 = cuda_ms(lambda: pfn(img, lbl), iters=3, warmup=0)
         del plain_m, pfn
         torch.cuda.empty_cache()
         model = MSTransception(_train_cfg(mode), "cuda")
@@ -2342,25 +2357,45 @@ def fold_grid_phase(x):
 
 VOLUME_AGREE = 0.99   # on-card resample against the host spline path
 RESAMPLE_TOL = 1e-6   # |on-card spline - host spline|, with TF32 on
+# Slices of 512² kept from each synthetic volume: its metric passes (HD95
+# on random labels) and its NIfTI export (gzip) cost seconds a slice on
+# the host; the whole smoke must stay within its time limit.
+VOLUME_SLICES = 8
+
+
+class _FirstSlices:
+    """The first `d` slices of each volume of a volume dataset."""
+
+    def __init__(self, ds, d):
+        self.ds, self.d = ds, d
+
+    def __len__(self):
+        return len(self.ds)
+
+    def get(self, idx):
+        v = dict(self.ds.get(idx))
+        v["image"], v["label"] = v["image"][:self.d], v["label"][:self.d]
+        return v
 
 
 def volume_phase():
     """Phase 11. The published model (224², bf16, seed-0 weights) through
     the volume evaluation of eval/inference.py on SyntheticVolumeDataset
-    volumes of 512²: run_inference on the host spline path (its log
-    lines, launches per chunk, the wall time split) on the first volume
-    (17 slices); the two on-card resample paths against the host path's
-    class maps with TF32 off and switched on globally, on the first two
-    volumes; the full-resolution class maps of the kernels against the
-    plain path (predict_volume and the back-resize, no metrics); and
-    cli.test.main in-process on the first volume (bf16 --is_savenii from
-    a .pth of the same weights: run_inference's means, volumes that load
-    back and equal the host path's class maps; one pass of the fp32
-    default on the fp32 kernels; fp16 with the kernels on raises before
-    any work). The metrics (HD95 on random labels, ~25-40 s a volume on
-    the host) and the NIfTI export run on one volume a pass, so that the
-    whole smoke stays within its time limit. Returns the launches per
-    shape key of its kernel forwards and their number."""
+    volumes of 512², their first VOLUME_SLICES slices: run_inference on
+    the host spline path (its log lines, launches per chunk, the wall
+    time split) on the first volume; the two on-card resample paths
+    against the host path's class maps with TF32 off and switched on
+    globally, on the first two volumes; the full-resolution class maps
+    of the kernels against the plain path (predict_volume and the
+    back-resize, no metrics); and cli.test.main in-process on the first
+    volume (bf16 --is_savenii from a .pth of the same weights:
+    run_inference's means, volumes that load back and equal the host
+    path's class maps; one pass of the fp32 default on the fp32 kernels;
+    fp16 with the kernels on raises before any work). The metrics (HD95
+    on random labels, seconds a slice on the host) and the NIfTI export
+    run on one volume a pass, so that the whole smoke stays within its
+    time limit. Returns the launches per shape key of its kernel
+    forwards and their number."""
     import dataclasses
     import tempfile
 
@@ -2379,11 +2414,13 @@ def volume_phase():
     cfg = TransceptionConfig()
     per = launches_per_forward(cfg)
     model = MSTransception(cfg, "cuda", seed=0)
-    ds = SyntheticVolumeDataset(length=2, hw=512)
+    ds = _FirstSlices(SyntheticVolumeDataset(length=2, hw=512),
+                      VOLUME_SLICES)
     vols = [ds.get(i) for i in range(len(ds))]
     chunks = [math.ceil(v["image"].shape[0] / BATCH) for v in vols]
     # The metric passes' set: the first volume alone (the same case).
-    ds1 = SyntheticVolumeDataset(length=1, hw=512)
+    ds1 = _FirstSlices(SyntheticVolumeDataset(length=1, hw=512),
+                       VOLUME_SLICES)
     total, n_fwd = Counter(), 0
 
     def counted(what, n_chunks, fn, per=per):
@@ -2791,6 +2828,9 @@ VARIANT_GRID = tuple((f"concat {c}", dict(concat=c)) for c in (
     ("token_mlp mlp", dict(token_mlp="mlp")),
     ("have_bridge none", dict(have_bridge="none")))
 VARIANT_EVAL_HW = 64  # the small synthetic test volume of the CLI runs
+# The variants' forwards and steps: one block and one path a stage (every
+# block's shapes, fewer blocks; the 4-stage backbone's depth is fixed).
+VARIANT_DEPTH = dict(num_layers=(1, 1, 1), num_path=(1, 1, 1))
 
 
 def _paths_agree(what, model, x, fp32, build=None):
@@ -2845,7 +2885,8 @@ def _paths_agree(what, model, x, fp32, build=None):
 
 def variants_phase():
     """Phase 13. The four ablation variants of the registry at full width
-    (224², widths 64/128/320/512, random weights from seed 0): each
+    (224², widths 64/128/320/512, random weights from seed 0) and
+    VARIANT_DEPTH (one block and one path a stage): each
     through make_predictor(...).predict_volume on BATCH slices of 512² at
     bf16 and at fp32 (launches exactly launches_per_forward, the kernel
     path against the plain path, forward time), and one train step at
@@ -2892,7 +2933,8 @@ def variants_phase():
     for name in VARIANTS:
         for dtype in ("bfloat16", "float32"):
             t0 = time.perf_counter()
-            cfg = model_config(name, TransceptionConfig(dtype=dtype))
+            cfg = model_config(name, TransceptionConfig(dtype=dtype,
+                                                        **VARIANT_DEPTH))
             model = MSTransception(cfg, "cuda", seed=0)
             predict = make_predictor(model, cfg.img_size, BATCH)
             predict.predict_volume(vol)  # warm-up
@@ -2917,7 +2959,7 @@ def variants_phase():
             torch.cuda.empty_cache()
         # One train step (bf16, default mode) against the plain path.
         t0 = time.perf_counter()
-        cfg = model_config(name, TransceptionConfig())
+        cfg = model_config(name, TransceptionConfig(**VARIANT_DEPTH))
         model = MSTransception(cfg, "cuda", seed=0)
         sd0 = {k: t.clone() for k, t in model.state_dict().items()}
         kernels.reset_launches()
@@ -2942,7 +2984,7 @@ def variants_phase():
 
     x8 = x[:VARIANT_BATCH]
     for name, over in VARIANT_GRID:
-        cfg = TransceptionConfig(**over)
+        cfg = TransceptionConfig(**over, **VARIANT_DEPTH)
         model = MSTransception(cfg, "cuda", seed=0)
         with torch.inference_mode():
             model(x8, argmax=True)  # warm-up
@@ -4522,12 +4564,14 @@ def _tp_trainer(over, out, mesh=None):
                    mesh=mesh)
 
 
-def _tp_rank(out_dir, backend, dp, tp, labels):
-    """One rank of phase 20 (b) (spawned): the modes `labels` on a dp x tp
-    mesh over `backend` (gloo: every rank on card 0; NCCL: a card each),
-    one step each on its data rank's rows, the counters and tallies of the
-    step, the gathered gradients; in TP_CKPT_MODE the checkpoint and the
-    next step; then the ms of a step. Rank (0, 0) saves the results."""
+def _tp_rank(out_dir, backend, dp, tp, labels, evals=()):
+    """One rank of phase 20 (b) or 21 (c) (spawned): the modes `labels`
+    (TP_MODES, SP_MODES) on a dp x tp mesh over `backend` (gloo: every
+    rank on card 0; NCCL: a card each), one step each on its data rank's
+    rows, the counters and tallies of the step, the gathered gradients;
+    in TP_CKPT_MODE and SP_CKPT_MODE the checkpoint and the next step;
+    then the ms of a step; then the eval forwards `evals` (SP_EVALS,
+    _sp_evals). Rank (0, 0) saves the results."""
     from transception_tpu_torch.data.device_synthetic import (
         DeviceSyntheticStream,
     )
@@ -4559,16 +4603,15 @@ def _tp_rank(out_dir, backend, dp, tp, labels):
 
     try:
         for label in labels:
-            over = next(m[1] for m in TP_MODES if m[0] == label)
-            tr = _tp_trainer(over, out / f"{label}_{mesh.rank}_{mesh.t}",
-                             mesh)
+            tr = _tp_trainer(_mode(label)[0],
+                             out / f"{label}_{mesh.rank}_{mesh.t}", mesh)
             state, step = tr.init_state(2211 // TRAIN_BATCH)
             kernels.reset_launches()
             met = step(img, lbl)
             r = {"step": taken(tr, met), "counts": kernels.launch_counts(),
                  "shapes": dict(kernels.shape_counts()),
                  "want": launches_per_step(tr.model.cfg, tp=tp)}
-            if label == TP_CKPT_MODE:
+            if label in (TP_CKPT_MODE, SP_CKPT_MODE):
                 r["ckpt"] = tr.save_checkpoint(state)
                 r["next"] = taken(tr, step(img, lbl))
             r["ms"] = cuda_ms(lambda: step(img, lbl), iters=TP_TIME_STEPS,
@@ -4576,6 +4619,9 @@ def _tp_rank(out_dir, backend, dp, tp, labels):
             res[label] = r
             del tr, state, step
             torch.cuda.empty_cache()
+        if evals:
+            res["evals"] = _sp_evals(img, mesh,
+                                     out / f"evals_{mesh.rank}_{mesh.t}")
         if mesh.is_main:
             torch.save(res, out / "rank0.pt")
     finally:
@@ -4614,7 +4660,8 @@ def tp_phase():
     refs, one_ms = {}, {}
     for label, over, _ in TP_MODES:
         tr = _tp_trainer(over, out / "one")
-        refs[label], one_ms[label] = _dp_step(tr, img, lbl)
+        refs[label], one_ms[label] = _ONE_STEP[label] = _dp_step(tr, img,
+                                                                 lbl)
         del tr
         torch.cuda.empty_cache()
     runs = []
@@ -4686,6 +4733,477 @@ def tp_phase():
         fail("the refused run started work")
     if cards < 2:
         log("  NCCL tp runs were not possible here: one card "
+            "(torch.cuda.device_count() == 1)")
+    return runs
+
+
+# ---- phase 21: the bridge's sequence sharding ----
+
+# The bridge scales whose FFN fold runs K2 (mixffn.takes), (side, m): C =
+# 64·m channels in m LN groups, hidden 4·C; the fused stream's tokens.
+SP_SCALES = ((56, 1), (28, 2), (14, 5))
+SP_STREAM = 6076
+SP_AXIS = dict(bridge_seq_shard_axis="model")
+SP_MODES = tuple((f"SP {label}", dict(over, **SP_AXIS), lim)
+                 for label, over, lim in TP_MODES)
+SP_CKPT_MODE = "SP bf16 flash"
+# The sequence-sharded eval forward (the bridge's attention and FFN folds
+# on: K8 on the query rows, K2 on the map rows) at tp 2 against the one
+# process: (label, overrides, least share of equal class-map pixels).
+SP_EVALS = (("SP eval bf16", dict(bridge_attn_fold=True,
+                                  bridge_ffn_use_pallas=True, **SP_AXIS),
+             0.98),
+            ("SP eval fp32", dict(bridge_attn_fold=True,
+                                  bridge_ffn_use_pallas=True, dtype="float32",
+                                  **SP_AXIS), FP32_AGREE))
+_ONE_STEP = {}  # phase 20's one-process steps by TP_MODES label
+
+
+def _mode(label):
+    """(overrides, limits) of a TP_MODES, SP_MODES or SP_EVALS label."""
+    for lab, over, lim in TP_MODES + SP_MODES + SP_EVALS:
+        if lab == label:
+            return over, lim
+    fail(f"no mode {label}")
+
+
+def _sp_blocks(s, tp):
+    """Each rank's block of an s-row map on a model axis of tp ranks: its
+    rows [r0, r1) and the rows [a, b) that K2 and K11 run, with the halo
+    rows (mixffn.halo_rows)."""
+    from transception_tpu_torch.ops.kernels.mixffn import halo_rows
+    h = s // tp
+    return [(r * h, (r + 1) * h) + halo_rows(s, r * h, (r + 1) * h)
+            for r in range(tp)]
+
+
+def _keep(tp, fp32):
+    """Whether a rank-0 shape at tp joins the kernels line: the gloo tp 2
+    step's, and with four cards the NCCL tp 4 flash step's (bf16)."""
+    return tp == TP_MAIN or (tp == TP_WIDE and not fp32 and
+                             torch.cuda.device_count() >= TP_WIDE)
+
+
+def sp_kernel_phase(measured):
+    """Phase 21 (a, b). (a) K2's and K11's row-block forms at every bridge
+    scale a model axis of 2 or 4 ranks splits (56², 28² and 14² at tp 2;
+    56² and 28² at tp 4), b=24, C = 64·m, bf16 and fp32: each rank's
+    block with its halo rows against the block's plain version (phase 8's
+    limits, K2 on its branch), the interior rows against the full-map
+    K2's, the blocks' K11 gradients (dx scattered to the rows each block
+    read) summed against the full-map K11's; planted faults: a block
+    without its halo rows, and the sum of the blocks' dx without the halo
+    rows' share. (b) K3 and K10 on each rank's query rows of the 6076-row
+    stream (3038 at tp 2, 1519 at tp 4) against the full-stream launch's
+    rows, the shards' dk and dv summed against the full launch's (the
+    fault: rank 0's alone); K8 on each rank's query rows against the
+    full-stream launch's. Rank 0's launches timed (CUDA events) against
+    their bound; its shapes that the tp 2 step launches (with four cards
+    also the tp 4 flash step's) join `measured`, the others are
+    logged."""
+    from transception_tpu_torch.ops.kernels import (
+        bridge_attention as ba,
+        mixffn as mf,
+    )
+    names = ("dx", "dlts", "dltb", "dw1", "db1", "ddw", "ddwb", "dls", "dlb",
+             "dw2", "db2")
+    B = TRAIN_BATCH
+    gen = torch.Generator().manual_seed(21)
+    for dt in (torch.bfloat16, torch.float32):
+        fp32 = dt == torch.float32
+        es, tag = (4, " fp32") if fp32 else (2, "")
+        tol, btol = (FP32_TOL, FP32_TOL) if fp32 else (0.02, BWD_TOL)
+        peak = FP32_FLOPS if fp32 else BF16_FLOPS
+        for s, m in SP_SCALES:
+            C, hid, gsz = 64 * m, 256 * m, 64
+            kw = dict(s=s, groups=m)
+            x = rand(gen, (B, s * s, C), dtype=dt)
+            gy = rand(gen, (B, s * s, C), dtype=dt)
+            p = (rand(gen, (gsz,), 0.1, 1.0).repeat(m),
+                 rand(gen, (gsz,), 0.1).repeat(m),
+                 rand(gen, (hid, C), C ** -0.5), rand(gen, (hid,), 0.02),
+                 rand(gen, (hid, 1, 3, 3), 0.3), rand(gen, (hid,), 0.02),
+                 rand(gen, (hid,), 0.1, 1.0), rand(gen, (hid,), 0.1),
+                 rand(gen, (C, hid), hid ** -0.5), rand(gen, (C,), 0.02))
+
+            def fargs(xx):
+                return (xx, p[0][:gsz], p[1][:gsz]) + p[2:]
+
+            with torch.no_grad():
+                whole = mf.mixffn_ln_skip(*fargs(x), **kw)
+                whole_g = mf.mixffn_ln_skip_bwd(x, *p, gy, **kw)
+            for tp in TP_SIZES:
+                if s % tp:
+                    continue
+                summed = [torch.zeros_like(t, dtype=torch.float32)
+                          for t in whole_g]
+                halo_less = torch.zeros_like(summed[0])
+                for r, (r0, r1, a, b) in enumerate(_sp_blocks(s, tp)):
+                    inner = slice((r0 - a) * s, (r1 - a) * s)
+                    rows = slice(r0 * s, r1 * s)
+                    xe = x[:, a * s:b * s].contiguous()
+                    ge = torch.zeros_like(xe)
+                    ge[:, inner] = gy[:, rows]
+                    label = (f"({B},{(b - a) * s},{C}) hidden {hid} groups "
+                             f"{m}: map rows {a}-{b} of {s}² (tp {tp} rank "
+                             f"{r}'s rows {r0}-{r1} with halo rows){tag}")
+                    with torch.no_grad():
+                        fkey, got = launched_key(
+                            "mixffn", lambda: mf.mixffn_ln_skip(
+                                *fargs(xe), **kw))
+                        e1, ok1 = err_check(
+                            f"mixffn block {label} vs its plain version",
+                            got, mf.mixffn_ln_skip_plain(*fargs(xe), **kw),
+                            tol, base=xe)
+                        e2, ok2 = err_check(
+                            "    its rows vs the full-map K2's",
+                            got[:, inner], whole[:, rows], tol,
+                            base=x[:, rows])
+                        if not (ok1 and ok2):
+                            fail("the K2 row block disagrees")
+                        bad = mf.mixffn_ln_skip_plain(
+                            *fargs(x[:, rows].contiguous()), **kw)
+                        if err_check("    planted fault (halo rows dropped) "
+                                     "vs the full-map rows", bad,
+                                     whole[:, rows], tol,
+                                     base=x[:, rows])[1]:
+                            fail("mixffn block: the check does not see a "
+                                 "planted fault")
+                    bkey, gk = launched_key(
+                        "mixffn_bwd", lambda: mf.mixffn_ln_skip_bwd(
+                            xe, *p, ge, **kw))
+                    gp = mf.mixffn_ln_skip_bwd_plain(xe, *p, ge, **kw)
+                    torch.cuda.synchronize()
+                    berr, bok = grads_check(f"mixffn_bwd block {label}", gk,
+                                            gp, names, btol)
+                    log(f"  mixffn_bwd block {label}: max_abs_err "
+                        f"{berr:.6g} vs its plain version (each gradient "
+                        f"within {btol} x its max) {'ok' if bok else 'FAIL'}")
+                    if not bok:
+                        fail("the K11 row block disagrees")
+                    summed[0][:, a * s:b * s] += gk[0].float()
+                    halo_less[:, rows] += gk[0][:, inner].float()
+                    for i in range(1, len(gk)):
+                        summed[i] += gk[i].float()
+                    if r:
+                        continue
+                    n = B * (b - a) * s
+                    ms = cuda_ms(lambda: mf.mixffn_ln_skip(*fargs(xe), **kw))
+                    pms = cuda_ms(lambda: mf.mixffn_ln_skip_plain(
+                        *fargs(xe), **kw), iters=5)
+                    bms_ = cuda_ms(lambda: mf.mixffn_ln_skip_bwd(
+                        xe, *p, ge, **kw))
+                    bpms = cuda_ms(lambda: mf.mixffn_ln_skip_bwd_plain(
+                        xe, *p, ge, **kw), iters=3)
+                    fb = (2 * n * C * es + 2 * C * hid * es + 9 * hid * es,
+                          4 * n * C * hid + 18 * n * hid)
+                    bb = (3 * n * C * es + (2 * C * hid + 9 * hid) * es + (
+                        2 * C * hid + 13 * hid + 3 * C) * 4 + (
+                        5 * hid + 3 * C) * 4,
+                        10 * n * C * hid + 54 * n * hid)
+                    keep = _keep(tp, fp32)
+                    for what, key, e, k_ms, p_ms, (nb, fl) in (
+                            ("mixffn", fkey, max(e1, e2), ms, pms, fb),
+                            ("mixffn_bwd", bkey, berr, bms_, bpms, bb)):
+                        bound, by = bound_ms(nb, fl, peak)
+                        log(f"    {what} block {label}: ms {k_ms:.4f} "
+                            f"plain_ms {p_ms:.4f} bound_ms {bound:.4f} "
+                            f"({by}) per launch, library call none"
+                            + ("" if keep else " (logged, not a row)"))
+                        if keep:
+                            record(measured, key, label, e, k_ms, p_ms, None,
+                                   nb, fl, peak)
+                got_g = tuple(t.to(w.dtype) for t, w in zip(summed, whole_g))
+                err, ok = grads_check(f"mixffn_bwd blocks at tp {tp} summed",
+                                      got_g, whole_g, names, btol)
+                log(f"  mixffn_bwd ({B},{s * s},{C}) tp {tp}: the blocks' "
+                    f"gradients summed vs the full-map K11's: max_abs_err "
+                    f"{err:.6g} (each within {btol} x its max) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail("the K11 row blocks do not sum to the full map")
+                bad = (halo_less.to(whole_g[0].dtype),) + got_g[1:]
+                if grads_check("  planted fault (the halo rows' dx left out "
+                               "of the sum)", bad, whole_g, names, btol)[1]:
+                    fail("mixffn_bwd blocks: the check does not see a "
+                         "planted fault")
+                log("    planted fault (the halo rows' dx left out) rejected")
+            del x, gy, p, whole, whole_g
+
+        # (b) K3, K10 and K8 on the query rows of the fused stream; their
+        # library calls: SDPA, its backward, SDPA + two F.linear + add.
+        N, M, d = SP_STREAM, 784, 64
+        sc = d ** -0.5
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lin = torch.nn.functional.linear
+        q, k, v, g = (rand(gen, (B, 1, n, d), dtype=dt) for n in (N, M, M, N))
+        k3peak = TF32X3_FLOPS if fp32 else peak
+        with torch.no_grad():
+            whole = ba.bridge_attention(q, k, v, sc)
+        whole_g = ba.bridge_attention_bwd(q, k, v, g, sc)
+        args, _, _, nb8, fl8 = _k8_args(gen, k, v, dt)
+        with torch.no_grad():
+            whole8 = ba.bridge_attention_folded(*args)
+        for tp in TP_SIZES:
+            n = N // tp
+            dkv = [torch.zeros_like(t, dtype=torch.float32)
+                   for t in whole_g[1:]]
+            for r in range(tp):
+                rows = slice(r * n, (r + 1) * n)
+                qs, gs = q[:, :, rows].contiguous(), g[:, :, rows].contiguous()
+                label = (f"q ({B},1,{n},{d}) kv ({B},1,{M},{d}): tp {tp} "
+                         f"rank {r}'s query rows{tag}")
+                with torch.no_grad():
+                    key3, got = launched_key(
+                        "bridge_attention",
+                        lambda: ba.bridge_attention(qs, k, v, sc))
+                    e3, ok = err_check(f"bridge_attention {label} vs the "
+                                       f"full stream's rows", got,
+                                       whole[:, :, rows], tol)
+                    e3p, okp = err_check("    vs its plain version", got,
+                                         ba.bridge_attention_plain(qs, k, v,
+                                                                   sc), tol)
+                    if not (ok and okp):
+                        fail("bridge_attention on query rows disagrees")
+                key10, gk = launched_key(
+                    "bridge_attention_bwd",
+                    lambda: ba.bridge_attention_bwd(qs, k, v, gs, sc))
+                e10, ok = grads_check(
+                    f"bridge_attention_bwd {label}", gk,
+                    (whole_g[0][:, :, rows].contiguous(),) + tuple(
+                        ba.bridge_attention_bwd_plain(qs, k, v, gs, sc)[1:]),
+                    ("dq", "dk", "dv"), btol)
+                if not ok:
+                    fail("bridge_attention_bwd on query rows disagrees")
+                for acc, t in zip(dkv, gk[1:]):
+                    acc += t.float()
+                if r == 0:
+                    first_dk = gk[1]
+                xs, rs = (t[:, rows].contiguous() for t in args[:2])
+                sargs = (xs, rs) + args[2:]
+                with torch.no_grad():
+                    key8, got8 = launched_key(
+                        "bridge_attention_folded",
+                        lambda: ba.bridge_attention_folded(*sargs))
+                    e8, ok = err_check(
+                        f"bridge_attention_folded x/res ({B},{n},{d}): tp "
+                        f"{tp} rank {r}'s query rows{tag} vs the full "
+                        f"stream's rows", got8, whole8[:, rows], tol,
+                        base=rs)
+                    if not ok:
+                        fail("bridge_attention_folded on query rows "
+                             "disagrees")
+                if r:
+                    continue
+                keep = _keep(tp, fp32)
+                leaves = [x.clone().requires_grad_() for x in (qs, k, v)]
+                out = sdpa(*leaves, scale=sc)
+                w8 = [x.to(dt) for x in sargs[2:4] + sargs[6:8]]
+
+                def lib8():
+                    qq = lin(xs, w8[0], w8[1])[:, None]
+                    return lin(sdpa(qq, k, v, scale=sc)[:, 0], w8[2],
+                               w8[3]) + rs
+
+                for what, key, e, fn, pfn, lfn, nb, fl, pk in (
+                        ("bridge_attention", key3, max(e3, e3p),
+                         lambda: ba.bridge_attention(qs, k, v, sc),
+                         lambda: ba.bridge_attention_plain(qs, k, v, sc),
+                         lambda: sdpa(qs, k, v, scale=sc),
+                         2 * B * n * d * es + 2 * B * M * d * es,
+                         4 * B * n * M * d, k3peak),
+                        ("bridge_attention_bwd", key10, e10,
+                         lambda: ba.bridge_attention_bwd(qs, k, v, gs, sc),
+                         lambda: ba.bridge_attention_bwd_plain(qs, k, v, gs,
+                                                               sc),
+                         lambda: torch.autograd.grad(out, leaves, gs,
+                                                     retain_graph=True),
+                         (3 * n + 4 * M) * d * es * B, 10 * B * n * M * d,
+                         k3peak),
+                        ("bridge_attention_folded", key8, e8,
+                         lambda: ba.bridge_attention_folded(*sargs),
+                         lambda: ba.bridge_attention_folded_plain(*sargs),
+                         lib8, nb8 - 3 * B * (N - n) * d * es,
+                         fl8 * n // N, peak if not fp32 else TF32X3_FLOPS)):
+                    ms, pms = cuda_ms(fn), cuda_ms(pfn, iters=3)
+                    with torch.no_grad() if what != "bridge_attention_bwd" \
+                            else contextlib.nullcontext():
+                        lms = cuda_ms(lfn)
+                    bound, by = bound_ms(nb, fl, pk)
+                    # K8 runs in the sharded eval forward only (logged).
+                    row = keep and what != "bridge_attention_folded"
+                    log(f"    {what} {label}: ms {ms:.4f} plain_ms "
+                        f"{pms:.4f} library_ms {lms:.4f} bound_ms "
+                        f"{bound:.4f} ({by}) "
+                        f"per launch; {against(ms, bound, lms)}"
+                        + ("" if row else " (logged, not a row)"))
+                    if row:
+                        record(measured, key, label, e, ms, pms, lms, nb,
+                               fl, pk)
+                del leaves, out
+            got_kv = tuple(t.to(w.dtype) for t, w in zip(dkv, whole_g[1:]))
+            err, ok = grads_check(f"bridge_attention_bwd tp {tp} dk/dv "
+                                  f"summed", got_kv, whole_g[1:],
+                                  ("dk", "dv"), btol)
+            log(f"  bridge_attention_bwd tp {tp}: the shards' dk and dv "
+                f"summed vs the full stream's: max_abs_err {err:.6g} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail("the query shards' dk/dv do not sum to the full "
+                     "stream's")
+            if grads_check("  planted fault (rank 0's dk alone, not summed)",
+                           (first_dk, got_kv[1]), whole_g[1:], ("dk", "dv"),
+                           btol)[1]:
+                fail("bridge_attention_bwd shards: the check does not see "
+                     "a planted fault")
+            log("    planted fault (dk not summed) rejected")
+        del q, k, v, g, whole, whole_g, args, whole8
+
+
+def _sp_evals(img, mesh=None, out=None):
+    """SP_EVALS' forwards of the TP_DEPTH model (the Trainer's weights) on
+    `img`, on `mesh` (None: one process): the logits and the class maps
+    of rank 0's, the launches of the two forwards."""
+    from transception_tpu_torch.ops import kernels
+    res = {}
+    for label, _, _ in SP_EVALS:
+        tr = _tp_trainer(_mode(label)[0], (out or OUT_DIR / "sp") / label,
+                         mesh)
+        model = tr.model.eval()
+        kernels.reset_launches()
+        with torch.no_grad():
+            logits = model(img)
+            maps = model(img, argmax=True)
+        torch.cuda.synchronize()
+        res[label] = {"logits": logits.float().cpu(), "maps": maps.cpu(),
+                      "counts": kernels.launch_counts()}
+        del tr, model
+        torch.cuda.empty_cache()
+    return res
+
+
+def sp_phase():
+    """Phase 21 (c). A sequence-sharded tp=2 step on the card (the
+    bridge_seq_shard_axis "model" config at the published widths, one
+    block and one path a stage, b=24): two spawned ranks share card 0
+    over gloo, as phase 20's, in the default, flash and pallas modes at
+    bf16 and the flash mode at fp32, each against phase 20's one-process
+    step of the same mode (the sharding is the identity at tp 1) within
+    phase 9's limits, its launches exactly launches_per_step(cfg, tp=2);
+    the flash mode's checkpoint resumed in one process gives the ranks'
+    next step; with two cards or more NCCL tp 2, with four dp2 x tp2 and
+    tp 4. The sharded eval forward (the bridge's folds on: K8 and K2 on
+    the blocks) at tp 2, bf16 and fp32, against the one-process forward:
+    the share of equal class-map pixels at least SP_EVALS' limit, the
+    logits' difference and whether they are bit-equal logged, its
+    launches launches_per_forward(cfg, tp=2) a forward. Returns the step
+    runs' launches per shape key."""
+    import shutil
+
+    from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.data.device_synthetic import (
+        DeviceSyntheticStream,
+    )
+    from transception_tpu_torch.models.transception import (
+        launches_per_forward,
+    )
+    from transception_tpu_torch.parallel.mesh import spawn
+
+    cards = torch.cuda.device_count()
+    out = OUT_DIR / "sp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    batch = DeviceSyntheticStream(TRAIN_BATCH, 224, 9, device="cuda").batch(0)
+    img, lbl = batch["image"], batch["label"]
+    for label, over, _ in TP_MODES:
+        if label not in _ONE_STEP:
+            tr = _tp_trainer(over, out / "one")
+            _ONE_STEP[label] = _dp_step(tr, img, lbl)
+            del tr
+            torch.cuda.empty_cache()
+    one_eval = _sp_evals(img, out=out / "one_eval")
+    runs = []
+    labels = [m[0] for m in SP_MODES]
+    meshes = [("gloo", 1, TP_MAIN, labels, [e[0] for e in SP_EVALS])]
+    if cards >= 2:
+        meshes.append(("nccl", 1, 2, [SP_CKPT_MODE], []))
+    if cards >= 4:
+        meshes += [("nccl", 2, 2, [SP_CKPT_MODE], []),
+                   ("nccl", 1, TP_WIDE, [SP_CKPT_MODE], [])]
+    for backend, dp, tp, steps, evals in meshes:
+        t0 = time.perf_counter()
+        where = (f"{backend}, dp{dp} x tp{tp}"
+                 + (", every rank on card 0" if backend == "gloo" else
+                    ", a card a rank"))
+        wdir = out / f"{backend}_dp{dp}_tp{tp}"
+        wdir.mkdir()
+        spawn(_tp_rank, dp * tp, (str(wdir), backend, dp, tp, steps, evals))
+        res = torch.load(wdir / "rank0.pt", weights_only=False)
+        for label in steps:
+            r, lim = res[label], _mode(label)[1]
+            ref, one_ms = _ONE_STEP[label[len("SP "):]]
+            if r["counts"] != r["want"]:
+                fail(f"{label} ({where}): launched {r['counts']}, want "
+                     f"launches_per_step {r['want']}")
+            runs.append((f"per {label} train step ({where}, rank 0)",
+                         r["shapes"], 1))
+            blocks = sorted({k[1] for k in r["shapes"]
+                             if k[0] in ("mixffn", "bridge_attention")})
+            log(f"  {label} ({where}): launches = launches_per_step "
+                f"(bridge_attention {r['counts']['bridge_attention']}, "
+                f"mixffn {r['counts']['mixffn']}, mixffn_tp "
+                f"{r['counts']['mixffn_tp']}) at rank 0's shapes {blocks}; "
+                f"{r['ms']:.1f} ms a step (CUDA events over "
+                f"{TP_TIME_STEPS} steps"
+                + ("; gloo sums through the host: not SP's speed"
+                   if backend == "gloo" else "")
+                + f"), one process {one_ms:.1f} ms")
+            if not _compare_steps(f"{label} ({where}) vs one process",
+                                  r["step"], ref, lim=lim):
+                fail(f"the {label} step disagrees with the one-process "
+                     f"step")
+            if "ckpt" in r:
+                tr = _tp_trainer(_mode(label)[0], wdir / "resumed")
+                state, step = tr.init_state(2211 // TRAIN_BATCH)
+                tr.restore_checkpoint(state, r["ckpt"])
+                met = step(img, lbl)
+                torch.cuda.synchronize()
+                nxt = (float(met["loss"]),
+                       {n: p.grad.float().cpu()
+                        for n, p in tr.model.named_parameters()},
+                       {n: b.float().cpu()
+                        for n, b in tr.model.named_buffers()})
+                if not _compare_steps(f"{label} ({where}): its checkpoint "
+                                      f"resumed in one process, next step "
+                                      f"vs the ranks'", nxt, r["next"],
+                                      lim=lim):
+                    fail("the SP checkpoint does not resume to the ranks' "
+                         "next step")
+                del tr, state, step
+                torch.cuda.empty_cache()
+        for label in evals:
+            got, want = res["evals"][label], one_eval[label]
+            cfg = TransceptionConfig(**TP_DEPTH, **_mode(label)[0])
+            lpf = Counter(launches_per_forward(cfg, argmax=False, tp=tp))
+            lpf.update(launches_per_forward(cfg, argmax=True, tp=tp))
+            if got["counts"] != dict(lpf):
+                fail(f"{label} ({where}): launched {got['counts']}, want "
+                     f"launches_per_forward {dict(lpf)}")
+            agree = float((got["maps"] == want["maps"]).float().mean())
+            diff = float((got["logits"] - want["logits"]).abs().max())
+            same = torch.equal(got["logits"], want["logits"])
+            least = _mode(label)[1]
+            log(f"  {label} ({where}) vs one process: class maps {agree:.6f}"
+                f" equal (at least {least}), logits max |diff| {diff:.6g} "
+                f"(max |logit| {float(want['logits'].abs().max()):.4g}), "
+                f"bit-equal {same}; launches = launches_per_forward(cfg, "
+                f"tp={tp}) x (logits + argmax) "
+                f"{'ok' if agree >= least else 'FAIL'}")
+            if agree < least:
+                fail(f"the {label} forward disagrees with the one process")
+        log(f"  {where}: {time.perf_counter() - t0:.1f} s")
+    if cards < 2:
+        log("  NCCL SP runs were not possible here: one card "
             "(torch.cuda.device_count() == 1)")
     return runs
 
@@ -4850,15 +5368,26 @@ def main():
     tp_runs = tp_phase()
     log(f"  phase 20 (b, c): {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 21: the bridge's sequence sharding (K2's and K11's row "
+        f"blocks, K3/K10/K8 on query rows; a tp={TP_MAIN} SP step, batch "
+        f"{TRAIN_BATCH})")
+    t0 = time.perf_counter()
+    sp_kernel_phase(measured)
+    log(f"  phase 21 (a, b): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sp_runs = sp_phase()
+    log(f"  phase 21 (c): {time.perf_counter() - t0:.1f} s")
+
     # The main-path runs: phase 4's forwards, phase 9's flash and pallas
     # Trainer steps and fp32 steps, phase 10's forward per configuration,
     # phase 11's volume-eval forwards, phase 12's train CLI steps, evals
     # and throughput steps, phase 13's variant forwards, steps and CLI
     # runs, phase 14's data-parallel steps and sharded eval (world 1; the
     # ranks of a multi-card run are other processes), phase 15's legacy
-    # forwards, steps and CLI runs. Every launch's shape
-    # must have been measured
-    # in phase 3 or 8, and every measured shape launched.
+    # forwards, steps and CLI runs, phases 16 and 18's runs, and rank 0's
+    # steps of phases 20 and 21 (the tp and SP steps). Every launch's
+    # shape must have been measured in phase 3, 8, 20 (a) or 21 (a, b),
+    # and every measured shape launched.
     runs = [("per forward, default config", fwd_tallies, n_fwd),
             ("per forward, fp32 default config", fp32_tallies, 1)] + [
         (f"per {mode} train step", t, n)
@@ -4868,7 +5397,7 @@ def main():
         (f"per forward, {name}", t, 1) for name, t in grid_tallies.items()
     ] + [("per forward, volume eval", vol_tallies, n_vol)] + cli_runs \
         + variant_runs + dp_runs + legacy_runs + isic_runs + remat_runs \
-        + tp_runs
+        + tp_runs + sp_runs
     total = Counter()
     for _, t, _ in runs:
         total.update(t)

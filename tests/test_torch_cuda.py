@@ -717,3 +717,41 @@ def test_mixffn_skip_raises_without_its_library(gen, monkeypatch):
     with pytest.raises(RuntimeError, match="no library mixffn"):
         mf.mixffn_skip(*args, s=8)
     assert mf.skip_launches == n0
+
+
+# The row-block forms of K2, K9 and K11 (the bridge's sequence sharding):
+# maps of R rows and s columns, R != s, with a block's halo rows. Odd and
+# one-row interiors (a 1-row block with two halo rows: R = 3), blocks at
+# the map's edges (one halo row) and within it.
+@pytest.mark.parametrize("s,C,hid,groups,rows", [
+    (8, 64, 256, 1, (0, 1)), (8, 64, 256, 1, (3, 4)),
+    (14, 128, 512, 2, (7, 14)), (28, 320, 1280, 5, (9, 18)),
+    (56, 64, 256, 1, (0, 29))])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_mixffn_row_block_kernels(gen, s, C, hid, groups, rows, dtype):
+    x, p = _ffn_args(gen, 2, s, C, hid, groups)
+    x = x.to(dtype)
+    g = _r(gen, *x.shape, dtype=dtype)
+    r0, r1 = rows
+    a, b = mf.halo_rows(s, r0, r1)
+    xe = x[:, a * s:b * s].contiguous()
+    ge = torch.zeros_like(xe)
+    inner = slice((r0 - a) * s, (r1 - a) * s)
+    ge[:, inner] = g[:, r0 * s:r1 * s]
+    rel = 1e-4 if dtype == torch.float32 else 0.02
+    args = (xe, p[0][:C // groups], p[1][:C // groups]) + p[2:]
+    got = mf.mixffn_ln_skip(*args, s=s, groups=groups)
+    _close(got, mf.mixffn_ln_skip_plain(*args, s=s, groups=groups), rel,
+           base=xe)
+    full = mf.mixffn_ln_skip_plain(x, *args[1:], s=s, groups=groups)
+    _close(got[:, inner], full[:, r0 * s:r1 * s], rel,
+           base=x[:, r0 * s:r1 * s])
+    want = mf.mixffn_ln_skip_bwd_plain(xe, *p, ge, s=s, groups=groups)
+    for i, (u, w) in enumerate(zip(mf.mixffn_ln_skip_bwd(
+            xe, *p, ge, s=s, groups=groups), want)):
+        assert u.shape == w.shape and u.dtype == w.dtype, i
+        _close(u, w, rel)
+    skip = (xe,) + p[2:]
+    _close(mf.mixffn_skip(*skip, s=s), mf.mixffn_skip_plain(*skip, s=s),
+           rel)

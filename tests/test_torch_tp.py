@@ -25,6 +25,24 @@ another order. The replicated parameters of the ranks of one model group
 hold the same bits after two steps; the clip's norm is the whole model's.
 Checkpoints hold the full layout and cross tp both ways. Against JAX: the
 loss at 2e-5 relative (tests/test_sp_remat.py:66).
+
+The original bridge's sequence sharding (bridge_seq_shard_axis "model",
+the worker's "seq" cases) runs in the same launches: the step in the
+default and flash modes and two flash steps with the clip, each against
+the one process with the limits above; its partial gradients (q, proj
+and the split scales' FFNs) are those the bridge reports, its launches
+per step launches_per_step's, its bridge weights bit-equal across a model
+group after two steps; the eval forward of the sharded model (default
+folds, and K8 and K2's folds in the bridge) equals the one process's
+within 1e-5 of the logits' largest value (the same math with the sums in
+another order); three planted faults (a block's halo rows dropped, the
+partial gradients or the attention's dk/dv left unsummed) fail the
+comparison. The JAX sharded step above is JAX's SP step (the TP rules
+and the bridge's sequence sharding on cpu_mesh, dp4 x tp2, the tiny
+model at one path a stage, from the port's weights: one JAX compile
+serves both), and the port's sharded eval forward is held against JAX's
+SP forward: the logits at 1e-4 relative and 5e-5 absolute
+(tests/test_sp_remat.py:57-88).
 """
 
 import os
@@ -40,11 +58,14 @@ import torch_tp_worker as T
 from transception_tpu_torch.parallel.mesh import spawn
 
 MESHES = {"dp1xtp2": (1, 2), "dp2xtp2": (2, 2), "dp1xtp4": (1, 4)}
-COMPARED = ("default", "flash", "sp", "mix", "mlp")
+COMPARED = ("default", "flash", "sp", "mix", "mlp", "seq", "seq_flash",
+            "seq_clip2")
 LOSS_TOL, GRAD_TOL, GRAD_FLOOR, STAT_TOL = 1e-5, 1e-4, 1e-6, 1e-5
 PARAM_ABS, PARAM_REL = 1e-6, 1e-5
 STATS = ("running_mean", "running_var")
 JAX_RTOL = 2e-5
+JAX_FWD_RTOL, JAX_FWD_ATOL = 1e-4, 5e-5
+EVAL_TOL = 1e-5
 
 
 def _batch():
@@ -55,53 +76,72 @@ def _batch():
 
 @pytest.fixture(scope="module")
 def jax_step(cpu_mesh, tmp_path_factory):
-    """The JAX package's sharded train step (dp4 x tp2, shard_params) of
-    the tiny model at one path a stage and no bridge: its loss, and the
-    port's state of its initial weights with the batch, for the ranks."""
+    """The JAX package's sharded train step (dp4 x tp2, shard_params) and
+    eval forward of the tiny model at one path a stage with the original
+    bridge sequence-sharded (bridge_seq_shard_axis 'model', as
+    tests/test_sp_remat.py runs it), from the port's seeded weights
+    carried into the JAX variables by the JAX package's converter
+    (convert/torch2flax.py; no JAX init compiled): the loss and the
+    logits, and the port's state with each's batch, for the ranks."""
     import jax
+    import jax.numpy as jnp
 
     from conftest import tiny_config
+    from transception_tpu.convert.torch2flax import convert_state_dict
     from transception_tpu.core.config import TrainConfig as JTrainConfig
     from transception_tpu.models.transception import MSTransception as JM
     from transception_tpu.parallel.mesh import batch_sharding, shard_params
-    from transception_tpu.train.state import create_train_state
+    from transception_tpu.train.state import TrainState, make_optimizer
     from transception_tpu.train.trainer import make_train_step
-    from transception_tpu_torch.convert.from_jax import load_jax_variables
     from transception_tpu_torch.core.config import TransceptionConfig
     from transception_tpu_torch.models.transception import MSTransception
-    over = dict(num_path=(1, 1, 1), have_bridge="none")
-    jcfg = tiny_config(**over)
+    over = dict(num_path=(1, 1, 1), bridge_seq_shard_axis="model")
+    model = JM(tiny_config(**over))
+    cfg = TransceptionConfig(img_size=32, dtype="float32", stage1_layers=1,
+                             num_layers=(1, 1, 1), num_heads=(8, 8, 8),
+                             **over)
+    port = MSTransception(cfg, "cpu", seed=0)
     x, y = _batch()
-    model = JM(jcfg)
-    tcfg = JTrainConfig(batch_size=8, dp_size=4, tp_size=2, max_epochs=1)
+    xf = np.random.default_rng(3).random((8, 32, 32, 1), dtype=np.float32)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 32, 32, 1)))
+    v, _ = convert_state_dict(
+        {k: t.numpy() for k, t in port.state_dict().items()},
+        jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
+                               shapes))
+    tx, _ = make_optimizer(JTrainConfig(batch_size=8, dp_size=4, tp_size=2,
+                                        max_epochs=1), 4)
     with jax.set_mesh(cpu_mesh):
-        state = create_train_state(model, tcfg, steps_per_epoch=4,
-                                   sample_batch=x,
-                                   rng=jax.random.PRNGKey(0))
-        host = jax.device_get({"params": state.params,
-                               "batch_stats": state.batch_stats})
-        state = state.replace(params=shard_params(state.params, cpu_mesh))
+        params = shard_params(v["params"], cpu_mesh)
+        state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                           batch_stats=v["batch_stats"],
+                           opt_state=tx.init(params), tx=tx)
         ds = batch_sharding(cpu_mesh)
         step = jax.jit(make_train_step(model, 9, 0.4, 0.6, wide_head=True))
         _, met = step(state, jax.device_put(x, ds),
                       jax.device_put(y.astype(np.int32), ds),
                       jax.random.PRNGKey(1))
-    cfg = TransceptionConfig(img_size=32, dtype="float32", stage1_layers=1,
-                             num_layers=(1, 1, 1), num_heads=(8, 8, 8),
-                             **over)
-    port = load_jax_variables(MSTransception(cfg, "cpu"), host, "cpu")
-    path = tmp_path_factory.mktemp("tp_jax") / "blob.pt"
-    torch.save({"cfg": cfg, "sd": port.state_dict(), "x": x, "y": y}, path)
-    return float(met["loss"]), str(path)
+        logits = np.asarray(jax.jit(
+            lambda v, x: model.apply(v, x, train=False))(
+                {"params": params, "batch_stats": v["batch_stats"]},
+                jax.device_put(xf, ds)))
+    out = tmp_path_factory.mktemp("tp_jax")
+    for name, batch in (("step", (x, y)), ("forward", (xf, None))):
+        torch.save({"cfg": cfg, "sd": port.state_dict(), "x": batch[0],
+                    "y": batch[1]}, out / f"{name}.pt")
+    return (float(met["loss"]), str(out / "step.pt"), logits,
+            str(out / "forward.pt"))
 
 
 @pytest.fixture(scope="module")
 def one(tmp_path_factory):
-    """The one-process step of each case at the global batch, and the
-    one-process resume of the default case's checkpoint."""
+    """The one-process step of each case at the global batch, the
+    one-process sequence-sharded evals, and the one-process resume of the
+    default case's checkpoint."""
     torch.set_num_threads(2)
     out = tmp_path_factory.mktemp("tp_one")
     res = {n: T.run_case(n, str(out / n)) for n in T.CASES}
+    res["evals"] = {n: T.seq_eval(over) for n, over in T.SEQ_EVALS.items()}
     res["resumed"] = T.resume(res["default"]["ckpt"], str(out / "resume"))
     yield res
     shutil.rmtree(out, ignore_errors=True)
@@ -109,18 +149,21 @@ def one(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def ranks(one, jax_step, tmp_path_factory):
-    """Every rank's results of every case, per mesh (one launch each)."""
+    """Every rank's results of every case, per mesh (one launch a world:
+    dp2 x tp2 and dp1 x tp4 in turn on the same four ranks); at dp1 x
+    tp2 also the planted faults and the JAX comparisons."""
     os.environ.setdefault("OMP_NUM_THREADS", "1")
-    res = {}
+    blobs = {"step": jax_step[1], "forward": jax_step[3]}
+    out = {name: tmp_path_factory.mktemp(f"tp_{name}") for name in MESHES}
+    worlds = {}
     for name, (dp, tp) in MESHES.items():
-        out = tmp_path_factory.mktemp(f"tp_{name}")
-        spawn(T.rank_main, dp * tp, (str(out), dp, tp,
-                                     one["default"]["ckpt"],
-                                     jax_step[1] if (dp, tp) == (1, 2)
-                                     else ""))
-        res[name] = [torch.load(out / f"rank{r}.pt", weights_only=False)
-                     for r in range(dp * tp)]
-    yield res
+        worlds.setdefault(dp * tp, []).append(
+            (str(out[name]), dp, tp, blobs if (dp, tp) == (1, 2) else {}))
+    for world, meshes in worlds.items():
+        spawn(T.rank_main, world, (meshes, one["default"]["ckpt"]))
+    yield {name: [torch.load(out[name] / f"rank{r}.pt", weights_only=False)
+                  for r in range(dp * tp)]
+           for name, (dp, tp) in MESHES.items()}
 
 
 def mismatch(got, want):
@@ -260,10 +303,147 @@ def test_tp1_checkpoint_resumes_at_tp2(ranks, one, mesh):
 
 
 def test_port_tp2_equals_jax_sharded_step(ranks, jax_step):
+    """The port's dp1 x tp2 step (the TP rules and the bridge's sequence
+    sharding) against JAX's sharded SP step: the loss."""
     want = jax_step[0]
     assert np.isfinite(want)
     for r in ranks["dp1xtp2"]:
         np.testing.assert_allclose(r["jax_loss"], want, rtol=JAX_RTOL)
+
+
+def _model_group(rs, mesh):
+    """The ranks of each model group (equal data rank d) of a mesh."""
+    tp = MESHES[mesh][1]
+    return [rs[d * tp:(d + 1) * tp] for d in range(len(rs) // tp)]
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_seq_partial_grads_are_the_bridge_blocks(ranks, mesh):
+    """The parameters whose gradient the sequence sharding leaves partial,
+    summed after the backward: the three spatial layers' q and proj (N =
+    124 divides by 2 and 4) and the FFNs of the scales whose side divides
+    by tp (8, 4 and 2 at tp 2; 8 and 4 at tp 4), in every layer; none of
+    them sharded by the TP rules."""
+    from transception_tpu_torch.models.transception import MSTransception
+    tp = MESHES[mesh][1]
+    split = [i + 1 for i, s in enumerate((8, 4, 2, 1)) if s % tp == 0]
+    mods = [f"bridge.bridge_layer{k}.mixffn{i}" for k in range(1, 5)
+            for i in split] + [f"bridge.bridge_layer{k}.attn.{m}"
+                               for k in (2, 3, 4) for m in ("q", "proj")]
+    model = MSTransception(W.model_cfg(), "cpu")
+    want = sorted(f"{m}.{n}" for m in mods
+                  for n, _ in model.get_submodule(m).named_parameters())
+    for r in ranks[mesh]:
+        assert r["seq"]["partial"] == want, r["place"]
+        assert not set(want) & set(r["seq"]["sharded"])
+        assert r["default"]["partial"] == []
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_seq_routes_equal_launches_per_step(ranks, mesh):
+    """Every kernel decision of a rank's sequence-sharded flash step:
+    launches_per_step at the mesh's tp, which equals the unsharded
+    model's routes (each rank runs every bridge fold once, on its
+    block)."""
+    from transception_tpu_torch.models.transception import (
+        launches_per_step,
+    )
+    cfg = W.model_cfg(ffn_flash_train=True, bridge_seq_shard_axis="model")
+    tp = MESHES[mesh][1]
+    want = launches_per_step(cfg, tp=tp)
+    assert want == launches_per_step(W.model_cfg(ffn_flash_train=True),
+                                     tp=tp)
+    fwd = {k: n for k, n in want.items() if n and not k.endswith("_bwd")}
+    for r in ranks[mesh]:
+        assert r["seq_flash"]["routed"] == fwd, r["place"]
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_seq_bridge_weights_bit_equal_in_a_model_group(ranks, mesh):
+    """After two sequence-sharded flash steps with the clip, every rank of
+    a model group holds the same bits of every replicated parameter, the
+    bridge's (whose gradients were summed after the backward) among
+    them."""
+    for group in _model_group(ranks[mesh], mesh):
+        base = group[0]["seq_clip2"]["replicated"]
+        assert sum(n.startswith("bridge.") for n in base) > 100
+        for r in group[1:]:
+            for n, t in base.items():
+                assert torch.equal(r["seq_clip2"]["replicated"][n], t), \
+                    (r["place"], n)
+
+
+def test_seq_clip_gives_the_one_process_norm(ranks, one):
+    """The clip of the sequence-sharded steps counts each summed partial
+    gradient once: the gathered gradients' norm is the max norm."""
+    for r in (r for rs in ranks.values() for r in rs):
+        assert r["seq_clip2"]["grad_norm"] == pytest.approx(W.CLIP_NORM,
+                                                            rel=1e-4)
+
+
+@pytest.mark.parametrize("case", sorted(T.SEQ_EVALS))
+@pytest.mark.parametrize("mesh", MESHES)
+def test_seq_eval_forward_equals_one_process(ranks, one, mesh, case):
+    """The sequence-sharded model's eval logits on each rank's data rows
+    equal the one process's rows."""
+    dp = MESHES[mesh][0]
+    want = one["evals"][case]
+    n = len(want) // dp
+    for r in ranks[mesh]:
+        d = r["place"][0]
+        got = r["evals"][case]
+        assert got.shape == want[d * n:(d + 1) * n].shape
+        assert float((got - want[d * n:(d + 1) * n]).abs().max()) <= \
+            EVAL_TOL * float(want.abs().max()), r["place"]
+
+
+@pytest.mark.parametrize("fault", sorted(T.FAULTS))
+def test_seq_planted_faults_fail(ranks, one, fault):
+    """Each planted fault of the sequence sharding moves the step past the
+    limits on every rank of dp1 x tp2."""
+    for r in ranks["dp1xtp2"]:
+        assert mismatch(r["faults"][fault], one["seq"]), (fault, r["place"])
+
+
+def test_port_seq_forward_equals_jax_sp_forward(ranks, jax_step):
+    """The port's sequence-sharded eval forward at dp1 x tp2 against JAX's
+    SP forward on cpu_mesh: the logits."""
+    want = jax_step[2]
+    assert np.isfinite(want).all()
+    for r in ranks["dp1xtp2"]:
+        np.testing.assert_allclose(r["jax_logits"].numpy(), want,
+                                   rtol=JAX_FWD_RTOL, atol=JAX_FWD_ATOL)
+
+
+@pytest.mark.parametrize("value", ["data", "Model", "model ", "x"])
+def test_seq_shard_axis_refused_before_any_work(value):
+    """Any bridge_seq_shard_axis but "" and "model" is refused by name
+    when the model is built."""
+    from transception_tpu_torch.models.transception import MSTransception
+    with pytest.raises(ValueError, match="bridge_seq_shard_axis must be"):
+        MSTransception(W.model_cfg(bridge_seq_shard_axis=value), "cpu")
+
+
+def test_check_tp_refuses_a_seq_block_the_kernels_do_not_take():
+    """On the card with the bridge FFN folds, a split scale's row block
+    goes to K2 and K11: the quarter-width bridge's 16-channel groups are
+    refused by name before any work; the published widths pass at tp 2
+    and 4, and the CPU's plain versions take any."""
+    from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        check_tp,
+    )
+    m = MSTransception(W.model_cfg(ffn_flash_train=True,
+                                   bridge_seq_shard_axis="model"), "cpu")
+    with pytest.raises(ValueError, match="bridge's scale-1 FFN block of 5 "
+                                         "rows of 8"):
+        check_tp(m, 2, "cuda")
+    check_tp(m, 2, "cpu")
+    big = MSTransception(TransceptionConfig(
+        ffn_flash_train=True, bridge_seq_shard_axis="model"), "cpu")
+    for tp in (2, 4):
+        check_tp(big, tp, "cuda")
 
 
 @pytest.fixture

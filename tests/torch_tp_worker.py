@@ -9,11 +9,15 @@ model at quarter widths from the seeded weights on its seeded global batch
 of 4: the rank feeds its data rank's rows. Its result: the mean loss, the
 gathered gradients (the full layout, on every rank), the gathered state
 (parameters and BatchNorm statistics) and momentum after the step, and the
-rank's replicated parameters.
+rank's replicated parameters. The "seq" cases run the original bridge's
+sequence sharding (bridge_seq_shard_axis "model"); FAULTS plant a fault
+in it each (run on the dp1 x tp2 mesh only), which the comparison must
+see. SEQ_EVALS are eval forwards of the sequence-sharded model.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict
 
@@ -37,7 +41,68 @@ CASES = {
     # column-parallel, fc2 row-parallel (ops/common.py Linear).
     "mix": (dict(token_mlp="mix"), {}, (), 1),
     "mlp": (dict(token_mlp="mlp"), {}, (), 1),
+    # The original bridge's sequence sharding: its query rows and its
+    # divisible scales' FFN map rows (8², 4², 2² at tp 2; 8², 4² at tp 4)
+    # split over the model axis, in the default mode (the plain FFN on
+    # row blocks, K3's and K10's plain versions on query rows) and the
+    # flash mode (the FFN folds on row blocks: K2's and K11's plain
+    # versions); two flash steps with the clip.
+    "seq": (dict(bridge_seq_shard_axis="model"), {}, (), 1),
+    "seq_flash": (dict(bridge_seq_shard_axis="model", ffn_flash_train=True),
+                  {}, (), 1),
+    "seq_clip2": (dict(bridge_seq_shard_axis="model", ffn_flash_train=True),
+                  dict(grad_clipping=True), ("clip",), 2),
 }
+# Planted faults of the sequence sharding, each on the "seq" case: a
+# block's halo rows dropped, the partial gradients left unsummed, the
+# attention's dk/dv left unsummed.
+FAULTS = {"seq_no_halo": "halo", "seq_no_grad_sum": "grad_sum",
+          "seq_no_dkdv_sum": "dkdv"}
+# Eval forwards of the sequence-sharded model: the default folds (K3 on
+# the query rows, the plain FFN on map rows) and the bridge's folds on
+# (K8 on the query rows, K2 on map rows).
+SEQ_EVALS = {"seq": {}, "seq_folds": dict(bridge_attn_fold=True,
+                                          bridge_ffn_use_pallas=True)}
+
+
+@contextlib.contextmanager
+def seq_fault(fault):
+    """The planted fault `fault` of FAULTS in the sequence sharding."""
+    from transception_tpu_torch.models import bridge
+    from transception_tpu_torch.ops.kernels import mixffn
+    from transception_tpu_torch.parallel.tensor import ModelAxis
+    saved = (mixffn.halo_rows, ModelAxis.sum_grads_,
+             bridge.MEfficientSelfAtten.forward)
+    if fault == "halo":
+        mixffn.halo_rows = lambda s, r0, r1: (r0, r1)
+    if fault == "grad_sum":
+        ModelAxis.sum_grads_ = lambda self, tensors: None
+    if fault == "dkdv":
+        attend = bridge.MEfficientSelfAtten.forward
+
+        def forward(self, x, residual=None, axis=None):
+            # The forward's first copy is K and V's: made the identity
+            # both ways, each rank keeps its partial dk/dv.
+            copy, first = ModelAxis.copy, []
+
+            def once(ax, t):
+                if not first:
+                    first.append(t)
+                    return t.view_as(t)
+                return copy(ax, t)
+
+            ModelAxis.copy = once
+            try:
+                return attend(self, x, residual, axis)
+            finally:
+                ModelAxis.copy = copy
+
+        bridge.MEfficientSelfAtten.forward = forward
+    try:
+        yield
+    finally:
+        (mixffn.halo_rows, ModelAxis.sum_grads_,
+         bridge.MEfficientSelfAtten.forward) = saved
 
 
 def trainer(name: str, out_dir: str, mesh=None, tp: int = 1, model=None,
@@ -62,15 +127,16 @@ def _full(tr, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         tensors, tr.layout, tr.mesh.axis).items()}
 
 
-def run_case(name: str, out_dir: str, mesh=None) -> Dict:
+def run_case(name: str, out_dir: str, mesh=None, fault: str = "") -> Dict:
     """One case on this process: its data rank's rows of each global batch
-    when `mesh` is given, the whole of it otherwise."""
+    when `mesh` is given, the whole of it otherwise; with the planted
+    fault `fault` (FAULTS)."""
     tp = mesh.tp if mesh is not None else 1
     tr = trainer(name, out_dir, mesh, tp)
     state, step = tr.init_state(steps_per_epoch=10)
     rows = mesh.rows(GLOBAL_BATCH) if mesh is not None else slice(None)
     kernels.reset_launches()
-    with W.patched(CASES[name][2]):
+    with W.patched(CASES[name][2]), seq_fault(fault):
         for img, lbl in W.batches(CASES[name][3]):
             met = step(torch.from_numpy(img[rows]),
                        torch.from_numpy(lbl[rows]).long())
@@ -88,6 +154,7 @@ def run_case(name: str, out_dir: str, mesh=None) -> Dict:
            "replicated": {n: p.detach().clone() for n, p in params.items()
                           if n not in tr.layout},
            "sharded": sorted(tr.layout),
+           "partial": sorted(tr.partial),
            "routed": kernels.routed_counts()}
     if name == "default":
         out["ckpt"] = tr.save_checkpoint(state)
@@ -109,6 +176,35 @@ def resume(path: str, out_dir: str, mesh=None) -> Dict:
     return {"sd": sd, "next_loss": float(met["loss"])}
 
 
+def seq_eval(over: Dict, mesh=None) -> torch.Tensor:
+    """The eval logits of the seeded model with the sequence sharding
+    (and `over`) on this rank's data rows of the global batch, its model
+    sharded over the mesh's model axis (shard_model)."""
+    from transception_tpu_torch.models.transception import MSTransception
+    from transception_tpu_torch.parallel.mesh import shard_model
+    model = MSTransception(W.model_cfg(bridge_seq_shard_axis="model",
+                                       **over), "cpu", seed=5)
+    if mesh is not None and mesh.tp > 1:
+        shard_model(model, mesh.axis)
+    rows = mesh.rows(GLOBAL_BATCH) if mesh is not None else slice(None)
+    with torch.no_grad():
+        return model(torch.from_numpy(W.batches(1)[0][0][rows]))
+
+
+def jax_forward(path: str, mesh) -> torch.Tensor:
+    """The eval logits of the model, weights and batch saved at `path`
+    (the JAX comparison's: cfg, sd, x) on this rank's data rows, sharded
+    over the mesh's model axis."""
+    from transception_tpu_torch.models.transception import MSTransception
+    from transception_tpu_torch.parallel.mesh import shard_model
+    blob = torch.load(path, weights_only=False)
+    model = MSTransception(blob["cfg"], "cpu")
+    model.load_state_dict(blob["sd"])
+    shard_model(model, mesh.axis)
+    with torch.no_grad():
+        return model(torch.from_numpy(blob["x"][mesh.rows(len(blob["x"]))]))
+
+
 def jax_case(path: str, out_dir: str, mesh) -> float:
     """The loss of one step of the model, weights and batch saved at
     `path` (the JAX comparison's: cfg, sd, x, y)."""
@@ -125,24 +221,38 @@ def jax_case(path: str, out_dir: str, mesh) -> float:
     return float(met["loss"])
 
 
-def rank_main(out_dir: str, dp: int, tp: int, resume_from: str,
-              jax_blob: str) -> None:
-    """Every case on this rank of a dp x tp launch, the resume of the
-    one-process checkpoint `resume_from`, and (at dp 1) the JAX
-    comparison's step; results to out_dir/rank{r}.pt."""
+def rank_main(meshes, resume_from: str) -> None:
+    """On this rank, for each mesh of `meshes` in turn ((out_dir, dp, tp,
+    jax_blobs), dp·tp the launch's world each: one launch runs the meshes
+    of one world on one process group, each mesh its own data and model
+    groups): every case and sequence-sharded eval, the resume of the
+    one-process checkpoint `resume_from`, and, where jax_blobs are given
+    (at dp 1), the planted faults and the JAX comparisons' step and
+    forward (jax_blobs: "step", "forward"); results to
+    out_dir/rank{r}.pt."""
     from transception_tpu_torch.parallel.mesh import make_mesh
     torch.set_num_threads(1)
-    mesh = make_mesh(dp, tp, device="cpu")
-    r = mesh.rank * mesh.tp + mesh.t
+    made = []
     try:
-        res: Dict = {name: run_case(name, os.path.join(out_dir, name), mesh)
-                     for name in CASES}
-        res["resumed"] = resume(resume_from,
-                                os.path.join(out_dir, "resume"), mesh)
-        if jax_blob:
-            res["jax_loss"] = jax_case(jax_blob,
-                                       os.path.join(out_dir, "jax"), mesh)
-        res["place"] = (mesh.rank, mesh.t)
-        torch.save(res, os.path.join(out_dir, f"rank{r}.pt"))
+        for out_dir, dp, tp, jax_blobs in meshes:
+            mesh = make_mesh(dp, tp, device="cpu")
+            made.append(mesh)
+            res: Dict = {name: run_case(name, os.path.join(out_dir, name),
+                                        mesh) for name in CASES}
+            res["evals"] = {name: seq_eval(over, mesh)
+                            for name, over in SEQ_EVALS.items()}
+            res["resumed"] = resume(resume_from,
+                                    os.path.join(out_dir, "resume"), mesh)
+            if jax_blobs:
+                res["faults"] = {
+                    name: run_case("seq", os.path.join(out_dir, name), mesh,
+                                   fault) for name, fault in FAULTS.items()}
+                res["jax_loss"] = jax_case(jax_blobs["step"],
+                                           os.path.join(out_dir, "jax"), mesh)
+                res["jax_logits"] = jax_forward(jax_blobs["forward"], mesh)
+            res["place"] = (mesh.rank, mesh.t)
+            r = mesh.rank * mesh.tp + mesh.t
+            torch.save(res, os.path.join(out_dir, f"rank{r}.pt"))
     finally:
-        mesh.close()
+        for mesh in reversed(made):  # the first owns the process group
+            mesh.close()

@@ -8,11 +8,14 @@ bridge_ffn_use_pallas, etb_attn_fold, etb_ffn_fold, mhca_ffn_fold,
 mhca_block_fold), each picking for one family of blocks between one
 folded kernel and the chain of separate modules; `fold_switches` resolves
 them for eval or training; `remat` recomputes the MHCA stages in the
-backward as the JAX field does. The TPU-only knobs (vectorize_paths,
-bridge sequence sharding, bridge_use_pallas, lane packing and the kernel
-fallback ladder) are not carried over; `use_kernels` selects the
-hand-written CUDA kernels on the card (and what a fold switch of None follows, as JAX's
-follow use_pallas). TrainConfig mirrors the JAX TrainConfig field for
+backward as the JAX field does; `bridge_seq_shard_axis` ("model")
+shards the original bridge's query rows and per-scale FFN map rows over
+the model axis of a tensor-parallel run (models.bridge.BridgeBlock4
+seq_shard_), as the JAX field does. The TPU-only knobs (vectorize_paths,
+bridge_use_pallas, lane packing and the kernel fallback ladder) are not
+carried over; `use_kernels` selects the hand-written CUDA kernels on the
+card (and what a fold switch of None follows, as JAX's follow
+use_pallas). TrainConfig mirrors the JAX TrainConfig field for
 field; DataConfig the fields the train loop reads.
 """
 
@@ -62,6 +65,7 @@ def use_sa_config_to_list(use_sa_config: int, concat: str, stage_3or4: int
 TOKEN_MLPS = ("mix", "mix_skip", "mlp")
 CONCATS = ("normal", "3d", "se", "skn", "cbam", "coord", "cam", "cam_fact")
 BRIDGES = ("original", "sp", "para", "none", "None")
+SEQ_SHARD_AXES = ("", "model")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +99,14 @@ class TransceptionConfig:
     bridge_dim: int = 64
     bridge_heads: int = 1
     reduction_ratios: Tuple[int, int, int, int] = (1, 2, 4, 8)
+    # Sequence parallelism of the original bridge (JAX core/config.py:
+    # 97-99): "model" splits each bridge layer's attention query rows and
+    # its per-scale FFN inputs (whole map rows, with their halo rows) over
+    # the model axis of a run with tp_size > 1; "" (or tp 1) leaves the
+    # bridge whole. The stream stays replicated at every layer's edges,
+    # and no weight changes layout. No CLI flag sets it (neither JAX CLI
+    # builds it): a Trainer's config does.
+    bridge_seq_shard_axis: str = ""
     # Compute dtype of matmuls/convs; params and norm/softmax statistics
     # stay fp32.
     dtype: str = "bfloat16"
@@ -189,6 +201,11 @@ class TransceptionConfig:
             raise ValueError(f"concat must be one of {CONCATS}")
         if self.have_bridge not in BRIDGES:
             raise ValueError(f"have_bridge must be one of {BRIDGES}")
+        if self.bridge_seq_shard_axis not in SEQ_SHARD_AXES:
+            raise ValueError(
+                f"bridge_seq_shard_axis must be one of {SEQ_SHARD_AXES} "
+                f"(the model axis, or none), got "
+                f"{self.bridge_seq_shard_axis!r}")
         if not len(self.num_path) == len(self.num_layers) == len(
                 self.num_heads) == 3:
             raise ValueError("num_path/num_layers/num_heads need 3 entries")

@@ -394,7 +394,8 @@ int block(const E* x, const float* cpe_w, const float* cpe_b,
 
   return ffn::forward<KID, false, E>(x2, ffn::Norm{l2s, l2b, C, eps2}, w1, b1,
                                      dw, dwb, ls, lb, w2, b2, x2, h, a, out,
-                                     plan + FFN_PLAN, B, s, C, hid, eps, st);
+                                     plan + FFN_PLAN, B, s, s, C, hid, eps,
+                                     st);
 #undef STEP
 }
 

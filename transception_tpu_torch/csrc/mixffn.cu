@@ -19,19 +19,21 @@
 // notes are in mixffn_stages.cuh and ops/kernels/mixffn.py.
 #include "mixffn_stages.cuh"
 
-// x, out: (B, s², C) E; w1 (hid, C), dw (hid, 9), w2 (C, hid) E; lts/ltb
-// the (C,)-tiled group-LN scale and bias, the other vectors fp32; h, a:
-// (B·s², hid) E workspace; plan: ffn::FWD_PLAN_LEN ints. E: bf16, or fp32
-// for the entries named _f32.
+// x, out: (B, R·s, C) E, B maps of R rows and s columns (R = s: a whole
+// square map; R != s: a block of a map's rows with its halo rows, whose
+// interior rows the caller keeps); w1 (hid, C), dw (hid, 9), w2 (C, hid)
+// E; lts/ltb the (C,)-tiled group-LN scale and bias, the other vectors
+// fp32; h, a: (B·R·s, hid) E workspace; plan: ffn::FWD_PLAN_LEN ints. E:
+// bf16, or fp32 for the entries named _f32.
 template <typename E>
 int ln_skip(const E* x, const float* lts, const float* ltb, const E* w1,
             const float* b1, const E* dw, const float* dwb, const float* ls,
             const float* lb, const E* w2, const float* b2, E* out, E* h, E* a,
-            const int* plan, int B, int s, int C, int hid, int groups,
-            float eps_ln, float eps, void* stream) {
+            const int* plan, int B, int R, int s, int C, int hid,
+            int groups, float eps_ln, float eps, void* stream) {
   return ffn::forward<2, false, E>(x, ffn::Norm{lts, ltb, C / groups, eps_ln},
                                    w1, b1, dw, dwb, ls, lb, w2, b2, x, h, a,
-                                   out, plan, B, s, C, hid, eps,
+                                   out, plan, B, R, s, C, hid, eps,
                                    static_cast<cudaStream_t>(stream));
 }
 
@@ -40,27 +42,30 @@ int ln_skip(const E* x, const float* lts, const float* ltb, const E* w1,
                       const E* w1, const float* b1, const E* dw,            \
                       const float* dwb, const float* ls, const float* lb,   \
                       const E* w2, const float* b2, E* out, E* h, E* a,     \
-                      const int* plan, int B, int s, int C, int hid,        \
-                      int groups, float eps_ln, float eps, void* stream) {  \
+                      const int* plan, int B, int R, int s, int C,          \
+                      int hid, int groups, float eps_ln, float eps,         \
+                      void* stream) {                                       \
     return ln_skip<E>(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, out, h, \
-                      a, plan, B, s, C, hid, groups, eps_ln, eps, stream);  \
+                      a, plan, B, R, s, C, hid, groups, eps_ln, eps,        \
+                      stream);                                              \
   }
 LN_SKIP(mixffn_ln_skip, bf16)
 LN_SKIP(mixffn_ln_skip_f32, float)
 #undef LN_SKIP
 
-// K9: x, out (B, s², C) E; w1, dw, w2 E; the vectors fp32; h, a the
-// (B·s², hid) E workspace. E: bf16, or fp32 for mixffn_skip_f32 (the fp32
-// train step's), the BARE chain at E = float.
+// K9: x, out (B, R·s, C) E (maps of R rows, s columns, as K2's); w1, dw,
+// w2 E; the vectors fp32; h, a the (B·R·s, hid) E workspace. E: bf16, or
+// fp32 for mixffn_skip_f32 (the fp32 train step's), the BARE chain at
+// E = float.
 #define SKIP(NAME, E)                                                        \
   extern "C" int NAME(const E* x, const E* w1, const float* b1, const E* dw, \
                       const float* dwb, const float* ls, const float* lb,    \
                       const E* w2, const float* b2, E* out, E* h, E* a,      \
-                      const int* plan, int B, int s, int C, int hid,         \
-                      float eps, void* stream) {                             \
+                      const int* plan, int B, int R, int s, int C,           \
+                      int hid, float eps, void* stream) {                    \
     return ffn::forward<9, true, E>(x, ffn::Norm{}, w1, b1, dw, dwb, ls, lb, \
-                                    w2, b2, nullptr, h, a, out, plan, B, s,  \
-                                    C, hid, eps,                             \
+                                    w2, b2, nullptr, h, a, out, plan, B, R,  \
+                                    s, C, hid, eps,                          \
                                     static_cast<cudaStream_t>(stream));      \
   }
 SKIP(mixffn_skip, bf16)

@@ -151,16 +151,17 @@ __host__ __device__ inline size_t rows_smem(int H) {
 }
 
 // A warp's 3 x 3 window of one channel around map row i, column j: rows
-// i-1, i, i+1 by columns j-1, j, j+1, zero off the map. The column walks
-// below move it down one row a step, loading the new row's three values.
+// i-1, i, i+1 by columns j-1, j, j+1, zero off the R x s map. The column
+// walks below move it down one row a step, loading the new row's three
+// values.
 template <typename E>
 struct Window {
   const E* p;  // channel c of batch row b: element (i, j) at p[(i·s + j)·H]
-  int s, j;
+  int R, s, j;
   size_t H;
   float v[3][3];
   __device__ float at(int i, int jj) const {
-    if (i < 0 || i >= s || jj < 0 || jj >= s) return 0.0f;
+    if (i < 0 || i >= R || jj < 0 || jj >= s) return 0.0f;
     return to_f(p[(size_t)(i * s + jj) * H]);
   }
   static __device__ float to_f(float x) { return x; }
@@ -184,24 +185,25 @@ struct Window {
 };
 
 // Stage 3a: d = E(conv3x3(h) + dwb) (the forward's tap order), written
-// into a's buffer. One block per (NW map columns, batch row, CH channels):
-// warp w walks column blockIdx.x·NW + w down the map, lane l takes channel
-// blockIdx.z·CH + l, coalesced across the lanes.
+// into a's buffer. One block per (NW map columns, batch row, CH channels)
+// of B maps of R rows and s columns: warp w walks column blockIdx.x·NW + w
+// down the map, lane l takes channel blockIdx.z·CH + l, coalesced across
+// the lanes.
 template <typename E>
 __global__ void __launch_bounds__(THREADS)
 mixffn_bwd_conv_kernel(const E* h, const E* dw, const float* dwb, E* d,
-                       int s, int H) {
+                       int R, int s, int H) {
   const int j = blockIdx.x * NW + (threadIdx.x >> 5);
   const int c = blockIdx.z * CH + (threadIdx.x & 31);
   if (j >= s || c >= H) return;
-  const size_t base = (size_t)blockIdx.y * s * s * H + c;
+  const size_t base = (size_t)blockIdx.y * R * s * H + c;
   float wk[9];
 #pragma unroll
   for (int q = 0; q < 9; ++q) wk[q] = tof(dw[(size_t)c * 9 + q]);
   const float bd = dwb[c];
-  Window<E> wh{h + base, s, j, (size_t)H};
+  Window<E> wh{h + base, R, s, j, (size_t)H};
   wh.start();
-  for (int i = 0; i < s; ++i) {
+  for (int i = 0; i < R; ++i) {
     float acc = 0.0f;
 #pragma unroll
     for (int dj = 0; dj < 3; ++dj)
@@ -313,7 +315,7 @@ mixffn_bwd_rows_kernel(const E* h, float* da, E* a, const float* ls,
 template <typename E>
 __global__ void __launch_bounds__(THREADS)
 mixffn_bwd_dwt_kernel(const float* dy, const E* h, const E* dw, E* dh,
-                      float* part, int s, int H) {
+                      float* part, int R, int s, int H) {
   __shared__ float red[10][NW][CH];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int j = blockIdx.x * NW + w, c = blockIdx.z * CH + lane;
@@ -321,15 +323,15 @@ mixffn_bwd_dwt_kernel(const float* dy, const E* h, const E* dw, E* dh,
 #pragma unroll
   for (int q = 0; q < 10; ++q) acc[q] = 0.0f;
   if (j < s && c < H) {
-    const size_t base = (size_t)blockIdx.y * s * s * H + c;
+    const size_t base = (size_t)blockIdx.y * R * s * H + c;
     float wk[9];
 #pragma unroll
     for (int q = 0; q < 9; ++q) wk[q] = tof(dw[(size_t)c * 9 + q]);
-    Window<float> wd{dy + base, s, j, (size_t)H};
-    Window<E> wh{h + base, s, j, (size_t)H};
+    Window<float> wd{dy + base, R, s, j, (size_t)H};
+    Window<E> wh{h + base, R, s, j, (size_t)H};
     wd.start();
     wh.start();
-    for (int i = 0; i < s; ++i) {
+    for (int i = 0; i < R; ++i) {
       const float dyc = wd.v[1][1];
       float d = dyc;
 #pragma unroll
@@ -563,10 +565,12 @@ enum Plan {
 
 }  // namespace
 
-// x, g, dx: (B, s², C) E; w1 (hid, C), dw (hid, 9), w2 (C, hid) E;
+// x, g, dx: (B, R·s, C) E, B maps of R rows and s columns (R = s: a whole
+// square map; R != s: a block of a map's rows with its halo rows, g zero
+// on the halo rows); w1 (hid, C), dw (hid, 9), w2 (C, hid) E;
 // lts/ltb (C,) the tiled group-LN scale/bias, the rest fp32 vectors.
 // grads: fp32 dw1 (hid, C), dw2 (C, hid), db1, ddw (hid, 9), ddwb, dls,
-// dlb, db2, dlts, dltb. Workspace (T = B·s² tokens): xn (T, C) E, h
+// dlb, db2, dlts, dltb. Workspace (T = B·R·s tokens): xn (T, C) E, h
 // (T, hid) E, da (T, hid) fp32 (dy after stage 3), a and dh (T, hid)
 // E (a holds the conv output d until stage 3b), dxn (T, C) fp32;
 // partials pw (splits, 2·hid·C), pr (blocks, 3·hid), pd (B·ceil(s/NW),
@@ -578,10 +582,10 @@ int ln_skip_bwd(const E* x, const E* g, const float* lts, const float* ltb,
                 const float* ls, const float* lb, const E* w2, E* dx,
                 float* grads, E* xn, E* h, float* da, E* a, E* dh, float* dxn,
                 float* pw, float* pr, float* pd, float* pl, const int* plan,
-                int B, int s, int C, int hid, int groups, float eps_ln,
+                int B, int R, int s, int C, int hid, int groups, float eps_ln,
                 float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int T = B * s * s, H = hid, gsz = C / groups;
+  const int T = B * R * s, H = hid, gsz = C / groups;
   const int P = plan[BLOCKS], tpb = plan[TILES_PER_BLOCK];
   const int S = plan[SPLITS], kper = plan[KPER];
   const size_t HC = (size_t)H * C;
@@ -597,14 +601,16 @@ int ln_skip_bwd(const E* x, const E* g, const float* lts, const float* ltb,
                                  H, nullptr, T, H, C, (C + BK - 1) / BK * BK,
                                  0, st)));
   const dim3 walk((s + NW - 1) / NW, B, (H + CH - 1) / CH);
-  mixffn_bwd_conv_kernel<E><<<walk, THREADS, 0, st>>>(h, dw, dwb, a, s, H);
+  mixffn_bwd_conv_kernel<E><<<walk, THREADS, 0, st>>>(h, dw, dwb, a, R, s,
+                                                      H);
   STEP(cudaGetLastError());
   const size_t rs = rows_smem(H);
   STEP(set_smem((const void*)mixffn_bwd_rows_kernel<E>, rs));
   mixffn_bwd_rows_kernel<E><<<P, THREADS, rs, st>>>(h, da, a, ls, lb, pr, T,
                                                     H, tpb, eps);
   STEP(cudaGetLastError());
-  mixffn_bwd_dwt_kernel<E><<<walk, THREADS, 0, st>>>(da, h, dw, dh, pd, s, H);
+  mixffn_bwd_dwt_kernel<E><<<walk, THREADS, 0, st>>>(da, h, dw, dh, pd, R, s,
+                                                     H);
   STEP(cudaGetLastError());
   STEP((gemm<true, false, EPI_F32>(plan[DXN_BM], plan[DXN_BN], dh, H, w1, C,
                                  dxn, C, nullptr, T, C, H,
@@ -640,11 +646,11 @@ int ln_skip_bwd(const E* x, const E* g, const float* lts, const float* ltb,
                       const float* lb, const E* w2, E* dx, float* grads,      \
                       E* xn, E* h, float* da, E* a, E* dh, float* dxn,        \
                       float* pw, float* pr, float* pd, float* pl,             \
-                      const int* plan, int B, int s, int C, int hid,          \
+                      const int* plan, int B, int R, int s, int C, int hid,   \
                       int groups, float eps_ln, float eps, void* stream) {    \
     return ln_skip_bwd<E>(x, g, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, dx,    \
                           grads, xn, h, da, a, dh, dxn, pw, pr, pd, pl, plan, \
-                          B, s, C, hid, groups, eps_ln, eps, stream);         \
+                          B, R, s, C, hid, groups, eps_ln, eps, stream);      \
   }
 LN_SKIP_BWD(mixffn_ln_skip_bwd, bf16)
 LN_SKIP_BWD(mixffn_ln_skip_bwd_f32, float)
@@ -690,7 +696,8 @@ int tp_bwd_rows(const E* x, const E* g, const float* lts, const float* ltb,
                                    H, nullptr, T, H, C,
                                    (C + BK - 1) / BK * BK, 0, cs)));
   const dim3 walk((s + NW - 1) / NW, B, (H + CH - 1) / CH);
-  mixffn_bwd_conv_kernel<E><<<walk, THREADS, 0, cs>>>(h, dw, dwb, d, s, H);
+  mixffn_bwd_conv_kernel<E><<<walk, THREADS, 0, cs>>>(h, dw, dwb, d, s, s,
+                                                      H);
   STEP(cudaGetLastError());
   const size_t rs = (size_t)(2 * H + 2 * TT * THREADS + TT * 4) * 4;
   STEP(set_smem((const void*)mixffn_tp_rows_a_kernel<E>, rs));
@@ -725,7 +732,8 @@ int tp_bwd_dh(const E* xn, const E* h, const E* d, const E* a,
       reinterpret_cast<const float2*>(m), dy, pr, T, H, Hn, tpb, eps);
   STEP(cudaGetLastError());
   const dim3 walk((s + NW - 1) / NW, B, (H + CH - 1) / CH);
-  mixffn_bwd_dwt_kernel<E><<<walk, THREADS, 0, cs>>>(dy, h, dw, dh, pd, s, H);
+  mixffn_bwd_dwt_kernel<E><<<walk, THREADS, 0, cs>>>(dy, h, dw, dh, pd, s, s,
+                                                     H);
   STEP(cudaGetLastError());
   STEP((gemm<true, false, EPI_F32>(plan[DXN_BM], plan[DXN_BN], dh, H, w1, C,
                                    dxn, C, nullptr, T, C, H,

@@ -435,21 +435,23 @@ inline int depth(int K) {
 // summed over the ranks in between (ROWS_NORM).
 constexpr int ROWS_FULL = 0, ROWS_STATS = 1, ROWS_NORM = 2;
 
-// Stage 2 of the forward, per (map row r = blockIdx.x, batch blockIdx.y).
+// Stage 2 of the forward, per (map row r = blockIdx.x, batch blockIdx.y)
+// of an R x s map (R = s for a whole square map; a block of a map's rows
+// with its halo rows, R != s, for the bridge's sequence sharding).
 // A work item is a pair of hidden channels (c, c + 1) over SEG columns of
 // the row: the thread loads the 3 x (SEG + 2) window of h around them
-// (rows r-1, r, r+1, zero off the map) at once, as pairs, then
+// (rows r-1, r, r+1, zero off the R x s map) at once, as pairs, then
 // d = E(conv3x3(h) + dwb) with the taps in registers and y = d + h
 // into shared memory (s x H fp32). Then a warp per token: the hidden LN's
 // statistics over y, z = E(LN(y)), a = E(GELU(z)) (MODE, above).
 template <int KID, typename E, int MODE = ROWS_FULL>
 __global__ void __launch_bounds__(THREADS)
 mixffn_convrows_kernel(const E* h, const E* dw, const float* dwb,
-                       const float* ls, const float* lb, E* a, int s, int H,
-                       float eps, float2* st, int Hn) {
+                       const float* ls, const float* lb, E* a, int R, int s,
+                       int H, float eps, float2* st, int Hn) {
   extern __shared__ __align__(16) float ys[];  // s x H
   const int r = blockIdx.x, P = H / 2, nseg = (s + SEG - 1) / SEG;
-  const size_t brow = (size_t)blockIdx.y * s;  // map row 0 of batch row b
+  const size_t brow = (size_t)blockIdx.y * R;  // map row 0 of batch row b
   const size_t t0 = (brow + r) * s;            // token (b, r, 0)
   for (int item = threadIdx.x; item < P * nseg; item += THREADS) {
     const int c = 2 * (item % P), j0 = item / P * SEG;
@@ -467,7 +469,7 @@ mixffn_convrows_kernel(const E* h, const E* dw, const float* dwb,
 #pragma unroll
       for (int q = 0; q < SEG + 2; ++q) {
         const int j = j0 - 1 + q;
-        win[di][q] = rr >= 0 && rr < s && j >= 0 && j < s
+        win[di][q] = rr >= 0 && rr < R && j >= 0 && j < s
                          ? *reinterpret_cast<const Pair<E>*>(
                                h + ((brow + rr) * s + j) * H + c)
                          : mk2<E>(0.0f, 0.0f);
@@ -534,17 +536,17 @@ __host__ __device__ inline size_t rows_smem(int s, int H) {
 // Indices into the wrapper's forward plan (ops/kernels/mixffn.py fwd_plan).
 enum FwdPlan { FC1_BM, FC1_BN, FC2_BM, FC2_BN, FWD_PLAN_LEN };
 
-// The MixFFN_skip forward on x (T = B·s² tokens of C channels), hidden H:
-// fc1 (with the caller's LN nrm unless BARE), the conv/rows stage, fc2
-// (+ the residual res unless BARE) into out. h and a: (T, H) E workspace.
-// Three launches.
+// The MixFFN_skip forward on x (T = B·R·s tokens of C channels: B maps of
+// R rows and s columns), hidden H: fc1 (with the caller's LN nrm unless
+// BARE), the conv/rows stage, fc2 (+ the residual res unless BARE) into
+// out. h and a: (T, H) E workspace. Three launches.
 template <int KID, bool BARE, typename E>
 cudaError_t forward(const E* x, Norm nrm, const E* w1, const float* b1,
                     const E* dw, const float* dwb, const float* ls,
                     const float* lb, const E* w2, const float* b2,
                     const E* res, E* h, E* a, E* out, const int* plan, int B,
-                    int s, int C, int H, float eps, cudaStream_t st) {
-  const int T = B * s * s;
+                    int R, int s, int C, int H, float eps, cudaStream_t st) {
+  const int T = B * R * s;
   cudaError_t e;
   e = gemm<KID, true, true, !BARE, EPI_BIAS>(plan[FC1_BM], plan[FC1_BN], x,
                                              C, w1, C, h, H, b1, nullptr, nrm,
@@ -553,8 +555,8 @@ cudaError_t forward(const E* x, Norm nrm, const E* w1, const float* b1,
   const size_t rs = rows_smem(s, H);
   if ((e = set_smem((const void*)mixffn_convrows_kernel<KID, E>, rs)))
     return e;
-  mixffn_convrows_kernel<KID, E><<<dim3(s, B), THREADS, rs, st>>>(
-      h, dw, dwb, ls, lb, a, s, H, eps, nullptr, H);
+  mixffn_convrows_kernel<KID, E><<<dim3(R, B), THREADS, rs, st>>>(
+      h, dw, dwb, ls, lb, a, R, s, H, eps, nullptr, H);
   if ((e = cudaGetLastError())) return e;
   return gemm<KID, true, true, false, BARE ? EPI_BIAS : EPI_RESID>(
       plan[FC2_BM], plan[FC2_BN], a, H, w2, H, out, C, b2, res, Norm{}, T, C,
@@ -585,7 +587,7 @@ cudaError_t fc1_stats(const E* x, Norm nrm, const E* w1, const float* b1,
   const void* fn = (const void*)mixffn_convrows_kernel<KID, E, ROWS_STATS>;
   if ((e = set_smem(fn, rs))) return e;
   mixffn_convrows_kernel<KID, E, ROWS_STATS><<<dim3(s, B), THREADS, rs, st>>>(
-      h, dw, dwb, nullptr, nullptr, nullptr, s, H, 0.0f, stats, H);
+      h, dw, dwb, nullptr, nullptr, nullptr, s, s, H, 0.0f, stats, H);
   return cudaGetLastError();
 }
 
@@ -601,7 +603,7 @@ cudaError_t act_fc2(const E* h, const E* dw, const float* dwb,
   const void* fn = (const void*)mixffn_convrows_kernel<KID, E, ROWS_NORM>;
   if ((e = set_smem(fn, rs))) return e;
   mixffn_convrows_kernel<KID, E, ROWS_NORM><<<dim3(s, B), THREADS, rs, st>>>(
-      h, dw, dwb, ls, lb, a, s, H, eps, const_cast<float2*>(stats), Hn);
+      h, dw, dwb, ls, lb, a, s, s, H, eps, const_cast<float2*>(stats), Hn);
   if ((e = cudaGetLastError())) return e;
   return gemm<KID, true, true, false, EPI_F32>(
       plan[FC2_BM], plan[FC2_BN], a, H, w2, H, p, C, nullptr, nullptr,

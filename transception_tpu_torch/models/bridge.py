@@ -11,10 +11,29 @@ kernels mask their own ragged tile. The sp and para bridges' layers fold
 their spatial attention (K8) and their per-scale FFNs (K2) by the bridge's
 kernel switch (FoldSwitches.sp_bridge), as the JAX package builds them
 without its attn_fold and ffn_use_pallas knobs (transception.py:63-73).
+
+The original bridge's sequence sharding (BridgeBlock4.seq_shard_, JAX
+bridge_seq_shard_axis, models/bridge.py:155-237, 277-472): on a model axis
+of tp ranks each layer keeps the fused stream whole at its edges and
+splits its two per-token computations, the spatial attention's query rows
+(N % tp == 0) and each scale's FFN input on whole map rows (s % tp == 0,
+the block with its halo rows); the blocks are gathered. Each block runs
+the fold structure the layer runs unsharded (K8, or q, K3 and proj; K2 or
+the plain FFN), so the kernels and their launch counts are those of the
+unsharded layer and only the launch shapes change. Whatever is computed
+whole from a replicated input (the Scale_reduce'd K and V, norm1, the
+channel attention, a scale that does not divide) gets its whole
+gradient on every rank; a block's input enters through the model axis's
+copy, which sums the blocks' partial input gradients; the weights used on
+a block alone (q, proj, the split scales' FFNs) get partial gradients,
+which the train state sums over the model axis after the backward
+(seq_shard_ returns them). norm2 feeds split and whole scales alike in the
+FFN fold: its weights enter the split scales through copy.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -114,13 +133,33 @@ class MEfficientSelfAtten(nn.Module):
         self.proj = Linear(dim, dim, dtype=dtype)
         self.scale_reduce = ScaleReduce(geo, reduction_ratio, dtype)
 
-    def forward(self, x, residual=None):
+    def forward(self, x, residual=None, axis=None):
+        """axis (parallel.tensor.ModelAxis): the sequence sharding, this
+        rank's block of the query rows (where N divides by the axis's
+        size, else the whole stream, as JAX) and the blocks gathered; K
+        and V computed whole from the whole stream and taken through the
+        axis's copy, as are the blocks' x and residual, so that the
+        blocks' partial gradients of them are summed."""
         B, N, C = x.shape
         h = self.head
         d = C // h
         xr = self.scale_reduce(x)
         M = xr.shape[1]
-        kv = self.kv(xr).reshape(B, M, 2, h, d).permute(2, 0, 3, 1, 4)
+        kv = self.kv(xr)
+        shard = axis is not None and N % axis.size == 0
+        if shard:
+            kv = axis.copy(kv)
+            x = axis.rows(axis.copy(x))
+            if residual is not None:
+                residual = axis.rows(axis.copy(residual))
+        kv = kv.reshape(B, M, 2, h, d).permute(2, 0, 3, 1, 4)
+        out = self._attend(x, residual, kv)
+        return axis.gather(out, 1) if shard else out
+
+    def _attend(self, x, residual, kv):
+        B, N, C = x.shape
+        h = self.head
+        d = C // h
         sw = self.folds[self.training]
         if residual is not None and (sw.sp_bridge if self.sp_bridge
                                      else sw.bridge_attn):
@@ -176,6 +215,7 @@ class BridgeLayer4(nn.Module):
         super().__init__()
         self.geo, self.ch_att, self.folds = geo, ch_att, folds
         self.sp_bridge = sp_bridge
+        self.seq = None  # the model axis of the sequence sharding
         C = geo.c
         self.norm1 = LayerNorm(C, dtype=dtype)
         if ch_att:
@@ -188,33 +228,50 @@ class BridgeLayer4(nn.Module):
             self.add_module(f"mixffn{i + 1}",
                             MixFFNSkip(C * m, C * m * 4, dtype=dtype))
 
+    def split_scales(self, size: int) -> List[int]:
+        """The scales whose FFN a model axis of `size` ranks splits: map
+        sides divisible by it (JAX bridge.py:371-382)."""
+        return [i for i, s in enumerate(self.geo.sides) if s % size == 0]
+
     def forward(self, inputs):
         """inputs: the fused (B, N, C) stream or the four scale maps."""
         geo = self.geo
         if isinstance(inputs, (list, tuple)):
             inputs = fuse_scales(inputs, geo.c)
         B, N, C = inputs.shape
+        sp = self.seq
         h = self.norm1(inputs)
         if self.ch_att:
             tx1 = inputs + self.attn(h)
         else:
-            tx1 = self.attn(h, residual=inputs)
+            tx1 = self.attn(h, residual=inputs, axis=sp)
         sw = self.folds[self.training]
-        if sw.sp_bridge if self.sp_bridge else sw.bridge_ffn:
-            outs = []
-            for i, (s, m, part) in enumerate(zip(geo.sides, geo.mults,
-                                                 geo.split(tx1))):
-                f = getattr(self, f"mixffn{i + 1}").folded(
-                    part.reshape(B, s * s, C * m), s, self.norm2, groups=m)
-                outs.append(f.reshape(B, -1, C))
-            return torch.cat(outs, dim=1)
-        parts = geo.split(self.norm2(tx1))
+        fold = sw.sp_bridge if self.sp_bridge else sw.bridge_ffn
+        split = self.split_scales(sp.size) if sp is not None else []
+        ln = ln_split = self.norm2
+        if fold and split:
+            ln_split = SimpleNamespace(weight=sp.copy(ln.weight),
+                                       bias=sp.copy(ln.bias), eps=ln.eps)
         outs = []
-        for i, (s, m) in enumerate(zip(geo.sides, geo.mults)):
-            t = parts[i].reshape(B, s * s, C * m)
-            f = getattr(self, f"mixffn{i + 1}")(t, s, s)
+        for i, (s, m, part) in enumerate(zip(
+                geo.sides, geo.mults, geo.split(tx1 if fold
+                                                else self.norm2(tx1)))):
+            ffn = getattr(self, f"mixffn{i + 1}")
+            t = part.reshape(B, s * s, C * m)
+            rows = None
+            if i in split:  # this rank's block of map rows
+                blk = sp.block(s)
+                rows, t = (blk.start, blk.stop), sp.copy(t)
+            if fold:
+                f = ffn.folded(t, s, ln_split if rows else ln, groups=m,
+                               rows=rows)
+            else:
+                f = ffn(t, s, s, rows=rows)
+            if rows is not None:
+                f = sp.gather(f, 1)
             outs.append(f.reshape(B, -1, C))
-        return tx1 + torch.cat(outs, dim=1)
+        out = torch.cat(outs, dim=1)
+        return out if fold else tx1 + out
 
 
 class BridgeBlock4(nn.Module):
@@ -232,6 +289,28 @@ class BridgeBlock4(nn.Module):
             self.add_module(f"bridge_layer{i + 1}", BridgeLayer4(
                 geo, head, ch_att, reduction_ratio, dtype, folds))
         self.n_layers = len(br_ch_att_list)
+
+    def seq_shard_(self, axis) -> List[str]:
+        """Shard the bridge's sequence over the model axis `axis`
+        (parallel.tensor.ModelAxis; a no-op at size 1): each layer's
+        attention query rows and its divisible scales' FFN map rows.
+        Returns the names (under this module) of the parameters whose
+        gradient a rank then gets from its block alone, to be summed over
+        the axis after the backward: the spatial layers' q and proj where
+        the stream divides, the split scales' FFNs."""
+        if axis.size <= 1:
+            return []
+        partial = []
+        for i in range(self.n_layers):
+            name = f"bridge_layer{i + 1}"
+            layer = getattr(self, name)
+            layer.seq = axis
+            mods = [f"mixffn{j + 1}" for j in layer.split_scales(axis.size)]
+            if not layer.ch_att and self.geo.total % axis.size == 0:
+                mods += ["attn.q", "attn.proj"]
+            partial += [f"{name}.{m}.{n}" for m in mods
+                        for n, _ in layer.get_submodule(m).named_parameters()]
+        return partial
 
     def forward(self, maps: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         x = fuse_scales(maps, self.geo.c)

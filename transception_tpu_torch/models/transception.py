@@ -231,14 +231,16 @@ def _launches(cfg: TransceptionConfig, training: bool, head: str,
     return counts
 
 
-def launches_per_forward(cfg: TransceptionConfig,
-                         argmax: bool = True) -> dict:
+def launches_per_forward(cfg: TransceptionConfig, argmax: bool = True,
+                         tp: int = 1) -> dict:
     """Kernel launches of one eval forward of an MSTransception with config
     `cfg` on the card, per counter of ops.kernels.launch_counts: a pure
     function of the config (the structure its fold switches give each
-    block at each map side). chip_smoke.py holds the card's counters to it.
-    Without use_kernels every count is 0."""
-    return _launches(cfg, False, "argmax" if argmax else "logits")
+    block at each map side). tp: on each rank of a model axis of tp ranks
+    (the model sharded, parallel.mesh.shard_model), as launches_per_step.
+    chip_smoke.py holds the card's counters to it. Without use_kernels
+    every count is 0."""
+    return _launches(cfg, False, "argmax" if argmax else "logits", tp)
 
 
 def launches_per_step(cfg: TransceptionConfig, wide_head: bool = True,
@@ -255,7 +257,12 @@ def launches_per_step(cfg: TransceptionConfig, wide_head: bool = True,
     backbone) the MHCA stages' forward kernels launch once more, in the
     recompute. Under a model axis of tp ranks the sharded ETB FFN folds
     run the hidden-sharded K2 and K11 (mixffn_tp, mixffn_tp_bwd) in
-    place of K2 and K11. chip_smoke.py holds the card's counters to it."""
+    place of K2 and K11. The bridge's sequence sharding
+    (cfg.bridge_seq_shard_axis) changes no count: each rank runs every
+    bridge block's fold structure once, on its block of rows (K3 and K10,
+    or K8, on its query rows; K2 and K11 on its map rows with their halo
+    rows), a scale that does not divide whole. chip_smoke.py holds the
+    card's counters to it."""
     return _launches(cfg, True, "wide" if wide_head else "logits", tp)
 
 
@@ -266,13 +273,20 @@ def check_tp(model: nn.Module, tp: int, device: DeviceLike) -> None:
     (the MixFFN_skip folds, with the MixFFN kernel in the train kernel
     set) take multiples of 64 hidden channels a rank, as K2 does
     (ops/kernels/mixffn.py _check); their plain versions, on the CPU, take
-    any width."""
+    any width. Under the bridge's sequence sharding, likewise where a
+    split bridge scale's row block (with its halo rows) would go to K2 or
+    K11 (a fold of the eval or the train step, on a map K2 takes) and
+    they do not take it (mixffn.check_block)."""
     from transception_tpu_torch.ops.common import MixFFNSkip
     from transception_tpu_torch.parallel.mesh import shard_layout
     cfg = getattr(model, "cfg", None)
     if tp <= 1 or cfg is None or not cfg.use_kernels or \
-            torch.device(device).type != "cuda" or \
-            kernels.mixffn.NAME not in kernels.kernel_set(cfg, True):
+            torch.device(device).type != "cuda":
+        return
+    if cfg.bridge_seq_shard_axis == "model" and \
+            isinstance(getattr(model, "bridge", None), BridgeBlock4):
+        _check_seq_blocks(model.bridge, cfg, tp)
+    if kernels.mixffn.NAME not in kernels.kernel_set(cfg, True):
         return
     sd = model.state_dict()
     for key in shard_layout(sd, tp):
@@ -285,3 +299,32 @@ def check_tp(model: nn.Module, tp: int, device: DeviceLike) -> None:
                     f"tp_size {tp}: {ffn}'s hidden layer of {hid} channels "
                     f"would keep {hid // tp} a rank; the hidden-sharded "
                     f"MixFFN kernels (K2, K11) take a multiple of 64 a rank")
+
+
+def _check_seq_blocks(bridge: BridgeBlock4, cfg: TransceptionConfig,
+                      tp: int) -> None:
+    """check_tp's part for the bridge's sequence sharding: every block of
+    rows (with its halo rows) of a split scale whose fold runs K2 and K11
+    in eval or training."""
+    mx = kernels.mixffn
+    geo = bridge.geo
+    if not any(fold_switches(cfg, training).bridge_ffn
+               and mx.NAME in kernels.kernel_set(cfg, training)
+               for training in (False, True)):
+        return
+    for i in bridge.bridge_layer1.split_scales(tp):
+        s, m = geo.sides[i], geo.mults[i]
+        if not mx.takes(s):
+            continue
+        h = s // tp
+        for r in range(tp):
+            a, b = mx.halo_rows(s, r * h, (r + 1) * h)
+            try:
+                mx.check_block(1, b - a, s, geo.c * m, 4 * geo.c * m, m,
+                               cfg.compute_dtype)
+            except ValueError as e:
+                raise ValueError(
+                    f"tp_size {tp} with bridge_seq_shard_axis 'model': the "
+                    f"bridge's scale-{i + 1} FFN block of {b - a} rows of "
+                    f"{s} (rank {r}) is not one K2 and K11 take: {e}"
+                ) from None

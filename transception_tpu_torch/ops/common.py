@@ -196,6 +196,19 @@ class DWConv(nn.Module):
         self.dwconv = DepthwiseConv(dim, 3, dtype=dtype)
 
 
+def on_row_block(fn, x: torch.Tensor, s: int, rows) -> torch.Tensor:
+    """fn on the block of map rows rows = (r0, r1) of the maps x (B, n·s,
+    C) of s columns: fn gets the block with its halo rows
+    (ops.kernels.mixffn.halo_rows) and the result keeps the block's rows,
+    (B, (r1 - r0)·s, C'). Under autograd the halo rows' outputs get a zero
+    cotangent, and x's gradient holds the block's share of every row it
+    read, the halo rows' included."""
+    from transception_tpu_torch.ops.kernels.mixffn import halo_rows
+    r0, r1 = rows
+    a, b = halo_rows(x.shape[1] // s, r0, r1)
+    return fn(x[:, a * s:b * s])[:, (r0 - a) * s:(r1 - a) * s]
+
+
 class MixFFNSkip(nn.Module):
     """fc1 -> (DWConv + fc1 skip) -> LN -> GELU -> fc2 (MSTr.py:889-902).
 
@@ -234,14 +247,21 @@ class MixFFNSkip(nn.Module):
                 self.fc2.weight, self.fc2.bias)
 
     def forward(self, x: torch.Tensor, H: int, W: int,
-                kernel: bool = False) -> torch.Tensor:
+                kernel: bool = False, rows=None) -> torch.Tensor:
         """The FFN on a (B, H·W, C) map: with `kernel`, through the K9
-        wrapper on an even-sided map (mixffn.takes: the K2 rule), else the
-        plain version. A routing by shape, made before the call."""
+        wrapper on an even-sided map (mixffn.takes on the side W: the K2
+        rule), else the plain version. A routing by shape, made before the
+        call. rows = (r0, r1): the map rows [r0, r1) of the result alone,
+        computed on the block with its halo rows (on_row_block)."""
         from transception_tpu_torch.ops.kernels import mixffn
-        if H != W:
-            raise ValueError("MixFFNSkip needs a square token map")
+        if rows is not None:
+            return on_row_block(
+                lambda xe: self.forward(xe, xe.shape[1] // W, W, kernel), x,
+                W, rows)
         if self.tp is not None:
+            if H != W:
+                raise ValueError("the hidden-sharded MixFFN_skip takes a "
+                                 "square token map")
             if kernel:
                 raise NotImplementedError(
                     "the unfolded MixFFN kernel (K9) has no hidden-sharded "
@@ -249,20 +269,26 @@ class MixFFNSkip(nn.Module):
             return mixffn.mixffn_tp_plain(
                 x.to(self.fc1.dtype), *self.params(), s=H,
                 hid_all=self.hidden, axis=self.tp, eps=self.norm1.eps)
-        fn = (mixffn.mixffn_skip if kernel and mixffn.takes(H)
+        fn = (mixffn.mixffn_skip if kernel and mixffn.takes(W)
               else mixffn.mixffn_skip_plain)
-        return fn(x.to(self.fc1.dtype), *self.params(), s=H,
+        return fn(x.to(self.fc1.dtype), *self.params(), s=W,
                   eps=self.norm1.eps)
 
     def folded(self, x: torch.Tensor, s: int, ln: "LayerNorm",
-               groups: int = 1) -> torch.Tensor:
+               groups: int = 1, rows=None) -> torch.Tensor:
         """x + self(groupLN(x)) on a (B, s², C) map, `ln` the caller's
-        LayerNorm of C/groups channels, through the MixFFN kernel wrapper
-        on an even-sided map (mixffn.takes, where the JAX package runs its
-        kernel), else through the plain version: the 7x7 MHCA stage-4 and
-        bridge scale-4 folds at 224, in eval and in training. A routing by
-        shape, made before the call."""
+        LayerNorm of C/groups channels (or anything with its weight, bias
+        and eps), through the MixFFN kernel wrapper on an even-sided map
+        (mixffn.takes, where the JAX package runs its kernel), else through
+        the plain version: the 7x7 MHCA stage-4 and bridge scale-4 folds at
+        224, in eval and in training. A routing by the map's side, made
+        before the call. rows = (r0, r1): the map rows [r0, r1) of the
+        result alone, K2 (or its plain version) on the block with its halo
+        rows (on_row_block), routed by the whole map's side."""
         from transception_tpu_torch.ops.kernels import mixffn
+        if rows is not None:
+            return on_row_block(
+                lambda xe: self.folded(xe, s, ln, groups), x, s, rows)
         if self.tp is not None:
             return mixffn.mixffn_ln_skip_tp(
                 x.to(self.fc1.dtype), ln.weight, ln.bias, *self.params(),

@@ -112,6 +112,20 @@ mixffn_skip_f32), every rounding point the identity, the products on the
 CUDA cores through the tiled product's fp32 step (bsa::ffma_step), the
 plans sized with es=4 (`bwd_plan`, `bwd_smem_bytes`, `fwd_plan`). Bound:
 operations at 67 TFLOP/s of FFMA.
+
+The row-block forms (the bridge's sequence sharding, models/bridge.py):
+K2, K9 and K11 take x (B, R·s, C), B maps of R rows and s columns, with
+R = N / s; R = s is the whole square map. A model-axis rank runs its
+block of a map's rows with one real neighbour row above and below
+(halo_rows), each zero-padded only at its own edges, and keeps the
+block's rows: every block row's conv then reads what it reads in the
+whole map, so its output is the whole map's (its products and its row's
+conv do not depend on the rows a launch takes). K11 on a block takes a
+cotangent that is zero on the halo rows; the halo rows' dx and every
+weight gradient are the block's share, which the model axis sums. The
+stages are the square map's with R rows in place of s (the conv/rows
+stage's grid and the column walks' depth); routes and counters follow
+the map's side s (takes(s)), as for the whole map.
 """
 
 from __future__ import annotations
@@ -158,7 +172,9 @@ def mixffn_plain(x, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
     weight rounded to the compute dtype as in mixffn_kernel.py:333).
     Weights are torch layouts: w1 (hidden, C), dw (hidden, 1, 3, 3),
     w2 (C, hidden). pre_ln = (scale, bias, groups, eps) with the (C,)-tiled
-    scale and bias, or None."""
+    scale and bias, or None. x holds maps of N/s rows and s columns: a
+    whole s x s map, or a block of a map's rows with its halo rows
+    (halo_rows), zero-padded at its own edges like a map."""
     dt = x.dtype
     B, N, C = x.shape
     hid = w1.shape[0]
@@ -167,7 +183,7 @@ def mixffn_plain(x, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
         lts, ltb, groups, peps = pre_ln
         xin = group_ln(x, lts, ltb, groups, peps)
     h = F.linear(xin.float(), w1.to(dt).float(), b1.float()).to(dt)
-    hm = h.float().reshape(B, s, s, hid).permute(0, 3, 1, 2)
+    hm = h.float().reshape(B, N // s, s, hid).permute(0, 3, 1, 2)
     d = F.conv2d(hm, dw.to(dt).float(), dwb.float(), padding=1, groups=hid)
     d = d.permute(0, 2, 3, 1).reshape(B, N, hid).to(dt)
     y = d.float() + h.float()
@@ -201,6 +217,26 @@ def mixffn_ln_skip_plain(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, *,
                         residual=True, eps=eps)
 
 
+def _conv_transpose(dy, hm, dwk, R, s):
+    """dh = dy + the depthwise conv's transpose of dy (a correlation of the
+    zero-padded dy with the taps dwk) and the taps' gradients (hid, 3, 3),
+    fp32, on maps of R rows and s columns; hm: the conv's input h (B, hid,
+    R, s)."""
+    B, hid = hm.shape[:2]
+    ddp = F.pad(dy.reshape(B, R, s, hid).permute(0, 3, 1, 2), (1, 1, 1, 1))
+    hp = F.pad(hm, (1, 1, 1, 1))
+    dhc = torch.zeros_like(hm)
+    ddw = torch.zeros(hid, 3, 3, dtype=torch.float32, device=hm.device)
+    ddm = ddp[:, :, 1:1 + R, 1:1 + s]
+    for di in range(3):
+        for dj in range(3):
+            tap = dwk[:, 0, di, dj].reshape(1, hid, 1, 1)
+            dhc += ddp[:, :, 2 - di:2 - di + R, 2 - dj:2 - dj + s] * tap
+            ddw[:, di, dj] = (ddm * hp[:, :, di:di + R, dj:dj + s]).sum(
+                (0, 2, 3))
+    return dy + dhc.permute(0, 2, 3, 1).reshape(dy.shape), ddw
+
+
 def mixffn_ln_skip_bwd_plain(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2,
                              g, *, s: int, groups: int = 1,
                              eps_ln: float = 1e-5, eps: float = 1e-5):
@@ -211,10 +247,12 @@ def mixffn_ln_skip_bwd_plain(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2,
     depthwise weight in the compute dtype (:735). lts/ltb are the (C,)-
     tiled scale and bias. Returns the grads of (x, lts, ltb, w1, b1, dw,
     dwb, ls, lb, w2, b2) in their torch layouts: dx in x's dtype, the rest
-    in the parameters' dtypes."""
+    in the parameters' dtypes. x and g hold maps of N/s rows and s columns
+    (a row block with its halo rows: g zero on the halo rows)."""
     f32, dt = torch.float32, x.dtype
     B, N, C = x.shape
     hid = w1.shape[0]
+    R = N // s
     gsz = C // groups
     xf, gf = x.to(f32), g.to(f32)
     w1f, w2f = w1.to(dt).to(f32), w2.to(dt).to(f32)
@@ -228,7 +266,7 @@ def mixffn_ln_skip_bwd_plain(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2,
     yhx = (xr - mu) * inv
     xn = (yhx.reshape(B, N, C) * ltsf + ltb.to(f32)).to(dt).to(f32)
     h = (xn @ w1f.t() + b1.to(f32)).to(dt).to(f32)
-    hm = h.reshape(B, s, s, hid).permute(0, 3, 1, 2)
+    hm = h.reshape(B, R, s, hid).permute(0, 3, 1, 2)
     d = F.conv2d(hm, dwk, dwb.to(f32), padding=1, groups=hid)
     d = d.permute(0, 2, 3, 1).reshape(B, N, hid).to(dt).to(f32)
     y = d + h
@@ -246,19 +284,7 @@ def mixffn_ln_skip_bwd_plain(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2,
     dyh = dz * lsf
     dy = invy * (dyh - dyh.mean(-1, keepdim=True)
                  - yh * (dyh * yh).mean(-1, keepdim=True))
-    # The conv transpose: a correlation of the padded dd with the taps.
-    ddp = F.pad(dy.reshape(B, s, s, hid).permute(0, 3, 1, 2), (1, 1, 1, 1))
-    hp = F.pad(hm, (1, 1, 1, 1))
-    dhc = torch.zeros_like(hm)
-    ddw = torch.zeros(hid, 3, 3, dtype=f32, device=x.device)
-    ddm = ddp[:, :, 1:1 + s, 1:1 + s]
-    for di in range(3):
-        for dj in range(3):
-            tap = dwk[:, 0, di, dj].reshape(1, hid, 1, 1)
-            dhc += ddp[:, :, 2 - di:2 - di + s, 2 - dj:2 - dj + s] * tap
-            ddw[:, di, dj] = (ddm * hp[:, :, di:di + s, dj:dj + s]).sum(
-                (0, 2, 3))
-    dh = dy + dhc.permute(0, 2, 3, 1).reshape(B, N, hid)
+    dh, ddw = _conv_transpose(dy, hm, dwk, R, s)
 
     # Backward through fc1 and the group LN, plus the residual path.
     dxn = dh @ w1f
@@ -319,6 +345,18 @@ def takes(s: int) -> bool:
     return s % 2 == 0
 
 
+def halo_rows(s: int, r0: int, r1: int) -> tuple:
+    """The map rows [a, b) that K2, K9 and K11 run for the block of rows
+    [r0, r1) of an s-row map (the bridge's sequence sharding): the block
+    and its real neighbour rows as halo rows, one above and one below,
+    none past the map's own top or bottom edge. The kernels zero-pad only
+    past [a, b), so the 3x3 conv of every block row is exact; the caller
+    keeps rows [r0 - a, r1 - a) of the result. (A zero x row would not
+    do: the conv pads the hidden map fc1(LN(x)), and fc1(LN(0)) is not
+    zero.)"""
+    return max(r0 - 1, 0), min(r1 + 1, s)
+
+
 def bwd_smem_bytes(C: int, hid: int, es: int = 2) -> int:
     """Largest shared memory of a K11 block over elements of es bytes
     (mirrors csrc/mixffn_bwd.cu): the rows kernel's y and dz of a token
@@ -355,23 +393,25 @@ def token_tile(T, N, sms):
     return bm, bnn
 
 
-def fwd_plan(B: int, s: int, C: int, hid: int, sms: int, es: int = 2
-             ) -> dict:
-    """The forward plan of K2, K9 and K5's FFN for x (B, s², C), hidden
-    `hid`, on a card of `sms` SMs. Products (M, N, K, BM, BN): fc1 (T, hid,
-    C) and fc2 (T, C, hid) over the T = B·s² tokens, tiles by `token_tile`;
-    the conv/rows stage takes a block per (map row, batch). `plan` is the
+def fwd_plan(B: int, s: int, C: int, hid: int, sms: int, es: int = 2,
+             rows: int = 0) -> dict:
+    """The forward plan of K2, K9 and K5's FFN for x (B, rows·s, C) (maps
+    of `rows` rows, s by default, and s columns), hidden `hid`, on a card
+    of `sms` SMs. Products (M, N, K, BM, BN): fc1 (T, hid, C) and fc2 (T,
+    C, hid) over the T = B·rows·s tokens, tiles by `token_tile`; the
+    conv/rows stage takes a block per (map row, batch). `plan` is the
     int list the CUDA entries take (ffn::FwdPlan); `blocks` the blocks of
     each stage; `workspace` the bytes of h and a (T x hid elements of es
     bytes each: 2 bf16, 4 for the fp32 form); `smem` the shared memory of a
     block of each stage (fc1 with the LN folded in, K2 and K5, or without,
     K9)."""
-    T = B * s * s
+    rows = rows or s
+    T = B * rows * s
     gemms = {"fc1": (T, hid, C) + token_tile(T, hid, sms),
              "fc2": (T, C, hid) + token_tile(T, C, sms)}
     plan = [v for k in ("fc1", "fc2") for v in gemms[k][3:]]
     blocks = {k: _blocks(*g[:2], *g[3:]) for k, g in gemms.items()}
-    blocks["rows"] = B * s
+    blocks["rows"] = B * rows
     f1, f2 = gemms["fc1"], gemms["fc2"]
     smem = {"fc1_ln": gemm_smem(True, f1[3], f1[4], C, es),
             "fc1": gemm_smem(False, f1[3], f1[4], C, es),
@@ -381,11 +421,12 @@ def fwd_plan(B: int, s: int, C: int, hid: int, sms: int, es: int = 2
                 workspace={"h": T * hid * es, "a": T * hid * es}, smem=smem)
 
 
-def bwd_plan(B: int, s: int, C: int, hid: int, sms: int, es: int = 2
-             ) -> dict:
-    """K11's launch plan for x (B, s², C), hidden `hid`, on a card of `sms`
-    SMs, over elements of es bytes (2 bf16, 4 for the fp32 form). Products (M, N, K): h (T, hid, C), da (T, hid, C), dxn (T, C,
-    hid), then dw1 (hid, C, T) and dw2 (C, hid, T) with K split into
+def bwd_plan(B: int, s: int, C: int, hid: int, sms: int, es: int = 2,
+             rows: int = 0) -> dict:
+    """K11's launch plan for x (B, rows·s, C) (maps of `rows` rows, s by
+    default, and s columns), hidden `hid`, on a card of `sms` SMs, over
+    elements of es bytes (2 bf16, 4 for the fp32 form). Products (M, N,
+    K): h (T, hid, C), da (T, hid, C), dxn (T, C, hid), then dw1 (hid, C, T) and dw2 (C, hid, T) with K split into
     `splits` token ranges of `kper` (whole BWD_DEPTH tiles). An output tile
     side is BIG where it divides the side, else SMALL; the token products
     drop to SMALL rows, then SMALL columns, until they have a block per SM.
@@ -403,7 +444,7 @@ def bwd_plan(B: int, s: int, C: int, hid: int, sms: int, es: int = 2
     BWD_DEPTH tiles at both element types (a multiple of the fp32 step's
     32), and the partials are fp32 at both, so BWD_SPLIT_BYTES caps the
     same bytes at fp32."""
-    T = B * s * s
+    T = B * (rows or s) * s
     gemms = {"h": (T, hid, C) + token_tile(T, hid, sms),
              "da": (T, hid, C) + token_tile(T, hid, sms),
              "dxn": (T, C, hid) + token_tile(T, C, sms),
@@ -435,14 +476,15 @@ def _check(x, s, hid, groups, ln=True, dtypes=_build.DTYPES):
     """Raise on what the kernels do not take; ln: the caller's LN is folded
     into fc1 (K2, K5), which takes groups of a multiple of 64 channels;
     dtypes: the element types of the kernel's forms (bf16 and fp32 for
-    K2, K5, K9 and K11)."""
+    K2, K5, K9 and K11). x holds maps of N/s whole rows of s columns."""
     _build.element_dtype(NAME, x, dtypes=dtypes)
     if x.dim() != 3:
         raise ValueError(f"{NAME} kernel takes a (B, N, C) tensor, "
                          f"got {tuple(x.shape)} {x.dtype}")
     B, N, C = x.shape
-    if N != s * s:
-        raise ValueError(f"{NAME} kernel needs a square s*s map, N={N}")
+    if N % s or not N:
+        raise ValueError(f"{NAME} kernel needs maps of whole rows of s={s} "
+                         f"columns, N={N}")
     if groups < 1 or C % groups or ln and C // groups % 64:
         raise ValueError(f"{NAME} kernel: {groups} LN groups do not divide "
                          f"C={C} into multiples of 64 channels")
@@ -455,23 +497,36 @@ def _check(x, s, hid, groups, ln=True, dtypes=_build.DTYPES):
                          f"exceeds shared memory")
 
 
+def check_block(B: int, rows: int, s: int, C: int, hid: int, groups: int,
+                dtype) -> None:
+    """Raise where K2 (the caller's LN folded in) or K11 would not take
+    maps of `rows` rows and s columns (a row block with its halo rows), C
+    channels in `groups` LN groups, hidden `hid`, at `dtype`: the checks
+    of their wrappers, made on the shapes alone."""
+    x = torch.empty((B, rows * s, C), dtype=dtype, device="meta")
+    _check(x, s, hid, groups)
+    if bwd_smem_bytes(C, hid, x.element_size()) > SMEM_LIMIT:
+        raise ValueError(f"{BWD_NAME} kernel: a token tile (C={C}, "
+                         f"hidden={hid}) exceeds shared memory")
+
+
 def _fwd_args(x, s, hid):
     """The output, the workspace allocation (held until the launch is
     enqueued) and the entry's trailing arguments (out, h, a, plan) of one
-    forward call of K2 or K9 (fwd_plan)."""
-    B, _, C = x.shape
+    forward call of K2 or K9 (fwd_plan) on maps of N/s rows."""
+    B, N, C = x.shape
     sizes, plan = _fwd_launch_plan(B, s, C, hid, _build.sms(x),
-                                   x.element_size())
+                                   x.element_size(), N // s)
     out = torch.empty_like(x)
     ws, work = _build.workspace(sizes, x.device)
     return out, ws, [_build.ptr(out)] + work + [plan]
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_launch_plan(B, s, C, hid, sms, es=2):
+def _fwd_launch_plan(B, s, C, hid, sms, es=2, rows=0):
     """fwd_plan's workspace sizes and its int list as the entries take it
     (a ctypes array, read only), kept per shape, card and element size."""
-    pl = fwd_plan(B, s, C, hid, sms, es)
+    pl = fwd_plan(B, s, C, hid, sms, es, rows)
     return (tuple(pl["workspace"].values()),
             (ctypes.c_int * len(pl["plan"]))(*pl["plan"]))
 
@@ -486,7 +541,7 @@ def _launch(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, s, groups, eps_ln,
     global launches
     x = _build.aligned(x)
     fn = _build.entry(NAME, _build.symbol("mixffn_ln_skip", x.dtype),
-                      [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                      [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     B, N, C = x.shape
     bf = functools.partial(_build.weight, dtype=x.dtype)
@@ -496,7 +551,8 @@ def _launch(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, s, groups, eps_ln,
         x, f32(lts), f32(ltb), bf(w1), f32(b1), bf(dw.reshape(hid, 9)),
         f32(dwb), f32(ls), f32(lb), bf(w2), f32(b2))
     args = [_build.ptr(t) for t in held] + tail
-    rc = fn(*args, B, s, C, hid, groups, eps_ln, eps, _build.stream_of(x))
+    rc = fn(*args, B, N // s, s, C, hid, groups, eps_ln, eps,
+            _build.stream_of(x))
     _build.check(rc, NAME)
     launches += 1
     _build.tally(NAME, tuple(x.shape), hid, groups, _build.tag(x))
@@ -511,7 +567,7 @@ def _launch_skip(x, w1, b1, dw, dwb, ls, lb, w2, b2, s, eps):
     global skip_launches
     x = _build.aligned(x)
     fn = _build.entry(NAME, _build.symbol(SKIP_NAME, x.dtype),
-                      [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+                      [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                       + [ctypes.c_float, ctypes.c_void_p])
     B, N, C = x.shape
     bf = functools.partial(_build.weight, dtype=x.dtype)
@@ -521,7 +577,7 @@ def _launch_skip(x, w1, b1, dw, dwb, ls, lb, w2, b2, s, eps):
         x, bf(w1), f32(b1), bf(dw.reshape(hid, 9)), f32(dwb), f32(ls),
         f32(lb), bf(w2), f32(b2))
     args = [_build.ptr(t) for t in held] + tail
-    rc = fn(*args, B, s, C, hid, eps, _build.stream_of(x))
+    rc = fn(*args, B, N // s, s, C, hid, eps, _build.stream_of(x))
     _build.check(rc, SKIP_NAME)
     skip_launches += 1
     _build.tally(SKIP_NAME, tuple(x.shape), hid, _build.tag(x))
@@ -559,7 +615,7 @@ def _launch_bwd(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, g, s, groups,
                          f"hidden={hid}) exceeds shared memory")
     global bwd_launches
     x, g = _build.aligned(x), _build.aligned(g)
-    pl = bwd_plan(B, s, C, hid, _build.sms(x), es)
+    pl = bwd_plan(B, s, C, hid, _build.sms(x), es, N // s)
     dx = torch.empty_like(x)
     grads = torch.empty(2 * hid * C + 13 * hid + 3 * C, device=x.device,
                         dtype=torch.float32)
@@ -574,9 +630,9 @@ def _launch_bwd(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, g, s, groups,
     args = [_build.ptr(t) for t in held] + work
     plan = (ctypes.c_int * len(pl["plan"]))(*pl["plan"])
     fn = _build.entry(BWD_NAME, _build.symbol("mixffn_ln_skip_bwd", x.dtype),
-                      [ctypes.c_void_p] * 24 + [ctypes.c_int] * 5
+                      [ctypes.c_void_p] * 24 + [ctypes.c_int] * 6
                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    rc = fn(*args, plan, B, s, C, hid, groups, eps_ln, eps,
+    rc = fn(*args, plan, B, N // s, s, C, hid, groups, eps_ln, eps,
             _build.stream_of(x))
     _build.check(rc, BWD_NAME)
     bwd_launches += 1
@@ -783,18 +839,7 @@ def tp_bwd_dh_plain(xn, h, d, a, dz, g, dw, ls, w1, st, m, s, hid_all,
                  - yh * (m[..., 1:] / hid_all))
     dwk = dw.to(dt).to(f32)
     hm = h.to(f32).reshape(B, s, s, hl).permute(0, 3, 1, 2)
-    ddp = F.pad(dy.reshape(B, s, s, hl).permute(0, 3, 1, 2), (1, 1, 1, 1))
-    hp = F.pad(hm, (1, 1, 1, 1))
-    dhc = torch.zeros_like(hm)
-    ddw = torch.zeros(hl, 3, 3, dtype=f32, device=h.device)
-    ddm = ddp[:, :, 1:1 + s, 1:1 + s]
-    for di in range(3):
-        for dj in range(3):
-            tap = dwk[:, 0, di, dj].reshape(1, hl, 1, 1)
-            dhc += ddp[:, :, 2 - di:2 - di + s, 2 - dj:2 - dj + s] * tap
-            ddw[:, di, dj] = (ddm * hp[:, :, di:di + s, dj:dj + s]).sum(
-                (0, 2, 3))
-    dh = dy + dhc.permute(0, 2, 3, 1).reshape(B, N, hl)
+    dh, ddw = _conv_transpose(dy, hm, dwk, s, s)
 
     def flat(t):
         return t.reshape(-1, t.shape[-1]).to(f32)
@@ -826,10 +871,17 @@ def _tp_tally(name, x, *key):
     _build.tally(name, tuple(x.shape), *key, _build.tag(x))
 
 
+def _square(x, s, name):
+    if x.shape[1] != s * s:
+        raise ValueError(f"{name} kernel takes whole s x s maps, got "
+                         f"N={x.shape[1]} at s={s}")
+
+
 def _launch_tp_fc1(x, lts, ltb, w1, b1, dw, dwb, s, groups, eps_ln,
                    hid_all):
     hid = w1.shape[0]
     _check(x, s, hid, groups)
+    _square(x, s, TP_NAME)
     global tp_launches
     x = _build.aligned(x)
     B, N, C = x.shape
@@ -902,6 +954,7 @@ def _launch_tp_bwd_rows(x, g, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, st, s,
                         groups, hid_all, eps_ln, eps):
     hid = w1.shape[0]
     _check(x, s, hid, groups, ln=False)
+    _square(x, s, TP_BWD_NAME)
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"{TP_BWD_NAME} kernel needs g like x, got "
                          f"{tuple(g.shape)} {g.dtype}")

@@ -256,9 +256,15 @@ def shard_model(model: torch.nn.Module, axis) -> Dict[str, int]:
     """Shard `model` in place over the model axis `axis`
     (parallel.tensor.ModelAxis) by shard_layout: each FFN whose fc1 the
     rules shard keeps its hidden channels (its shard_), each qkv its
-    output features, gathered after the product (Linear "gather").
-    Returns the layout; raises if a sharded weight sits in a module that
-    has no sharded form."""
+    output features, gathered after the product (Linear "gather"). With
+    the model's config asking for the bridge's sequence sharding
+    (bridge_seq_shard_axis "model") and more than one rank, the original
+    bridge shards its sequence over the axis (BridgeBlock4.seq_shard_);
+    the parameters whose gradients are then partial on each rank are
+    recorded for the train state in model.partial_grads (names; empty
+    without it). Returns the layout;
+    raises if a sharded weight sits in a module that has no sharded
+    form."""
     full = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     layout = shard_layout(model.state_dict(), axis.size)
     for key in layout:
@@ -279,6 +285,13 @@ def shard_model(model: torch.nn.Module, axis) -> Dict[str, int]:
         if list(t.shape) != want:
             raise RuntimeError(f"{key}: sharded to {tuple(t.shape)}, the "
                                f"layout says {tuple(want)}")
+    cfg = getattr(model, "cfg", None)
+    bridge = getattr(model, "bridge", None)
+    model.partial_grads = ()
+    if getattr(cfg, "bridge_seq_shard_axis", "") == "model" and \
+            hasattr(bridge, "seq_shard_"):
+        model.partial_grads = tuple(
+            "bridge." + n for n in bridge.seq_shard_(axis))
     return layout
 
 

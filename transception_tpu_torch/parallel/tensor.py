@@ -9,7 +9,11 @@ is the identity, since what follows is replicated), a statistic that each
 rank uses on its own channels goes through `sum` (a sum both ways), and a
 column-parallel output that replicated code reads whole goes through
 `gather` (each rank's block written into zeros, then the sum: adding
-zeros is exact; the backward keeps the rank's block).
+zeros is exact; the backward keeps the rank's block). The bridge's
+sequence sharding (models/bridge.py) takes this rank's block of rows
+(`rows`), computes on it and gathers the blocks; the gradients that its
+replicated weights get from a block alone are summed once after the
+backward (`sum_grads_`, one flat all_reduce).
 
 Every collective is an all_reduce (sum) over the model group: the one
 collective, with broadcast, that the gloo backend takes on CUDA tensors,
@@ -125,3 +129,20 @@ class ModelAxis:
         """This rank's block of n channels (n divisible by the size)."""
         b = n // self.size
         return slice(self.rank * b, (self.rank + 1) * b)
+
+    def rows(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's block of x along `dim` (divisible by the size): the
+        inverse of gather; a view."""
+        blk = self.block(x.shape[dim])
+        return x.narrow(dim, blk.start, blk.stop - blk.start)
+
+    def sum_grads_(self, tensors) -> None:
+        """Each tensor (of one dtype) summed over the ranks in place,
+        outside autograd: one all_reduce of the tensors flattened into one
+        buffer (the partial gradients of the sequence-sharded bridge's
+        fp32 weights, taken between the backward and the update)."""
+        tensors = list(tensors)
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, group=self.group)
+        for t, v in zip(tensors, flat.split([t.numel() for t in tensors])):
+            t.copy_(v.view_as(t))

@@ -12,13 +12,15 @@ gradient accumulation over grad_accum_steps (optax MultiSteps: the update
 takes the mean of the micro-steps' gradients; the schedule counts
 updates). Under tensor parallelism (parallel.mesh.shard_model) the
 sharded parameters' momentum lives on the shards, the clip takes the
-whole model's norm, and checkpoints hold the full layout.
+whole model's norm, and checkpoints hold the full layout; under the
+bridge's sequence sharding the partial gradients of its replicated
+weights are summed over the model axis before the clip and the update.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,13 +58,20 @@ class TrainState:
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig,
                  steps_per_epoch: int,
                  gen: Optional[torch.Generator] = None,
-                 tp: Optional[Tuple[Dict[str, int], object]] = None):
+                 tp: Optional[Tuple[Dict[str, int], object]] = None,
+                 partial: Sequence[str] = ()):
         """tp: (layout, axis) of a model sharded over the model axis
         (parallel.mesh.shard_model): its sharded parameters and their
         momentum live on the shards, the clip's norm counts each once,
-        and state_dict / load_state_dict hold the full layout."""
+        and state_dict / load_state_dict hold the full layout. partial:
+        the replicated parameters whose gradient each rank holds in part
+        (the model's partial_grads, parallel.mesh.shard_model), summed
+        over the axis in one bucketed all_reduce after the backward."""
         self.model, self.cfg, self.gen = model, cfg, gen
         self.tp = tp
+        self.partial = tuple(partial)
+        if self.partial and tp is None:
+            raise ValueError("partial gradients need the model axis (tp)")
         self.schedule = make_lr_schedule(cfg, steps_per_epoch)
         self.optimizer = torch.optim.SGD(
             model.parameters(), lr=self.schedule(0), momentum=cfg.momentum,
@@ -82,9 +91,10 @@ class TrainState:
 
     def apply_gradients(self) -> None:
         """After loss.backward(): count the step, and at the end of an
-        accumulation window average, clip, and take one optimizer update
-        at lr(updates). Raises if a parameter got no gradient (a cut
-        graph: optax would have updated it)."""
+        accumulation window sum the partial gradients over the model axis,
+        average, clip, and take one optimizer update at lr(updates).
+        Raises if a parameter got no gradient (a cut graph: optax would
+        have updated it)."""
         self.step += 1
         k = self.cfg.grad_accum_steps
         if self.step % k:
@@ -95,6 +105,9 @@ class TrainState:
         if missing:
             raise RuntimeError(f"{len(missing)} parameters got no gradient "
                                f"(cut graph?): {missing[:8]}")
+        if self.partial:
+            named = dict(self.model.named_parameters())
+            self.tp[1].sum_grads_([named[n].grad for n in self.partial])
         if k > 1:
             for p in params:
                 p.grad.div_(k)

@@ -47,7 +47,12 @@ batch. The step is the one-process step on the global batch, up to the
 order of fp32 sums, as GSPMD's is. Checkpoints hold the full layout
 (gathered; written by rank (0, 0)), so a run of any tp resumes any
 other's; the in-training eval runs a full copy of the model on the
-gathered weights. The legacy models take tp_size 1 only.
+gathered weights. The legacy models take tp_size 1 only. With the
+model config's bridge_seq_shard_axis "model" the original bridge also
+shards its sequence over the model group (models.bridge.BridgeBlock4
+seq_shard_); the partial gradients of its replicated weights are summed
+over the model group after the backward (TrainState.apply_gradients), so
+every rank ends the step with the same bridge weights.
 """
 
 from __future__ import annotations
@@ -273,11 +278,13 @@ class Trainer:
             model_cfg, self.device, seed=train_cfg.seed)
         # Under TP: a full copy for the eval, then this rank's shards.
         self.layout: dict = {}
+        self.partial: tuple = ()
         self.eval_model = self.model
         if tp > 1:
             check_tp(self.model, tp, self.device)
             self.eval_model = copy.deepcopy(self.model)
             self.layout = shard_model(self.model, self.mesh.axis)
+            self.partial = self.model.partial_grads
         os.makedirs(train_cfg.output_dir, exist_ok=True)
 
     def _eval_net(self) -> torch.nn.Module:
@@ -312,7 +319,8 @@ class Trainer:
         gen.manual_seed(cfg.seed)
         state = TrainState(self.model, cfg, steps_per_epoch, gen,
                            tp=((self.layout, self.mesh.axis)
-                               if self.mesh.tp > 1 else None))
+                               if self.mesh.tp > 1 else None),
+                           partial=self.partial)
         net = self.model
         if self._dp() is not None:
             net = torch.nn.parallel.DistributedDataParallel(
