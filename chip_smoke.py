@@ -204,10 +204,23 @@ Phases (any failed check exits non-zero):
      launches_per_step), its checkpoint resumed in one process, and the
      sharded eval forward (the bridge's folds on) at bf16 and fp32
      against the one process (class maps, logits, launches).
+ 22. the legacy models under TP, the per-path MHCA layout and
+     --debug_nans: (a) K5's sharded form (the per-path layout's MHCA
+     block under the model axis: its qkv columns, the gathered q|k|v, its
+     FFN shard) and K9's hidden-sharded form at tp 2 and 4 on one card
+     (b=32 and the b=24 shapes of (b)), bf16 and fp32, each rank's stages
+     in turn, against the unsharded kernel and the sharded plain stages
+     (phase 3's limits, a planted fault), rank 0's stages timed; (b) the
+     per-path layout's tp=2 "pallas" step and sharded eval forward
+     (published widths, three paths, one block a stage) as two gloo ranks
+     on card 0 against one process (phase 9's limits, class maps,
+     launches exactly launches_per_step / launches_per_forward); (c)
+     MISSFormer's tp=2 step the same way; (d) a planted NaN under
+     --debug_nans (cli.common.nan_checks) raising FloatingPointError.
 Every launch of the main-path runs (phases 4, 5-7 at fp32, 9, 10, 11, 12,
-13, 14, 15, 16, 18, 20 and 21) is tallied by shape
+13, 14, 15, 16, 18, 20, 21 and 22) is tallied by shape
 (ops.kernels.shape_counts); each shape must have been measured in phase
-3, 8, 20 (a) or 21 (a, b). The last line is {"ok": true, "device":
+3, 8, 20 (a), 21 (a, b) or 22 (a). The last line is {"ok": true, "device":
 {...}}; the two lines before it list each kernel at each shape (one row
 per shape) with its launches in those runs, its error and its per-launch
 times and bound, then the card's name and power limit. Before them, per
@@ -217,6 +230,7 @@ run, each kernel's launches and summed times.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -384,7 +398,8 @@ def record(measured, key, label, err, ms, pms, lms, nbytes, flops,
     bms, by = bound_ms(nbytes, flops, peak)
     # K9 and K2's hidden-sharded form share K2's library, K11's its own.
     src = {"mixffn_skip": "mixffn", "mixffn_tp": "mixffn",
-           "mixffn_tp_bwd": "mixffn_bwd"}.get(name, name)
+           "mixffn_tp_bwd": "mixffn_bwd", "mixffn_skip_tp": "mixffn",
+           "mhca_block_tp": "mhca_block"}.get(name, name)
     measured[key] = {
         "name": name, "shape": label, "route": "cuda",
         "source": f"transception_tpu_torch/csrc/{src}.cu",
@@ -1054,7 +1069,9 @@ def replaces(name):
                                  "folded_launches": "FOLDED_REPLACES",
                                  "skip_launches": "SKIP_REPLACES",
                                  "tp_launches": "TP_REPLACES",
-                                 "tp_bwd_launches": "TP_BWD_REPLACES"}[attr])
+                                 "tp_bwd_launches": "TP_BWD_REPLACES",
+                                 "skip_tp_launches": "SKIP_TP_REPLACES"
+                                 }[attr])
     raise KeyError(name)
 
 
@@ -4548,20 +4565,41 @@ def tp_kernel_phase(measured):
 
 def _tp_trainer(over, out, mesh=None):
     """A Trainer of the published widths at TP_DEPTH (TrainConfig(): b=24,
-    wide head; weights from its seed) on `mesh` (None: one process)."""
+    wide head; weights from its seed) on `mesh` (None: one process); the
+    overrides' "model", a registry name (phase 22's legacy step), builds
+    that model of the config."""
     from transception_tpu_torch.core.config import (
         DataConfig,
         TrainConfig,
         TransceptionConfig,
     )
+    from transception_tpu_torch.models.registry import create_model
     from transception_tpu_torch.parallel.mesh import DataMesh
     from transception_tpu_torch.train.trainer import Trainer
     if mesh is None:
         mesh = DataMesh(0, 1, torch.device("cuda", 0))
-    return Trainer(TransceptionConfig(**TP_DEPTH, **over),
-                   TrainConfig(output_dir=str(out), tp_size=mesh.tp),
-                   DataConfig(dataset="synthetic"), device="cuda",
-                   mesh=mesh)
+    over = dict(over)
+    name = over.pop("model", None)
+    cfg = TransceptionConfig(**dict(TP_DEPTH, **over))
+    tc = TrainConfig(output_dir=str(out), tp_size=mesh.tp)
+    model = None if name is None else create_model(name, cfg, mesh.device,
+                                                   seed=tc.seed)
+    return Trainer(cfg, tc, DataConfig(dataset="synthetic"), device="cuda",
+                   mesh=mesh, model=model)
+
+
+def _want_step(tr, tp):
+    """launches_per_step of a Trainer's model at tp (a legacy model's:
+    models.legacy.launches_per_step, which the axis does not change)."""
+    from transception_tpu_torch.models import legacy
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_step,
+    )
+    if isinstance(tr.model, MSTransception):
+        return launches_per_step(tr.model.cfg, tp=tp)
+    return legacy.launches_per_step(type(tr.model).__name__.lower(),
+                                    tr.model.cfg)
 
 
 def _tp_rank(out_dir, backend, dp, tp, labels, evals=()):
@@ -4575,7 +4613,6 @@ def _tp_rank(out_dir, backend, dp, tp, labels, evals=()):
     from transception_tpu_torch.data.device_synthetic import (
         DeviceSyntheticStream,
     )
-    from transception_tpu_torch.models.transception import launches_per_step
     from transception_tpu_torch.ops import kernels
     from transception_tpu_torch.parallel.mesh import (
         gather_state_dict,
@@ -4610,7 +4647,7 @@ def _tp_rank(out_dir, backend, dp, tp, labels, evals=()):
             met = step(img, lbl)
             r = {"step": taken(tr, met), "counts": kernels.launch_counts(),
                  "shapes": dict(kernels.shape_counts()),
-                 "want": launches_per_step(tr.model.cfg, tp=tp)}
+                 "want": _want_step(tr, tp)}
             if label in (TP_CKPT_MODE, SP_CKPT_MODE):
                 r["ckpt"] = tr.save_checkpoint(state)
                 r["next"] = taken(tr, step(img, lbl))
@@ -4621,7 +4658,8 @@ def _tp_rank(out_dir, backend, dp, tp, labels, evals=()):
             torch.cuda.empty_cache()
         if evals:
             res["evals"] = _sp_evals(img, mesh,
-                                     out / f"evals_{mesh.rank}_{mesh.t}")
+                                     out / f"evals_{mesh.rank}_{mesh.t}",
+                                     evals)
         if mesh.is_main:
             torch.save(res, out / "rank0.pt")
     finally:
@@ -4760,8 +4798,10 @@ _ONE_STEP = {}  # phase 20's one-process steps by TP_MODES label
 
 
 def _mode(label):
-    """(overrides, limits) of a TP_MODES, SP_MODES or SP_EVALS label."""
-    for lab, over, lim in TP_MODES + SP_MODES + SP_EVALS:
+    """(overrides, limits) of a TP_MODES, SP_MODES, SP_EVALS, PATH_MODES,
+    PATH_EVALS or LEGACY_TP_MODES label."""
+    for lab, over, lim in TP_MODES + SP_MODES + SP_EVALS + PATH_MODES + \
+            PATH_EVALS + LEGACY_TP_MODES:
         if lab == label:
             return over, lim
     fail(f"no mode {label}")
@@ -5060,13 +5100,14 @@ def sp_kernel_phase(measured):
         del q, k, v, g, whole, whole_g, args, whole8
 
 
-def _sp_evals(img, mesh=None, out=None):
-    """SP_EVALS' forwards of the TP_DEPTH model (the Trainer's weights) on
-    `img`, on `mesh` (None: one process): the logits and the class maps
-    of rank 0's, the launches of the two forwards."""
+def _sp_evals(img, mesh=None, out=None, labels=None):
+    """The eval forwards `labels` (SP_EVALS' by default; PATH_EVALS') of
+    the TP_DEPTH model (the Trainer's weights) on `img`, on `mesh` (None:
+    one process): the logits and the class maps of rank 0's, the launches
+    of the two forwards and their shape tallies."""
     from transception_tpu_torch.ops import kernels
     res = {}
-    for label, _, _ in SP_EVALS:
+    for label in labels or [e[0] for e in SP_EVALS]:
         tr = _tp_trainer(_mode(label)[0], (out or OUT_DIR / "sp") / label,
                          mesh)
         model = tr.model.eval()
@@ -5076,7 +5117,8 @@ def _sp_evals(img, mesh=None, out=None):
             maps = model(img, argmax=True)
         torch.cuda.synchronize()
         res[label] = {"logits": logits.float().cpu(), "maps": maps.cpu(),
-                      "counts": kernels.launch_counts()}
+                      "counts": kernels.launch_counts(),
+                      "shapes": dict(kernels.shape_counts())}
         del tr, model
         torch.cuda.empty_cache()
     return res
@@ -5205,6 +5247,330 @@ def sp_phase():
     if cards < 2:
         log("  NCCL SP runs were not possible here: one card "
             "(torch.cuda.device_count() == 1)")
+    return runs
+
+
+# ---- phase 22: the legacy models under TP, the per-path MHCA layout and
+# --debug_nans ----
+
+# The per-path layout (vectorize_paths False) at the published widths, all
+# three paths and one block a stage: its "pallas" step (the rate-0 block
+# of stage 2 as K5's sharded form on each path, stage 3's drop-path FFN
+# as K9's hidden-sharded form) and its eval forward (K5's sharded form at
+# 28² and 14²), both on the step's batch; MISSFormer's step (its blocks'
+# FFNs sharded and plain, its bridge whole on K8, K2 and K11).
+PATH = dict(vectorize_paths=False, num_path=(3, 3, 3))
+PATH_MODES = (("paths bf16 pallas", dict(PATH, use_pallas_train=True,
+                                         mhca_ffn_fold=True,
+                                         drop_path_rate=0.1), BF16_LIMITS),)
+PATH_EVALS = (("paths eval bf16", dict(PATH), 0.98),)
+LEGACY_TP_MODES = (("missformer bf16", dict(model="missformer"),
+                    BF16_LIMITS),)
+# (B, s, C) of phase 22 (a): b=32 (the serving batch, logged) and
+# the b=24 shapes phase 22 (b) launches at tp 2 (rows of the kernels
+# line): K5's sharded form at 28² and 14² (the eval forward; the step's
+# at 28²), K9's at 14² (the step's drop-path block).
+K5_TP_SHAPES = ((BATCH, 28, 64), (BATCH, 14, 128), (TRAIN_BATCH, 28, 64),
+                (TRAIN_BATCH, 14, 128))
+K9_TP_SHAPES = ((BATCH, 28, 64), (BATCH, 14, 128), (TRAIN_BATCH, 14, 128))
+K5_TP_OPS = ("mhca_block_tp", "mhca_block_tp_attn", "mhca_block_tp_fc1",
+             "mhca_block_tp_fc2", "mixffn_tp_out")
+K9_TP_OPS = ("mixffn_skip_tp", "mixffn_tp_fc2", "mixffn_skip_tp_out")
+
+
+def _ops(names, kernel):
+    """The operators `names` (kernel) or their plain versions, the
+    operators' CPU implementations (_build.PLAIN_OPS), run on the card's
+    tensors."""
+    from transception_tpu_torch.ops.kernels import _build
+    return [getattr(torch.ops.transception_torch, n).default if kernel
+            else _build.PLAIN_OPS[n] for n in names]
+
+
+def _k5_tp(a, s, tp, ops, fault=False):
+    """K5's sharded form over tp ranks in one process: each rank's qkv
+    columns (stages 1-2) gathered in rank order, stages 3-5 on the whole
+    q|k|v, the FFN's sharded stages with the partial sums summed in rank
+    order (ops: K5_TP_OPS' operators or plain versions). fault: each
+    rank's hidden LN normalised by its own partial sums."""
+    qkv_op, attn_op, fc1_op, fc2_op, out_op = ops
+    (x, cpe_w, cpe_b, l1s, l1b, wqkv, bqkv, cws, cbs, wp, bp, l2s, l2b, w1,
+     b1, dw, dwb, ls, lb, w2, b2) = a
+    C, hid = x.shape[-1], w1.shape[0]
+    nq, n = 3 * C // tp, hid // tp
+    fronts = [qkv_op(x, cpe_w, cpe_b, l1s, l1b, wqkv[r * nq:(r + 1) * nq],
+                     bqkv[r * nq:(r + 1) * nq], s, n, hid, 1e-6)
+              for r in range(tp)]
+    qkv = torch.cat([q for _, q in fronts], -1)
+    x2 = attn_op(qkv, fronts[0][0], list(cws), list(cbs), wp, bp, s, 8)
+    sh = [(w1[k], b1[k], dw[k], dwb[k], ls[k], lb[k], w2[:, k])
+          for k in (slice(r * n, (r + 1) * n) for r in range(tp))]
+    part = [fc1_op(x2, l2s, l2b, *q[:4], s, 1e-6, hid) for q in sh]
+    st = sum(pt[1] for pt in part)
+    pp = sum(fc2_op(h, *q[2:7], stp if fault else st, s, hid, 1e-5)
+             for (h, stp), q in zip(part, sh))
+    return out_op(pp, b2, x2)
+
+
+def _k9_tp(a, s, tp, ops, fault=False):
+    """K9's hidden-sharded form over tp ranks in one process, as _k5_tp's
+    FFN (ops: K9_TP_OPS')."""
+    fc1_op, fc2_op, out_op = ops
+    x, w1, b1, dw, dwb, ls, lb, w2, b2 = a
+    hid = w1.shape[0]
+    n = hid // tp
+    sh = [(w1[k], b1[k], dw[k], dwb[k], ls[k], lb[k], w2[:, k])
+          for k in (slice(r * n, (r + 1) * n) for r in range(tp))]
+    part = [fc1_op(x, *q[:4], s, hid) for q in sh]
+    st = sum(pt[1] for pt in part)
+    pp = sum(fc2_op(h, *q[2:7], stp if fault else st, s, hid, 1e-5)
+             for (h, stp), q in zip(part, sh))
+    return out_op(pp, b2, x.dtype)
+
+
+def _k9_args(gen, B, s, C, dt):
+    hid, N = 4 * C, s * s
+    return (rand(gen, (B, N, C), dtype=dt), rand(gen, (hid, C), C ** -0.5),
+            rand(gen, (hid,), 0.02), rand(gen, (hid, 1, 3, 3), 0.3),
+            rand(gen, (hid,), 0.02), rand(gen, (hid,), 0.1, 1.0),
+            rand(gen, (hid,), 0.1), rand(gen, (C, hid), hid ** -0.5),
+            rand(gen, (C,), 0.5))
+
+
+def tp_mhca_kernel_phase(measured):
+    """Phase 22 (a). K5's sharded form (the per-path MHCA layout's block
+    under the model axis: ops/kernels/mhca_block.py tp_*) and K9's
+    hidden-sharded form (mixffn.py skip_tp_*) on the card, at tp 2 and 4
+    simulated on one card (each rank's stages launched in turn, the qkv
+    columns gathered and the partial sums summed in rank order), bf16 and
+    fp32, at K5_TP_SHAPES and K9_TP_SHAPES: against the unsharded kernel
+    (K5, K9) and against the sharded plain stages, within phase 3's limits
+    (bf16 2% of max|plain|, fp32 1e-4; K5 on its branch); a planted fault
+    each (the hidden LN's sums left out) must fail. Rank 0's stages timed
+    (CUDA events, ms a launch) against the bound of its work (its qkv
+    columns, the whole attention, its FFN shard). The tp 2 shapes of
+    phase 22 (b) join `measured`; the others are logged."""
+    from transception_tpu_torch.ops.kernels import mhca_block as mb
+    from transception_tpu_torch.ops.kernels import mixffn as mf
+    gen = torch.Generator().manual_seed(22)
+    recorded = {(TRAIN_BATCH, 28, 64, "k5"), (TRAIN_BATCH, 14, 128, "k5"),
+                (TRAIN_BATCH, 14, 128, "k9")}
+    for dt in (torch.bfloat16, torch.float32):
+        fp32 = dt == torch.float32
+        es, tag = (4, " fp32") if fp32 else (2, "")
+        tol = FP32_TOL if fp32 else 0.02
+        peak = FP32_FLOPS if fp32 else BF16_FLOPS
+        for kind, shapes in (("k5", K5_TP_SHAPES), ("k9", K9_TP_SHAPES)):
+            for B, s, C in shapes:
+                hid, N = 4 * C, s * s
+                T = B * N
+                if kind == "k5":
+                    x, a, _ = _k5_args(gen, B, s, C, dt)
+                    name, ops = mb.TP_NAME, K5_TP_OPS
+                    run = functools.partial(_k5_tp, a, s)
+                    with torch.no_grad():
+                        whole = mb.mhca_block(*a, s=s, heads=8)
+                    base = x
+                else:
+                    a = _k9_args(gen, B, s, C, dt)
+                    name, ops = mf.SKIP_TP_NAME, K9_TP_OPS
+                    run = functools.partial(_k9_tp, a, s)
+                    with torch.no_grad():
+                        whole = mf.mixffn_skip(*a, s=s)
+                    base = None
+                kops, pops = _ops(ops, True), _ops(ops, False)
+                for tp in TP_SIZES:
+                    hl, nq = hid // tp, 3 * C // tp
+                    label = (f"({B},{N},{C}) hidden {hid}, tp {tp} ({hl} a "
+                             f"rank" + (f", qkv {nq} of {3 * C}"
+                                         if kind == "k5" else "") + f"){tag}")
+                    with torch.no_grad():
+                        key, got = _tallied(name, lambda: run(tp, kops))
+                        want = run(tp, pops)
+                        err, ok = err_check(f"{name} {label} vs sharded "
+                                            f"plain", got, want, tol, base)
+                        e2, ok2 = err_check(f"{name} {label} vs unsharded "
+                                            f"kernel", got, whole, tol, base)
+                        if not (ok and ok2):
+                            fail(f"the sharded {name} disagrees")
+                        bad = run(tp, pops, fault=True)
+                        if err_check("  planted fault (the hidden LN's sums "
+                                     "not summed)", bad, want, tol,
+                                     base)[1]:
+                            fail(f"{name}: the check does not see a fault")
+                        # Rank 0's launch: its stages, the others' parts
+                        # of the gathered q|k|v and the sums as inputs.
+                        ms = _rank0_ms(kind, a, s, tp, kops)
+                        pms = _rank0_ms(kind, a, s, tp, pops, iters=2)
+                    w = (2 * C * hl + 9 * hl) * es + 2 * T * C * es \
+                        + T * 8 * 2 + T * C * 4 * 2
+                    f = 4 * T * C * hl + 18 * T * hl
+                    if kind == "k5":
+                        w += (nq * C + C * C) * es + T * 3 * C * es
+                        f += T * (2 * C * nq + 2 * C * C + 4 * C * C // 8
+                                  + 78 * C)
+                    bms, by = bound_ms(w, f, peak)
+                    log(f"    {name} {label}: rank 0's stages ms {ms:.4f} "
+                        f"plain_ms {pms:.4f} bound_ms {bms:.4f} ({by}) per "
+                        f"launch, library call none; "
+                        f"{against(ms, bms, None)}")
+                    if tp == TP_MAIN and not fp32 and \
+                            (B, s, C, kind) in recorded:
+                        record(measured, key, label, max(err, e2), ms, pms,
+                               None, w, f, peak)
+                del a, whole
+
+
+def _rank0_ms(kind, a, s, tp, ops, iters=10):
+    """CUDA-event ms of rank 0's stages of K5's sharded form (kind "k5":
+    its qkv columns, the attention on the whole q|k|v, its FFN shard, the
+    out stage) or K9's, with the other ranks' parts (gathered columns,
+    summed partials) made once outside the clock."""
+    if kind == "k5":
+        qkv_op, attn_op, fc1_op, fc2_op, out_op = ops
+        (x, cpe_w, cpe_b, l1s, l1b, wqkv, bqkv, cws, cbs, wp, bp, l2s, l2b,
+         w1, b1, dw, dwb, ls, lb, w2, b2) = a
+        C, hid = x.shape[-1], w1.shape[0]
+        nq, n = 3 * C // tp, hid // tp
+        q0 = (w1[:n], b1[:n], dw[:n], dwb[:n], ls[:n], lb[:n], w2[:, :n])
+        x1, part = qkv_op(x, cpe_w, cpe_b, l1s, l1b, wqkv[:nq], bqkv[:nq],
+                          s, n, hid, 1e-6)
+        qkv = torch.cat([part] * tp, -1)
+        x2 = attn_op(qkv, x1, list(cws), list(cbs), wp, bp, s, 8)
+        h, st = fc1_op(x2, l2s, l2b, *q0[:4], s, 1e-6, hid)
+        p = fc2_op(h, *q0[2:7], st, s, hid, 1e-5)
+
+        def rank0():
+            qkv_op(x, cpe_w, cpe_b, l1s, l1b, wqkv[:nq], bqkv[:nq], s, n,
+                   hid, 1e-6)
+            attn_op(qkv, x1, list(cws), list(cbs), wp, bp, s, 8)
+            fc1_op(x2, l2s, l2b, *q0[:4], s, 1e-6, hid)
+            fc2_op(h, *q0[2:7], st, s, hid, 1e-5)
+            out_op(p, b2, x2)
+    else:
+        fc1_op, fc2_op, out_op = ops
+        x, w1, b1, dw, dwb, ls, lb, w2, b2 = a
+        hid = w1.shape[0]
+        n = hid // tp
+        q0 = (w1[:n], b1[:n], dw[:n], dwb[:n], ls[:n], lb[:n], w2[:, :n])
+        h, st = fc1_op(x, *q0[:4], s, hid)
+        p = fc2_op(h, *q0[2:7], st, s, hid, 1e-5)
+
+        def rank0():
+            fc1_op(x, *q0[:4], s, hid)
+            fc2_op(h, *q0[2:7], st, s, hid, 1e-5)
+            out_op(p, b2, x.dtype)
+    return cuda_ms(rank0, iters=iters, warmup=1)
+
+
+def paths_phase():
+    """Phase 22 (b, c, d). (b) The per-path layout's tp=2 "pallas" step
+    (PATH_MODES) and sharded eval forward (PATH_EVALS) at the published
+    widths, all three paths and one block a stage, b=24: two spawned
+    ranks share card 0 over gloo (as phase 20's), against the one-process
+    step and forward of the same config (phase 9's limits; maps at least
+    0.98 equal), launches exactly launches_per_step(cfg, tp=2) and
+    launches_per_forward(cfg, tp=2): K5's sharded form 3 a step and 6 a
+    forward, K9's 3 a step. (c) MISSFormer's tp=2 step (LEGACY_TP_MODES)
+    the same way, its launches models.legacy.launches_per_step's. (d) A
+    NaN planted in a weight of the card's model under --debug_nans
+    (cli.common.nan_checks) raises FloatingPointError naming its module.
+    Returns the runs' launches per shape key."""
+    import shutil
+
+    from transception_tpu_torch.cli.common import nan_checks
+    from transception_tpu_torch.core.config import TransceptionConfig
+    from transception_tpu_torch.data.device_synthetic import (
+        DeviceSyntheticStream,
+    )
+    from transception_tpu_torch.models.transception import (
+        MSTransception,
+        launches_per_forward,
+    )
+    from transception_tpu_torch.parallel.mesh import spawn
+
+    out = OUT_DIR / "paths"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    batch = DeviceSyntheticStream(TRAIN_BATCH, 224, 9, device="cuda").batch(0)
+    img, lbl = batch["image"], batch["label"]
+    steps = PATH_MODES + LEGACY_TP_MODES
+    refs = {}
+    for label, over, _ in steps:
+        tr = _tp_trainer(over, out / "one")
+        refs[label] = _dp_step(tr, img, lbl)
+        del tr
+        torch.cuda.empty_cache()
+    evals = [e[0] for e in PATH_EVALS]
+    one_eval = _sp_evals(img, out=out / "one_eval", labels=evals)
+    t0 = time.perf_counter()
+    where = "gloo, dp1 x tp2, every rank on card 0"
+    wdir = out / "gloo_dp1_tp2"
+    wdir.mkdir()
+    spawn(_tp_rank, TP_MAIN, (str(wdir), "gloo", 1, TP_MAIN,
+                              [m[0] for m in steps], evals))
+    res = torch.load(wdir / "rank0.pt", weights_only=False)
+    runs = []
+    for label, _, lim in steps:
+        r = res[label]
+        ref, one_ms = refs[label]
+        if r["counts"] != r["want"]:
+            fail(f"{label} ({where}): launched {r['counts']}, want "
+                 f"launches_per_step {r['want']}")
+        runs.append((f"per {label} train step ({where}, rank 0)",
+                     r["shapes"], 1))
+        n = {k: v for k, v in r["counts"].items() if v}
+        log(f"  {label} ({where}): launches = launches_per_step {n}; "
+            f"{r['ms']:.1f} ms a step (CUDA events over {TP_TIME_STEPS} "
+            f"steps; gloo sums through the host: not TP's speed), one "
+            f"process {one_ms:.1f} ms")
+        if not _compare_steps(f"{label} ({where}) vs one process",
+                              r["step"], ref, lim=lim):
+            fail(f"the tp {label} step disagrees with the one-process step")
+    for label in evals:
+        got, want = res["evals"][label], one_eval[label]
+        cfg = TransceptionConfig(**dict(TP_DEPTH, **_mode(label)[0]))
+        lpf = Counter(launches_per_forward(cfg, argmax=False, tp=TP_MAIN))
+        lpf.update(launches_per_forward(cfg, argmax=True, tp=TP_MAIN))
+        if got["counts"] != dict(lpf):
+            fail(f"{label} ({where}): launched {got['counts']}, want "
+                 f"launches_per_forward {dict(lpf)}")
+        agree = float((got["maps"] == want["maps"]).float().mean())
+        diff = float((got["logits"] - want["logits"]).abs().max())
+        least = _mode(label)[1]
+        log(f"  {label} ({where}) vs one process: class maps {agree:.6f} "
+            f"equal (at least {least}), logits max |diff| {diff:.6g} (max "
+            f"|logit| {float(want['logits'].abs().max()):.4g}), bit-equal "
+            f"{torch.equal(got['logits'], want['logits'])}; launches = "
+            f"launches_per_forward(cfg, tp={TP_MAIN}) x (logits + argmax) "
+            f"(mhca_block_tp {got['counts']['mhca_block_tp']}) "
+            f"{'ok' if agree >= least else 'FAIL'}")
+        if agree < least:
+            fail(f"the {label} forward disagrees with the one process")
+        # K5's sharded form at the eval's shapes (its other kernels run
+        # at shapes and counts of the earlier phases' sharded evals).
+        runs.append((f"per {label} logits + argmax forwards ({where}, rank "
+                     f"0), mhca_block_tp", {
+                         k: v for k, v in got["shapes"].items()
+                         if k[0] == "mhca_block_tp"}, 1))
+    log(f"  {where}: {time.perf_counter() - t0:.1f} s")
+    # (d) --debug_nans on the card.
+    model = MSTransception(TransceptionConfig(**TP_DEPTH), "cuda")
+    planted = "backbone.patch_embed_stage2.patch_embeds.0.patch_conv.dwconv"
+    with torch.no_grad():
+        model.get_submodule(planted).weight.view(-1)[0] = float("nan")
+        try:
+            with nan_checks(model):
+                model(img[:2])
+        except FloatingPointError as e:
+            log(f"  --debug_nans: a NaN planted in {planted}.weight raised "
+                f"FloatingPointError: {e}")
+            if planted not in str(e):
+                fail("--debug_nans named another module")
+        else:
+            fail("--debug_nans: the planted NaN did not raise")
+    del model
+    torch.cuda.empty_cache()
     return runs
 
 
@@ -5378,6 +5744,15 @@ def main():
     sp_runs = sp_phase()
     log(f"  phase 21 (c): {time.perf_counter() - t0:.1f} s")
 
+    log("phase 22: the legacy models under TP, the per-path MHCA layout "
+        "(K5's and K9's sharded forms) and --debug_nans")
+    t0 = time.perf_counter()
+    tp_mhca_kernel_phase(measured)
+    log(f"  phase 22 (a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths_runs = paths_phase()
+    log(f"  phase 22 (b, c, d): {time.perf_counter() - t0:.1f} s")
+
     # The main-path runs: phase 4's forwards, phase 9's flash and pallas
     # Trainer steps and fp32 steps, phase 10's forward per configuration,
     # phase 11's volume-eval forwards, phase 12's train CLI steps, evals
@@ -5385,9 +5760,9 @@ def main():
     # runs, phase 14's data-parallel steps and sharded eval (world 1; the
     # ranks of a multi-card run are other processes), phase 15's legacy
     # forwards, steps and CLI runs, phases 16 and 18's runs, and rank 0's
-    # steps of phases 20 and 21 (the tp and SP steps). Every launch's
-    # shape must have been measured in phase 3, 8, 20 (a) or 21 (a, b),
-    # and every measured shape launched.
+    # steps of phases 20, 21 and 22 (the tp, SP, per-path and legacy tp
+    # steps). Every launch's shape must have been measured in phase 3, 8,
+    # 20 (a), 21 (a, b) or 22 (a), and every measured shape launched.
     runs = [("per forward, default config", fwd_tallies, n_fwd),
             ("per forward, fp32 default config", fp32_tallies, 1)] + [
         (f"per {mode} train step", t, n)
@@ -5397,7 +5772,7 @@ def main():
         (f"per forward, {name}", t, 1) for name, t in grid_tallies.items()
     ] + [("per forward, volume eval", vol_tallies, n_vol)] + cli_runs \
         + variant_runs + dp_runs + legacy_runs + isic_runs + remat_runs \
-        + tp_runs + sp_runs
+        + tp_runs + sp_runs + paths_runs
     total = Counter()
     for _, t, _ in runs:
         total.update(t)

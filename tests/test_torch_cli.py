@@ -162,30 +162,34 @@ def test_build_configs_equal_jax_on_shared_fields(argv):
     assert ported[0].use_kernels == ref[0].use_pallas
 
 
-@pytest.mark.parametrize("flag", ["--no_vectorize_paths", "--debug_nans"])
-def test_flags_without_a_port_field_refuse_other_values(flag):
-    p, _ = _parsers(("add_model_args", "add_data_args", "add_train_args"))
-    dest = flag.split()[0][2:]
-    default, _ = pcommon.UNSUPPORTED[dest]
-    assert p.get_default(dest) == default
-    with pytest.raises(ValueError, match=f"--{dest} "):
-        pcommon.build_configs(p.parse_args(shlex.split(flag)))
-
-
 @pytest.mark.parametrize("flag,field,value", [
     ("--use_sa_config 2", "use_sa_config", 2), ("--sa_ker 5", "sa_ker", 5),
     ("--inter out", "inter", "out"), ("--num_sp 2", "num_sp", 2),
     ("--head_count 4", "head_count", 4), ("--dil_conv 0", "dil_conv", 0),
-    ("--remat", "remat", True)])
+    ("--remat", "remat", True),
+    ("--no_vectorize_paths", "vectorize_paths", False),
+    ("--debug_nans", None, True)])
 def test_ablation_flags_are_accepted(flag, field, value):
-    """The ablation knobs refused before the port had the variants, and
-    the legacy models' head_count and dil_conv refused before it had
-    them: build_configs takes them into TransceptionConfig, as the JAX
-    package's does."""
+    """The ablation knobs refused before the port had the variants, the
+    legacy models' head_count and dil_conv refused before it had them,
+    and --no_vectorize_paths and --debug_nans refused before it had the
+    per-path layout and its NaN checks: build_configs takes them into
+    TransceptionConfig, as the JAX package's does (--debug_nans is the
+    CLIs' switch, cli.common.nan_checks, in no config: the JAX CLI turns
+    jax_debug_nans on, put back here)."""
+    import jax
     p, j = _parsers(("add_model_args", "add_data_args", "add_train_args"))
-    assert flag.split()[0][2:] not in pcommon.UNSUPPORTED
-    got = pcommon.build_configs(p.parse_args(shlex.split(flag)))[0]
-    want = jcommon.build_configs(j.parse_args(shlex.split(flag)))[0]
+    assert not pcommon.UNSUPPORTED
+    args = shlex.split(flag)
+    got = pcommon.build_configs(p.parse_args(args))[0]
+    try:
+        want = jcommon.build_configs(j.parse_args(args))[0]
+    finally:
+        jax.config.update("jax_debug_nans", False)
+    if field is None:
+        assert getattr(p.parse_args(args), flag[2:]) is value
+        assert got == pcommon.build_configs(p.parse_args([]))[0]
+        return
     assert getattr(got, field) == value == getattr(want, field)
 
 

@@ -372,8 +372,8 @@ def test_trainer_takes_one_rank_outside_a_launch(monkeypatch, scratch):
 
 def test_refusals(volumes, tmp_path):
     """Before any work: a global batch that does not divide over the
-    ranks, an eval batch that does not, more ranks than cards, and a
-    legacy model on the TP axis."""
+    ranks, an eval batch that does not, and more ranks than cards. (A
+    legacy model on the TP axis runs: tests/test_torch_tp_layouts.py.)"""
     with pytest.raises(ValueError, match="does not divide over --dp_size 3"):
         ptrain_cli.main(_train_argv(volumes, tmp_path, "--dp_size", "3"),
                         device="cpu")
@@ -384,9 +384,3 @@ def test_refusals(volumes, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="needs 2 cards, have 0"):
             ptrain_cli.main(_train_argv(volumes, tmp_path, "--dp_size", "2"))
-    # --tp_size 2 runs on the CPU (tests/test_torch_tp_cli.py); a legacy
-    # model under it is refused by name, before any work.
-    with pytest.raises(NotImplementedError,
-                       match="--model missformer.*ROADMAP.md §1 item 4"):
-        ptrain_cli.main(_train_argv(volumes, tmp_path, "--tp_size", "2",
-                                    "--model", "missformer"), device="cpu")

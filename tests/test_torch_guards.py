@@ -24,7 +24,8 @@ MODEL_FIELDS = (
     "bridge_attn_fold",
     "bridge_ffn_use_pallas", "etb_attn_fold", "etb_ffn_fold", "mhca_ffn_fold",
     "mhca_block_fold", "use_sa_config", "sa_ker", "inter", "num_sp",
-    "head_count", "dil_conv", "remat", "bridge_seq_shard_axis")
+    "head_count", "dil_conv", "remat", "bridge_seq_shard_axis",
+    "vectorize_paths")
 # DataConfig fields the port mirrors (those its train loop and its test
 # volumes read).
 DATA_FIELDS = ("dataset", "root_path", "test_path", "list_dir", "img_size",

@@ -57,6 +57,7 @@ def _cases():
     rows = mf.tp_bwd_rows_plain(*rows_args)
     dh_args = [*rows[:5], gx, half[2], half[4], half[0], st, rows[5] * 2, S,
                HID, 1e-5]
+    qkv3 = _r(g, 2, N, 3 * C)
     xe = _r(g, 2, 9, C)
     wex, ls8, lb8 = _r(g, 32, C, scale=C ** -0.5), _r(g, 8) + 1, _r(g, 8)
     wh, lsh, lbh = _r(g, 16 * 64, C, scale=C ** -0.5), _r(g, 64) + 1, \
@@ -89,6 +90,31 @@ def _cases():
                              mf.tp_bwd_dh_plain(*dh_args)),
         "mixffn_tp_bwd_ln": (mf.TP_BWD_LN_OP, [x, gx, gx, lts, 1, 1e-5],
                              mf.tp_bwd_ln_plain(x, gx, gx, lts, 1, 1e-5)),
+        # K9's hidden-sharded stages (fc2 is K2's, above).
+        "mixffn_skip_tp": (mf.SKIP_TP_FC1_OP, [x, *half[:4], S, HID],
+                           mf.skip_tp_fc1_plain(x, *half[:4], S, HID)),
+        "mixffn_skip_tp_out": (mf.SKIP_TP_OUT_OP, [gx, ffn[7],
+                                                   torch.bfloat16],
+                               mf.skip_tp_out_plain(gx, ffn[7],
+                                                    torch.bfloat16)),
+        # K5's sharded stages: half the qkv columns and of the hidden
+        # channels, a made-up gathered q|k|v and summed sums.
+        "mhca_block_tp": (mb.TP_QKV_OP, mhca[:5] + [mhca[5][:3 * C // 2],
+                                                    mhca[6][:3 * C // 2],
+                                                    S, HID // 2, HID, 1e-6],
+                          mb.tp_qkv_plain(*mhca[:5], mhca[5][:3 * C // 2],
+                                          mhca[6][:3 * C // 2], S, 1e-6)),
+        "mhca_block_tp_attn": (mb.TP_ATTN_OP, [qkv3, x, *mhca[7:11], S, 8],
+                               mb.tp_attn_plain(qkv3, x, *mhca[7:11], S,
+                                                8)),
+        "mhca_block_tp_fc1": (mb.TP_FC1_OP, [x, lts, ltb, *half[:4], S,
+                                             1e-6, HID],
+                              mb.tp_fc1_plain(x, lts, ltb, *half[:4], S,
+                                              1e-6, HID)),
+        "mhca_block_tp_fc2": (mb.TP_FC2_OP, [hh, *half[2:7], st, S, HID,
+                                             1e-5],
+                              mf.tp_fc2_plain(hh, *half[2:7], st, S, HID,
+                                              1e-5)),
         "bridge_attention": (ba.OP, [q, k, v, 0.25],
                              ba.bridge_attention_plain(q, k, v, 0.25)),
         "bridge_attention_bwd": (ba.BWD_OP, [q, k, v, q, 0.25],

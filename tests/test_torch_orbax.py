@@ -7,8 +7,10 @@ load_weights and Trainer.restore_checkpoint (--resume) take.
 The JAX train state comes from create_train_state, with seeded random
 momentum (optax trace) leaves and BatchNorm statistics, and non-zero
 step and schedule count, for the recipe's three optimizer chains: plain,
-grad_clipping, and accumulation over 2 micro-steps at a window boundary.
-A checkpoint taken inside a window is refused.
+grad_clipping, and accumulation over 2 micro-steps at a window boundary;
+and the plain chain in the per-path MHCA layout (vectorize_paths False,
+the script's --no_vectorize_paths). A checkpoint taken inside a window
+is refused.
 
 Tolerances: the converted model's fp32 eval logits within 1e-4 of the
 largest JAX logit (the fp32 parity tolerance of tests/test_torch_model.py);
@@ -58,8 +60,9 @@ SPE, COUNT, B, EPOCHS = 10, 7, 4, 3
 FLAGS = ["--img_size", "32", "--stage1_layers", "1", "--num_path", "2,2,2",
          "--num_layers", "1,1,1", "--dtype", "float32", "--batch_size",
          str(B), "--max_epochs", str(EPOCHS), "--steps_per_epoch", str(SPE)]
-# name -> (grad_clipping, grad_accum_steps)
-RECIPES = {"plain": (False, 1), "clip": (True, 1), "accum2": (False, 2)}
+# name -> (grad_clipping, grad_accum_steps, vectorize_paths)
+RECIPES = {"plain": (False, 1, True), "clip": (True, 1, True),
+           "accum2": (False, 2, True), "per_path": (False, 1, False)}
 
 
 def _script():
@@ -77,10 +80,11 @@ def _port_config(jc):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_state(jtc):
+def _jax_state(jtc, stacked=True):
     """create_train_state's state with random trace leaves and BatchNorm
-    statistics, COUNT updates done, at a window boundary."""
-    jc = tiny_config()
+    statistics, COUNT updates done, at a window boundary (the stacked or
+    the per-path MHCA layout)."""
+    jc = tiny_config(vectorize_paths=stacked)
     state = create_train_state(JModel(jc), jtc, SPE,
                                jnp.zeros((1, 32, 32, 1)),
                                jax.random.PRNGKey(0))
@@ -126,22 +130,23 @@ def _save(jc, jtc, state, out):
             h.close()
 
 
-def _recipe_flags(clip, k):
+def _recipe_flags(clip, k, stacked=True):
     return (["--grad_clipping"] if clip else []) + \
-        ["--accumulation_steps", str(k)]
+        ["--accumulation_steps", str(k)] + \
+        ([] if stacked else ["--no_vectorize_paths"])
 
 
 @pytest.fixture(scope="module", params=list(RECIPES))
 def converted(request, tmp_path_factory):
-    clip, k = RECIPES[request.param]
+    clip, k, stacked = RECIPES[request.param]
     jtc = JTrainConfig(batch_size=B, max_epochs=EPOCHS, grad_clipping=clip,
                        grad_accum_steps=k)
-    jc, state = _jax_state(jtc)
+    jc, state = _jax_state(jtc, stacked)
     out = tmp_path_factory.mktemp(f"orbax_{request.param}")
     src = _save(jc, jtc, state, out / "jax")
     path = _script().main(["--orbax_dir", str(src), "--output_dir",
                            str(out / "port"), *FLAGS,
-                           *_recipe_flags(clip, k)])
+                           *_recipe_flags(clip, k, stacked)])
     tc = TrainConfig(batch_size=B, max_epochs=EPOCHS, grad_clipping=clip,
                      grad_accum_steps=k, output_dir=str(out / "port"))
     yield jc, jtc, tc, state, Path(path)
@@ -150,8 +155,9 @@ def converted(request, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def jax_forward():
-    jm = JModel(tiny_config())
-    return jax.jit(lambda v, x: jm.apply(v, x))
+    """The JAX forward of a config's model (jitted once a config)."""
+    return functools.lru_cache(maxsize=None)(
+        lambda jc: jax.jit(lambda v, x: JModel(jc).apply(v, x)))
 
 
 def test_counters_and_lr_equal_jax(converted):
@@ -193,8 +199,9 @@ def test_load_weights_gives_jax_logits(converted, jax_forward):
                                                device="cpu"))
     x = np.random.default_rng(2).normal(size=(2, 32, 32, 1)).astype(
         np.float32)
-    want = np.asarray(jax_forward({"params": state.params,
-                                   "batch_stats": state.batch_stats}, x))
+    want = np.asarray(jax_forward(jc)({"params": state.params,
+                                       "batch_stats": state.batch_stats},
+                                      x))
     with torch.no_grad():
         got = m(torch.from_numpy(x)).numpy()
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
@@ -245,7 +252,8 @@ def test_recipe_mismatch_raises(converted, tmp_path):
     with pytest.raises(ValueError, match="optimizer chain|MultiSteps"):
         _script().main(["--orbax_dir", str(src), "--output_dir",
                         str(tmp_path), *FLAGS,
-                        *_recipe_flags(not clip, 3 - k)])
+                        *_recipe_flags(not clip, 3 - k,
+                                       jc.vectorize_paths)])
 
 
 def test_script_imports_nothing_of_the_jax_package():

@@ -1,7 +1,8 @@
 """The model axis's weight layout (parallel/mesh.py) against the JAX
 package's TP rules (transception_tpu/parallel/mesh.py param_shard_rules,
 shard_params' even-division fallback), for every registry model at
-tp 2 and 4: the port's sharded weights, read through the converter's name
+tp 2 and 4, in the stacked MHCA layout (vectorize_paths, the default) and
+the per-path one: the port's sharded weights, read through the converter's name
 map (convert/from_jax.py flax_path_to_torch_key), are the ones JAX shards.
 JAX's shapes come from jax.eval_shape of the model's init (no compute).
 Plus: the companions that shard with an FFN's fc1 or a qkv, shard_model
@@ -45,10 +46,12 @@ def _leaves(tree, prefix=""):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_specs(name):
+def jax_specs(name, stacked=True):
     """(flax path, shape, PartitionSpec) of every parameter leaf the JAX
-    rules shard, for registry model `name` at the tiny config."""
-    model = MODEL_REGISTRY[name](tiny_config(dil_conv=0))
+    rules shard, for registry model `name` at the tiny config in the
+    stacked or (stacked=False) per-path MHCA layout."""
+    model = MODEL_REGISTRY[name](tiny_config(dil_conv=0,
+                                             vectorize_paths=stacked))
     v = jax.eval_shape(
         lambda x: model.init(jax.random.PRNGKey(0), x, train=False),
         jnp.zeros((1, 32, 32, 1)))
@@ -57,13 +60,15 @@ def jax_specs(name):
                  if any(jax_rules(p, leaf)))
 
 
-def jax_sharded(name, tp):
+def jax_sharded(name, tp, stacked=True):
     """{torch key: sharded dim} of the weights JAX shards for registry
     model `name` at tp (shard_params' fallback: replicated where the
     sharded dim does not divide; a flax kernel is (in, out), its out axis
     the torch weight's dim 0)."""
+    # The layout switch reaches the MSTransception backbones only.
+    stacked = stacked or not name.startswith("mstransception")
     return {flax_path_to_torch_key(p): 1 - spec.index("model")
-            for p, shape, spec in jax_specs(name)
+            for p, shape, spec in jax_specs(name, stacked)
             if not any(a is not None and d % tp
                        for d, a in zip(shape, spec))}
 
@@ -74,14 +79,19 @@ def port_models():
             for n in PORTED}
 
 
+LAYOUTS = {"stacked": True, "per_path": False}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
 @pytest.mark.parametrize("tp", [2, 4])
 @pytest.mark.parametrize("name", sorted(MODEL_REGISTRY))
-def test_port_shards_the_jax_rules_set(port_models, name, tp):
+def test_port_shards_the_jax_rules_set(port_models, name, tp, layout):
+    stacked = LAYOUTS[layout]
     sd = port_models[name].state_dict()
-    layout = shard_layout(sd, tp)
+    layout = shard_layout(sd, tp, stacked)
     got = {k: d for k, d in layout.items()
-           if param_shard_rules(k, sd[k]) is not None}
-    assert got == jax_sharded(name, tp)
+           if param_shard_rules(k, sd[k], stacked) is not None}
+    assert got == jax_sharded(name, tp, stacked)
     # The rest are the companions of a sharded FFN's fc1 or of a qkv.
     comp = ("fc1.bias", "dwconv.dwconv.weight", "dwconv.dwconv.bias",
             "norm1.weight", "norm1.bias")
@@ -109,6 +119,26 @@ def test_rules_set_covers_the_ffns_and_the_qkv(port_models):
         "bridge.bridge_layer1.scale_fuse_att.group_attention.0.Attention."
         "qkv_linear.bias"]
     assert shard_layout(port_models["mstransception"].state_dict(), 1) == {}
+
+
+def test_per_path_layout_shards_the_mhca_blocks(port_models):
+    """The per-path layout's rules at the tiny MSTransception (two paths
+    a stage): 32 kernels where the stacked layout shards 14; the 18 more
+    are every MHCA block's factoratt_crpe qkv (on its output features)
+    and its mlp fc1 and fc2, in stages 2-4."""
+    assert len(jax_specs("mstransception")) == 14
+    assert len(jax_specs("mstransception", False)) == 32
+    sd = port_models["mstransception"].state_dict()
+    extra = set(shard_layout(sd, 2, False)) - set(shard_layout(sd, 2))
+    weights = sorted(k for k in extra if k.endswith("weight") and
+                     param_shard_rules(k, sd[k], False) is not None)
+    assert len(weights) == 18
+    assert all(".mhca_blks." in k and k.endswith((
+        "factoratt_crpe.qkv.weight", "mlp.fc1.weight", "mlp.fc2.weight"))
+        for k in weights)
+    assert {sd[k].shape for k in weights
+            if k.endswith("qkv.weight")} == {(192, 64), (384, 128),
+                                             (960, 320)}
 
 
 def test_even_division_fallback():

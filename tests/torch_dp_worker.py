@@ -52,10 +52,10 @@ CASES = {
 
 
 def model_cfg(**kw) -> TransceptionConfig:
-    return TransceptionConfig(img_size=IMG, dtype="float32",
-                              stage1_layers=1, num_path=(1, 1, 1),
-                              num_layers=(1, 1, 1), dims=(16, 32, 80, 128),
-                              bridge_dim=16, **kw)
+    return TransceptionConfig(**dict(
+        dict(img_size=IMG, dtype="float32", stage1_layers=1,
+             num_path=(1, 1, 1), num_layers=(1, 1, 1),
+             dims=(16, 32, 80, 128), bridge_dim=16), **kw))
 
 
 def initial_state(cfg: Optional[TransceptionConfig] = None,
@@ -66,10 +66,10 @@ def initial_state(cfg: Optional[TransceptionConfig] = None,
     return MSTransception(cfg or model_cfg(), "cpu", seed=seed).state_dict()
 
 
-def batches(n: int):
+def batches(n: int, img: int = IMG):
     rng = np.random.default_rng(11)
-    return [(rng.random((GLOBAL_BATCH, IMG, IMG, 1), dtype=np.float32),
-             rng.integers(0, 9, (GLOBAL_BATCH, IMG, IMG)))
+    return [(rng.random((GLOBAL_BATCH, img, img, 1), dtype=np.float32),
+             rng.integers(0, 9, (GLOBAL_BATCH, img, img)))
             for _ in range(n)]
 
 

@@ -63,6 +63,42 @@ FAULTS = {"seq_no_halo": "halo", "seq_no_grad_sum": "grad_sum",
 # (K8 on the query rows, K2 on map rows).
 SEQ_EVALS = {"seq": {}, "seq_folds": dict(bridge_attn_fold=True,
                                           bridge_ffn_use_pallas=True)}
+# The cases of tests/test_torch_tp_layouts.py: the legacy models and the
+# per-path MHCA layout (vectorize_paths False), name -> (registry model,
+# TransceptionConfig overrides, TrainConfig overrides, patches, steps).
+# The legacy models at dil_conv 0 (their dilated schedules need larger
+# maps); the ResInceptions at 64², whose MultiRes branches' train-mode
+# BatchNorms at 32² normalise the 1 x 1 deepest maps over the batch's 4
+# values a channel: ResInception-135's one-process step then moves by
+# 0.17 of the gradient limit between two torch thread counts, and the
+# hidden width's sums in another order move it past the limit (at 64²:
+# 0.16 of it); MISSFormer with bridge_seq_shard_axis "model", which its bridge
+# ignores (as the JAX MISSFormer's); the per-path MSTransception in the
+# default mode (its MHCA blocks' sharded qkv and FFNs plain), the flash
+# mode (their FFN folds on the hidden-sharded K2 and K11 at the even
+# sides) and the "pallas" mode (the rate-0 block as K5's sharded form,
+# the drop-path block's FFN as K9's).
+LEGACY = dict(dil_conv=0)
+PER_PATH = dict(vectorize_paths=False)
+LAYOUT_CASES = {
+    **{n: (n, LEGACY, {}, (), 1) for n in (
+        "transception", "missformer", "effmissformer")},
+    **{n: (n, dict(LEGACY, img_size=64), {}, (), 1) for n in (
+        "resinception", "resinception_135")},
+    "missformer_seq": ("missformer", dict(LEGACY,
+                                          bridge_seq_shard_axis="model"),
+                       {}, (), 1),
+    "paths_default": ("mstransception", PER_PATH, {}, (), 1),
+    "paths_flash": ("mstransception", dict(PER_PATH, ffn_flash_train=True),
+                    {}, (), 1),
+    "paths_pallas": ("mstransception", dict(
+        PER_PATH, use_pallas_train=True, mhca_ffn_fold=True,
+        drop_path_rate=0.1), {}, (), 1),
+}
+# The cases of the dp1 x tp4 launch.
+LAYOUT_TP4 = ("missformer", "paths_pallas")
+# Eval forwards of the sharded per-path model (K5's sharded form).
+PATH_EVALS = {"paths": dict(PER_PATH)}
 
 
 @contextlib.contextmanager
@@ -105,16 +141,28 @@ def seq_fault(fault):
          bridge.MEfficientSelfAtten.forward) = saved
 
 
+def case(name: str):
+    """(registry model, TransceptionConfig overrides, TrainConfig
+    overrides, patches, steps) of a case of CASES or LAYOUT_CASES."""
+    if name in LAYOUT_CASES:
+        return LAYOUT_CASES[name]
+    return ("mstransception",) + CASES.get(name, ({}, {}, (), 1))
+
+
 def trainer(name: str, out_dir: str, mesh=None, tp: int = 1, model=None,
             **tkw):
+    from transception_tpu_torch.models.registry import create_model
     from transception_tpu_torch.train.trainer import Trainer
-    mkw, ckw, _, _ = CASES.get(name, ({}, {}, (), 1))
+    reg, mkw, ckw, _, _ = case(name)
     tc = TrainConfig(**dict(dict(batch_size=GLOBAL_BATCH, seed=5,
                                  output_dir=out_dir, max_epochs=2,
                                  tp_size=tp), **ckw, **tkw))
+    if model is None and reg != "mstransception":
+        model = create_model(reg, W.model_cfg(**mkw), "cpu", seed=5)
     cfg = model.cfg if model is not None else W.model_cfg(**mkw)
     return Trainer(cfg, tc, DataConfig(dataset="synthetic",
-                                       img_size=W.IMG, synthetic_len=8),
+                                       img_size=cfg.img_size,
+                                       synthetic_len=8),
                    device="cpu", mesh=mesh, model=model)
 
 
@@ -136,8 +184,9 @@ def run_case(name: str, out_dir: str, mesh=None, fault: str = "") -> Dict:
     state, step = tr.init_state(steps_per_epoch=10)
     rows = mesh.rows(GLOBAL_BATCH) if mesh is not None else slice(None)
     kernels.reset_launches()
-    with W.patched(CASES[name][2]), seq_fault(fault):
-        for img, lbl in W.batches(CASES[name][3]):
+    _, _, _, patches, steps = case(name)
+    with W.patched(patches), seq_fault(fault):
+        for img, lbl in W.batches(steps, tr.model.cfg.img_size):
             met = step(torch.from_numpy(img[rows]),
                        torch.from_numpy(lbl[rows]).long())
     opt = state.optimizer
@@ -156,16 +205,17 @@ def run_case(name: str, out_dir: str, mesh=None, fault: str = "") -> Dict:
            "sharded": sorted(tr.layout),
            "partial": sorted(tr.partial),
            "routed": kernels.routed_counts()}
-    if name == "default":
+    if name in ("default", "missformer"):
         out["ckpt"] = tr.save_checkpoint(state)
     return out
 
 
-def resume(path: str, out_dir: str, mesh=None) -> Dict:
-    """The full-layout model state that a default-case Trainer of this
-    rank restores from the checkpoint at `path`, and the loss of its next
-    step."""
-    tr = trainer("default", out_dir, mesh, mesh.tp if mesh else 1)
+def resume(path: str, out_dir: str, mesh=None, name: str = "default"
+           ) -> Dict:
+    """The full-layout model state that a Trainer of case `name` (the
+    default case's by default) of this rank restores from the checkpoint
+    at `path`, and the loss of its next step."""
+    tr = trainer(name, out_dir, mesh, mesh.tp if mesh else 1)
     state, step = tr.init_state(steps_per_epoch=10)
     tr.restore_checkpoint(state, path)
     sd = _full(tr, tr.model.state_dict())
@@ -176,33 +226,50 @@ def resume(path: str, out_dir: str, mesh=None) -> Dict:
     return {"sd": sd, "next_loss": float(met["loss"])}
 
 
-def seq_eval(over: Dict, mesh=None) -> torch.Tensor:
+def seq_eval(over: Dict, mesh=None, seq: bool = True) -> torch.Tensor:
     """The eval logits of the seeded model with the sequence sharding
-    (and `over`) on this rank's data rows of the global batch, its model
-    sharded over the mesh's model axis (shard_model)."""
+    (seq) and `over` on this rank's data rows of the global batch, its
+    model sharded over the mesh's model axis (shard_model); the
+    launches the forward routed (routed_counts) as seq_eval.routed."""
     from transception_tpu_torch.models.transception import MSTransception
     from transception_tpu_torch.parallel.mesh import shard_model
-    model = MSTransception(W.model_cfg(bridge_seq_shard_axis="model",
-                                       **over), "cpu", seed=5)
+    if seq:
+        over = dict(over, bridge_seq_shard_axis="model")
+    model = MSTransception(W.model_cfg(**over), "cpu", seed=5)
     if mesh is not None and mesh.tp > 1:
         shard_model(model, mesh.axis)
     rows = mesh.rows(GLOBAL_BATCH) if mesh is not None else slice(None)
+    kernels.reset_launches()
     with torch.no_grad():
-        return model(torch.from_numpy(W.batches(1)[0][0][rows]))
+        out = model(torch.from_numpy(W.batches(1)[0][0][rows]))
+    seq_eval.routed = kernels.routed_counts()
+    return out
 
 
 def jax_forward(path: str, mesh) -> torch.Tensor:
     """The eval logits of the model, weights and batch saved at `path`
-    (the JAX comparison's: cfg, sd, x) on this rank's data rows, sharded
-    over the mesh's model axis."""
-    from transception_tpu_torch.models.transception import MSTransception
+    (the JAX comparison's: cfg, sd, x, and the registry name) on this
+    rank's data rows, sharded over the mesh's model axis."""
+    from transception_tpu_torch.models.registry import create_model
     from transception_tpu_torch.parallel.mesh import shard_model
     blob = torch.load(path, weights_only=False)
-    model = MSTransception(blob["cfg"], "cpu")
+    model = create_model(blob.get("name", "mstransception"), blob["cfg"],
+                         "cpu")
     model.load_state_dict(blob["sd"])
     shard_model(model, mesh.axis)
     with torch.no_grad():
         return model(torch.from_numpy(blob["x"][mesh.rows(len(blob["x"]))]))
+
+
+def jax_loss(path: str, mesh) -> float:
+    """The train loss (0.4 CE + 0.6 Dice, train.losses) of jax_forward's
+    logits on the labels saved at `path`."""
+    from transception_tpu_torch.train.losses import segmentation_loss
+    logits = jax_forward(path, mesh)
+    y = torch.load(path, weights_only=False)["y"]
+    return float(segmentation_loss(
+        logits, torch.from_numpy(y[mesh.rows(len(y))]).long(),
+        logits.shape[-1])[0])
 
 
 def jax_case(path: str, out_dir: str, mesh) -> float:
@@ -219,6 +286,38 @@ def jax_case(path: str, out_dir: str, mesh) -> float:
     met = step(torch.from_numpy(blob["x"][rows]),
                torch.from_numpy(blob["y"][rows]).long())
     return float(met["loss"])
+
+
+def layout_main(meshes, resume_from: str) -> None:
+    """On this rank, for each mesh of `meshes` in turn ((out_dir, dp, tp,
+    names, jax_blobs), as rank_main's): the LAYOUT_CASES `names`, the
+    per-path eval forwards, the resume of the one-process MISSFormer
+    checkpoint `resume_from` and, where jax_blobs are given (name -> the
+    path of a JAX comparison's blob), the loss of each one's sharded
+    forward; results to out_dir/rank{r}.pt."""
+    from transception_tpu_torch.parallel.mesh import make_mesh
+    torch.set_num_threads(1)
+    made = []
+    try:
+        for out_dir, dp, tp, names, jax_blobs in meshes:
+            mesh = make_mesh(dp, tp, device="cpu")
+            made.append(mesh)
+            res: Dict = {name: run_case(name, os.path.join(out_dir, name),
+                                        mesh) for name in names}
+            res["evals"] = {}
+            for name, over in PATH_EVALS.items():
+                res["evals"][name] = seq_eval(over, mesh, seq=False)
+                res["evals"][name + "_routed"] = seq_eval.routed
+            res["resumed"] = resume(resume_from,
+                                    os.path.join(out_dir, "resume"), mesh,
+                                    "missformer")
+            res["jax"] = {n: jax_loss(p, mesh) for n, p in jax_blobs.items()}
+            res["place"] = (mesh.rank, mesh.t)
+            r = mesh.rank * mesh.tp + mesh.t
+            torch.save(res, os.path.join(out_dir, f"rank{r}.pt"))
+    finally:
+        for mesh in reversed(made):
+            mesh.close()
 
 
 def rank_main(meshes, resume_from: str) -> None:

@@ -1,15 +1,21 @@
 """Shared CLI argument handling of the port (train_MSTransception.py:18-95
 knob set): the flags and defaults of transception_tpu/cli/common.py:15-106,
-and build_configs onto the port's configs.
+and build_configs onto the port's configs; nan_checks, the port's
+--debug_nans.
 
-A flag whose field the port's configs lack is accepted at its default and
-refused (ValueError) at any other value, naming what is missing: it is
-never silently ignored.
+A flag whose field the port's configs lack would be listed in UNSUPPORTED,
+accepted at its default and refused (ValueError) at any other value,
+naming what is missing, never silently ignored; the port now has every
+flag's field, so the table is empty.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
+
+import torch
 
 from transception_tpu_torch.core.config import (
     DataConfig,
@@ -19,13 +25,8 @@ from transception_tpu_torch.core.config import (
 )
 
 # Flags the port's configs have no field for: argparse dest -> (default,
-# what is missing). vectorize_paths and debug_nans are JAX-only knobs.
-UNSUPPORTED = {
-    "no_vectorize_paths": (False, "TransceptionConfig.vectorize_paths (the "
-                                  "port has one parameter layout, the "
-                                  "reference's)"),
-    "debug_nans": (False, "jax_debug_nans (a JAX switch)"),
-}
+# what is missing). None left.
+UNSUPPORTED: dict = {}
 
 
 def add_model_args(p: argparse.ArgumentParser):
@@ -68,9 +69,14 @@ def add_model_args(p: argparse.ArgumentParser):
                         "CUDA kernels (use_kernels=False)")
     p.add_argument("--drop_path_rate", type=float, default=0.0)
     p.add_argument("--no_vectorize_paths", action="store_true",
-                   help="not in the port (refused)")
+                   help="the JAX package's per-path MHCA parameter layout "
+                        "(one encoder per path): under --tp_size each MHCA "
+                        "block's qkv and FFN shard; the same model at tp 1")
     p.add_argument("--debug_nans", action="store_true",
-                   help="not in the port (refused)")
+                   help="raise FloatingPointError at the first module whose "
+                        "output holds a NaN, and in the backward (autograd "
+                        "anomaly mode); each check synchronises the card: "
+                        "debugging only")
 
 
 def add_data_args(p: argparse.ArgumentParser):
@@ -145,6 +151,48 @@ def _refuse_unsupported(args) -> None:
                          "accepted: " + "; ".join(bad))
 
 
+def _tensors(out):
+    if isinstance(out, torch.Tensor):
+        yield out
+    elif isinstance(out, (list, tuple)):
+        for o in out:
+            yield from _tensors(o)
+    elif isinstance(out, dict):
+        for o in out.values():
+            yield from _tensors(o)
+
+
+def _raise_on_nan(name, module, inputs, output) -> None:
+    for t in _tensors(output):
+        if t.is_floating_point() and bool(torch.isnan(t).any()):
+            raise FloatingPointError(
+                f"NaN in the output of {name or 'the model'} "
+                f"({type(module).__name__})")
+
+
+@contextlib.contextmanager
+def nan_checks(model: torch.nn.Module, on: bool = True):
+    """--debug_nans (the JAX CLIs' jax_debug_nans): inside, a forward hook
+    on every module of `model` raises FloatingPointError naming the first
+    module (the innermost: hooks run as each module returns) whose output
+    holds a NaN, and the backward runs under autograd's anomaly mode with
+    its NaN check (torch.autograd.set_detect_anomaly(True,
+    check_nan=True)), which raises at the first backward function that
+    returns a NaN. Each check reads a flag back from the card, so every
+    module synchronises: a debug switch only. off: nothing is installed."""
+    if not on:
+        yield
+        return
+    handles = [m.register_forward_hook(functools.partial(_raise_on_nan, n))
+               for n, m in model.named_modules()]
+    try:
+        with torch.autograd.set_detect_anomaly(True, check_nan=True):
+            yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
 def build_configs(args):
     """(TransceptionConfig, DataConfig, TrainConfig) of parsed flags, as
     transception_tpu/cli/common.py:116 builds the JAX ones; --no_pallas is
@@ -177,6 +225,7 @@ def build_configs(args):
         use_kernels=not getattr(args, "no_pallas", False),
         drop_path_rate=getattr(args, "drop_path_rate", 0.0),
         remat=getattr(args, "remat", False),
+        vectorize_paths=not getattr(args, "no_vectorize_paths", False),
     ).validate()
     data_cfg = DataConfig(
         dataset=args.dataset.lower(),

@@ -18,12 +18,15 @@ converts to a port checkpoint with scripts/orbax_to_torch.py. --dp_size N
 evaluates over N cards, each rank forwarding its share of every chunk of
 --eval_batch slices (parallel.mesh; rank 0 scores and logs); under
 torchrun each process is one rank, without it the CLI starts its N ranks
-itself.
+itself. --debug_nans raises FloatingPointError at the first module whose
+output holds a NaN (cli.common.nan_checks; every module synchronises the
+card: debugging only).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import re
@@ -36,6 +39,7 @@ from transception_tpu_torch.cli.common import (
     add_model_args,
     build_configs,
     check_card_dtype,
+    nan_checks,
 )
 from transception_tpu_torch.core.device import (
     DeviceLike,
@@ -200,11 +204,13 @@ def main(argv=None, device: DeviceLike = "cuda"):
     logger.propagate = False
     try:
         logger.info(str(args))
-        with fp32_exact(on_card and model_cfg.dtype == "float32",
-                        logger.info):
+        with contextlib.ExitStack() as scope:
+            scope.enter_context(fp32_exact(
+                on_card and model_cfg.dtype == "float32", logger.info))
             model = create_model(args.model, model_cfg, device=device,
                                  seed=0)
             load_weights(args.weight_pth, model)
+            scope.enter_context(nan_checks(model, args.debug_nans))
 
             save_dir = None
             if args.is_savenii and main_rank:

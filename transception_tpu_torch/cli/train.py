@@ -23,9 +23,14 @@ logs, checkpoints and results.
 Tensor parallelism: --tp_size T shards the weights of the JAX package's
 TP rules over T ranks of a model axis (Trainer; dp·tp ranks, one a card,
 rank r at (d, t) = divmod(r, T)); the CLI starts the dp·tp ranks itself
-outside torchrun. More ranks than cards, a legacy model, and a T that
-leaves a sharded FFN a hidden width its kernels do not take are refused
-before any work.
+outside torchrun. Every registry model shards (the legacy ones their
+blocks' FFNs); with --no_vectorize_paths the MHCA blocks' qkv and FFNs
+shard too. More ranks than cards, and a T that leaves a sharded layer a
+width its kernels do not take, are refused before any work.
+
+--debug_nans raises FloatingPointError at the first module whose output
+holds a NaN and in the backward (cli.common.nan_checks): every module
+synchronises the card, so it is for debugging only.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from transception_tpu_torch.cli.common import (
     add_train_args,
     build_configs,
     check_card_dtype,
+    nan_checks,
 )
 from transception_tpu_torch.core.device import DeviceLike, fp32_exact
 from transception_tpu_torch.parallel.mesh import (
@@ -124,13 +130,7 @@ def main(argv=None, device: DeviceLike = "cuda"):
         raise ValueError(f"--batch_size {train_cfg.batch_size} does not "
                          f"divide over --dp_size {dp} ranks")
     if tp > 1 and not launched():
-        from transception_tpu_torch.models.registry import LEGACY
         from transception_tpu_torch.models.transception import check_tp
-        if args.model.lower() in LEGACY:
-            raise NotImplementedError(
-                f"--tp_size {tp} with --model {args.model}: the TP axis "
-                f"runs the MSTransception family (ROADMAP.md §1 item 4 "
-                f"queues the legacy models); train it with --tp_size 1")
         check_tp(create_model(args.model, model_cfg, device="cpu"), tp,
                  device)
     if dp * tp > 1 and not launched():
@@ -144,7 +144,8 @@ def main(argv=None, device: DeviceLike = "cuda"):
 
     if args.throughput:
         try:
-            with fp32_exact(on_card and model_cfg.dtype == "float32"):
+            with fp32_exact(on_card and model_cfg.dtype == "float32"), \
+                    nan_checks(model, args.debug_nans):
                 throughput(trainer, args.img_size)
         finally:
             mesh.close()
@@ -164,13 +165,15 @@ def main(argv=None, device: DeviceLike = "cuda"):
                 [ProfilerActivity.CUDA] if on_card else [])
             out = os.path.join(train_cfg.output_dir, "profile")
             os.makedirs(out, exist_ok=True)
-            with profile(activities=acts) as prof:
+            with profile(activities=acts) as prof, \
+                    nan_checks(model, args.debug_nans):
                 state, hist = trainer.train(max_steps=max_steps)
             path = os.path.join(out, "trace.json")
             prof.export_chrome_trace(path)
             logger.info("profiler trace written to %s", path)
         else:
-            state, hist = trainer.train(max_steps=max_steps)
+            with nan_checks(model, args.debug_nans):
+                state, hist = trainer.train(max_steps=max_steps)
         logger.info("Training Finished!")
         return state, hist
     finally:

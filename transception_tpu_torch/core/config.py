@@ -11,8 +11,10 @@ them for eval or training; `remat` recomputes the MHCA stages in the
 backward as the JAX field does; `bridge_seq_shard_axis` ("model")
 shards the original bridge's query rows and per-scale FFN map rows over
 the model axis of a tensor-parallel run (models.bridge.BridgeBlock4
-seq_shard_), as the JAX field does. The TPU-only knobs (vectorize_paths,
-bridge_use_pallas, lane packing and the kernel fallback ladder) are not
+seq_shard_), as the JAX field does; `vectorize_paths` names the JAX
+package's MHCA weight layout, which decides what a tensor-parallel run
+shards (parallel.mesh.shard_layout). The TPU-only knobs
+(bridge_use_pallas, lane packing and the kernel fallback ladder) are not
 carried over; `use_kernels` selects the hand-written CUDA kernels on the
 card (and what a fold switch of None follows, as JAX's follow
 use_pallas). TrainConfig mirrors the JAX TrainConfig field for
@@ -107,6 +109,13 @@ class TransceptionConfig:
     # and no weight changes layout. No CLI flag sets it (neither JAX CLI
     # builds it): a Trainer's config does.
     bridge_seq_shard_axis: str = ""
+    # The JAX package's MHCA parameter layout (JAX core/config.py:193):
+    # True stacks each MHCA stage's per-path encoders into one vmapped
+    # encoder (3-D kernels, which the TP rules leave replicated); False
+    # keeps one encoder per path (2-D kernels: under --tp_size each MHCA
+    # block's qkv and FFN shard). The port runs one module per path either
+    # way, so at tp 1 the model and its results are the same.
+    vectorize_paths: bool = True
     # Compute dtype of matmuls/convs; params and norm/softmax statistics
     # stay fp32.
     dtype: str = "bfloat16"

@@ -35,7 +35,9 @@
 //   5. proj  the tiled product with the residual epilogue: x2;
 //   6-8.     the MixFFN forward chain on x2 with LN2 (ffn::forward).
 // Eight launches per call; the plan of tiles and band rows is the
-// wrapper's (ops/kernels/mhca_block.py plan).
+// wrapper's (ops/kernels/mhca_block.py plan). Its sharded form (the
+// per-path MHCA layout under the model axis, at the end of this file)
+// runs the same stages as entries with the model axis's sums between.
 //
 // The fp32 form (mhca_block_f32, the fp32 eval forward's) is every stage
 // at E = float: no rounding points, the products on the CUDA cores
@@ -342,6 +344,60 @@ mhca_attn_kernel(const E* qkv, const float* ctx, Crpe crpe, E* att, int s,
 // FFN's forward plan (ffn::FwdPlan) follows.
 enum Plan { QKV_BM, QKV_BN, PROJ_BM, PROJ_BN, BAND_ROWS, FFN_PLAN };
 
+#define STEP(call) \
+  if ((e = (call))) return e
+
+// Stages 1-2: x1 (the CPE) and the qkv product with LN1 folded in, over
+// the nq output columns of wqkv (nq, C) (3C, or a model-axis rank's shard
+// of them) into qkv (B·s², nq).
+template <typename E>
+cudaError_t front(const E* x, const float* cpe_w, const float* cpe_b,
+                  const float* l1s, const float* l1b, const E* wqkv,
+                  const float* bqkv, E* x1, E* qkv, const int* plan, int B,
+                  int s, int C, int nq, float eps1, cudaStream_t st) {
+  cudaError_t e;
+  mhca_cpe_kernel<E><<<dim3(s, B), THREADS, 0, st>>>(x, cpe_w, cpe_b, x1, s,
+                                                     C);
+  STEP(cudaGetLastError());
+  return ffn::gemm<KID, true, true, true, ffn::EPI_DENSE>(
+      plan[QKV_BM], plan[QKV_BN], x1, C, wqkv, C, qkv, nq, bqkv, nullptr,
+      ffn::Norm{l1s, l1b, C, eps1}, B * s * s, nq, C, ffn::depth<E>(C), 0,
+      st);
+}
+
+// Stages 3-5 on the whole q|k|v (B·s², 3C): the contexts, the attention
+// with the CRPE, the proj product with the residual x1 into x2.
+template <typename E>
+cudaError_t middle(const E* qkv, const E* x1, const float* crpe_w0,
+                   const float* crpe_w1, const float* crpe_w2,
+                   const float* crpe_b0, const float* crpe_b1,
+                   const float* crpe_b2, const E* wp, const float* bp,
+                   float* ctx, E* att, E* x2, const int* plan, int B, int s,
+                   int C, int heads, int k0, int k1, int k2, int n0, int n1,
+                   float scale, cudaStream_t st) {
+  const int N = s * s, d = C / heads, R = plan[BAND_ROWS];
+  cudaError_t e;
+  const size_t smem_ctx = ((size_t)2 * N * d + THREADS) * 4;
+  STEP(set_smem((const void*)mhca_ctx_kernel<E>, smem_ctx));
+  mhca_ctx_kernel<E><<<dim3(heads, B), THREADS, smem_ctx, st>>>(qkv, ctx, N,
+                                                                C, d);
+  STEP(cudaGetLastError());
+
+  const Crpe crpe{{crpe_w0, crpe_w1, crpe_w2},
+                  {crpe_b0, crpe_b1, crpe_b2},
+                  {k0, k1, k2},
+                  {n0, n0 + n1, C}};
+  const size_t smem_attn = attn_smem(s, C, d, R, (int)sizeof(E));
+  STEP(set_smem((const void*)mhca_attn_kernel<E>, smem_attn));
+  mhca_attn_kernel<E><<<dim3((s + R - 1) / R, B), THREADS, smem_attn, st>>>(
+      qkv, ctx, crpe, att, s, C, d, R, scale);
+  STEP(cudaGetLastError());
+
+  return ffn::gemm<KID, true, true, false, ffn::EPI_DENSE_RESID>(
+      plan[PROJ_BM], plan[PROJ_BN], att, C, wp, C, x2, C, bp, x1, ffn::Norm{},
+      B * N, C, C, ffn::depth<E>(C), 0, st);
+}
+
 // x, out: (B, s², C) E; wqkv (3C, C), wp (C, C), w1 (hid, C), dw (hid,
 // 9), w2 (C, hid) E; the CPE taps (C, 9), the CRPE windows and every
 // vector fp32. Workspace: x1, att, x2 (B·s², C), qkv (B·s², 3C), h, a
@@ -360,44 +416,18 @@ int block(const E* x, const float* cpe_w, const float* cpe_b,
           int heads, int hid, int k0, int k1, int k2, int n0, int n1,
           float eps1, float eps2, float eps, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int N = s * s, T = B * N, d = C / heads, R = plan[BAND_ROWS];
   cudaError_t e;
-#define STEP(call) \
-  if ((e = (call))) return e
-
-  mhca_cpe_kernel<E><<<dim3(s, B), THREADS, 0, st>>>(x, cpe_w, cpe_b, x1, s,
-                                                     C);
-  STEP(cudaGetLastError());
-  STEP((ffn::gemm<KID, true, true, true, ffn::EPI_DENSE>(
-      plan[QKV_BM], plan[QKV_BN], x1, C, wqkv, C, qkv, 3 * C, bqkv, nullptr,
-      ffn::Norm{l1s, l1b, C, eps1}, T, 3 * C, C, ffn::depth<E>(C), 0, st)));
-
-  const size_t smem_ctx = ((size_t)2 * N * d + THREADS) * 4;
-  STEP(set_smem((const void*)mhca_ctx_kernel<E>, smem_ctx));
-  mhca_ctx_kernel<E><<<dim3(heads, B), THREADS, smem_ctx, st>>>(qkv, ctx, N,
-                                                                C, d);
-  STEP(cudaGetLastError());
-
-  const Crpe crpe{{crpe_w0, crpe_w1, crpe_w2},
-                  {crpe_b0, crpe_b1, crpe_b2},
-                  {k0, k1, k2},
-                  {n0, n0 + n1, C}};
-  const size_t smem_attn = attn_smem(s, C, d, R, (int)sizeof(E));
-  STEP(set_smem((const void*)mhca_attn_kernel<E>, smem_attn));
-  mhca_attn_kernel<E><<<dim3((s + R - 1) / R, B), THREADS, smem_attn, st>>>(
-      qkv, ctx, crpe, att, s, C, d, R, scale);
-  STEP(cudaGetLastError());
-
-  STEP((ffn::gemm<KID, true, true, false, ffn::EPI_DENSE_RESID>(
-      plan[PROJ_BM], plan[PROJ_BN], att, C, wp, C, x2, C, bp, x1, ffn::Norm{},
-      T, C, C, ffn::depth<E>(C), 0, st)));
-
+  STEP(front<E>(x, cpe_w, cpe_b, l1s, l1b, wqkv, bqkv, x1, qkv, plan, B, s,
+                C, 3 * C, eps1, st));
+  STEP(middle<E>(qkv, x1, crpe_w0, crpe_w1, crpe_w2, crpe_b0, crpe_b1,
+                 crpe_b2, wp, bp, ctx, att, x2, plan, B, s, C, heads, k0, k1,
+                 k2, n0, n1, scale, st));
   return ffn::forward<KID, false, E>(x2, ffn::Norm{l2s, l2b, C, eps2}, w1, b1,
                                      dw, dwb, ls, lb, w2, b2, x2, h, a, out,
                                      plan + FFN_PLAN, B, s, s, C, hid, eps,
                                      st);
-#undef STEP
 }
+#undef STEP
 
 }  // namespace
 
@@ -423,3 +453,65 @@ int block(const E* x, const float* cpe_w, const float* cpe_b,
 MHCA_BLOCK(mhca_block, bf16)
 MHCA_BLOCK(mhca_block_f32, float)
 #undef MHCA_BLOCK
+
+// K5's sharded form, for an MHCA block of the per-path layout under the
+// model axis (qkv's nq of its 3C output features and hid of its FFN's
+// hid_all hidden channels on this rank): the block's stage ranges as
+// entries, between which the caller sums over the ranks
+// (ops/kernels/mhca_block.py mhca_block_tp):
+//   mhca_block_tp_qkv   stages 1-2: x1 and the rank's qkv columns (the
+//                       Dense epilogue is per column, so the gathered
+//                       columns are the unsharded launch's bits);
+//   (the caller gathers q|k|v over the ranks)
+//   mhca_block_tp_attn  stages 3-5 on the whole q|k|v: x2;
+//   mhca_block_tp_fc1   the FFN's sharded fc1 with LN2 folded in and the
+//                       partial (Σ y, Σ y²) (mixffn_stages.cuh fc1_stats);
+//   (the sum)
+//   mhca_block_tp_fc2   the hidden LN over hid_all channels, GELU and the
+//                       fp32 partial of fc2 (act_fc2);
+//   (the sum, then K2's sharded out stage: E(E(p + b2) + x2)).
+// The plan is the unsharded one's with the qkv tile for nq columns and
+// the FFN's at hid (ops/kernels/mhca_block.py plan(..., nq=)).
+#define MHCA_TP(SUF, E)                                                       \
+  extern "C" int mhca_block_tp_qkv##SUF(                                      \
+      const E* x, const float* cpe_w, const float* cpe_b, const float* l1s,   \
+      const float* l1b, const E* wqkv, const float* bqkv, E* x1, E* qkv,      \
+      const int* plan, int B, int s, int C, int nq, float eps1,               \
+      void* stream) {                                                         \
+    return front<E>(x, cpe_w, cpe_b, l1s, l1b, wqkv, bqkv, x1, qkv, plan, B,  \
+                    s, C, nq, eps1, static_cast<cudaStream_t>(stream));       \
+  }                                                                           \
+  extern "C" int mhca_block_tp_attn##SUF(                                     \
+      const E* qkv, const E* x1, const float* crpe_w0, const float* crpe_w1,  \
+      const float* crpe_w2, const float* crpe_b0, const float* crpe_b1,       \
+      const float* crpe_b2, const E* wp, const float* bp, float* ctx, E* att, \
+      E* x2, const int* plan, int B, int s, int C, int heads, int k0, int k1, \
+      int k2, int n0, int n1, float scale, void* stream) {                    \
+    return middle<E>(qkv, x1, crpe_w0, crpe_w1, crpe_w2, crpe_b0, crpe_b1,    \
+                     crpe_b2, wp, bp, ctx, att, x2, plan, B, s, C, heads, k0, \
+                     k1, k2, n0, n1, scale,                                   \
+                     static_cast<cudaStream_t>(stream));                      \
+  }                                                                           \
+  extern "C" int mhca_block_tp_fc1##SUF(                                      \
+      const E* x2, const float* l2s, const float* l2b, const E* w1,           \
+      const float* b1, const E* dw, const float* dwb, E* h, float* st,        \
+      const int* plan, int B, int s, int C, int hid, float eps2,              \
+      void* stream) {                                                         \
+    return ffn::fc1_stats<KID, E>(x2, ffn::Norm{l2s, l2b, C, eps2}, w1, b1,   \
+                                  dw, dwb, h, reinterpret_cast<float2*>(st),  \
+                                  plan + FFN_PLAN, B, s, C, hid,              \
+                                  static_cast<cudaStream_t>(stream));         \
+  }                                                                           \
+  extern "C" int mhca_block_tp_fc2##SUF(                                      \
+      const E* h, const E* dw, const float* dwb, const float* ls,             \
+      const float* lb, const E* w2, const float* st, float* p, E* a,          \
+      const int* plan, int B, int s, int C, int hid, int hid_all, float eps,  \
+      void* stream) {                                                         \
+    return ffn::act_fc2<KID, E>(h, dw, dwb, ls, lb, w2,                       \
+                                reinterpret_cast<const float2*>(st), a, p,    \
+                                plan + FFN_PLAN, B, s, C, hid, hid_all, eps,  \
+                                static_cast<cudaStream_t>(stream));           \
+  }
+MHCA_TP(, bf16)
+MHCA_TP(_f32, float)
+#undef MHCA_TP

@@ -110,9 +110,29 @@ TP_FWD(, bf16)
 TP_FWD(_f32, float)
 #undef TP_FWD
 
-// out = E(E(p + b2) + x) over n = T·C elements, C channels a token: a
-// thread a pair of elements (C even).
-template <typename E>
+// K9's hidden-sharded form (the unfolded MHCA FFN of a drop-path block in
+// the per-path MHCA layout, whose FFN the TP rules shard): K2's sharded
+// stages without the caller's LN and the residual,
+//   mixffn_skip_tp_fc1  h = E(x·w1ᵀ + b1) (BARE), the partial (Σ y, Σ y²);
+//   mixffn_tp_fc2       (above) with st summed;
+//   mixffn_skip_tp_out  with p summed: out = E(p + b2).
+#define SKIP_TP_FC1(SUF, E)                                                  \
+  extern "C" int mixffn_skip_tp_fc1##SUF(                                    \
+      const E* x, const E* w1, const float* b1, const E* dw,                 \
+      const float* dwb, E* h, float* st, const int* plan, int B, int s,      \
+      int C, int hid, void* stream) {                                        \
+    return ffn::fc1_stats<9, E, true>(x, ffn::Norm{}, w1, b1, dw, dwb, h,    \
+                                      reinterpret_cast<float2*>(st), plan,   \
+                                      B, s, C, hid,                          \
+                                      static_cast<cudaStream_t>(stream));    \
+  }
+SKIP_TP_FC1(, bf16)
+SKIP_TP_FC1(_f32, float)
+#undef SKIP_TP_FC1
+
+// out = E(E(p + b2) + x) (RES) or E(p + b2) over n = T·C elements, C
+// channels a token: a thread a pair of elements (C even).
+template <typename E, bool RES>
 __global__ void __launch_bounds__(256)
 mixffn_tp_out_kernel(const float* p, const float* b2, const E* x, E* out,
                      size_t n, int C) {
@@ -120,22 +140,38 @@ mixffn_tp_out_kernel(const float* p, const float* b2, const E* x, E* out,
        i += 2 * (size_t)gridDim.x * blockDim.x) {
     const int c = (int)(i % C);
     const float2 v = *reinterpret_cast<const float2*>(p + i);
-    const float2 r = ld2<E>(x + i);
-    st2<E>(out + i, rnd<E>(v.x + b2[c]) + r.x, rnd<E>(v.y + b2[c + 1]) + r.y);
+    if constexpr (RES) {
+      const float2 r = ld2<E>(x + i);
+      st2<E>(out + i, rnd<E>(v.x + b2[c]) + r.x,
+             rnd<E>(v.y + b2[c + 1]) + r.y);
+    } else {
+      st2<E>(out + i, v.x + b2[c], v.y + b2[c + 1]);
+    }
   }
+}
+
+template <typename E, bool RES>
+int tp_out(const float* p, const float* b2, const E* x, E* out, int T, int C,
+           void* stream) {
+  const size_t n = (size_t)T * C;
+  const size_t want = (n / 2 + 255) / 256;
+  const int blocks = (int)(want < 8192 ? want : 8192);
+  mixffn_tp_out_kernel<E, RES>
+      <<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(p, b2, x, out,
+                                                               n, C);
+  return cudaGetLastError();
 }
 
 #define TP_OUT(SUF, E)                                                     \
   extern "C" int mixffn_tp_out##SUF(const float* p, const float* b2,       \
                                     const E* x, E* out, int T, int C,      \
                                     void* stream) {                        \
-    const size_t n = (size_t)T * C;                                        \
-    const size_t want = (n / 2 + 255) / 256;                               \
-    const int blocks = (int)(want < 8192 ? want : 8192);                   \
-    mixffn_tp_out_kernel<E><<<blocks, 256, 0,                              \
-                              static_cast<cudaStream_t>(stream)>>>(        \
-        p, b2, x, out, n, C);                                              \
-    return cudaGetLastError();                                             \
+    return tp_out<E, true>(p, b2, x, out, T, C, stream);                   \
+  }                                                                        \
+  extern "C" int mixffn_skip_tp_out##SUF(const float* p, const float* b2,  \
+                                         E* out, int T, int C,             \
+                                         void* stream) {                   \
+    return tp_out<E, false>(p, b2, nullptr, out, T, C, stream);            \
   }
 TP_OUT(, bf16)
 TP_OUT(_f32, float)

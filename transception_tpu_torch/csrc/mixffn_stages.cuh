@@ -566,22 +566,24 @@ cudaError_t forward(const E* x, Norm nrm, const E* w1, const float* b1,
 // The forward of a MixFFN whose hidden layer is sharded over the model
 // axis (H of its Hn channels on this rank), split at its two sums over
 // the hidden width, between which the caller sums over the ranks:
-//   fc1_stats  h = E(groupLN(x)·w1ᵀ + b1) on the rank's w1 rows, then the
-//              conv and each token's partial (Σ y, Σ y²) into st;
+//   fc1_stats  h = E(groupLN(x)·w1ᵀ + b1) (BARE: E(x·w1ᵀ + b1), K9's) on
+//              the rank's w1 rows, then the conv and each token's partial
+//              (Σ y, Σ y²) into st;
 //   act_fc2    the LN from the summed st over Hn channels, a = E(GELU(z)),
 //              and the fp32 partial p = a·w2ᵀ over the rank's w2 columns
 //              (no bias, no residual: the caller sums p over the ranks).
-// Two launches each; the plan is fwd_plan's at hidden H.
-template <int KID, typename E>
+// Two launches each; the plan is fwd_plan's at hidden H. K2's sharded
+// form, K9's (BARE) and the FFN of K5's sharded form run them.
+template <int KID, typename E, bool BARE = false>
 cudaError_t fc1_stats(const E* x, Norm nrm, const E* w1, const float* b1,
                       const E* dw, const float* dwb, E* h, float2* stats,
                       const int* plan, int B, int s, int C, int H,
                       cudaStream_t st) {
   const int T = B * s * s;
   cudaError_t e;
-  e = gemm<KID, true, true, true, EPI_BIAS>(plan[FC1_BM], plan[FC1_BN], x, C,
-                                            w1, C, h, H, b1, nullptr, nrm, T,
-                                            H, C, depth<E>(C), 0, st);
+  e = gemm<KID, true, true, !BARE, EPI_BIAS>(plan[FC1_BM], plan[FC1_BN], x,
+                                             C, w1, C, h, H, b1, nullptr, nrm,
+                                             T, H, C, depth<E>(C), 0, st);
   if (e) return e;
   const size_t rs = rows_smem(s, H);
   const void* fn = (const void*)mixffn_convrows_kernel<KID, E, ROWS_STATS>;

@@ -140,23 +140,34 @@ def _backbone_stages(cfg: TransceptionConfig, training: bool):
         (s1 >> (i + 1), d[i], cfg.num_path[i], rates[i]) for i in range(3)]
 
 
-def _mhca_calls(cfg: TransceptionConfig, stages, sw) -> Counter:
+def _mhca_calls(cfg: TransceptionConfig, stages, sw, tp: int = 1
+                ) -> Counter:
     """Kernel-wrapper calls of the MHCA stages of _backbone_stages: every
     path at the stage's rates; K5 where it takes the map
-    (kernels.mhca_block.takes)."""
+    (kernels.mhca_block.takes). In the per-path layout under a model axis
+    of tp ranks (parallel.mesh.shard_layout: each block's qkv where 3C
+    divides by tp, its FFN where the hidden width does) a sharded block
+    runs K5's sharded form, a sharded FFN fold K2's and an unfolded one
+    K9's hidden-sharded form."""
     takes = kernels.mixffn.takes
+    mx, mh = kernels.mixffn, kernels.mhca_block
     es = 2 if cfg.compute_dtype == torch.bfloat16 else 4
+    per_path = tp > 1 and not cfg.vectorize_paths
     calls = Counter()
     for s, C, paths, stage in stages:
+        hid = C * cfg.mlp_ratio
+        ffn_sh = per_path and hid % tp == 0
+        blk_sh = ffn_sh or (per_path and 3 * C % tp == 0)
         for rate in stage:
             exact = rate == 0.0
-            if sw.mhca_block and exact and \
-                    kernels.mhca_block.takes(s, C, C * cfg.mlp_ratio, es):
-                calls["mhca_block"] += paths
+            if sw.mhca_block and exact and mh.takes(s, C, hid, es):
+                calls[mh.TP_NAME if blk_sh else mh.NAME] += paths
                 continue
             calls["linear_attention"] += paths
             if sw.mhca_ffn and takes(s):
-                calls["mixffn" if exact else "mixffn_skip"] += paths
+                name = (mx.NAME, mx.TP_NAME) if exact else (
+                    mx.SKIP_NAME, mx.SKIP_TP_NAME)
+                calls[name[ffn_sh]] += paths
     return calls
 
 
@@ -184,7 +195,7 @@ def _forward_calls(cfg: TransceptionConfig, training: bool,
         if sw.etb_ffn and cfg.token_mlp == "mix_skip" and takes(s):
             sharded = tp > 1 and 4 * width[s] % tp == 0
             calls[kernels.mixffn.TP_NAME if sharded else "mixffn"] += 1
-    calls.update(_mhca_calls(cfg, stages, sw))
+    calls.update(_mhca_calls(cfg, stages, sw, tp))
     # Bridge: spatial attention layers; the per-scale FFN folds.
     ffn = sum(takes(s1 >> i) for i in range(4))
     if cfg.have_bridge in ("sp", "para"):
@@ -214,7 +225,7 @@ def _launches(cfg: TransceptionConfig, training: bool, head: str,
     on = kernels.kernel_set(cfg, training)
     mx = kernels.mixffn
     for name, n in _forward_calls(cfg, training, head, tp).items():
-        if (mx.NAME if name == mx.TP_NAME else name) in on:
+        if kernels.SHARDED.get(name, name) in on:
             counts[name] += n
     if training:  # one backward kernel per K3 and K2 forward
         counts[kernels.bridge_attention.BWD_NAME] = counts["bridge_attention"]
@@ -224,9 +235,9 @@ def _launches(cfg: TransceptionConfig, training: bool, head: str,
         # The backward recomputes each MHCA stage's forward (msvit.
         # remat_stage): its forward kernels launch twice.
         again = _mhca_calls(cfg, _backbone_stages(cfg, True)[1],
-                            fold_switches(cfg, True))
+                            fold_switches(cfg, True), tp)
         for name, n in again.items():
-            if name in on:
+            if kernels.SHARDED.get(name, name) in on:
                 counts[name] += n
     return counts
 
@@ -257,7 +268,11 @@ def launches_per_step(cfg: TransceptionConfig, wide_head: bool = True,
     backbone) the MHCA stages' forward kernels launch once more, in the
     recompute. Under a model axis of tp ranks the sharded ETB FFN folds
     run the hidden-sharded K2 and K11 (mixffn_tp, mixffn_tp_bwd) in
-    place of K2 and K11. The bridge's sequence sharding
+    place of K2 and K11; in the per-path MHCA layout (vectorize_paths
+    False) the sharded MHCA blocks' K5 folds run K5's sharded form
+    (mhca_block_tp), their FFN folds the hidden-sharded K2 and K11, and
+    their unfolded drop-path FFNs K9's sharded form (mixffn_skip_tp).
+    The bridge's sequence sharding
     (cfg.bridge_seq_shard_axis) changes no count: each rank runs every
     bridge block's fold structure once, on its block of rows (K3 and K10,
     or K8, on its query rows; K2 and K11 on its map rows with their halo
@@ -267,13 +282,21 @@ def launches_per_step(cfg: TransceptionConfig, wide_head: bool = True,
 
 
 def check_tp(model: nn.Module, tp: int, device: DeviceLike) -> None:
-    """Raise, before any work and naming the FFN, where a model axis of tp
-    ranks would shard a hidden layer that the model's train-step kernels
-    on `device` cannot take: on the card, the hidden-sharded K2 and K11
-    (the MixFFN_skip folds, with the MixFFN kernel in the train kernel
-    set) take multiples of 64 hidden channels a rank, as K2 does
-    (ops/kernels/mixffn.py _check); their plain versions, on the CPU, take
-    any width. Under the bridge's sequence sharding, likewise where a
+    """Raise, before any work and naming the layer, where a model axis of
+    tp ranks would shard a layer that the model's train-step kernels on
+    `device` cannot take: on the card, the hidden-sharded K2 and K11 (the
+    MixFFN_skip folds, with the MixFFN kernel in the train kernel set)
+    and K9 take multiples of 64 hidden channels a rank, as K2 does
+    (ops/kernels/mixffn.py _check); in the per-path MHCA layout
+    (vectorize_paths False) K5's sharded form (with the MHCA block kernel
+    in the train kernel set) takes an MHCA block's hidden shard likewise
+    and its qkv shard in multiples of 8 columns. Their plain versions, on
+    the CPU, take any width. A legacy model needs no check: its sharded
+    FFNs run their plain path (legacy_folds: every fold off, as the JAX
+    blocks take no use_pallas), and MISSFormer's bridge layers, which run
+    K8, K2 and K11, stay whole (the TP rules' bridge_layer exclusion; no
+    sequence sharding, as the JAX MISSFormer builds its bridge without
+    the axis). Under the bridge's sequence sharding, likewise where a
     split bridge scale's row block (with its halo rows) would go to K2 or
     K11 (a fold of the eval or the train step, on a map K2 takes) and
     they do not take it (mixffn.check_block)."""
@@ -281,24 +304,35 @@ def check_tp(model: nn.Module, tp: int, device: DeviceLike) -> None:
     from transception_tpu_torch.parallel.mesh import shard_layout
     cfg = getattr(model, "cfg", None)
     if tp <= 1 or cfg is None or not cfg.use_kernels or \
-            torch.device(device).type != "cuda":
+            torch.device(device).type != "cuda" or \
+            not isinstance(model, MSTransception):
         return
     if cfg.bridge_seq_shard_axis == "model" and \
             isinstance(getattr(model, "bridge", None), BridgeBlock4):
         _check_seq_blocks(model.bridge, cfg, tp)
-    if kernels.mixffn.NAME not in kernels.kernel_set(cfg, True):
-        return
+    on = kernels.kernel_set(cfg, True)
+    block_on = kernels.mhca_block.NAME in on
     sd = model.state_dict()
-    for key in shard_layout(sd, tp):
-        ffn = key[:-len(".fc1.weight")]
-        if key.endswith(".fc1.weight") and \
-                isinstance(model.get_submodule(ffn), MixFFNSkip):
+    for key in shard_layout(sd, tp, cfg.vectorize_paths):
+        in_block = ".MHCA_layers." in key
+        if key.endswith(".fc1.weight"):
+            ffn = key[:-len(".fc1.weight")]
             hid = sd[key].shape[0]
-            if hid // tp % 64:
+            if isinstance(model.get_submodule(ffn), MixFFNSkip) and \
+                    (kernels.mixffn.NAME in on or in_block and block_on) \
+                    and hid // tp % 64:
                 raise ValueError(
                     f"tp_size {tp}: {ffn}'s hidden layer of {hid} channels "
                     f"would keep {hid // tp} a rank; the hidden-sharded "
-                    f"MixFFN kernels (K2, K11) take a multiple of 64 a rank")
+                    f"MixFFN kernels (K2, K11, K9) and K5's sharded form "
+                    f"take a multiple of 64 a rank")
+        elif in_block and block_on and key.endswith(".qkv.weight") and \
+                sd[key].shape[0] // tp % 8:
+            n = sd[key].shape[0]
+            raise ValueError(
+                f"tp_size {tp}: {key[:-len('.weight')]}'s {n} output "
+                f"features would keep {n // tp} a rank; K5's sharded form "
+                f"takes a multiple of 8 a rank")
 
 
 def _check_seq_blocks(bridge: BridgeBlock4, cfg: TransceptionConfig,

@@ -14,7 +14,8 @@ module's .training), as the JAX modules do from theirs:
     K6 with the softmax of Q) -> + x; the FFN sub-block as the MixFFN
     kernel with norm2 and the residual folded in (K2) or norm2 ->
     MixFFN_skip -> + x (ops/attention.py:146-215);
-  * MHCABlock: the whole block as one kernel (K5) where it takes the map
+  * MHCABlock: the whole block as one kernel (K5; in the per-path layout
+    under the model axis, its sharded form) where it takes the map
     (even sides within the TPU kernel's working-set budget), or
     its modules with the factorized attention through K6, whose FFN
     sub-block folds into K2 with mhca_ffn_fold (with drop path active it
@@ -224,10 +225,12 @@ class MHCABlock(nn.Module):
 
     def folds_block(self, s: int) -> bool:
         """Whether this block on an s x s map is a K5 shape
-        (kernels.mhca_block.takes)."""
+        (kernels.mhca_block.takes), by the block's whole widths, as JAX
+        routes the whole block: sharded or not, a block takes one
+        route."""
         fc1 = self.mlp.fc1
         return kernels.mhca_block.takes(
-            s, fc1.weight.shape[1], fc1.weight.shape[0],
+            s, fc1.weight.shape[1], self.mlp.hidden,
             torch.finfo(fc1.dtype).bits // 8)
 
     def forward(self, x, H: int, W: int, cpe: ConvPosEnc,
@@ -238,16 +241,23 @@ class MHCABlock(nn.Module):
             # The whole block as one kernel call where the TPU ran its
             # kernel (even map sides within its VMEM budget,
             # ops/pallas/mhca_block_kernel.py:56).
+            # Sharded over the model axis (the per-path layout's qkv and
+            # FFN, parallel.mesh.shard_layout): K5's sharded form.
             fa = self.factoratt_crpe
             convs = crpe.conv_list
-            return kernels.mhca_block.mhca_block(
+            axis = fa.qkv.tp[0] if fa.qkv.tp is not None else self.mlp.tp
+            fn = kernels.mhca_block.mhca_block
+            kw = dict(s=H, heads=fa.num_heads, eps1=self.norm1.eps,
+                      eps2=self.norm2.eps, eps=self.mlp.norm1.eps)
+            if axis is not None:
+                fn = kernels.mhca_block.mhca_block_tp
+                kw.update(hid_all=self.mlp.hidden, axis=axis)
+            return fn(
                 x.to(self.mlp.fc1.dtype), cpe.proj.weight, cpe.proj.bias,
                 self.norm1.weight, self.norm1.bias, fa.qkv.weight,
                 fa.qkv.bias, [c.weight for c in convs],
                 [c.bias for c in convs], fa.proj.weight, fa.proj.bias,
-                self.norm2.weight, self.norm2.bias, *self.mlp.params(),
-                s=H, heads=fa.num_heads, eps1=self.norm1.eps,
-                eps2=self.norm2.eps, eps=self.mlp.norm1.eps)
+                self.norm2.weight, self.norm2.bias, *self.mlp.params(), **kw)
         def dp(t):
             return drop_path(t, self.drop_path_rate, self.training, gen)
 

@@ -225,14 +225,14 @@ class MixFFNSkip(nn.Module):
         self.dwconv = DWConv(c2, dtype=dtype)
         self.norm1 = LayerNorm(c2, dtype=dtype)
         self.fc2 = Linear(c2, c1, dtype=dtype)
+        self.hidden = c2  # the whole hidden width, sharded or not
         self.tp = None
 
     def shard_(self, axis) -> None:
         """Keep this rank's hidden channels (fc1's rows, the conv's and
         the hidden LN's channels, fc2's columns): the hidden-sharded forms
-        of K2 and K11 (ops/kernels/mixffn.py) then run it, with the hidden
-        width's sums over the model axis."""
-        self.hidden = self.fc1.weight.shape[0]
+        of K2, K11 and K9 (ops/kernels/mixffn.py) then run it, with the
+        hidden width's sums over the model axis."""
         self.fc1.shard_(axis, "col")
         shard_depthwise_(self.dwconv.dwconv, axis)
         blk = axis.block(self.hidden)
@@ -250,25 +250,23 @@ class MixFFNSkip(nn.Module):
                 kernel: bool = False, rows=None) -> torch.Tensor:
         """The FFN on a (B, H·W, C) map: with `kernel`, through the K9
         wrapper on an even-sided map (mixffn.takes on the side W: the K2
-        rule), else the plain version. A routing by shape, made before the
-        call. rows = (r0, r1): the map rows [r0, r1) of the result alone,
-        computed on the block with its halo rows (on_row_block)."""
+        rule), else the plain version; sharded (shard_), through K9's
+        sharded form on an even-sided square map (the unfolded MHCA FFN of
+        the per-path layout), else the sharded plain version (any H x W
+        map: the legacy models' branch maps). A routing by shape, made
+        before the call. rows = (r0, r1): the map rows [r0, r1) of the
+        result alone, computed on the block with its halo rows
+        (on_row_block)."""
         from transception_tpu_torch.ops.kernels import mixffn
         if rows is not None:
             return on_row_block(
                 lambda xe: self.forward(xe, xe.shape[1] // W, W, kernel), x,
                 W, rows)
         if self.tp is not None:
-            if H != W:
-                raise ValueError("the hidden-sharded MixFFN_skip takes a "
-                                 "square token map")
-            if kernel:
-                raise NotImplementedError(
-                    "the unfolded MixFFN kernel (K9) has no hidden-sharded "
-                    "form: the TP rules shard no FFN that runs it")
-            return mixffn.mixffn_tp_plain(
-                x.to(self.fc1.dtype), *self.params(), s=H,
-                hid_all=self.hidden, axis=self.tp, eps=self.norm1.eps)
+            fn = (mixffn.mixffn_skip_tp if kernel and H == W and
+                  mixffn.takes(W) else mixffn.mixffn_tp_plain)
+            return fn(x.to(self.fc1.dtype), *self.params(), s=W,
+                      hid_all=self.hidden, axis=self.tp, eps=self.norm1.eps)
         fn = (mixffn.mixffn_skip if kernel and mixffn.takes(W)
               else mixffn.mixffn_skip_plain)
         return fn(x.to(self.fc1.dtype), *self.params(), s=W,

@@ -17,7 +17,9 @@ forward and backward in a torch.autograd.Function; bridge_attention also
 holds the folded bridge attention (K8, `folded_launches`), mixffn the
 unfolded MixFFN_skip (K9, `skip_launches`) and K2's and K11's forms for
 a hidden layer sharded over the model axis (`tp_launches`,
-`tp_bwd_launches`). The forward kernels without a
+`tp_bwd_launches`) and K9's (`skip_tp_launches`); mhca_block also K5's
+sharded form, for the per-path MHCA layout under the model axis
+(`tp_launches`). The forward kernels without a
 backward kernel (K1, K5-K9) are differentiated through their plain
 versions (_build.with_plain_backward, as the JAX custom VJPs through their
 jnp mirrors); K4, the eval argmax head, refuses to run where autograd
@@ -50,7 +52,12 @@ COUNTERS = tuple((m.NAME, m, "launches") for m in (
     (bridge_attention.FOLDED_NAME, bridge_attention, "folded_launches"),
     (mixffn.SKIP_NAME, mixffn, "skip_launches"),
     (mixffn.TP_NAME, mixffn, "tp_launches"),
-    (mixffn.TP_BWD_NAME, mixffn, "tp_bwd_launches"))
+    (mixffn.TP_BWD_NAME, mixffn, "tp_bwd_launches"),
+    (mixffn.SKIP_TP_NAME, mixffn, "skip_tp_launches"),
+    (mhca_block.TP_NAME, mhca_block, "tp_launches"))
+# The switch of each sharded form: its unsharded kernel's.
+SHARDED = {mixffn.TP_NAME: mixffn.NAME, mixffn.SKIP_TP_NAME: mixffn.SKIP_NAME,
+           mhca_block.TP_NAME: mhca_block.NAME}
 
 
 def kernel_set(cfg, training: bool) -> frozenset:

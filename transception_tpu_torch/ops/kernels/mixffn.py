@@ -126,6 +126,13 @@ weight gradient are the block's share, which the model axis sums. The
 stages are the square map's with R rows in place of s (the conv/rows
 stage's grid and the column walks' depth); routes and counters follow
 the map's side s (takes(s)), as for the whole map.
+
+The hidden-sharded forms (the model axis, parallel/mesh.py): K2's and
+K11's (tp_*, MixFFNTP) for every FFN fold the TP rules shard, and K9's
+(skip_tp_*, mixffn_skip_tp) for the unfolded MHCA FFN of a drop-path
+block in the per-path MHCA layout, whose FFNs the rules also shard: K2's
+sharded stages with the LN and the residual off (fc1 BARE, out E(p +
+b2)), the model axis's sums between them.
 """
 
 from __future__ import annotations
@@ -755,10 +762,11 @@ tp_bwd_launches = 0
 
 
 def _conv_y(h, dw, dwb, s):
-    """d = E(conv3x3(h) + dwb) and y = d + h (fp32) on h's channels."""
+    """d = E(conv3x3(h) + dwb) and y = d + h (fp32) on h's channels, on
+    maps of N/s rows and s columns."""
     dt = h.dtype
     B, N, hl = h.shape
-    hm = h.float().reshape(B, s, s, hl).permute(0, 3, 1, 2)
+    hm = h.float().reshape(B, N // s, s, hl).permute(0, 3, 1, 2)
     d = F.conv2d(hm, dw.to(dt).float(), dwb.float(), padding=1, groups=hl)
     d = d.permute(0, 2, 3, 1).reshape(B, N, hl).to(dt)
     return d, d.float() + h.float()
@@ -838,8 +846,8 @@ def tp_bwd_dh_plain(xn, h, d, a, dz, g, dw, ls, w1, st, m, s, hid_all,
     dy = invy * (dz * ls.to(f32) - m[..., :1] / hid_all
                  - yh * (m[..., 1:] / hid_all))
     dwk = dw.to(dt).to(f32)
-    hm = h.to(f32).reshape(B, s, s, hl).permute(0, 3, 1, 2)
-    dh, ddw = _conv_transpose(dy, hm, dwk, s, s)
+    hm = h.to(f32).reshape(B, N // s, s, hl).permute(0, 3, 1, 2)
+    dh, ddw = _conv_transpose(dy, hm, dwk, N // s, s)
 
     def flat(t):
         return t.reshape(-1, t.shape[-1]).to(f32)
@@ -1127,7 +1135,9 @@ def mixffn_tp_plain(x, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
     """The hidden-sharded MixFFN_skip as plain PyTorch, differentiable:
     the plain version's rounding points with the model axis's autograd
     collectives (axis: parallel.tensor.ModelAxis) where the hidden width
-    is summed. pre_ln = ((C,)-tiled scale, bias, groups, eps) or None;
+    is summed. x holds maps of N/s rows and s columns (any H x W map: a
+    depthwise conv over a channel slice does not care whether the map is
+    square). pre_ln = ((C,)-tiled scale, bias, groups, eps) or None;
     residual: + x."""
     dt = x.dtype
     xin = x if pre_ln is None else group_ln(x, *pre_ln)
@@ -1162,3 +1172,115 @@ def mixffn_ln_skip_tp(x, lts, ltb, w1, b1, dw, dwb, ls, lb, w2, b2, *,
                            pre_ln=(lts.repeat(groups), ltb.repeat(groups),
                                    groups, eps_ln),
                            residual=True, eps=eps)
+
+
+# ---- K9 hidden-sharded over the model axis ----
+#
+# The unfolded MHCA FFN of a drop-path block ("pallas" train mode) in the
+# per-path MHCA layout, whose FFN the TP rules shard: K2's sharded forward
+# stages without the caller's LN and the residual (csrc/mixffn.cu
+# mixffn_skip_tp_fc1, mixffn_tp_fc2, mixffn_skip_tp_out), the model axis's
+# sums between them; the first stage carries the form's name and counts
+# its one launch, tallied with (x's shape, hid_all, hid). Its backward is
+# autograd of mixffn_tp_plain, with the axis's autograd collectives, as
+# K9's is of its plain version.
+
+SKIP_TP_NAME = "mixffn_skip_tp"
+SKIP_TP_REPLACES = SKIP_REPLACES
+skip_tp_launches = 0
+
+
+def skip_tp_fc1_plain(x, w1, b1, dw, dwb, s, hid_all):
+    """Plain sharded K9 stage 1: h = E(x·w1ᵀ + b1) on the rank's rows,
+    and each token's partial (Σ y, Σ y²) fp32."""
+    dt = x.dtype
+    h = F.linear(x.float(), w1.to(dt).float(), b1.float()).to(dt)
+    _, y = _conv_y(h, dw, dwb, s)
+    return h, _pair(y, y * y)
+
+
+def skip_tp_out_plain(p, b2, dtype):
+    """Plain sharded K9 stage 3, p summed over the ranks: E(p + b2)."""
+    return (p + b2.float()).to(dtype)
+
+
+def _launch_skip_tp_fc1(x, w1, b1, dw, dwb, s, hid_all):
+    hid = w1.shape[0]
+    _check(x, s, hid, 1, ln=False)
+    _square(x, s, SKIP_TP_NAME)
+    global skip_tp_launches
+    x = _build.aligned(x)
+    B, N, C = x.shape
+    _, plan = _fwd_launch_plan(B, s, C, hid, _build.sms(x), x.element_size())
+    h = x.new_empty((B, N, hid))
+    st = torch.empty((B, N, 2), device=x.device, dtype=torch.float32)
+    bf = functools.partial(_build.weight, dtype=x.dtype)
+    f = _build.f32
+    held = (x, bf(w1), f(b1), bf(dw.reshape(hid, 9)), f(dwb), h, st)
+    fn = _build.entry(NAME, _build.symbol("mixffn_skip_tp_fc1", x.dtype),
+                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p])
+    rc = fn(*[_build.ptr(t) for t in held], plan, B, s, C, hid,
+            _build.stream_of(x))
+    _build.check(rc, "mixffn_skip_tp_fc1")
+    skip_tp_launches += 1
+    _tp_tally(SKIP_TP_NAME, x, hid_all, hid)
+    return h, st
+
+
+def _launch_skip_tp_out(p, b2, dtype):
+    B, N, C = p.shape
+    if C % 2:
+        raise ValueError(f"mixffn_skip_tp_out needs C even, got {C}")
+    out = torch.empty((B, N, C), device=p.device, dtype=dtype)
+    _build.element_dtype("mixffn_skip_tp_out", out)
+    fn = _build.entry(NAME, _build.symbol("mixffn_skip_tp_out", dtype),
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                      + [ctypes.c_void_p])
+    rc = fn(_build.ptr(_build.aligned(p.contiguous())),
+            _build.ptr(_build.f32(b2)), _build.ptr(out), B * N, C,
+            _build.stream_of(p))
+    _build.check(rc, "mixffn_skip_tp_out")
+    return out
+
+
+SKIP_TP_FC1_OP = _build.define(
+    SKIP_TP_NAME, f"(Tensor x, {_VEC}, int s, int hid_all) -> "
+    "(Tensor, Tensor)", _launch_skip_tp_fc1, skip_tp_fc1_plain,
+    lambda x, w1, *a: (
+        x.new_empty(x.shape[:2] + (w1.shape[0],)),
+        x.new_empty(x.shape[:2] + (2,), dtype=torch.float32)))
+SKIP_TP_OUT_OP = _build.define(
+    "mixffn_skip_tp_out", "(Tensor p, Tensor b2, ScalarType dtype) -> "
+    "Tensor", _launch_skip_tp_out, skip_tp_out_plain,
+    lambda p, b2, dtype: p.new_empty(p.shape, dtype=dtype))
+
+
+def mixffn_skip_tp(x, w1, b1, dw, dwb, ls, lb, w2, b2, *, s: int,
+                   hid_all: int, axis, eps: float = 1e-5):
+    """fc2(GELU(LN(dw3x3(h) + h))), h = fc1(x), with the FFN's hidden
+    layer sharded over `axis` (w1 .. lb the rank's shards, w2 its columns,
+    b2 whole): with the unfolded MixFFN kernel (K9) switched on and a map
+    it takes (`takes`), K9's sharded stages with the sums between them,
+    differentiated through mixffn_tp_plain (on the CPU where autograd
+    records, mixffn_tp_plain itself); else mixffn_tp_plain."""
+    params = (w1, b1, dw, dwb, ls, lb, w2, b2)
+
+    def plain(x, *p):
+        return mixffn_tp_plain(x, *p, s=s, hid_all=hid_all, axis=axis,
+                               eps=eps)
+
+    if SKIP_NAME not in _build.active() or not takes(s):
+        return plain(x, *params)
+    _build.routed[SKIP_TP_NAME] += 1
+    if x.device.type == "cpu" and torch.is_grad_enabled():
+        return plain(x, *params)
+
+    def kernel(x, w1, b1, dw, dwb, ls, lb, w2, b2):
+        h, st = SKIP_TP_FC1_OP(x, w1, b1, dw, dwb, s, hid_all)
+        axis.all_reduce_(st)
+        p = TP_FC2_OP(h, dw, dwb, ls, lb, w2, st, s, hid_all, eps)
+        axis.all_reduce_(p)
+        return SKIP_TP_OUT_OP(p, b2, x.dtype)
+
+    return _build.with_plain_backward(kernel, plain, x, *params)

@@ -203,10 +203,12 @@ _TP_RULES = (
      1),
     (re.compile(r".*\.qkv(_linear)?\.weight$"), 0),
 )
-# The JAX tree stacks each MHCA encoder's blocks (mhca_blks_stacked, its
-# default vectorize_paths; the port refuses --no_vectorize_paths), so
-# their kernels are 3-D there and param_shard_rules, which shards 2-D
-# kernels only, leaves them replicated; so does the port, by key.
+# With vectorize_paths (the JAX default) the JAX tree stacks each MHCA
+# stage's per-path encoders (mhca_blks_stacked), so their kernels are 3-D
+# there and param_shard_rules, which shards 2-D kernels only, leaves them
+# replicated; so does the port, by key. Without it (the per-path layout,
+# mhca_blks_{i}) they are 2-D, and the rules shard each MHCA block's qkv
+# and its FFN's fc1 and fc2 as any other's.
 _STACKED = ".mhca_blks."
 # The vectors and the depthwise conv of a hidden-sharded FFN, which shard
 # with its fc1 (dim 0), and the bias of a column-parallel qkv: replicated
@@ -216,28 +218,31 @@ _FFN_COMPANIONS = ("fc1.bias", "dwconv.dwconv.weight", "dwconv.dwconv.bias",
                    "norm1.weight", "norm1.bias")
 
 
-def param_shard_rules(key: str, value) -> Optional[int]:
+def param_shard_rules(key: str, value, stacked: bool = True
+                      ) -> Optional[int]:
     """The dim of weight `key` that the JAX rules shard over the model
-    axis, or None (replicated): 2-D weights only, never an MHCA block's."""
-    if getattr(value, "ndim", 0) == 2 and _STACKED not in key:
+    axis, or None (replicated): 2-D weights only, and in the stacked MHCA
+    layout (`stacked`, vectorize_paths) never an MHCA block's."""
+    if getattr(value, "ndim", 0) == 2 and not (stacked and _STACKED in key):
         for rule, dim in _TP_RULES:
             if rule.match(key):
                 return dim
     return None
 
 
-def shard_layout(tensors: Dict[str, torch.Tensor], tp: int
-                 ) -> Dict[str, int]:
+def shard_layout(tensors: Dict[str, torch.Tensor], tp: int,
+                 stacked: bool = True) -> Dict[str, int]:
     """{state_dict key: sharded dim} of a model's tensors (key -> tensor or
-    shape) at tp ranks of the model axis: the weights of param_shard_rules
-    whose sharded dim divides by tp (else replicated, as shard_params
-    falls back), and with a sharded FFN fc1 its companions, with a qkv its
-    bias. Empty at tp 1."""
+    shape) at tp ranks of the model axis, in the stacked MHCA layout or
+    (stacked=False, vectorize_paths=False) the per-path one: the weights
+    of param_shard_rules whose sharded dim divides by tp (else replicated,
+    as shard_params falls back), and with a sharded FFN fc1 its
+    companions, with a qkv its bias. Empty at tp 1."""
     if tp <= 1:
         return {}
     out = {}
     for key, v in tensors.items():
-        dim = param_shard_rules(key, v)
+        dim = param_shard_rules(key, v, stacked)
         if dim is None or tuple(v.shape)[dim] % tp:
             continue
         out[key] = dim
@@ -254,19 +259,25 @@ def shard_layout(tensors: Dict[str, torch.Tensor], tp: int
 
 def shard_model(model: torch.nn.Module, axis) -> Dict[str, int]:
     """Shard `model` in place over the model axis `axis`
-    (parallel.tensor.ModelAxis) by shard_layout: each FFN whose fc1 the
-    rules shard keeps its hidden channels (its shard_), each qkv its
-    output features, gathered after the product (Linear "gather"). With
+    (parallel.tensor.ModelAxis) by shard_layout in the MHCA layout of the
+    model's config (vectorize_paths): each FFN whose fc1 the rules shard
+    keeps its hidden channels (its shard_), each qkv its output features,
+    gathered after the product (Linear "gather"; an MHCA block's qkv in
+    the per-path layout, whose K5 fold then runs K5's sharded form). With
     the model's config asking for the bridge's sequence sharding
     (bridge_seq_shard_axis "model") and more than one rank, the original
-    bridge shards its sequence over the axis (BridgeBlock4.seq_shard_);
+    bridge (a BridgeBlock4 under `model.bridge`; MISSFormer's bridge
+    layers, which the JAX MISSFormer builds without the axis, stay
+    whole) shards its sequence over the axis (BridgeBlock4.seq_shard_);
     the parameters whose gradients are then partial on each rank are
     recorded for the train state in model.partial_grads (names; empty
     without it). Returns the layout;
     raises if a sharded weight sits in a module that has no sharded
     form."""
     full = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    layout = shard_layout(model.state_dict(), axis.size)
+    cfg = getattr(model, "cfg", None)
+    layout = shard_layout(model.state_dict(), axis.size,
+                          getattr(cfg, "vectorize_paths", True))
     for key in layout:
         if key.endswith(".fc1.weight"):
             ffn = model.get_submodule(key[:-len(".fc1.weight")])
@@ -285,7 +296,6 @@ def shard_model(model: torch.nn.Module, axis) -> Dict[str, int]:
         if list(t.shape) != want:
             raise RuntimeError(f"{key}: sharded to {tuple(t.shape)}, the "
                                f"layout says {tuple(want)}")
-    cfg = getattr(model, "cfg", None)
     bridge = getattr(model, "bridge", None)
     model.partial_grads = ()
     if getattr(cfg, "bridge_seq_shard_axis", "") == "model" and \

@@ -242,8 +242,8 @@ class Trainer:
     launch's world over tp_size (torchrun, or the CLI's --dp_size and
     --tp_size), which is 1 in a process that no launch started. A Trainer
     never starts ranks, so "every visible card" (dp_size -1) is the CLI's
-    to carry out. At tp > 1 the model is sharded in place; a legacy model
-    is refused."""
+    to carry out. At tp > 1 the model, any registry model, is sharded in
+    place (parallel.mesh.shard_model)."""
 
     def __init__(self, model_cfg: TransceptionConfig, train_cfg: TrainConfig,
                  data_cfg: DataConfig, device: DeviceLike = "cuda",
@@ -252,13 +252,6 @@ class Trainer:
         self.model_cfg, self.cfg, self.data_cfg = model_cfg, train_cfg, \
             data_cfg
         tp = max(train_cfg.tp_size, 1)
-        if tp > 1 and model is not None and \
-                not isinstance(model, MSTransception):
-            raise NotImplementedError(
-                f"tp_size {tp} with the legacy model "
-                f"{type(model).__name__}: the TP axis runs the "
-                f"MSTransception family (ROADMAP.md §1 item 4 queues the "
-                f"legacy models); train it with tp_size 1")
         # The mesh: this process's ranks (make_mesh raises, before any
         # work, for more ranks than cards or than the launch has); a world
         # of one has no group.
